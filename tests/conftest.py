@@ -6,6 +6,7 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running integration tests")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
 
 
 def pytest_addoption(parser):
