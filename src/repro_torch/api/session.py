@@ -14,9 +14,14 @@ behind one object::
     out = session.generate(prompt, n_new=16)
 
 Everything runs on ``device`` ("cuda" unless the caller asks for "cpu");
-asking for the card where there is none raises.  Profiling goes through
-the backend registry (``repro_torch.profiling``): ``simulated`` and
-``trace``; ``measured`` raises until CUDA-event profiling is ported.  The
+asking for the card where there is none raises.  Partitioned plans
+(``voltage``, ``prism``) run SPMD: every rank of a
+``repro_torch.core.seq_group`` builds the same session and calls ``run`` /
+``dispatch`` with the same inputs; ``dispatch`` then takes rank 0's
+decision on every rank, so all ranks enter the same collectives.
+Profiling goes through the backend registry (``repro_torch.profiling``):
+``simulated`` and ``trace``; ``measured`` raises until CUDA-event
+profiling is ported.  The
 slot-pool and paged serving primitives and the tracer hooks come with the
 serving slice.
 """
@@ -305,8 +310,10 @@ class InferenceSession:
 
     @staticmethod
     def _input_tokens(batch_inputs: Any) -> int:
-        """Token count of one request batch (dim 1 of the token input);
-        0 → the accounting falls back to the profiled workload's length."""
+        """Token count of one request batch: dim 1 of the token input (or
+        of a rank-2 array); 0 → the accounting falls back to the profiled
+        workload's sequence length (images have no token dim: a ViT batch
+        is charged the config's 197 tokens)."""
         lead = batch_inputs
         if isinstance(batch_inputs, dict):
             if "tokens" not in batch_inputs:
@@ -314,6 +321,17 @@ class InferenceSession:
             lead = batch_inputs["tokens"]
         shape = tuple(getattr(lead, "shape", ()))
         return int(shape[1]) if len(shape) == 2 else 0
+
+    def _seq_group(self):
+        """The seq group the partitioned plans run on in this process, if
+        one is initialised (``None`` for single-process sessions)."""
+        from repro_torch.core.exchange import partitioned
+        from repro_torch.core.seq_group import get_seq_group, has_seq_group
+        for plan in self.plans.values():
+            xcfg = plan.to_exchange_config()
+            if partitioned(xcfg) and has_seq_group(xcfg.seq_axis):
+                return get_seq_group(xcfg.seq_axis)
+        return None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -329,6 +347,9 @@ class InferenceSession:
                     if isinstance(batch_inputs, dict) else batch_inputs)
             batch_size = int(lead.shape[0])
         d = self.decide(batch_size)
+        group = self._seq_group()
+        if group is not None:             # one decision for every rank
+            d = group.broadcast_object(d, src=0)
         key, substituted = self._exec_key_for(d)
         plan = self.plans[key]
         self._sync()

@@ -6,8 +6,9 @@ The numeric code stays in ``repro_torch.core.exchange``; a strategy binds
 it together with the runtime metadata the session/policy layer needs (is it
 distributed, how does the profiler name it, may the policy select it).
 All four strategies are registered, so plan keys and the profiling sweep
-keep their identities; ``voltage`` and ``prism`` prefill across a sequence
-mesh is ROADMAP queue 1 item 7.
+keep their identities.  ``voltage`` and ``prism`` prefill across the ranks
+of a ``repro_torch.core.seq_group``; their other codecs (ROADMAP queue 1
+item 9) and the ring executor (item 7) are not ported yet.
 
 Adding a new strategy — e.g. a top-k sparse exchange — is::
 
@@ -98,6 +99,17 @@ class ExchangeStrategy:
     def _prefill(self, q, k, v, cfg: ExchangeConfig, **kw):
         raise NotImplementedError(f"{self.name} defines no prefill exchange")
 
+    def _require_ported(self, cfg: ExchangeConfig) -> None:
+        """Raise for the exchange variants the port does not carry yet."""
+        if cfg.codec and cfg.codec != self.default_codec:
+            raise NotImplementedError(f"codec exchanges other than "
+                                      f"{self.default_codec} are not ported "
+                                      f"yet (ROADMAP queue 1 item 9)")
+        if cfg.overlap_chunks > 0:
+            raise NotImplementedError("the ring executor (overlap_chunks > "
+                                      "0) is not ported yet (ROADMAP queue 1 "
+                                      "item 7)")
+
     # -- decode-time attention ----------------------------------------------
 
     def decode_attention(self, q, k_cache, v_cache, cache_len,
@@ -126,6 +138,7 @@ class VoltageStrategy(ExchangeStrategy):
     default_codec = "identity"
 
     def _prefill(self, q, k, v, cfg, **kw):
+        self._require_ported(cfg)
         return xchg.voltage_prefill_attention(q, k, v, cfg, **kw)
 
 
@@ -143,6 +156,7 @@ class PrismStrategy(ExchangeStrategy):
     default_codec = "segment_means"
 
     def _prefill(self, q, k, v, cfg, **kw):
+        self._require_ported(cfg)
         return xchg.prism_prefill_attention(q, k, v, cfg, **kw)
 
 

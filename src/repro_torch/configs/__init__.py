@@ -1,7 +1,8 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-The port carries the dense llama3.2-1b config so far; the other
-architectures of the JAX package arrive with their model families.
+The port carries llama3.2-1b (dense) and vit-base-16 (the paper's ViT
+encoder) so far; the other architectures of the JAX package arrive with
+their model families.
 """
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ from repro_torch.configs.base import (ALL_SHAPES, LONG_CONTEXT_ARCHS,
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "vit-base-16": "vit_base",
 }
 
 # archs of the JAX package that the port does not carry yet
 _PENDING = ("qwen1.5-32b", "internlm2-1.8b", "gemma2-27b", "deepseek-v2-236b",
             "deepseek-moe-16b", "whisper-large-v3", "llama-3.2-vision-11b",
-            "hymba-1.5b", "xlstm-350m", "vit-base-16")
+            "hymba-1.5b", "xlstm-350m")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,17 +1,27 @@
 """Exchange strategies: LOCAL / VOLTAGE / PRISM / PRISM_SIM.
 
-Port of ``repro.core.exchange``, the part that runs on one device:
+Port of ``repro.core.exchange``:
 
   * LOCAL     — no sequence sharding; ordinary full attention (chunked
                 above a memory threshold).
+  * VOLTAGE   — one all-gather of the full projected K/V (and the key
+                mask) across the ranks of a seq group; every rank attends
+                its own queries over the whole sequence.
+  * PRISM     — one all-gather of L projected segment means per partition
+                (and their token counts); the scaling-aware softmax over
+                [local K/V ‖ remote means] runs on the PRISM-attention
+                kernel.
   * PRISM_SIM — PRISM math (segment means + scaling-aware softmax) on
                 unpartitioned tensors.
   * the single-partition branch of decode-time attention, which routes
     through the kernel-dispatch layer onto the flash-decode kernel.
 
-The multi-partition exchanges (VOLTAGE / PRISM across a sequence mesh, the
-cross-attention and MLA exchanges, and the sharded decode merge) run over
-``torch.distributed`` in a later slice (ROADMAP queue 1 item 7).
+VOLTAGE and PRISM run SPMD over a ``repro_torch.core.seq_group`` (gloo,
+staged through host memory): each rank calls them with its own partition
+``[B, N/P, ...]``, in place of the JAX package's ``shard_map`` body.  Not
+ported yet (ROADMAP queue 1 item 7): the halo exchange of windowed layers,
+the ring executor (``overlap_chunks > 0``), the cross-attention and MLA
+exchanges, and the sharded decode merge.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch
 
 from repro_torch.core.prism_attention import (chunked_reference_attention,
                                               reference_attention)
+from repro_torch.core.seq_group import SeqGroup, get_seq_group
 from repro_torch.kernels import dispatch as kdsp
 
 _MULTI_PARTITION = ("multi-partition exchange over a sequence mesh is not "
@@ -106,15 +117,68 @@ def prism_sim_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
         logit_softcap=logit_softcap, scale=scale)
 
 
-def voltage_prefill_attention(q, k, v, cfg, **kw):
-    """Full-tensor K/V all-gather across a sequence mesh."""
-    raise NotImplementedError(_MULTI_PARTITION)
+def partitioned(cfg: ExchangeConfig) -> bool:
+    """Does this config run across the ranks of a seq group (each rank
+    holding one sequence partition)?"""
+    return (cfg.mode in (ExchangeMode.VOLTAGE, ExchangeMode.PRISM)
+            and cfg.seq_axis is not None and cfg.seq_shards > 1)
 
 
-def prism_prefill_attention(q, k, v, cfg, **kw):
-    """Segment-Means exchange + scaling-aware softmax across a sequence
-    mesh."""
-    raise NotImplementedError(_MULTI_PARTITION)
+def seq_group_for(cfg: ExchangeConfig) -> SeqGroup:
+    """The seq group registered under ``cfg.seq_axis``; its size must be
+    ``cfg.seq_shards``."""
+    group = get_seq_group(cfg.seq_axis)
+    if group.world_size != cfg.seq_shards:
+        raise ValueError(f"seq group {cfg.seq_axis!r} has "
+                         f"{group.world_size} ranks but the plan partitions "
+                         f"the sequence {cfg.seq_shards} ways")
+    return group
+
+
+def voltage_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
+                              logit_softcap=None, scale=None, kv_mask=None):
+    """Full-tensor K/V all-gather (the paper's Voltage baseline): this
+    rank's queries [B, Np, H, dh] attend over every rank's K/V."""
+    group = seq_group_for(cfg)
+    B, Np = q.shape[:2]
+    if kv_mask is None:
+        kv_mask = torch.ones((B, Np), dtype=torch.bool, device=q.device)
+    kv = group.all_gather(torch.stack([k, v]))     # [P, 2, B, Np, Hk, dh]
+    kv = kv.permute(1, 2, 0, 3, 4, 5).reshape(2, B, -1, *k.shape[2:])
+    mask = group.all_gather(kv_mask, meta=True)    # [P, B, Np]
+    mask = mask.permute(1, 0, 2).reshape(B, -1)
+    return chunked_reference_attention(
+        q, kv[0], kv[1], causal=causal, q_offset=group.rank * Np,
+        window=window, logit_softcap=logit_softcap, scale=scale,
+        kv_mask=mask)
+
+
+def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
+                            logit_softcap=None, scale=None, kv_mask=None):
+    """Segment-Means exchange + scaling-aware softmax (the paper's PRISM):
+    this rank's L means of K and V go to every rank, and its queries
+    attend over [local K/V ‖ every other partition's means]."""
+    if window is not None:
+        raise NotImplementedError("the halo exchange of windowed layers is "
+                                  "not ported yet (ROADMAP queue 1 item 7)")
+    group = seq_group_for(cfg)
+    L = cfg.L
+    seg = q.shape[1] // L
+    # no mask → unmasked means and the exact log(seg) scaling bias
+    if kv_mask is not None:
+        km, counts = kdsp.segment_means_masked(k, L, kv_mask, axis=1)
+        vm, _ = kdsp.segment_means_masked(v, L, kv_mask, axis=1)
+        counts = group.all_gather(counts, meta=True).transpose(0, 1)
+    else:
+        km = kdsp.segment_means(k, L, axis=1)       # [B, L, Hk, dh]
+        vm = kdsp.segment_means(v, L, axis=1)
+        counts = None
+    means = group.all_gather(torch.stack([km, vm]))  # [P, 2, B, L, Hk, dh]
+    means = means.permute(1, 2, 0, 3, 4, 5)          # [2, B, P, L, Hk, dh]
+    return kdsp.prism_attention(q, k, v, means[0], means[1], group.rank, seg,
+                                causal=causal, logit_softcap=logit_softcap,
+                                scale=scale, kv_mask=kv_mask,
+                                mean_counts=counts)
 
 
 def decode_attention_sharded(

@@ -12,79 +12,27 @@ counts its launches in ``flash_decode.launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.nvcc import CudaLibrary
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
-# <repo>/build/kernels: <repo>/src/repro_torch/kernels/flash_decode/kernel.py
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8                      # GMAX in the CUDA source
 
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-BUILD_INFO = {"path": None, "seconds": None, "log": ""}
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_decode_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the flash-decode kernel is built "
-                       "from source on a machine with the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile the kernel into ``build/kernels/`` (once per source
-    content) and return the shared library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libflash_decode_{digest}.so"
-    if out.exists():
-        BUILD_INFO.update(path=str(out), seconds=0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)              # atomic: concurrent builds agree
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=proc.stderr)
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.flash_decode_launch
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
+                      / "flash_decode.cu", _bind)
 
 
 def _check(q, k, v, bias):
@@ -145,7 +93,7 @@ def flash_decode(q: torch.Tensor,        # [B, H, dh]
     o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = LIBRARY.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.flash_decode_launch(

@@ -140,5 +140,6 @@ def test_unported_paths_raise_naming_the_roadmap():
     xcfg = TPlan.prism(L=2, cr=4.0).to_exchange_config()
     q = torch.zeros(1, 8, 4, 16)
     kv = torch.zeros(1, 8, 2, 16)
+    # a windowed layer's halo exchange is not ported yet
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        exchange_attention(q, kv, kv, xcfg, causal=True)
+        exchange_attention(q, kv, kv, xcfg, causal=True, window=4)
