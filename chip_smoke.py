@@ -17,17 +17,31 @@ Phases, one line each (more for the kernel table):
                and times kernel, plain version and a one-call PyTorch
                yardstick with CUDA events (warm-up, then the median of many
                launches on inputs cold in L2).
+   The paged flash-decode kernel is held likewise at the paged pool's
+               shape and harder ones (page sizes 8 and 5, dh 128, f32,
+               softcap, shuffled and shared pages, trash entries, a fully
+               masked row), and timed beside a two-call yardstick and the
+               dense kernel on the gathered cache.
 4. reference — small f32 models on the card against the same weights on
-               the CPU: a llama decoded 12 steps, and a ViT whose Voltage
-               and PRISM forwards run across 2 ranks on the card, held
-               against one CPU process that composes the PRISM exchange
-               partition by partition from the plain functions.
+               the CPU: a llama decoded 12 steps; the same llama served by
+               ``ServingRuntime`` in dense and paged mode with full and
+               partial prefix hits; and a ViT whose Voltage and PRISM
+               forwards run across 2 ranks on the card, held against one
+               CPU process that composes the PRISM exchange partition by
+               partition from the plain functions.
 5. session   — llama3.2-1b at full width: ``InferenceSession`` profile →
                decide → dispatch → greedy generate under ``local`` and
                ``prism_sim``, flash-decode launch counts read around each
                generate, and the kernel time of one ``local`` generate from
                ``torch.profiler``.
-6. vit       — ViT-B/16 at full width across 2 ranks that share the one
+6. serve     — the same model served by ``ServingRuntime``: 24 requests
+               (16 extending a shared system prompt) through the paged pool
+               and then the dense slot pool, with paged and dense
+               flash-decode launch counts, prefix hits and a clean
+               allocator asserted, and throughput, latency, time to first
+               token, step time, idle share and agreement with B=1
+               ``generate`` printed.
+7. vit       — ViT-B/16 at full width across 2 ranks that share the one
                card and exchange over gloo, staged through host memory:
                ``local``, ``voltage`` and ``prism(L=20)`` forwards of 8
                synthetic images, with segment-means and PRISM-attention
@@ -256,6 +270,170 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: paged flash-decode against its plain version
+# ---------------------------------------------------------------------------
+
+def paged_case(B, ps, MP, dh, dtype, *, seed, softcap=None, shuffled=True,
+               shared=False, trash=True, masked_row=False):
+    """Pools of P = B·MP pages plus the trash page (id P); ragged lengths;
+    each row's pages drawn from a permutation of the page ids (or in
+    order), table entries past a row's pages on the trash page (or on
+    other pages); ``shared`` points row 1's first pages at row 0's."""
+    import torch
+    from repro_torch.kernels.flash_decode import validity_bias
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    P = B * MP
+    q = randn(B, N_HEADS, dh)
+    k_pool = randn(P + 1, ps, N_KV, dh)
+    v_pool = randn(P + 1, ps, N_KV, dh)
+    lens = torch.randint(1, MP * ps + 1, (B,), generator=g, device="cuda")
+    if masked_row:
+        lens[0] = 0
+    ids = (torch.randperm(P, generator=g, device="cuda") if shuffled
+           else torch.arange(P, device="cuda")).reshape(B, MP)
+    if trash:
+        used = (lens[:, None] + ps - 1) // ps
+        col = torch.arange(MP, device="cuda")[None]
+        ids = torch.where(col < used, ids, P)
+    if shared and B > 1:
+        n = int(min(lens[0], lens[1]).item()) // ps
+        ids[1, :n] = ids[0, :n]
+    bias = validity_bias(B, MP * ps, lens, device="cuda")
+    return dict(args=(q, k_pool, v_pool, ids.to(torch.int32).contiguous(),
+                      bias), lens=lens, softcap=softcap)
+
+
+def check_paged(label: str, case) -> float:
+    """Paged kernel vs its plain version (gather + dense math) → max abs
+    error of o/l; raises past the tolerance.  A fully masked row must give
+    m = -1e30 and l = MP·ps exactly."""
+    import torch
+    from repro_torch.kernels.flash_decode import (flash_decode_paged,
+                                                  flash_decode_paged_ref)
+    args, cap = case["args"], case["softcap"]
+    got = flash_decode_paged(*args, softcap=cap)
+    torch.cuda.synchronize()
+    want = flash_decode_paged_ref(*args, softcap=cap)
+    tol = _tol(args[0].dtype)
+    live = case["lens"] > 0
+    o_g = got[0] / got[2][..., None]
+    o_w = want[0] / want[2][..., None]
+    errs = {}
+    for name, a, b in (("o/l", o_g, o_w), ("m", got[1], want[1]),
+                       ("l", got[2], want[2])):
+        a, b = a[live], b[live]
+        errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+        if not errs[name] <= tol:
+            raise AssertionError(f"flash_decode_paged {label} {name}: "
+                                 f"relative error {errs[name]:.3e} > {tol:g}")
+    if (~live).any():
+        S = args[3].shape[1] * args[1].shape[1]
+        if not ((got[1][~live] == -1e30).all()
+                and (got[2][~live] == S).all()):
+            raise AssertionError(f"flash_decode_paged {label}: fully masked "
+                                 f"row: want m=-1e30, l={S}")
+    print(f"[kernel] flash_decode_paged {label}: err o/l {errs['o/l']:.2e} m "
+          f"{errs['m']:.2e} l {errs['l']:.2e} (tol {tol:g})", flush=True)
+    return (o_g[live] - o_w[live]).abs().max().item()
+
+
+def paged_bound(case) -> tuple:
+    """Paged flash-decode: q, the page table, the bias and the K and V rows
+    of the distinct valid positions in, o, m, l out; 4·H·dh flops per valid
+    position of each row (q·k and p·v).  A masked position adds exactly 0,
+    and each position's K or V row is contiguous, so only the positions
+    below each row's length count, once each however many rows share
+    them."""
+    import torch
+    q, k_pool, _, table, bias = case["args"]
+    B, H, dh = q.shape
+    ps, Hk = k_pool.shape[1], k_pool.shape[2]
+    lens = case["lens"]
+    j = torch.arange(table.shape[1] * ps, device=table.device)
+    slots = table[:, j // ps].long() * ps + j % ps        # [B, MP·ps]
+    positions = slots[j[None] < lens[:, None]].unique().numel()
+    row_bytes = Hk * dh * k_pool.element_size()
+    moved = (nbytes(q, table, bias) + 2 * positions * row_bytes
+             + (B * H * dh + 2 * B * H) * 4)
+    return roofline(moved, 4 * H * dh * int(lens.sum()), q.dtype)
+
+
+def time_paged(case) -> dict:
+    """Kernel, plain version, the two-call yardstick (``gather_pages`` then
+    sdpa; no one PyTorch call computes paged attention), and the dense
+    flash-decode kernel on the already gathered cache (what the page-table
+    indirection costs)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_ref,
+                                                  gather_pages)
+    cap = case["softcap"]
+    copies = cold_copies(case["args"])
+
+    def gathered_sdpa(q, k_pool, v_pool, table, bias):
+        k = gather_pages(k_pool, table).transpose(1, 2)
+        v = gather_pages(v_pool, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k, v, attn_mask=(bias == 0)[:, None, None, :],
+            enable_gqa=True)
+    dense = [(q, gather_pages(k, t).contiguous(),
+              gather_pages(v, t).contiguous(), b)
+             for q, k, v, t, b in copies[:max(2, len(copies) // 4)]]
+    b_ms, b_by = paged_bound(case)
+    return {
+        "ms": time_ms(lambda *a: flash_decode_paged(*a, softcap=cap), copies),
+        "plain_ms": time_ms(
+            lambda *a: flash_decode_paged_ref(*a, softcap=cap), copies),
+        "library_ms": None,
+        "yardstick_ms": time_ms(gathered_sdpa, copies),
+        "dense_ms": time_ms(lambda *a: flash_decode(*a, softcap=cap), dense),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_paged_kernel() -> dict:
+    """The paged kernel at the serving shape (8 rows, ps 16, 16 pages a
+    row, 32/8 heads, dh 64, bf16, ragged lengths, shuffled pages, trash
+    entries) and at harder ones; the main shape timed."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = paged_case(8, 16, 16, 64, bf16, seed=30)
+    err = check_paged("bf16 B=8 ps=16 MP=16 dh=64 (serving shape)", main)
+    for label, case in (
+            ("bf16 ps=8 MP=32", paged_case(8, 8, 32, 64, bf16, seed=31)),
+            ("bf16 dh=128 ps=16", paged_case(4, 16, 8, 128, bf16, seed=32)),
+            ("f32 ps=16", paged_case(8, 16, 16, 64, f32, seed=33)),
+            ("f32 ps=8 dh=128 softcap=50",
+             paged_case(4, 8, 12, 128, f32, seed=34, softcap=50.0)),
+            ("bf16 softcap=50", paged_case(8, 16, 16, 64, bf16, seed=35,
+                                           softcap=50.0)),
+            ("bf16 pages in order, no trash",
+             paged_case(8, 16, 16, 64, bf16, seed=36, shuffled=False,
+                        trash=False)),
+            ("f32 rows 0 and 1 sharing pages",
+             paged_case(4, 16, 16, 64, f32, seed=37, shared=True)),
+            ("bf16 ps=5 (no power of two), shared",
+             paged_case(4, 5, 40, 64, bf16, seed=38, shared=True)),
+            ("f32 row 0 fully masked", paged_case(4, 16, 16, 64, f32,
+                                                  seed=39, masked_row=True)),
+            ("bf16 row 0 fully masked, ps=8",
+             paged_case(4, 8, 16, 64, bf16, seed=40, masked_row=True))):
+        check_paged(label, case)
+    t = dict(time_paged(main), max_abs_err=err)
+    print(f"[kernel] flash_decode_paged serving shape: kernel "
+          f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, two-call "
+          f"yardstick gather_pages + sdpa {t['yardstick_ms']*1e3:.2f} us, "
+          f"dense flash_decode on the gathered cache {t['dense_ms']*1e3:.2f}"
+          f" us", flush=True)
+    return t
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the session at full width
 # ---------------------------------------------------------------------------
 
@@ -380,7 +558,317 @@ def phase_session(card: str) -> int:
         if key == "local":
             print_breakdown(key, lambda: session.generate(prompt, N_NEW,
                                                           plan=plan), w)
+    return total, session
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 7: serving through the slot pool and the paged pool
+# ---------------------------------------------------------------------------
+
+SMALL_LLAMA = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=2,
+                   d_model=256)
+
+
+def _serve_all(rt, prompts, n_new):
+    """Submit every prompt at once (greedy, seed = index) and run the
+    runtime dry → tokens in submission order."""
+    reqs = [rt.submit(p, n_new, seed=i) for i, p in enumerate(prompts)]
+    done = {c.request_id: c.tokens for c in rt.run()}
+    return [done[r.id] for r in reqs]
+
+
+def phase_small_serving() -> None:
+    """A small f32 llama served by ``ServingRuntime`` on the card, dense
+    and paged, under ``local`` and ``prism_sim``, against the same weights
+    served on the CPU: greedy tokens exact, equal page/prefix counters, and
+    the prefix entries' logits (the paged pool's prefill and suffix
+    passes) within 1e-4.  The traffic makes a miss, a full hit and two
+    partial hits on an unaligned prompt (copy-on-write tail splits)."""
+    import numpy as np
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serving import ServingRuntime
+    cfg = get_config(ARCH).reduced(**SMALL_LLAMA)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(7)
+    base = list(rng.randint(1, cfg.vocab_size, 21))   # 2 pages + 5 @ ps 8
+    prompts = [base, base, base + [11, 12, 13], base + [14],
+               list(rng.randint(1, cfg.vocab_size, 11))]
+    t0 = time.perf_counter()
+    for mode in ("local", "prism"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            session = InferenceSession.from_config(
+                ARCH, reduced=SMALL_LLAMA, device=dev,
+                params=_on(params, dev), allow_modes=(mode,),
+                plans=[ExecutionPlan.local(),
+                       ExecutionPlan.prism_sim(L=4, cr=9.9)])
+            session.profile(backend="simulated")
+            dense = ServingRuntime(session, n_slots=2, chunk=4, max_len=40)
+            paged = ServingRuntime(session, chunk=4, max_len=40,
+                                   page_size=8, n_pages=32, n_rows=3)
+            runs[dev] = (_serve_all(dense, prompts, 9),
+                         _serve_all(paged, prompts, 9),
+                         next(iter(paged.pools.values())),
+                         paged.stats_snapshot())
+        (d_gpu, p_gpu, pool_gpu, st_gpu), (d_cpu, p_cpu, pool_cpu,
+                                            st_cpu) = runs["cuda"], runs["cpu"]
+        for a, b in zip(d_gpu + p_gpu, d_cpu + p_cpu):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"small serving {mode}: card tokens "
+                                     f"{a} vs CPU {b}")
+        keys = ("prefix_hits", "full_hits", "partial_hits", "cow_splits",
+                "prefix_misses")
+        if [st_gpu[k] for k in keys] != [st_cpu[k] for k in keys] or (
+                st_gpu["full_hits"], st_gpu["partial_hits"]) != (1, 2):
+            raise AssertionError(f"small serving {mode}: counters "
+                                 f"{[st_gpu[k] for k in keys]} (card) vs "
+                                 f"{[st_cpu[k] for k in keys]} (CPU)")
+        worst = max((e.logits.cpu() - pool_cpu.prefix.entries[d].logits)
+                    .abs().max().item()
+                    for d, e in pool_gpu.prefix.entries.items())
+        if not worst <= 1e-4:
+            raise AssertionError(f"small serving {mode}: prefix-entry "
+                                 f"logits differ by {worst:.3e} > 1e-4")
+        for pool in (pool_gpu, pool_cpu):
+            pool.alloc.check()
+        print(f"[reference] reduced f32 llama served on the card vs the CPU "
+              f"({mode}): {len(prompts)} requests x 9 tokens, dense (2 "
+              f"slots) and paged (ps 8) token-exact; paged counters equal "
+              f"({st_gpu['full_hits']} full / {st_gpu['partial_hits']} "
+              f"partial hits, {st_gpu['cow_splits']} COW splits); "
+              f"prefix-entry logits max |diff| {worst:.2e} (tol 1e-4)",
+              flush=True)
+    print(f"[reference] small serving in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+SERVE_ROWS, SERVE_CHUNK, SERVE_PS, SERVE_PAGES = 8, 8, 16, 512
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW, SYSTEM_LEN = 4, 256, 32, 128
+
+
+def serve_traffic(vocab: int):
+    """The serve phase's 24 greedy requests: 16 extend one 128-token system
+    prompt with 16–64-token suffixes, 8 have disjoint 64–192-token
+    prompts, interleaved; and the system prompt itself."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, vocab, SYSTEM_LEN)
+    shared = [np.concatenate([system, rng.randint(0, vocab,
+                                                  rng.randint(16, 65))])
+              for _ in range(16)]
+    disjoint = [rng.randint(0, vocab, rng.randint(64, 193))
+                for _ in range(8)]
+    prompts = shared + disjoint
+    order = rng.permutation(len(prompts))
+    return system, [prompts[i] for i in order], [int(i < 16) for i in order]
+
+
+def _drive(rt, prompts, n_new):
+    """Submit every prompt at once and step the runtime dry, tracking the
+    peak page occupancy and each request's first streamed tokens → (per
+    request tokens, completions, wall s, peak occupancy, TTFT ms)."""
+    import torch
+    first = {}
+    rt.on_progress = lambda rid, toks: first.setdefault(rid,
+                                                        time.monotonic())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [rt.submit(p, n_new, seed=i) for i, p in enumerate(prompts)]
+    peak, comps = 0.0, []
+    while rt.queue or not rt.idle:
+        comps += rt.step()
+        if rt.paged:
+            peak = max(peak, rt.stats_snapshot()["page_occupancy"])
+    wall = time.perf_counter() - t0
+    rt.on_progress = None
+    done = {c.request_id: c.tokens for c in comps}
+    ttft = [1e3 * (first[r.id] - r.arrival_ts) for r in reqs]
+    return [done[r.id] for r in reqs], comps, wall, peak, ttft
+
+
+def _chunk_idle(rt, prompts) -> str:
+    """Device busy and idle share of one decode chunk: submit a pool's
+    worth of requests, take one step (the scheduler admits what the policy
+    forms), then profile one chunk and time that same chunk on the host
+    clock, so busy and wall come from one chunk; the next chunk, unprofiled,
+    is timed too, to show what the profiler adds to the wall.  Then
+    drain."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i, p in enumerate(prompts[:rt.n_slots]):
+        rt.submit(p, SERVE_NEW, seed=i)
+    rt.step()
+    pool = next(iter(rt.pools.values()))
+    active = pool.n_active
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.decode_chunk(SERVE_CHUNK)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool.decode_chunk(SERVE_CHUNK)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3
+    ms = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            ms[e.name] += e.self_device_time_total / 1e3
+    rt.run()
+    if not ms:
+        return "the profiler saw no device time"
+    busy = sum(ms.values())
+    attn = sum(v for n, v in ms.items() if "flash_decode" in n)
+    return (f"one chunk of {SERVE_CHUNK} steps, {active} active "
+            f"rows: kernels busy {busy:.2f} ms of that chunk's {wall:.1f} ms "
+            f"wall under the profiler (device idle {1 - busy / wall:.1%}; "
+            f"the next chunk, unprofiled, {plain_wall:.1f} ms wall), "
+            f"attention kernel {attn:.3f} ms")
+
+
+def _time_admissions(pool) -> list:
+    """Wrap ``pool.admit`` so that every admission (prefill, or prefix hit
+    and suffix pass) is timed on the host clock between two synchronises;
+    the same for either pool, so their walls pay the same.  → a one-item
+    list that holds the seconds so far."""
+    import torch
+    total = [0.0]
+    admit = pool.admit
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = admit(*args, **kw)
+        torch.cuda.synchronize()
+        total[0] += time.perf_counter() - t0
+        return out
+    pool.admit = timed
     return total
+
+
+def phase_serve(card: str, base) -> tuple:
+    """llama3.2-1b at full width (the session of the ``session`` phase,
+    ``local`` pinned so every request shares one pool) served by
+    ``ServingRuntime``: the paged pool (page size 16, 8 rows, chunk 8, 512
+    pages) after the system prompt warmed its prefix cache, then the dense
+    slot pool (4 slots, max_len 256), each over the same 24 requests.
+    Launch counts, hits and the allocator are asserted; throughput,
+    latency, time to first token, step time, idle share and agreement
+    with B=1 ``generate`` printed.  → (dense flash-decode launches, paged
+    launches) of the two runs."""
+    import numpy as np
+    import torch
+    from repro_torch.api import InferenceSession
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged)
+    from repro_torch.serving import ServingRuntime, StragglerHook
+    session = InferenceSession(base.cfg, base.params,
+                               list(base.plans.values()),
+                               allow_modes=("local",), device="cuda")
+    session.profile(backend="simulated")
+    cfg = session.cfg
+    system, prompts, extends = serve_traffic(cfg.vocab_size)
+    n_tok = len(prompts) * SERVE_NEW
+    out, launches = {}, {}
+    for kind in ("paged", "dense"):
+        hook = StragglerHook(n_devices=1)
+        kw = (dict(page_size=SERVE_PS, n_pages=SERVE_PAGES,
+                   n_rows=SERVE_ROWS) if kind == "paged"
+              else dict(n_slots=SERVE_SLOTS))
+        rt = ServingRuntime(session, chunk=SERVE_CHUNK,
+                            max_len=SERVE_MAX_LEN, straggler_hook=hook, **kw)
+        rt.submit(system, 8)                       # warms the prefix cache
+        rt.run()
+        admit_s = _time_admissions(next(iter(rt.pools.values())))
+        before = rt.stats_snapshot()
+        hook.chunk_walls_ms.clear()
+        flash_decode.launches = flash_decode_paged.launches = 0
+        toks, comps, wall, peak, ttft = _drive(rt, prompts, SERVE_NEW)
+        launches[kind] = (flash_decode.launches, flash_decode_paged.launches)
+        after = rt.stats_snapshot()
+        steps = (after["chunks"] - before["chunks"]) * SERVE_CHUNK
+        if kind == "paged":
+            d = {k: after[k] - before[k] for k in
+                 ("prefix_hits", "partial_hits", "full_hits",
+                  "prefix_misses")}
+            want = {"prefix_hits": 16, "partial_hits": 16, "full_hits": 0,
+                    "prefix_misses": 8}
+            if d != want:
+                raise AssertionError(f"serve paged: hits {d}, the traffic "
+                                     f"implies {want}")
+            suffix = sum(len(p) - SYSTEM_LEN
+                         for p, e in zip(prompts, extends) if e)
+            want_l = (0, cfg.n_layers * (steps + suffix))
+            pool = next(iter(rt.pools.values()))
+            pool.alloc.check()
+            for digest in list(pool.prefix.entries):
+                pool.prefix.evict_entry(digest)
+            pool.alloc.check()
+            if (len(pool.alloc.free) != SERVE_PAGES or pool.alloc.refs
+                    or pool.alloc.committed):
+                raise AssertionError("serve paged: pages leaked after the "
+                                     "drain")
+            extra = (f"; prefix hit rate {d['prefix_hits'] / 24:.1%} "
+                     f"({d['partial_hits']} partial hits, "
+                     f"{suffix} suffix tokens), peak page occupancy "
+                     f"{peak:.1%} of {SERVE_PAGES} pages; after the drain "
+                     f"the allocator checks clean and every page is free")
+            expect = (f"flash_decode_paged launches {launches[kind][1]} = "
+                      f"{cfg.n_layers} layers x ({steps} decode steps + "
+                      f"{suffix} suffix tokens)")
+        else:
+            want_l = (cfg.n_layers * steps, 0)
+            extra = ""
+            expect = (f"flash_decode launches {launches[kind][0]} = "
+                      f"{cfg.n_layers} layers x {steps} decode steps")
+        if launches[kind] != want_l:
+            raise AssertionError(f"serve {kind}: (flash_decode, "
+                                 f"flash_decode_paged) launches "
+                                 f"{launches[kind]}, want {want_l}")
+        for t in toks:
+            if t.shape != (SERVE_NEW,) or not ((t >= 0)
+                                               & (t < cfg.vocab_size)).all():
+                raise AssertionError(f"serve {kind}: bad tokens {t}")
+        lat = [c.latency_ms for c in comps]
+        step_ms = statistics.median(hook.chunk_walls_ms)
+        print(f"[serve] {kind}: {len(prompts)} requests x {SERVE_NEW} greedy "
+              f"tokens in {wall:.2f} s: {len(prompts) / wall:.2f} requests/s,"
+              f" {n_tok / wall:.1f} tokens/s; latency p50 "
+              f"{np.percentile(lat, 50):.0f} ms p99 "
+              f"{np.percentile(lat, 99):.0f} ms; time to first token p50 "
+              f"{np.percentile(ttft, 50):.0f} ms p99 "
+              f"{np.percentile(ttft, 99):.0f} ms; decode {step_ms:.2f} ms "
+              f"per chunk step (median); admissions {admit_s[0]:.2f} s of the "
+              f"run (synchronised before and after each, in both pools); "
+              f"{expect}{extra} [{card}]", flush=True)
+        print(f"[serve] {kind} idle: {_chunk_idle(rt, prompts)} [{card}]",
+              flush=True)
+        out[kind] = toks
+
+    exact, first_div = 0, []
+    for p, a, b in zip(prompts, out["paged"], out["dense"]):
+        ref = session.generate(torch.as_tensor(p)[None], SERVE_NEW)[0]
+        ref = ref.cpu().numpy()
+        for t in (a, b):
+            diff = np.nonzero(t != ref)[0]
+            exact += not diff.size
+            if diff.size:
+                first_div.append(int(diff[0]))
+    same = sum(np.array_equal(a, b) for a, b in zip(out["paged"],
+                                                    out["dense"]))
+    print(f"[serve] greedy agreement with B=1 session.generate: "
+          f"{exact}/{2 * len(prompts)} requests exact over both runs (bf16: "
+          f"batches round differently; no threshold), first divergences at "
+          f"token {sorted(first_div)}; paged = dense on {same}/"
+          f"{len(prompts)} [{card}]", flush=True)
+    return launches["dense"][0], launches["paged"][1]
 
 
 def print_breakdown(key: str, fn, wall_ms: float) -> None:
@@ -902,7 +1390,8 @@ def phase_vit(card: str) -> dict:
 
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
-    source)."""
+    source; ``flash_decode.cu`` holds the dense and the paged entry
+    points)."""
     from repro_torch.kernels.flash_decode.kernel import LIBRARY as fd
     from repro_torch.kernels.prism_attention.kernel import LIBRARY as pa
     from repro_torch.kernels.segment_means.kernel import LIBRARY as sm
@@ -916,7 +1405,7 @@ def phase_build() -> None:
         print(f"[build] {lib.source.name} → {Path(lib.info['path']).name} in "
               f"{lib.info['seconds']:.1f} s; ptxas: " + " | ".join(ptxas),
               flush=True)
-    print(f"[build] all {len(libs)} kernels in "
+    print(f"[build] all {len(libs)} sources (4 kernels) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -933,17 +1422,24 @@ def main() -> None:
 
     phase_build()
     timed = phase_kernels()
+    paged = phase_paged_kernel()
     exchange = phase_exchange_kernels()
     phase_small_reference()
+    phase_small_serving()
     phase_small_vit_reference()
-    launches = phase_session(card)
+    launches, session = phase_session(card)
+    serve_dense, serve_paged = phase_serve(card, session)
+    del session
     torch.cuda.empty_cache()
     vit_launches = phase_vit(card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
-    src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = (("flash_decode", "src/repro/kernels/flash_decode/kernel.py:61",
-             launches, main_shape),
+             launches + serve_dense, main_shape),
+            ("flash_decode_paged",
+             "src/repro/kernels/flash_decode/paged.py:58", serve_paged,
+             paged),
             ("segment_means", "src/repro/kernels/segment_means/kernel.py:25",
              vit_launches["segment_means"], exchange["segment_means"]),
             ("prism_attention",
@@ -951,7 +1447,8 @@ def main() -> None:
              vit_launches["prism_attention"], exchange["prism_attention"]))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    kernels = [{"name": kname, "route": "cuda", "source": src.format(kname),
+    kernels = [{"name": kname, "route": "cuda",
+                "source": src.format(*[kname.replace("_paged", "")] * 2),
                 "replaces": replaces, "launches": n,
                 **{k: t[k] for k in keys}}
                for kname, replaces, n, t in rows]

@@ -21,9 +21,10 @@ asking for the card where there is none raises.  Partitioned plans
 decision on every rank, so all ranks enter the same collectives.
 Profiling goes through the backend registry (``repro_torch.profiling``):
 ``simulated`` and ``trace``; ``measured`` raises until CUDA-event
-profiling is ported.  The
-slot-pool and paged serving primitives and the tracer hooks come with the
-serving slice.
+profiling is ported.  The slot-pool and paged-pool serving primitives
+(``init_slot_pool`` … ``paged_decode_chunk``) are what
+``repro_torch.serving.ServingRuntime`` drives; they update the pools in
+place.
 """
 from __future__ import annotations
 
@@ -148,6 +149,7 @@ class InferenceSession:
                                          bandwidth_alpha,
                                          metrics=self.metrics)
         self.history: List[DispatchRecord] = []
+        self._serve_execs: Dict[ExecutionPlan, Dict[Tuple, Any]] = {}
         self._calibrated_upto = 0
         self.perfmap = perfmap
         for p in (plans or [ExecutionPlan.local()]):
@@ -451,10 +453,6 @@ class InferenceSession:
 
     # -- generation ----------------------------------------------------------
 
-    def _plan_or_default(self, plan: Optional[ExecutionPlan]) -> ExecutionPlan:
-        return (plan or self.plans.get("local")
-                or next(iter(self.plans.values())))
-
     def generate(self, prompt_tokens, n_new: int,
                  plan: Optional[ExecutionPlan] = None,
                  batch_extras: Optional[Dict[str, Any]] = None,
@@ -470,6 +468,151 @@ class InferenceSession:
                             n_new, self.cfg, plan.to_exchange_config(),
                             batch_extras=batch_extras, seed=seed,
                             temperature=T, prefill_mode=prefill_mode)
+
+    # -- slot-pool serving primitives (used by repro_torch.serving) ----------
+
+    def _plan_or_default(self, plan: Optional[ExecutionPlan]) -> ExecutionPlan:
+        return (plan or self.plans.get("local")
+                or next(iter(self.plans.values())))
+
+    def _serve_exec(self, plan: ExecutionPlan, key: Tuple, build):
+        """The serving function for (plan, key), built once."""
+        fns = self._serve_execs.setdefault(plan, {})
+        if key not in fns:
+            fns[key] = build()
+        return fns[key]
+
+    def _require_slot_pool(self) -> None:
+        from repro_torch.api import generation as gen
+        if not gen.supports_slot_pool(self.cfg):
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} cannot share a slot pool in the "
+                f"port (supported: {gen.SLOT_POOL_FAMILIES}; the other "
+                f"families are ROADMAP queue 1 item 11)")
+
+    def init_slot_pool(self, n_slots: int, max_len: int):
+        """Pooled decode cache with one slot (batch row) per in-flight
+        request — the state ``prime_slot``/``decode_chunk`` operate on."""
+        from repro_torch.models import transformer as tfm
+        self._require_slot_pool()
+        return tfm.init_decode_cache(self.cfg, n_slots, max_len,
+                                     device=self.device)
+
+    def prime_slot(self, prompt_tokens, *, total_len: int,
+                   plan: Optional[ExecutionPlan] = None, seed: int = 0,
+                   temperature: Optional[float] = None,
+                   prefill_mode: str = "auto", with_logits: bool = False):
+        """Prefill ONE request (prompt ``[1, T0]``) against a fresh cache of
+        the pool's length → ``(tok0 [1,1], cache, gen)`` — exactly the
+        front half of :meth:`generate`; ``gen`` is the request's generator
+        (seeded from ``seed``), to be drawn from again for every sampled
+        token.  ``with_logits=True`` appends the last-position logits."""
+        from repro_torch.api import generation as gen
+        self._require_slot_pool()
+        plan = self._plan_or_default(plan)
+        T = self.temperature if temperature is None else temperature
+        prompt = self._to_device(prompt_tokens)
+        fn = self._serve_exec(
+            plan, ("prefill", int(total_len), prefill_mode, with_logits),
+            lambda: gen.build_prefill_fn(self.cfg, plan.to_exchange_config(),
+                                         total_len=total_len,
+                                         prefill_mode=prefill_mode,
+                                         with_logits=with_logits))
+        return fn(self.params, prompt, {}, self.generator(seed), float(T))
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A request's own generator on the session's device."""
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def admit_slot(self, pool, tok, lengths, gens, temps, request_cache,
+                   slot: int, tok0, length0: int, gen0, temp0: float):
+        """Slot admission (cache copy + per-slot state), in place →
+        ``(pool, tok, lengths, gens, temps)``."""
+        from repro_torch.api import generation as gen
+        fn = self._serve_exec(None, ("admit",),
+                              lambda: gen.build_admit_fn(self.cfg))
+        return fn(pool, tok, lengths, gens, temps, request_cache, slot, tok0,
+                  length0, gen0, temp0)
+
+    def decode_chunk(self, pool, tok, lengths, gens, temps, *,
+                     n_steps: int, plan: Optional[ExecutionPlan] = None,
+                     max_len: Optional[int] = None):
+        """``n_steps`` continuous-batching decode steps over every slot →
+        ``(tokens [S, n_steps], pool, lengths, gens)``.  ``temps`` holds
+        each slot's sampling temperature (≤0 = greedy) and ``gens`` its
+        request's generator, so requests with different temperatures share
+        one pool."""
+        from repro_torch.api import generation as gen
+        plan = self._plan_or_default(plan)
+        fn = self._serve_exec(
+            plan, ("chunk", int(n_steps), max_len),
+            lambda: gen.build_decode_chunk_fn(
+                self.cfg, plan.to_exchange_config(), n_steps=n_steps,
+                max_len=max_len))
+        return fn(self.params, pool, tok, lengths, gens, temps)
+
+    # -- paged-pool serving primitives (used by repro_torch.serving.pages) ---
+
+    def init_page_pool(self, n_pages: int, page_size: int):
+        """Shared paged KV pool (``[n_layers, n_pages, page_size, Hk, dh]``
+        leaves) on the session's device.  Raises for families without a
+        paged decode path."""
+        from repro_torch.models import transformer as tfm
+        return tfm.init_page_pool(self.cfg, n_pages, page_size,
+                                  device=self.device)
+
+    def admit_paged(self, pool, tok, lengths, gens, temps, request_cache,
+                    page_ids, row: int, tok0, length0: int, gen0,
+                    temp0: float):
+        """Paged admission: copy a primed (page-aligned) request cache into
+        pool pages ``page_ids`` and set the row state, in place →
+        ``(pool, tok, lengths, gens, temps)``."""
+        from repro_torch.api import generation as gen
+        fn = self._serve_exec(None, ("paged_admit",),
+                              lambda: gen.build_paged_admit_fn(self.cfg))
+        return fn(pool, tok, lengths, gens, temps, request_cache, page_ids,
+                  row, tok0, length0, gen0, temp0)
+
+    def hit_paged(self, tok, lengths, gens, temps, row: int, logits,
+                  length0: int, gen0, temp0: float):
+        """Full-prefix-hit admission: the first token from cached prefill
+        logits with the request's own generator, and the row state →
+        ``(tok, lengths, gens, temps)`` (no prefill, no cache writes)."""
+        from repro_torch.api import generation as gen
+        fn = self._serve_exec(None, ("paged_hit",),
+                              lambda: gen.build_paged_hit_fn(self.cfg))
+        return fn(tok, lengths, gens, temps, row, logits, length0, gen0,
+                  temp0)
+
+    def suffix_paged(self, pool, row_table, suffix, start_len, gen0,
+                     temp0: float, *, plan: Optional[ExecutionPlan] = None):
+        """Partial-prefix-hit admission: teacher-force the ``suffix``
+        [1, n] prompt tail through the paged pool from position
+        ``start_len`` → ``(tok0 [1,1], pool, gen, logits)``."""
+        from repro_torch.api import generation as gen
+        plan = self._plan_or_default(plan)
+        n = int(suffix.shape[1])
+        fn = self._serve_exec(
+            plan, ("paged_suffix", n),
+            lambda: gen.build_paged_suffix_fn(
+                self.cfg, plan.to_exchange_config(), n_suffix=n))
+        return fn(self.params, pool, self._to_device(row_table),
+                  self._to_device(suffix), self._to_device(start_len), gen0,
+                  float(temp0))
+
+    def paged_decode_chunk(self, pool, page_table, caps, tok, lengths, gens,
+                           temps, *, n_steps: int,
+                           plan: Optional[ExecutionPlan] = None):
+        """``n_steps`` continuous-batching decode steps over every page-
+        table row → ``(tokens [S, n_steps], pool, lengths, gens)``."""
+        from repro_torch.api import generation as gen
+        plan = self._plan_or_default(plan)
+        fn = self._serve_exec(
+            plan, ("paged_chunk", int(n_steps)),
+            lambda: gen.build_paged_decode_chunk_fn(
+                self.cfg, plan.to_exchange_config(), n_steps=n_steps))
+        return fn(self.params, pool, self._to_device(page_table),
+                  self._to_device(caps), tok, lengths, gens, temps)
 
     # -- explanation (the paper's reported artifacts) ------------------------
 

@@ -2,7 +2,8 @@
 PyTorch versions, by the device of the tensors.
 
 Port of ``repro.kernels.dispatch`` (``segment_means``,
-``segment_means_masked``, ``decode_attention`` and ``prism_attention``).
+``segment_means_masked``, ``decode_attention``, ``decode_attention_paged``
+and ``prism_attention``).
 The route follows the data and nothing else: a CUDA tensor always goes to
 the kernel, a CPU tensor to the plain version.  There is no override that
 sends a CUDA tensor to the plain version, and no argument the JAX package
@@ -18,6 +19,8 @@ import torch
 
 from repro_torch.kernels.flash_decode.kernel import flash_decode
 from repro_torch.kernels.flash_decode.ops import flash_decode_op
+from repro_torch.kernels.flash_decode.paged import (flash_decode_paged,
+                                                    flash_decode_paged_op)
 from repro_torch.kernels.prism_attention.kernel import \
     prism_attention as prism_attention_kernel
 from repro_torch.kernels.prism_attention.ops import prism_attention_op
@@ -26,7 +29,7 @@ from repro_torch.kernels.segment_means.kernel import \
 from repro_torch.kernels.segment_means.ops import segment_means_op
 
 _LAST = {"segment_means": None, "decode_attention": None,
-         "prism_attention": None}
+         "decode_attention_paged": None, "prism_attention": None}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -90,6 +93,27 @@ def decode_attention(q: torch.Tensor,        # [B, 1, H, dh]
     return out[:, None].to(q.dtype)                           # [B,1,H,dh]
 
 
+def decode_attention_paged(q: torch.Tensor,           # [B, 1, H, dh]
+                           k_pool: torch.Tensor,      # [P, ps, Hk, dh]
+                           v_pool: torch.Tensor,
+                           page_table: torch.Tensor,  # [B, max_pages] int
+                           cache_len,                 # [B] — valid prefix
+                           *,
+                           logit_softcap: Optional[float] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention against a *paged* KV pool: each request's
+    cache is the concatenation of the pool pages named by its page-table
+    row, masked to the valid ``cache_len`` prefix.  The paged flash-decode
+    kernel on a CUDA tensor (pages resolved in-kernel, no gather), its
+    plain version (gather + dense math) on a CPU tensor."""
+    _LAST["decode_attention_paged"] = _route(q)
+    o, m, l = flash_decode_paged_op(q, k_pool, v_pool, page_table,
+                                    cache_len, scale=scale,
+                                    softcap=logit_softcap)
+    out = o / torch.clamp(l, min=1e-38)[..., None]            # [B, H, dh]
+    return out[:, None].to(q.dtype)                           # [B,1,H,dh]
+
+
 # ---------------------------------------------------------------------------
 # PRISM prefill attention (scaling-aware softmax over local ‖ remote means)
 # ---------------------------------------------------------------------------
@@ -117,5 +141,6 @@ def backend_info() -> dict:
     return {**_LAST,
             "segment_means_launches": segment_means_kernel.launches,
             "flash_decode_launches": flash_decode.launches,
+            "flash_decode_paged_launches": flash_decode_paged.launches,
             "prism_attention_launches": prism_attention_kernel.launches,
             "cuda_available": torch.cuda.is_available()}

@@ -1,28 +1,49 @@
-// Flash-decode for Hopper: one-token GQA attention partials over a dense
-// KV cache, emitting the un-normalised (o·l, m, l) that the exact
-// log-sum-exp merge across cache shards consumes.
+// Flash-decode for Hopper: one-token GQA attention partials over a KV
+// cache, emitting the un-normalised (o·l, m, l) that the exact
+// log-sum-exp merge across cache shards consumes.  One kernel body serves
+// two cache layouts, each with its own C entry point:
 //
-// Replaces the TPU kernel `flash_decode_pallas` in
-// src/repro/kernels/flash_decode/kernel.py (pallas_call at line 80).  It
-// computes exactly what that kernel computes:
+//   flash_decode_launch        a dense cache [B, S, Hk, dh].  Replaces the
+//                              TPU kernel `flash_decode_pallas` in
+//                              src/repro/kernels/flash_decode/kernel.py
+//                              (pallas_call at line 80).
+//   flash_decode_paged_launch  a pool of pages [P, ps, Hk, dh] read through
+//                              a per-row page table [B, MP]: row b's
+//                              position j lives at
+//                              pool[page_table[b, j / ps], j % ps], and
+//                              S = MP * ps.  Replaces the TPU kernel
+//                              `flash_decode_paged_pallas` in
+//                              src/repro/kernels/flash_decode/paged.py
+//                              (pallas_call at line 107).
+//
+// Both compute exactly what the TPU kernels compute:
 //   s[h, t] = softcap((q[h] * scale) . k[t, h / G]) + bias[t]
 //   m[h]    = max_t s[h, t]                    (m starts at -1e30)
 //   l[h]    = sum_t exp(s[h, t] - m[h])
 //   o[h]    = sum_t exp(s[h, t] - m[h]) * v[t, h / G]
 // with G = H / Hk query heads per KV head.  Positions the bias masks
 // (-1e30) still count, exactly as the bias math says, so a fully masked
-// row gives m = -1e30 and l = S, as in the JAX package.  Positions past S
-// in the ragged last tile contribute nothing.
+// row gives m = -1e30 and l = S, as in the JAX package; no page is
+// skipped.  Positions past S in the ragged last tile contribute nothing.
+// Page-table entries may name the same physical page from several rows
+// (a shared prefix) or the pool's trash page; ids are the caller's
+// contract (0 <= id < P) and are not checked here.
 //
-// Bound: bytes.  The kernel must read K and V once,
-// 2 * B * S * Hk * dh * itemsize bytes per call, against ~4 flops per
-// element read; at 3.35 TB/s that read is the least time the card needs.
+// Bound: bytes.  The kernel must read the K and V rows of every position
+// it attends once, 2 * positions * Hk * dh * itemsize bytes, against ~4
+// flops per element read; at 3.35 TB/s that read is the least time the
+// card needs.
 //
 // Design: one CTA per (batch row, KV head).  The Pallas grid (B, H, S/TS)
 // re-reads every K/V tile once per query head; here the G query heads of a
 // group share each K/V tile read from device memory.  A loop over S tiles
 // of TS positions carries an f32 online softmax (m, l, acc) in shared
-// memory and registers, in place of the TPU's sequential grid axis.
+// memory and registers, in place of the TPU's sequential grid axis.  The
+// two layouts differ only in where a position's K/V row lies, which the
+// body asks of an address mapper: `Dense` gives base + s * row; `Paged`
+// resolves the tile's positions through the page table into shared memory
+// at the start of each tile, so no gathered copy of the cache is ever
+// made, and any page size >= 1 works (a tile may span several pages).
 //   * the V tile is staged in shared memory as f32 (zeros past S);
 //   * scores: two threads per cache position, each reading half of the
 //     K row with 16-byte loads and dotting it with all G queries, joined
@@ -30,9 +51,11 @@
 //     the scores a chain of dependent shuffles that dominated the time);
 //   * each thread owns fixed (head, dim) accumulator elements.
 // Limits of this first version: the grid is B * Hk CTAs, so at batch 1
-// llama3.2-1b (Hk = 8) fills only 8 of the H100's 132 SMs.  Splitting S
-// across CTAs with a merge pass, and cp.async / TMA pipelining across
-// tiles (the next tile's loads under this tile's math), are later work.
+// llama3.2-1b (Hk = 8) fills only 8 of the H100's 132 SMs, and the paged
+// layout reads every table position, the masked ones too.  Splitting S
+// across CTAs with a merge pass, cp.async / TMA pipelining across tiles
+// (the next tile's loads under this tile's math, whole pages at a time)
+// and reading only the valid pages are later work.
 //
 // Built by repro_torch/kernels/flash_decode/kernel.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -43,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -90,16 +114,47 @@ __device__ __forceinline__ void load_f32(const float* __restrict__ p,
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
-                    const T* __restrict__ k,        // [B, S, Hk, DH]
-                    const T* __restrict__ v,        // [B, S, Hk, DH]
-                    const float* __restrict__ bias, // [B, S]
-                    float* __restrict__ o_out,      // [B, H, DH]
-                    float* __restrict__ m_out,      // [B, H]
-                    float* __restrict__ l_out,      // [B, H]
-                    int H, int Hk, int S, float scale, float softcap) {
+// Where a position's K/V row starts, in elements from the cache's base
+// (the KV head's offset is added by the body).  `Dense`: row b's cache
+// is contiguous.  `Paged`: each tile's positions are looked up in row
+// b's page table once, by `resolve`, into shared memory.
+struct Dense {
+  static constexpr bool kResolves = false;
+  size_t base;                         // b * S * row
+  size_t row;                          // Hk * DH
+  __device__ __forceinline__ void resolve(int, int, int) {}
+  __device__ __forceinline__ size_t at(int, int s) const {
+    return base + (size_t)s * row;
+  }
+};
+
+struct Paged {
+  static constexpr bool kResolves = true;
+  const int* table;                    // row b of the page table, [MP]
+  int ps;
+  size_t row;
+  size_t* srow;                        // [TS] in shared memory
+  __device__ __forceinline__ void resolve(int s0, int S, int tid) {
+    if (tid < TS && s0 + tid < S) {
+      const int s = s0 + tid;
+      const size_t page = (size_t)table[s / ps];
+      srow[tid] = (page * ps + (size_t)(s % ps)) * row;
+    }
+  }
+  __device__ __forceinline__ size_t at(int t, int) const { return srow[t]; }
+};
+
+template <typename T, int DH, typename Rows>
+__device__ __forceinline__ void
+flash_decode_body(const T* __restrict__ q,        // [B, H, DH]
+                  const T* __restrict__ kb,       // K cache + hk * DH
+                  const T* __restrict__ vb,       // V cache + hk * DH
+                  const float* __restrict__ biasb,  // row b of [B, S]
+                  float* __restrict__ o_out,      // [B, H, DH]
+                  float* __restrict__ m_out,      // [B, H]
+                  float* __restrict__ l_out,      // [B, H]
+                  Rows rows, int b, int hk, int H, int Hk, int S,
+                  float scale, float softcap) {
   constexpr int VEC = 8;                 // V elements per staging load
   constexpr int NOUT = GMAX * DH / NT;   // accumulator elements per thread
   constexpr int VITER = TS * DH / VEC / NT;  // V staging loads per thread
@@ -113,16 +168,10 @@ flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
   __shared__ float sl[GMAX];       // running sum
   __shared__ float salpha[GMAX];   // rescale of this tile
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
   const int G = H / Hk;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t row = (size_t)Hk * DH;    // stride between cache positions
-  const T* kb = k + (size_t)b * S * row + (size_t)hk * DH;
-  const T* vb = v + (size_t)b * S * row + (size_t)hk * DH;
-  const float* biasb = bias + (size_t)b * S;
   const size_t head0 = (size_t)b * H + (size_t)hk * G;
 
   for (int i = tid; i < G * DH; i += NT) {
@@ -139,6 +188,11 @@ flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
   __syncthreads();
 
   for (int s0 = 0; s0 < S; s0 += TS) {
+    if constexpr (Rows::kResolves) {
+      rows.resolve(s0, S, tid);
+      __syncthreads();
+    }
+
     // stage the V tile as f32 (zeros past S, so 0 * v never meets garbage)
 #pragma unroll
     for (int j = 0; j < VITER; ++j) {
@@ -147,7 +201,7 @@ flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
       const int d0 = (c % (DH / VEC)) * VEC;
       float f[VEC];
       if (s0 + t < S) {
-        load_f32<VEC>(vb + (size_t)(s0 + t) * row + d0, f);
+        load_f32<VEC>(vb + rows.at(t, s0 + t) + d0, f);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) f[e] = 0.f;
@@ -164,7 +218,7 @@ flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
       const int s = s0 + t;
       float kf[DH / 2];
       if (s < S) {
-        load_f32<DH / 2>(kb + (size_t)s * row + half * (DH / 2), kf);
+        load_f32<DH / 2>(kb + rows.at(t, s) + half * (DH / 2), kf);
       } else {
 #pragma unroll
         for (int e = 0; e < DH / 2; ++e) kf[e] = 0.f;
@@ -253,6 +307,48 @@ flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
 }
 
 template <typename T, int DH>
+__global__ void __launch_bounds__(NT)
+flash_decode_kernel(const T* __restrict__ q,        // [B, H, DH]
+                    const T* __restrict__ k,        // [B, S, Hk, DH]
+                    const T* __restrict__ v,        // [B, S, Hk, DH]
+                    const float* __restrict__ bias, // [B, S]
+                    float* __restrict__ o_out,      // [B, H, DH]
+                    float* __restrict__ m_out,      // [B, H]
+                    float* __restrict__ l_out,      // [B, H]
+                    int H, int Hk, int S, float scale, float softcap) {
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const size_t row = (size_t)Hk * DH;    // stride between cache positions
+  const Dense rows{(size_t)b * S * row, row};
+  flash_decode_body<T, DH>(q, k + (size_t)hk * DH, v + (size_t)hk * DH,
+                           bias + (size_t)b * S, o_out, m_out, l_out, rows,
+                           b, hk, H, Hk, S, scale, softcap);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT)
+flash_decode_paged_kernel(const T* __restrict__ q,        // [B, H, DH]
+                          const T* __restrict__ k_pool,   // [P, ps, Hk, DH]
+                          const T* __restrict__ v_pool,   // [P, ps, Hk, DH]
+                          const int* __restrict__ table,  // [B, MP]
+                          const float* __restrict__ bias, // [B, MP * ps]
+                          float* __restrict__ o_out,      // [B, H, DH]
+                          float* __restrict__ m_out,      // [B, H]
+                          float* __restrict__ l_out,      // [B, H]
+                          int H, int Hk, int ps, int MP, float scale,
+                          float softcap) {
+  __shared__ size_t srow[TS];            // pool offset of each tile position
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int S = MP * ps;
+  const Paged rows{table + (size_t)b * MP, ps, (size_t)Hk * DH, srow};
+  flash_decode_body<T, DH>(q, k_pool + (size_t)hk * DH,
+                           v_pool + (size_t)hk * DH, bias + (size_t)b * S,
+                           o_out, m_out, l_out, rows, b, hk, H, Hk, S, scale,
+                           softcap);
+}
+
+template <typename T, int DH>
 void launch(const void* q, const void* k, const void* v, const void* bias,
             void* o, void* m, void* l, int B, int H, int Hk, int S,
             float scale, float softcap, cudaStream_t stream) {
@@ -264,11 +360,25 @@ void launch(const void* q, const void* k, const void* v, const void* bias,
       H, Hk, S, scale, softcap);
 }
 
+template <typename T, int DH>
+void launch_paged(const void* q, const void* k, const void* v,
+                  const int* table, const void* bias, void* o, void* m,
+                  void* l, int B, int H, int Hk, int ps, int MP, float scale,
+                  float softcap, cudaStream_t stream) {
+  const dim3 grid(Hk, B);
+  flash_decode_paged_kernel<T, DH><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), table, static_cast<const float*>(bias),
+      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
+      H, Hk, ps, MP, scale, softcap);
+}
+
 }  // namespace
 
-// Plain C entry point.  Returns cudaGetLastError() after the launch (0 on
-// success), or a negative code for a shape the kernel does not take.
-// is_bf16: 1 for bfloat16 q/k/v, 0 for float32.  softcap 0 means none.
+// Plain C entry points.  Each returns cudaGetLastError() after the launch
+// (0 on success), or a negative code for a shape the kernel does not
+// take.  is_bf16: 1 for bfloat16 q/k/v, 0 for float32.  softcap 0 means
+// none.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* bias, void* o,
                                    void* m, void* l, int B, int H, int Hk,
@@ -293,6 +403,41 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
     else if (dh == 128)
       launch<float, 128>(q, k, v, bias, o, m, l, B, H, Hk, S, scale, softcap,
                          st);
+    else
+      return -2;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P (pages in the pool) bounds only the arguments' sanity: the ids in the
+// table are the caller's contract.
+extern "C" int flash_decode_paged_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* bias, void* o, void* m, void* l, int B, int H, int Hk,
+    int P, int ps, int MP, int dh, int is_bf16, float scale, float softcap,
+    void* stream) {
+  if (B < 1 || P < 1 || ps < 1 || MP < 1 || Hk < 1 || H % Hk != 0 ||
+      H / Hk > GMAX)
+    return -1;
+  if (B > 65535 || (long long)MP * ps > 0x7fffffffLL) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(table);
+  if (is_bf16) {
+    if (dh == 64)
+      launch_paged<__nv_bfloat16, 64>(q, k_pool, v_pool, tb, bias, o, m, l,
+                                      B, H, Hk, ps, MP, scale, softcap, st);
+    else if (dh == 128)
+      launch_paged<__nv_bfloat16, 128>(q, k_pool, v_pool, tb, bias, o, m, l,
+                                       B, H, Hk, ps, MP, scale, softcap, st);
+    else
+      return -2;
+  } else {
+    if (dh == 64)
+      launch_paged<float, 64>(q, k_pool, v_pool, tb, bias, o, m, l, B, H,
+                              Hk, ps, MP, scale, softcap, st);
+    else if (dh == 128)
+      launch_paged<float, 128>(q, k_pool, v_pool, tb, bias, o, m, l, B, H,
+                               Hk, ps, MP, scale, softcap, st);
     else
       return -2;
   }

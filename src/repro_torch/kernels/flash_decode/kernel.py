@@ -1,5 +1,6 @@
 """Flash-decode kernel wrapper: builds ``csrc/flash_decode.cu`` at first
-use and launches it through ctypes.
+use and launches it through ctypes.  The same library holds the paged
+entry point that ``paged.py`` wraps: one kernel body serves both layouts.
 
 The CUDA kernel replaces the TPU kernel
 ``repro/kernels/flash_decode/kernel.py:flash_decode_pallas``; its source
@@ -27,6 +28,10 @@ MAX_GROUP = 8                      # GMAX in the CUDA source
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_decode_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_decode_paged_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 

@@ -234,32 +234,52 @@ def attention_decode(
     spec: AttnSpec,
     xcfg: ExchangeConfig,
     cache: Dict[str, torch.Tensor],       # {"k": [B,S,Hk,hd], "v": ..., }
-    cache_index: int,                     # write position
+    cache_index,                          # int, or [B] int tensor
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One autoregressive step against the layer's cache.
 
     The cache is updated in place (slice assignment) where the JAX package
     does a functional ``dynamic_update_slice``; the returned cache is the
     same dict.  Caches created with ``quant=True`` hold int8 values +
-    per-(token, head) f32 scales, dequantized per layer for attention."""
+    per-(token, head) f32 scales, dequantized per layer for attention.
+
+    ``cache_index`` is the write position: one int for every row, or a
+    ``[B]`` int tensor giving each row its own position (the slot pool of
+    ``repro_torch.serving``, one batched step where the JAX package vmaps
+    ``decode_step`` per slot).  Then row ``b`` takes RoPE at
+    ``cache_index[b]``, attends over its first ``cache_index[b] + 1``
+    positions and writes at ``min(cache_index[b], S - 1)``: a write past
+    the end lands on the last position, as JAX's ``dynamic_update_slice``
+    clamps it (a finished slot that keeps decoding at ``max_len``)."""
     B = x.shape[0]
-    pos = torch.full((B, 1), cache_index, dtype=torch.int32, device=x.device)
+    per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+    if per_row:
+        idx = cache_index.to(device=x.device, dtype=torch.long)
+        pos = idx[:, None]
+        rows = torch.arange(B, device=x.device)
+        at = (rows, idx.clamp(max=cache["k"].shape[1] - 1))
+    else:
+        pos = torch.full((B, 1), cache_index, dtype=torch.int32,
+                         device=x.device)
+        i = cache_index
+        at = (slice(None), slice(i, i + 1))
     q, k_new, v_new = project_qkv(params, x, spec, pos)
-    i = cache_index
+    if per_row:                  # one position per row: drop the token axis
+        k_new, v_new = k_new[:, 0], v_new[:, 0]
     if "k_scale" in cache:
         k_q, k_s = _quantize_kv(k_new)
         v_q, v_s = _quantize_kv(v_new)
-        cache["k"][:, i:i + 1] = k_q
-        cache["v"][:, i:i + 1] = v_q
-        cache["k_scale"][:, i:i + 1] = k_s
-        cache["v_scale"][:, i:i + 1] = v_s
+        cache["k"][at] = k_q
+        cache["v"][at] = v_q
+        cache["k_scale"][at] = k_s
+        cache["v_scale"][at] = v_s
         k_cache = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
         v_cache = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][:, i:i + 1] = k_new.to(cache["k"].dtype)
-        cache["v"][:, i:i + 1] = v_new.to(cache["v"].dtype)
+        cache["k"][at] = k_new.to(cache["k"].dtype)
+        cache["v"][at] = v_new.to(cache["v"].dtype)
         k_cache, v_cache = cache["k"], cache["v"]
-    cache_len = cache_index + 1
+    cache_len = (idx + 1) if per_row else cache_index + 1
     if spec.window is not None:
         # sliding-window cache: only the last `window` positions are valid
         from repro_torch.kernels import dispatch as kdsp
@@ -271,6 +291,46 @@ def attention_decode(
         out = decode_attention_sharded(
             q, k_cache, v_cache, cache_len, xcfg,
             logit_softcap=spec.logit_softcap, scale=spec.scale)
+    y = out.reshape(B, 1, spec.n_heads * spec.head_dim) @ params["wo"]
+    return y, cache
+
+
+def attention_decode_paged(
+    params: Params,
+    x: torch.Tensor,                      # [S, 1, D] new token features
+    spec: AttnSpec,
+    xcfg: ExchangeConfig,
+    cache: Dict[str, torch.Tensor],       # {"k": [P,ps,Hk,hd], "v": ...}
+    page_table: torch.Tensor,             # [S, max_pages] int32
+    lengths: torch.Tensor,                # [S] int — per-row write position
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One autoregressive step against a shared *paged* KV pool.
+
+    All rows step together: the pool is shared state.  Row ``b`` writes its
+    new K/V at logical position ``lengths[b]``, which the page table
+    resolves to physical ``(page_table[b, len // ps], len % ps)``; attention
+    then reads through ``kdsp.decode_attention_paged``.  The write is an
+    in-place ``index_put_`` into the pool, where the JAX package's
+    ``.at[].set`` builds a new pool that XLA updates in place only because
+    the caller donates it; the returned cache is the same dict.  Rows never
+    write into shared (refcount > 1) pages: the allocator copies any
+    partially filled shared page at admission, so a row's write frontier
+    lands in a page it owns alone (or the trash page, for idle rows)."""
+    if spec.window is not None:
+        raise NotImplementedError("paged decode has no sliding-window path")
+    B = x.shape[0]
+    lens = lengths.to(device=x.device, dtype=torch.long)
+    q, k_new, v_new = project_qkv(params, x, spec, lens[:, None])
+    ps = cache["k"].shape[1]
+    table = page_table.to(device=x.device)
+    wp = table.gather(1, (lens // ps)[:, None])[:, 0].long()   # [S]
+    off = lens % ps
+    cache["k"].index_put_((wp, off), k_new[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_((wp, off), v_new[:, 0].to(cache["v"].dtype))
+    from repro_torch.kernels import dispatch as kdsp
+    out = kdsp.decode_attention_paged(
+        q, cache["k"], cache["v"], table, lens + 1,
+        logit_softcap=spec.logit_softcap, scale=spec.scale)
     y = out.reshape(B, 1, spec.n_heads * spec.head_dim) @ params["wo"]
     return y, cache
 

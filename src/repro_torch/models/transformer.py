@@ -12,6 +12,9 @@ Entry points:
   init_decode_cache(cfg, B, S, device)     → cache dict
   prefill(params, batch, cache, cfg, xcfg) → (last logits, primed cache)
   decode_step(params, batch, cache, i, cfg, xcfg) → (logits, cache)
+  init_page_pool(cfg, n_pages, page_size, device) → paged pool dict
+  decode_step_paged(params, batch, pool, page_table, lengths, cfg, xcfg)
+                                           → (logits, pool)
 
 The other families (moe, mla, hybrid, ssm, audio, vlm) and gemma2's
 windowed layers are ROADMAP queue 1 items 6 and 11.
@@ -26,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exchange import ExchangeConfig, exchange_attention
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_block, attention_decode,
+                                       attention_decode_paged,
                                        embed, init_attention, init_embedding,
                                        init_kv_cache, init_mlp, init_norm,
                                        prefill_kv_cache, project_qkv, unembed)
@@ -114,10 +118,20 @@ def _apply_attn_mlp_prefill(p: Params, x, cfg: ModelConfig, xcfg,
 
 
 def _apply_attn_mlp_decode(p: Params, x, cfg: ModelConfig, xcfg,
-                           spec: AttnSpec, cache, index: int):
+                           spec: AttnSpec, cache, index):
     h, _ = attention_decode(p["attn"],
                             apply_norm(cfg.norm_type, p["ln1"], x), spec,
                             xcfg, cache, index)
+    return _mlp_residual(p, x, h, cfg)
+
+
+def _apply_attn_mlp_decode_paged(p: Params, x, cfg: ModelConfig, xcfg,
+                                 spec: AttnSpec, cache, page_table, lengths):
+    """Pre-norm block around ``attention_decode_paged`` — the paged twin of
+    ``_apply_attn_mlp_decode`` (identical residual/norm/MLP math)."""
+    h, _ = attention_decode_paged(
+        p["attn"], apply_norm(cfg.norm_type, p["ln1"], x), spec, xcfg,
+        cache, page_table, lengths)
     return _mlp_residual(p, x, h, cfg)
 
 
@@ -190,13 +204,17 @@ def _layer_cache(cache: Params, i: int) -> Dict[str, torch.Tensor]:
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
-                cache_index: int, cfg: ModelConfig, xcfg: ExchangeConfig
+                cache_index, cfg: ModelConfig, xcfg: ExchangeConfig
                 ) -> Tuple[torch.Tensor, Params]:
     """One-token step. batch: {"tokens": [B, 1]} → (logits [B, 1, V],
-    cache updated in place). ``cache_index`` is the write position."""
+    cache updated in place). ``cache_index`` is the write position: an int
+    for every row, or a ``[B]`` int tensor, one position per row (see
+    ``layers.attention_decode``)."""
     _require_dense(cfg)
     x = embed(params["embed"], batch["tokens"],
               scale_by_sqrt_d=cfg.embed_scale)
+    if isinstance(cache_index, torch.Tensor):      # once, not per layer
+        cache_index = cache_index.to(device=x.device, dtype=torch.long)
     spec = _attn_spec(cfg)
     for i, lp in enumerate(params["layers"]):
         x = _apply_attn_mlp_decode(lp, x, cfg, xcfg, spec,
@@ -204,6 +222,55 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
     return logits, cache
+
+
+def supports_page_pool(cfg: ModelConfig) -> bool:
+    """Paged decode covers the plain dense stack: one homogeneous KV cache
+    per layer, no sliding-window alternation and no per-slot int8 cache
+    (cold pages quantize through the transport codecs instead, in
+    ``repro_torch.serving.pages``)."""
+    return (cfg.family == "dense" and not cfg.local_global
+            and not cfg.kv_quant)
+
+
+def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
+                   device=None) -> Params:
+    """Shared paged KV pool: the ``init_decode_cache`` dict with the
+    (batch, seq) axes read as (page, in-page position) — leaves are
+    ``[n_layers, n_pages, page_size, Hk, dh]``.  Requests address it
+    through per-row page tables; physical pages are interchangeable."""
+    if not supports_page_pool(cfg):
+        raise ValueError(f"family {cfg.family!r} (local_global="
+                         f"{cfg.local_global}, kv_quant={cfg.kv_quant}) "
+                         f"has no paged decode path")
+    return init_decode_cache(cfg, n_pages, page_size, device=device)
+
+
+def decode_step_paged(params: Params, batch: Dict[str, torch.Tensor],
+                      pool: Params, page_table: torch.Tensor,
+                      lengths: torch.Tensor, cfg: ModelConfig,
+                      xcfg: ExchangeConfig) -> Tuple[torch.Tensor, Params]:
+    """One-token step for every row against the shared paged pool.
+
+    batch: {"tokens": [S, 1]}; ``page_table`` [S, max_pages] int32 maps each
+    row's logical blocks to pool pages; ``lengths`` [S] is each row's
+    current sequence length (= this step's write position).  Returns
+    (logits [S, 1, V], the pool, updated in place)."""
+    if not supports_page_pool(cfg):
+        raise ValueError(f"family {cfg.family!r} has no paged decode path")
+    x = embed(params["embed"], batch["tokens"],
+              scale_by_sqrt_d=cfg.embed_scale)
+    # once, not per layer
+    page_table = page_table.to(device=x.device, dtype=torch.int32)
+    lengths = lengths.to(device=x.device, dtype=torch.long)
+    spec = _attn_spec(cfg)
+    for i, lp in enumerate(params["layers"]):
+        x = _apply_attn_mlp_decode_paged(lp, x, cfg, xcfg, spec,
+                                         _layer_cache(pool, i), page_table,
+                                         lengths)
+    x = apply_norm(cfg.norm_type, params["final_norm"], x)
+    logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
+    return logits, pool
 
 
 def supports_prefill(cfg: ModelConfig) -> bool:

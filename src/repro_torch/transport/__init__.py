@@ -1,7 +1,8 @@
 """`repro_torch.transport` — exchange-byte accounting for the port.
 
-* :class:`ExchangeCodec` registry (``identity`` / ``segment_means``) — what
-  the wire payload *is*, with exact wire-byte accounting.
+* :class:`ExchangeCodec` registry (``identity`` / ``segment_means`` /
+  ``int8`` / ``int4``) — what the wire payload *is*, with exact wire-byte
+  accounting.
 * :class:`TransportLink` registry (``staged`` CPU-memory path vs ``direct``
   collective) — *how* the bytes travel, with per-stage cost accounting fed
   by the profiled :class:`~repro_torch.profiling.hardware.LinkProfile`.

@@ -1,12 +1,14 @@
 """Exchange codecs — what the bytes on the wire *are* (byte accounting).
 
-Port of ``repro.transport.codecs``: the codec registry with the two codecs
-the single-device slice needs for its accounting — ``identity`` (the
-Voltage full-tensor payload) and ``segment_means`` (the PRISM compressor).
-Their ``wire_bytes`` / ``token_wire_bytes`` feed the simulated profiling
-backend and the session's per-dispatch telemetry.  The quantizing and
-sparse codecs (``int8`` / ``int4`` / ``topk``) and measured decode
-bandwidths come with the transport-codec slice (ROADMAP queue 1 item 9).
+Port of ``repro.transport.codecs``: the codec registry with
+``identity`` (the Voltage full-tensor payload), ``segment_means`` (the
+PRISM compressor), and ``int8`` / ``int4`` (per-tile symmetric
+quantize–dequantize; the paged pool's cold pages go through them).  Their
+``wire_bytes`` / ``token_wire_bytes`` feed the simulated profiling backend
+and the session's per-dispatch telemetry; the int8/int4 payloads are bit
+for bit the JAX package's on the same f32 input.  The sparse ``topk``
+codec, codec exchanges inside the strategies and measured decode
+bandwidths are ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ class CodecSpec:
     """Static per-plan codec parameters.
 
     ``L``     — segment means per partition (``segment_means`` only).
-    ``param`` — codec-specific knob (quantization tile / top-k) for the
-                codecs of a later slice.
+    ``param`` — codec-specific knob: quantization tile size along the
+                feature axis (0 = one scale per whole vector) for
+                ``int8``/``int4``.
     """
     L: int = 0
     param: int = 0
@@ -180,3 +183,104 @@ class SegmentMeansCodec(ExchangeCodec):
     def validate_spec(self, spec):
         if spec.L <= 0:
             raise ValueError("segment_means codec needs L > 0")
+
+
+# ---------------------------------------------------------------------------
+# int8 / int4 — per-tile symmetric quantization
+# ---------------------------------------------------------------------------
+
+def _tile(feat: int, spec: CodecSpec) -> int:
+    t = spec.param if spec.param > 0 else feat
+    if feat % t != 0:
+        raise ValueError(f"feature width {feat} not divisible into "
+                         f"quantization tiles of {t}")
+    return t
+
+
+class _QuantCodec(ExchangeCodec):
+    """Shared symmetric per-tile quantizer: one f32 scale per tile along
+    the trailing (feature) axis, values in [-qmax, qmax], rounded half to
+    even as ``jnp.round`` rounds."""
+
+    qmax: int = 127
+
+    def _scaled(self, x, spec):
+        t = _tile(x.shape[-1], spec)
+        xr = x.reshape(x.shape[:-1] + (x.shape[-1] // t, t)).float()
+        scale = xr.abs().amax(dim=-1, keepdim=True) / self.qmax
+        q = torch.round(xr / torch.clamp(scale, min=1e-12))
+        q = torch.clamp(q, -self.qmax, self.qmax)
+        return q, scale, xr.shape
+
+    def _dequant(self, q, scale, spec, dtype):
+        t = _tile(q.shape[-1], spec)
+        xr = q.reshape(scale.shape + (t,)).float()
+        out = (xr * scale[..., None]).reshape(q.shape)
+        return out.to(dtype if dtype is not None else torch.float32)
+
+    def wire_bytes(self, shape, dtype, spec):
+        n_tiles = math.prod(shape) // _tile(shape[-1], spec)
+        return self._payload_bytes(math.prod(shape)) + 4 * n_tiles
+
+    def token_wire_bytes(self, feat, bytes_per_el, spec):
+        t = spec.param if spec.param > 0 else feat
+        return self._payload_bytes(feat) + 4.0 * -(-feat // t)
+
+    def _payload_bytes(self, n_el: int) -> int:
+        raise NotImplementedError
+
+
+@register_codec
+class Int8Codec(_QuantCodec):
+    name = "int8"
+    decode_bw = 8e8       # modeled dequantization throughput, raw bytes/s
+
+    def encode(self, x, spec):
+        q, scale, qshape = self._scaled(x, spec)
+        return {"q": q.to(torch.int8).reshape(x.shape),
+                "scale": scale.reshape(qshape[:-1])}
+
+    def decode(self, payload, spec, shape=None, dtype=None):
+        return self._dequant(payload["q"], payload["scale"], spec, dtype)
+
+    def _payload_bytes(self, n_el):
+        return n_el
+
+
+@register_codec
+class Int4Codec(_QuantCodec):
+    """4-bit symmetric quantization, two values packed per byte (low
+    nibble first, each biased by 8)."""
+
+    name = "int4"
+    qmax = 7
+    decode_bw = 2e8
+
+    def encode(self, x, spec):
+        if x.shape[-1] % 2 != 0:
+            raise ValueError("int4 codec needs an even feature width "
+                             f"(got {x.shape[-1]})")
+        q, scale, qshape = self._scaled(x, spec)
+        biased = (q + 8).to(torch.uint8).reshape(x.shape)      # 1..15
+        packed = biased[..., 0::2] | (biased[..., 1::2] << 4)
+        return {"q": packed, "scale": scale.reshape(qshape[:-1])}
+
+    def decode(self, payload, spec, shape=None, dtype=None):
+        packed = payload["q"]
+        lo = (packed & 0xF).to(torch.int32)
+        hi = (packed >> 4).to(torch.int32)
+        q = torch.stack([lo, hi], dim=-1).reshape(
+            packed.shape[:-1] + (2 * packed.shape[-1],)) - 8
+        return self._dequant(q, payload["scale"], spec, dtype)
+
+    def wire_bytes(self, shape, dtype, spec):
+        n_tiles = math.prod(shape) // _tile(shape[-1], spec)
+        return math.prod(shape) // 2 + 4 * n_tiles
+
+    def _payload_bytes(self, n_el):
+        return n_el / 2
+
+    def validate_spec(self, spec):
+        if spec.param % 2 != 0:
+            raise ValueError("int4 tile size must be even "
+                             f"(got {spec.param})")
