@@ -9,19 +9,26 @@ Phases, one line each (more for the kernel table):
                and power limit; fails without a CUDA card.
 2. build     — builds every kernel of the main paths from the sources in
                the checkout (``nvcc``, one process per source, started
-               together), before any rank is spawned.
+               together), before any rank is spawned, and prints each
+               flash-decode instantiation's registers, spills, shared
+               memory per CTA and CTAs per SM.
 3. kernels   — calls each kernel's wrapper on tensors on the card and
                holds it against its plain PyTorch version on the same
                inputs (f32 inputs: relative max error ≤ 1e-5; bf16:
                ≤ 1e-3), at the main paths' shapes and a few harder ones,
                and times kernel, plain version and a one-call PyTorch
                yardstick with CUDA events (warm-up, then the median of many
-               launches on inputs cold in L2).
+               launches on inputs cold in L2).  Flash-decode cases span
+               splits of S from 1 to 8 (B 1 at S 1, 63, 65, 2047, 8192;
+               windows, softcap, dh 128, f32); fully masked rows must give
+               m = -1e30, l = S and the plain version's o; each timed
+               shape prints its splits.
    The paged flash-decode kernel is held likewise at the paged pool's
                shape and harder ones (page sizes 8 and 5, dh 128, f32,
-               softcap, shuffled and shared pages, trash entries, a fully
-               masked row), and timed beside a two-call yardstick and the
-               dense kernel on the gathered cache.
+               softcap, shuffled and shared pages, trash entries, rows of
+               length 1 and full length, fully masked rows), and timed
+               beside a two-call yardstick and the dense kernel on the
+               gathered cache.
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -130,7 +137,7 @@ def time_ms(fn, arg_sets, min_calls: int = 20, reps: int = 30) -> float:
 # ---------------------------------------------------------------------------
 
 def decode_case(B, S, dh, dtype, *, seed, window=None, softcap=None,
-                masked_row=False):
+                masked_row=False, lens=None):
     import torch
     from repro_torch.kernels.flash_decode import validity_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -139,6 +146,8 @@ def decode_case(B, S, dh, dtype, *, seed, window=None, softcap=None,
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
     q, k, v = randn(B, N_HEADS, dh), randn(B, S, N_KV, dh), randn(B, S, N_KV, dh)
     clen = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
+    if lens is not None:
+        clen = torch.tensor(lens, device="cuda")
     if masked_row:
         clen[0] = 0
     bias = validity_bias(B, S, clen, window=window, device="cuda")
@@ -158,8 +167,9 @@ def check_case(case) -> dict:
     o_g = got[0] / got[2][..., None]
     o_w = want[0] / want[2][..., None]
     errs = {}
-    for name, a, b in (("o/l", o_g, o_w), ("m", got[1], want[1]),
-                       ("l", got[2], want[2])):
+    checked = (("o/l", o_g, o_w), ("m", got[1], want[1]),
+               ("l", got[2], want[2])) if live.any() else ()
+    for name, a, b in checked:
         a, b = a[live], b[live]
         errs[name] = ((a - b).abs().max() / b.abs().max()).item()
         if not errs[name] <= tol:
@@ -170,8 +180,24 @@ def check_case(case) -> dict:
         if not ((got[1][~live] == -1e30).all()
                 and (got[2][~live] == S).all()):
             raise AssertionError("fully masked row: want m=-1e30, l=S")
-    errs["max_abs_err"] = (o_g[live] - o_w[live]).abs().max().item()
+        errs["masked o"] = rel_err(got[0][~live], want[0][~live])
+        if not errs["masked o"] <= tol:
+            raise AssertionError(f"flash_decode fully masked row: o = sum v"
+                                 f" off by {errs['masked o']:.3e} > {tol:g}")
+    errs["max_abs_err"] = ((o_g[live] - o_w[live]).abs().max().item()
+                           if live.any() else 0.0)
     return errs
+
+
+def splits_of(q, Hk, S) -> int:
+    """The kernel's CTAs along S for these inputs (``split_plan``)."""
+    from repro_torch.kernels.flash_decode.kernel import plan_for
+    return plan_for(q.device, q.dtype, q.shape[0], Hk, S, q.shape[2])
+
+
+def err_text(errs) -> str:
+    return " ".join(f"{k} {v:.2e}" for k, v in errs.items()
+                    if k != "max_abs_err")
 
 
 def roofline(moved: float, flops: float, dtype) -> tuple:
@@ -203,14 +229,18 @@ def rel_err(got, want) -> float:
 
 
 def bound(case) -> tuple:
-    """Flash-decode: q, K, V and the bias in, o, m, l out; 4·B·H·S·dh
-    flops (q·k and p·v)."""
-    q, k = case["q"], case["k"]
+    """Flash-decode: q, the bias and the K and V rows of the positions that
+    count in, o, m, l out; 4·H·dh flops per such position (q·k and p·v).
+    A masked position of a row with a valid one adds exactly 0, so only
+    the valid positions count; a fully masked row needs all S."""
+    q, k, bias = case["q"], case["k"], case["bias"]
     B, H, dh = q.shape
-    S = k.shape[1]
-    moved = nbytes(q, k, case["v"], case["bias"]) + (B * H * dh
-                                                     + 2 * B * H) * 4
-    return roofline(moved, 4 * B * H * S * dh, q.dtype)
+    S, Hk = k.shape[1], k.shape[2]
+    valid = (bias > -1e30).sum(dim=1)
+    positions = int(valid.masked_fill(valid == 0, S).sum())
+    moved = (nbytes(q, bias) + 2 * positions * Hk * dh * k.element_size()
+             + (B * H * dh + 2 * B * H) * 4)
+    return roofline(moved, 4 * H * dh * positions, q.dtype)
 
 
 def time_case(case) -> dict:
@@ -226,7 +256,9 @@ def time_case(case) -> dict:
                   v.transpose(1, 2).contiguous(), (b == 0)[:, None, None, :])
                  for q, k, v, b in copies]
     b_ms, b_by = bound(case)
+    whole = dict(case, bias=torch.zeros_like(case["bias"]))
     return {
+        "full_bound_ms": bound(whole)[0],
         "ms": time_ms(lambda *a: flash_decode(*a, softcap=sc), copies),
         "plain_ms": time_ms(lambda *a: flash_decode_ref(*a, softcap=sc),
                             copies),
@@ -246,10 +278,11 @@ def phase_kernels() -> dict:
         t = time_case(case)
         timed[(B, S)] = dict(t, max_abs_err=errs["max_abs_err"])
         print(f"[kernel] flash_decode bf16 B={B} S={S} H={N_HEADS} "
-              f"Hk={N_KV} dh=64: err o/l {errs['o/l']:.2e} m {errs['m']:.2e}"
-              f" l {errs['l']:.2e} (tol 1e-3) | kernel {t['ms']*1e3:.2f} us"
-              f", bound {t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
-              f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
+              f"Hk={N_KV} dh=64, splits {splits_of(case['q'], N_KV, S)}: "
+              f"err {err_text(errs)} (tol 1e-3) | kernel "
+              f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
+              f"({t['bound_by']}; whole cache {t['full_bound_ms']*1e3:.2f} "
+              f"us), plain {t['plain_ms']*1e3:.2f} us, sdpa yardstick "
               f"{t['library_ms']*1e3:.2f} us", flush=True)
     extra = (
         ("f32 B=8 S=2048", decode_case(8, 2048, 64, f32, seed=1)),
@@ -260,12 +293,32 @@ def phase_kernels() -> dict:
         ("bf16 B=4 S=2048 dh=128", decode_case(4, 2048, 128, bf16, seed=4)),
         ("bf16 B=4 S=48, row 0 fully masked",
          decode_case(4, 48, 64, bf16, seed=5, masked_row=True)),
+        ("bf16 B=1 S=1", decode_case(1, 1, 64, bf16, seed=6)),
+        ("bf16 B=1 S=63", decode_case(1, 63, 64, bf16, seed=7, lens=[63])),
+        ("bf16 B=1 S=65", decode_case(1, 65, 64, bf16, seed=8, lens=[65])),
+        ("f32 B=1 S=65 length 1",
+         decode_case(1, 65, 64, f32, seed=9, lens=[1])),
+        ("bf16 B=1 S=2047", decode_case(1, 2047, 64, bf16, seed=10,
+                                        lens=[2047])),
+        ("bf16 B=1 S=2047 length 100",
+         decode_case(1, 2047, 64, bf16, seed=11, lens=[100])),
+        ("bf16 B=1 S=8192", decode_case(1, 8192, 64, bf16, seed=12)),
+        ("f32 B=1 S=8192 window=256",
+         decode_case(1, 8192, 64, f32, seed=13, window=256, lens=[8000])),
+        ("bf16 B=1 S=8192 dh=128 softcap=50",
+         decode_case(1, 8192, 128, bf16, seed=14, softcap=50.0)),
+        ("f32 B=2 S=2048 dh=128, row 0 fully masked",
+         decode_case(2, 2048, 128, f32, seed=15, masked_row=True)),
+        ("bf16 B=1 S=2048, the row fully masked",
+         decode_case(1, 2048, 64, bf16, seed=16, masked_row=True)),
     )
     for label, case in extra:
         errs = check_case(case)
         tol = "1e-5" if case["q"].dtype == torch.float32 else "1e-3"
-        print(f"[kernel] flash_decode {label}: err o/l {errs['o/l']:.2e} "
-              f"m {errs['m']:.2e} l {errs['l']:.2e} (tol {tol})", flush=True)
+        S = case["k"].shape[1]
+        print(f"[kernel] flash_decode {label}, splits "
+              f"{splits_of(case['q'], N_KV, S)}: err {err_text(errs)} "
+              f"(tol {tol})", flush=True)
     return timed
 
 
@@ -274,11 +327,12 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 def paged_case(B, ps, MP, dh, dtype, *, seed, softcap=None, shuffled=True,
-               shared=False, trash=True, masked_row=False):
-    """Pools of P = B·MP pages plus the trash page (id P); ragged lengths;
-    each row's pages drawn from a permutation of the page ids (or in
-    order), table entries past a row's pages on the trash page (or on
-    other pages); ``shared`` points row 1's first pages at row 0's."""
+               shared=False, trash=True, masked_row=False, lens=None):
+    """Pools of P = B·MP pages plus the trash page (id P); ragged lengths
+    (or ``lens``); each row's pages drawn from a permutation of the page
+    ids (or in order), table entries past a row's pages on the trash page
+    (or on other pages); ``shared`` points row 1's first pages at
+    row 0's."""
     import torch
     from repro_torch.kernels.flash_decode import validity_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -289,7 +343,8 @@ def paged_case(B, ps, MP, dh, dtype, *, seed, softcap=None, shuffled=True,
     q = randn(B, N_HEADS, dh)
     k_pool = randn(P + 1, ps, N_KV, dh)
     v_pool = randn(P + 1, ps, N_KV, dh)
-    lens = torch.randint(1, MP * ps + 1, (B,), generator=g, device="cuda")
+    lens = (torch.randint(1, MP * ps + 1, (B,), generator=g, device="cuda")
+            if lens is None else torch.tensor(lens, device="cuda"))
     if masked_row:
         lens[0] = 0
     ids = (torch.randperm(P, generator=g, device="cuda") if shuffled
@@ -329,14 +384,20 @@ def check_paged(label: str, case) -> float:
         if not errs[name] <= tol:
             raise AssertionError(f"flash_decode_paged {label} {name}: "
                                  f"relative error {errs[name]:.3e} > {tol:g}")
+    S = args[3].shape[1] * args[1].shape[1]
     if (~live).any():
-        S = args[3].shape[1] * args[1].shape[1]
         if not ((got[1][~live] == -1e30).all()
                 and (got[2][~live] == S).all()):
             raise AssertionError(f"flash_decode_paged {label}: fully masked "
                                  f"row: want m=-1e30, l={S}")
-    print(f"[kernel] flash_decode_paged {label}: err o/l {errs['o/l']:.2e} m "
-          f"{errs['m']:.2e} l {errs['l']:.2e} (tol {tol:g})", flush=True)
+        errs["masked o"] = rel_err(got[0][~live], want[0][~live])
+        if not errs["masked o"] <= tol:
+            raise AssertionError(f"flash_decode_paged {label}: fully masked "
+                                 f"row: o = sum v off by "
+                                 f"{errs['masked o']:.3e} > {tol:g}")
+    print(f"[kernel] flash_decode_paged {label}, splits "
+          f"{splits_of(args[0], N_KV, S)}: err {err_text(errs)} (tol "
+          f"{tol:g})", flush=True)
     return (o_g[live] - o_w[live]).abs().max().item()
 
 
@@ -421,10 +482,25 @@ def phase_paged_kernel() -> dict:
             ("f32 row 0 fully masked", paged_case(4, 16, 16, 64, f32,
                                                   seed=39, masked_row=True)),
             ("bf16 row 0 fully masked, ps=8",
-             paged_case(4, 8, 16, 64, bf16, seed=40, masked_row=True))):
+             paged_case(4, 8, 16, 64, bf16, seed=40, masked_row=True)),
+            ("bf16 ps=5 rows of length 1 and full, shared, trash",
+             paged_case(4, 5, 40, 64, bf16, seed=41, shared=True,
+                        lens=[200, 200, 1, 1])),
+            ("f32 ps=8 rows of length 1 and full, shared, trash",
+             paged_case(4, 8, 32, 64, f32, seed=42, shared=True,
+                        lens=[256, 256, 1, 129])),
+            ("bf16 B=1 ps=16 MP=128, length 1 (many splits)",
+             paged_case(1, 16, 128, 64, bf16, seed=43, lens=[1])),
+            ("bf16 B=1 ps=5 MP=400 full, softcap=50",
+             paged_case(1, 5, 400, 64, bf16, seed=44, softcap=50.0,
+                        lens=[2000])),
+            ("f32 B=2 ps=8 MP=64 dh=128, row 0 fully masked",
+             paged_case(2, 8, 64, 128, f32, seed=45, masked_row=True))):
         check_paged(label, case)
     t = dict(time_paged(main), max_abs_err=err)
-    print(f"[kernel] flash_decode_paged serving shape: kernel "
+    S = main["args"][3].shape[1] * main["args"][1].shape[1]
+    print(f"[kernel] flash_decode_paged serving shape, splits "
+          f"{splits_of(main['args'][0], N_KV, S)}: kernel "
           f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
           f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, two-call "
           f"yardstick gather_pages + sdpa {t['yardstick_ms']*1e3:.2f} us, "
@@ -1407,6 +1483,21 @@ def phase_build() -> None:
               flush=True)
     print(f"[build] all {len(libs)} sources (4 kernels) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    import torch
+    from repro_torch.kernels.flash_decode.kernel import attributes
+    for paged in (False, True):
+        for dtype, dh, group in ((torch.bfloat16, 64, 8),
+                                 (torch.bfloat16, 128, 8),
+                                 (torch.float32, 64, 4),
+                                 (torch.float32, 64, 8),
+                                 (torch.float32, 128, 4),
+                                 (torch.float32, 128, 8)):
+            a = attributes(paged, dh, dtype, group)
+            print(f"[build] flash_decode{'_paged' if paged else ''} "
+                  f"{str(dtype).split('.')[1]} dh={dh} group<={group}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} bytes "
+                  f"spilled, {a['smem_bytes']} bytes of shared memory per "
+                  f"CTA, {a['ctas_per_sm']} CTAs per SM", flush=True)
 
 
 def main() -> None:

@@ -5,6 +5,8 @@ entry point that ``paged.py`` wraps: one kernel body serves both layouts.
 The CUDA kernel replaces the TPU kernel
 ``repro/kernels/flash_decode/kernel.py:flash_decode_pallas``; its source
 note says what bounds it (bytes: K and V read once) and how it is laid out.
+``split_plan`` picks how many CTAs (one cluster) share one (row, KV head)
+along S.
 
 ``flash_decode`` takes its plain version for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises — it never falls back.  It
@@ -13,6 +15,7 @@ counts its launches in ``flash_decode.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -23,21 +26,77 @@ from repro_torch.kernels.nvcc import CudaLibrary
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8                      # GMAX in the CUDA source
+MAX_SPLITS = 8                     # a cluster's CTAs, MAX_SPLITS there
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_decode_paged_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_decode_attributes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
                       / "flash_decode.cu", _bind)
+
+
+def tile_size(dtype: torch.dtype, dh: int) -> int:
+    """Cache positions per kernel tile, TS in the CUDA source: 128 in bf16
+    (16 per warp for the tensor cores); in f32 a K tile of 16 KB (64
+    positions at dh 64, 32 at dh 128)."""
+    return 128 if dtype == torch.bfloat16 else 4096 // dh
+
+
+def split_plan(B: int, Hk: int, S: int, n_sm: int, tile: int = 128) -> int:
+    """CTAs along S for each (row, KV head), one cluster of at most
+    ``MAX_SPLITS``.  One CTA fits an SM, so ``B·Hk·splits`` stays within
+    one wave of the ``n_sm`` SMs: 1 where B·Hk CTAs fill half the card or
+    S fits one tile; else ``n_sm // (B·Hk)`` as far as the tiles and the
+    cap allow, each split a whole number of tiles and none empty (the
+    kernel gives split i the tiles ``[i·per, min(tiles, (i+1)·per))`` with
+    ``per = ceil(tiles / splits)``)."""
+    tiles = -(-S // tile)
+    want = min(tiles, MAX_SPLITS, n_sm // (B * Hk))
+    if want <= 1:
+        return 1
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(device: torch.device, dtype: torch.dtype, B: int, Hk: int,
+             S: int, dh: int) -> int:
+    """``split_plan`` for a launch on ``device``."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return split_plan(B, Hk, S, sm_count(index), tile_size(dtype, dh))
+
+
+def attributes(paged: bool, dh: int, dtype: torch.dtype,
+               group: int) -> dict:
+    """Registers, spilled bytes, shared memory per CTA and resident CTAs
+    per SM of one instantiation (``group`` query heads per KV head: the
+    f32 kernel is built for groups of up to 4 and of up to 8, the bf16 one
+    for up to 8), read from the loaded library on the current card."""
+    out = (ctypes.c_int * 4)()
+    rc = LIBRARY.lib().flash_decode_attributes(
+        int(paged), dh, int(dtype == torch.bfloat16), group, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_attributes failed: code {rc}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "ctas_per_sm"), out))
 
 
 def _check(q, k, v, bias):
@@ -98,13 +157,14 @@ def flash_decode(q: torch.Tensor,        # [B, H, dh]
     o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    splits = plan_for(q.device, q.dtype, B, Hk, S, dh)
     lib = LIBRARY.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Hk, S, dh,
-            int(q.dtype == torch.bfloat16), float(scale),
+            int(q.dtype == torch.bfloat16), splits, float(scale),
             float(softcap or 0.0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: code {rc}")

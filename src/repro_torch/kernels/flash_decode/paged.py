@@ -10,7 +10,7 @@ logical block ``p`` to a physical page id.
 * ``flash_decode_paged`` — the wrapper of the paged entry point of the
   CUDA kernel ``csrc/flash_decode.cu`` (replaces the TPU kernel
   ``flash_decode_paged_pallas``), which runs the dense kernel's body with
-  each position's page resolved in-kernel and never materialises the
+  each tile's page ids read in-kernel and never materialises the
   gather.  A CPU tensor takes the
   plain version; a CUDA tensor launches the kernel or raises — it never
   falls back.  Launches are counted in ``flash_decode_paged.launches``.
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_decode.kernel import (HEAD_DIMS, LIBRARY,
-                                                     MAX_GROUP)
+                                                     MAX_GROUP, plan_for)
 from repro_torch.kernels.flash_decode.ops import validity_bias
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
@@ -133,6 +133,7 @@ def flash_decode_paged(q: torch.Tensor,           # [B, H, dh]
     o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    splits = plan_for(q.device, q.dtype, B, Hk, MP * ps, dh)
     lib = LIBRARY.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -140,7 +141,7 @@ def flash_decode_paged(q: torch.Tensor,           # [B, H, dh]
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), kv_bias.data_ptr(), o.data_ptr(),
             m.data_ptr(), l.data_ptr(), B, H, Hk, P, ps, MP, dh,
-            int(q.dtype == torch.bfloat16), float(scale),
+            int(q.dtype == torch.bfloat16), splits, float(scale),
             float(softcap or 0.0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged kernel launch failed: "

@@ -22,7 +22,11 @@ from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_op,
                                               flash_decode_ref,
                                               merge_partials, validity_bias,
                                               validity_mask)
+from repro_torch.kernels.flash_decode.kernel import (MAX_SPLITS, split_plan,
+                                                     tile_size)
 from repro_torch.kernels.flash_decode.ops import pick_s_block
+
+from _hypothesis_fallback import given, settings, st
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -158,3 +162,137 @@ def test_wrapper_refuses_devices_without_a_kernel():
     bias = torch.zeros(1, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         flash_decode(q, k, v, bias)
+
+
+# ---------------------------------------------------------------------------
+# The split algebra the CUDA kernel relies on, in the plain math
+# ---------------------------------------------------------------------------
+
+def split_merge(q, k, v, bias, *, splits, tile, softcap=None):
+    """What the kernel computes, step by step in the plain version: S cut
+    into ``splits`` runs of whole tiles of ``tile`` positions (split i gets
+    tiles ``[i·per, (i+1)·per)``, ``per = ceil(tiles / splits)``); in a row
+    with a valid position (bias > -1e30) a tile with none is not read, and
+    a split with no tile left is the identity (o = 0, m = -1e30, l = 0);
+    each split's partial is ``flash_decode_ref`` over its tiles; the
+    partials merge un-normalised: m = max m_i, l = Σ e^{m_i - m} l_i,
+    o = Σ e^{m_i - m} o_i.  → (o, m, l, tiles skipped)."""
+    B, H, dh = q.shape
+    S = bias.shape[1]
+    tiles = -(-S // tile)
+    per = -(-tiles // splits)
+    outs, skipped = [], 0
+    for b in range(B):
+        valid = bias[b] > -1e30
+        live = bool(valid.any())
+        parts = []
+        for i in range(splits):
+            kept = [t for t in range(i * per, min(tiles, (i + 1) * per))
+                    if not live or valid[t * tile:(t + 1) * tile].any()]
+            skipped += min(tiles, (i + 1) * per) - i * per - len(kept)
+            if not kept:
+                parts.append((torch.zeros(H, dh), torch.full((H,), -1e30),
+                              torch.zeros(H)))
+                continue
+            pos = torch.cat([torch.arange(t * tile, min(S, (t + 1) * tile))
+                             for t in kept])
+            o, m, l = flash_decode_ref(q[b:b + 1], k[b:b + 1, pos],
+                                       v[b:b + 1, pos], bias[b:b + 1, pos],
+                                       softcap=softcap)
+            parts.append((o[0], m[0], l[0]))
+        o_i, m_i, l_i = (torch.stack(x) for x in zip(*parts))
+        m = m_i.amax(dim=0)
+        w = torch.exp(m_i - m)
+        outs.append(((w[..., None] * o_i).sum(dim=0), m,
+                     (w * l_i).sum(dim=0)))
+    o, m, l = (torch.stack(x) for x in zip(*outs))
+    return o, m, l, skipped
+
+
+# (B, S, H, Hk, dh, cache_len, window, softcap, tile, n_sm, skips)
+SPLIT_CASES = [
+    (2, 37, 4, 2, 16, [37, 5], None, None, 8, 16, True),   # S % tile != 0
+    (1, 48, 4, 2, 16, [30], None, None, 8, 64, True),      # one tile a split
+    (2, 64, 4, 2, 16, [50, 64], 16, None, 8, 32, True),    # window: heads
+    (2, 40, 8, 2, 32, [40, 17], None, 30.0, 16, 8, True),  # softcap
+    (3, 24, 4, 2, 16, [0, 9, 24], None, None, 8, 12, True),  # row 0 masked
+    (2, 45, 4, 4, 16, [45, 1], 8, 20.0, 8, 64, True),      # length 1, window
+    (2, 16, 4, 1, 16, [0, 0], None, None, 8, 64, False),   # all masked
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hk,dh,clen,window,softcap,tile,n_sm,skips",
+                         SPLIT_CASES)
+def test_split_partials_merge_to_the_jax_kernel(B, S, H, Hk, dh, clen,
+                                                window, softcap, tile, n_sm,
+                                                skips):
+    """S cut as ``split_plan`` cuts it, masked tiles of live rows skipped,
+    the partials merged un-normalised: the JAX package's reference and its
+    Pallas kernel (interpret mode) within 1e-5 in f32.  Fully masked rows:
+    m = -1e30 and l = S exactly, o = Σ v."""
+    splits = split_plan(B, Hk, S, n_sm, tile)
+    assert splits > 1
+    q, k, v = _inputs(S + 7 * B, B, S, H, Hk, dh)
+    clen = np.asarray(clen, np.int32)
+    bj = j_bias(B, S, jnp.asarray(clen), window=window)
+    tq, tk, tv, tb = _t(q, k, v, bj)
+    o, m, l, skipped = split_merge(tq, tk, tv, tb, splits=splits, tile=tile,
+                                   softcap=softcap)
+    assert (skipped > 0) == skips
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    ref = j_ref(jq, jk, jv, bj, softcap=softcap)
+    pallas = flash_decode_pallas(jq, jk, jv, bj, softcap=softcap,
+                                 s_block=j_pick(S), interpret=True)
+    for want in (ref, pallas):
+        for a, b in zip(want, (o, m, l)):
+            _close(a, b, atol=1e-5, rtol=1e-5)
+    dead = torch.from_numpy(clen == 0)
+    if dead.any():
+        assert (m[dead] == -1e30).all() and (l[dead] == S).all()
+        sum_v = tv.sum(dim=1).repeat_interleave(H // Hk, dim=1)
+        _close(sum_v[dead].numpy(), o[dead], atol=1e-5, rtol=1e-5)
+
+
+def test_tile_size_matches_the_cuda_source():
+    """128 positions in bf16 (16 per warp for the tensor cores); a 16 KB K
+    tile in f32."""
+    assert tile_size(torch.bfloat16, 64) == tile_size(torch.bfloat16,
+                                                      128) == 128
+    assert tile_size(torch.float32, 64) == 64
+    assert tile_size(torch.float32, 128) == 32
+
+
+def test_split_plan_keeps_the_main_shape_one_launch():
+    """``generate``'s shape (B 4, S 48, 8 KV heads, bf16) on 132 SMs is one
+    CTA per (row, head) with no merge; batch 1 at S 2048 is split."""
+    assert split_plan(4, 8, 48, 132, tile_size(torch.bfloat16, 64)) == 1
+    assert split_plan(1, 8, 2048, 132, 128) == MAX_SPLITS == 8
+    assert split_plan(8, 8, 2048, 132, 128) == 2
+    assert split_plan(16, 8, 8192, 132, 128) == 1      # B·Hk fills half
+
+
+@given(st.integers(1, 40), st.integers(1, 16), st.integers(1, 20000),
+       st.integers(1, 264), st.integers(0, 2))
+@settings(deadline=None, max_examples=200)
+def test_split_plan_properties(B, Hk, S, n_sm, which):
+    """Whole tiles, every tile in exactly one non-empty split, at most one
+    cluster's worth of splits, one split where B·Hk fills half the SMs or
+    S fits a tile, and B·Hk·splits within one wave and at least half of
+    what the cap and the tiles allow of it."""
+    tile = (32, 64, 128)[which]
+    splits = split_plan(B, Hk, S, n_sm, tile)
+    tiles = -(-S // tile)
+    per = -(-tiles // splits)
+    ranges = [range(i * per, min(tiles, (i + 1) * per))
+              for i in range(splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert sorted(t for r in ranges for t in r) == list(range(tiles))
+    ctas = B * Hk
+    assert 1 <= splits <= MAX_SPLITS
+    if 2 * ctas > n_sm or tiles == 1:
+        assert splits == 1
+    else:
+        assert splits <= tiles
+        assert ctas * splits <= n_sm
+        want = min(tiles, MAX_SPLITS, n_sm // ctas)
+        assert 2 * splits >= want

@@ -19,21 +19,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (B, S, cache lengths, window): one CTA per (row, KV head); batch 1 split
+# many ways; a long row with one short valid run (most tiles skipped); a
+# window (the heads of rows masked); S one past a tile
+DENSE_SHAPES = {
+    "ragged": (4, 300, [300, 1, 150, 0], None),
+    "batch1_split": (1, 2048, [2048], None),
+    "masked_tiles": (1, 8192, [100], None),
+    "window": (8, 2048, [2048, 1, 700, 1500, 64, 65, 2000, 0], 256),
+    "one_past_a_tile": (2, 65, [1, 65], None),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 128)])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, dh):
+@pytest.mark.parametrize("shape", sorted(DENSE_SHAPES))
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype, dh, shape):
     """f32 inputs: relative max error ≤ 1e-5 on o/l, m and l over the rows
     with a valid position; bf16 inputs: ≤ 1e-3 (both sides accumulate in
-    f32 from the same bf16 values).  The fully masked row is exact."""
+    f32 from the same bf16 values).  A fully masked row: m = -1e30 and
+    l = S exactly, o = Σ v within the same tolerance."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    B, S, H, Hk = 4, 300, 32, 8
+    B, S, lens, window = DENSE_SHAPES[shape]
+    H, Hk = 32, 8
     q = torch.randn(B, H, dh, generator=g, device=cuda_device).to(dtype)
     k = torch.randn(B, S, Hk, dh, generator=g, device=cuda_device).to(dtype)
     v = torch.randn(B, S, Hk, dh, generator=g, device=cuda_device).to(dtype)
-    clen = torch.tensor([300, 1, 150, 0], device=cuda_device)
-    bias = validity_bias(B, S, clen, device=cuda_device)
+    clen = torch.tensor(lens, device=cuda_device)
+    bias = validity_bias(B, S, clen, window=window, device=cuda_device)
     before = flash_decode.launches
     got = flash_decode(q, k, v, bias, softcap=50.0)
     torch.cuda.synchronize()
@@ -47,6 +62,8 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, dh):
         err = ((a - b).abs().max() / b.abs().max()).item()
         assert err <= tol, err
     assert (got[1][~live] == -1e30).all() and (got[2][~live] == S).all()
+    if (~live).any():
+        assert _rel_err(got[0][~live], want[0][~live]) <= tol
 
 
 def _rel_err(got, want):
@@ -129,16 +146,18 @@ def test_prism_attention_kernel_matches_plain_version(cuda_device, dtype, dh,
                                          (torch.bfloat16, 64, 16),
                                          (torch.bfloat16, 128, 8),
                                          (torch.float32, 64, 5)])
-def test_paged_kernel_matches_plain_version(cuda_device, dtype, dh, ps):
+@pytest.mark.parametrize("MP", [10, 200])
+def test_paged_kernel_matches_plain_version(cuda_device, dtype, dh, ps, MP):
     """The paged flash-decode kernel against its plain version (gather +
     dense math): shuffled pages, row 1 sharing row 0's pages, table entries
-    past each row's pages on the trash page, softcap, and a fully masked
-    row (m = -1e30, l = MP·ps exactly).  f32: relative max error ≤ 1e-5;
-    bf16: ≤ 1e-3."""
+    past each row's pages on the trash page, softcap, rows of full length
+    and of length 1, and a fully masked row (m = -1e30, l = MP·ps exactly,
+    o = Σ v).  MP 200 splits S across CTAs and skips most tiles of the
+    short rows.  f32: relative max error ≤ 1e-5; bf16: ≤ 1e-3."""
     from repro_torch.kernels.flash_decode import (flash_decode_paged,
                                                   flash_decode_paged_ref)
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    B, MP, H, Hk = 4, 10, 32, 8
+    B, H, Hk = 4, 32, 8
     P = B * MP                                   # + the trash page, id P
 
     def randn(*shape):
@@ -166,3 +185,4 @@ def test_paged_kernel_matches_plain_version(cuda_device, dtype, dh, ps):
         assert _rel_err(a[live], b[live]) <= tol
     assert (got[1][~live] == -1e30).all()
     assert (got[2][~live] == MP * ps).all()
+    assert _rel_err(got[0][~live], want[0][~live]) <= tol
