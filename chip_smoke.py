@@ -9,9 +9,10 @@ Phases, one line each (more for the kernel table):
                and power limit; fails without a CUDA card.
 2. build     — builds every kernel of the main paths from the sources in
                the checkout (``nvcc``, one process per source, started
-               together), before any rank is spawned, and prints each
-               flash-decode instantiation's registers, spills, shared
-               memory per CTA and CTAs per SM.
+               together), before any rank is spawned, and prints every
+               instantiation's registers, spills, shared memory per CTA
+               and CTAs per SM (flash-decode, segment means, PRISM
+               attention).
 3. kernels   — calls each kernel's wrapper on tensors on the card and
                holds it against its plain PyTorch version on the same
                inputs (f32 inputs: relative max error ≤ 1e-5; bf16:
@@ -29,6 +30,15 @@ Phases, one line each (more for the kernel table):
                length 1 and full length, fully masked rows), and timed
                beside a two-call yardstick and the dense kernel on the
                gathered cache.
+   Segment means is held one input at a time and for K and V in one
+               launch (masked with an empty segment, unmasked, f32, an odd
+               feature width) and the K+V call timed at the ViT exchange's
+               shape beside a ``mean()`` over K and V stacked; PRISM
+               attention is held with the means as the exchange's gather
+               leaves them (partition 0 and 1), flat, causal with future
+               tiles skipped, dh 128, f32 and fully masked rows, and timed
+               at the ViT shape with its row plan and with 2 CTAs per
+               (batch row, KV head).
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -1020,30 +1030,76 @@ def check_seg(label: str, case) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def time_seg(case) -> dict:
+def check_seg_kv(label: str, case) -> float:
+    """The K+V call (one launch) vs the plain version applied to each →
+    max abs error; raises past tolerance."""
     import torch
     from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_kv,
+                                                   segment_means_ref)
+    x, L, mask = case
+    y = torch.flip(x, dims=(2,)).contiguous()          # a second input
+    before = segment_means.launches
+    got, got_c = segment_means_kv(x, y, L, mask)
+    torch.cuda.synchronize()
+    if segment_means.launches != before + 1:
+        raise AssertionError(f"segment_means K+V {label}: not one launch")
+    err, tol, worst = 0.0, _tol(x.dtype), 0.0
+    for i, t in enumerate((x, y)):
+        want, want_c = segment_means_ref(t, L, mask)
+        err = max(err, rel_err(got[i], want))
+        worst = max(worst, (got[i].float() - want.float()).abs().max().item())
+        if not torch.equal(got_c, want_c):
+            raise AssertionError(f"segment_means K+V {label}: counts differ")
+    if not err <= tol:
+        raise AssertionError(f"segment_means K+V {label}: relative error "
+                             f"{err:.3e} > {tol:g}")
+    print(f"[kernel] segment_means K+V {label}: rel err {err:.2e} (tol "
+          f"{tol:g}), counts exact, one launch", flush=True)
+    return worst
+
+
+def time_seg(case) -> dict:
+    """The K+V call at ``case``'s shape (K and V the same shape, one
+    launch, as the exchange calls it) beside the plain version and one
+    ``mean()`` over K and V stacked outside the timing; and the
+    one-input call alone."""
+    import torch
+    from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_kv,
                                                    segment_means_ref)
     x, L, mask = case
     B, N, D = x.shape
-    copies = cold_copies((x, mask))
-    moved = nbytes(x, mask) + B * L * D * x.element_size() + B * L * 4
-    b_ms, b_by = roofline(moved, 2 * B * N * D, x.dtype)   # x·mask, add
-    # yardstick only: one PyTorch call, unmasked (the port never calls it)
+    copies = cold_copies((x, x.clone(), mask))
+    moved = (2 * nbytes(x) + nbytes(mask) + 2 * B * L * D * x.element_size()
+             + B * L * 4)
+    b_ms, b_by = roofline(moved, 4 * B * N * D, x.dtype)   # x·mask, add
+
+    def plain(k, v, m):
+        return [segment_means_ref(t, L, m) for t in (k, v)]
+    # yardstick only: one PyTorch call over K and V stacked, unmasked (the
+    # port never calls it)
+    stacked = [(torch.stack([k, v]),) for k, v, _ in copies]
     return {
-        "ms": time_ms(lambda x, m: segment_means(x, L, m), copies),
-        "plain_ms": time_ms(lambda x, m: segment_means_ref(x, L, m), copies),
+        "ms": time_ms(lambda k, v, m: segment_means_kv(k, v, L, m), copies),
+        "one_input_ms": time_ms(lambda k, v, m: segment_means(k, L, m),
+                                copies),
+        "plain_ms": time_ms(plain, copies),
         "library_ms": time_ms(
-            lambda x, m: x.unflatten(1, (L, N // L)).mean(
-                2, dtype=torch.float32), copies),
+            lambda kv: kv.unflatten(2, (L, N // L)).mean(
+                3, dtype=torch.float32), stacked),
         "bound_ms": b_ms, "bound_by": b_by}
 
 
 def prism_case(B, Np, H, Hk, dh, P, L, dtype, *, seed, causal=False,
-               part=0, masked=True, softcap=None, dead_row=False):
+               part=0, masked=True, softcap=None, dead_row=False,
+               strided=False):
     """Local q/K/V of one partition, every partition's means, and the
     mean bias built as the exchange builds it (own partition hidden; with a
-    mask, per-segment counts, one segment empty)."""
+    mask, per-segment counts, one segment empty).  ``strided``: the means
+    as the exchange hands them to the kernel, [B, P, L, Hk, dh] views of
+    the gathered [P, 2, B, L, Hk, dh] payload; else flat [B, P·L, Hk,
+    dh]."""
     import torch
     from repro_torch.kernels.prism_attention import build_mean_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1051,7 +1107,10 @@ def prism_case(B, Np, H, Hk, dh, P, L, dtype, *, seed, causal=False,
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
     q, k, v = randn(B, Np, H, dh), randn(B, Np, Hk, dh), randn(B, Np, Hk, dh)
-    km, vm = randn(B, P * L, Hk, dh), randn(B, P * L, Hk, dh)
+    if strided:
+        km, vm = randn(P, 2, B, L, Hk, dh).permute(1, 2, 0, 3, 4, 5)
+    else:
+        km, vm = randn(B, P * L, Hk, dh), randn(B, P * L, Hk, dh)
     mask = counts = None
     if masked:
         mask = torch.rand(B, Np, generator=g, device="cuda") > 0.1
@@ -1068,6 +1127,45 @@ def prism_case(B, Np, H, Hk, dh, P, L, dtype, *, seed, causal=False,
                 softcap=softcap)
 
 
+def _flat(means):
+    """Means as [B, P·L, Hk, dh] (a copy where they are the exchange's
+    strided view)."""
+    return means.flatten(1, 2) if means.ndim == 5 else means
+
+
+def prism_bound(case) -> tuple:
+    """PRISM attention: q in and the output out; the bias and the mask;
+    and the K and V rows of the keys a query of the batch row can see (its
+    unmasked local keys, its means with a bias above -1e30; every key for
+    a row that sees none).  4·H·dh flops per (query, key read)."""
+    import torch
+    q, k, v, km, vm, bias, mask = case["args"]
+    B, Nq, H, dh = q.shape
+    Nk, Hk = k.shape[1], k.shape[2]
+    local = (mask.sum(dim=1) if mask is not None
+             else torch.full((B,), Nk, device=q.device))
+    keys = local + (bias > -1e30).sum(dim=1)
+    keys = keys.masked_fill(keys == 0, Nk + bias.shape[1])
+    n = int(keys.sum())
+    moved = (2 * nbytes(q) + nbytes(bias, mask)
+             + 2 * n * Hk * dh * k.element_size())
+    return roofline(moved, 4 * H * dh * Nq * n, q.dtype)
+
+
+def _copy_prism_args(args):
+    """A copy of PRISM-attention inputs, strided means laid out as the
+    originals (views of one gathered [P, 2, B, L, Hk, dh] tensor)."""
+    import torch
+    q, k, v, km, vm, bias, mask = args
+    if km.ndim == 5:
+        gathered = torch.stack([km, vm]).permute(2, 0, 1, 3, 4, 5).contiguous()
+        km, vm = gathered.permute(1, 2, 0, 3, 4, 5)
+    else:
+        km, vm = km.clone(), vm.clone()
+    return (q.clone(), k.clone(), v.clone(), km, vm, bias.clone(),
+            None if mask is None else mask.clone())
+
+
 def _prism_calls(case):
     from repro_torch.kernels.prism_attention import (prism_attention,
                                                      prism_attention_ref)
@@ -1078,9 +1176,9 @@ def _prism_calls(case):
                                softcap=cap, kv_mask=mask, out_dtype=out_dtype)
 
     def plain(q, k, v, km, vm, bias, mask, out_dtype=None):
-        return prism_attention_ref(q, k, v, km, vm, bias, causal=causal,
-                                   logit_softcap=cap, kv_mask=mask,
-                                   out_dtype=out_dtype)
+        return prism_attention_ref(q, k, v, _flat(km), _flat(vm), bias,
+                                   causal=causal, logit_softcap=cap,
+                                   kv_mask=mask, out_dtype=out_dtype)
     return kernel, plain
 
 
@@ -1114,15 +1212,19 @@ def check_prism(label: str, case) -> float:
 
 
 def time_prism(case) -> dict:
+    """Kernel (with ``row_plan``'s warps, and with 2 CTAs of 4 consumer
+    warps per (batch row, KV head) where that differs), plain version and
+    the sdpa yardstick, inputs cold in L2."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.prism_attention import kernel as pk
     kernel, plain = _prism_calls(case)
     q, k, v, km, vm, bias, mask = case["args"]
     B, Nq, H, dh = q.shape
-    Nk, M = k.shape[1], km.shape[1]
-    copies = cold_copies(case["args"])
-    moved = nbytes(*case["args"]) + nbytes(q)                 # + output
-    b_ms, b_by = roofline(moved, 4 * B * H * Nq * (Nk + M) * dh, q.dtype)
+    Nk, M = k.shape[1], bias.shape[1]
+    copies = [case["args"]] + [_copy_prism_args(case["args"]) for _ in range(
+        min(255, int(2 * L2_BYTES // nbytes(*case["args"]))))]
+    b_ms, b_by = prism_bound(case)
 
     # yardstick only: sdpa over [K_loc ‖ K_means] with the bias as a float
     # mask, in its own [B, heads, N, dh] layout made outside the timing
@@ -1130,31 +1232,38 @@ def time_prism(case) -> dict:
         keys = torch.where(mask, 0.0, -1e30) if mask is not None else \
             torch.zeros(B, Nk, device=q.device)
         full = torch.cat([keys, bias], dim=1).to(q.dtype)
-        return (q.transpose(1, 2), torch.cat([k, km], 1).transpose(1, 2)
-                .contiguous(), torch.cat([v, vm], 1).transpose(1, 2)
-                .contiguous(), full[:, None, None, :].expand(B, 1, Nq, Nk + M))
+        return (q.transpose(1, 2), torch.cat([k, _flat(km)], 1)
+                .transpose(1, 2).contiguous(),
+                torch.cat([v, _flat(vm)], 1).transpose(1, 2).contiguous(),
+                full[:, None, None, :].expand(B, 1, Nq, Nk + M))
     lib_args = [sdpa_args(*a) for a in copies]
-    return {
+    out = {
         "ms": time_ms(kernel, copies),
         "plain_ms": time_ms(plain, copies),
         "library_ms": time_ms(
             lambda q, k, v, m: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True), lib_args),
-        "bound_ms": b_ms, "bound_by": b_by}
+        "bound_ms": b_ms, "bound_by": b_by,
+        "warps": pk.row_plan(Nq * (H // k.shape[2]))}
+    plan = pk.row_plan
+    pk.row_plan = lambda rows: min(4, plan(rows))     # 2 CTAs at ViT
+    try:
+        out["split_ms"] = time_ms(kernel, copies)
+    finally:
+        pk.row_plan = plan
+    return out
 
 
 def phase_exchange_kernels() -> dict:
     """Both exchange kernels at the ViT-B/16 shapes of the 2-rank PRISM
     forward (per rank: K/V [8, 100, 12, 64] bf16, L = 20, means
-    [8, 2·20, 12, 64]) and at harder ones."""
+    [8, 2, 20, 12, 64] as the gather leaves them) and at harder ones."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     np_ = 200 // VIT_P
     out = {}
     main = seg_case(VIT_B, np_, (12, 64), VIT_L, bf16, seed=10)
-    err = check_seg("ViT bf16 [8, 100, 12·64] L=20 masked, empty segment",
-                    main)
-    out["segment_means"] = dict(time_seg(main), max_abs_err=err)
+    check_seg("ViT bf16 [8, 100, 12·64] L=20 masked, empty segment", main)
     for label, case in (
             ("ViT bf16 unmasked", seg_case(VIT_B, np_, (12, 64), VIT_L,
                                            bf16, seed=11, masked=False)),
@@ -1166,22 +1275,47 @@ def phase_exchange_kernels() -> dict:
             ("f32 [4, 256, 8·128] L=16 masked",
              seg_case(4, 256, (8, 128), 16, f32, seed=14))):
         check_seg(label, case)
+    err = check_seg_kv("ViT bf16 2 x [8, 100, 12·64] L=20 masked, empty "
+                       "segment", main)
+    for label, case in (
+            ("ViT bf16 unmasked", seg_case(VIT_B, np_, (12, 64), VIT_L,
+                                           bf16, seed=15, masked=False)),
+            ("ViT f32 masked", seg_case(VIT_B, np_, (12, 64), VIT_L, f32,
+                                        seed=16)),
+            ("bf16 odd D [8, 100, 771] L=20 masked (scalar path)",
+             seg_case(VIT_B, np_, (771,), VIT_L, bf16, seed=17))):
+        check_seg_kv(label, case)
+    out["segment_means"] = dict(time_seg(main), max_abs_err=err)
     t = out["segment_means"]
-    print(f"[kernel] segment_means ViT main shape: kernel {t['ms']*1e3:.2f}"
-          f" us, bound {t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
-          f"{t['plain_ms']*1e3:.2f} us, mean() yardstick "
-          f"{t['library_ms']*1e3:.2f} us", flush=True)
+    print(f"[kernel] segment_means ViT main shape, K and V in one launch: "
+          f"kernel {t['ms']*1e3:.2f} us (one input alone "
+          f"{t['one_input_ms']*1e3:.2f} us), bound {t['bound_ms']*1e3:.2f} "
+          f"us ({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, mean() "
+          f"yardstick over K and V stacked {t['library_ms']*1e3:.2f} us",
+          flush=True)
 
-    main = prism_case(VIT_B, np_, 12, 12, 64, VIT_P, VIT_L, bf16, seed=20)
-    err = check_prism("ViT bf16 q/K/V [8, 100, 12, 64], means [8, 40, 12, "
-                      "64], masked, empty segment", main)
+    main = prism_case(VIT_B, np_, 12, 12, 64, VIT_P, VIT_L, bf16, seed=20,
+                      strided=True)
+    err = check_prism("ViT bf16 q/K/V [8, 100, 12, 64], means [8, 2, 20, "
+                      "12, 64] strided as gathered, masked, empty segment, "
+                      "part 0", main)
     out["prism_attention"] = dict(time_prism(main), max_abs_err=err)
     for label, case in (
+            ("ViT bf16 strided part 1",
+             prism_case(VIT_B, np_, 12, 12, 64, VIT_P, VIT_L, bf16, seed=27,
+                        part=1, strided=True)),
+            ("ViT bf16 flat means [8, 40, 12, 64] part 1",
+             prism_case(VIT_B, np_, 12, 12, 64, VIT_P, VIT_L, bf16, seed=28,
+                        part=1)),
             ("ViT f32", prism_case(VIT_B, np_, 12, 12, 64, VIT_P, VIT_L, f32,
                                    seed=21, part=1)),
             ("causal GQA 32/8 dh 64 bf16 Np=512 P=4 L=16 part 2",
              prism_case(2, 512, 32, 8, 64, 4, 16, bf16, seed=22, causal=True,
                         part=2, masked=False)),
+            ("causal GQA 32/8 bf16 Np=512 P=4 L=16 part 1 strided, masked "
+             "(future local and mean tiles skipped)",
+             prism_case(2, 512, 32, 8, 64, 4, 16, bf16, seed=29, causal=True,
+                        part=1, strided=True)),
             ("causal GQA 32/8 f32 softcap 50 part 3",
              prism_case(2, 512, 32, 8, 64, 4, 16, f32, seed=23, causal=True,
                         part=3, masked=False, softcap=50.0)),
@@ -1192,13 +1326,15 @@ def phase_exchange_kernels() -> dict:
                         dead_row=True)),
             ("bf16 row 0 fully masked",
              prism_case(4, 100, 12, 12, 64, 2, 20, bf16, seed=26,
-                        dead_row=True))):
+                        dead_row=True, strided=True))):
         check_prism(label, case)
     t = out["prism_attention"]
     print(f"[kernel] prism_attention ViT main shape: kernel "
-          f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
-          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
-          f"yardstick {t['library_ms']*1e3:.2f} us", flush=True)
+          f"{t['ms']*1e3:.2f} us (1 CTA of {t['warps']} + 1 warps per batch "
+          f"row and KV head; 2 CTAs of 4 + 1: {t['split_ms']*1e3:.2f} us), "
+          f"bound {t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
     return out
 
 
@@ -1367,7 +1503,7 @@ def _vit_rank(rank, world):
             raise AssertionError(f"rank {rank} {key}: gathered "
                                  f"{moved[key]} payload bytes, transport "
                                  f"accounting says {want_bytes}")
-        want = ((2 * cfg.n_layers, cfg.n_layers) if plan.mode == "prism"
+        want = ((cfg.n_layers, cfg.n_layers) if plan.mode == "prism"
                 else (0, 0))
         if counts[key] != want:
             raise AssertionError(f"rank {rank} {key}: (segment_means, "
@@ -1495,9 +1631,34 @@ def phase_build() -> None:
             a = attributes(paged, dh, dtype, group)
             print(f"[build] flash_decode{'_paged' if paged else ''} "
                   f"{str(dtype).split('.')[1]} dh={dh} group<={group}: "
-                  f"{a['registers']} registers, {a['spill_bytes']} bytes "
-                  f"spilled, {a['smem_bytes']} bytes of shared memory per "
-                  f"CTA, {a['ctas_per_sm']} CTAs per SM", flush=True)
+                  f"{_resources(a)}", flush=True)
+    from repro_torch.kernels.segment_means.kernel import \
+        attributes as seg_attributes
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"[build] segment_means {str(dtype).split('.')[1]} (16-byte "
+              f"lanes, masked): {_resources(seg_attributes(dtype))}",
+              flush=True)
+    from repro_torch.kernels.prism_attention.kernel import \
+        attributes as prism_attributes
+    for dtype, out_dtype, dh, warps in (
+            (torch.bfloat16, torch.bfloat16, 64, 7),
+            (torch.bfloat16, torch.float32, 64, 7),
+            (torch.bfloat16, torch.bfloat16, 128, 8),
+            (torch.bfloat16, torch.float32, 128, 8),
+            (torch.float32, torch.float32, 64, 0),
+            (torch.float32, torch.float32, 128, 0)):
+        body = (f"{warps} + 1 warps" if dtype == torch.bfloat16
+                else "CUDA-core body")
+        print(f"[build] prism_attention {str(dtype).split('.')[1]} → "
+              f"{str(out_dtype).split('.')[1]} dh={dh} ({body}): "
+              f"{_resources(prism_attributes(dh, dtype, out_dtype, warps))}",
+              flush=True)
+
+
+def _resources(a: dict) -> str:
+    return (f"{a['registers']} registers, {a['spill_bytes']} bytes spilled, "
+            f"{a['smem_bytes']} bytes of shared memory per CTA, "
+            f"{a['ctas_per_sm']} CTAs per SM")
 
 
 def main() -> None:

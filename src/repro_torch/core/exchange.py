@@ -164,16 +164,12 @@ def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
     group = seq_group_for(cfg)
     L = cfg.L
     seg = q.shape[1] // L
-    # no mask → unmasked means and the exact log(seg) scaling bias
-    if kv_mask is not None:
-        km, counts = kdsp.segment_means_masked(k, L, kv_mask, axis=1)
-        vm, _ = kdsp.segment_means_masked(v, L, kv_mask, axis=1)
-        counts = group.all_gather(counts, meta=True).transpose(0, 1)
-    else:
-        km = kdsp.segment_means(k, L, axis=1)       # [B, L, Hk, dh]
-        vm = kdsp.segment_means(v, L, axis=1)
-        counts = None
-    means = group.all_gather(torch.stack([km, vm]))  # [P, 2, B, L, Hk, dh]
+    # K and V means in one launch, gathered as they come out; no mask →
+    # unmasked means and the exact log(seg) scaling bias
+    kv_means, counts = kdsp.segment_means_kv(k, v, L, kv_mask, axis=1)
+    counts = (None if kv_mask is None
+              else group.all_gather(counts, meta=True).transpose(0, 1))
+    means = group.all_gather(kv_means)               # [P, 2, B, L, Hk, dh]
     means = means.permute(1, 2, 0, 3, 4, 5)          # [2, B, P, L, Hk, dh]
     return kdsp.prism_attention(q, k, v, means[0], means[1], group.rank, seg,
                                 causal=causal, logit_softcap=logit_softcap,

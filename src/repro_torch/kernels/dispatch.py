@@ -3,7 +3,8 @@ PyTorch versions, by the device of the tensors.
 
 Port of ``repro.kernels.dispatch`` (``segment_means``,
 ``segment_means_masked``, ``decode_attention``, ``decode_attention_paged``
-and ``prism_attention``).
+and ``prism_attention``), plus ``segment_means_kv``: the means of K and V
+in one launch, which the PRISM exchange gathers as its payload.
 The route follows the data and nothing else: a CUDA tensor always goes to
 the kernel, a CPU tensor to the plain version.  There is no override that
 sends a CUDA tensor to the plain version, and no argument the JAX package
@@ -26,7 +27,8 @@ from repro_torch.kernels.prism_attention.kernel import \
 from repro_torch.kernels.prism_attention.ops import prism_attention_op
 from repro_torch.kernels.segment_means.kernel import \
     segment_means as segment_means_kernel
-from repro_torch.kernels.segment_means.ops import segment_means_op
+from repro_torch.kernels.segment_means.ops import (segment_means_kv_op,
+                                                   segment_means_op)
 
 _LAST = {"segment_means": None, "decode_attention": None,
          "decode_attention_paged": None, "prism_attention": None}
@@ -57,6 +59,23 @@ def segment_means_masked(x: torch.Tensor, L: int, mask: torch.Tensor,
     means, counts = segment_means_op(xs, L, mask.reshape(xs.shape[:2]))
     return (means.reshape(*x.shape[:axis], L, *x.shape[axis + 1:]),
             counts.reshape(*x.shape[:axis], L))
+
+
+def segment_means_kv(k: torch.Tensor, v: torch.Tensor, L: int,
+                     mask: Optional[torch.Tensor] = None, axis: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Means of L equal segments along ``axis`` of K and V (one shape), in
+    one launch → (means ``[2, *k.shape[:axis], L, *k.shape[axis+1:]]``,
+    counts ``k.shape[:axis] + (L,)`` f32).  ``mask`` (optional) has k's
+    shape up to and including ``axis``; without it every segment counts
+    its N / L tokens."""
+    axis = axis % k.ndim
+    _LAST["segment_means"] = _route(k)
+    ks, vs = _lead(k, axis), _lead(v, axis)
+    means, counts = segment_means_kv_op(
+        ks, vs, L, None if mask is None else mask.reshape(ks.shape[:2]))
+    return (means.reshape(2, *k.shape[:axis], L, *k.shape[axis + 1:]),
+            counts.reshape(*k.shape[:axis], L))
 
 
 def segment_means(x: torch.Tensor, L: int, axis: int = -2) -> torch.Tensor:

@@ -17,49 +17,93 @@
 // -1e29 and gives l = 0, a NaN, on such a row.)  Keys past Nk or M in a
 // ragged last tile contribute nothing.
 //
-// Bound: in bf16 at the exchange's shapes, bytes.  It must read q, the
-// local K/V, the mean K/V, the bias and the mask once and write the
-// output, and do 4 flops per (query, key, dim).  For ViT-B/16 on two
-// partitions (Nq = Nk = 100, M = 40, dh 64) that is ~58 flops per byte,
-// below the H100's bf16 ridge (~295) but above its f32 one (~20), so f32
-// inputs are bound by operations.  The kernel here is far from either
-// bound: it computes the products on the CUDA cores in f32.
+// The means are read where the exchange's gather leaves them: a
+// [B, P, L, Hk, dh] view, strided over B and P (element strides sb, sp),
+// contiguous inside a partition's (L, Hk, dh).  Mean m is (p, l) =
+// (m / L, m % L) and its bias is bias[b, m].  The flat [B, M, Hk, dh] form
+// is P = 1, L = M.
 //
-// Design: one CTA of 128 threads per (query tile, KV head, batch row).  A
-// CTA holds R = 32 query rows: TQ = R / G queries of each of the G query
-// heads that share a KV head, so each K/V tile read from device memory
-// serves all G heads (the Pallas grid (B, H, Nq/TQ) re-reads it per head).
-// R is small so that many CTAs are in flight: at the ViT shape the grid
-// is 4 x 12 x 8 = 384 CTAs, and each walks its key tiles one after
-// another.
-// The queries sit in shared memory, pre-scaled, in f32.  A loop over key
-// tiles of TK = 32 positions, first the local keys then the means as
-// further tiles, stages each K and V tile in shared memory as f32 and
-// carries an online softmax (m, l) per row, in place of the TPU's whole
-// [Nk] and [M] blocks in VMEM:
-//   * scores: warp w owns rows w, w+4, ..., lane t owns key t of the tile,
-//     so the row's max and sum are warp shuffles and the probabilities go
-//     to shared memory once;
-//   * p . V: each thread owns fixed (row, dim) accumulator elements.
-// On the CUDA cores the products are bound by shared-memory reads, not by
-// the FMAs: a first version read one float per FMA and ran slower than
-// the plain version.  Here every read is 16 bytes: a query row's 4 dims
-// (one broadcast to the warp) feed 4 FMAs, a lane's 4 K dims are reused
-// over the warp's R / 4 rows, and a row's 4 probabilities (a broadcast) feed
-// 4 FMAs against V values kept in registers.  K rows are padded to DH + 4
-// floats so the 16-byte reads of the lanes of a quarter warp hit distinct
-// banks.  Each thread issues all its 16-byte device loads of a q block or
-// a K/V tile before its first store to shared memory, so their latencies
-// overlap, and a tile's loads go out before the barrier that waits for
-// the previous tile's p . V.
-// Limits of this first version: no tensor cores (wgmma) and no cp.async
-// or TMA pipelining of the next tile under this tile's math; under causal
-// attention it still visits key tiles that are wholly in the future
-// (their scores are -1e30, as the all-masked row needs them counted).
+// Bound: in bf16 at the exchange's shapes, bytes.  It must read q, the
+// local K/V, the mean K/V that a query can see, the bias and the mask once
+// and write the output, and do 4 flops per (query, key, dim).  For
+// ViT-B/16 on two partitions (Nq = Nk = 100, M = 40, dh 64) that is ~58
+// flops per byte, below the H100's bf16 ridge (~295): at 3.35 TB/s the
+// read is the least time the card needs, ~1.8 us for the batch.  What the
+// kernel is up against at that size is what one SM, holding one (batch
+// row, KV head), can do alone: move its ~45 KB (at its 1/132 share of
+// 3.35 TB/s that takes ~1.8 us, and 96 of the 132 SMs have work) and
+// issue its warps' math, whose steps per tile depend on one another (the
+// hi + lo split makes P V two thirds of the products).  The design
+// overlaps the two and keeps every warp's chain of dependent steps per
+// tile short.  Tried on the H100 and dropped: one
+// bulk (TMA) copy per 128-byte K/V row in place of 16-byte cp.async (much
+// slower), 64-key tiles, branches that skip a ragged tile's empty 8-key
+// blocks, and Q staged through shared memory (none faster).
+//
+// bf16 (mma_body below; the serving and exchange paths):
+//   * Warps.  A CTA is up to 8 consumer warps of 16 query rows and one
+//     producer warp.  Row r of a (batch row, KV head) is query r / G of
+//     head r % G, so the G heads that share a KV head share every K/V
+//     tile read (at G = 32 one query spans two warps); a ragged last row
+//     block is padded.  `row_plan` in kernel.py picks the consumer warps:
+//     the ViT shape (G 1, 100 queries) is one CTA of 7 + 1 warps per
+//     (batch row, KV head), 96 CTAs in one wave on 132 SMs.
+//   * The producer warp fills a ring of STAGES tiles of TK keys with
+//     16-byte cp.async.cg (K and V kept in bf16, chunks XOR-swizzled by
+//     key & 7 so that ldmatrix, .trans for V, reads 8 keys at one chunk
+//     from 8 bank groups) and, 4 bytes at a time, each tile's key bias:
+//     the mean biases, or the kv_mask words over the tile's keys.  Each
+//     slot has a full and an empty mbarrier: a lane's copies arrive on
+//     the full one when they land (cp.async.mbarrier.arrive.noinc), lane
+//     0 arrives with the tile's ordinal, and the consumers arrive on the
+//     empty one when done; ordinal -1 ends the sequence.  There is no
+//     block barrier in the loop, and a consumer never stalls issuing a
+//     copy.  Mean tiles never cross a partition: tile (p, l0) holds means
+//     l0 .. l0 + TK - 1 of partition p, contiguous in memory.  Every K/V
+//     element is read from device memory once per CTA.
+//   * The consumers run both products on the tensor cores: mma.sync
+//     m16n8k16, bf16 operands, f32 accumulation of exact bf16 products.
+//     Q fragments stay in registers for the whole key loop; `scale` is
+//     applied to S in f32 after the product (folding it into bf16 q would
+//     round q at dh 128).  Scores, mask, bias, softcap and the online
+//     (m, l) live in the mma accumulator layout, in the log2 domain: a
+//     lane holds two rows, whose max and sum take two quad shuffles each.
+//     P = 2^{S - m} goes from the score registers into the A operand of
+//     P V as bf16 hi + lo parts (p - hi is exact in f32 and its bf16
+//     rounding is 2^-9 of it), so p keeps ~16 bits: the bf16 output must
+//     lie within one bf16 step of the plain version per element, which
+//     bf16 p alone misses near zero.  The next tile's S = Q K^T is issued
+//     before this tile's softmax, so the two overlap.  The tile math is
+//     straight-line code (a ragged tile's missing keys score -inf, their
+//     V rows are zero): branches between the products serialised them.
+//     mma.sync rather than wgmma: a (batch row, KV head) holds 100 query
+//     rows here, and wgmma's 64-row granularity would pad 28 of every 128.
+//   * Exact tile skips.  A tile whose every score is exactly -1e30 for
+//     every row of the CTA adds exactly 0 once each of those rows has a key
+//     scoring above -1e30: two f32 values on either side of -1e30 differ by
+//     at least one f32 step there (7.6e22), so 2^{(-1e30 - m) log2 e} is
+//     exactly 0 whenever the scores are below 1e22 in size, and a masked
+//     tile read before the row's first visible one is scaled by 0 when
+//     that one comes.  Two kinds of tile qualify: local tiles wholly in
+//     the future of every row of the CTA under causal attention, and mean
+//     tiles whose every bias is -1e30 (the own partition, future
+//     partitions, empty segments).  The producer reads the row's biases
+//     first thing, puts the local tiles that every row reads, then scans
+//     the biases for the live mean tiles; if no mean is visible it checks
+//     that the CTA's first query sees a local key (under causal attention
+//     the later ones see more).  A CTA with a row that sees no key reads
+//     every tile, so the uniform-weights rule holds.
+
+// f32 (fma_body below): the CUDA-core body of the first version, kept as it
+// was apart from reading the strided means.  A tensor-core product in f32
+// would round to TF32, and its check is 1e-5; no main path runs it at
+// scale (the ViT and llama paths are bf16).  One CTA of 128 threads per
+// (32 query rows, KV head, batch row); 32-key tiles staged in shared
+// memory as f32; scores by lane per key, p . V by thread per (row, dim).
 //
 // Built by repro_torch/kernels/nvcc.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
+//        -Xcompiler -fPIC -Xptxas=-v
 // into a shared library with a plain C interface, loaded with ctypes.
 
 #include <cuda_bf16.h>
@@ -70,38 +114,32 @@
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;  // the JAX package's mask value
+constexpr int GMAX = 32;           // most query heads per KV head
+constexpr int MAX_DEVICES = 64;
+
+// Where mean m of batch row b starts for KV head 0, in elements.
+struct MeanLayout {
+  long long sb, sp;                // strides over B and over P
+  int P, L;
+  __device__ __forceinline__ size_t at(int b, int m, int Hk, int dh) const {
+    const int p = m / L, l = m - p * L;
+    return (size_t)(b * sb + p * sp) + (size_t)l * Hk * dh;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+namespace fma_body {
+
 constexpr int NT = 128;            // threads per CTA
 constexpr int NWARPS = NT / 32;
 constexpr int R = 32;              // query rows per CTA (G heads x TQ)
 constexpr int TK = 32;             // keys per tile (one per lane)
 constexpr int RPW = R / NWARPS;    // rows per warp in the softmax
-constexpr float NEG_INF = -1e30f;  // the JAX package's mask value
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The 16 bytes in u as floats: 8 bf16 values or 4 f32 ones.
-template <typename T> __device__ __forceinline__ void unpack(const uint4& u,
-                                                             float* out);
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u,
-                                                      float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
-}
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& u, float* out) {
+__device__ __forceinline__ void unpack(const uint4& u, float* out) {
   const float4 f = *reinterpret_cast<const float4*>(&u);
   out[0] = f.x;
   out[1] = f.y;
@@ -131,25 +169,22 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (R * DH + TK * (DH + 4) + TK * DH + R * TK + 4 * R);
 }
 
-// TO is the output type: T on the serving path; f32 when a check wants
-// the result before its final rounding to bf16.
-template <typename T, typename TO, int DH>
+template <int DH>
 __global__ void __launch_bounds__(NT)
-prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
-                       const T* __restrict__ k,       // [B, Nk, Hk, DH]
-                       const T* __restrict__ v,       // [B, Nk, Hk, DH]
-                       const T* __restrict__ km,      // [B, M, Hk, DH]
-                       const T* __restrict__ vm,      // [B, M, Hk, DH]
-                       const float* __restrict__ mean_bias,  // [B, M]
-                       const uint8_t* __restrict__ kv_mask,  // [B, Nk]|null
-                       TO* __restrict__ out,          // [B, Nq, H, DH]
-                       int Nq, int Nk, int M, int H, int Hk, int TQ,
-                       int causal, int q_offset, float scale,
-                       float softcap) {
+kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
+       const float* __restrict__ k,          // [B, Nk, Hk, DH]
+       const float* __restrict__ v,          // [B, Nk, Hk, DH]
+       const float* __restrict__ km,         // means, see MeanLayout
+       const float* __restrict__ vm,
+       const float* __restrict__ mean_bias,  // [B, M]
+       const uint8_t* __restrict__ kv_mask,  // [B, Nk] or null
+       float* __restrict__ out,              // [B, Nq, H, DH]
+       int Nq, int Nk, MeanLayout ml, int H, int Hk, int TQ, int causal,
+       int q_offset, float scale, float softcap) {
   constexpr int KS = DH + 4;         // padded K row, in floats
   constexpr int RSTEP = NT / DH;     // rows between a thread's elements
   constexpr int NOUT = R / RSTEP;    // accumulator elements per thread
-  constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
+  constexpr int VEC = 4;             // floats per 16-byte load
   constexpr int QLOADS = R * DH / VEC / NT;    // q loads per thread
   constexpr int KLOADS = TK * DH / VEC / NT;   // K (and V) loads per thread
   static_assert(NT % DH == 0 && R % NWARPS == 0 && TK == 32 &&
@@ -169,6 +204,7 @@ prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / Hk;
+  const int M = ml.P * ml.L;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -189,7 +225,7 @@ prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
 #pragma unroll
     for (int it = 0; it < QLOADS; ++it) {
       float f[VEC];
-      unpack<T>(raw[it], f);
+      unpack(raw[it], f);
       sts<VEC>(sq + (tid + it * NT) * VEC, f, scale);
     }
   }
@@ -210,8 +246,6 @@ prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
     const bool is_mean = tile >= n_loc;
     const int j0 = (is_mean ? tile - n_loc : tile) * TK;
     const int n = is_mean ? M : Nk;
-    const T* kb = is_mean ? km : k;
-    const T* vb = is_mean ? vm : v;
     uint4 kraw[KLOADS], vraw[KLOADS];
 #pragma unroll
     for (int it = 0; it < KLOADS; ++it) {
@@ -219,9 +253,12 @@ prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
       const int t = c / DH, d = c % DH;
       kraw[it] = vraw[it] = make_uint4(0, 0, 0, 0);
       if (j0 + t < n) {
-        const size_t src = (((size_t)b * n + j0 + t) * Hk + hk) * DH + d;
-        kraw[it] = *reinterpret_cast<const uint4*>(kb + src);
-        vraw[it] = *reinterpret_cast<const uint4*>(vb + src);
+        const size_t src =
+            (is_mean ? ml.at(b, j0 + t, Hk, DH)
+                     : ((size_t)b * Nk + j0 + t) * Hk * DH) +
+            (size_t)hk * DH + d;
+        kraw[it] = *reinterpret_cast<const uint4*>((is_mean ? km : k) + src);
+        vraw[it] = *reinterpret_cast<const uint4*>((is_mean ? vm : v) + src);
       }
     }
     __syncthreads();                 // the last tile's p . V is done
@@ -230,9 +267,9 @@ prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
       const int c = (tid + it * NT) * VEC;
       const int t = c / DH, d = c % DH;
       float f[VEC];
-      unpack<T>(kraw[it], f);
+      unpack(kraw[it], f);
       sts<VEC>(sk + t * KS + d, f);
-      unpack<T>(vraw[it], f);
+      unpack(vraw[it], f);
       sts<VEC>(sv + t * DH + d, f);
     }
     __syncthreads();
@@ -319,43 +356,697 @@ prism_attention_kernel(const T* __restrict__ q,       // [B, Nq, H, DH]
     const int g = r / TQ, qi = q0 + r % TQ;
     if (g < G && qi < Nq)
       out[(((size_t)b * Nq + qi) * H + hk * G + g) * DH + d_own] =
-          from_f32<TO>(acc[i] / sl[r]);
+          acc[i] / sl[r];
   }
 }
 
-template <typename T, typename TO, int DH>
-int launch(const void* q, const void* k, const void* v, const void* km,
-           const void* vm, const void* bias, const void* mask, void* out,
-           int B, int Nq, int Nk, int M, int H, int Hk, int causal,
-           int q_offset, float scale, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      prism_attention_kernel<T, TO, DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int TQ = R / (H / Hk);
-  const dim3 grid((Nq + TQ - 1) / TQ, Hk, B);
-  prism_attention_kernel<T, TO, DH><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(km),
-      static_cast<const T*>(vm), static_cast<const float*>(bias),
-      static_cast<const uint8_t*>(mask), static_cast<TO*>(out), Nq, Nk, M, H,
-      Hk, TQ, causal, q_offset, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
+}  // namespace fma_body
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, a cp.async ring, exact tile skips
+// ---------------------------------------------------------------------------
+namespace mma_body {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TK = 32;             // keys per ring tile
+constexpr int STAGES = 6;          // tiles in the ring
+constexpr int BPRE = 4;            // biases a producer lane reads first
+constexpr int MAX_WARPS = 8;       // consumer warps, 16 query rows each
+constexpr int NT_MAX = 32 * (MAX_WARPS + 1);   // and the producer warp
+
+// Copies of 16 and 4 bytes into shared memory; the bytes past `bytes`
+// are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
 }
 
-template <typename T, typename TO>
-int launch_dh(int dh, const void* q, const void* k, const void* v,
-              const void* km, const void* vm, const void* bias,
-              const void* mask, void* out, int B, int Nq, int Nk, int M,
-              int H, int Hk, int causal, int q_offset, float scale,
-              float softcap, cudaStream_t st) {
-  if (dh == 64)
-    return launch<T, TO, 64>(q, k, v, km, vm, bias, mask, out, B, Nq, Nk, M,
-                             H, Hk, causal, q_offset, scale, softcap, st);
-  if (dh == 128)
-    return launch<T, TO, 128>(q, k, v, km, vm, bias, mask, out, B, Nq, Nk, M,
-                              H, Hk, causal, q_offset, scale, softcap, st);
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+// Waits for every cp.async this thread has issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldm(const void* p, uint32_t (&r)[4],
+                                    bool trans) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// mbarriers in shared memory: init, arrive, arrive when this thread's
+// cp.async copies so far have landed (not counted in advance: .noinc),
+// and wait for the completion of the phase of the given parity.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// 2^x (ex2.approx: 2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// p0, p1 as bf16 hi + lo parts: hi = bf16(p), lo = bf16(p - hi).
+__device__ __forceinline__ void split(float p0, float p1, uint32_t& hi,
+                                      uint32_t& lo) {
+  hi = pack(p0, p1);
+  const float2 h =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = pack(p0 - h.x, p1 - h.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <int DH>
+constexpr size_t ring_bytes() {
+  return (size_t)STAGES * (2 * TK * DH * sizeof(bf16) + TK * sizeof(float) +
+                           2 * sizeof(uint64_t) + sizeof(int));
+}
+
+// Shared memory of one launch: the ring (tiles, key biases, barriers,
+// ordinals) and one bit per mean tile.
+template <int DH>
+size_t smem_bytes(int n_mean_tiles) {
+  return ring_bytes<DH>() + sizeof(unsigned) * ((n_mean_tiles + 31) / 32);
+}
+
+// One ring tile: TK keys of the local K/V (ordinals 0 .. n_loc - 1) or of
+// one partition's means (the rest, partition by partition).
+struct Tile {
+  const bf16* k;                   // K row of the tile's key 0, KV head hk
+  const bf16* v;
+  int n;                           // keys in the tile
+  int j0;                          // local: position of key 0
+  int bias0;                       // mean: index of key 0's bias
+  bool mean;
+};
+
+// TO is the output type: bf16 on the serving path; f32 when a check
+// wants the result before its final rounding to bf16.  The CTA is
+// blockDim.x / 32 - 1 consumer warps of 16 query rows and one producer
+// warp, the last.
+template <typename TO, int DH>
+__global__ void __launch_bounds__(NT_MAX, 1)
+kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
+       const bf16* __restrict__ k,           // [B, Nk, Hk, DH]
+       const bf16* __restrict__ v,           // [B, Nk, Hk, DH]
+       const bf16* __restrict__ km,          // means, see MeanLayout
+       const bf16* __restrict__ vm,
+       const float* __restrict__ mean_bias,  // [B, M]
+       const uint8_t* __restrict__ kv_mask,  // [B, Nk] or null
+       TO* __restrict__ out,                 // [B, Nq, H, DH]
+       int Nq, int Nk, MeanLayout ml, int H, int Hk, int causal,
+       int q_offset, float scale, float softcap) {
+  constexpr int CPR = DH / 8;        // 16-byte chunks per row
+  constexpr int KSTEPS = DH / 16;    // k-steps of Q K^T
+  constexpr int NBLK = TK / 8;       // 8-key score blocks of a tile
+  constexpr float LOG2E = 1.4426950408889634f;
+  static_assert(TK % 16 == 0 && CPR % 4 == 0 && TK / 4 + 1 <= TK, "tile");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sk = reinterpret_cast<bf16*>(smem);                  // [ST][TK][DH]
+  bf16* sv = sk + STAGES * TK * DH;                          // [ST][TK][DH]
+  float* skb = reinterpret_cast<float*>(sv + STAGES * TK * DH);  // [ST][TK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(skb + STAGES * TK);
+  uint64_t* empty = full + STAGES;
+  int* sord = reinterpret_cast<int*>(empty + STAGES);        // [ST]
+  unsigned* live = reinterpret_cast<unsigned*>(sord + STAGES);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int consumers = blockDim.x / 32 - 1;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hk;
+  const int M = ml.P * ml.L;
+  const int rows = Nq * G;
+  const int row0 = blockIdx.x * consumers * 16;
+  const int n_loc = (Nk + TK - 1) / TK;
+  const int tpp = (ml.L + TK - 1) / TK;      // mean tiles per partition
+  const int n_all = n_loc + ml.P * tpp;
+  const size_t krow = (size_t)Hk * DH;       // elements from key to key
+
+  auto tile_of = [&](int ord) {
+    Tile t;
+    if (ord < n_loc) {
+      t.j0 = ord * TK;
+      t.n = min(TK, Nk - t.j0);
+      const size_t base = ((size_t)b * Nk + t.j0) * krow + (size_t)hk * DH;
+      t.k = k + base;
+      t.v = v + base;
+      t.bias0 = 0;
+      t.mean = false;
+    } else {
+      const int mt = ord - n_loc;
+      const int p = mt / tpp, l0 = (mt - p * tpp) * TK;
+      t.j0 = 0;
+      t.n = min(TK, ml.L - l0);
+      t.bias0 = b * M + p * ml.L + l0;
+      const size_t base = ml.at(b, p * ml.L + l0, Hk, DH) + (size_t)hk * DH;
+      t.k = km + base;
+      t.v = vm + base;
+      t.mean = true;
+    }
+    return t;
+  };
+
+  // The first reads go out before anything waits: the producer's the
+  // row's first BPRE * 32 biases, each consumer lane its Q fragments
+  // (A operand, rows g / g + 8 of the warp, dims 2·tig and 8 + 2·tig of
+  // each k-step; zeros for padded rows).
+  const bool producer = warp == consumers;
+  const int g = lane >> 2, tig = lane & 3;
+  const int rA = row0 + warp * 16 + g, rB = rA + 8;
+  const bool okA = !producer && rA < rows, okB = !producer && rB < rows;
+  const int qiA = rA / G, qiB = rB / G;
+  const size_t outA = (((size_t)b * Nq + (okA ? qiA : 0)) * H + hk * G +
+                       rA % G) * DH;
+  const size_t outB = (((size_t)b * Nq + (okB ? qiB : 0)) * H + hk * G +
+                       rB % G) * DH;
+  float bpre[BPRE];
+  uint32_t qa[KSTEPS][4];
+  if (producer) {
+#pragma unroll
+    for (int i = 0; i < BPRE; ++i) {
+      const int m = lane + 32 * i;
+      bpre[i] = m < M ? mean_bias[(size_t)b * M + m] : NEG_INF;
+    }
+  } else {
+    const uint32_t* pA = reinterpret_cast<const uint32_t*>(q + outA);
+    const uint32_t* pB = reinterpret_cast<const uint32_t*>(q + outB);
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      qa[ks][0] = okA ? pA[8 * ks + tig] : 0u;
+      qa[ks][1] = okB ? pB[8 * ks + tig] : 0u;
+      qa[ks][2] = okA ? pA[8 * ks + 4 + tig] : 0u;
+      qa[ks][3] = okB ? pB[8 * ks + 4 + tig] : 0u;
+    }
+  }
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 33);              // 32 copy lanes + the ordinal
+      mbar_init(&empty[st], consumers);      // one arrival per consumer warp
+    }
+  }
+  __syncthreads();
+
+  if (producer) {
+    // ---- the producer warp: which tiles to read, and their copies ----
+    const int row_end = min(rows, row0 + consumers * 16);
+    const int qi_min = row0 / G, qi_max = (row_end - 1) / G;
+    const size_t mask_end = (size_t)gridDim.z * Nk;
+    // Tile `ord` into ring slot `slot`: K and V rows in 16-byte chunks
+    // swizzled by key, rows past the tile's keys zeroed; beside them the
+    // key bias, 4 bytes a copy: a mean tile's biases, or the words of
+    // kv_mask that cover a local tile's keys (its key x is byte
+    // (b·Nk + j0) % 4 + x of the slot).
+    auto issue = [&](int ord, int slot) {
+      const Tile t = tile_of(ord);
+      bf16* dk = sk + slot * TK * DH;
+      bf16* dv = sv + slot * TK * DH;
+#pragma unroll 4
+      for (int c = lane; c < TK * CPR; c += 32) {
+        const int r = c / CPR, ch = c % CPR;
+        const bool ok = r < t.n;
+        const size_t off = ok ? r * krow + ch * 8 : 0;
+        const int dst = (r * CPR + (ch ^ (r & 7))) * 8;
+        cp_async16(dk + dst, t.k + off, ok ? 16 : 0);
+        cp_async16(dv + dst, t.v + off, ok ? 16 : 0);
+      }
+      float* kb = skb + slot * TK;
+      if (t.mean) {
+        if (lane < t.n) cp_async4(kb + lane, mean_bias + t.bias0 + lane, 4);
+      } else if (kv_mask && lane < TK / 4 + 1) {
+        const size_t at = (((size_t)b * Nk + t.j0) & ~(size_t)3) + 4 * lane;
+        const int bytes = at < mask_end ? (int)min((size_t)4, mask_end - at)
+                                        : 0;
+        cp_async4(kb + lane, kv_mask + (bytes ? at : 0), bytes);
+      }
+    };
+    // the k-th tile read goes to slot k % STAGES once its consumers are
+    // done with the slot's previous tile; ordinal -1 ends the sequence
+    int filled = 0;
+    auto put = [&](int ord) {
+      const int slot = filled % STAGES, use = filled / STAGES;
+      if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
+      if (lane == 0) sord[slot] = ord;
+      if (ord >= 0) issue(ord, slot);
+      mbar_arrive_cp_async(&full[slot]);
+      if (lane == 0) mbar_arrive(&full[slot]);
+      ++filled;
+    };
+    // local tiles [0, loc_need) are read whatever the scan finds: those
+    // holding a key at or before the CTA's last query (all of them without
+    // causal attention), and always tile 0
+    const int last = q_offset + qi_max;
+    const int loc_need =
+        causal ? (last < 0 ? 1 : min(n_loc, last / TK + 1)) : n_loc;
+    for (int ord = 0; ord < loc_need; ++ord) put(ord);
+
+    // Which other tiles to read.  Mean tile (p, l0 / TK) is live iff one
+    // of its biases is above -1e30.  Skipping needs every row of the CTA
+    // to see a key: any visible mean, or else the first query's local
+    // keys.
+    const int words = (ml.P * tpp + 31) / 32;
+    for (int w = lane; w < words; w += 32) live[w] = 0u;
+    __syncwarp();
+    bool found = false;
+    auto mark = [&](int m, float bias) {     // mean m has bias `bias`
+      if (bias > NEG_INF) {
+        const int p = m / ml.L;
+        const int mt = p * tpp + (m - p * ml.L) / TK;
+        atomicOr(&live[mt >> 5], 1u << (mt & 31));
+        found = true;
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < BPRE; ++i) mark(lane + 32 * i, bpre[i]);
+    for (int m = lane + 32 * BPRE; m < M; m += 32)
+      mark(m, mean_bias[(size_t)b * M + m]);
+    bool skip = __any_sync(0xffffffffu, found);
+    if (!skip) {
+      const int lim = causal ? min(Nk, q_offset + qi_min + 1) : Nk;
+      if (!kv_mask) {
+        skip = lim > 0;
+      } else {
+        for (int j0 = 0; j0 < lim && !skip; j0 += 32) {
+          const int j = j0 + lane;
+          skip = __any_sync(0xffffffffu,
+                            j < lim && kv_mask[(size_t)b * Nk + j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (!skip)
+      for (int w = lane; w < words; w += 32) live[w] = ~0u;
+    __syncwarp();
+    // local tiles [0, loc_end) are read, then the live mean tiles
+    const int loc_end = skip ? loc_need : n_loc;
+    auto next_live = [&](int from) {
+      if (from < n_loc) {
+        if (from < loc_end) return from;
+        from = n_loc;
+      }
+      const int nm = n_all - n_loc;
+      for (int mt = from - n_loc; mt < nm;) {
+        const unsigned w = live[mt >> 5] >> (mt & 31);
+        if (w) {
+          const int r = mt + __ffs(w) - 1;
+          return r < nm ? n_loc + r : n_all;
+        }
+        mt = (mt | 31) + 1;
+      }
+      return n_all;
+    };
+    for (int ord = next_live(loc_need); ord < n_all; ord = next_live(ord + 1))
+      put(ord);
+    put(-1);
+    cp_async_wait_all();                       // before the warp exits
+    return;
+  }
+
+  // ---- the consumer warps ----
+  const bool warp_live = row0 + warp * 16 < rows;
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
+
+  // The math of one tile for this warp's 16 rows, in the log2 domain.
+  // Straight-line code: every score block and P V step of the tile runs
+  // (keys past n score -inf and their V rows are zero), so the chains of
+  // independent products interleave.
+  const float rcap = softcap > 0.f ? 1.f / softcap : 0.f;
+  // S = Q K^T of the tile in `slot`, one 8-key block per accumulator
+  auto scores = [&](int slot, float (&s)[NBLK][4]) {
+    const bf16* kt = sk + slot * TK * DH;
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb)
+      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < CPR / 4; ++kc) {
+      uint32_t kr[NBLK][4];
+#pragma unroll
+      for (int nb = 0; nb < NBLK; ++nb) {
+        const int row = nb * 8 + (lane & 7);
+        const int ch = 4 * kc + (lane >> 3);
+        ldm(kt + (row * CPR + (ch ^ (row & 7))) * 8, kr[nb], false);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nb = 0; nb < NBLK; ++nb)
+          mma(s[nb], qa[2 * kc + h], kr[nb][2 * h], kr[nb][2 * h + 1]);
+    }
+  };
+  // the online softmax of the tile's scores `s` and O += P V
+  auto update = [&](int ord, int slot, float (&s)[NBLK][4]) {
+    const Tile t = tile_of(ord);
+    const bf16* vt = sv + slot * TK * DH;
+    const float* kb = skb + slot * TK;
+    // scale, softcap, then the bias (means) or the mask (local keys);
+    // times log2(e); the tile's max of each row
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] *= scale;
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int nb = 0; nb < NBLK; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nb][e] = softcap * tanhf(s[nb][e] * rcap);
+    }
+    if (t.mean) {
+#pragma unroll
+      for (int nb = 0; nb < NBLK; ++nb) {
+        const int c = nb * 8 + 2 * tig;
+        const float2 add = *reinterpret_cast<const float2*>(kb + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nb][e] = c + (e & 1) < t.n
+                         ? (s[nb][e] + ((e & 1) ? add.y : add.x)) * LOG2E
+                         : -CUDART_INF_F;
+      }
+    } else {
+      const uint8_t* mk = reinterpret_cast<const uint8_t*>(kb) +
+                          (((size_t)b * Nk + t.j0) & 3);
+      // the first key each row may not see (causal), or past the tile
+      const int endA = causal ? min(t.n, q_offset + qiA - t.j0 + 1) : t.n;
+      const int endB = causal ? min(t.n, q_offset + qiB - t.j0 + 1) : t.n;
+#pragma unroll
+      for (int nb = 0; nb < NBLK; ++nb) {
+        const int c = nb * 8 + 2 * tig;
+        const bool ok0 = !kv_mask || mk[c] != 0;
+        const bool ok1 = !kv_mask || mk[c + 1] != 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = c + (e & 1);
+          const bool seen = key < (e < 2 ? endA : endB) && ((e & 1) ? ok1 : ok0);
+          s[nb][e] = key < t.n ? (seen ? s[nb][e] : NEG_INF) * LOG2E
+                               : -CUDART_INF_F;
+        }
+      }
+    }
+    float tA = -CUDART_INF_F, tB = -CUDART_INF_F;
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb) {
+      tA = fmaxf(tA, fmaxf(s[nb][0], s[nb][1]));
+      tB = fmaxf(tB, fmaxf(s[nb][2], s[nb][3]));
+    }
+    tA = fmaxf(tA, __shfl_xor_sync(0xffffffffu, tA, 1));
+    tA = fmaxf(tA, __shfl_xor_sync(0xffffffffu, tA, 2));
+    tB = fmaxf(tB, __shfl_xor_sync(0xffffffffu, tB, 1));
+    tB = fmaxf(tB, __shfl_xor_sync(0xffffffffu, tB, 2));
+    // key 0 of the tile is in range, so the new max is finite
+    const float nA = fmaxf(mA, tA), nB = fmaxf(mB, tB);
+    const float aA = ex2(mA - nA), aB = ex2(mB - nB);  // 0 on the first
+    mA = nA;
+    mB = nB;
+    float sA = 0.f, sB = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb) {
+      s[nb][0] = ex2(s[nb][0] - nA);
+      s[nb][1] = ex2(s[nb][1] - nA);
+      s[nb][2] = ex2(s[nb][2] - nB);
+      s[nb][3] = ex2(s[nb][3] - nB);
+      sA += s[nb][0] + s[nb][1];
+      sB += s[nb][2] + s[nb][3];
+    }
+    lA = lA * aA + sA;
+    lB = lB * aB + sB;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      o[n][0] *= aA;
+      o[n][1] *= aA;
+      o[n][2] *= aB;
+      o[n][3] *= aB;
+    }
+    // O += P V, 16 keys a step, P as bf16 hi + lo
+    const int j = lane >> 3;
+#pragma unroll
+    for (int ks = 0; ks < TK / 16; ++ks) {
+      uint32_t hi[4], lo[4];
+      split(s[2 * ks][0], s[2 * ks][1], hi[0], lo[0]);
+      split(s[2 * ks][2], s[2 * ks][3], hi[1], lo[1]);
+      split(s[2 * ks + 1][0], s[2 * ks + 1][1], hi[2], lo[2]);
+      split(s[2 * ks + 1][2], s[2 * ks + 1][3], hi[3], lo[3]);
+      const int row = ks * 16 + (j & 1) * 8 + (lane & 7);
+      uint32_t vr[CPR / 2][4];
+#pragma unroll
+      for (int c = 0; c < CPR / 2; ++c) {
+        const int ch = 2 * c + (j >> 1);
+        ldm(vt + (row * CPR + (ch ^ (row & 7))) * 8, vr[c], true);
+      }
+#pragma unroll
+      for (int c = 0; c < CPR / 2; ++c) {
+        mma(o[2 * c], hi, vr[c][0], vr[c][1]);
+        mma(o[2 * c + 1], hi, vr[c][2], vr[c][3]);
+      }
+#pragma unroll
+      for (int c = 0; c < CPR / 2; ++c) {
+        mma(o[2 * c], lo, vr[c][0], vr[c][1]);
+        mma(o[2 * c + 1], lo, vr[c][2], vr[c][3]);
+      }
+    }
+  };
+
+  // The tiles in the order the producer puts them, until ordinal -1.
+  // The next tile's S = Q K^T goes to the tensor cores before this
+  // tile's softmax, so the two overlap.
+  float sc[NBLK][4], sn[NBLK][4];
+  mbar_wait(&full[0], 0);
+  int ord = sord[0];
+  if (ord >= 0 && warp_live) scores(0, sc);
+  for (int kk = 0; ord >= 0; ++kk) {
+    const int slot = kk % STAGES, next = (kk + 1) % STAGES;
+    mbar_wait(&full[next], ((kk + 1) / STAGES) & 1);
+    const int nord = sord[next];
+    if (nord >= 0 && warp_live) scores(next, sn);
+    if (warp_live) update(ord, slot, sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = sn[nb][e];
+    ord = nord;
+  }
+
+  lA += __shfl_xor_sync(0xffffffffu, lA, 1);
+  lA += __shfl_xor_sync(0xffffffffu, lA, 2);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 1);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 2);
+  const float iA = 1.f / lA, iB = 1.f / lB;
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    if (okA) store2(out + outA + 8 * n + 2 * tig, o[n][0] * iA, o[n][1] * iA);
+    if (okB) store2(out + outB + 8 * n + 2 * tig, o[n][2] * iB, o[n][3] * iB);
+  }
+}
+
+}  // namespace mma_body
+
+// Lets `kernel` take up to the card's opt-in shared memory per CTA as
+// dynamic shared memory, once per device.
+template <typename K>
+cudaError_t allow_smem(K kernel, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+// Arguments of one launch.
+struct Args {
+  const void *q, *k, *v, *km, *vm, *bias, *mask;
+  void* out;
+  int B, Nq, Nk, H, Hk, causal, q_offset;
+  MeanLayout ml;
+  float scale, softcap;
+  cudaStream_t stream;
+};
+
+// The instantiation for (T, TO, DH): its kernel and launch geometry.
+template <typename T, typename TO, int DH>
+struct Body;
+
+template <int DH>
+struct Body<float, float, DH> {
+  static auto fn() { return fma_body::kernel<DH>; }
+  static cudaError_t ready() {
+    static bool done[MAX_DEVICES] = {};
+    return allow_smem(fn(), done);
+  }
+  static int threads(int) { return fma_body::NT; }
+  static size_t smem(const Args&) { return fma_body::smem_bytes<DH>(); }
+  static int launch(const Args& a, int) {
+    const int TQ = fma_body::R / (a.H / a.Hk);
+    const dim3 grid((a.Nq + TQ - 1) / TQ, a.Hk, a.B);
+    fma_body::kernel<DH><<<grid, fma_body::NT, smem(a), a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.km),
+        static_cast<const float*>(a.vm), static_cast<const float*>(a.bias),
+        static_cast<const uint8_t*>(a.mask), static_cast<float*>(a.out),
+        a.Nq, a.Nk, a.ml, a.H, a.Hk, TQ, a.causal, a.q_offset, a.scale,
+        a.softcap);
+    return 0;
+  }
+};
+
+template <typename TO, int DH>
+struct Body<__nv_bfloat16, TO, DH> {
+  static auto fn() { return mma_body::kernel<TO, DH>; }
+  static cudaError_t ready() {
+    static bool done[MAX_DEVICES] = {};
+    return allow_smem(fn(), done);
+  }
+  static int threads(int warps) { return 32 * (warps + 1); }
+  static size_t smem(const Args& a) {
+    const int tpp = (a.ml.L + mma_body::TK - 1) / mma_body::TK;
+    return mma_body::smem_bytes<DH>(a.ml.P * tpp);
+  }
+  static int launch(const Args& a, int warps) {
+    if (warps < 1 || warps > mma_body::MAX_WARPS) return -1;
+    const int rows = a.Nq * (a.H / a.Hk), per = 16 * warps;
+    const dim3 grid((rows + per - 1) / per, a.Hk, a.B);
+    using bf16 = __nv_bfloat16;
+    mma_body::kernel<TO, DH><<<grid, threads(warps), smem(a), a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.km),
+        static_cast<const bf16*>(a.vm), static_cast<const float*>(a.bias),
+        static_cast<const uint8_t*>(a.mask), static_cast<TO*>(a.out), a.Nq,
+        a.Nk, a.ml, a.H, a.Hk, a.causal, a.q_offset, a.scale, a.softcap);
+    return 0;
+  }
+};
+
+template <typename T, typename TO, int DH>
+struct Launch {
+  static int run(const Args& a, int warps) {
+    using Bd = Body<T, TO, DH>;
+    cudaError_t err = Bd::ready();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rc = Bd::launch(a, warps);
+    if (rc != 0) return rc;
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Registers, spilled bytes, shared memory per CTA and resident CTAs per SM
+// (the bf16 body with `warps` warps and one word of tile bits).
+template <typename T, typename TO, int DH>
+struct Attributes {
+  static int run(int warps, int* out) {
+    using Bd = Body<T, TO, DH>;
+    cudaError_t err = Bd::ready();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, Bd::fn());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    Args none = {};
+    none.ml.P = 1;
+    none.ml.L = 1;
+    const size_t smem = Bd::smem(none);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, Bd::fn(), Bd::threads(warps), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)(a.sharedSizeBytes + smem);
+    out[3] = per_sm;
+    return 0;
+  }
+};
+
+// Calls F<T, TO, DH>::run(args...) for the runtime choice, or returns -2
+// for a type or head dim the kernel does not take.
+template <template <typename, typename, int> class F, typename... A>
+int dispatch(int dh, int is_bf16, int out_f32, A... args) {
+  using bf16 = __nv_bfloat16;
+  if (!is_bf16) {
+    if (dh == 64) return F<float, float, 64>::run(args...);
+    if (dh == 128) return F<float, float, 128>::run(args...);
+  } else if (out_f32) {
+    if (dh == 64) return F<bf16, float, 64>::run(args...);
+    if (dh == 128) return F<bf16, float, 128>::run(args...);
+  } else {
+    if (dh == 64) return F<bf16, bf16, 64>::run(args...);
+    if (dh == 128) return F<bf16, bf16, 128>::run(args...);
+  }
   return -2;
 }
 
@@ -363,28 +1054,35 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
 
 // Plain C entry point.  Returns cudaGetLastError() after the launch (0 on
 // success), or a negative code for a shape the kernel does not take.
-// kv_mask may be null (every local key valid).  is_bf16: 1 for bfloat16
-// q/k/v/means, 0 for float32.  out_f32: 1 writes the output as float32,
-// 0 in the inputs' type.  softcap 0 means none.
+// Means: [B, P, L, Hk, dh] with element strides mean_sb (over B) and
+// mean_sp (over P), contiguous inside (L, Hk, dh); M = P * L, and the bias
+// is [B, M].  kv_mask may be null (every local key valid).  is_bf16: 1 for
+// bfloat16 q/k/v/means, 0 for float32.  out_f32: 1 writes the output as
+// float32, 0 in the inputs' type (float32 inputs: 0 or 1 alike).  softcap
+// 0 means none.  warps: warps per CTA of the bf16 body (1 to 8, from
+// row_plan in kernel.py); the f32 body ignores it.
 extern "C" int prism_attention_launch(
     const void* q, const void* k, const void* v, const void* km,
     const void* vm, const void* mean_bias, const void* kv_mask, void* out,
-    int B, int Nq, int Nk, int M, int H, int Hk, int dh, int is_bf16,
-    int out_f32, int causal, int q_offset, float scale, float softcap,
+    int B, int Nq, int Nk, int P, int L, long long mean_sb,
+    long long mean_sp, int H, int Hk, int dh, int is_bf16, int out_f32,
+    int causal, int q_offset, float scale, float softcap, int warps,
     void* stream) {
-  if (B < 1 || Nq < 1 || Nk < 1 || M < 0 || Hk < 1 || H % Hk != 0) return -1;
-  if (H / Hk > R || B > 65535 || Hk > 65535) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return launch_dh<float, float>(dh, q, k, v, km, vm, mean_bias, kv_mask,
-                                   out, B, Nq, Nk, M, H, Hk, causal,
-                                   q_offset, scale, softcap, st);
-  if (out_f32)
-    return launch_dh<__nv_bfloat16, float>(dh, q, k, v, km, vm, mean_bias,
-                                           kv_mask, out, B, Nq, Nk, M, H, Hk,
-                                           causal, q_offset, scale, softcap,
-                                           st);
-  return launch_dh<__nv_bfloat16, __nv_bfloat16>(
-      dh, q, k, v, km, vm, mean_bias, kv_mask, out, B, Nq, Nk, M, H, Hk,
-      causal, q_offset, scale, softcap, st);
+  if (B < 1 || Nq < 1 || Nk < 1 || P < 0 || L < 0 || Hk < 1 || H % Hk != 0)
+    return -1;
+  if (H / Hk > GMAX || B > 65535 || Hk > 65535) return -1;
+  if ((long long)Nq * (H / Hk) > 0x7fffffffLL) return -1;
+  if (P == 0 || L == 0) P = L = 0;
+  const Args a = {q, k, v, km, vm, mean_bias, kv_mask, out, B, Nq, Nk, H,
+                  Hk, causal, q_offset, {mean_sb, mean_sp, P, L}, scale,
+                  softcap, static_cast<cudaStream_t>(stream)};
+  return dispatch<Launch>(dh, is_bf16, out_f32, a, warps);
+}
+
+// out[4] = registers, spilled bytes, shared memory per CTA, CTAs per SM of
+// the instantiation (dh, input type, output type; `warps` warps for the
+// bf16 body); 0 on success.
+extern "C" int prism_attention_attributes(int dh, int is_bf16, int out_f32,
+                                          int warps, int* out) {
+  return dispatch<Attributes>(dh, is_bf16, out_f32, warps, out);
 }

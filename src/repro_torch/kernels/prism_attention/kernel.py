@@ -5,7 +5,9 @@ The CUDA kernel replaces the TPU kernel
 ``repro/kernels/prism_attention/kernel.py:prism_attention_pallas``; its
 source note says what bounds it and how it is laid out.  Unlike the Pallas
 kernel it takes a mask on the local keys, any Nq and Nk, and a query
-offset, so the padded ViT exchange runs on it.
+offset, so the padded ViT exchange runs on it, and it reads the means
+where the exchange's gather leaves them.  ``row_plan`` picks the warps of
+its bf16 body.
 
 ``prism_attention`` takes its plain version for a tensor on the CPU.  For
 a CUDA tensor it launches the kernel or raises — it never falls back.  It
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,18 +25,68 @@ from repro_torch.kernels.nvcc import CudaLibrary
 from repro_torch.kernels.prism_attention.ref import prism_attention_ref
 
 HEAD_DIMS = (64, 128)
-ROWS = 32                          # R in the CUDA source: G may not exceed it
+ROWS = 32                          # GMAX in the CUDA source: G may not exceed it
+MAX_WARPS = 8                      # consumer warps of 16 query rows (bf16)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.prism_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.prism_attention_attributes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
                       / "prism_attention.cu", _bind)
+
+
+def row_plan(rows: int) -> int:
+    """Consumer warps per CTA of the bf16 body (each CTA has one producer
+    warp more) for ``rows`` = Nq·G query rows of a (batch row, KV head):
+    as few CTAs of at most ``MAX_WARPS`` warps of 16 rows as hold them,
+    the rows spread evenly over those CTAs.  The ViT shape (100 rows) is
+    one CTA of 7 consumer warps."""
+    ctas = -(-rows // (16 * MAX_WARPS))
+    return -(-rows // (16 * ctas))
+
+
+def attributes(dh: int, dtype: torch.dtype, out_dtype: torch.dtype,
+               warps: int = MAX_WARPS) -> dict:
+    """Registers, spilled bytes, shared memory per CTA and resident CTAs
+    per SM of one instantiation (bf16 inputs: the tensor-core body with
+    ``warps`` consumer warps; f32: the CUDA-core body), read from the
+    loaded library on the current card."""
+    out = (ctypes.c_int * 4)()
+    rc = LIBRARY.lib().prism_attention_attributes(
+        dh, int(dtype == torch.bfloat16), int(out_dtype == torch.float32),
+        warps, out)
+    if rc != 0:
+        raise RuntimeError(f"prism_attention_attributes failed: code {rc}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "ctas_per_sm"), out))
+
+
+def mean_layout(km: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(P, L, stride over B, stride over P), in elements, of means given
+    flat as ``[B, M, Hk, dh]`` (P = 1, L = M) or as the exchange's
+    ``[B, P, L, Hk, dh]`` view."""
+    if km.ndim == 4:
+        return 1, km.shape[1], km.stride(0), 0
+    return km.shape[1], km.shape[2], km.stride(0), km.stride(1)
+
+
+def _inner_contiguous(t: torch.Tensor, dims: int) -> bool:
+    """Are the last ``dims`` dims of ``t`` laid out densely, row-major?"""
+    want = 1
+    for n, st in zip(reversed(t.shape[-dims:]), reversed(t.stride()[-dims:])):
+        if n > 1 and st != want:
+            return False
+        want *= n
+    return True
 
 
 def _check(q, k, v, km, vm, bias, kv_mask):
@@ -47,24 +99,32 @@ def _check(q, k, v, km, vm, bias, kv_mask):
         if t.device != dev:
             raise ValueError(f"prism_attention: {name} on {t.device}, q on "
                              f"{dev}")
-        if not t.is_contiguous():
+        if name not in ("k_means", "v_means") and not t.is_contiguous():
             raise ValueError(f"prism_attention: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"prism_attention: {name} must be 16-byte "
                              f"aligned")
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or km.ndim != 4 \
-            or vm.shape != km.shape:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+            or km.ndim not in (4, 5) or vm.shape != km.shape:
         raise ValueError(f"prism_attention: q {tuple(q.shape)} must be "
                          f"[B,Nq,H,dh], k/v {tuple(k.shape)} [B,Nk,Hk,dh], "
-                         f"means {tuple(km.shape)} [B,M,Hk,dh]")
+                         f"means {tuple(km.shape)} [B,M,Hk,dh] or "
+                         f"[B,P,L,Hk,dh]")
     B, Nq, H, dh = q.shape
     _, Nk, Hk, _ = k.shape
-    M = km.shape[1]
+    P, L, sb, sp = mean_layout(km)
     if (k.shape[0] != B or k.shape[3] != dh or km.shape[0] != B
-            or km.shape[2:] != k.shape[2:] or tuple(bias.shape) != (B, M)):
+            or km.shape[-2:] != k.shape[2:]
+            or tuple(bias.shape) != (B, P * L)):
         raise ValueError(f"prism_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, means {tuple(km.shape)}, bias "
                          f"{tuple(bias.shape)} disagree")
+    vec = 16 // q.element_size()
+    if (vm.stride() != km.stride() or not _inner_contiguous(km, 3)
+            or (B > 1 and sb % vec) or (P > 1 and sp % vec)):
+        raise ValueError(f"prism_attention: means strides {km.stride()} / "
+                         f"{vm.stride()} must agree, be dense inside a "
+                         f"partition's (L, Hk, dh) and keep 16-byte rows")
     if kv_mask is not None and (tuple(kv_mask.shape) != (B, Nk)
                                 or kv_mask.dtype != torch.bool):
         raise ValueError(f"prism_attention: kv_mask {tuple(kv_mask.shape)} "
@@ -90,9 +150,9 @@ def _check(q, k, v, km, vm, bias, kv_mask):
 def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
                     k_loc: torch.Tensor,      # [B, Nk, Hk, dh]
                     v_loc: torch.Tensor,
-                    k_means: torch.Tensor,    # [B, M, Hk, dh]
+                    k_means: torch.Tensor,    # [B, M, Hk, dh] | [B,P,L,Hk,dh]
                     v_means: torch.Tensor,
-                    mean_bias: torch.Tensor,  # [B, M] f32
+                    mean_bias: torch.Tensor,  # [B, M] f32, M = P·L
                     *, causal: bool = True,
                     scale: Optional[float] = None,
                     softcap: Optional[float] = None,
@@ -101,11 +161,16 @@ def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Softmax attention of q over [local K/V ‖ mean K/V + bias] →
     [B, Nq, H, dh] in ``out_dtype`` (q's dtype by default; float32 gives
-    the result before its rounding to bf16, for checks).
+    the result before its rounding to bf16, for checks).  The means may be
+    flat or the exchange's ``[B, P, L, Hk, dh]`` view, strided over B and
+    P (mean ``p·L + l`` is ``[:, p, l]``); the kernel reads them in place.
 
     CPU tensors take the plain version (``prism_attention_ref``); CUDA
     tensors launch the kernel on the current stream."""
     if q.device.type == "cpu":
+        if k_means.ndim == 5:
+            k_means = k_means.flatten(1, 2)
+            v_means = v_means.flatten(1, 2)
         return prism_attention_ref(q, k_loc, v_loc, k_means, v_means,
                                    mean_bias, causal=causal, scale=scale,
                                    logit_softcap=softcap, kv_mask=kv_mask,
@@ -114,7 +179,8 @@ def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
         raise ValueError(f"prism_attention: no kernel for device {q.device}")
     _check(q, k_loc, v_loc, k_means, v_means, mean_bias, kv_mask)
     B, Nq, H, dh = q.shape
-    Nk, Hk, M = k_loc.shape[1], k_loc.shape[2], k_means.shape[1]
+    Nk, Hk = k_loc.shape[1], k_loc.shape[2]
+    P, L, sb, sp = mean_layout(k_means)
     scale = (dh ** -0.5) if scale is None else scale
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if out_dtype not in (q.dtype, torch.float32):
@@ -128,10 +194,10 @@ def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
             q.data_ptr(), k_loc.data_ptr(), v_loc.data_ptr(),
             k_means.data_ptr(), v_means.data_ptr(), mean_bias.data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
-            B, Nq, Nk, M, H, Hk, dh, int(q.dtype == torch.bfloat16),
-            int(out_dtype == torch.float32), int(causal), int(q_offset),
-            float(scale), float(softcap or 0.0),
-            stream)
+            B, Nq, Nk, P, L, sb, sp, H, Hk, dh,
+            int(q.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+            int(causal), int(q_offset), float(scale), float(softcap or 0.0),
+            row_plan(Nq * (H // Hk)), stream)
     if rc != 0:
         raise RuntimeError(f"prism_attention kernel launch failed: code {rc}")
     prism_attention.launches += 1

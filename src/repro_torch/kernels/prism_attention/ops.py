@@ -3,8 +3,9 @@ visibility) and runs the kernel.
 
 Port of ``repro.kernels.prism_attention.ops``, with the semantics of
 ``repro_torch.core.prism_attention.prism_attention``.  The CUDA kernel
-masks its ragged tiles itself, so the TPU's q-block padding is gone, and
-it takes ``kv_mask`` and ``q_offset``.
+masks its ragged tiles itself, so the TPU's q-block padding is gone, it
+takes ``kv_mask`` and ``q_offset``, and it reads the ``[B, P, L, Hk, dh]``
+means as they are (strided views included), so nothing is copied.
 """
 from __future__ import annotations
 
@@ -57,12 +58,11 @@ def prism_attention_op(
 ) -> torch.Tensor:
     B = q.shape[0]
     P, L = k_means.shape[1], k_means.shape[2]
-    km = k_means.reshape(B, P * L, *k_means.shape[3:]).contiguous()
-    vm = v_means.reshape(B, P * L, *v_means.shape[3:]).contiguous()
     bias = build_mean_bias(B, P, L, part_idx, seg_size, causal=causal,
                            mean_counts=mean_counts, device=q.device)
     return prism_attention(
-        q.contiguous(), k_loc.contiguous(), v_loc.contiguous(), km, vm, bias,
+        q.contiguous(), k_loc.contiguous(), v_loc.contiguous(), k_means,
+        v_means, bias,
         causal=causal, scale=scale, softcap=softcap,
         kv_mask=None if kv_mask is None else kv_mask.to(torch.bool)
         .contiguous(), q_offset=q_offset)

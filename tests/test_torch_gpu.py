@@ -186,3 +186,147 @@ def test_paged_kernel_matches_plain_version(cuda_device, dtype, dh, ps, MP):
     assert (got[1][~live] == -1e30).all()
     assert (got[2][~live] == MP * ps).all()
     assert _rel_err(got[0][~live], want[0][~live]) <= tol
+
+
+# (dtype, D, masked, element offset of the inputs' base): 16-byte lanes
+# with and without a mask, f32, and the scalar path of an odd D and of an
+# unaligned base
+SEG_KV_CASES = {
+    "masked_empty_segment": (torch.bfloat16, 768, True, 0),
+    "unmasked": (torch.bfloat16, 768, False, 0),
+    "f32": (torch.float32, 768, True, 0),
+    "odd_D": (torch.bfloat16, 771, True, 0),
+    "unaligned_base": (torch.bfloat16, 768, True, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SEG_KV_CASES))
+def test_segment_means_kv_kernel_matches_plain_version(cuda_device, case):
+    """K and V at the ViT exchange's shape [8, 100, D], L = 20, in one
+    launch, against the plain version applied to each.  f32: relative max
+    error ≤ 1e-5; bf16: ≤ 1e-3.  Counts exact."""
+    from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_kv,
+                                                   segment_means_ref)
+    dtype, D, masked, off = SEG_KV_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, N, L = 8, 100, 20
+    buf = torch.randn(2, B * N * D + off, generator=g,
+                      device=cuda_device).to(dtype)
+    k, v = (buf[i, off:].view(B, N, D) for i in range(2))
+    mask = None
+    if masked:
+        mask = torch.rand(B, N, generator=g, device=cuda_device) > 0.2
+        mask[0, :N // L] = False
+    before = segment_means.launches
+    means, counts = segment_means_kv(k, v, L, mask)
+    torch.cuda.synchronize()
+    assert segment_means.launches == before + 1
+    assert tuple(means.shape) == (2, B, L, D) and means.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    for i, x in enumerate((k, v)):
+        want, want_c = segment_means_ref(x, L, mask)
+        assert _rel_err(means[i], want) <= tol
+        assert torch.equal(counts, want_c)
+
+
+def _prism_inputs(device, B, Np, H, Hk, dh, P, L, part, *, causal, masked,
+                  seed):
+    """q/K/V of one partition, every partition's means as the exchange
+    hands them over (a [B, P, L, Hk, dh] view of the gathered
+    [P, 2, B, L, Hk, dh] payload) and flat, and the mean bias."""
+    from repro_torch.kernels.prism_attention import build_mean_bias
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(
+            torch.bfloat16)
+    q, k, v = randn(B, Np, H, dh), randn(B, Np, Hk, dh), randn(B, Np, Hk, dh)
+    gathered = randn(P, 2, B, L, Hk, dh)
+    means = gathered.permute(1, 2, 0, 3, 4, 5)
+    flat = [m.reshape(B, P * L, Hk, dh) for m in means]
+    mask = counts = None
+    if masked:
+        mask = torch.rand(B, Np, generator=g, device=device) > 0.1
+        mask[:, -3:] = False
+        counts = torch.randint(1, Np // L + 1, (B, P, L), generator=g,
+                               device=device).float()
+        counts[0, -1, -1] = 0
+    bias = build_mean_bias(B, P, L, part, Np // L, causal=causal,
+                           mean_counts=counts, device=device)
+    return (q, k, v, means[0], means[1], bias), flat, mask
+
+
+def _assert_prism_close(args, flat, *, causal, mask):
+    """The kernel on ``args`` against the plain version on the flat means:
+    the f32 result before the cast within 1e-3 relative max error, the
+    bf16 output within one bf16 step (2^-7 relative) per element.  One
+    launch per call."""
+    from repro_torch.kernels.prism_attention import (prism_attention,
+                                                     prism_attention_ref)
+    q, k, v, _, _, bias = args
+    before = prism_attention.launches
+    got = prism_attention(*args, causal=causal, kv_mask=mask)
+    got32 = prism_attention(*args, causal=causal, kv_mask=mask,
+                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert prism_attention.launches == before + 2
+    plain = (q, k, v, *flat, bias)
+    want = prism_attention_ref(*plain, causal=causal, kv_mask=mask)
+    want32 = prism_attention_ref(*plain, causal=causal, kv_mask=mask,
+                                 out_dtype=torch.float32)
+    assert torch.isfinite(got32).all() and _rel_err(got32, want32) <= 1e-3
+    assert torch.isclose(got.float(), want.float(), rtol=2.0 ** -7,
+                         atol=1e-6 * want.float().abs().max().item()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [0, 1])
+def test_prism_attention_reads_the_strided_means(cuda_device, part):
+    """The ViT exchange's shape (q/K/V [8, 100, 12, 64], 2 partitions of
+    20 means, key mask, an empty segment) with the means as the gather
+    leaves them; partition 0 and 1, so the hidden own partition's tiles
+    fall first and last."""
+    args, flat, mask = _prism_inputs(cuda_device, 8, 100, 12, 12, 64, 2, 20,
+                                     part, causal=False, masked=True,
+                                     seed=5 + part)
+    _assert_prism_close(args, flat, causal=False, mask=mask)
+
+
+@pytest.mark.gpu
+def test_prism_attention_causal_skips_future_tiles(cuda_device):
+    """Causal GQA 32/8 over 256 local keys, partition 2 of 4: the CTAs of
+    the early queries skip the local tiles wholly in their future, and
+    every CTA the own and future partitions' mean tiles."""
+    args, flat, mask = _prism_inputs(cuda_device, 2, 256, 32, 8, 64, 4, 16,
+                                     2, causal=True, masked=False, seed=7)
+    _assert_prism_close(args, flat, causal=True, mask=mask)
+
+
+@pytest.mark.gpu
+def test_prism_attention_without_means(cuda_device):
+    """M = 0 (no partition's means, as on one partition): plain causal
+    attention over the masked local keys, a fully masked row included, in
+    bf16 (tensor cores) and f32 (CUDA cores), against the plain version at
+    the tolerances above."""
+    from repro_torch.kernels.prism_attention import (prism_attention,
+                                                     prism_attention_ref)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    B, N, H, Hk, dh = 2, 70, 8, 2, 64
+    mask = torch.rand(B, N, generator=g, device=cuda_device) > 0.3
+    mask[1] = False
+    bias = torch.zeros(B, 0, device=cuda_device)
+    for dtype, tol in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
+        def randn(*shape):
+            return torch.randn(*shape, generator=g,
+                               device=cuda_device).to(dtype)
+        q, k, v = randn(B, N, H, dh), randn(B, N, Hk, dh), randn(B, N, Hk, dh)
+        none = randn(B, 0, Hk, dh)
+        args = (q, k, v, none, none, bias)
+        got = prism_attention(*args, causal=True, kv_mask=mask,
+                              out_dtype=torch.float32)
+        want = prism_attention_ref(*args, causal=True, kv_mask=mask,
+                                   out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and _rel_err(got, want) <= tol

@@ -1,9 +1,9 @@
 """Segment means in the port against the JAX package, in f32 on the CPU.
 
 The same numpy inputs go through the JAX functions — the Pallas kernel in
-interpret mode (``segment_means_op``), the core reference and the dispatch
-layer's masked composition — and through the port's plain version, op and
-dispatch.  Tolerance atol = rtol = 1e-5: both sides sum in f32 and differ
+interpret mode (``segment_means_op``, ``segment_means_pallas``), the core
+reference and the dispatch layer's masked composition — and through the
+port's plain version, op and dispatch, the K+V call among them.  Tolerance atol = rtol = 1e-5: both sides sum in f32 and differ
 only in order.  The CUDA kernel itself is held against the plain version
 on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
@@ -15,8 +15,10 @@ import torch
 from repro.core import segment_means as jsm
 from repro.kernels import dispatch as jdsp
 from repro.kernels.segment_means import segment_means_op as jax_op
+from repro.kernels.segment_means.kernel import segment_means_pallas
 from repro_torch.kernels import dispatch as tdsp
 from repro_torch.kernels.segment_means import (segment_means,
+                                               segment_means_kv,
                                                segment_means_op,
                                                segment_means_ref)
 
@@ -103,3 +105,60 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert segment_means.launches == before
     with pytest.raises(ValueError, match="no kernel"):
         segment_means(x.to("meta"), 2)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("axis", [1, 2])
+def test_kv_means_match_the_jax_package(axis, masked):
+    """``segment_means_kv`` (K and V in one call) against the JAX package
+    applied to K and V one at a time: the masked composition of
+    ``dispatch.segment_means_masked`` (its Pallas path at axis 1, its
+    reference elsewhere), or the Pallas kernel in interpret mode unmasked.
+    Means to 1e-5, counts exact."""
+    r = np.random.RandomState(20 + axis + 2 * masked)
+    shape = (8, 100, 12, 64) if axis == 1 else (3, 4, 40, 24)
+    L = 20 if axis == 1 else 8
+    k, v = (r.randn(*shape).astype(np.float32) for _ in range(2))
+    m = None
+    if masked:
+        m = r.rand(*shape[:axis + 1]) > 0.3
+        m.reshape(-1, shape[axis])[0, : shape[axis] // L] = False
+    means, counts = tdsp.segment_means_kv(
+        torch.from_numpy(k), torch.from_numpy(v), L,
+        None if m is None else torch.from_numpy(m), axis=axis)
+    lead, seg = shape[:axis], shape[axis] // L
+    assert tuple(means.shape) == (2, *lead, L, *shape[axis + 1:])
+    assert tuple(counts.shape) == (*lead, L)
+    for i, x in enumerate((k, v)):
+        if masked:
+            with jdsp.force_backend("pallas"):
+                jm, jc = jdsp.segment_means_masked(jnp.asarray(x), L,
+                                                   jnp.asarray(m), axis=axis)
+            np.testing.assert_array_equal(np.asarray(jc), counts.numpy())
+        else:
+            flat = x.reshape(-1, shape[axis], int(np.prod(shape[axis + 1:])))
+            D = flat.shape[-1]
+            jm = np.asarray(segment_means_pallas(
+                jnp.asarray(flat), L, block_d=128 if D % 128 == 0 else D,
+                interpret=True)).reshape(means.shape[1:])
+            assert (counts == seg).all()
+        _close(jm, means[i])
+    assert tdsp.backend_info()["segment_means"] == "reference"
+
+
+def test_kv_call_on_the_cpu_counts_no_launch():
+    """The K+V wrapper takes the plain version for CPU tensors (each input
+    through ``segment_means_ref``, stacked) and raises for a device it has
+    no kernel for."""
+    r = np.random.RandomState(4)
+    k, v = (torch.from_numpy(r.randn(2, 12, 10).astype(np.float32))
+            for _ in range(2))
+    mask = torch.from_numpy(r.rand(2, 12) > 0.5)
+    before = segment_means.launches
+    means, counts = segment_means_kv(k, v, 3, mask)
+    assert segment_means.launches == before
+    for i, x in enumerate((k, v)):
+        want, want_c = segment_means_ref(x, 3, mask)
+        assert torch.equal(means[i], want) and torch.equal(counts, want_c)
+    with pytest.raises(ValueError, match="no kernel"):
+        segment_means_kv(k.to("meta"), v.to("meta"), 3)
