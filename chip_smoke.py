@@ -21,7 +21,9 @@ Phases, one line each (more for the kernel table):
                yardstick with CUDA events (warm-up, then the median of many
                launches on inputs cold in L2).  Flash-decode cases span
                splits of S from 1 to 8 (B 1 at S 1, 63, 65, 2047, 8192;
-               windows, softcap, dh 128, f32); fully masked rows must give
+               windows, softcap, dh 128, f32), and timed at the decode
+               shapes of internlm2-1.8b (16/8 heads) and qwen1.5-32b (40/40
+               heads, 160 CTAs) at dh 128; fully masked rows must give
                m = -1e30, l = S and the plain version's o; each timed
                shape prints its splits.
    The paged flash-decode kernel is held likewise at the paged pool's
@@ -46,11 +48,15 @@ Phases, one line each (more for the kernel table):
                forwards run across 2 ranks on the card, held against one
                CPU process that composes the PRISM exchange partition by
                partition from the plain functions.
-5. session   — llama3.2-1b at full width: ``InferenceSession`` profile →
-               decide → dispatch → greedy generate under ``local`` and
-               ``prism_sim``, flash-decode launch counts read around each
-               generate, and the kernel time of one ``local`` generate from
-               ``torch.profiler``.
+5. session   — llama3.2-1b at full width: ``InferenceSession`` profile
+               (``measured`` on the H100 presets, batches 1-32, the curve
+               ``H100_SXM`` is fitted to, with the card's power draw
+               sampled; the simulated Jetson decision printed beside each
+               measured one) → decide → dispatch → greedy generate under
+               ``local`` and ``prism_sim``, flash-decode launch counts read
+               around each generate, and the kernel time of one ``local``
+               generate from ``torch.profiler``.  ``[fit]`` prints the
+               constants this run gives beside the preset's.
 6. serve     — the same model served by ``ServingRuntime``: 24 requests
                (16 extending a shared system prompt) through the paged pool
                and then the dense slot pool, with paged and dense
@@ -63,7 +69,14 @@ Phases, one line each (more for the kernel table):
                ``local``, ``voltage`` and ``prism(L=20)`` forwards of 8
                synthetic images, with segment-means and PRISM-attention
                launch counts and gathered bytes per forward asserted, and
-               the forward wall time with its staged-collective part.
+               the forward wall time with its staged-collective part;
+               ``[fit]`` prints the staged link's constants this run gives.
+8. archs     — internlm2-1.8b and qwen1.5-32b at full width (qwen with all
+               64 layers where they fit beside nothing else, else fewer, as
+               its lines say): the measured profile on the H100 presets at
+               B 1, 8 and 32 with the anchor scale, decide and explain, and
+               greedy generate under ``local`` with flash-decode launches
+               asserted, decode time, device idle share and peak memory.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -146,15 +159,18 @@ def time_ms(fn, arg_sets, min_calls: int = 20, reps: int = 30) -> float:
 # phase 3: flash-decode against its plain version
 # ---------------------------------------------------------------------------
 
-def decode_case(B, S, dh, dtype, *, seed, window=None, softcap=None,
-                masked_row=False, lens=None):
+def decode_case(B, S, dh, dtype, *, seed, heads=(N_HEADS, N_KV), window=None,
+                softcap=None, masked_row=False, lens=None):
+    """Random q, K and V with ``heads`` = (query heads, KV heads), random
+    lengths in 1..S per row (or ``lens``), and their validity bias."""
     import torch
     from repro_torch.kernels.flash_decode import validity_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
+    H, Hk = heads
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
-    q, k, v = randn(B, N_HEADS, dh), randn(B, S, N_KV, dh), randn(B, S, N_KV, dh)
+    q, k, v = randn(B, H, dh), randn(B, S, Hk, dh), randn(B, S, Hk, dh)
     clen = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
     if lens is not None:
         clen = torch.tensor(lens, device="cuda")
@@ -200,7 +216,8 @@ def check_case(case) -> dict:
 
 
 def splits_of(q, Hk, S) -> int:
-    """The kernel's CTAs along S for these inputs (``split_plan``)."""
+    """The kernel's CTAs along S for these inputs (``split_plan``); the
+    launch holds B·Hk·splits CTAs."""
     from repro_torch.kernels.flash_decode.kernel import plan_for
     return plan_for(q.device, q.dtype, q.shape[0], Hk, S, q.shape[2])
 
@@ -278,22 +295,40 @@ def time_case(case) -> dict:
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+# the decode shapes of the dense archs beside llama3.2-1b: (arch, query
+# heads, KV heads), dh 128, every row's cache full at S
+DECODE_ARCHS = (("internlm2-1.8b", 16, 8), ("qwen1.5-32b", 40, 40))
+
+
+def report_timed(case, label: str) -> dict:
+    """Check, time and print one flash-decode case → its kernels-line
+    numbers."""
+    errs = check_case(case)
+    t = time_case(case)
+    B, H, dh = case["q"].shape
+    S, Hk = case["k"].shape[1], case["k"].shape[2]
+    splits = splits_of(case["q"], Hk, S)
+    print(f"[kernel] flash_decode {label} bf16 B={B} S={S} H={H} Hk={Hk} "
+          f"dh={dh}, splits {splits} ({B * Hk * splits} CTAs): err "
+          f"{err_text(errs)} (tol 1e-3) | kernel {t['ms']*1e3:.2f} us, bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}; whole cache "
+          f"{t['full_bound_ms']*1e3:.2f} us), plain {t['plain_ms']*1e3:.2f} "
+          f"us, sdpa yardstick {t['library_ms']*1e3:.2f} us", flush=True)
+    return dict(t, max_abs_err=errs["max_abs_err"])
+
+
 def phase_kernels() -> dict:
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     timed = {}
     for B, S in ((1, 2048), (8, 2048), (PROMPT_B, PROMPT_T + N_NEW)):
-        case = decode_case(B, S, 64, bf16, seed=B * S)
-        errs = check_case(case)
-        t = time_case(case)
-        timed[(B, S)] = dict(t, max_abs_err=errs["max_abs_err"])
-        print(f"[kernel] flash_decode bf16 B={B} S={S} H={N_HEADS} "
-              f"Hk={N_KV} dh=64, splits {splits_of(case['q'], N_KV, S)}: "
-              f"err {err_text(errs)} (tol 1e-3) | kernel "
-              f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
-              f"({t['bound_by']}; whole cache {t['full_bound_ms']*1e3:.2f} "
-              f"us), plain {t['plain_ms']*1e3:.2f} us, sdpa yardstick "
-              f"{t['library_ms']*1e3:.2f} us", flush=True)
+        timed[(B, S)] = report_timed(decode_case(B, S, 64, bf16, seed=B * S),
+                                     ARCH)
+    for i, (arch, H, Hk) in enumerate(DECODE_ARCHS):
+        for S in (PROMPT_T + N_NEW, 2048):
+            timed[(arch, S)] = report_timed(
+                decode_case(PROMPT_B, S, 128, bf16, seed=100 + 10 * i + S,
+                            heads=(H, Hk), lens=[S] * PROMPT_B), arch)
     extra = (
         ("f32 B=8 S=2048", decode_case(8, 2048, 64, f32, seed=1)),
         ("f32 B=4 S=48, row 0 fully masked",
@@ -321,13 +356,21 @@ def phase_kernels() -> dict:
          decode_case(2, 2048, 128, f32, seed=15, masked_row=True)),
         ("bf16 B=1 S=2048, the row fully masked",
          decode_case(1, 2048, 64, bf16, seed=16, masked_row=True)),
+        ("f32 B=4 S=48 40/40 heads dh=128 (G=1, 160 CTAs)",
+         decode_case(4, 48, 128, f32, seed=18, heads=(40, 40))),
+        ("bf16 B=4 S=300 40/40 heads dh=128, row 0 fully masked",
+         decode_case(4, 300, 128, bf16, seed=19, heads=(40, 40),
+                     masked_row=True)),
+        ("f32 B=4 S=2048 16/8 heads dh=128 (G=2) softcap=50",
+         decode_case(4, 2048, 128, f32, seed=20, heads=(16, 8),
+                     softcap=50.0)),
     )
     for label, case in extra:
         errs = check_case(case)
         tol = "1e-5" if case["q"].dtype == torch.float32 else "1e-3"
-        S = case["k"].shape[1]
+        S, Hk = case["k"].shape[1], case["k"].shape[2]
         print(f"[kernel] flash_decode {label}, splits "
-              f"{splits_of(case['q'], N_KV, S)}: err {err_text(errs)} "
+              f"{splits_of(case['q'], Hk, S)}: err {err_text(errs)} "
               f"(tol {tol})", flush=True)
     return timed
 
@@ -573,29 +616,150 @@ def phase_small_reference() -> None:
           flush=True)
 
 
-def phase_session(card: str) -> int:
+# the measured backend's sweeps: llama3.2-1b over the paper's batches (the
+# curve H100_SXM is fitted to), the other dense archs over three
+FIT_SPEC = dict(batches=(1, 2, 4, 8, 16, 32), crs=(9.9,),
+                bandwidths_mbps=(400.0,))
+ARCH_SPEC = dict(batches=(1, 8, 32), crs=(9.9,), bandwidths_mbps=(400.0,))
+DECIDE_BATCHES = (1, 8, 32)
+
+
+class PowerSampler:
+    """``nvidia-smi`` sampling the card's power draw every 100 ms while the
+    block runs → ``watts`` (one reading a line)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(0.5)                   # let the first readings land
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.watts = [float(x) for x in out.split()
+                      if x.replace(".", "", 1).isdigit()]
+        return False
+
+
+def measured_profile(session, spec: dict, iters: int):
+    """``profile(backend="measured")`` on the H100 presets → (perf map,
+    anchor scale, {plan key: {batch: measured forward ms}}), the last two
+    as the backend reports them (its CUDA-event medians)."""
+    from repro_torch.profiling import (H100_GLOO_STAGED, H100_SXM,
+                                       SweepSpec, get_backend)
+    pm = session.profile(SweepSpec(**spec), backend="measured",
+                         hardware=H100_SXM, link=H100_GLOO_STAGED,
+                         iters=iters, warmup=2)
+    backend = get_backend("measured")
+    raw = {key: {B: t * 1e3 for B, t in times.items()}
+           for key, times in backend.last_times.items()}
+    return pm, backend.last_scale, raw
+
+
+def print_measured(arch: str, pm, scale: float, raw: dict, card: str,
+                   note: str = "") -> None:
+    batches = sorted(raw["local"])
+    rows = "; ".join(f"B={b}: " + ", ".join(
+        f"{key} {raw[key][b]:.2f} ms" for key in raw) for b in batches)
+    print(f"[measured] {arch}{note}: forward of B x 32 zero tokens, median "
+          f"between CUDA events per (plan, batch): {rows}; anchor "
+          f"scale {scale:.3f} (H100_SXM's local({batches[0]}) over the "
+          f"measured one; 1 = the preset predicts this arch); map stamped "
+          f"{pm.hardware.name!r} / {pm.link.name!r} [{card}]", flush=True)
+
+
+def fit_hardware(batches, times_ms, flops_per_sample: float) -> dict:
+    """The cost model's ``local`` form, ``t(B) = F·B / eff(B) + launch`` with
+    ``eff(B) = eff_inf - eff_slope/B``, fitted to measured forward times by
+    the least squared relative error in t, within the bounds that keep the
+    form physical: ``0 <= launch < min t``, ``0 <= eff_slope/eff_inf <
+    min B`` (so eff > 0 at every swept batch) and ``eff_inf <= PEAK_FLOPS``.
+    ``launch`` and ``s = eff_slope/eff_inf`` run over a grid; at each grid
+    point ``t - launch = F·B²/(B - s) · u`` is linear in ``u = 1/eff_inf``,
+    whose bounded optimum has a closed form.  A host-bound curve, flat in B
+    with noise, fits as well (launch near the fastest time), so no timing
+    can leave the fit without an answer."""
+    import numpy as np
+    B = np.asarray(batches, float)
+    t = np.asarray(times_ms, float)
+    launch = np.linspace(0.0, 0.98 * t.min(), 491)[:, None, None]
+    s = np.linspace(0.0, 0.99 * B.min(), 100)[None, :, None]
+    a = flops_per_sample * 1e3 * B ** 2 / (B - s)          # ms per (1/FLOP/s)
+    w = 1.0 / t ** 2
+    u = np.maximum((a * (t - launch) * w).sum(-1) / (a * a * w).sum(-1),
+                   1.0 / PEAK_FLOPS["bfloat16"])
+    pred = a * u[..., None] + launch
+    err = (((pred - t) / t) ** 2).sum(-1)
+    i, j = np.unravel_index(np.argmin(err), err.shape)
+    inf = 1.0 / float(u[i, j])
+    return dict(eff_inf=inf, eff_slope=float(s[0, j, 0]) * inf,
+                launch_overhead_ms=float(launch[i, 0, 0]),
+                max_rel_err=float(np.max(np.abs(pred[i, j] - t) / t)))
+
+
+def phase_session(card: str):
+    """llama3.2-1b at full width: the measured profile on the H100 presets
+    (the curve ``H100_SXM`` is fitted to, power sampled beside it) with
+    the simulated Jetson decision beside each measured one, dispatch, and
+    greedy generate under ``local`` and ``prism_sim`` with flash-decode
+    launches counted → (launches, session)."""
     import torch
     from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.core.costmodel import vit_flops_per_sample
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.profiling import H100_SXM, workload_from_config
     t0 = time.perf_counter()
     session = InferenceSession.from_config(
         ARCH, reduced=False, device="cuda",
         plans=[ExecutionPlan.local(), ExecutionPlan.prism_sim(L=4, cr=9.9)])
     cfg = session.cfg
     session.profile(backend="simulated")
+    jetson = {B: session.decide(B) for B in DECIDE_BATCHES}
     torch.cuda.synchronize()
     print(f"[session] {cfg.name} full width ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.hd},"
-          f" vocab {cfg.vocab_size}, {cfg.dtype}) built and profiled in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for B in (1, 8, 32):
-        d = session.decide(B)
-        x = session.explain(B)
+          f" vocab {cfg.vocab_size}, {cfg.dtype}) built and profiled "
+          f"(simulated) in {time.perf_counter() - t0:.1f} s", flush=True)
+    with PowerSampler() as idle:
+        time.sleep(1.5)
+    with PowerSampler() as busy:
+        pm, scale, raw = measured_profile(session, FIT_SPEC, iters=20)
+    print_measured(cfg.name, pm, scale, raw, card)
+    flops = vit_flops_per_sample(workload_from_config(cfg))
+    fit = fit_hardware(sorted(raw["local"]),
+                       [raw["local"][b] for b in sorted(raw["local"])], flops)
+    if not (idle.watts and busy.watts):
+        raise AssertionError("nvidia-smi gave no power.draw readings")
+    idle_w = statistics.median(idle.watts)
+    busy_w = statistics.mean(busy.watts)
+    fit["power_active_w"] = busy_w - idle_w
+    print(f"[fit] H100_SXM from this run's local curve ({cfg.name}, "
+          f"{flops / 1e9:.2f} GFLOP a sample by the cost model's count): "
+          f"eff_inf {fit['eff_inf']:.4g}, eff_slope {fit['eff_slope']:.4g} "
+          f"FLOP/s, launch_overhead_ms {fit['launch_overhead_ms']:.3f} "
+          f"(worst relative error {fit['max_rel_err']:.1%}); power draw "
+          f"{busy_w:.1f} W (mean of {len(busy.watts)} readings during the "
+          f"sweep) less {idle_w:.1f} W (median of {len(idle.watts)} idle) = "
+          f"power_active_w {fit['power_active_w']:.1f}; the preset holds "
+          f"eff_inf "
+          f"{H100_SXM.eff_inf:.4g}, eff_slope {H100_SXM.eff_slope:.4g}, "
+          f"launch_overhead_ms {H100_SXM.launch_overhead_ms:.3f}, "
+          f"power_active_w {H100_SXM.power_active_w:.1f} [{card}]",
+          flush=True)
+    for B in DECIDE_BATCHES:
+        d, x, j = session.decide(B), session.explain(B), jetson[B]
         print(f"[decide] B={B} @ {session.bandwidth:g} Mbps → {d.mode}"
               + (f" CR={d.cr:g}" if d.cr else "")
-              + f" ({d.expected.per_sample_ms:.1f} ms/sample modeled), plan "
-              f"{x.plan_key!r}, batch crossover {x.batch_crossover}, "
-              f"bandwidth crossover {x.bandwidth_crossover}", flush=True)
+              + f" ({d.expected.per_sample_ms:.2f} ms/sample, measured on "
+              f"{pm.hardware.name}), plan {x.plan_key!r}, batch crossover "
+              f"{x.batch_crossover}, bandwidth crossover "
+              f"{x.bandwidth_crossover}; simulated jetson-orin-nano/wifi-gloo"
+              f" picked {j.mode}" + (f" CR={j.cr:g}" if j.cr else "")
+              + f" ({j.expected.per_sample_ms:.1f} ms/sample modeled)",
+              flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (8, 64), generator=g,
                            device="cuda")
@@ -614,37 +778,126 @@ def phase_session(card: str) -> int:
     steps = {"local": N_NEW - 1, "prism@9.9": PROMPT_T + N_NEW - 1}
     total = 0
     for key, n_steps in steps.items():
-        plan = session.plans[key]
-        timed_generate(session, prompt, 2, plan)                 # warm-up
-        _, w1 = timed_generate(session, prompt, 1, plan)
-        flash_decode.launches = 0
-        out, w = timed_generate(session, prompt, N_NEW, plan)
-        launches = flash_decode.launches
-        want = n_steps * cfg.n_layers
-        if launches != want:
-            raise AssertionError(f"{key}: flash_decode launched {launches} "
-                                 f"times, want {want}")
-        if out.shape != (PROMPT_B, N_NEW) or not (
-                (out >= 0) & (out < cfg.vocab_size)).all():
-            raise AssertionError(f"{key}: bad tokens {tuple(out.shape)}")
-        seq = torch.cat([prompt, out.to(prompt.dtype)], dim=1)
-        lg = session.run(key, {"tokens": seq})
-        if not torch.isfinite(lg).all():
-            raise AssertionError(f"{key}: non-finite logits over the "
-                                 f"generated sequence")
-        del lg
-        decode_ms = (w - w1) / (N_NEW - 1)
-        print(f"[generate] {key}: [{PROMPT_B}, {PROMPT_T}] prompt + {N_NEW} "
-              f"greedy tokens in {w:.1f} ms; flash_decode launches "
-              f"{launches} (= {n_steps} steps x {cfg.n_layers} layers); "
-              f"decode {decode_ms:.2f} ms/token step, "
-              f"{PROMPT_B / decode_ms * 1e3:.1f} tokens/s at B={PROMPT_B} "
-              f"[{card}]", flush=True)
+        launches, _ = drive_generate(session, prompt, key, n_steps, card)
         total += launches
-        if key == "local":
-            print_breakdown(key, lambda: session.generate(prompt, N_NEW,
-                                                          plan=plan), w)
     return total, session
+
+
+def drive_generate(session, prompt, key: str, n_steps: int, card: str,
+                   note: str = ""):
+    """Greedy ``generate`` of N_NEW tokens under plan ``key``, flash-decode
+    launches counted around it and asserted = n_steps × layers, tokens and
+    the logits over the generated sequence checked; the ``local`` plan's
+    kernel time read by ``torch.profiler`` → (launches, decode ms per token
+    step)."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    cfg = session.cfg
+    plan = session.plans[key]
+    timed_generate(session, prompt, 2, plan)                 # warm-up
+    _, w1 = timed_generate(session, prompt, 1, plan)
+    flash_decode.launches = 0
+    out, w = timed_generate(session, prompt, N_NEW, plan)
+    launches = flash_decode.launches
+    want = n_steps * cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"{cfg.name} {key}: flash_decode launched "
+                             f"{launches} times, want {want}")
+    if out.shape != (PROMPT_B, N_NEW) or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name} {key}: bad tokens "
+                             f"{tuple(out.shape)}")
+    seq = torch.cat([prompt, out.to(prompt.dtype)], dim=1)
+    lg = session.run(key, {"tokens": seq})
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{cfg.name} {key}: non-finite logits over the "
+                             f"generated sequence")
+    del lg
+    decode_ms = (w - w1) / (N_NEW - 1)
+    print(f"[generate] {cfg.name}{note} {key}: [{PROMPT_B}, {PROMPT_T}] "
+          f"prompt + {N_NEW} greedy tokens in {w:.1f} ms; flash_decode "
+          f"launches {launches} (= {n_steps} steps x {cfg.n_layers} layers);"
+          f" decode {decode_ms:.2f} ms/token step, "
+          f"{PROMPT_B / decode_ms * 1e3:.1f} tokens/s at B={PROMPT_B} "
+          f"[{card}]", flush=True)
+    if key == "local":
+        print_breakdown(f"{cfg.name} {key}", lambda: session.generate(
+            prompt, N_NEW, plan=plan), w)
+    return launches, decode_ms
+
+
+def layers_that_fit(cfg, headroom_bytes: float = 6e9) -> int:
+    """How many of ``cfg``'s layers fit in the card's free memory at full
+    width beside its embedding and head, with ``headroom_bytes`` left for
+    activations."""
+    import torch
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    per_layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                 + 3 * d * f + 2 * d
+                 + (hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                    if cfg.qkv_bias else 0)) * 2
+    head = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) * 2 + 2 * d
+    free = torch.cuda.mem_get_info()[0]
+    return min(cfg.n_layers, int((free - head - headroom_bytes)
+                                 // per_layer))
+
+
+def phase_arch_session(card: str, arch: str) -> dict:
+    """``arch`` at full width, bf16, on the card (all its layers if they fit
+    beside nothing else): the measured profile on the H100 presets over
+    three batches, decide and explain at B 1, 8 and 32, and greedy
+    ``generate`` under ``local`` with flash-decode launches asserted →
+    (launches, layers driven)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    n_layers = layers_that_fit(full)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    session = InferenceSession(cfg, params, device="cuda", plans=[
+        ExecutionPlan.local(), ExecutionPlan.prism_sim(L=4, cr=9.9)])
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params
+    torch.cuda.synchronize()
+    note = ("" if n_layers == full.n_layers
+            else f" ({n_layers} of {full.n_layers} layers)")
+    print(f"[session] {arch} full width ({n_layers} of {full.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"dh {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
+          f"{cfg.qkv_bias}, kv_quant {cfg.kv_quant}, {cfg.dtype}; "
+          f"{n_params / 1e9:.2f} B parameters drawn on the card from seed 0) "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    pm, scale, raw = measured_profile(session, ARCH_SPEC, iters=3)
+    print_measured(arch, pm, scale, raw, card, note)
+    for B in DECIDE_BATCHES:
+        d, x = session.decide(B), session.explain(B)
+        print(f"[decide] {arch} B={B} @ {session.bandwidth:g} Mbps → "
+              f"{d.mode}" + (f" CR={d.cr:g}" if d.cr else "")
+              + f" ({d.expected.per_sample_ms:.2f} ms/sample, measured on "
+              f"{pm.hardware.name}), plan {x.plan_key!r}, batch crossover "
+              f"{x.batch_crossover}, bandwidth crossover "
+              f"{x.bandwidth_crossover}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                           generator=g, device="cuda")
+    launches, _ = drive_generate(session, prompt, "local", N_NEW - 1, card,
+                                 note)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[memory] {arch}{note}: peak allocated {peak / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, n_layers=n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -1485,7 +1738,7 @@ def _vit_rank(rank, world):
     torch.cuda.synchronize()
 
     # the main path: one forward per plan, counts read around each
-    logits, counts, moved = {}, {}, {}
+    logits, counts, moved, received = {}, {}, {}, {}
     kv_width = 2 * cfg.n_kv_heads * cfg.hd      # K and V per token
     for key in keys:
         segment_means.launches = prism_attention.launches = 0
@@ -1494,6 +1747,7 @@ def _vit_rank(rank, world):
         torch.cuda.synchronize()
         counts[key] = (segment_means.launches, prism_attention.launches)
         moved[key] = group.stats.payload_bytes
+        received[key] = group.stats.payload_bytes + group.stats.meta_bytes
         plan = session.plans[key]
         want_bytes = 0 if not plan.distributed else exchange_wire_bytes(
             plan.effective_codec, n_tokens=VIT_TOKENS, d_model=kv_width,
@@ -1546,7 +1800,8 @@ def _vit_rank(rank, world):
                               meta=True)
     if len(set(picked.tolist())) != 1:
         raise AssertionError(f"dispatch ran {picked.tolist()} on the ranks")
-    return dict(counts=counts, moved=moved, volt_err=volt_err, agree=agree,
+    return dict(counts=counts, moved=moved, received=received,
+                volt_err=volt_err, agree=agree,
                 times=times, keys=keys, build_s=build_s,
                 dispatch=(rec.exec_key, rec.wall_ms, rec.wire_bytes),
                 logits=np.asarray(prism.cpu()), cfg=(cfg.n_layers,
@@ -1565,9 +1820,50 @@ def _leaves(tree):
         yield tree
 
 
+def fit_link(ranks) -> dict:
+    """``H100_GLOO_STAGED``'s staging terms and ``H100_SXM``'s coordination
+    overhead from the ``[vit]`` forwards (both ranks' medians averaged).
+    Per forward the cost model charges ``calls · staging_fixed_ms + 2 ·
+    received bytes / staging_bw_base`` (every received byte staged device →
+    host → device); the ``voltage`` and ``prism`` forwards give two such
+    equations in the two unknowns, solved exactly when that gives both
+    terms >= 0, else by the least squared relative error with one term at
+    0 (a zero byte term reads as an unbounded rate).  The coordination
+    overhead is the ``prism`` forward's wall less its staged collectives
+    less the ``local`` forward over P."""
+    import numpy as np
+    keys = ranks[0]["keys"]
+    local = next(k for k in keys if k == "local")
+    volt = next(k for k in keys if k.startswith("voltage"))
+    prism = next(k for k in keys if k.startswith("prism"))
+
+    def mean(key, i):
+        return statistics.mean(r["times"][key][i] for r in ranks)
+    A = np.asarray([(ranks[0]["times"][k][2], 2 * ranks[0]["received"][k])
+                    for k in (volt, prism)], float)
+    y = np.asarray([mean(volt, 1), mean(prism, 1)])
+    x = np.linalg.solve(A, y)
+    if (x < 0).any():                     # one term alone, relative LSQ
+        cands = []
+        for col in range(2):
+            a = A[:, col] / y
+            c = np.zeros(2)
+            c[col] = a.sum() / (a * a).sum()
+            cands.append(c)
+        x = min(cands, key=lambda c: float(np.sum(((A @ c - y) / y) ** 2)))
+    fixed_ms, ms_per_byte = (float(v) for v in x)
+    coord = mean(prism, 0) - mean(prism, 1) - mean(local, 0) / VIT_P
+    return dict(staging_fixed_ms=fixed_ms,
+                staging_bw_base=1e3 / ms_per_byte if ms_per_byte else
+                float("inf"),
+                coord_overhead_ms=coord,
+                received={k: ranks[0]["received"][k] for k in (volt, prism)})
+
+
 def phase_vit(card: str) -> dict:
-    """ViT-B/16 at full width across 2 ranks on the one card → launch
-    totals of the main-path forwards, summed over the ranks."""
+    """ViT-B/16 at full width across 2 ranks on the one card, and the fit
+    of the staged link → launch totals of the main-path forwards, summed
+    over the ranks."""
     from repro_torch.core.seq_group import spawn
     t0 = time.perf_counter()
     ranks = spawn(_vit_rank, VIT_P, timeout=RANK_TIMEOUT_S)
@@ -1595,6 +1891,19 @@ def phase_vit(card: str) -> dict:
           f"{r0['agree']:.0%} over {VIT_B} images; dispatch picked "
           f"{key!r} on both ranks ({wall:.1f} ms, {wire / 1e6:.3f} MB "
           f"modeled on the wire)", flush=True)
+    from repro_torch.profiling import H100_GLOO_STAGED, H100_SXM
+    fit = fit_link(ranks)
+    got = ", ".join(f"{k} {b / 1e6:.3f} MB"
+                    for k, b in fit["received"].items())
+    print(f"[fit] H100_GLOO_STAGED from this run's voltage and prism "
+          f"forwards ({got} received per rank, payload and meta): "
+          f"staging_fixed_ms "
+          f"{fit['staging_fixed_ms']:.3f}, staging_bw_base "
+          f"{fit['staging_bw_base'] / 1e6:.1f} MB/s; H100_SXM "
+          f"coord_overhead_ms {fit['coord_overhead_ms']:.2f}; the presets "
+          f"hold {H100_GLOO_STAGED.staging_fixed_ms:.3f} ms, "
+          f"{H100_GLOO_STAGED.staging_bw_base / 1e6:.1f} MB/s, "
+          f"{H100_SXM.coord_overhead_ms:.2f} ms [{card}]", flush=True)
     prism = next(k for k in r0["keys"] if k.startswith("prism"))
     return {name: sum(r["counts"][prism][i] for r in ranks)
             for i, name in enumerate(("segment_means", "prism_attention"))}
@@ -1684,6 +1993,8 @@ def main() -> None:
     del session
     torch.cuda.empty_cache()
     vit_launches = phase_vit(card)
+    archs = {arch: phase_arch_session(card, arch)
+             for arch, _, _ in DECODE_ARCHS}
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -1704,6 +2015,14 @@ def main() -> None:
                 "replaces": replaces, "launches": n,
                 **{k: t[k] for k in keys}}
                for kname, replaces, n, t in rows]
+    for arch, H, Hk in DECODE_ARCHS:        # their decode shapes
+        kernels.append({
+            "name": "flash_decode", "route": "cuda",
+            "source": src.format("flash_decode", "flash_decode"),
+            "replaces": rows[0][1], "launches": archs[arch]["launches"],
+            "shape": f"{arch}: bf16 B={PROMPT_B} S={PROMPT_T + N_NEW} "
+                     f"{H}/{Hk} heads dh=128",
+            **{k: timed[(arch, PROMPT_T + N_NEW)][k] for k in keys}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

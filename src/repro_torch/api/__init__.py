@@ -8,13 +8,15 @@
 """
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.session import (CalibrationReport, DispatchRecord,
-                                     Explanation, InferenceSession)
+                                     Explanation, InferenceSession,
+                                     from_trace)
 from repro_torch.api.strategies import (ExchangeStrategy, get_strategy,
                                         list_strategies, register_strategy)
 from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
 from repro_torch.core.perfmap import PerfEntry, PerfKey, PerfMap
 from repro_torch.core.policy import (AdaptivePolicy, Decision, PolicyTable,
                                      resolve_objective)
+from repro_torch.core.profiler import profile_measured, profile_simulated
 from repro_torch.profiling import SweepSpec
 
 __all__ = [
@@ -23,5 +25,6 @@ __all__ = [
     "ExchangeStrategy", "register_strategy", "get_strategy",
     "list_strategies", "ExchangeConfig", "ExchangeMode",
     "PerfKey", "PerfEntry", "PerfMap", "AdaptivePolicy", "Decision",
-    "PolicyTable", "resolve_objective", "SweepSpec",
+    "PolicyTable", "resolve_objective", "SweepSpec", "from_trace",
+    "profile_simulated", "profile_measured",
 ]

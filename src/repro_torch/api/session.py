@@ -20,8 +20,12 @@ asking for the card where there is none raises.  Partitioned plans
 ``dispatch`` with the same inputs; ``dispatch`` then takes rank 0's
 decision on every rank, so all ranks enter the same collectives.
 Profiling goes through the backend registry (``repro_torch.profiling``):
-``simulated`` and ``trace``; ``measured`` raises until CUDA-event
-profiling is ported.  The slot-pool and paged-pool serving primitives
+``simulated`` (cost model), ``measured`` (times this session's own plan
+executables on its device, with CUDA events on the card) and ``trace``
+(replay a saved map).  A tracer attached as ``session.tracer`` records a
+``dispatch`` span per routed batch (``from_trace`` turns them back into
+``DispatchRecord``s for ``calibrate``) and a ``generate`` span per
+generation.  The slot-pool and paged-pool serving primitives
 (``init_slot_pool`` … ``paged_decode_chunk``) are what
 ``repro_torch.serving.ServingRuntime`` drives; they update the pools in
 place.
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -65,6 +70,29 @@ class DispatchRecord:
     extrapolated: bool = False  # batch was outside the profiled grid
     codec: str = ""             # exchange codec that ran ("" = no exchange)
     wire_bytes: int = 0         # modeled bytes-on-wire this dispatch moved
+
+
+def from_trace(spans) -> List[DispatchRecord]:
+    """Rebuild :class:`DispatchRecord` rows from ``dispatch`` spans, so a
+    span buffer (a live tracer's ``spans``) can feed
+    ``session.calibrate(records=from_trace(spans))``."""
+    out: List[DispatchRecord] = []
+    for sp in spans:
+        if sp.name != "dispatch" or sp.kind != "session" or sp.open:
+            continue
+        a = sp.attrs
+        if "exec_key" not in a or "batch" not in a:
+            continue
+        out.append(DispatchRecord(
+            batch=int(a["batch"]),
+            bandwidth_mbps=float(a.get("bandwidth_mbps", 0.0)),
+            decision=None, wall_ms=sp.duration_ms,
+            exec_key=str(a["exec_key"]),
+            substituted=bool(a.get("substituted", False)),
+            extrapolated=bool(a.get("extrapolated", False)),
+            codec=str(a.get("codec", "")),
+            wire_bytes=int(a.get("wire_bytes", 0))))
+    return out
 
 
 @dataclasses.dataclass
@@ -144,7 +172,10 @@ class InferenceSession:
         self.temperature = temperature
         self._allow = allow_modes
         self._policy: Optional[AdaptivePolicy] = None
+        # the session owns a registry (link-bandwidth provenance gauges land
+        # here); a tracer is attached opt-in
         self.metrics = MetricsRegistry()
+        self.tracer = None
         self._bwest = BandwidthEstimator(initial_bandwidth_mbps,
                                          bandwidth_alpha,
                                          metrics=self.metrics)
@@ -226,7 +257,7 @@ class InferenceSession:
                              plans=dict(self.plans),
                              execs=dict(self._execs),
                              workload=workload, cost_model=cost_model,
-                             seq_len=seq_len)
+                             seq_len=seq_len, device=self.device)
         if hardware is not None:
             ctx.hardware = hardware
         if link is not None:
@@ -235,15 +266,22 @@ class InferenceSession:
 
     def profile(self, spec=None, *, backend: Optional[str] = None,
                 hardware=None, link=None, workload=None, seq_len: int = 0,
-                model=None, save_path: Optional[str] = None,
-                **backend_opts) -> PerfMap:
+                measured: bool = False, model=None,
+                save_path: Optional[str] = None, **backend_opts) -> PerfMap:
         """Offline sweep (paper §3.3) through a registered profiling backend
         → performance map, installed on the session (and optionally saved).
 
-        ``backend``: ``"simulated"`` (default) or ``"trace"`` (``path=`` /
-        ``perfmap=``); ``"measured"`` raises ``NotImplementedError``.
+        ``backend``: ``"simulated"`` (default), ``"measured"`` (``iters=``,
+        ``warmup=``; times this session's plan executables on its device)
+        or ``"trace"`` (``path=`` / ``perfmap=``).  ``hardware``/``link``
+        select the profiled hardware description (embedded in the map).
         """
         from repro_torch.profiling import SweepSpec, get_backend
+        if measured:
+            warnings.warn("profile(measured=True) is deprecated; use "
+                          "profile(backend='measured')", DeprecationWarning,
+                          stacklevel=2)
+            backend = backend or "measured"
         if model is not None and backend in (None, "simulated"):
             backend_opts.setdefault("model", model)
         ctx = self.profile_context(hardware=hardware, link=link,
@@ -368,7 +406,35 @@ class InferenceSession:
             substituted=substituted, extrapolated=d.extrapolated,
             codec=codec, wire_bytes=wire))
         self.metrics.histogram("session.dispatch_ms").observe(wall)
+        if self.tracer is not None:
+            self._trace_dispatch(d, key, batch_size, wall, wire, codec,
+                                 substituted)
         return out
+
+    def _trace_dispatch(self, d: Decision, key: str, batch: int,
+                        wall_ms: float, wire: int, codec: str,
+                        substituted: bool) -> None:
+        """Record one closed ``dispatch`` span (carrying everything
+        :func:`from_trace` needs to rebuild a :class:`DispatchRecord`) plus
+        the decision's *modeled* staging/wire children, marked
+        ``modeled=True``."""
+        tr = self.tracer
+        end = tr.clock()
+        start = end - wall_ms / 1e3
+        sp = tr.record("dispatch", start=start, end=end, kind="session",
+                       batch=batch, exec_key=key, codec=codec,
+                       wire_bytes=wire, bandwidth_mbps=self.bandwidth,
+                       extrapolated=d.extrapolated, substituted=substituted)
+        exp = d.expected
+        if exp is not None and wire:
+            t = start
+            for name, ms in (("staging", exp.staging_ms),
+                             ("wire", exp.comm_ms)):
+                if ms and ms > 0:
+                    tr.record(name, start=t, end=t + ms / 1e3,
+                              kind="transport", trace_id=sp.trace_id,
+                              parent_id=sp.span_id, modeled=True)
+                    t += ms / 1e3
 
     # -- closed-loop recalibration -------------------------------------------
 
@@ -462,12 +528,15 @@ class InferenceSession:
         int32 tokens on the session's device.  ``plan`` defaults to the
         local plan (or the first registered one)."""
         from repro_torch.api import generation as gen
+        from repro_torch.obs import maybe_span
         plan = self._plan_or_default(plan)
         T = self.temperature if temperature is None else temperature
-        return gen.generate(self.params, self._to_device(prompt_tokens),
-                            n_new, self.cfg, plan.to_exchange_config(),
-                            batch_extras=batch_extras, seed=seed,
-                            temperature=T, prefill_mode=prefill_mode)
+        with maybe_span(self.tracer, "generate", kind="session",
+                        plan=plan.key, n_new=n_new):
+            return gen.generate(self.params, self._to_device(prompt_tokens),
+                                n_new, self.cfg, plan.to_exchange_config(),
+                                batch_extras=batch_extras, seed=seed,
+                                temperature=T, prefill_mode=prefill_mode)
 
     # -- slot-pool serving primitives (used by repro_torch.serving) ----------
 

@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-The port carries llama3.2-1b (dense) and vit-base-16 (the paper's ViT
-encoder) so far; the other architectures of the JAX package arrive with
-their model families.
+The port carries the dense decoders llama3.2-1b, internlm2-1.8b and
+qwen1.5-32b, and vit-base-16 (the paper's ViT encoder); the other
+architectures of the JAX package arrive with their model families.
 """
 from __future__ import annotations
 
@@ -14,19 +14,28 @@ from repro_torch.configs.base import (ALL_SHAPES, LONG_CONTEXT_ARCHS,
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "qwen1.5-32b": "qwen1_5_32b",
     "vit-base-16": "vit_base",
 }
 
-# archs of the JAX package that the port does not carry yet
-_PENDING = ("qwen1.5-32b", "internlm2-1.8b", "gemma2-27b", "deepseek-v2-236b",
-            "deepseek-moe-16b", "whisper-large-v3", "llama-3.2-vision-11b",
-            "hymba-1.5b", "xlstm-350m")
+# archs of the JAX package that the port does not carry yet → the ROADMAP
+# queue 1 item that holds each
+_PENDING = {
+    "gemma2-27b": "6, 7.3",             # windowed local_global layers
+    "deepseek-moe-16b": "11",
+    "deepseek-v2-236b": "11",
+    "hymba-1.5b": "11",
+    "xlstm-350m": "11",
+    "whisper-large-v3": "11",
+    "llama-3.2-vision-11b": "11",
+}
 
 
 def get_config(name: str) -> ModelConfig:
     if name in _PENDING:
-        raise KeyError(f"arch {name!r} is not ported yet: its family is "
-                       f"queued in ROADMAP queue 1 (items 4 and 11); "
+        raise KeyError(f"arch {name!r} is not ported yet: it is queued in "
+                       f"ROADMAP queue 1 (item [{_PENDING[name]}]); "
                        f"ported: {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")

@@ -16,10 +16,12 @@ the profile→policy pipeline a first-class API surface:
 ``InferenceSession.profile(backend=...)`` and ``session.calibrate()`` are
 the runtime entry points (see ``repro_torch.api``).
 """
-from repro_torch.profiling.hardware import (JETSON_ORIN_NANO, PRESET_HARDWARE,
-                                      PRESET_LINKS, TPU_ICI, TPU_V5E,
-                                      WIFI_GLOO, HardwareProfile, LinkProfile,
-                                      to_edge_constants)
+from repro_torch.profiling.hardware import (H100_GLOO_STAGED, H100_SXM,
+                                            JETSON_ORIN_NANO,
+                                            PRESET_HARDWARE, PRESET_LINKS,
+                                            TPU_ICI, TPU_V5E, WIFI_GLOO,
+                                            HardwareProfile, LinkProfile,
+                                            to_edge_constants)
 from repro_torch.profiling.objectives import (EnergyObjective, LatencyObjective,
                                         Objective, ObjectiveLike,
                                         SLOObjective, WeightedObjective,
@@ -38,7 +40,7 @@ __all__ = [
     "list_backends", "SimulatedBackend", "MeasuredBackend", "TraceBackend",
     "HardwareProfile", "LinkProfile", "to_edge_constants",
     "JETSON_ORIN_NANO", "WIFI_GLOO", "TPU_V5E", "TPU_ICI",
-    "PRESET_HARDWARE", "PRESET_LINKS",
+    "H100_SXM", "H100_GLOO_STAGED", "PRESET_HARDWARE", "PRESET_LINKS",
     "Objective", "ObjectiveLike", "LatencyObjective", "EnergyObjective",
     "WeightedObjective", "SLOObjective", "resolve_objective",
     "PolicyTable", "Decision", "BatchPlan",

@@ -11,8 +11,12 @@ Built-ins:
   instantly.  Defaults to the paper's ViT-base workload on the Jetson/WiFi
   preset (so the published crossovers reproduce), overridable with any
   ``HardwareProfile``/``LinkProfile``/``EdgeWorkload``.
-* ``measured`` — registered, but raises ``NotImplementedError`` until the
-  CUDA-event timing of the session's executables is ported.
+* ``measured`` — times the **session's own registered plan executables**
+  on its device (CUDA events on the card, the host clock on the CPU),
+  scales the compute curve to the target hardware profile, and composes it
+  with the modeled staging/wire terms for each swept bandwidth.  Sessions
+  whose plans run in one process only: a plan partitioned over an
+  initialised seq group raises (ROADMAP queue 1 item [5.1]).
 * ``trace`` — replays a previously saved performance-map artifact
   (``path=``) or adopts an in-memory map (``perfmap=``) — the
   "profile once per fleet, ship the JSON" deployment story.
@@ -69,6 +73,8 @@ class ProfileContext:
     All fields optional: the simulated backend runs from an empty context;
     the measured backend requires ``cfg`` + ``execs`` (an
     ``InferenceSession`` provides them via ``session.profile_context()``).
+    ``device`` is where the measured backend puts its inputs (the card
+    when it is not given).
     """
     cfg: Any = None
     params: Any = None
@@ -79,6 +85,7 @@ class ProfileContext:
     workload: Optional[EdgeWorkload] = None   # analytic workload override
     cost_model: Optional[EdgeCostModel] = None  # full simulator override
     seq_len: int = 0                          # token-model profiling length
+    device: Any = None                        # measured inputs' device
 
     def edge_model(self, workload: Optional[EdgeWorkload] = None
                    ) -> EdgeCostModel:
@@ -200,20 +207,129 @@ class SimulatedBackend(ProfileBackend):
 
 @register_backend
 class MeasuredBackend(ProfileBackend):
-    """Times the session's registered plan executables on the card.
+    """Times the session's registered plan executables on its device.
 
-    Registered so the backend names match the JAX package's, but not built
-    yet: timing the torch executables with CUDA events is ROADMAP queue 1
-    item 5 ("CUDA-event ``measured`` profiling")."""
+    The compute curve is **measured** per (plan × batch) and normalized so
+    the anchor plan's first swept batch matches the hardware profile's
+    prediction (device-shape-of-curve × target-absolute-level, as a real
+    fleet would calibrate once); staging/wire are modeled from the link
+    profile at each swept bandwidth.  Distributed plans charge each device
+    ``1/P`` of the measured single-process compute plus the coordination
+    overhead.  On a CUDA device each call is timed between CUDA events.
+
+    A plan partitioned over an initialised seq group runs the real staged
+    exchange, so its time would already hold the staging the backend adds
+    from the link profile: such sessions raise (ROADMAP queue 1 item
+    [5.1]).
+
+    ``last_times`` and ``last_scale`` report the last profile: the measured
+    median seconds per plan key and batch, and the anchor scale (the
+    hardware profile's anchor compute over the measured anchor time; 1 when
+    the profile predicts this device exactly).
+    """
 
     name = "measured"
+    last_times: Dict[str, Dict[int, float]] = {}
+    last_scale: Optional[float] = None
 
-    def profile(self, ctx: ProfileContext, spec: SweepSpec = SweepSpec(),
-                **opts) -> PerfMap:
-        raise NotImplementedError(
-            "the measured profiling backend is not ported yet: CUDA-event "
-            "timing of the session's executables is ROADMAP queue 1 item 5; "
-            "use backend='simulated' or 'trace'")
+    def profile(self, ctx: ProfileContext, spec: SweepSpec = SweepSpec(), *,
+                iters: int = 3, warmup: int = 1) -> PerfMap:
+        from repro_torch.utils.timing import timeit_torch
+        if ctx is None or ctx.cfg is None or not ctx.execs:
+            raise ValueError(
+                "measured backend profiles the session's own executables: "
+                "build the context via InferenceSession.profile_context() "
+                "(register plans first), or pass cfg= and execs=")
+        _refuse_seq_group(ctx)
+        workload = ctx.workload or workload_from_config(ctx.cfg, ctx.seq_len)
+        model = ctx.edge_model(workload)
+        device = "cuda" if ctx.device is None else ctx.device
+        pm = PerfMap()
+        anchor = "local" if "local" in ctx.execs else next(iter(ctx.execs))
+        arch = getattr(ctx.cfg, "name", "?")
+        scale = None
+        self.last_times = {key: {} for key in ctx.execs}
+        for B in spec.batches:
+            inputs = _dummy_batch(ctx.cfg, B, workload.n_tokens, device)
+            times = {key: timeit_torch(fn, inputs, iters=iters,
+                                       warmup=warmup)
+                     for key, fn in ctx.execs.items()}
+            if scale is None:      # anchor: first swept batch of one plan
+                scale = (model.local(B)["compute_ms"] / 1e3) / times[anchor]
+            for key, t in times.items():
+                self.last_times[key][B] = t
+                plan = self._plan_for(ctx, key, workload.n_tokens)
+                compute_ms = t * scale * 1e3
+                meta = {"measured": True, "arch": arch}
+                if not plan.distributed:
+                    r = model.pack(B, compute_ms, 0.0, 0.0, boards=1)
+                    pm.put(plan.to_perf_key(B), _entry(r, meta))
+                    continue
+                P = max(plan.seq_shards, 1)
+                L = plan.L if plan.L > 0 else None
+                per_dev_ms = compute_ms / P + model.c.coord_overhead_ms
+                for bw in spec.bandwidths_mbps:
+                    if plan.codec:     # non-default codec: transport terms
+                        from repro_torch.transport import exchange_cost
+                        terms = exchange_cost(
+                            plan.codec, n_tokens=workload.n_tokens,
+                            d_model=workload.d_model,
+                            bytes_per_el=workload.bytes_per_el, batch=B,
+                            P=P, n_layers=workload.n_layers,
+                            bandwidth_mbps=bw, profile=ctx.link,
+                            link=plan.link or "staged", L=plan.L,
+                            param=plan.codec_param)
+                        r = model.pack(B, per_dev_ms + terms["decode_ms"],
+                                       terms["staging_ms"],
+                                       terms["comm_ms"], boards=P)
+                        pm.put(plan.to_perf_key(B, bw),
+                               _entry(r, dict(
+                                   meta, codec=plan.codec,
+                                   wire_bytes=terms["wire_bytes"])))
+                        continue
+                    rm = model.distributed(B, bw, P, L=L)
+                    r = model.pack(B, per_dev_ms, rm["staging_ms"],
+                                   rm["comm_ms"], boards=P)
+                    pm.put(plan.to_perf_key(B, bw),
+                           _entry(r, dict(meta, L=plan.L)))
+        self.last_scale = scale
+        return _stamp(pm, ctx, from_profiles=ctx.cost_model is None)
+
+    @staticmethod
+    def _plan_for(ctx: ProfileContext, key: str, n_tokens: int):
+        plan = ctx.plans.get(key)
+        if plan is None:                        # hand-wired execs table
+            from repro_torch.api.plan import ExecutionPlan
+            plan = ExecutionPlan.parse(key).resolve_L(n_tokens)
+        return plan
+
+
+def _refuse_seq_group(ctx: ProfileContext) -> None:
+    """Raise when a registered plan is partitioned over a seq group that
+    this process has initialised: its executable runs the real staged
+    exchange, and the backend would add modeled staging on top."""
+    from repro_torch.core.exchange import partitioned
+    from repro_torch.core.seq_group import has_seq_group
+    for key, plan in ctx.plans.items():
+        xcfg = plan.to_exchange_config()
+        if partitioned(xcfg) and has_seq_group(xcfg.seq_axis):
+            raise NotImplementedError(
+                f"measured profiling of plan {key!r}, partitioned over the "
+                f"initialised seq group {xcfg.seq_axis!r}, is not ported: "
+                f"its time would already hold the staged exchange that the "
+                f"backend models on top (ROADMAP queue 1 item [5.1]); "
+                f"profile a single-process session (local, prism_sim)")
+
+
+def _dummy_batch(cfg, batch: int, seq_len: int, device) -> Dict[str, Any]:
+    """Zero-filled inputs for the deployed config's family on ``device`` —
+    tokens or images as the registry prescribes."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import registry
+    shape = ShapeSpec("profiling", seq_len, batch, "prefill")
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in registry.input_specs(cfg, shape).items()}
 
 
 # --------------------------------------------------------------------------

@@ -13,7 +13,11 @@ Presets:
 * ``JETSON_ORIN_NANO`` + ``WIFI_GLOO`` — the paper's 2-board prototype
   (identical to the historic ``EdgeConstants`` defaults).
 * ``TPU_V5E`` + ``TPU_ICI`` — a coarse roofline preset from the §Roofline
-  constants (197 TFLOP/s bf16, 819 GB/s HBM, 50 GB/s ICI per link).
+  constants (197 TFLOP/s bf16, 819 GB/s HBM, 50 GB/s ICI per link), kept
+  so that a map profiled by the JAX package still loads.
+* ``H100_SXM`` + ``H100_GLOO_STAGED`` — the card the port runs on and its
+  gloo link staged through host memory, fitted on it by ``chip_smoke.py``
+  (the ``[fit]`` lines; each description names the run).
 """
 from __future__ import annotations
 
@@ -149,5 +153,49 @@ TPU_ICI = LinkProfile(
     wire_rtt_ms=0.001, sync_overhead_ms=0.05,
     description="2D-ring ICI, 50 GB/s per link; no host staging hop")
 
-PRESET_HARDWARE = {p.name: p for p in (JETSON_ORIN_NANO, TPU_V5E)}
-PRESET_LINKS = {p.name: p for p in (WIFI_GLOO, TPU_ICI)}
+# NVIDIA's data sheet, H100 SXM, dense bf16 without sparsity, at 700 W
+H100_PEAK_FLOPS = 989e12
+H100_HBM_BW = 3.35e12                     # bytes/s
+H100_HBM_GB = 80.0
+
+H100_SXM = HardwareProfile(
+    name="h100-sxm",
+    peak_flops=H100_PEAK_FLOPS, mem_bw_bytes=H100_HBM_BW,
+    mem_gb=H100_HBM_GB,                  # published (data sheet)
+    # fitted: eff(B) = eff_inf - eff_slope/B and the per-forward fixed cost,
+    # to the `local` forward curve of llama3.2-1b at full width (bf16, 32
+    # tokens, batches 1-32) that the measured backend times; the FLOPs are
+    # the cost model's count (`vit_flops_per_sample`), not achieved FLOP/s;
+    # bounded so that 0 < eff(B) <= peak_flops at every swept batch
+    eff_inf=3.323e14, eff_slope=2.659e14, launch_overhead_ms=18.214,
+    # fitted: a `prism` ViT-B/16 forward's wall, less its staged
+    # collectives, less the `local` forward over P
+    coord_overhead_ms=10.70,
+    voltage_eff_penalty=1.0,             # not fitted: no penalty assumed
+    # measured: nvidia-smi power.draw during that sweep less the idle draw;
+    # staging leaves the card idle, so it adds no draw (not measured)
+    power_active_w=31.2, power_comm_w=0.0,
+    description="NVIDIA H100 80GB HBM3 (SXM) at a 700 W power limit; "
+                "eff_inf, eff_slope, launch_overhead_ms, coord_overhead_ms "
+                "and power_active_w fitted by the chip_smoke.py run of "
+                "2026-10-17 ([fit] lines); peak_flops, mem_bw_bytes and "
+                "mem_gb from NVIDIA's data sheet")
+
+H100_GLOO_STAGED = LinkProfile(
+    name="h100-gloo-staged",
+    # fitted from the ViT-B/16 `voltage` and `prism` forwards on 2 ranks
+    # sharing the card: per forward, staged-collective ms = calls ·
+    # staging_fixed_ms + 2 · received bytes / staging_bw_base (the cost
+    # model stages every received byte twice, device → host → device)
+    staging_bw_base=1547.1e6, staging_bw_extra=0.0, staging_knee_bytes=1.0,
+    staging_fixed_ms=1.146,
+    # one host: the gloo hop over loopback and the ranks' wait are inside
+    # the staged-collective time above
+    wire_rtt_ms=0.0, sync_overhead_ms=0.0,
+    description="gloo between 2 ranks on one NVIDIA H100 80GB HBM3 at a "
+                "700 W power limit, staged device -> pinned host -> device;"
+                " staging_fixed_ms and staging_bw_base fitted by the "
+                "chip_smoke.py run of 2026-10-17 ([fit] line of [vit])")
+
+PRESET_HARDWARE = {p.name: p for p in (JETSON_ORIN_NANO, TPU_V5E, H100_SXM)}
+PRESET_LINKS = {p.name: p for p in (WIFI_GLOO, TPU_ICI, H100_GLOO_STAGED)}

@@ -330,3 +330,102 @@ def test_prism_attention_without_means(cuda_device):
                                    out_dtype=torch.float32)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all() and _rel_err(got, want) <= tol
+
+
+# (B, S, H, Hk, cache lengths) at dh 128, the heads of the dense archs
+# beside llama3.2-1b: qwen1.5-32b's 40/40 (G = 1; B·Hk = 160 CTAs, more
+# than the 132 SMs) and internlm2-1.8b's 16/8 (G = 2)
+DH128_SHAPES = {
+    "g1_two_waves": (4, 48, 40, 40, [48, 48, 48, 48]),
+    "g1_ragged": (4, 300, 40, 40, [300, 1, 150, 0]),
+    "g1_batch1_split": (1, 2048, 40, 40, [2048]),
+    "g2_long": (4, 2048, 16, 8, [2048, 7, 1000, 0]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(DH128_SHAPES))
+def test_cuda_kernel_at_dh128_groups_1_and_2(cuda_device, dtype, shape):
+    """The tolerances of ``test_cuda_kernel_matches_plain_version``."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H, Hk, lens = DH128_SHAPES[shape]
+    dh = 128
+    q = torch.randn(B, H, dh, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(B, S, Hk, dh, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(B, S, Hk, dh, generator=g, device=cuda_device).to(dtype)
+    clen = torch.tensor(lens, device=cuda_device)
+    bias = validity_bias(B, S, clen, device=cuda_device)
+    got = flash_decode(q, k, v, bias)
+    torch.cuda.synchronize()
+    want = flash_decode_ref(q, k, v, bias)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    live = clen > 0
+    o_g, o_w = got[0] / got[2][..., None], want[0] / want[2][..., None]
+    for a, b in ((o_g, o_w), (got[1], want[1]), (got[2], want[2])):
+        assert _rel_err(a[live], b[live]) <= tol
+    assert (got[1][~live] == -1e30).all() and (got[2][~live] == S).all()
+    if (~live).any():
+        assert _rel_err(got[0][~live], want[0][~live]) <= tol
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_int8_kv_bf16_session_generates_the_cpus_tokens(cuda_device):
+    """A small bf16 qwen1.5-32b (its QKV bias, MHA, untied head and int8
+    KV cache kept) generates the same greedy tokens on the card, through
+    the flash-decode kernel, as on the CPU, through the plain version, from
+    the same weights."""
+    from repro_torch.api import InferenceSession
+    from repro_torch.models import registry
+    from repro_torch.configs import get_config
+    reduced = dict(n_layers=2, head_dim=128, vocab_size=32)
+    cfg = get_config("qwen1.5-32b").reduced(**reduced)
+    assert cfg.kv_quant and cfg.dtype == "bfloat16"
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 7),
+                           generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        session = InferenceSession.from_config(
+            "qwen1.5-32b", reduced=reduced, params=_to(params, dev),
+            device=dev)
+        before = flash_decode.launches
+        out[dev] = session.generate(prompt, 6).cpu()
+        launches = flash_decode.launches - before
+        assert launches == (5 * cfg.n_layers if dev == "cuda" else 0)
+    assert torch.equal(out["cuda"], out["cpu"]), (out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+def test_measured_backend_times_with_cuda_events(cuda_device, monkeypatch):
+    """The measured backend on a small session on the card: every entry
+    positive, and the times come from CUDA events (two a timed call)."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.core.perfmap import PerfKey
+    from repro_torch.profiling import H100_SXM, SweepSpec, get_backend
+    made = []
+    real = torch.cuda.Event
+
+    def counting_event(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+    monkeypatch.setattr(torch.cuda, "Event", counting_event)
+    session = InferenceSession.from_config(
+        "llama3.2-1b", reduced={"vocab_size": 64}, device="cuda",
+        plans=[ExecutionPlan.local(), ExecutionPlan.prism_sim(L=4, cr=9.9)])
+    spec = SweepSpec(batches=(1, 4), crs=(9.9,), bandwidths_mbps=(400.0,))
+    pm = session.profile(spec, backend="measured", hardware=H100_SXM,
+                         iters=3, warmup=1)
+    assert len(made) == 2 * 3 * 2 * 2          # events × iters × plans × B
+    assert len(pm) == 4 and pm.hardware == H100_SXM
+    assert all(e.total_ms > 0 and e.meta["measured"] for _, e in pm.entries())
+    assert get_backend("measured").last_scale > 0
+    assert pm.get(PerfKey("local", 4, 0.0, 0.0)).compute_ms > 0
