@@ -26,6 +26,12 @@ Phases, one line each (more for the kernel table):
                heads, 160 CTAs) at dh 128; fully masked rows must give
                m = -1e30, l = S and the plain version's o; each timed
                shape prints its splits.
+   The shard partial (``dispatch.decode_partials``, the sharded decode's
+               route onto flash-decode) is held with a nonzero offset, on
+               a block with no valid position (m = -1e30, l = Sp) and in
+               f32 with a softcap; every block's partials merged as the
+               ranks merge them match the dense kernel on the whole cache;
+               timed at the ``lm`` phase's decode shape.
    The paged flash-decode kernel is held likewise at the paged pool's
                shape and harder ones (page sizes 8 and 5, dh 128, f32,
                softcap, shuffled and shared pages, trash entries, rows of
@@ -40,14 +46,19 @@ Phases, one line each (more for the kernel table):
                leaves them (partition 0 and 1), flat, causal with future
                tiles skipped, dh 128, f32 and fully masked rows, and timed
                at the ViT shape with its row plan and with 2 CTAs per
-               (batch row, KV head).
+               (batch row, KV head); both again at the ``lm`` phase's
+               ``prism`` shape (K+V [4, 256, 8·64] L 16; causal GQA 32/8,
+               parts 0 and 1), timed there.
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
-               partial prefix hits; and a ViT whose Voltage and PRISM
+               partial prefix hits; a ViT whose Voltage and PRISM
                forwards run across 2 ranks on the card, held against one
                CPU process that composes the PRISM exchange partition by
-               partition from the plain functions.
+               partition from the plain functions; and the small llama
+               across 2 ranks on the card (``voltage`` and ``prism``
+               forwards, 12 sharded decode steps: ≤ 1e-4 against ``local``
+               and ``prism_sim`` on the CPU; greedy tokens exact).
 5. session   — llama3.2-1b at full width: ``InferenceSession`` profile
                (``measured`` on the H100 presets, batches 1-32, the curve
                ``H100_SXM`` is fitted to, with the card's power draw
@@ -71,7 +82,18 @@ Phases, one line each (more for the kernel table):
                launch counts and gathered bytes per forward asserted, and
                the forward wall time with its staged-collective part;
                ``[fit]`` prints the staged link's constants this run gives.
-8. archs     — internlm2-1.8b and qwen1.5-32b at full width (qwen with all
+8. lm        — llama3.2-1b at full width across 2 ranks on the one card:
+               ``forward_lm(last_only)`` at B 4, N 512 under ``local``,
+               ``voltage`` and ``prism(L=16)`` (segment-means and PRISM-
+               attention launches, 16 each a ``prism`` forward, and the
+               gathered bytes asserted; wall time and its staged part);
+               greedy ``generate`` of [4, 32] + 16 tokens under
+               ``local``, ``voltage`` and ``prism(L=4)`` on the sharded
+               cache (flash-decode launches, 16 a step, one staged merge a
+               layer and the same tokens on both ranks asserted; prefill
+               seconds, decode ms a step, merge bytes, agreement with
+               ``local``); one ``dispatch`` of a ``prism`` plan.
+9. archs     — internlm2-1.8b and qwen1.5-32b at full width (qwen with all
                64 layers where they fit beside nothing else, else fewer, as
                its lines say): the measured profile on the H100 presets at
                B 1, 8 and 32 with the anchor scale, decide and explain, and
@@ -104,6 +126,7 @@ VIT_TOKENS = 197                          # 196 patches + CLS
 SMALL_VIT = dict(dtype="float32", n_layers=2, d_model=256, n_heads=4,
                  n_kv_heads=4, head_dim=64, d_ff=512, vocab_size=10)
 SMALL_L = 5
+LM_P, LM_B, LM_N, LM_L, GEN_L = 2, 4, 512, 16, 4   # the lm phase
 RANK_TIMEOUT_S = 600
 
 
@@ -180,12 +203,15 @@ def decode_case(B, S, dh, dtype, *, seed, heads=(N_HEADS, N_KV), window=None,
     return dict(q=q, k=k, v=v, bias=bias, softcap=softcap)
 
 
-def check_case(case) -> dict:
-    """Kernel vs plain version on one case → errors; raises past tolerance."""
+def check_case(case, got=None) -> dict:
+    """Kernel vs plain version on one case → errors; raises past tolerance.
+    ``got``: the kernel's partials from another route (default: a direct
+    ``flash_decode`` call on the case's bias)."""
     import torch
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     args = (case["q"], case["k"], case["v"], case["bias"])
-    got = flash_decode(*args, softcap=case["softcap"])
+    if got is None:
+        got = flash_decode(*args, softcap=case["softcap"])
     torch.cuda.synchronize()
     want = flash_decode_ref(*args, softcap=case["softcap"])
     tol = 1e-5 if case["q"].dtype == torch.float32 else 1e-3
@@ -373,6 +399,109 @@ def phase_kernels() -> dict:
               f"{splits_of(case['q'], Hk, S)}: err {err_text(errs)} "
               f"(tol {tol})", flush=True)
     return timed
+
+
+# ---------------------------------------------------------------------------
+# phase 3: one shard's flash-decode partials (the sharded decode's route)
+# ---------------------------------------------------------------------------
+
+def shard_case(B, S, P, rank, dh, dtype, *, seed, lens, heads=(N_HEADS, N_KV),
+               softcap=None):
+    """Rank ``rank``'s block of a [B, S] cache split P ways (``Sp`` =
+    ceil(S / P) positions from global position ``rank·Sp``), a query, the
+    global lengths ``lens`` and the block's validity bias."""
+    import torch
+    from repro_torch.kernels.flash_decode import validity_bias
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, Hk = heads
+    Sp = -(-S // P)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    clen = torch.tensor(lens, device="cuda")
+    return dict(q=randn(B, H, dh), k=randn(B, Sp, Hk, dh),
+                v=randn(B, Sp, Hk, dh), clen=clen, offset=rank * Sp,
+                bias=validity_bias(B, Sp, clen, offset=rank * Sp,
+                                   device="cuda"), softcap=softcap)
+
+
+def shard_partials(case):
+    """The route the sharded decode takes: ``dispatch.decode_partials``
+    with the block's offset."""
+    from repro_torch.kernels import dispatch as kdsp
+    return kdsp.decode_partials(case["q"][:, None], case["k"], case["v"],
+                                case["clen"], offset=case["offset"],
+                                logit_softcap=case["softcap"])
+
+
+def check_merge(label, B, S, P, dh, dtype, *, seed, lens, heads=(N_HEADS,
+                                                                  N_KV)):
+    """Every block's partials (the kernel through the offset route),
+    merged as the ranks merge them, against the dense kernel's
+    normalised f32 output on the whole cache (relative max error within
+    tolerance)."""
+    import torch
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.kernels.flash_decode import merge_partials
+    blocks = [shard_case(B, S, P, r, dh, dtype, seed=seed, lens=lens,
+                         heads=heads) for r in range(P)]
+    q = blocks[0]["q"]
+    parts = []
+    for c in blocks:
+        c["q"] = q                      # one query, every block its own K/V
+        parts.append(shard_partials(c))
+    got = merge_partials(*(torch.stack(p) for p in zip(*parts)))
+    k = torch.cat([c["k"] for c in blocks], dim=1)
+    v = torch.cat([c["v"] for c in blocks], dim=1)
+    o, m, l = kdsp.decode_partials(q[:, None], k, v, blocks[0]["clen"])
+    want = o / l[..., None]                  # f32, before any cast
+    torch.cuda.synchronize()
+    err, tol = rel_err(got, want), _tol(dtype)
+    if not err <= tol or not torch.isfinite(got).all():
+        raise AssertionError(f"sharded decode merge {label}: relative error "
+                             f"{err:.3e} > {tol:g} (or not finite)")
+    print(f"[kernel] flash_decode shard partials merged over {P} blocks "
+          f"{label}: rel err {err:.2e} vs the dense kernel on the whole "
+          f"cache (tol {tol:g})", flush=True)
+
+
+def phase_shard_partial() -> dict:
+    """The shard partial with a nonzero offset, a shard with no valid
+    position (m = -1e30, l = Sp), f32 with a softcap, and the merge;
+    timed at the 2-rank llama3.2-1b decode shape (B 4, S 48: Sp 24, the
+    second rank's block, 16 of its 24 positions valid)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    S, P = PROMPT_T + N_NEW, LM_P
+    main = shard_case(PROMPT_B, S, P, 1, 64, bf16, seed=40, lens=[40] * 4)
+    for label, case in (
+            ("rank 1 of 2, B 4 S 48 (Sp 24, offset 24), lengths 30 48 25 40",
+             shard_case(4, S, P, 1, 64, bf16, seed=41, lens=[30, 48, 25, 40])),
+            ("rank 1 of 2, no valid position (lengths 24 10 1 5)",
+             shard_case(4, S, P, 1, 64, bf16, seed=42, lens=[24, 10, 1, 5])),
+            ("f32 rank 2 of 4, S 50 (Sp 13, offset 26), 16/8 heads dh 128, "
+             "softcap 50, lengths 27 30 40 50",
+             shard_case(4, 50, 4, 2, 128, f32, seed=43,
+                        lens=[27, 30, 40, 50], heads=(16, 8), softcap=50.0)),
+            ("f32 rank 3 of 4, no valid position",
+             shard_case(2, 50, 4, 3, 64, f32, seed=44, lens=[39, 1]))):
+        errs = check_case(case, got=shard_partials(case))
+        print(f"[kernel] flash_decode shard partial {label}: err "
+              f"{err_text(errs)} (tol {_tol(case['q'].dtype):g})",
+              flush=True)
+    check_merge("bf16 B 4 S 48 P 2, lengths 10 30 48 24", 4, S, P, 64, bf16,
+                seed=45, lens=[10, 30, 48, 24])
+    check_merge("f32 B 4 S 50 P 4, lengths 1 14 27 50", 4, 50, 4, 64, f32,
+                seed=46, lens=[1, 14, 27, 50])
+    errs = check_case(main, got=shard_partials(main))
+    t = dict(time_case(main), max_abs_err=errs["max_abs_err"])
+    print(f"[kernel] flash_decode shard partial, the lm phase's decode shape"
+          f" (rank 1 of 2: B 4, Sp 24 of S 48, offset 24, 16 valid, bf16, "
+          f"{N_HEADS}/{N_KV} heads, dh 64, 1 split): kernel "
+          f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
+          f"yardstick over the block {t['library_ms']*1e3:.2f} us", flush=True)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -1588,6 +1717,35 @@ def phase_exchange_kernels() -> dict:
           f"bound {t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
           f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
           f"{t['library_ms']*1e3:.2f} us", flush=True)
+
+    # the lm phase's prism forward: llama3.2-1b per rank, B 4, Np 256
+    lm_np = LM_N // LM_P
+    seg = seg_case(LM_B, lm_np, (N_KV, 64), LM_L, bf16, seed=30,
+                   masked=False)
+    err = check_seg_kv(f"llama3.2-1b bf16 2 x [{LM_B}, {lm_np}, {N_KV}·64] "
+                       f"L={LM_L} unmasked", seg)
+    out["segment_means_lm"] = t = dict(time_seg(seg), max_abs_err=err)
+    print(f"[kernel] segment_means llama3.2-1b prism shape, K and V in one "
+          f"launch: kernel {t['ms']*1e3:.2f} us, bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, mean() yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
+    lm = prism_case(LM_B, lm_np, N_HEADS, N_KV, 64, LM_P, LM_L, bf16,
+                    seed=31, causal=True, part=1, masked=False, strided=True)
+    err = check_prism(f"llama3.2-1b causal GQA {N_HEADS}/{N_KV} bf16 "
+                      f"[{LM_B}, {lm_np}] L={LM_L} P={LM_P} part 1, means "
+                      f"strided as gathered", lm)
+    check_prism("llama3.2-1b causal part 0 (no earlier partition's means)",
+                prism_case(LM_B, lm_np, N_HEADS, N_KV, 64, LM_P, LM_L, bf16,
+                           seed=32, causal=True, part=0, masked=False,
+                           strided=True))
+    out["prism_attention_lm"] = t = dict(time_prism(lm), max_abs_err=err)
+    print(f"[kernel] prism_attention llama3.2-1b prism shape (part 1, "
+          f"causal): kernel {t['ms']*1e3:.2f} us ({t['warps']} + 1 warps; 2 "
+          f"CTAs of 4 + 1: {t['split_ms']*1e3:.2f} us), bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
     return out
 
 
@@ -1704,6 +1862,120 @@ def phase_small_vit_reference() -> None:
           f"{time.perf_counter() - t0:.1f} s with rank start-up", flush=True)
 
 
+SMALL_LM_B, SMALL_LM_N, SMALL_LM_T0, SMALL_LM_NEW, SMALL_LM_STEPS = (
+    2, 32, 16, 8, 12)
+SMALL_LM_L = 4
+
+
+def _small_llama():
+    """(cfg, CPU params from seed 0, forward tokens, prompt, decode
+    tokens) of the small f32 llama."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = get_config(ARCH).reduced(**SMALL_LLAMA)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    return (cfg, params,
+            *(torch.randint(0, cfg.vocab_size, (SMALL_LM_B, n), generator=g)
+              for n in (SMALL_LM_N, SMALL_LM_T0, SMALL_LM_STEPS)))
+
+
+def _decode_steps(params, cfg, xcfg, steps, device):
+    """Logits of SMALL_LM_STEPS decode steps from a fresh cache (sharded
+    under a partitioned ``xcfg``) → [B, steps, V] on the CPU."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    cache = tfm.init_decode_cache(cfg, steps.shape[0], steps.shape[1],
+                                  device=device, xcfg=xcfg)
+    out = []
+    with torch.inference_mode():
+        for t in range(steps.shape[1]):
+            lg, cache = tfm.decode_step(params,
+                                        {"tokens": steps[:, t:t + 1].to(
+                                            device)}, cache, t, cfg, xcfg)
+            out.append(lg.cpu())
+    return torch.cat(out, dim=1)
+
+
+def _small_lm_rank(rank, world):
+    """One rank of the small f32 llama on the card: ``voltage`` and
+    ``prism`` forward logits, sharded decode steps, greedy tokens."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    _exact_fp32()
+    cfg, params, tokens, prompt, steps = _small_llama()
+    volt = ExecutionPlan.voltage(seq_shards=world)
+    prism = ExecutionPlan.prism(L=SMALL_LM_L, cr=1.0, seq_shards=world)
+    session = InferenceSession.from_config(
+        ARCH, reduced=SMALL_LLAMA, params=_on(params, "cuda"), device="cuda",
+        plans=[volt, prism])
+    out = {f"fwd/{p.mode}": session.run(p.key, {"tokens": tokens}).cpu()
+           for p in (volt, prism)}
+    out["decode"] = _decode_steps(session.params, cfg,
+                                  volt.to_exchange_config(), steps, "cuda")
+    for plan, mode in ((volt, "auto"), (prism, "auto"),
+                       (prism, "single_pass")):
+        out[f"gen/{plan.mode}/{mode}"] = session.generate(
+            prompt, SMALL_LM_NEW, plan=plan, prefill_mode=mode).cpu()
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def phase_small_lm_reference() -> None:
+    """The small f32 llama across 2 ranks on the card (flash-decode through
+    the offset route and the merge; segment means and PRISM attention,
+    causal, GQA) against one CPU process on the same weights: ``voltage``
+    against ``local`` and ``prism`` against ``prism_sim`` (the forward
+    logits and 12 sharded decode steps ≤ 1e-4), greedy tokens exact
+    (``voltage`` and ``prism``'s decode-loop prefill against ``local``,
+    the forced single-pass ``prism`` against ``prism_sim``)."""
+    import numpy as np
+    import torch
+    from repro_torch.api.generation import generate
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models import transformer as tfm
+    cfg, params, tokens, prompt, steps = _small_llama()
+    local = ExchangeConfig()
+    sim = ExchangeConfig(ExchangeMode.PRISM_SIM, seq_axis="seq",
+                         seq_shards=LM_P, L=SMALL_LM_L)
+    with torch.inference_mode():
+        want = {"fwd/voltage": tfm.forward_lm(params, {"tokens": tokens},
+                                              cfg, local)[0],
+                "fwd/prism": tfm.forward_lm(params, {"tokens": tokens}, cfg,
+                                            sim)[0]}
+    want["decode"] = _decode_steps(params, cfg, local, steps, "cpu")
+    tok_local = generate(params, prompt, SMALL_LM_NEW, cfg, local)
+    want_tokens = {"gen/voltage/auto": tok_local, "gen/prism/auto": tok_local,
+                   "gen/prism/single_pass": generate(
+                       params, prompt, SMALL_LM_NEW, cfg, sim,
+                       prefill_mode="single_pass")}
+    t0 = time.perf_counter()
+    ranks = spawn(_small_lm_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    worst = {}
+    for key, w in want.items():
+        worst[key] = max(float(np.abs(r[key] - w.numpy()).max())
+                         for r in ranks)
+        if not worst[key] <= 1e-4:
+            raise AssertionError(f"small f32 llama {key}: 2 ranks on the "
+                                 f"card vs one CPU process differ by "
+                                 f"{worst[key]:.3e} > 1e-4")
+    for key, w in want_tokens.items():
+        for r, got in enumerate(ranks):
+            if not np.array_equal(got[key], w.numpy()):
+                raise AssertionError(f"small f32 llama {key}: rank {r}'s "
+                                     f"greedy tokens differ from the CPU's")
+    print(f"[reference] reduced f32 llama ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
+          f"{cfg.hd}): {LM_P} ranks on the card vs one CPU process, max "
+          f"|logit diff| voltage forward {worst['fwd/voltage']:.2e}, "
+          f"prism(L={SMALL_LM_L}) forward vs prism_sim "
+          f"{worst['fwd/prism']:.2e}, {SMALL_LM_STEPS} sharded decode steps "
+          f"{worst['decode']:.2e} (tol 1e-4); greedy [{SMALL_LM_B}, "
+          f"{SMALL_LM_T0}] + {SMALL_LM_NEW} tokens exact on both ranks "
+          f"(voltage, prism scan prefill, prism single-pass); "
+          f"{time.perf_counter() - t0:.1f} s with rank start-up", flush=True)
+
+
 def _vit_rank(rank, world):
     """One rank of ViT-B/16 at full width on the shared card."""
     import hashlib
@@ -1773,7 +2045,7 @@ def _vit_rank(rank, world):
     if not volt_err <= 5e-2:
         raise AssertionError(f"rank {rank}: voltage vs local logits differ by"
                              f" {volt_err:.3e} of the largest logit > 5e-2")
-    both = group.all_gather(prism, meta=True)
+    both = group.all_gather(prism, kind="meta")
     if not torch.equal(both[0], both[1]):
         raise AssertionError("prism logits differ between the ranks")
     agree = (prism.argmax(-1) == local.argmax(-1)).float().mean().item()
@@ -1797,7 +2069,7 @@ def _vit_rank(rank, world):
     session.dispatch(batch)
     rec = session.history[-1]
     picked = group.all_gather(torch.tensor(keys.index(rec.exec_key)),
-                              meta=True)
+                              kind="meta")
     if len(set(picked.tolist())) != 1:
         raise AssertionError(f"dispatch ran {picked.tolist()} on the ranks")
     return dict(counts=counts, moved=moved, received=received,
@@ -1909,6 +2181,254 @@ def phase_vit(card: str) -> dict:
             for i, name in enumerate(("segment_means", "prism_attention"))}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: llama3.2-1b across 2 ranks on the card
+# ---------------------------------------------------------------------------
+
+def _timed(fn, group):
+    """(result, host ms, staged-collective ms, calls, merge bytes) of one
+    call, the card synchronised around it."""
+    import torch
+    group.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    st = group.stats
+    return (out, (time.perf_counter() - t0) * 1e3, st.seconds * 1e3,
+            st.calls, st.merge_bytes)
+
+
+def _lm_rank(rank, world):
+    """One rank of llama3.2-1b at full width on the shared card: the
+    ``last_only`` forward under each plan (launches and gathered bytes
+    asserted), greedy ``generate`` under ``voltage`` and ``prism`` (flash-
+    decode launches asserted, tokens equal on both ranks) and one
+    ``dispatch`` of a partitioned plan."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.api import generation as gen_api
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import transformer as tfm
+    from repro_torch.transport import exchange_wire_bytes, plan_wire_bytes
+    group = get_seq_group("seq")
+    t0 = time.perf_counter()
+    fwd_plans = {"local": ExecutionPlan.local(),
+                 "voltage": ExecutionPlan.voltage(seq_shards=world),
+                 "prism": ExecutionPlan.prism(L=LM_L, cr=LM_N / (LM_L * world),
+                                              seq_shards=world)}
+    gen_prism = ExecutionPlan.prism(L=GEN_L, cr=PROMPT_T / (GEN_L * world),
+                                    seq_shards=world)
+    session = InferenceSession.from_config(
+        ARCH, reduced=False, device="cuda", seed=0,
+        plans=[*fwd_plans.values(), gen_prism])
+    cfg = session.cfg
+    sums = torch.stack([leaf.double().sum() for leaf in
+                        _leaves(session.params)]).cpu().numpy().tobytes()
+    if group.broadcast_object(sums) != sums:
+        raise AssertionError(f"rank {rank}: weights differ from rank 0's")
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_N), generator=g,
+                           device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                           generator=g, device="cuda")
+    kv_width = 2 * cfg.n_kv_heads * cfg.hd          # K and V per token
+
+    def forward(key):
+        with torch.inference_mode():
+            return tfm.forward_lm(session.params, {"tokens": tokens}, cfg,
+                                  fwd_plans[key].to_exchange_config(),
+                                  last_only=True)[0]
+    for key in fwd_plans:                           # warm-up
+        forward(key)
+    fwd = {}
+    last = {}
+    for key, plan in fwd_plans.items():             # the main path
+        segment_means.launches = prism_attention.launches = 0
+        last[key], *_ = _timed(lambda: forward(key), group)
+        counts = (segment_means.launches, prism_attention.launches)
+        moved = group.stats.payload_bytes
+        want = 0 if not plan.distributed else exchange_wire_bytes(
+            plan.effective_codec, n_tokens=LM_N, d_model=kv_width,
+            bytes_per_el=cfg.torch_dtype.itemsize, batch=LM_B, P=world,
+            n_layers=cfg.n_layers, L=plan.L)
+        if moved != want:
+            raise AssertionError(f"rank {rank} {key}: gathered {moved} "
+                                 f"payload bytes, transport accounting says "
+                                 f"{want}")
+        n = cfg.n_layers if plan.mode == "prism" else 0
+        if counts != (n, n):
+            raise AssertionError(f"rank {rank} {key}: (segment_means, "
+                                 f"prism_attention) launches {counts}, want "
+                                 f"{(n, n)}")
+        if last[key].shape != (LM_B, 1, cfg.vocab_size) or not \
+                torch.isfinite(last[key]).all():
+            raise AssertionError(f"rank {rank} {key}: last logits "
+                                 f"{tuple(last[key].shape)} not finite / "
+                                 f"wrong")
+        runs = [_timed(lambda: forward(key), group) for _ in range(5)]
+        fwd[key] = dict(counts=counts, moved=moved,
+                        modeled=plan_wire_bytes(plan, cfg, LM_B, LM_N),
+                        ms=statistics.median(r[1] for r in runs),
+                        staged_ms=statistics.median(r[2] for r in runs),
+                        calls=runs[0][3])
+    volt_err = ((last["voltage"] - last["local"]).abs().max()
+                / last["local"].abs().max()).item()
+    if not volt_err <= 5e-2:
+        raise AssertionError(f"rank {rank}: voltage vs local last logits "
+                             f"differ by {volt_err:.3e} of the largest > 5e-2")
+    for key in ("voltage", "prism"):
+        both = group.all_gather(last[key], kind="meta")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"{key} last logits differ between ranks")
+
+    gen = {}
+    for key in ("local", "voltage", gen_prism.key):
+        plan = session.plans[key]
+        xcfg = plan.to_exchange_config()
+        session.generate(prompt, 2, plan=plan)          # warm-up
+        flash_decode.launches = 0                       # the main path
+        out, w, *_ = _timed(
+            lambda: session.generate(prompt, N_NEW, plan=plan), group)
+        launches = flash_decode.launches
+
+        # generate's own parts timed apart: the prefill, then the decode
+        # steps (a difference of two generate walls drowns the steps in
+        # the scan prefill's spread)
+        def prefill():
+            cache = tfm.init_decode_cache(cfg, PROMPT_B, PROMPT_T + N_NEW,
+                                          device="cuda", xcfg=xcfg)
+            with torch.inference_mode():
+                return gen_api.prefill_prompt(
+                    session.params, prompt, {}, cache, cfg, xcfg,
+                    gen_api.resolve_prefill_mode(cfg, xcfg))
+        (logits, cache), w1, s1, c1, _ = _timed(prefill, group)
+        tok = gen_api.sample_token(logits, None)[:, 0:1]
+
+        def decode():
+            with torch.inference_mode():
+                return gen_api.decode_scan(session.params, cache, tok,
+                                           PROMPT_T, None, cfg, xcfg, 0.0,
+                                           N_NEW - 1)[0]
+        rest, wd, sd, cd, md = _timed(decode, group)
+        if not torch.equal(torch.cat([tok, rest], dim=1), out):
+            raise AssertionError(f"rank {rank} {key}: prefill and decode "
+                                 f"timed apart drew other tokens than "
+                                 f"generate")
+        steps = (PROMPT_T if plan.mode == "prism" else 0) + N_NEW - 1
+        if launches != steps * cfg.n_layers:
+            raise AssertionError(f"rank {rank} {key}: flash_decode launched "
+                                 f"{launches} times, want {steps} steps x "
+                                 f"{cfg.n_layers} layers")
+        if out.shape != (PROMPT_B, N_NEW) or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"rank {rank} {key}: bad tokens")
+        if plan.distributed:
+            if cd != (N_NEW - 1) * cfg.n_layers:
+                raise AssertionError(f"rank {rank} {key}: {cd} staged "
+                                     f"calls over {N_NEW - 1} decode steps, "
+                                     f"want one a layer")
+            both = group.all_gather(out, kind="meta")
+            if not torch.equal(both[0], both[1]):
+                raise AssertionError(f"{key}: the ranks drew different "
+                                     f"tokens")
+        gen[key] = dict(tokens=out.cpu().numpy(), launches=launches,
+                        wall_s=w / 1e3, prefill_s=w1 / 1e3, prefill_calls=c1,
+                        prefill_staged_s=s1 / 1e3,
+                        decode_ms=wd / (N_NEW - 1),
+                        staged_ms=sd / (N_NEW - 1),
+                        calls=cd / (N_NEW - 1),
+                        merge_bytes=md / (N_NEW - 1))
+    for key in ("voltage", gen_prism.key):
+        gen[key]["agree"] = float(np.mean(gen[key]["tokens"]
+                                          == gen["local"]["tokens"]))
+
+    # one dispatch of a partitioned plan: the policy may pick prism only
+    routed = InferenceSession(cfg, session.params, plans=[gen_prism],
+                              allow_modes=("prism",), device="cuda")
+    routed.profile(backend="simulated")
+    small = tokens[:1, :PROMPT_T]
+    group.reset_stats()
+    logits = routed.dispatch({"tokens": small})
+    rec = routed.history[-1]
+    if logits.shape != (1, PROMPT_T, cfg.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"rank {rank}: dispatch logits "
+                             f"{tuple(logits.shape)} not finite / wrong")
+    dispatch = dict(key=rec.exec_key, wall_ms=rec.wall_ms,
+                    staged_ms=group.stats.seconds * 1e3,
+                    output_bytes=group.stats.output_bytes)
+    picked = group.all_gather(torch.tensor(list(routed.plans).index(
+        rec.exec_key)), kind="meta")
+    if len(set(picked.tolist())) != 1:
+        raise AssertionError(f"dispatch ran {picked.tolist()} on the ranks")
+    return dict(fwd=fwd, gen=gen, volt_err=volt_err, dispatch=dispatch,
+                build_s=build_s, prism_key=gen_prism.key,
+                cfg=(cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.hd, cfg.vocab_size))
+
+
+def phase_lm(card: str) -> dict:
+    """llama3.2-1b at full width across 2 ranks on the one card → launch
+    totals of the main path, summed over the ranks: flash-decode in the
+    sharded decode, segment means and PRISM attention in the ``prism``
+    forward."""
+    from repro_torch.core.seq_group import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_lm_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    r0, r1 = ranks
+    L_, d, H, Hk, hd, V = r0["cfg"]
+    print(f"[lm] {ARCH} full width ({L_} layers, d {d}, {H}/{Hk} heads, dh "
+          f"{hd}, vocab {V}, bf16, random weights from seed 0, equal on both"
+          f" ranks) on {LM_P} ranks sharing the card, gloo staged through "
+          f"host memory; {time.perf_counter() - t0:.1f} s with rank "
+          f"start-up", flush=True)
+    for key, f in r0["fwd"].items():
+        sm, pa = f["counts"]
+        print(f"[lm] forward_lm(last_only) {key}: B={LM_B} N={LM_N}, per "
+              f"rank: segment_means {sm}, prism_attention {pa} launches; "
+              f"gathered {f['moved'] / 1e6:.3f} MB (= transport accounting "
+              f"of K and V; plan_wire_bytes models {f['modeled'] / 1e6:.3f} "
+              f"MB at d_model a token); forward {f['ms']:.2f} ms (rank 1: "
+              f"{r1['fwd'][key]['ms']:.2f} ms), staged collectives "
+              f"{f['staged_ms']:.2f} ms of it in {f['calls']} calls (median "
+              f"of 5) [{card}]", flush=True)
+    print(f"[lm] voltage vs local last logits: max |diff| "
+          f"{r0['volt_err']:.2e} of the largest (tol 5e-2); voltage and "
+          f"prism last logits equal on both ranks", flush=True)
+    for key, gn in r0["gen"].items():
+        agree = (f"; agreement with local tokens {gn['agree']:.0%}"
+                 if "agree" in gn else "")
+        print(f"[lm] generate {key}: [{PROMPT_B}, {PROMPT_T}] prompt + "
+              f"{N_NEW} greedy tokens in {gn['wall_s']:.3f} s; timed apart:"
+              f" prefill {gn['prefill_s']:.3f} s "
+              f"({gn['prefill_calls']} staged calls, "
+              f"{gn['prefill_staged_s']:.3f} s); decode "
+              f"{gn['decode_ms']:.2f} ms/step (rank 1: "
+              f"{r1['gen'][key]['decode_ms']:.2f}), staged "
+              f"{gn['staged_ms']:.2f} ms in {gn['calls']:.0f} calls and "
+              f"{gn['merge_bytes'] / 1e3:.1f} kB of merge partials a step; "
+              f"flash_decode launches {gn['launches']} per rank"
+              f"{agree} [{card}]", flush=True)
+    dp = r0["dispatch"]
+    print(f"[lm] dispatch of tokens [1, {PROMPT_T}] ran {dp['key']!r} on "
+          f"both ranks: {dp['wall_ms']:.1f} ms, staged {dp['staged_ms']:.1f}"
+          f" ms, global logits gather {dp['output_bytes'] / 1e6:.2f} MB "
+          f"received per rank [{card}]", flush=True)
+    sharded = ("voltage", r0["prism_key"])
+    return {"flash_decode": sum(r["gen"][k]["launches"] for r in ranks
+                                for k in sharded),
+            "segment_means": sum(r["fwd"]["prism"]["counts"][0]
+                                 for r in ranks),
+            "prism_attention": sum(r["fwd"]["prism"]["counts"][1]
+                                   for r in ranks)}
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -1983,16 +2503,19 @@ def main() -> None:
 
     phase_build()
     timed = phase_kernels()
+    shard = phase_shard_partial()
     paged = phase_paged_kernel()
     exchange = phase_exchange_kernels()
     phase_small_reference()
     phase_small_serving()
     phase_small_vit_reference()
+    phase_small_lm_reference()
     launches, session = phase_session(card)
     serve_dense, serve_paged = phase_serve(card, session)
     del session
     torch.cuda.empty_cache()
     vit_launches = phase_vit(card)
+    lm_launches = phase_lm(card)
     archs = {arch: phase_arch_session(card, arch)
              for arch, _, _ in DECODE_ARCHS}
 
@@ -2023,6 +2546,24 @@ def main() -> None:
             "shape": f"{arch}: bf16 B={PROMPT_B} S={PROMPT_T + N_NEW} "
                      f"{H}/{Hk} heads dh=128",
             **{k: timed[(arch, PROMPT_T + N_NEW)][k] for k in keys}})
+    lm_np = LM_N // LM_P
+    for kname, replaces, t, shape in (
+            ("flash_decode", rows[0][1], shard,
+             f"{ARCH} shard partial (sharded decode, {LM_P} ranks): bf16 "
+             f"B={PROMPT_B} Sp={(PROMPT_T + N_NEW) // LM_P} of "
+             f"S={PROMPT_T + N_NEW}, offset {(PROMPT_T + N_NEW) // LM_P}, "
+             f"{N_HEADS}/{N_KV} heads dh=64"),
+            ("segment_means", rows[2][1], exchange["segment_means_lm"],
+             f"{ARCH} prism forward per rank: K and V bf16 [{LM_B}, {lm_np}, "
+             f"{N_KV}·64] L={LM_L}"),
+            ("prism_attention", rows[3][1], exchange["prism_attention_lm"],
+             f"{ARCH} prism forward per rank: bf16 [{LM_B}, {lm_np}] "
+             f"{N_HEADS}/{N_KV} heads dh=64 causal L={LM_L} part 1")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src.format(kname, kname), "replaces": replaces,
+            "launches": lm_launches[kname], "shape": shape,
+            **{k: t[k] for k in keys}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,10 +14,16 @@ stay on the device between steps (no host round-trip per token).
   ``argmax`` (first index on ties, as in JAX); temperature sampling draws
   from a ``torch.Generator`` seeded from ``seed``.  It is deterministic for
   a seed but does not reproduce JAX's threefry draws.
+* **Partitioned plans** — under ``voltage`` / ``prism`` every rank of the
+  seq group runs the same call: the cache is sharded along S, every rank
+  gets bitwise the same logits from the exact merge, and identically
+  seeded generators draw the same tokens on every rank.
 * **Serving primitives** — the slot-pool and paged-pool builders of the
   serving runtime (``repro_torch.serving``): plain functions that update
   the pool in place (the JAX package donates it to a jitted executable),
-  with Python loops in place of ``lax.scan``.
+  with Python loops in place of ``lax.scan``.  Both pools hold one
+  partition, as the JAX package's slot pool is not mesh-sharded; their
+  builders refuse a partitioned plan.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+from repro_torch.core.exchange import ExchangeConfig, ExchangeMode, partitioned
 from repro_torch.models import transformer as tfm
 
 
@@ -65,6 +71,16 @@ def resolve_prefill_mode(cfg: ModelConfig, xcfg: ExchangeConfig,
               or xcfg.seq_axis is None or xcfg.seq_shards == 1)
              and cfg.moe is None)
     return "single_pass" if (supported and exact) else "scan"
+
+
+def prefill_prompt(params, prompt_tokens: torch.Tensor, extras, cache,
+                   cfg: ModelConfig, xcfg: ExchangeConfig, mode: str):
+    """Prompt prefill by ``mode`` (``resolve_prefill_mode``'s
+    "single_pass" or "scan") → (last logits [B, 1, V], primed cache)."""
+    if mode == "single_pass":
+        return tfm.prefill(params, {"tokens": prompt_tokens, **extras},
+                           cache, cfg, xcfg)
+    return prefill_by_decode(params, prompt_tokens, cache, cfg, xcfg)
 
 
 def prefill_by_decode(params, prompt_tokens: torch.Tensor, cache,
@@ -108,14 +124,9 @@ def build_generate_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
     def gen_fn(params, prompt_tokens, extras, gen):
         B, T0 = prompt_tokens.shape
         cache = tfm.init_decode_cache(cfg, B, T0 + n_new,
-                                      device=prompt_tokens.device)
-        if mode == "single_pass":
-            logits, cache = tfm.prefill(
-                params, {"tokens": prompt_tokens, **extras}, cache, cfg,
-                xcfg)
-        else:
-            logits, cache = prefill_by_decode(params, prompt_tokens, cache,
-                                              cfg, xcfg)
+                                      device=prompt_tokens.device, xcfg=xcfg)
+        logits, cache = prefill_prompt(params, prompt_tokens, extras, cache,
+                                       cfg, xcfg, mode)
         tok = sample_token(logits, gen, temperature)[:, 0:1]
         rest, _ = decode_scan(params, cache, tok, T0, gen, cfg, xcfg,
                               temperature, n_new - 1)
@@ -150,6 +161,16 @@ def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Dict[str, int]]:
 SLOT_POOL_FAMILIES = ("dense",)
 
 
+def require_one_partition(xcfg: ExchangeConfig) -> None:
+    """The slot pool and the paged pool hold one partition: the JAX
+    package's serving pool is not mesh-sharded either."""
+    if partitioned(xcfg):
+        raise NotImplementedError(
+            f"the serving pools hold one partition, as the JAX package's "
+            f"slot pool is not mesh-sharded; a {xcfg.mode.value} plan over "
+            f"{xcfg.seq_shards} partitions has no pooled serving path")
+
+
 def supports_slot_pool(cfg: ModelConfig) -> bool:
     """The port slot-pools the dense family; moe, hybrid and ssm come with
     their families (ROADMAP queue 1 item 11), and audio/vlm/vit have no
@@ -179,6 +200,7 @@ def build_prefill_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
     from ``gen``).  ``with_logits=True`` appends the last-position logits
     [B, 1, V] (the paged prefix cache keeps them, so a later full-prefix
     hit samples its own first token without a prefill)."""
+    require_one_partition(xcfg)
     mode = resolve_prefill_mode(cfg, xcfg, prefill_mode)
 
     @torch.inference_mode()
@@ -186,13 +208,8 @@ def build_prefill_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
         B, T0 = prompt_tokens.shape
         cache = tfm.init_decode_cache(cfg, B, total_len,
                                       device=prompt_tokens.device)
-        if mode == "single_pass":
-            logits, cache = tfm.prefill(
-                params, {"tokens": prompt_tokens, **extras}, cache, cfg,
-                xcfg)
-        else:
-            logits, cache = prefill_by_decode(params, prompt_tokens, cache,
-                                              cfg, xcfg)
+        logits, cache = prefill_prompt(params, prompt_tokens, extras, cache,
+                                       cfg, xcfg, mode)
         tok = sample_token(logits, gen, temp)[:, 0:1]
         if with_logits:
             return tok, cache, gen, logits
@@ -239,6 +256,7 @@ def build_decode_chunk_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
     harmlessly: ``lengths`` stops at ``max_len``, and a write there lands
     on the row's last position, as the JAX package's clamped
     ``dynamic_update_slice`` does; admission re-primes the whole row."""
+    require_one_partition(xcfg)
 
     @torch.inference_mode()
     def chunk(params, cache, tok, lengths, gens, temps):
@@ -325,6 +343,7 @@ def build_paged_suffix_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
 
     ``fn(params, pool, row_table [1, MP], suffix [1, n], start_len [1],
     gen, temp) → (tok0 [1, 1], pool, gen, logits [1, 1, V])``."""
+    require_one_partition(xcfg)
 
     @torch.inference_mode()
     def pf(params, pool, row_table, suffix, start_len, gen, temp):
@@ -351,6 +370,7 @@ def build_paged_decode_chunk_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
     held inside their own last page (or the trash page) — active rows are
     never held back, because the runtime grows their pages over the whole
     chunk first."""
+    require_one_partition(xcfg)
 
     @torch.inference_mode()
     def chunk(params, pool, page_table, caps, tok, lengths, gens, temps):

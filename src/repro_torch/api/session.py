@@ -17,8 +17,11 @@ Everything runs on ``device`` ("cuda" unless the caller asks for "cpu");
 asking for the card where there is none raises.  Partitioned plans
 (``voltage``, ``prism``) run SPMD: every rank of a
 ``repro_torch.core.seq_group`` builds the same session and calls ``run`` /
-``dispatch`` with the same inputs; ``dispatch`` then takes rank 0's
-decision on every rank, so all ranks enter the same collectives.
+``dispatch`` / ``generate`` with the same inputs; ``dispatch`` then takes
+rank 0's decision on every rank, so all ranks enter the same collectives.
+An LM's partitioned forward returns the global logits on every rank, and
+``generate`` the same tokens on every rank.  The serving pools hold one
+partition.
 Profiling goes through the backend registry (``repro_torch.profiling``):
 ``simulated`` (cost model), ``measured`` (times this session's own plan
 executables on its device, with CUDA events on the card) and ``trace``
@@ -526,7 +529,9 @@ class InferenceSession:
                  prefill_mode: str = "auto") -> torch.Tensor:
         """Greedy/temperature generation: prompt [B, T0] → [B, n_new]
         int32 tokens on the session's device.  ``plan`` defaults to the
-        local plan (or the first registered one)."""
+        local plan (or the first registered one).  Under a partitioned
+        plan every rank of its seq group calls this with the same prompt
+        and seed, and every rank returns the same tokens."""
         from repro_torch.api import generation as gen
         from repro_torch.obs import maybe_span
         plan = self._plan_or_default(plan)
@@ -559,11 +564,20 @@ class InferenceSession:
                 f"port (supported: {gen.SLOT_POOL_FAMILIES}; the other "
                 f"families are ROADMAP queue 1 item 11)")
 
+    def _require_one_partition(self) -> None:
+        """The pools serve the default plan, which must hold one
+        partition (``generation.require_one_partition``)."""
+        from repro_torch.api import generation as gen
+        gen.require_one_partition(
+            self._plan_or_default(None).to_exchange_config())
+
     def init_slot_pool(self, n_slots: int, max_len: int):
         """Pooled decode cache with one slot (batch row) per in-flight
-        request — the state ``prime_slot``/``decode_chunk`` operate on."""
+        request — the state ``prime_slot``/``decode_chunk`` operate on.
+        Raises when the default plan is partitioned."""
         from repro_torch.models import transformer as tfm
         self._require_slot_pool()
+        self._require_one_partition()
         return tfm.init_decode_cache(self.cfg, n_slots, max_len,
                                      device=self.device)
 
@@ -625,8 +639,9 @@ class InferenceSession:
     def init_page_pool(self, n_pages: int, page_size: int):
         """Shared paged KV pool (``[n_layers, n_pages, page_size, Hk, dh]``
         leaves) on the session's device.  Raises for families without a
-        paged decode path."""
+        paged decode path, and when the default plan is partitioned."""
         from repro_torch.models import transformer as tfm
+        self._require_one_partition()
         return tfm.init_page_pool(self.cfg, n_pages, page_size,
                                   device=self.device)
 

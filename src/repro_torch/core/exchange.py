@@ -5,40 +5,44 @@ Port of ``repro.core.exchange``:
   * LOCAL     — no sequence sharding; ordinary full attention (chunked
                 above a memory threshold).
   * VOLTAGE   — one all-gather of the full projected K/V (and the key
-                mask) across the ranks of a seq group; every rank attends
-                its own queries over the whole sequence.
+                mask, where there is one) across the ranks of a seq group;
+                every rank attends its own queries over the whole sequence.
   * PRISM     — one all-gather of L projected segment means per partition
                 (and their token counts); the scaling-aware softmax over
                 [local K/V ‖ remote means] runs on the PRISM-attention
                 kernel.
-  * PRISM_SIM — PRISM math (segment means + scaling-aware softmax) on
-                unpartitioned tensors.
-  * the single-partition branch of decode-time attention, which routes
-    through the kernel-dispatch layer onto the flash-decode kernel.
+  * PRISM_SIM — PRISM math on unpartitioned tensors.
+  * decode-time attention: with one partition the cache is device-local
+    and goes through the kernel-dispatch layer onto the flash-decode
+    kernel; across a seq group each rank holds a contiguous block of the
+    cache's positions, takes its partial softmax on the flash-decode
+    kernel under global validity, and one gather of the partials per call
+    merges them exactly (log-sum-exp) on every rank.
 
 VOLTAGE and PRISM run SPMD over a ``repro_torch.core.seq_group`` (gloo,
 staged through host memory): each rank calls them with its own partition
 ``[B, N/P, ...]``, in place of the JAX package's ``shard_map`` body.  Not
-ported yet (ROADMAP queue 1 item 7): the halo exchange of windowed layers,
-the ring executor (``overlap_chunks > 0``), the cross-attention and MLA
-exchanges, and the sharded decode merge.
+ported yet (ROADMAP queue 1): the halo exchange of windowed layers
+([6, 7.3]), the ring executor (``overlap_chunks > 0``) and the codec
+exchanges ([9, 7.4]), the cross-attention and MLA exchanges ([11, 7.5]).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.prism_attention import (chunked_reference_attention,
+from repro_torch.core.prism_attention import (NEG_INF, _grouped_scores,
+                                              _grouped_values, _softcap,
+                                              chunked_reference_attention,
                                               reference_attention)
 from repro_torch.core.seq_group import SeqGroup, get_seq_group
 from repro_torch.kernels import dispatch as kdsp
-
-_MULTI_PARTITION = ("multi-partition exchange over a sequence mesh is not "
-                    "ported yet (ROADMAP queue 1 item 7)")
+from repro_torch.kernels.flash_decode.ops import (merge_partials,
+                                                  validity_mask)
 
 
 class ExchangeMode(str, enum.Enum):
@@ -78,17 +82,24 @@ def exchange_attention(
     logit_softcap: Optional[float] = None,
     scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,  # [B, N] bool; False → padding
+    kv_sink: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Attention with the configured exchange, dispatched through the
-    ``repro_torch.api.strategies`` registry.  Returns [B, N, H, dh]."""
+    ``repro_torch.api.strategies`` registry.  Returns [B, N, H, dh].
+
+    ``kv_sink`` (partitioned plans only): called with the global K and V
+    ``[B, P·Np, Hk, dh]`` by an exchange that gathers them in full
+    (VOLTAGE), so a prefill can fill its cache block from them; PRISM
+    gathers only means and never calls it."""
     from repro_torch.api.strategies import get_strategy
     try:
         strategy = get_strategy(cfg.strategy or cfg.mode.value)
     except KeyError as e:
         raise ValueError(f"unknown exchange mode {cfg.mode}") from e
+    kw = {} if kv_sink is None else {"kv_sink": kv_sink}
     return strategy.prefill_attention(
         q, k, v, cfg, causal=causal, window=window,
-        logit_softcap=logit_softcap, scale=scale, kv_mask=kv_mask)
+        logit_softcap=logit_softcap, scale=scale, kv_mask=kv_mask, **kw)
 
 
 def local_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
@@ -135,29 +146,45 @@ def seq_group_for(cfg: ExchangeConfig) -> SeqGroup:
     return group
 
 
+def gather_kv(group: SeqGroup, k: torch.Tensor, v: torch.Tensor,
+              kind: str = "payload"):
+    """Every rank's K and V ``[B, Np, Hk, dh]`` in one gather → the global
+    ``[B, P·Np, Hk, dh]`` K and V, rank p's at positions
+    ``[p·Np, (p+1)·Np)``; the bytes are booked under ``kind``."""
+    kv = group.all_gather(torch.stack([k, v]), kind=kind)
+    kv = kv.permute(1, 2, 0, 3, 4, 5).reshape(2, k.shape[0], -1, *k.shape[2:])
+    return kv[0], kv[1]
+
+
 def voltage_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
-                              logit_softcap=None, scale=None, kv_mask=None):
+                              logit_softcap=None, scale=None, kv_mask=None,
+                              kv_sink=None):
     """Full-tensor K/V all-gather (the paper's Voltage baseline): this
-    rank's queries [B, Np, H, dh] attend over every rank's K/V."""
+    rank's queries [B, Np, H, dh] attend over every rank's K/V.  Without a
+    key mask (on every rank, as SPMD calls are alike) no mask is
+    gathered; ``kv_sink`` receives the gathered K and V."""
     group = seq_group_for(cfg)
     B, Np = q.shape[:2]
-    if kv_mask is None:
-        kv_mask = torch.ones((B, Np), dtype=torch.bool, device=q.device)
-    kv = group.all_gather(torch.stack([k, v]))     # [P, 2, B, Np, Hk, dh]
-    kv = kv.permute(1, 2, 0, 3, 4, 5).reshape(2, B, -1, *k.shape[2:])
-    mask = group.all_gather(kv_mask, meta=True)    # [P, B, Np]
-    mask = mask.permute(1, 0, 2).reshape(B, -1)
+    k_all, v_all = gather_kv(group, k, v)
+    if kv_sink is not None:
+        kv_sink(k_all, v_all)
+    mask = None
+    if kv_mask is not None:
+        mask = group.all_gather(kv_mask, kind="meta")   # [P, B, Np]
+        mask = mask.permute(1, 0, 2).reshape(B, -1)
     return chunked_reference_attention(
-        q, kv[0], kv[1], causal=causal, q_offset=group.rank * Np,
+        q, k_all, v_all, causal=causal, q_offset=group.rank * Np,
         window=window, logit_softcap=logit_softcap, scale=scale,
         kv_mask=mask)
 
 
 def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
-                            logit_softcap=None, scale=None, kv_mask=None):
+                            logit_softcap=None, scale=None, kv_mask=None,
+                            kv_sink=None):
     """Segment-Means exchange + scaling-aware softmax (the paper's PRISM):
     this rank's L means of K and V go to every rank, and its queries
-    attend over [local K/V ‖ every other partition's means]."""
+    attend over [local K/V ‖ every other partition's means].  It gathers
+    no full K/V, so ``kv_sink`` is never called."""
     if window is not None:
         raise NotImplementedError("the halo exchange of windowed layers is "
                                   "not ported yet (ROADMAP queue 1 item 7)")
@@ -168,7 +195,7 @@ def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
     # unmasked means and the exact log(seg) scaling bias
     kv_means, counts = kdsp.segment_means_kv(k, v, L, kv_mask, axis=1)
     counts = (None if kv_mask is None
-              else group.all_gather(counts, meta=True).transpose(0, 1))
+              else group.all_gather(counts, kind="meta").transpose(0, 1))
     means = group.all_gather(kv_means)               # [P, 2, B, L, Hk, dh]
     means = means.permute(1, 2, 0, 3, 4, 5)          # [2, B, P, L, Hk, dh]
     return kdsp.prism_attention(q, k, v, means[0], means[1], group.rank, seg,
@@ -178,16 +205,16 @@ def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
 
 
 def decode_attention_sharded(
-    q: torch.Tensor,        # [B, 1, H, dh]
-    k_cache: torch.Tensor,  # [B, S, Hk, dh]
+    q: torch.Tensor,        # [B, 1, H, dh] — the same on every rank
+    k_cache: torch.Tensor,  # [B, S, Hk, dh] — this rank's block of S
     v_cache: torch.Tensor,  # [B, S, Hk, dh]
-    cache_len,              # [B] or scalar — valid prefix length
+    cache_len,              # [B] or scalar — valid prefix length (global)
     cfg: ExchangeConfig,
     *,
     logit_softcap: Optional[float] = None,
     scale: Optional[float] = None,
     window: Optional[int] = None,
-    k_means: Optional[torch.Tensor] = None,
+    k_means: Optional[torch.Tensor] = None,  # [B, P, L, Hk, dh] PRISM-decode
     v_means: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One-token attention against the cache.
@@ -195,13 +222,60 @@ def decode_attention_sharded(
     With no sequence mesh (LOCAL, PRISM_SIM, or one shard) the cache is
     device-local and the exact answer goes through the kernel-dispatch
     layer: the flash-decode kernel on a CUDA tensor, its plain version on
-    a CPU tensor.  A position-sharded cache with its LSE-merge collective
-    is ROADMAP queue 1 item 7.
+    a CPU tensor.
+
+    Across a seq group rank p holds positions ``[p·Sp, (p+1)·Sp)``.
+    VOLTAGE (and PRISM without means): each rank's partial softmax under
+    global validity on the flash-decode kernel, one gather of the packed
+    partials, and the exact log-sum-exp merge, summed in rank order so
+    every rank holds bitwise the same output (``merge_partials``; a block
+    with no valid position weighs 0).  PRISM-decode (``k_means``
+    given): the rank attends its own block and the locally held means of
+    the other blocks, with no collective (plain torch, as the JAX package
+    computes it in plain jnp).
     """
-    if (cfg.mode in (ExchangeMode.LOCAL, ExchangeMode.PRISM_SIM)
-            or cfg.seq_axis is None or cfg.seq_shards == 1):
+    if not partitioned(cfg):
         return kdsp.decode_attention(q, k_cache, v_cache, cache_len,
                                      window=window,
                                      logit_softcap=logit_softcap,
                                      scale=scale)
-    raise NotImplementedError(_MULTI_PARTITION)
+    group = seq_group_for(cfg)
+    offset = group.rank * k_cache.shape[1]
+    if cfg.mode == ExchangeMode.PRISM and k_means is not None:
+        return _prism_decode(q, k_cache, v_cache, cache_len, group.rank,
+                             offset, k_means, v_means, window=window,
+                             logit_softcap=logit_softcap, scale=scale)
+    o, m, l = kdsp.decode_partials(q, k_cache, v_cache, cache_len,
+                                   offset=offset, window=window,
+                                   logit_softcap=logit_softcap, scale=scale)
+    parts = group.all_gather(torch.cat([o, m[..., None], l[..., None]],
+                                       dim=-1), kind="merge")
+    out = merge_partials(parts[..., :-2], parts[..., -2], parts[..., -1])
+    return out.to(q.dtype)[:, None]
+
+
+def _prism_decode(q, k_cache, v_cache, cache_len, rank, offset, k_means,
+                  v_means, *, window, logit_softcap, scale):
+    """PRISM-decode on one rank: its own block's valid positions and the
+    means of the other ranks' blocks (``[B, P, L, Hk, dh]``, own block
+    hidden, log(segment) scaling), in one softmax."""
+    B, Sp, Hk, dh = k_cache.shape
+    Pn, Lm = k_means.shape[1], k_means.shape[2]
+    scl = (dh ** -0.5) if scale is None else scale
+    logits = _softcap(_grouped_scores(q, k_cache) * scl, logit_softcap)
+    valid = validity_mask(B, Sp, cache_len, offset=offset, window=window,
+                          device=q.device)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    km = k_means.reshape(B, -1, Hk, dh)
+    vm = v_means.reshape(B, -1, Hk, dh)
+    seg = max(Sp // max(Lm, 1), 1)
+    mlog = (_softcap(_grouped_scores(q, km) * scl, logit_softcap)
+            + torch.log(torch.tensor(float(seg))))
+    owner = torch.arange(Pn, device=q.device).repeat_interleave(Lm)
+    mlog = torch.where((owner != rank)[None, None, None, :], mlog, NEG_INF)
+    logits = torch.cat([logits, mlog], dim=-1)
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    o = _grouped_values(w[..., :Sp], v_cache) + _grouped_values(w[..., Sp:],
+                                                                vm)
+    denom = w.sum(dim=-1).transpose(1, 2)[..., None]
+    return (o / denom).to(q.dtype)

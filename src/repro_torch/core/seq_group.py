@@ -44,10 +44,15 @@ import torch.distributed as dist
 
 @dataclasses.dataclass
 class GatherStats:
-    """What the staged collectives of one rank moved and cost."""
+    """What the staged collectives of one rank moved and cost.  Each
+    collective books the bytes it received from peers under one kind."""
     calls: int = 0
-    payload_bytes: int = 0    # exchanged K/V (or means) received from peers
-    meta_bytes: int = 0       # masks and counts received from peers
+    payload_bytes: int = 0    # exchanged K/V (or means)
+    meta_bytes: int = 0       # masks and counts
+    merge_bytes: int = 0      # sharded decode's (o·l, m, l) partials
+    cache_bytes: int = 0      # prompt K/V moved to the rank owning its
+                              # cache slots (single-pass PRISM prefill)
+    output_bytes: int = 0     # logits gathered or broadcast
     seconds: float = 0.0      # host clock inside the collectives, staging
                               # copies included (the card is synchronised
                               # before the clock starts)
@@ -70,7 +75,9 @@ class SeqGroup:
             torch.cuda.current_stream(t.device).synchronize()
         return time.perf_counter()
 
-    def _end(self, t0: float) -> None:
+    def _end(self, t0: float, kind: str, received: int) -> None:
+        field = f"{kind}_bytes"            # a GatherStats field
+        setattr(self.stats, field, getattr(self.stats, field) + received)
         self.stats.calls += 1
         self.stats.seconds += time.perf_counter() - t0
 
@@ -83,33 +90,29 @@ class SeqGroup:
         host.copy_(flat)
         return host.view(torch.uint8)
 
-    def all_gather(self, t: torch.Tensor, *, meta: bool = False
+    def all_gather(self, t: torch.Tensor, *, kind: str = "payload"
                    ) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order → ``[P, *t.shape]`` on
-        t's device.  ``meta`` books the bytes under ``meta_bytes`` (masks,
-        counts) instead of ``payload_bytes``."""
+        t's device; the bytes received are booked under ``kind``."""
         t0 = self._begin(t)
         host = self._to_host(t)
         parts = [torch.empty_like(host) for _ in range(self.world_size)]
         dist.all_gather(parts, host)
         out = torch.stack(parts).view(t.dtype).reshape(
             self.world_size, *t.shape).to(t.device)
-        received = host.numel() * (self.world_size - 1)
-        if meta:
-            self.stats.meta_bytes += received
-        else:
-            self.stats.payload_bytes += received
-        self._end(t0)
+        self._end(t0, kind, host.numel() * (self.world_size - 1))
         return out
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank (same shape and dtype
-        everywhere), on t's device."""
+        everywhere), on t's device; a receiving rank books its bytes as
+        ``output`` (the model outputs broadcast from the rank holding
+        them)."""
         t0 = self._begin(t)
         host = self._to_host(t)
         dist.broadcast(host, src)
         out = host.view(t.dtype).reshape(t.shape).to(t.device)
-        self._end(t0)
+        self._end(t0, "output", 0 if self.rank == src else host.numel())
         return out
 
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:

@@ -4,7 +4,10 @@ PyTorch versions, by the device of the tensors.
 Port of ``repro.kernels.dispatch`` (``segment_means``,
 ``segment_means_masked``, ``decode_attention``, ``decode_attention_paged``
 and ``prism_attention``), plus ``segment_means_kv``: the means of K and V
-in one launch, which the PRISM exchange gathers as its payload.
+in one launch, which the PRISM exchange gathers as its payload, and
+``decode_partials``: one shard's unnormalised flash-decode partials, which
+the sharded decode merges across ranks (the JAX package computes that
+partial in plain jnp inside ``decode_attention_sharded``).
 The route follows the data and nothing else: a CUDA tensor always goes to
 the kernel, a CPU tensor to the plain version.  There is no override that
 sends a CUDA tensor to the plain version, and no argument the JAX package
@@ -91,6 +94,26 @@ def segment_means(x: torch.Tensor, L: int, axis: int = -2) -> torch.Tensor:
 # One-token decode attention — the generation hot path
 # ---------------------------------------------------------------------------
 
+def decode_partials(q: torch.Tensor,        # [B, 1, H, dh]
+                    k_cache: torch.Tensor,  # [B, S, Hk, dh]
+                    v_cache: torch.Tensor,
+                    cache_len,              # [B] or scalar — valid prefix
+                    *,
+                    offset: int = 0,
+                    window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None,
+                    scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's flash-decode partials (o·l [B, H, dh], m [B, H],
+    l [B, H], f32) over a cache slice whose first slot sits at global
+    position ``offset``, masked to the global valid prefix ``cache_len``
+    (optionally sliding-``window``-limited).  A slice with no valid
+    position gives m = -1e30, l = S."""
+    _LAST["decode_attention"] = _route(q)
+    return flash_decode_op(q, k_cache, v_cache, cache_len, offset=offset,
+                           window=window, scale=scale, softcap=logit_softcap)
+
+
 def decode_attention(q: torch.Tensor,        # [B, 1, H, dh]
                      k_cache: torch.Tensor,  # [B, S, Hk, dh]
                      v_cache: torch.Tensor,
@@ -104,10 +127,9 @@ def decode_attention(q: torch.Tensor,        # [B, 1, H, dh]
     the valid ``cache_len`` prefix (optionally sliding-``window``-limited):
     the flash-decode (o·l, m, l) partials, normalized locally (the
     single-shard case of the cross-shard LSE merge)."""
-    _LAST["decode_attention"] = _route(q)
-    o, m, l = flash_decode_op(q, k_cache, v_cache, cache_len, offset=offset,
-                              window=window, scale=scale,
-                              softcap=logit_softcap)
+    o, m, l = decode_partials(q, k_cache, v_cache, cache_len, offset=offset,
+                              window=window, logit_softcap=logit_softcap,
+                              scale=scale)
     out = o / torch.clamp(l, min=1e-38)[..., None]            # [B, H, dh]
     return out[:, None].to(q.dtype)                           # [B,1,H,dh]
 

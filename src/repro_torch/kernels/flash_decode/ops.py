@@ -71,9 +71,16 @@ def flash_decode_op(q: torch.Tensor,      # [B, 1, H, dh] or [B, H, dh]
 
 
 def merge_partials(o, m, l) -> torch.Tensor:
-    """Combine [n_shards, B, H, dh] partials exactly (flash-decoding)."""
+    """Combine [n_shards, B, H, dh] partials exactly (flash-decoding):
+    weights ``e^(m_i − m*)`` with ``m*`` the largest ``m``, summed in shard
+    order, so every rank that merges the same partials holds bitwise the
+    same output.  A shard with no valid position (m = -1e30, finite o and
+    l) weighs exactly 0 while one shard is valid."""
     m_star = m.amax(dim=0)                                   # [B, H]
-    w = torch.exp(m - m_star[None])
-    l_tot = (w * l).sum(dim=0)
-    o_tot = (w[..., None] * o).sum(dim=0)
+    o_tot = torch.zeros_like(o[0])
+    l_tot = torch.zeros_like(l[0])
+    for i in range(o.shape[0]):
+        w = torch.exp(m[i] - m_star)
+        o_tot = o_tot + w[..., None] * o[i]
+        l_tot = l_tot + w * l[i]
     return o_tot / l_tot[..., None]

@@ -18,19 +18,19 @@ the policy route.  Everything runs on ``--device`` (the card unless
 ``--device cpu``); the model is the reduced config of ``--arch`` unless
 ``--full`` asks for the published widths.
 
-PRISM here runs in its single-host simulation form (``prism_sim``).  A
-partitioned plan (``--mode voltage``) needs the sharded decode with its
-LSE merge and raises (ROADMAP queue 1 item 7.2); the codec plans of
-``--codec`` and the span exporters of ``--trace``/``--metrics`` are not
-ported (queue 1 items 9 and 10).
+PRISM here runs in its single-host simulation form (``prism_sim``), as
+in the JAX package's launcher: the serving pools hold one partition (the
+JAX package's slot pool is not mesh-sharded), so the modes are the JAX
+launcher's ``prism``, ``local`` and ``adaptive``.  Sequence-sharded
+generation across the ranks of a seq group is ``InferenceSession.generate``
+under a ``voltage`` or ``prism`` plan.  The codec plans of ``--codec`` and
+the span exporters of ``--trace``/``--metrics`` are not ported (ROADMAP
+queue 1 items 9 and 10).
 """
 import argparse
 import time
 
 import numpy as np
-
-_PARTITIONED = ("partitioned serving needs the sharded decode with its LSE "
-                "merge, which is not ported yet (ROADMAP queue 1 item 7.2)")
 
 
 def main(argv=None):
@@ -41,7 +41,7 @@ def main(argv=None):
                     help="the published widths instead of the reduced "
                          "config (random weights from --seed)")
     ap.add_argument("--mode", default="prism",
-                    choices=["prism", "local", "adaptive", "voltage"])
+                    choices=["prism", "local", "adaptive"])
     ap.add_argument("--batch", type=int, default=8,
                     help="slot-pool size (default request count too)")
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -77,8 +77,6 @@ def main(argv=None):
                          "this many admissions (LOSSY; 0 = never)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mode == "voltage":
-        raise NotImplementedError(_PARTITIONED)
 
     from repro_torch.api import ExecutionPlan, InferenceSession
     from repro_torch.serving import ServingRuntime

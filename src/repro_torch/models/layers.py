@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.exchange import (ExchangeConfig,
                                        decode_attention_sharded,
-                                       exchange_attention)
+                                       exchange_attention, partitioned,
+                                       seq_group_for)
 
 Params = Dict[str, Any]
 
@@ -228,6 +229,29 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
+def _write_at(index, Sp: int, group):
+    """Where one decode step writes in a cache (block) of ``Sp`` positions
+    → (index for the cache leaves or None, the rows of the new K/V that
+    land there).  ``index`` is an int or a ``[B]`` long tensor of global
+    positions.  With one partition every row writes: a per-row position
+    past the end lands on the last one.  Rank p of a group writes the
+    positions in ``[p·Sp, (p+1)·Sp)`` of the ``P·Sp`` cache at
+    ``index − p·Sp`` (per row: clamped to ``P·Sp − 1`` first)."""
+    if group is None:
+        if isinstance(index, torch.Tensor):
+            rows = torch.arange(index.shape[0], device=index.device)
+            return (rows, index.clamp(max=Sp - 1)), slice(None)
+        return (slice(None), slice(index, index + 1)), slice(None)
+    off = group.rank * Sp
+    if isinstance(index, torch.Tensor):
+        w = index.clamp(max=Sp * group.world_size - 1) - off
+        rows = ((w >= 0) & (w < Sp)).nonzero()[:, 0]
+        return (rows, w[rows]), rows
+    i = index - off
+    return ((slice(None), slice(i, i + 1)) if 0 <= i < Sp else None,
+            slice(None))
+
+
 def attention_decode(
     params: Params,
     x: torch.Tensor,                      # [B, 1, D] new token features
@@ -243,41 +267,52 @@ def attention_decode(
     same dict.  Caches created with ``quant=True`` hold int8 values +
     per-(token, head) f32 scales, dequantized per layer for attention.
 
-    ``cache_index`` is the write position: one int for every row, or a
-    ``[B]`` int tensor giving each row its own position (the slot pool of
-    ``repro_torch.serving``, one batched step where the JAX package vmaps
-    ``decode_step`` per slot).  Then row ``b`` takes RoPE at
+    ``cache_index`` is the global write position: one int for every row,
+    or a ``[B]`` int tensor giving each row its own position (the slot
+    pool of ``repro_torch.serving``, one batched step where the JAX package
+    vmaps ``decode_step`` per slot).  Then row ``b`` takes RoPE at
     ``cache_index[b]``, attends over its first ``cache_index[b] + 1``
     positions and writes at ``min(cache_index[b], S - 1)``: a write past
     the end lands on the last position, as JAX's ``dynamic_update_slice``
-    clamps it (a finished slot that keeps decoding at ``max_len``)."""
+    clamps it (a finished slot that keeps decoding at ``max_len``).
+
+    Under a partitioned plan ``cache`` is this rank's block of ``Sp``
+    positions, ``[p·Sp, (p+1)·Sp)`` of a cache of ``P·Sp``: the rank that
+    owns a write position writes there (at ``index − p·Sp``), the others
+    write nothing, and attention merges every rank's block
+    (``exchange.decode_attention_sharded``)."""
     B = x.shape[0]
+    group = seq_group_for(xcfg) if partitioned(xcfg) else None
+    if group is not None and spec.window is not None:
+        raise NotImplementedError("windowed layers under a partitioned plan "
+                                  "are not ported yet (ROADMAP queue 1 item "
+                                  "[6, 7.3])")
     per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
     if per_row:
         idx = cache_index.to(device=x.device, dtype=torch.long)
         pos = idx[:, None]
-        rows = torch.arange(B, device=x.device)
-        at = (rows, idx.clamp(max=cache["k"].shape[1] - 1))
     else:
         pos = torch.full((B, 1), cache_index, dtype=torch.int32,
                          device=x.device)
-        i = cache_index
-        at = (slice(None), slice(i, i + 1))
+    at, rows = _write_at(idx if per_row else cache_index, cache["k"].shape[1],
+                         group)
     q, k_new, v_new = project_qkv(params, x, spec, pos)
     if per_row:                  # one position per row: drop the token axis
-        k_new, v_new = k_new[:, 0], v_new[:, 0]
+        k_new, v_new = k_new[:, 0][rows], v_new[:, 0][rows]
     if "k_scale" in cache:
         k_q, k_s = _quantize_kv(k_new)
         v_q, v_s = _quantize_kv(v_new)
-        cache["k"][at] = k_q
-        cache["v"][at] = v_q
-        cache["k_scale"][at] = k_s
-        cache["v_scale"][at] = v_s
+        if at is not None:
+            cache["k"][at] = k_q
+            cache["v"][at] = v_q
+            cache["k_scale"][at] = k_s
+            cache["v_scale"][at] = v_s
         k_cache = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
         v_cache = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][at] = k_new.to(cache["k"].dtype)
-        cache["v"][at] = v_new.to(cache["v"].dtype)
+        if at is not None:
+            cache["k"][at] = k_new.to(cache["k"].dtype)
+            cache["v"][at] = v_new.to(cache["v"].dtype)
         k_cache, v_cache = cache["k"], cache["v"]
     cache_len = (idx + 1) if per_row else cache_index + 1
     if spec.window is not None:

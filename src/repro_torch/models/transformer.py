@@ -8,13 +8,22 @@ layout, and each layer updates its slice of it in place.
 
 Entry points:
   init_lm(cfg, gen)                        → params dict
-  forward_lm(params, batch, cfg, xcfg)     → (logits, aux)   full forward
-  init_decode_cache(cfg, B, S, device)     → cache dict
+  forward_lm(params, batch, cfg, xcfg, last_only) → (logits, aux)
+  init_decode_cache(cfg, B, S, device, xcfg) → cache dict
   prefill(params, batch, cache, cfg, xcfg) → (last logits, primed cache)
   decode_step(params, batch, cache, i, cfg, xcfg) → (logits, cache)
   init_page_pool(cfg, n_pages, page_size, device) → paged pool dict
   decode_step_paged(params, batch, pool, page_table, lengths, cfg, xcfg)
                                            → (logits, pool)
+
+Under a partitioned plan (``voltage``, ``prism`` over the ranks of a
+``repro_torch.core.seq_group``) every rank calls these with the same
+global inputs.  ``forward_lm`` and ``prefill`` keep rank p's tokens
+``[p·Np, (p+1)·Np)`` at their global positions, with one exchange a
+layer; ``forward_lm`` returns the global logits on every rank.  The
+decode cache is sharded in contiguous blocks along S: rank p holds
+positions ``[p·Sp, (p+1)·Sp)``, and each decode step merges every
+block's partial attention (``exchange.decode_attention_sharded``).
 
 The other families (moe, mla, hybrid, ssm, audio, vlm) and gemma2's
 windowed layers are ROADMAP queue 1 items 6 and 11.
@@ -26,7 +35,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.exchange import ExchangeConfig, exchange_attention
+from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
+                                       exchange_attention, gather_kv,
+                                       partitioned, seq_group_for)
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_block, attention_decode,
                                        attention_decode_paged,
@@ -102,16 +113,30 @@ def _apply_attn_mlp(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
 
 
 def _apply_attn_mlp_prefill(p: Params, x, cfg: ModelConfig, xcfg,
-                            spec: AttnSpec, positions, cache):
+                            spec: AttnSpec, positions, cache, group=None):
     """Full-sequence block that also writes the prompt K/V into the decode
-    cache — same math as ``_apply_attn_mlp``."""
+    cache — same math as ``_apply_attn_mlp``.  In a seq group the rank
+    fills its cache block with the prompt positions it owns, from the K/V
+    the exchange gathered (VOLTAGE) or from a gather of its own (PRISM,
+    booked as ``cache`` bytes, apart from the exchange's)."""
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     q, k, v = project_qkv(p["attn"], xin, spec, positions)
-    prefill_kv_cache(cache, k, v)
-    attn = exchange_attention(q, k, v, xcfg, causal=spec.causal,
-                              window=spec.window,
-                              logit_softcap=spec.logit_softcap,
-                              scale=spec.scale)
+    kw = dict(causal=spec.causal, window=spec.window,
+              logit_softcap=spec.logit_softcap, scale=spec.scale)
+    if group is None:
+        prefill_kv_cache(cache, k, v)
+        attn = exchange_attention(q, k, v, xcfg, **kw)
+    else:
+        seen = []
+        attn = exchange_attention(q, k, v, xcfg, **kw,
+                                  kv_sink=lambda *kv: seen.append(kv))
+        k_all, v_all = (seen[0] if seen
+                        else gather_kv(group, k, v, kind="cache"))
+        Sp = cache["k"].shape[1]
+        lo = group.rank * Sp
+        hi = min(lo + Sp, k_all.shape[1])
+        if hi > lo:
+            prefill_kv_cache(cache, k_all[:, lo:hi], v_all[:, lo:hi])
     B, N = x.shape[:2]
     h = attn.reshape(B, N, spec.n_heads * spec.head_dim) @ p["attn"]["wo"]
     return _mlp_residual(p, x, h, cfg)
@@ -158,8 +183,44 @@ def _head(params: Params, cfg: ModelConfig) -> Params:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
-def _positions(B: int, N: int, device) -> torch.Tensor:
-    return torch.arange(N, dtype=torch.int32, device=device)[None].expand(B, N)
+def _positions(B: int, N: int, device, start: int = 0) -> torch.Tensor:
+    return torch.arange(start, start + N, dtype=torch.int32,
+                        device=device)[None].expand(B, N)
+
+
+def _shard(xcfg: ExchangeConfig, N: int):
+    """This rank's part of an N-token sequence → (seq group or None, first
+    global position, length).  A partitioned plan needs ``N % P == 0``
+    and, for PRISM, each part to split into L equal segments — the layouts
+    the JAX package's ``shard_map`` accepts."""
+    if not partitioned(xcfg):
+        return None, 0, N
+    P = xcfg.seq_shards
+    if N % P:
+        raise ValueError(f"{N} tokens do not split into {P} sequence "
+                         f"partitions")
+    Np = N // P
+    if xcfg.mode == ExchangeMode.PRISM and (xcfg.L <= 0 or Np % xcfg.L):
+        raise ValueError(f"a partition of {Np} tokens does not split into "
+                         f"L={xcfg.L} segment means")
+    group = seq_group_for(xcfg)
+    return group, group.rank * Np, Np
+
+
+def _last_logits(params: Params, x, cfg: ModelConfig, group):
+    """Logits of the sequence's last position [B, 1, V] f32 on every rank:
+    it lies on the last rank of a seq group, which broadcasts them."""
+    last = group is None or group.rank == group.world_size - 1
+    if last:
+        x = apply_norm(cfg.norm_type, params["final_norm"], x[:, -1:])
+        logits = unembed(_head(params, cfg), x,
+                         final_softcap=cfg.final_softcap)
+    else:
+        logits = torch.empty((x.shape[0], 1, cfg.vocab_size),
+                             dtype=torch.float32, device=x.device)
+    if group is None:
+        return logits
+    return group.broadcast(logits, src=group.world_size - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -167,20 +228,31 @@ def _positions(B: int, N: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: ModelConfig, xcfg: ExchangeConfig
+               cfg: ModelConfig, xcfg: ExchangeConfig,
+               last_only: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. batch: {"tokens": [B, N]} → (logits
-    [B, N, V] f32, aux scalar)."""
+    [B, N, V] f32, aux scalar).  ``last_only`` unembeds just the final
+    position (logits [B, 1, V]).  Under a partitioned plan each rank runs
+    its part of the sequence and every rank returns the global logits."""
     _require_dense(cfg)
     tokens = batch["tokens"]
     B, N = tokens.shape
+    group, start, n = _shard(xcfg, N)
+    tokens = tokens[:, start:start + n]
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
-    positions = _positions(B, N, tokens.device)
+    positions = _positions(B, n, tokens.device, start)
     for lp in params["layers"]:
         x = _apply_attn_mlp(lp, x, cfg, xcfg, _attn_spec(cfg), positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if last_only:
+        return _last_logits(params, x, cfg, group), aux
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    if group is not None:                 # [P, B, Np, V] → [B, N, V]
+        logits = group.all_gather(logits, kind="output")
+        logits = logits.permute(1, 0, 2, 3).reshape(B, N, -1)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +260,15 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
-                      device=None) -> Params:
-    """Cache dict with a stacked leading layer dim (the JAX layout)."""
+                      device=None, xcfg: Optional[ExchangeConfig] = None
+                      ) -> Params:
+    """Cache dict with a stacked leading layer dim (the JAX layout).
+    Under a partitioned ``xcfg`` it is this rank's block of
+    ``ceil(seq / P)`` positions: the cache rounds up to a multiple of P,
+    and the padded slots are never valid."""
     _require_dense(cfg)
+    if xcfg is not None and partitioned(xcfg):
+        seq = -(-seq // xcfg.seq_shards)
     c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
                       quant=cfg.kv_quant, device=device)
     return {"kv": {name: t[None].repeat(cfg.n_layers, *([1] * t.ndim))
@@ -282,7 +360,10 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
             ) -> Tuple[torch.Tensor, Params]:
     """Single-pass prefill: run the prompt [B, T0] through
     ``exchange_attention`` once and write the KV cache for positions
-    [0, T0) → (last-position logits [B, 1, V] f32, primed cache)."""
+    [0, T0) → (last-position logits [B, 1, V] f32, primed cache).  Under a
+    partitioned plan each rank runs its part of the prompt and fills its
+    cache block; PRISM's prompt then attends through segment means (the
+    paper's distributed prefill), which is not T0 exact decode steps."""
     if not supports_prefill(cfg):
         raise ValueError(f"family {cfg.family!r} has no single-pass "
                          f"prefill; use the decode-loop prefill "
@@ -290,12 +371,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     _require_dense(cfg)
     tokens = batch["tokens"]
     B, T0 = tokens.shape
+    group, start, n = _shard(xcfg, T0)
+    tokens = tokens[:, start:start + n]
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
-    positions = _positions(B, T0, tokens.device)
+    positions = _positions(B, n, tokens.device, start)
     spec = _attn_spec(cfg)
     for i, lp in enumerate(params["layers"]):
         x = _apply_attn_mlp_prefill(lp, x, cfg, xcfg, spec, positions,
-                                    _layer_cache(cache, i))
-    x = apply_norm(cfg.norm_type, params["final_norm"], x[:, -1:])
-    logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
-    return logits, cache
+                                    _layer_cache(cache, i), group)
+    return _last_logits(params, x, cfg, group), cache

@@ -64,3 +64,31 @@ def voltage_oracle(q, k, v, cfg, *, causal=False, window=None,
                                     scale=scale, kv_mask=kv_mask)
             for p, qp in enumerate(_parts(q, P))]
     return jnp.concatenate(outs, axis=1)
+
+
+def prism_decode_oracle(q, k, v, cache_len, k_means, v_means, p, P, *,
+                        logit_softcap=None):
+    """Shard p's body of the PRISM-decode branch of
+    ``repro.core.exchange.decode_attention_sharded``, on the unsharded
+    cache [B, S, ...]: its own block's valid positions and the other
+    blocks' means (log(segment) scaling), one softmax."""
+    B, S, Hk, dh = k.shape
+    Sp = S // P
+    ks, vs = k[:, p * Sp:(p + 1) * Sp], v[:, p * Sp:(p + 1) * Sp]
+    scl = dh ** -0.5
+    logits = jpa._softcap(jpa._grouped_scores(q, ks) * scl, logit_softcap)
+    gpos = p * Sp + jnp.arange(Sp)
+    valid = gpos[None, :] < jnp.reshape(jnp.asarray(cache_len), (-1, 1))
+    logits = jnp.where(valid[:, None, None, :], logits, jpa.NEG_INF)
+    Lm = k_means.shape[2]
+    km = k_means.reshape(B, -1, Hk, dh)
+    vm = v_means.reshape(B, -1, Hk, dh)
+    mlog = jpa._softcap(jpa._grouped_scores(q, km) * scl, logit_softcap)
+    mlog = mlog + jnp.log(jnp.asarray(max(Sp // Lm, 1), jnp.float32))
+    owner = jnp.repeat(jnp.arange(P), Lm)
+    mlog = jnp.where((owner != p)[None, None, None, :], mlog, jpa.NEG_INF)
+    logits = jnp.concatenate([logits, mlog], axis=-1)
+    w = jnp.exp(logits - jnp.max(logits, axis=-1, keepdims=True))
+    o = (jpa._grouped_values(w[..., :Sp], vs)
+         + jpa._grouped_values(w[..., Sp:], vm))
+    return o / jnp.sum(w, axis=-1).transpose(0, 2, 1)[..., None]

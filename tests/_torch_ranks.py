@@ -62,3 +62,133 @@ def vit_logits(rank, world, np_params, reduced, images, plans, dispatch_bw):
     session.dispatch(batch)
     rec = session.history[-1]
     return logits, rec.exec_key, rec.decision.mode, session.bandwidth
+
+
+def cache_block(a, rank, world, axis):
+    """Rank's block of ``a`` along ``axis`` after padding it to a multiple
+    of ``world`` (the sharded decode cache's layout)."""
+    S = a.shape[axis]
+    Sp = -(-S // world)
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, Sp * world - S)
+    a = np.pad(a, pad)
+    return np.ascontiguousarray(np.take(a, np.arange(rank * Sp,
+                                                     (rank + 1) * Sp), axis))
+
+
+def _np(t):
+    return t.detach().numpy()
+
+
+def sharded_decode_cases(rank, world, cases):
+    """Each case: q, the global K/V cache [B, S, ...], cache_len, softcap
+    and optionally the means of every block; this rank calls
+    ``decode_attention_sharded`` with its block → outputs, and the bytes
+    and calls its merges took."""
+    from repro_torch.core.exchange import decode_attention_sharded
+    group = get_seq_group("seq")
+    outs = []
+    for c in cases:
+        group.reset_stats()
+        xcfg = ExchangeConfig(ExchangeMode(c["mode"]), seq_axis="seq",
+                              seq_shards=world)
+        means = c.get("means")
+        clen = c["cache_len"]
+        out = decode_attention_sharded(
+            torch.from_numpy(c["q"]),
+            torch.from_numpy(cache_block(c["k"], rank, world, 1)),
+            torch.from_numpy(cache_block(c["v"], rank, world, 1)),
+            torch.from_numpy(clen) if isinstance(clen, np.ndarray) else clen,
+            xcfg, logit_softcap=c.get("softcap"),
+            k_means=None if means is None else torch.from_numpy(means[0]),
+            v_means=None if means is None else torch.from_numpy(means[1]))
+        st = group.stats
+        outs.append((_np(out), st.merge_bytes, st.calls))
+    return outs
+
+
+def lm_seq(rank, world, job):
+    """``job["sharded"]`` through ``sharded_decode_cases``, then a reduced
+    dense LM from the JAX weights under ``voltage`` and ``prism`` across
+    the ranks of the group: forward logits (global, and
+    ``last_only``) with what the gathers moved, decode steps against the
+    sharded cache (from the port's own cache, and each step from a given
+    int8 cache), greedy and sampled ``generate``, and the plan
+    ``dispatch`` picks after this rank observed ``job["bw"][rank]``."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    group = get_seq_group("seq")
+    res = {"sharded": sharded_decode_cases(rank, world, job["sharded"])}
+    for label, a in job["archs"].items():
+        arch = a["arch"]
+        cfg = get_config(arch).reduced(**a["reduced"])
+        plans = {"voltage": ExecutionPlan.voltage(seq_shards=world),
+                 "prism": ExecutionPlan.prism(L=job["L"], cr=1.0,
+                                              seq_shards=world)}
+        session = InferenceSession.from_config(
+            arch, plans=[ExecutionPlan.local(), *plans.values()],
+            reduced=a["reduced"], params=params_from_numpy(a["params"], cfg),
+            device="cpu", initial_bandwidth_mbps=job["bw"][rank])
+        r = res[label] = {}
+        toks = torch.from_numpy(job["tokens"])
+        for name, plan in plans.items():
+            group.reset_stats()
+            logits = session.run(plan.key, {"tokens": toks})
+            st = group.stats
+            r[f"fwd/{name}"] = (_np(logits), st.payload_bytes, st.meta_bytes,
+                                st.output_bytes, st.calls)
+            with torch.inference_mode():
+                last, _ = tfm.forward_lm(session.params, {"tokens": toks},
+                                         cfg, plan.to_exchange_config(),
+                                         last_only=True)
+            r[f"last/{name}"] = _np(last)
+        prompt = torch.from_numpy(job["prompt"])
+        n_new = job["n_new"]
+        for name, mode in (("voltage", "auto"), ("prism", "auto"),
+                           ("prism", "single_pass")):
+            group.reset_stats()
+            out = session.generate(prompt, n_new, plan=plans[name],
+                                   prefill_mode=mode)
+            r[f"gen/{name}/{mode}"] = (_np(out), group.stats.cache_bytes)
+        r["sampled"] = [_np(session.generate(prompt, n_new,
+                                             plan=plans["voltage"], seed=s,
+                                             temperature=0.8))
+                        for s in (11, 11, 12)]
+        with torch.inference_mode():
+            for name, plan in plans.items():
+                xcfg = plan.to_exchange_config()
+                steps = job["decode_tokens"]
+                cache = tfm.init_decode_cache(cfg, steps.shape[0],
+                                              job["decode_len"], xcfg=xcfg)
+                got = []
+                for t in range(steps.shape[1]):
+                    lg, cache = tfm.decode_step(
+                        session.params,
+                        {"tokens": torch.from_numpy(steps[:, t:t + 1])},
+                        cache, t, cfg, xcfg)
+                    got.append(_np(lg))
+                r[f"decode/{name}"] = (np.concatenate(got, axis=1),
+                                       {k: _np(v) for k, v in
+                                        cache["kv"].items()})
+            if "caches" in a:      # each step from the given cache
+                xcfg = plans["voltage"].to_exchange_config()
+                got = []
+                for t, full in enumerate(a["caches"]):
+                    cache = {"kv": {k: torch.from_numpy(
+                        cache_block(v, rank, world, 2))
+                        for k, v in full.items()}}
+                    lg, cache = tfm.decode_step(
+                        session.params,
+                        {"tokens": torch.from_numpy(
+                            job["decode_tokens"][:, t:t + 1])},
+                        cache, t, cfg, xcfg)
+                    got.append((_np(lg), {k: _np(v) for k, v in
+                                          cache["kv"].items()}))
+                r["decode/int8"] = got
+        session.profile(backend="simulated")
+        session.dispatch({"tokens": toks})
+        rec = session.history[-1]
+        r["dispatch"] = (rec.exec_key, rec.decision.mode, session.bandwidth)
+    return res

@@ -71,6 +71,82 @@ def _rel_err(got, want):
             / want.float().abs().max()).item()
 
 
+# (B, S, P, rank, lengths): the rank's block of an S-position cache split
+# P ways sits at global position rank·ceil(S/P): valid positions at that
+# offset; a block with none (every length ends before it, as later blocks
+# are early in decode); a block of 13 positions (S 50 four ways)
+SHARD_CASES = {
+    "offset": (4, 48, 2, 1, [30, 48, 25, 40]),
+    "empty_block": (4, 48, 2, 1, [24, 10, 1, 5]),
+    "ragged_4_ways": (3, 50, 4, 2, [27, 40, 50]),
+}
+
+
+def _shard_inputs(device, dtype, B, Sp, seed, H=32, Hk=8, dh=64):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(B, 1, H, dh, generator=g, device=device).to(dtype),
+            torch.randn(B, Sp, Hk, dh, generator=g, device=device).to(dtype),
+            torch.randn(B, Sp, Hk, dh, generator=g, device=device).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_shard_partial_route_matches_plain_version(cuda_device, dtype, case):
+    """``dispatch.decode_partials`` with a block's offset launches the
+    kernel once, and its partials match the plain version on the same
+    inputs: rows with a valid position within 1e-5 (f32) / 1e-3 (bf16)
+    relative; rows with none give m = -1e30, l = Sp, o = Σ v."""
+    from repro_torch.kernels import dispatch as kdsp
+    B, S, P, rank, lens = SHARD_CASES[case]
+    Sp = -(-S // P)
+    q, k, v = _shard_inputs(cuda_device, dtype, B, Sp, seed=1)
+    clen = torch.tensor(lens, device=cuda_device)
+    before = flash_decode.launches
+    got = kdsp.decode_partials(q, k, v, clen, offset=rank * Sp,
+                               logit_softcap=50.0)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    bias = validity_bias(B, Sp, clen, offset=rank * Sp, device=cuda_device)
+    want = flash_decode_ref(q[:, 0], k, v, bias, softcap=50.0)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    live = (bias == 0).any(dim=1)
+    assert (case == "empty_block") == (not live.any())
+    if live.any():
+        o_g, o_w = got[0] / got[2][..., None], want[0] / want[2][..., None]
+        for a, b in ((o_g, o_w), (got[1], want[1]), (got[2], want[2])):
+            assert _rel_err(a[live], b[live]) <= tol
+    if (~live).any():
+        assert (got[1][~live] == -1e30).all() and (got[2][~live] == Sp).all()
+        assert _rel_err(got[0][~live], want[0][~live]) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_shard_partials_match_the_dense_kernel(cuda_device, dtype):
+    """Every block's partials through the offset route, merged as the
+    ranks merge them (``merge_partials``; the later blocks of the shorter
+    rows hold no valid position), against the dense kernel on the whole
+    cache: within 1e-5 (f32) / 1e-3 (bf16) relative."""
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.kernels.flash_decode import merge_partials
+    B, S, P = 4, 48, 4
+    Sp = S // P
+    q, k, v = _shard_inputs(cuda_device, dtype, B, S, seed=2)
+    clen = torch.tensor([1, 14, 27, 48], device=cuda_device)
+    parts = []
+    for r in range(P):
+        blk = slice(r * Sp, (r + 1) * Sp)
+        parts.append(kdsp.decode_partials(q, k[:, blk].contiguous(),
+                                          v[:, blk].contiguous(), clen,
+                                          offset=r * Sp))
+    got = merge_partials(*(torch.stack(p) for p in zip(*parts)))
+    o, m, l = kdsp.decode_partials(q, k, v, clen)       # the whole cache
+    want = o / l[..., None]
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-3)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segment_means_kernel_matches_plain_version(cuda_device, dtype):

@@ -575,7 +575,12 @@ def test_serve_launcher_on_the_cpu():
     assert "served 6 requests" in out.stdout
 
 
-def test_serve_launcher_refuses_a_partitioned_mode():
+def test_serve_launcher_refuses_a_partitioned_mode(capsys):
+    """The launcher's modes are the JAX launcher's (prism, local,
+    adaptive): its parser refuses ``--mode voltage`` before anything
+    runs, since the serving pools hold one partition."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="queue 1 item 7.2"):
+    with pytest.raises(SystemExit) as exit_info:
         main(["--device", "cpu", "--mode", "voltage"])
+    assert exit_info.value.code == 2
+    assert "invalid choice: 'voltage'" in capsys.readouterr().err
