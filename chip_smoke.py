@@ -99,6 +99,24 @@ Phases, one line each (more for the kernel table):
                B 1, 8 and 32 with the anchor scale, decide and explain, and
                greedy generate under ``local`` with flash-decode launches
                asserted, decode time, device idle share and peak memory.
+10. codec    — the codecs' decode throughput measured on the card
+               (``calibrate_codec_bws``) beside the modeled class
+               constants; then 2 ranks sharing the card: ViT-B/16 B 8
+               under ``prism`` with ``int8``, ``int4`` and ``topk(8)`` (the
+               codec exchange) and ``voltage`` through the ring executor
+               (``overlap_chunks`` 1 and 3), llama3.2-1b
+               ``forward_lm(last_only)`` B 4 N 512 under ``prism`` + int8
+               and the ring (1 and 2), each with forward ms, staged ms and
+               share, calls, and the payload and meta bytes received per
+               rank (payload asserted equal to the codec accounting); each
+               ViT codec's argmax agreement with ``local`` and, on a small
+               f32 ViT, its logits on the card against the CPU (≤ 1e-4);
+               each ring forward again with the card synchronised before
+               every ring wait (what the overlap hides); one staged
+               transfer alone (``all_gather`` and ``ring_shift``) at each
+               codec's bytes; greedy ``generate`` [4, 32] + 16 under the
+               ring (flash-decode launches asserted, the same tokens on
+               both ranks).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -2429,6 +2447,325 @@ def phase_lm(card: str) -> dict:
                                    for r in ranks)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the codec exchanges and the ring executor across 2 ranks
+# ---------------------------------------------------------------------------
+
+# label → ExecutionPlan fields (P = 2 added); the ViT at L = 0 pads 197
+# tokens to 198, Np 99, so the ring splits into 3 messages, not 2
+CODEC_VIT = {"prism+int8": dict(mode="prism", codec="int8"),
+             "prism+int4": dict(mode="prism", codec="int4"),
+             "prism+topk": dict(mode="prism", codec="topk", codec_param=8),
+             "voltage ring/1": dict(mode="voltage", overlap_chunks=1),
+             "voltage ring/3": dict(mode="voltage", overlap_chunks=3)}
+CODEC_LM = {"prism+int8": dict(mode="prism", codec="int8"),
+            "voltage ring/1": dict(mode="voltage", overlap_chunks=1),
+            "voltage ring/2": dict(mode="voltage", overlap_chunks=2)}
+RING_GEN = "voltage ring/2"
+# payload bytes a rank receives a forward at full width (K and V through
+# the codec, every layer, from the one other rank)
+CODEC_BYTES = {("vit", "prism+int8"): 15_510_528,
+               ("vit", "prism+int4"): 8_211_456,
+               ("vit", "prism+topk"): 10_948_608,
+               ("vit", "voltage ring/1"): 29_196_288,
+               ("vit", "voltage ring/3"): 29_196_288,
+               ("lm", "prism+int8"): 17_825_792,
+               ("lm", "voltage ring/1"): 33_554_432,
+               ("lm", "voltage ring/2"): 33_554_432}
+
+
+def _exchange_runs(group, fn, n: int) -> dict:
+    """Median host ms of ``fn()`` over n runs (the card synchronised
+    around each), its staged-collective ms, calls and received bytes."""
+    import torch
+    walls, staged = [], []
+    for _ in range(n):
+        group.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        staged.append(group.stats.seconds * 1e3)
+    st = group.stats
+    return dict(ms=statistics.median(walls), walls=walls,
+                staged_ms=statistics.median(staged), calls=st.calls,
+                payload=st.payload_bytes, meta=st.meta_bytes)
+
+
+def _ring_rows(group, fn, n: int, ring: bool) -> dict:
+    """``_exchange_runs`` of ``fn``; for a ring plan also ``serial_ms``,
+    the median forward with the overlap taken away (``_SerialRing``),
+    n/2 runs before the n timed ones and n/2 after."""
+    if not ring:
+        return _exchange_runs(group, fn, n)
+    with _SerialRing():
+        before = _exchange_runs(group, fn, n // 2)["walls"]
+    row = _exchange_runs(group, fn, n)
+    with _SerialRing():
+        after = _exchange_runs(group, fn, n // 2)["walls"]
+    row["serial_ms"] = statistics.median(before + after)
+    return row
+
+
+class _SerialRing:
+    """Within the block, every ring transfer's wait starts only after the
+    card has finished the work queued before it: the ring with its
+    overlap taken away, to time what the overlap hides."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.seq_group import RingTransfer
+        self.wait = wait = RingTransfer.wait
+
+        def serial(transfer):
+            torch.cuda.synchronize()
+            return wait(transfer)
+        RingTransfer.wait = serial
+
+    def __exit__(self, *exc):
+        from repro_torch.core.seq_group import RingTransfer
+        RingTransfer.wait = self.wait
+
+
+def _codec_rank(rank, world):
+    """One rank of the ``[codec]`` phase on the shared card: ViT-B/16 and
+    llama3.2-1b at full width under the codec exchanges and the ring,
+    payload bytes asserted against the codec accounting; the small f32 ViT
+    under each codec on the card and on the CPU; greedy ``generate``
+    under the ring (flash-decode launches counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.data import SyntheticImageDataset
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import registry
+    from repro_torch.transport import CodecSpec, get_codec
+    group = get_seq_group("seq")
+
+    def wire(plan, shape, dtype, layers):
+        """Payload bytes a rank receives a forward: K and V a layer from
+        every other rank, through the plan's codec."""
+        codec = get_codec(plan.codec or "identity")
+        spec = CodecSpec(L=plan.L, param=plan.codec_param)
+        return 2 * codec.wire_bytes(shape, dtype, spec) * layers * (world - 1)
+
+    # ViT-B/16, full width, bf16
+    vit = InferenceSession.from_config(VIT, reduced=False, device="cuda",
+                                       seed=0, plans=[ExecutionPlan.local()])
+    cfg = vit.cfg
+    fwd = registry.forward_fn(cfg)
+    images, _ = SyntheticImageDataset(batch_size=VIT_B).sample()
+    batch = {"images": torch.from_numpy(images).to(device="cuda")}
+    plans = {k: ExecutionPlan(seq_axis="seq", seq_shards=world, **kw)
+             for k, kw in CODEC_VIT.items()}
+
+    def vit_fwd(plan):
+        with torch.inference_mode():
+            return fwd(vit.params, batch, plan.to_exchange_config())[0]
+    local = vit.run("local", batch)
+    Np = -(-VIT_TOKENS // world)
+    shape = (VIT_B, Np, cfg.n_kv_heads, cfg.hd)
+    rows = {}
+    for key, plan in plans.items():
+        vit_fwd(plan)                                   # warm-up
+        group.reset_stats()
+        logits = vit_fwd(plan)                          # the main path
+        torch.cuda.synchronize()
+        want = wire(plan, shape, cfg.torch_dtype, cfg.n_layers)
+        if group.stats.payload_bytes != want:
+            raise AssertionError(f"rank {rank} vit {key}: received "
+                                 f"{group.stats.payload_bytes} payload bytes,"
+                                 f" the codec accounting says {want}")
+        if logits.shape != local.shape or not torch.isfinite(logits).all():
+            raise AssertionError(f"rank {rank} vit {key}: logits "
+                                 f"{tuple(logits.shape)} not finite / wrong")
+        both = group.all_gather(logits, kind="meta")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"vit {key}: logits differ between ranks")
+        rows[("vit", key)] = dict(
+            _ring_rows(group, lambda: vit_fwd(plan), 12,
+                       plan.overlap_chunks > 0), want=want,
+            agree=(logits.argmax(-1) == local.argmax(-1)).float().mean()
+            .item())
+
+    # the two staged transfers alone, no compute between: the gather that
+    # the codec and Voltage exchanges call and the ring's shift, at the
+    # bytes one ViT layer's K and V take through each codec and in full
+    def per_call(fn, n=24):
+        ms = []
+        for _ in range(n):
+            group.reset_stats()
+            fn()
+            ms.append(group.stats.seconds * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(ms)
+    xfer = {}
+    for nbytes in sorted({2 * get_codec(pl.codec or "identity").wire_bytes(
+            shape, cfg.torch_dtype, CodecSpec(param=pl.codec_param))
+            for pl in plans.values()} | {8 * VIT_B * Np * cfg.d_model}):
+        buf = torch.randint(0, 255, (nbytes,), dtype=torch.uint8,
+                            device="cuda")
+        per_call(lambda: group.all_gather(buf), 4)      # warm-up
+        xfer[nbytes] = (per_call(lambda: group.all_gather(buf)),
+                        per_call(lambda: group.ring_shift(buf).wait()))
+
+    # the small f32 ViT under each codec: the card against the CPU
+    _exact_fp32()
+    small_cfg, small_params, small_images = _small_vit()
+    small_fwd = registry.forward_fn(small_cfg)
+    small_err = {}
+    for key, plan in plans.items():
+        if plan.mode != "prism":
+            continue
+        xcfg = plan.to_exchange_config()
+        with torch.inference_mode():
+            out = {dev: small_fwd(_on(small_params, dev), {
+                "images": torch.from_numpy(small_images).to(dev)}, xcfg)[0]
+                .cpu()
+                   for dev in ("cuda", "cpu")}
+        small_err[key] = float((out["cuda"] - out["cpu"]).abs().max())
+        if not small_err[key] <= 1e-4:
+            raise AssertionError(f"rank {rank} small f32 ViT {key}: the card"
+                                 f" vs the CPU differ by {small_err[key]:.3e}"
+                                 f" > 1e-4")
+    del vit, local
+    torch.cuda.empty_cache()
+
+    # llama3.2-1b, full width, bf16: forward_lm(last_only) and generate
+    from repro_torch.models import transformer as tfm
+    lm = InferenceSession.from_config(ARCH, reduced=False, device="cuda",
+                                      seed=0, plans=[ExecutionPlan.local()])
+    cfg = lm.cfg
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_N), generator=g,
+                           device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                           generator=g, device="cuda")
+    plans = {k: ExecutionPlan(seq_axis="seq", seq_shards=world, **kw)
+             for k, kw in CODEC_LM.items()}
+
+    def lm_fwd(plan):
+        with torch.inference_mode():
+            return tfm.forward_lm(lm.params, {"tokens": tokens}, cfg,
+                                  plan.to_exchange_config(),
+                                  last_only=True)[0]
+    shape = (LM_B, LM_N // world, cfg.n_kv_heads, cfg.hd)
+    for key, plan in plans.items():
+        lm_fwd(plan)                                    # warm-up
+        group.reset_stats()
+        last = lm_fwd(plan)                             # the main path
+        torch.cuda.synchronize()
+        want = wire(plan, shape, cfg.torch_dtype, cfg.n_layers)
+        if group.stats.payload_bytes != want:
+            raise AssertionError(f"rank {rank} lm {key}: received "
+                                 f"{group.stats.payload_bytes} payload bytes,"
+                                 f" the codec accounting says {want}")
+        if last.shape != (LM_B, 1, cfg.vocab_size) or not torch.isfinite(
+                last).all():
+            raise AssertionError(f"rank {rank} lm {key}: last logits "
+                                 f"{tuple(last.shape)} not finite / wrong")
+        rows[("lm", key)] = dict(_ring_rows(group, lambda: lm_fwd(plan), 6,
+                                            plan.overlap_chunks > 0),
+                                 want=want)
+    plan = plans[RING_GEN]
+    lm.generate(prompt, 2, plan=plan)                   # warm-up
+    flash_decode.launches = 0                           # the main path
+    group.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lm.generate(prompt, N_NEW, plan=plan)
+    torch.cuda.synchronize()
+    gen = dict(s=time.perf_counter() - t0, launches=flash_decode.launches,
+               calls=group.stats.calls, payload=group.stats.payload_bytes,
+               merge=group.stats.merge_bytes,
+               staged_ms=group.stats.seconds * 1e3)
+    if gen["launches"] != (N_NEW - 1) * cfg.n_layers:
+        raise AssertionError(f"rank {rank}: flash_decode launched "
+                             f"{gen['launches']} times in the ring generate,"
+                             f" want {(N_NEW - 1) * cfg.n_layers}")
+    both = group.all_gather(out, kind="meta")
+    if not torch.equal(both[0], both[1]):
+        raise AssertionError("ring generate: the ranks drew different "
+                             "tokens")
+    local_out = lm.generate(prompt, N_NEW)
+    gen["agree"] = float((out == local_out).float().mean().item())
+    return dict(rows=rows, small_err=small_err, gen=gen, xfer=xfer,
+                tokens=np.asarray(out.cpu()))
+
+
+def phase_codec(card: str) -> int:
+    """``[codec]``: the codec exchanges and the ring executor across 2
+    ranks on the one card, and the codecs' decode throughput measured on
+    it → flash-decode launches of the ring ``generate``, summed over the
+    ranks."""
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.transport import calibrate_codec_bws, get_codec
+    bws = calibrate_codec_bws(["int8", "int4", "topk"], device="cuda",
+                              iters=20, warmup=5)
+    print("[codec] decode throughput measured on the card (f32 [4, 64, 256],"
+          " median of 20, CUDA events): " + ", ".join(
+              f"{n} {bw / 1e9:.2f} GB/s (modeled class constant "
+              f"{type(get_codec(n)).decode_bw / 1e9:.2f} GB/s)"
+              for n, bw in bws.items()) + f" [{card}]", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn(_codec_rank, VIT_P, timeout=RANK_TIMEOUT_S)
+    r0, r1 = ranks
+    print(f"[codec] ViT-B/16 B={VIT_B} and {ARCH} B={LM_B} N={LM_N} at full "
+          f"width, bf16, random weights from seed 0, {VIT_P} ranks sharing "
+          f"the card; {time.perf_counter() - t0:.1f} s with rank start-up",
+          flush=True)
+    for (model, key), row in r0["rows"].items():
+        other = r1["rows"][(model, key)]
+        if not row["payload"] == other["payload"] == CODEC_BYTES[(model,
+                                                                  key)]:
+            fail(f"[codec] {model} {key}: received {row['payload']} / "
+                 f"{other['payload']} payload bytes, want "
+                 f"{CODEC_BYTES[(model, key)]}")
+        what = (f"ViT forward B={VIT_B}" if model == "vit" else
+                f"{ARCH} forward_lm(last_only) B={LM_B} N={LM_N}")
+        extra = (f"; argmax agreement with local {row['agree']:.0%}"
+                 if "agree" in row else "")
+        small = r0["small_err"].get(key) if model == "vit" else None
+        extra += ("" if small is None else
+                  f"; small f32 ViT card vs CPU max |logit diff| "
+                  f"{max(small, r1['small_err'][key]):.2e} (tol 1e-4)")
+        extra += ("" if "serial_ms" not in row else
+                  f"; with the card synchronised before each ring wait (no "
+                  f"overlap; median of {len(row['walls'])} around the timed "
+                  f"runs) {row['serial_ms']:.2f} ms, so the overlap hides "
+                  f"{row['serial_ms'] - row['ms']:.2f} ms")
+        print(f"[codec] {what} {key}: forward {row['ms']:.2f} ms (rank 1: "
+              f"{other['ms']:.2f} ms), staged {row['staged_ms']:.2f} ms "
+              f"({row['staged_ms'] / row['ms']:.1%}) in {row['calls']} calls;"
+              f" received per rank {row['payload']} payload bytes (= codec "
+              f"accounting {row['want']}) + {row['meta']} meta bytes (median "
+              f"of {len(row['walls'])}){extra} [{card}]",
+              flush=True)
+    import numpy as np
+    sizes = sorted(r0["xfer"])
+    fits = []
+    for i, name in enumerate(("all_gather", "ring_shift")):
+        ms = [statistics.mean(r["xfer"][n][i] for r in ranks) for n in sizes]
+        slope, fixed = np.polyfit(np.asarray(sizes) / 1e6, ms, 1)
+        fits.append(f"{name} " + ", ".join(
+            f"{n / 1e6:.3f} MB {t:.2f}" for n, t in zip(sizes, ms))
+            + f" ms (line: {fixed:.3f} ms + {slope:.3f} ms/MB)")
+    print("[codec] one staged transfer alone, received per rank, median of "
+          "24 a rank, both ranks averaged: " + "; ".join(fits)
+          + f" [{card}]", flush=True)
+    g0 = r0["gen"]
+    print(f"[codec] generate {RING_GEN}: [{PROMPT_B}, {PROMPT_T}] prompt + "
+          f"{N_NEW} greedy tokens in {g0['s']:.3f} s (rank 1: "
+          f"{r1['gen']['s']:.3f} s), {g0['calls']} staged calls "
+          f"({g0['staged_ms']:.1f} ms), ring prefill {g0['payload']} payload"
+          f" bytes, {g0['merge']} merge bytes; flash_decode launches "
+          f"{g0['launches']} per rank; tokens equal on both ranks; agreement "
+          f"with local tokens {g0['agree']:.0%} [{card}]", flush=True)
+    return sum(r["gen"]["launches"] for r in ranks)
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -2516,6 +2853,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     vit_launches = phase_vit(card)
     lm_launches = phase_lm(card)
+    lm_launches["flash_decode"] += phase_codec(card)
     archs = {arch: phase_arch_session(card, arch)
              for arch, _, _ in DECODE_ARCHS}
 

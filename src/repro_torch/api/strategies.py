@@ -7,8 +7,12 @@ it together with the runtime metadata the session/policy layer needs (is it
 distributed, how does the profiler name it, may the policy select it).
 All four strategies are registered, so plan keys and the profiling sweep
 keep their identities.  ``voltage`` and ``prism`` prefill across the ranks
-of a ``repro_torch.core.seq_group``; their other codecs (ROADMAP queue 1
-item 9) and the ring executor (item 7) are not ported yet.
+of a ``repro_torch.core.seq_group``.  The routing is the JAX package's:
+``prism`` with a codec other than ``segment_means`` runs the codec
+exchange (``repro_torch.transport.executor.codec_prefill_attention``) and
+ignores ``overlap_chunks``; ``prism_sim`` with such a codec runs its
+single-host form; ``voltage`` never reads the codec and, with
+``overlap_chunks > 0`` and no window, runs the ring executor.
 
 Adding a new strategy — e.g. a top-k sparse exchange — is::
 
@@ -99,17 +103,6 @@ class ExchangeStrategy:
     def _prefill(self, q, k, v, cfg: ExchangeConfig, **kw):
         raise NotImplementedError(f"{self.name} defines no prefill exchange")
 
-    def _require_ported(self, cfg: ExchangeConfig) -> None:
-        """Raise for the exchange variants the port does not carry yet."""
-        if cfg.codec and cfg.codec != self.default_codec:
-            raise NotImplementedError(f"codec exchanges other than "
-                                      f"{self.default_codec} are not ported "
-                                      f"yet (ROADMAP queue 1 item 9)")
-        if cfg.overlap_chunks > 0:
-            raise NotImplementedError("the ring executor (overlap_chunks > "
-                                      "0) is not ported yet (ROADMAP queue 1 "
-                                      "item 7)")
-
     # -- decode-time attention ----------------------------------------------
 
     def decode_attention(self, q, k_cache, v_cache, cache_len,
@@ -138,7 +131,6 @@ class VoltageStrategy(ExchangeStrategy):
     default_codec = "identity"
 
     def _prefill(self, q, k, v, cfg, **kw):
-        self._require_ported(cfg)
         return xchg.voltage_prefill_attention(q, k, v, cfg, **kw)
 
 
@@ -156,7 +148,10 @@ class PrismStrategy(ExchangeStrategy):
     default_codec = "segment_means"
 
     def _prefill(self, q, k, v, cfg, **kw):
-        self._require_ported(cfg)
+        if cfg.codec and cfg.codec != self.default_codec:
+            from repro_torch.transport.executor import \
+                codec_prefill_attention
+            return codec_prefill_attention(q, k, v, cfg, **kw)
         return xchg.prism_prefill_attention(q, k, v, cfg, **kw)
 
 
@@ -176,6 +171,7 @@ class PrismSimStrategy(ExchangeStrategy):
 
     def _prefill(self, q, k, v, cfg, **kw):
         if cfg.codec and cfg.codec != self.default_codec:
-            raise NotImplementedError("codec exchanges other than segment "
-                                      "means are ROADMAP queue 1 item 9")
+            from repro_torch.transport.executor import \
+                codec_sim_prefill_attention
+            return codec_sim_prefill_attention(q, k, v, cfg, **kw)
         return xchg.prism_sim_prefill_attention(q, k, v, cfg, **kw)

@@ -21,10 +21,12 @@ Port of ``repro.core.exchange``:
 
 VOLTAGE and PRISM run SPMD over a ``repro_torch.core.seq_group`` (gloo,
 staged through host memory): each rank calls them with its own partition
-``[B, N/P, ...]``, in place of the JAX package's ``shard_map`` body.  Not
-ported yet (ROADMAP queue 1): the halo exchange of windowed layers
-([6, 7.3]), the ring executor (``overlap_chunks > 0``) and the codec
-exchanges ([9, 7.4]), the cross-attention and MLA exchanges ([11, 7.5]).
+``[B, N/P, ...]``, in place of the JAX package's ``shard_map`` body.
+VOLTAGE with ``overlap_chunks > 0`` runs the ring executor and PRISM with
+a non-default codec the codec exchange (``repro_torch.transport.
+executor``).  Not ported yet (ROADMAP queue 1): the halo exchange of
+windowed layers ([6, 7.3]), the cross-attention and MLA exchanges ([11,
+7.5]).
 """
 from __future__ import annotations
 
@@ -162,7 +164,17 @@ def voltage_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
     """Full-tensor K/V all-gather (the paper's Voltage baseline): this
     rank's queries [B, Np, H, dh] attend over every rank's K/V.  Without a
     key mask (on every rank, as SPMD calls are alike) no mask is
-    gathered; ``kv_sink`` receives the gathered K and V."""
+    gathered; ``kv_sink`` receives the gathered K and V.
+
+    With ``cfg.overlap_chunks > 0`` (and no sliding window) the exchange
+    runs through the ring executor instead: staged block transfers
+    overlapped with per-block attention."""
+    if cfg.overlap_chunks > 0 and window is None:
+        from repro_torch.transport.executor import ring_prefill_attention
+        return ring_prefill_attention(q, k, v, cfg, causal=causal,
+                                      logit_softcap=logit_softcap,
+                                      scale=scale, kv_mask=kv_mask,
+                                      kv_sink=kv_sink)
     group = seq_group_for(cfg)
     B, Np = q.shape[:2]
     k_all, v_all = gather_kv(group, k, v)

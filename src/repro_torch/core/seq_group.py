@@ -12,7 +12,11 @@ and each rank keeps its slice of the activations.
 Transport: gloo, staged through host memory, the paper's measured path
 (``repro_torch.transport.links.StagedLink``): a rank copies the tensor it
 sends from the card to pinned host memory, gathers over gloo, and copies
-the result back to the card.  On one card several ranks share it.  NCCL's
+the result back to the card.  The ring executor's point-to-point
+transfers (``ring_shift``: gloo ``isend``/``irecv`` to the next and from
+the previous rank) are staged the same way and return a handle, so the
+card can compute while the bytes travel.  On one card several ranks share
+it.  NCCL's
 device-side gather (the ``direct`` link, one card per rank) is ROADMAP
 queue 1 item 7.
 
@@ -66,6 +70,7 @@ class SeqGroup:
         self.rank = rank
         self.world_size = world_size
         self.stats = GatherStats()
+        self._tag = 0                   # next point-to-point message tag
 
     def reset_stats(self) -> None:
         self.stats = GatherStats()
@@ -103,6 +108,62 @@ class SeqGroup:
         self._end(t0, kind, host.numel() * (self.world_size - 1))
         return out
 
+    def all_gather_packed(self, tensors: List[torch.Tensor], *,
+                          kind: str = "payload") -> List[torch.Tensor]:
+        """Every rank's ``tensors`` (any dtypes and shapes, the same on
+        every rank) in one gather: their bytes go out concatenated and come
+        back split by offsets → one ``[P, *t.shape]`` tensor each, on the
+        first tensor's device; the bytes received are booked under
+        ``kind`` as one call."""
+        flat = [t.contiguous().reshape(-1).view(torch.uint8)
+                for t in tensors]
+        got = self.all_gather(torch.cat(flat), kind=kind)    # [P, total]
+        out, off = [], 0
+        for t, f in zip(tensors, flat):
+            part = got[:, off:off + f.numel()].contiguous()
+            out.append(part.view(t.dtype).reshape(self.world_size,
+                                                  *t.shape))
+            off += f.numel()
+        return out
+
+    def ring_shift(self, t: torch.Tensor, *, kind: str = "payload",
+                   chunks: int = 1) -> "RingTransfer":
+        """Start sending ``t`` to rank ``(rank+1) % P`` and receiving the
+        same shape and dtype from rank ``(rank-1) % P`` (gloo
+        ``isend``/``irecv`` on host buffers, pinned for a CUDA tensor,
+        viewed as bytes).  The bytes go as ``chunks`` messages of equal
+        size, each with its own tag.  Returns at once: the card may compute
+        while the transfer runs, and :meth:`RingTransfer.wait` gives the
+        received tensor on t's device.  One call is booked per transfer,
+        its received bytes under ``kind`` when it is waited on."""
+        t0 = self._begin(t)
+        host = self._to_host(t)
+        return self._ring_post(host, t, kind, chunks, t0)
+
+    def ring_forward(self, prev: "RingTransfer", *,
+                     chunks: int = 1) -> "RingTransfer":
+        """Pass on what ``prev`` (waited on) received, from its host
+        buffer: no copy off the card and no wait for it."""
+        return self._ring_post(prev.host, prev.like, prev.kind, chunks,
+                               time.perf_counter())
+
+    def _ring_post(self, host, like, kind, chunks, t0) -> "RingTransfer":
+        n = chunks if chunks > 1 and host.numel() % chunks == 0 else 1
+        recv = torch.empty(host.shape, dtype=torch.uint8,
+                           pin_memory=like.is_cuda)
+        size = host.numel() // n
+        tags = range(self._tag, self._tag + n)
+        self._tag += n                  # every rank counts alike (SPMD)
+        P = self.world_size
+        nxt, prv = (self.rank + 1) % P, (self.rank - 1) % P
+        # every receive is posted before any send
+        works = [dist.irecv(recv[i * size:(i + 1) * size], prv, tag=tag)
+                 for i, tag in enumerate(tags)]
+        works += [dist.isend(host[i * size:(i + 1) * size], nxt, tag=tag)
+                  for i, tag in enumerate(tags)]
+        self.stats.seconds += time.perf_counter() - t0
+        return RingTransfer(self, works, host, recv, like, kind)
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank (same shape and dtype
         everywhere), on t's device; a receiving rank books its bytes as
@@ -120,6 +181,27 @@ class SeqGroup:
         box = [obj]
         dist.broadcast_object_list(box, src)
         return box[0]
+
+
+class RingTransfer:
+    """One ring transfer in flight (:meth:`SeqGroup.ring_shift`)."""
+
+    def __init__(self, group: SeqGroup, works, sent, host, like, kind):
+        self.group, self.works, self.sent = group, works, sent
+        self.host, self.like, self.kind = host, like, kind
+
+    def wait(self) -> torch.Tensor:
+        """Block until every message of the transfer is through → the
+        received tensor on the sent tensor's device (the copy onto the card
+        is queued on its stream, behind the work already there)."""
+        t0 = time.perf_counter()
+        for w in self.works:
+            w.wait()
+        like = self.like
+        out = self.host.view(like.dtype).reshape(like.shape).to(
+            like.device, non_blocking=True)
+        self.group._end(t0, self.kind, self.host.numel())
+        return out
 
 
 _GROUPS: Dict[str, SeqGroup] = {}    # per process, like torch.distributed's

@@ -5,7 +5,7 @@
         [--arch llama3.2-1b] [--full] [--mode prism|local|adaptive] \
         [--requests 12] [--arrival-rate 50] [--slo-ms 5000] [--batch 8] \
         [--chunk 8] [--tokens 16] [--prompt-len 16] [--bandwidth 400] \
-        [--objective latency|energy] \
+        [--objective latency|energy] [--codec none|int8|int4|topk] \
         [--pages 64 --page-size 16]   # paged KV mode (prefix caching on)
 
 The counterpart of ``repro.launch.serve``: requests flow through the
@@ -14,18 +14,20 @@ policy table at ``--bandwidth``/``--objective``) → continuous-batching
 decode on the dense slot pool (flash-decode kernel) or, with ``--pages`` /
 ``--page-size``, on the paged pool (paged flash-decode kernel).
 ``--mode local`` / ``--mode prism`` pin the plan; ``--mode adaptive`` lets
-the policy route.  Everything runs on ``--device`` (the card unless
-``--device cpu``); the model is the reduced config of ``--arch`` unless
-``--full`` asks for the published widths.
+the policy route.  ``--codec`` registers one more plan, ``prism_sim``
+over 2 partitions exchanging through that codec at its default parameter,
+and adds the codec to the simulated profiling sweep, so the policy may
+pick it (the policy line then names it).  Everything runs on ``--device``
+(the card unless ``--device cpu``); the model is the reduced config of
+``--arch`` unless ``--full`` asks for the published widths.
 
 PRISM here runs in its single-host simulation form (``prism_sim``), as
 in the JAX package's launcher: the serving pools hold one partition (the
 JAX package's slot pool is not mesh-sharded), so the modes are the JAX
 launcher's ``prism``, ``local`` and ``adaptive``.  Sequence-sharded
 generation across the ranks of a seq group is ``InferenceSession.generate``
-under a ``voltage`` or ``prism`` plan.  The codec plans of ``--codec`` and
-the span exporters of ``--trace``/``--metrics`` are not ported (ROADMAP
-queue 1 items 9 and 10).
+under a ``voltage`` or ``prism`` plan.  The span exporters of
+``--trace``/``--metrics`` are not ported (ROADMAP queue 1 item 10).
 """
 import argparse
 import time
@@ -47,6 +49,12 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--L", type=int, default=4)
+    ap.add_argument("--codec", default="none",
+                    choices=["none", "int8", "int4", "topk"],
+                    help="register an extra compressed-exchange plan with "
+                         "this repro_torch.transport codec and add it to "
+                         "the profiling sweep (the policy may then select "
+                         "it)")
     ap.add_argument("--bandwidth", type=float, default=400.0,
                     help="observed link bandwidth (Mbps) for the policy")
     ap.add_argument("--objective", default="latency",
@@ -84,16 +92,27 @@ def main(argv=None):
     allow = {"local": ("local",), "prism": ("prism",),
              "adaptive": None}[args.mode]
     plans = [ExecutionPlan.local(), ExecutionPlan.prism_sim(L=args.L, cr=9.9)]
+    codecs = ()
+    if args.codec != "none":
+        from repro_torch.transport import get_codec
+        plans.append(ExecutionPlan("prism_sim", seq_axis="seq",
+                                   seq_shards=2, codec=args.codec,
+                                   codec_param=get_codec(
+                                       args.codec).default_param))
+        codecs = (args.codec,)
     session = InferenceSession.from_config(
         args.arch, reduced=False if args.full else {"vocab_size": 512},
         plans=plans, objective=args.objective, allow_modes=allow,
         initial_bandwidth_mbps=args.bandwidth, device=args.device,
         seed=args.seed)
-    session.profile(backend="simulated")        # paper's offline sweep
+    from repro_torch.profiling import SweepSpec
+    session.profile(SweepSpec(codecs=codecs),
+                    backend="simulated")        # paper's offline sweep
     d = session.decide(args.batch)
     print(f"policy: B={args.batch} BW={args.bandwidth:g} Mbps "
           f"[{args.objective}] → {d.mode}"
           + (f" CR={d.cr:g}" if d.cr else "")
+          + (f" codec={d.codec}" if d.codec else "")
           + f" ({d.expected.per_sample_ms:.1f} ms/sample expected"
           + (", EXTRAPOLATED batch" if d.extrapolated else "") + ")")
 

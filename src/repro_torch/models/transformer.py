@@ -191,8 +191,10 @@ def _positions(B: int, N: int, device, start: int = 0) -> torch.Tensor:
 def _shard(xcfg: ExchangeConfig, N: int):
     """This rank's part of an N-token sequence → (seq group or None, first
     global position, length).  A partitioned plan needs ``N % P == 0``
-    and, for PRISM, each part to split into L equal segments — the layouts
-    the JAX package's ``shard_map`` accepts."""
+    and, for PRISM with its segment means, each part to split into L equal
+    segments — the layouts the JAX package's ``shard_map`` accepts (a
+    PRISM plan with another codec exchanges whole partitions and needs no
+    L)."""
     if not partitioned(xcfg):
         return None, 0, N
     P = xcfg.seq_shards
@@ -200,7 +202,9 @@ def _shard(xcfg: ExchangeConfig, N: int):
         raise ValueError(f"{N} tokens do not split into {P} sequence "
                          f"partitions")
     Np = N // P
-    if xcfg.mode == ExchangeMode.PRISM and (xcfg.L <= 0 or Np % xcfg.L):
+    means = xcfg.codec in ("", "segment_means")
+    if xcfg.mode == ExchangeMode.PRISM and means and (xcfg.L <= 0
+                                                      or Np % xcfg.L):
         raise ValueError(f"a partition of {Np} tokens does not split into "
                          f"L={xcfg.L} segment means")
     group = seq_group_for(xcfg)

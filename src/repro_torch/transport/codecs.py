@@ -2,16 +2,23 @@
 
 Port of ``repro.transport.codecs``: the codec registry with
 ``identity`` (the Voltage full-tensor payload), ``segment_means`` (the
-PRISM compressor), and ``int8`` / ``int4`` (per-tile symmetric
-quantize–dequantize; the paged pool's cold pages go through them).  Their
-``wire_bytes`` / ``token_wire_bytes`` feed the simulated profiling backend
-and the session's per-dispatch telemetry; the int8/int4 payloads are bit
-for bit the JAX package's on the same f32 input.  The sparse ``topk``
-codec, codec exchanges inside the strategies and measured decode
-bandwidths are ROADMAP queue 1 item 9.
+PRISM compressor), ``int8`` / ``int4`` (per-tile symmetric
+quantize–dequantize; the paged pool's cold pages go through them too) and
+``topk`` (the k largest-|x| features of each vector, values and int32
+indices on the wire).  The non-summarizing codecs are what the codec
+exchange (``repro_torch.transport.executor.codec_prefill_attention``)
+puts on the staged link.  Their ``wire_bytes`` / ``token_wire_bytes`` feed
+the simulated profiling backend and the session's per-dispatch telemetry;
+every payload is bit for bit the JAX package's on the same f32 input.
+
+``measure_decode_bw`` times a codec's decode (CUDA events on the card);
+``calibrate_codec_bws`` installs measured throughputs on the registry in
+place of the modeled class constants, and ``codec_overrides`` installs
+given ones for the length of a block.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Type
@@ -40,7 +47,8 @@ class CodecSpec:
     ``L``     — segment means per partition (``segment_means`` only).
     ``param`` — codec-specific knob: quantization tile size along the
                 feature axis (0 = one scale per whole vector) for
-                ``int8``/``int4``.
+                ``int8``/``int4``; k (features kept per vector) for
+                ``topk``.
     """
     L: int = 0
     param: int = 0
@@ -60,7 +68,10 @@ class ExchangeCodec:
     lossless: bool = False
     default_param: int = 0        # default spec.param for parameterized codecs
     # reconstruction throughput (raw bytes/s) charged by the profiler as
-    # decode time on the receiving device; 0 = free
+    # decode time on the receiving device; 0 = free.  The class attribute
+    # is a modeled constant; ``calibrate_codec_bws`` shadows it on the
+    # registry instance with a measured value and sets
+    # ``decode_bw_measured``.
     decode_bw: float = 0.0
     decode_bw_measured: bool = False
 
@@ -207,7 +218,11 @@ class _QuantCodec(ExchangeCodec):
     def _scaled(self, x, spec):
         t = _tile(x.shape[-1], spec)
         xr = x.reshape(x.shape[:-1] + (x.shape[-1] // t, t)).float()
-        scale = xr.abs().amax(dim=-1, keepdim=True) / self.qmax
+        amax = xr.abs().amax(dim=-1, keepdim=True)
+        # a divisor held in a tensor on x's device: CUDA computes a / s for
+        # a Python scalar s as a · (1/s), which is not the correctly
+        # rounded quotient the CPU (and JAX) give
+        scale = amax / torch.full_like(amax, self.qmax)
         q = torch.round(xr / torch.clamp(scale, min=1e-12))
         q = torch.clamp(q, -self.qmax, self.qmax)
         return q, scale, xr.shape
@@ -284,3 +299,154 @@ class Int4Codec(_QuantCodec):
         if spec.param % 2 != 0:
             raise ValueError("int4 tile size must be even "
                              f"(got {spec.param})")
+
+
+# ---------------------------------------------------------------------------
+# topk — sparse exchange (largest-|x| features per vector)
+# ---------------------------------------------------------------------------
+
+@register_codec
+class TopKCodec(ExchangeCodec):
+    """Keep the ``spec.param`` largest-magnitude features of each trailing
+    vector; ship (values, int32 indices), reconstruct into zeros.
+
+    Among equal magnitudes the lower index wins, as ``jax.lax.top_k``
+    orders them (``torch.topk`` promises no order among ties): the
+    selection is a stable descending sort of |x| in f32."""
+
+    name = "topk"
+    default_param = 8
+    decode_bw = 5e8       # modeled scatter throughput, raw bytes/s
+
+    def encode(self, x, spec):
+        k = spec.param
+        if not 0 < k <= x.shape[-1]:
+            raise ValueError(f"topk codec needs 0 < k <= {x.shape[-1]} "
+                             f"(got {k})")
+        idx = torch.sort(x.float().abs(), dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+        return {"vals": torch.gather(x, -1, idx),
+                "idx": idx.to(torch.int32)}
+
+    def decode(self, payload, spec, shape=None, dtype=None):
+        vals, idx = payload["vals"], payload["idx"]
+        if shape is None:
+            raise ValueError("topk decode needs the original `shape`")
+        out = torch.zeros(tuple(vals.shape[:-1]) + (shape[-1],),
+                          dtype=torch.float32, device=vals.device)
+        out.scatter_(-1, idx.long(), vals.float())
+        return out.to(dtype if dtype is not None else vals.dtype)
+
+    def wire_bytes(self, shape, dtype, spec):
+        lead = math.prod(shape) // shape[-1]
+        return lead * spec.param * (_itemsize(dtype) + 4)
+
+    def token_wire_bytes(self, feat, bytes_per_el, spec):
+        return spec.param * (bytes_per_el + 4)
+
+    def validate_spec(self, spec):
+        if spec.param <= 0:
+            raise ValueError("topk codec needs codec_param = k > 0")
+
+
+# ---------------------------------------------------------------------------
+# measured decode throughput (in place of the modeled constants)
+# ---------------------------------------------------------------------------
+
+def measure_decode_bw(codec: ExchangeCodec, *, shape=(4, 64, 256),
+                      dtype=torch.float32, spec: CodecSpec = None,
+                      iters: int = 5, warmup: int = 2,
+                      device="cuda") -> float:
+    """Measured reconstruction throughput of ``codec`` in raw bytes/s.
+
+    Encodes one K/V-shaped tensor drawn from a seeded generator on
+    ``device`` and times its decode with
+    :func:`~repro_torch.utils.timing.timeit_torch` (CUDA events on the
+    card, the host clock on the CPU).  Throughput is *raw* (reconstructed)
+    bytes per second, the unit of the modeled ``decode_bw`` constants, so
+    :func:`~repro_torch.transport.links.exchange_cost` reads it unchanged.
+    Raises when ``device`` is the card and there is none.
+    """
+    from repro_torch.utils.timing import timeit_torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("measure_decode_bw on device 'cuda' but torch."
+                           "cuda.is_available() is False; pass "
+                           "device='cpu' to time the CPU")
+    if spec is None:
+        spec = CodecSpec(param=codec.default_param)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    payload = codec.encode(x, spec)
+
+    def _decode(p):
+        return codec.decode(p, spec, shape=shape, dtype=dtype)
+
+    t = timeit_torch(_decode, payload, iters=iters, warmup=warmup)
+    raw = math.prod(shape) * _itemsize(dtype)
+    return raw / max(t, 1e-9)
+
+
+def calibrate_codec_bws(names=None, *, force: bool = False,
+                        shape=(4, 64, 256), iters: int = 5,
+                        warmup: int = 2, device="cuda") -> Dict[str, float]:
+    """Measure decode throughput for registered codecs on ``device`` and
+    install the results on the registry instances (shadowing the class
+    constants).
+
+    ``exchange_cost`` reads ``get_codec(name).decode_bw`` when it prices a
+    plan, so calibrating before a profiling sweep feeds the measured values
+    into every policy table built afterwards.  By default only codecs that
+    model a reconstruction cost (class ``decode_bw`` > 0, not
+    *summarizing*: segment means are consumed, never reconstructed) are
+    measured; ``names`` chooses explicitly, and summarizing codecs are
+    skipped there too.  Results are cached on the instance
+    (``decode_bw_measured``); ``force=True`` measures again.  Returns
+    ``{codec_name: measured_bytes_per_s}``.
+    """
+    if names is None:
+        names = [n for n in list_codecs()
+                 if type(get_codec(n)).decode_bw > 0
+                 and not get_codec(n).summarizing]
+    out: Dict[str, float] = {}
+    for name in names:
+        codec = get_codec(name)
+        if codec.summarizing:
+            continue           # decoded payload is consumed, not rebuilt
+        if codec.decode_bw_measured and not force:
+            out[name] = codec.decode_bw
+            continue
+        bw = measure_decode_bw(codec, shape=shape, iters=iters,
+                               warmup=warmup, device=device)
+        codec.decode_bw = bw
+        codec.decode_bw_measured = True
+        out[name] = bw
+    return out
+
+
+@contextlib.contextmanager
+def codec_overrides(decode_bws: Dict[str, float]):
+    """Install per-codec ``decode_bw`` values on the registry instances
+    for the duration of the block, then restore the previous state
+    exactly (an instance value that was not there is removed again, so the
+    class constant shows through)."""
+    saved = {}
+    for name, bw in decode_bws.items():
+        codec = get_codec(name)
+        saved[name] = (codec.__dict__.get("decode_bw"),
+                       codec.__dict__.get("decode_bw_measured"))
+        codec.decode_bw = float(bw)
+        codec.decode_bw_measured = True
+    try:
+        yield
+    finally:
+        for name, (bw, measured) in saved.items():
+            codec = get_codec(name)
+            if bw is None:
+                codec.__dict__.pop("decode_bw", None)
+            else:
+                codec.decode_bw = bw
+            if measured is None:
+                codec.__dict__.pop("decode_bw_measured", None)
+            else:
+                codec.decode_bw_measured = measured

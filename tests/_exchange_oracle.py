@@ -13,6 +13,8 @@ counts), and the per-device body of ``voltage_prefill_attention`` (each
 partition's queries over the whole K/V).  Both take the unpartitioned
 ``[B, N, ...]`` arrays and return the partitions' outputs concatenated,
 so they can stand in for the exchange functions inside ``forward_vit``.
+The codec exchange and the ring executor of ``repro.transport.executor``
+are composed the same way (``codec_oracle``, ``ring_oracle``).
 """
 import jax.numpy as jnp
 
@@ -92,3 +94,60 @@ def prism_decode_oracle(q, k, v, cache_len, k_means, v_means, p, P, *,
     o = (jpa._grouped_values(w[..., :Sp], vs)
          + jpa._grouped_values(w[..., Sp:], vm))
     return o / jnp.sum(w, axis=-1).transpose(0, 2, 1)[..., None]
+
+
+def codec_oracle(q, k, v, cfg, *, causal=False, window=None,
+                 logit_softcap=None, scale=None, kv_mask=None):
+    """The per-device body of ``repro.transport.executor.
+    codec_prefill_attention``, partition by partition: every other
+    partition's K and V through the JAX codec's encode and decode, the
+    own partition exact, then ``reference_attention`` of the partition's
+    queries over the whole sequence under the global key mask."""
+    from repro.transport.codecs import CodecSpec, get_codec
+    assert window is None
+    P = cfg.seq_shards
+    codec = get_codec(cfg.codec)
+    spec = CodecSpec(L=cfg.L, param=cfg.codec_param)
+    ks, vs = _parts(k, P), _parts(v, P)
+
+    def rt(t):
+        return codec.decode(codec.encode(t, spec), spec, shape=t.shape,
+                            dtype=t.dtype)
+    k_hat, v_hat = [rt(t) for t in ks], [rt(t) for t in vs]
+    Np = q.shape[1] // P
+    outs = []
+    for p, qp in enumerate(_parts(q, P)):
+        kc = jnp.concatenate([ks[i] if i == p else k_hat[i]
+                              for i in range(P)], axis=1)
+        vc = jnp.concatenate([vs[i] if i == p else v_hat[i]
+                              for i in range(P)], axis=1)
+        outs.append(jpa.reference_attention(
+            qp, kc, vc, causal=causal, q_offset=p * Np,
+            logit_softcap=logit_softcap, scale=scale, kv_mask=kv_mask))
+    return jnp.concatenate(outs, axis=1)
+
+
+def ring_oracle(q, k, v, P, *, causal=False, logit_softcap=None,
+                kv_mask=None):
+    """The per-device body of ``repro.transport.executor.
+    ring_prefill_attention``, partition by partition: partition p meets
+    the K/V blocks in ring order p, p-1, …, each through the JAX
+    ``_partial_block``, merged with the JAX ``_merge``."""
+    from repro.transport import executor as jex
+    Np, dh = q.shape[1] // P, q.shape[-1]
+    if kv_mask is None:
+        kv_mask = jnp.ones(k.shape[:2], dtype=bool)
+    qs, ks, vs, ms = (_parts(t, P) for t in (q, k, v, kv_mask))
+    outs = []
+    for p in range(P):
+        acc = None
+        for s in range(P):
+            src = (p - s) % P
+            blk = jex._partial_block(qs[p], ks[src], vs[src], ms[src],
+                                     q_offset=p * Np, kv_offset=src * Np,
+                                     causal=causal, scale=dh ** -0.5,
+                                     logit_softcap=logit_softcap)
+            acc = blk if acc is None else jex._merge(acc, blk)
+        o, _, l = acc
+        outs.append(o / l.transpose(0, 2, 1)[..., None])
+    return jnp.concatenate(outs, axis=1)

@@ -18,23 +18,36 @@ def _part(a, rank, world):
     return torch.from_numpy(np.ascontiguousarray(a[:, rank * n:(rank + 1) * n]))
 
 
+def _xcfg(c, world):
+    return ExchangeConfig(ExchangeMode(c["mode"]), seq_axis="seq",
+                          seq_shards=world, L=c.get("L", 0),
+                          codec=c.get("codec", ""),
+                          codec_param=c.get("codec_param", 0),
+                          overlap_chunks=c.get("overlap_chunks", 0))
+
+
 def exchange_cases(rank, world, cases):
-    """Each case: global q/k/v (and kv_mask) plus exchange settings; this
-    rank runs ``exchange_attention`` on its partition → list of outputs,
-    and the bytes its gathers received."""
+    """Each case: global q/k/v (and kv_mask) plus exchange settings (mode,
+    causal, softcap, L, codec, codec_param, overlap_chunks); this rank
+    runs ``exchange_attention`` on its partition → per case (output,
+    payload bytes, meta bytes, calls, the global K and V handed to
+    ``kv_sink`` or None)."""
+    group = get_seq_group("seq")
     outs = []
     for c in cases:
-        xcfg = ExchangeConfig(ExchangeMode(c["mode"]), seq_axis="seq",
-                              seq_shards=world,
-                              L=c.get("L", 0))
+        group.reset_stats()
         mask = c.get("kv_mask")
+        seen = []
         out = exchange_attention(
             _part(c["q"], rank, world), _part(c["k"], rank, world),
-            _part(c["v"], rank, world), xcfg, causal=c["causal"],
+            _part(c["v"], rank, world), _xcfg(c, world), causal=c["causal"],
             logit_softcap=c.get("softcap"),
-            kv_mask=None if mask is None else _part(mask, rank, world))
-        outs.append(out.numpy())
-    return outs, get_seq_group("seq").stats.payload_bytes
+            kv_mask=None if mask is None else _part(mask, rank, world),
+            kv_sink=lambda *kv: seen.append([_np(t) for t in kv]))
+        st = group.stats
+        outs.append((out.numpy(), st.payload_bytes, st.meta_bytes, st.calls,
+                     seen[0] if seen else None))
+    return outs
 
 
 def vit_logits(rank, world, np_params, reduced, images, plans, dispatch_bw):
@@ -191,4 +204,36 @@ def lm_seq(rank, world, job):
         session.dispatch({"tokens": toks})
         rec = session.history[-1]
         r["dispatch"] = (rec.exec_key, rec.decision.mode, session.bandwidth)
+    return res
+
+
+def model_plans(rank, world, job):
+    """A reduced model from the JAX weights under each of ``job["plans"]``
+    (label → ``ExecutionPlan`` fields, built with P = world): the forward's
+    logits and what its staged calls moved (payload, meta, calls); for an
+    LM also greedy ``generate`` under each of ``job["generate"]``."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.bridge import params_from_numpy
+    group = get_seq_group("seq")
+    cfg = get_config(job["arch"]).reduced(**job["reduced"])
+    session = InferenceSession.from_config(
+        job["arch"], reduced=job["reduced"], device="cpu",
+        params=params_from_numpy(job["params"], cfg))
+    fwd = registry.forward_fn(cfg)
+    plans = {label: ExecutionPlan(seq_axis="seq", seq_shards=world, **kw)
+             for label, kw in job["plans"].items()}
+    batch = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
+    res = {}
+    for label, plan in plans.items():
+        group.reset_stats()
+        with torch.inference_mode():
+            logits = fwd(session.params, batch, plan.to_exchange_config())[0]
+        st = group.stats
+        res[label] = (_np(logits), st.payload_bytes, st.meta_bytes, st.calls)
+    for label in job.get("generate", ()):
+        res[f"gen/{label}"] = _np(session.generate(
+            torch.from_numpy(job["prompt"]), job["n_new"],
+            plan=plans[label]))
     return res

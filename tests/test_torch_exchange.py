@@ -54,9 +54,9 @@ def _run(P):
     if P not in _RUNS:
         cases = _cases(P)
         per_rank = spawn(_torch_ranks.exchange_cases, P, cases, timeout=120)
-        outs = [np.concatenate([per_rank[r][0][i] for r in range(P)], axis=1)
+        outs = [np.concatenate([per_rank[r][i][0] for r in range(P)], axis=1)
                 for i in range(len(cases))]
-        _RUNS[P] = cases, outs, [b for _, b in per_rank]
+        _RUNS[P] = cases, outs, [sum(c[1] for c in r) for r in per_rank]
     return _RUNS[P]
 
 
@@ -88,19 +88,63 @@ def test_gathered_bytes_equal_the_transport_accounting(P):
     assert received == [want] * P
 
 
-@pytest.mark.parametrize("mode,over", [("prism", dict(codec="int8")),
-                                       ("voltage", dict(overlap_chunks=2)),
-                                       ("prism", dict(overlap_chunks=2))])
-def test_unported_exchange_variants_raise_naming_the_roadmap(mode, over):
-    import torch
-    from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
-                                           exchange_attention)
-    xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq", seq_shards=2,
-                          L=2, **over)
-    q = torch.zeros(1, 8, 2, 16)
-    item = "item 9" if "codec" in over else "item 7"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        exchange_attention(q, q, q, xcfg)
+_ROUTES = {}
+
+
+def _routes():
+    """Plain ``prism`` and ``voltage`` beside the variants the JAX package
+    routes to them, on 2 ranks: ``prism`` ignores ``overlap_chunks``,
+    ``voltage`` never reads the codec."""
+    if not _ROUTES:
+        r = np.random.RandomState(7)
+        qkv = dict(q=r.randn(B, N, H, DH).astype(np.float32),
+                   k=r.randn(B, N, 2, DH).astype(np.float32),
+                   v=r.randn(B, N, 2, DH).astype(np.float32),
+                   kv_mask=r.rand(B, N) > 0.2)
+        cases = [dict(mode="prism", L=4, causal=True, **qkv),
+                 dict(mode="prism", L=4, causal=True, overlap_chunks=2,
+                      **qkv),
+                 dict(mode="voltage", causal=False, **qkv),
+                 dict(mode="voltage", causal=False, codec="int8", **qkv)]
+        per_rank = spawn(_torch_ranks.exchange_cases, 2, cases,
+                         timeout=120)
+        _ROUTES.update(
+            (name, [r[i] for r in per_rank]) for i, name in enumerate(
+                ("prism", "prism+overlap", "voltage", "voltage+int8")))
+    return _ROUTES
+
+
+@pytest.mark.parametrize("variant", ["prism+overlap", "voltage+int8",
+                                     "window"])
+def test_exchange_variants_route_as_the_reference(variant):
+    """Each variant does what the JAX package does with it: a ``prism``
+    plan with ``overlap_chunks`` and a ``voltage`` plan with a codec give
+    their plain plan's output and bytes; a windowed layer under the ring
+    executor raises as the JAX package's ``ring_prefill_attention`` does."""
+    if variant == "window":
+        import torch
+        from repro.transport.executor import \
+            ring_prefill_attention as jax_ring
+        from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+        from repro_torch.transport.executor import ring_prefill_attention
+        xcfg = ExchangeConfig(ExchangeMode.VOLTAGE, seq_axis="seq",
+                              seq_shards=2, overlap_chunks=2)
+        jcfg = JConfig(JMode.VOLTAGE, seq_axis="seq", seq_shards=2,
+                       overlap_chunks=2)
+        q = torch.zeros(1, 8, 2, 16)
+        with pytest.raises(NotImplementedError) as want:
+            jax_ring(jnp.zeros((1, 8, 2, 16)), jnp.zeros((1, 8, 2, 16)),
+                     jnp.zeros((1, 8, 2, 16)), jcfg, window=4)
+        with pytest.raises(NotImplementedError) as got:
+            ring_prefill_attention(q, q, q, xcfg, causal=True, window=4)
+        assert str(got.value) == str(want.value)
+        return
+    runs = _routes()
+    plain = runs[variant.split("+")[0]]
+    for (out, *stats, _), (want, *want_stats, _) in zip(runs[variant],
+                                                        plain):
+        np.testing.assert_array_equal(out, want)
+        assert stats == want_stats
 
 
 def test_a_partitioned_plan_needs_its_seq_group():

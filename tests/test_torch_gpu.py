@@ -505,3 +505,42 @@ def test_measured_backend_times_with_cuda_events(cuda_device, monkeypatch):
     assert all(e.total_ms > 0 and e.meta["measured"] for _, e in pm.entries())
     assert get_backend("measured").last_scale > 0
     assert pm.get(PerfKey("local", 4, 0.0, 0.0)).compute_ms > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,param", [("int8", 0), ("int4", 8),
+                                        ("topk", 8)])
+def test_codec_payload_on_the_card_is_the_cpus(cuda_device, name, param):
+    """The codec exchange encodes on the card: the payload and its
+    reconstruction equal the CPU's bit for bit (ties at the k-th magnitude
+    included for topk: the stable sort keeps the lower index on both)."""
+    from repro_torch.transport import CodecSpec, get_codec
+    codec, spec = get_codec(name), CodecSpec(param=param)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 99, 12, 64, generator=g)
+    x[..., 32:] = -x[..., :32]           # every magnitude appears twice
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        cpu = codec.encode(xc, spec)
+        card = codec.encode(xc.to(cuda_device), spec)
+        assert cpu.keys() == card.keys()
+        for key in cpu:
+            assert torch.equal(card[key].cpu(), cpu[key]), (dtype, key)
+        want = codec.decode(cpu, spec, shape=xc.shape, dtype=dtype)
+        got = codec.decode(card, spec, shape=xc.shape, dtype=dtype)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_codec_calibration_on_the_card(cuda_device):
+    from repro_torch.transport import (calibrate_codec_bws, get_codec,
+                                       measure_decode_bw)
+    assert measure_decode_bw(get_codec("int8"), iters=3, warmup=1) > 0
+    try:
+        out = calibrate_codec_bws(force=True, iters=3, warmup=1)
+        assert set(out) == {"int8", "int4", "topk"}
+        assert all(get_codec(n).decode_bw == bw > 0 for n, bw in out.items())
+    finally:
+        for n in ("int8", "int4", "topk"):
+            get_codec(n).__dict__.pop("decode_bw", None)
+            get_codec(n).__dict__.pop("decode_bw_measured", None)

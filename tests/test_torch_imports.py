@@ -20,6 +20,7 @@ leaked = sorted(m for m in sys.modules if m == "repro" or
 assert not leaked, leaked
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
+print(" ".join(names))
 print(len(names))
 """
 
@@ -30,6 +31,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30       # every module imported
+    assert "repro_torch.transport.executor" in out.stdout.split()
 
 
 IMPORT_LINE = re.compile(r"^\s*(import jax|from jax|import repro\b|"

@@ -133,11 +133,15 @@ def test_unported_paths_raise_naming_the_roadmap():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("gemma2-27b")
-    _, ts = _pair()
-    # exchange codecs other than segment means are not ported yet
+    js, ts = _pair()
+    # a codec plan runs now, as in the JAX package (its logits as JAX's)
     key = ts.add_plan(TPlan("prism_sim", 0.0, 0, "seq", 2, codec="int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        ts.run(key, {"tokens": torch.zeros(1, 8, dtype=torch.int32)})
+    assert js.add_plan(JPlan("prism_sim", 0.0, 0, "seq", 2,
+                             codec="int8")) == key
+    tokens = np.arange(8, dtype=np.int32)[None] % js.cfg.vocab_size
+    got = ts.run(key, {"tokens": torch.from_numpy(tokens)})
+    want = np.asarray(js.run(key, {"tokens": tokens}))
+    assert float(np.abs(got.numpy() - want).max()) <= 2e-3
     from repro_torch.core.exchange import exchange_attention
     xcfg = TPlan.prism(L=2, cr=4.0).to_exchange_config()
     q = torch.zeros(1, 8, 4, 16)
