@@ -23,15 +23,20 @@ Phases, one line each (more for the kernel table):
                splits of S from 1 to 8 (B 1 at S 1, 63, 65, 2047, 8192;
                windows, softcap, dh 128, f32), and timed at the decode
                shapes of internlm2-1.8b (16/8 heads) and qwen1.5-32b (40/40
-               heads, 160 CTAs) at dh 128; fully masked rows must give
-               m = -1e30, l = S and the plain version's o; each timed
-               shape prints its splits.
+               heads, 160 CTAs) and gemma2-27b (32/16 heads, softcap 50,
+               scale 1/12; and B 1 at S 4624 under its window of 4096) at
+               dh 128; fully masked rows must give m = -1e30, l = S and
+               the plain version's o; each timed shape prints its splits.
    The shard partial (``dispatch.decode_partials``, the sharded decode's
                route onto flash-decode) is held with a nonzero offset, on
                a block with no valid position (m = -1e30, l = Sp) and in
                f32 with a softcap; every block's partials merged as the
                ranks merge them match the dense kernel on the whole cache;
-               timed at the ``lm`` phase's decode shape.
+               timed at the ``lm`` phase's decode shape; gemma2's
+               windowed shard partial likewise (a block wholly outside
+               the window gives m = -1e30, l = Sp; the blocks merged
+               against the dense windowed kernel), timed at the ``gemma``
+               phase's decode shape.
    The paged flash-decode kernel is held likewise at the paged pool's
                shape and harder ones (page sizes 8 and 5, dh 128, f32,
                softcap, shuffled and shared pages, trash entries, rows of
@@ -48,7 +53,9 @@ Phases, one line each (more for the kernel table):
                at the ViT shape with its row plan and with 2 CTAs per
                (batch row, KV head); both again at the ``lm`` phase's
                ``prism`` shape (K+V [4, 256, 8·64] L 16; causal GQA 32/8,
-               parts 0 and 1), timed there.
+               parts 0 and 1), timed there, and at the ``gemma`` phase's
+               (K+V [1, 2048, 16·128] L 16; q [1, 2048, 32, 128], 16 KV
+               heads, causal, softcap 50, scale 1/12, parts 0 and 3 of 4).
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -58,7 +65,12 @@ Phases, one line each (more for the kernel table):
                partition from the plain functions; and the small llama
                across 2 ranks on the card (``voltage`` and ``prism``
                forwards, 12 sharded decode steps: ≤ 1e-4 against ``local``
-               and ``prism_sim`` on the CPU; greedy tokens exact).
+               and ``prism_sim`` on the CPU; greedy tokens exact); a small
+               f32 gemma2 (window 16, int8 KV) decoded 32 steps, each from
+               the CPU's cache, greedy tokens exact, and across 4 ranks on
+               the card against 4 CPU ranks under ``voltage`` and
+               ``prism(L=2)`` at N 64 (the halo) and N 16 (the Voltage
+               gather), the halo's bytes asserted.
 5. session   — llama3.2-1b at full width: ``InferenceSession`` profile
                (``measured`` on the H100 presets, batches 1-32, the curve
                ``H100_SXM`` is fitted to, with the card's power draw
@@ -93,12 +105,16 @@ Phases, one line each (more for the kernel table):
                layer and the same tokens on both ranks asserted; prefill
                seconds, decode ms a step, merge bytes, agreement with
                ``local``); one ``dispatch`` of a ``prism`` plan.
-9. archs     — internlm2-1.8b and qwen1.5-32b at full width (qwen with all
-               64 layers where they fit beside nothing else, else fewer, as
+9. archs     — internlm2-1.8b, qwen1.5-32b and gemma2-27b at full width
+               (each with all its layers where they fit beside nothing
+               else, else fewer, whole local/global pairs for gemma2, as
                its lines say): the measured profile on the H100 presets at
                B 1, 8 and 32 with the anchor scale, decide and explain, and
                greedy generate under ``local`` with flash-decode launches
-               asserted, decode time, device idle share and peak memory.
+               asserted, decode time, device idle share and peak memory;
+               gemma2 (no ``prism_sim`` plan: it raises on windowed layers,
+               as in the JAX package) a second time at B 1 from a
+               4608-token prompt, so its window masks every decode step.
 10. codec    — the codecs' decode throughput measured on the card
                (``calibrate_codec_bws``) beside the modeled class
                constants; then 2 ranks sharing the card: ViT-B/16 B 8
@@ -117,6 +133,17 @@ Phases, one line each (more for the kernel table):
                codec's bytes; greedy ``generate`` [4, 32] + 16 under the
                ring (flash-decode launches asserted, the same tokens on
                both ranks).
+11. gemma    — gemma2-27b at full width cut to one local/global pair
+               (4 ranks × 54.5 GB would not share 80 GB) across 4 ranks on
+               the card: ``forward_lm(last_only)`` at B 1, N 8192 under
+               ``local``, ``voltage`` and ``prism(L=16)`` (Np 2048, so the
+               windowed layer exchanges its halo of 2 partitions), per
+               rank the forward ms, staged ms and share, calls and bytes
+               received by kind (halo and Voltage payload, launches
+               asserted); greedy ``generate`` of the prompt + 8 under
+               ``voltage`` (the windowed sharded decode; flash-decode
+               launches asserted, the same tokens on every rank) and its
+               agreement with a one-rank ``local`` run.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -145,6 +172,11 @@ SMALL_VIT = dict(dtype="float32", n_layers=2, d_model=256, n_heads=4,
                  n_kv_heads=4, head_dim=64, d_ff=512, vocab_size=10)
 SMALL_L = 5
 LM_P, LM_B, LM_N, LM_L, GEN_L = 2, 4, 512, 16, 4   # the lm phase
+GEMMA = "gemma2-27b"
+GEMMA_P, GEMMA_N, GEMMA_L, GEMMA_NEW = 4, 8192, 16, 8   # the gemma phase
+GEMMA_LONG = 4608           # [arch]'s B 1 prompt: its window masks each step
+SMALL_GEMMA = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=4,
+                   d_model=256)
 RANK_TIMEOUT_S = 600
 
 
@@ -201,9 +233,10 @@ def time_ms(fn, arg_sets, min_calls: int = 20, reps: int = 30) -> float:
 # ---------------------------------------------------------------------------
 
 def decode_case(B, S, dh, dtype, *, seed, heads=(N_HEADS, N_KV), window=None,
-                softcap=None, masked_row=False, lens=None):
+                softcap=None, masked_row=False, lens=None, scale=None):
     """Random q, K and V with ``heads`` = (query heads, KV heads), random
-    lengths in 1..S per row (or ``lens``), and their validity bias."""
+    lengths in 1..S per row (or ``lens``), and their validity bias;
+    ``scale`` None is dh^-0.5."""
     import torch
     from repro_torch.kernels.flash_decode import validity_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -218,7 +251,7 @@ def decode_case(B, S, dh, dtype, *, seed, heads=(N_HEADS, N_KV), window=None,
     if masked_row:
         clen[0] = 0
     bias = validity_bias(B, S, clen, window=window, device="cuda")
-    return dict(q=q, k=k, v=v, bias=bias, softcap=softcap)
+    return dict(q=q, k=k, v=v, bias=bias, softcap=softcap, scale=scale)
 
 
 def check_case(case, got=None) -> dict:
@@ -228,10 +261,11 @@ def check_case(case, got=None) -> dict:
     import torch
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     args = (case["q"], case["k"], case["v"], case["bias"])
+    kw = dict(softcap=case["softcap"], scale=case["scale"])
     if got is None:
-        got = flash_decode(*args, softcap=case["softcap"])
+        got = flash_decode(*args, **kw)
     torch.cuda.synchronize()
-    want = flash_decode_ref(*args, softcap=case["softcap"])
+    want = flash_decode_ref(*args, **kw)
     tol = 1e-5 if case["q"].dtype == torch.float32 else 1e-3
     live = (case["bias"] == 0).any(dim=1)            # rows with a valid slot
     o_g = got[0] / got[2][..., None]
@@ -319,7 +353,7 @@ def time_case(case) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     args = (case["q"], case["k"], case["v"], case["bias"])
-    sc = case["softcap"]
+    kw = dict(softcap=case["softcap"], scale=case["scale"])
     copies = cold_copies(args)
     # yardstick only: one PyTorch call over the same cache (the port never
     # calls it), in its own [B, heads, S, dh] layout made outside the timing
@@ -330,18 +364,20 @@ def time_case(case) -> dict:
     whole = dict(case, bias=torch.zeros_like(case["bias"]))
     return {
         "full_bound_ms": bound(whole)[0],
-        "ms": time_ms(lambda *a: flash_decode(*a, softcap=sc), copies),
-        "plain_ms": time_ms(lambda *a: flash_decode_ref(*a, softcap=sc),
-                            copies),
+        "ms": time_ms(lambda *a: flash_decode(*a, **kw), copies),
+        "plain_ms": time_ms(lambda *a: flash_decode_ref(*a, **kw), copies),
         "library_ms": time_ms(
             lambda q, k, v, mask: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True), sdpa_args),
+                q, k, v, attn_mask=mask, enable_gqa=True,
+                scale=case["scale"]), sdpa_args),
         "bound_ms": b_ms, "bound_by": b_by}
 
 
 # the decode shapes of the dense archs beside llama3.2-1b: (arch, query
-# heads, KV heads), dh 128, every row's cache full at S
-DECODE_ARCHS = (("internlm2-1.8b", 16, 8), ("qwen1.5-32b", 40, 40))
+# heads, KV heads), dh 128, every row's cache full at S, each arch's
+# softcap and query scale
+DECODE_ARCHS = (("internlm2-1.8b", 16, 8), ("qwen1.5-32b", 40, 40),
+                (GEMMA, 32, 16))
 
 
 def report_timed(case, label: str) -> dict:
@@ -352,27 +388,46 @@ def report_timed(case, label: str) -> dict:
     B, H, dh = case["q"].shape
     S, Hk = case["k"].shape[1], case["k"].shape[2]
     splits = splits_of(case["q"], Hk, S)
+    cap = case["softcap"]
+    extra = ("" if cap is None else f" softcap={cap:g}") + (
+        "" if case["scale"] is None else f" scale={case['scale']:.6g}")
     print(f"[kernel] flash_decode {label} bf16 B={B} S={S} H={H} Hk={Hk} "
-          f"dh={dh}, splits {splits} ({B * Hk * splits} CTAs): err "
+          f"dh={dh}{extra}, splits {splits} ({B * Hk * splits} CTAs): err "
           f"{err_text(errs)} (tol 1e-3) | kernel {t['ms']*1e3:.2f} us, bound "
           f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}; whole cache "
           f"{t['full_bound_ms']*1e3:.2f} us), plain {t['plain_ms']*1e3:.2f} "
-          f"us, sdpa yardstick {t['library_ms']*1e3:.2f} us", flush=True)
+          f"us, sdpa yardstick {t['library_ms']*1e3:.2f} us"
+          + ("" if cap is None else " (sdpa computes no softcap)"),
+          flush=True)
     return dict(t, max_abs_err=errs["max_abs_err"])
 
 
 def phase_kernels() -> dict:
     import torch
+    from repro_torch.configs import get_config
     bf16, f32 = torch.bfloat16, torch.float32
     timed = {}
     for B, S in ((1, 2048), (8, 2048), (PROMPT_B, PROMPT_T + N_NEW)):
         timed[(B, S)] = report_timed(decode_case(B, S, 64, bf16, seed=B * S),
                                      ARCH)
     for i, (arch, H, Hk) in enumerate(DECODE_ARCHS):
+        c = get_config(arch)
         for S in (PROMPT_T + N_NEW, 2048):
             timed[(arch, S)] = report_timed(
                 decode_case(PROMPT_B, S, 128, bf16, seed=100 + 10 * i + S,
-                            heads=(H, Hk), lens=[S] * PROMPT_B), arch)
+                            heads=(H, Hk), lens=[S] * PROMPT_B,
+                            softcap=c.attn_softcap, scale=c.query_scale),
+                arch)
+    # gemma2's local layers at [arch]'s B 1 decode: the window masks the
+    # first 528 of 4624 positions
+    c = get_config(GEMMA)
+    S = GEMMA_LONG + N_NEW
+    timed[(GEMMA, "window")] = report_timed(
+        decode_case(1, S, 128, bf16, seed=150, heads=(32, 16), lens=[S],
+                    window=c.window, softcap=c.attn_softcap,
+                    scale=c.query_scale),
+        f"{GEMMA} local layer, window {c.window} ({S - c.window} of {S} "
+        f"positions masked)")
     extra = (
         ("f32 B=8 S=2048", decode_case(8, 2048, 64, f32, seed=1)),
         ("f32 B=4 S=48, row 0 fully masked",
@@ -408,6 +463,13 @@ def phase_kernels() -> dict:
         ("f32 B=4 S=2048 16/8 heads dh=128 (G=2) softcap=50",
          decode_case(4, 2048, 128, f32, seed=20, heads=(16, 8),
                      softcap=50.0)),
+        ("f32 B=4 S=48 32/16 heads dh=128 softcap=50 scale=1/12 (gemma2)",
+         decode_case(4, 48, 128, f32, seed=21, heads=(32, 16),
+                     softcap=50.0, scale=1 / 12)),
+        ("f32 B=1 S=4624 32/16 heads dh=128 window=4096 softcap=50 "
+         "scale=1/12 (gemma2)",
+         decode_case(1, 4624, 128, f32, seed=22, heads=(32, 16),
+                     lens=[4624], window=4096, softcap=50.0, scale=1 / 12)),
     )
     for label, case in extra:
         errs = check_case(case)
@@ -424,10 +486,11 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 def shard_case(B, S, P, rank, dh, dtype, *, seed, lens, heads=(N_HEADS, N_KV),
-               softcap=None):
+               softcap=None, window=None, scale=None):
     """Rank ``rank``'s block of a [B, S] cache split P ways (``Sp`` =
     ceil(S / P) positions from global position ``rank·Sp``), a query, the
-    global lengths ``lens`` and the block's validity bias."""
+    global lengths ``lens`` and the block's validity bias (under the
+    sliding ``window``, if any)."""
     import torch
     from repro_torch.kernels.flash_decode import validity_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -440,7 +503,8 @@ def shard_case(B, S, P, rank, dh, dtype, *, seed, lens, heads=(N_HEADS, N_KV),
     return dict(q=randn(B, H, dh), k=randn(B, Sp, Hk, dh),
                 v=randn(B, Sp, Hk, dh), clen=clen, offset=rank * Sp,
                 bias=validity_bias(B, Sp, clen, offset=rank * Sp,
-                                   device="cuda"), softcap=softcap)
+                                   window=window, device="cuda"),
+                softcap=softcap, window=window, scale=scale)
 
 
 def shard_partials(case):
@@ -449,20 +513,24 @@ def shard_partials(case):
     from repro_torch.kernels import dispatch as kdsp
     return kdsp.decode_partials(case["q"][:, None], case["k"], case["v"],
                                 case["clen"], offset=case["offset"],
-                                logit_softcap=case["softcap"])
+                                window=case["window"],
+                                logit_softcap=case["softcap"],
+                                scale=case["scale"])
 
 
 def check_merge(label, B, S, P, dh, dtype, *, seed, lens, heads=(N_HEADS,
-                                                                  N_KV)):
+                                                                  N_KV),
+                window=None, softcap=None, scale=None):
     """Every block's partials (the kernel through the offset route),
     merged as the ranks merge them, against the dense kernel's
     normalised f32 output on the whole cache (relative max error within
-    tolerance)."""
+    tolerance), under the same window, softcap and scale."""
     import torch
     from repro_torch.kernels import dispatch as kdsp
     from repro_torch.kernels.flash_decode import merge_partials
+    kw = dict(window=window, softcap=softcap, scale=scale)
     blocks = [shard_case(B, S, P, r, dh, dtype, seed=seed, lens=lens,
-                         heads=heads) for r in range(P)]
+                         heads=heads, **kw) for r in range(P)]
     q = blocks[0]["q"]
     parts = []
     for c in blocks:
@@ -471,7 +539,9 @@ def check_merge(label, B, S, P, dh, dtype, *, seed, lens, heads=(N_HEADS,
     got = merge_partials(*(torch.stack(p) for p in zip(*parts)))
     k = torch.cat([c["k"] for c in blocks], dim=1)
     v = torch.cat([c["v"] for c in blocks], dim=1)
-    o, m, l = kdsp.decode_partials(q[:, None], k, v, blocks[0]["clen"])
+    o, m, l = kdsp.decode_partials(q[:, None], k, v, blocks[0]["clen"],
+                                   window=window, logit_softcap=softcap,
+                                   scale=scale)
     want = o / l[..., None]                  # f32, before any cast
     torch.cuda.synchronize()
     err, tol = rel_err(got, want), _tol(dtype)
@@ -519,6 +589,60 @@ def phase_shard_partial() -> dict:
           f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
           f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
           f"yardstick over the block {t['library_ms']*1e3:.2f} us", flush=True)
+    return t
+
+
+def phase_gemma_shard_partial() -> dict:
+    """gemma2's windowed sharded decode: the shard partial with offset and
+    window (a block wholly outside the window gives m = -1e30, l = Sp),
+    every block merged against the dense windowed kernel, and timed at the
+    gemma phase's first decode step (B 1, S 8200 over 4 ranks: Sp 2050,
+    length 8193, window 4096; rank 2's block, every position valid)."""
+    import torch
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    c = get_config(GEMMA)
+    g = dict(heads=(c.n_heads, c.n_kv_heads), softcap=c.attn_softcap,
+             scale=c.query_scale)
+    S, P, clen = GEMMA_N + GEMMA_NEW, GEMMA_P, GEMMA_N + 1
+    for label, case in (
+            (f"rank 0 of 4, B 1 S {S} (Sp {S // P}), length {clen}, window "
+             f"{c.window}: no position in the window",
+             shard_case(1, S, P, 0, 128, bf16, seed=60, lens=[clen],
+                        window=c.window, **g)),
+            ("rank 1 of 4: 3 positions in the window",
+             shard_case(1, S, P, 1, 128, bf16, seed=61, lens=[clen],
+                        window=c.window, **g)),
+            ("f32 rank 0 of 4, B 2 S 64, window 20, lengths 64 40: no "
+             "position in the window",
+             shard_case(2, 64, 4, 0, 128, f32, seed=62, lens=[64, 40],
+                        window=20, **g)),
+            ("f32 rank 2 of 4, B 2 S 64, window 20, lengths 64 40",
+             shard_case(2, 64, 4, 2, 128, f32, seed=63, lens=[64, 40],
+                        window=20, **g))):
+        errs = check_case(case, got=shard_partials(case))
+        print(f"[kernel] flash_decode {GEMMA} shard partial {label}: err "
+              f"{err_text(errs)} (tol {_tol(case['q'].dtype):g})",
+              flush=True)
+    check_merge(f"{GEMMA} bf16 B 1 S {S} P 4, window {c.window}, length "
+                f"{clen}", 1, S, P, 128, bf16, seed=64, lens=[clen],
+                window=c.window, **g)
+    check_merge(f"{GEMMA} f32 B 2 S 64 P 4, window 20, lengths 64 40", 2,
+                64, 4, 128, f32, seed=65, lens=[64, 40], window=20, **g)
+    main = shard_case(1, S, P, 2, 128, bf16, seed=66, lens=[clen],
+                      window=c.window, **g)
+    errs = check_case(main, got=shard_partials(main))
+    t = dict(time_case(main), max_abs_err=errs["max_abs_err"])
+    print(f"[kernel] flash_decode {GEMMA} shard partial, the gemma phase's "
+          f"decode shape (rank 2 of 4: B 1, Sp {S // P} of S {S}, offset "
+          f"{2 * (S // P)}, length {clen}, window {c.window}, bf16, "
+          f"{c.n_heads}/{c.n_kv_heads} heads, dh 128, softcap "
+          f"{c.attn_softcap:g}, scale {c.query_scale:.6g}, splits "
+          f"{splits_of(main['q'], c.n_kv_heads, S // P)}): kernel "
+          f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
+          f"yardstick over the block {t['library_ms']*1e3:.2f} us (sdpa "
+          f"computes no softcap)", flush=True)
     return t
 
 
@@ -931,12 +1055,14 @@ def phase_session(card: str):
 
 
 def drive_generate(session, prompt, key: str, n_steps: int, card: str,
-                   note: str = ""):
+                   note: str = "", breakdown: bool = True):
     """Greedy ``generate`` of N_NEW tokens under plan ``key``, flash-decode
     launches counted around it and asserted = n_steps × layers, tokens and
-    the logits over the generated sequence checked; the ``local`` plan's
-    kernel time read by ``torch.profiler`` → (launches, decode ms per token
-    step)."""
+    the logits over the generated sequence checked (the last position's
+    when the prompt is longer than PROMPT_T); with ``breakdown``, the
+    ``local`` plan's kernel time read by ``torch.profiler`` → (launches,
+    decode ms per token step)."""
+    from repro_torch.models import transformer as tfm
     import torch
     from repro_torch.kernels.flash_decode import flash_decode
     cfg = session.cfg
@@ -950,24 +1076,30 @@ def drive_generate(session, prompt, key: str, n_steps: int, card: str,
     if launches != want:
         raise AssertionError(f"{cfg.name} {key}: flash_decode launched "
                              f"{launches} times, want {want}")
-    if out.shape != (PROMPT_B, N_NEW) or not (
+    B, T0 = prompt.shape
+    if out.shape != (B, N_NEW) or not (
             (out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"{cfg.name} {key}: bad tokens "
                              f"{tuple(out.shape)}")
     seq = torch.cat([prompt, out.to(prompt.dtype)], dim=1)
-    lg = session.run(key, {"tokens": seq})
+    if T0 > PROMPT_T:                   # [B, N, V] f32 would not fit
+        with torch.inference_mode():
+            lg = tfm.forward_lm(session.params, {"tokens": seq}, cfg,
+                                plan.to_exchange_config(), last_only=True)[0]
+    else:
+        lg = session.run(key, {"tokens": seq})
     if not torch.isfinite(lg).all():
         raise AssertionError(f"{cfg.name} {key}: non-finite logits over the "
                              f"generated sequence")
     del lg
     decode_ms = (w - w1) / (N_NEW - 1)
-    print(f"[generate] {cfg.name}{note} {key}: [{PROMPT_B}, {PROMPT_T}] "
+    print(f"[generate] {cfg.name}{note} {key}: [{B}, {T0}] "
           f"prompt + {N_NEW} greedy tokens in {w:.1f} ms; flash_decode "
           f"launches {launches} (= {n_steps} steps x {cfg.n_layers} layers);"
           f" decode {decode_ms:.2f} ms/token step, "
-          f"{PROMPT_B / decode_ms * 1e3:.1f} tokens/s at B={PROMPT_B} "
+          f"{B / decode_ms * 1e3:.1f} tokens/s at B={B} "
           f"[{card}]", flush=True)
-    if key == "local":
+    if key == "local" and breakdown:
         print_breakdown(f"{cfg.name} {key}", lambda: session.generate(
             prompt, N_NEW, plan=plan), w)
     return launches, decode_ms
@@ -985,16 +1117,19 @@ def layers_that_fit(cfg, headroom_bytes: float = 6e9) -> int:
                     if cfg.qkv_bias else 0)) * 2
     head = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) * 2 + 2 * d
     free = torch.cuda.mem_get_info()[0]
-    return min(cfg.n_layers, int((free - head - headroom_bytes)
-                                 // per_layer))
+    n = min(cfg.n_layers, int((free - head - headroom_bytes) // per_layer))
+    return n - n % 2 if cfg.local_global else n  # whole local/global pairs
 
 
 def phase_arch_session(card: str, arch: str) -> dict:
     """``arch`` at full width, bf16, on the card (all its layers if they fit
     beside nothing else): the measured profile on the H100 presets over
     three batches, decide and explain at B 1, 8 and 32, and greedy
-    ``generate`` under ``local`` with flash-decode launches asserted →
-    (launches, layers driven)."""
+    ``generate`` under ``local`` with flash-decode launches asserted
+    (gemma2 has no ``prism_sim`` plan: it raises on windowed layers, as in
+    the JAX package; it generates a second time at B 1 from a
+    GEMMA_LONG-token prompt, past its window) → (launches, layers driven,
+    and gemma2's B 1 launches)."""
     import dataclasses
     import gc
     import torch
@@ -1009,8 +1144,9 @@ def phase_arch_session(card: str, arch: str) -> dict:
     n_layers = layers_that_fit(full)
     cfg = dataclasses.replace(full, n_layers=n_layers)
     params = registry.init_params(cfg, seed=0, device="cuda")
-    session = InferenceSession(cfg, params, device="cuda", plans=[
-        ExecutionPlan.local(), ExecutionPlan.prism_sim(L=4, cr=9.9)])
+    plans = [ExecutionPlan.local()] + (
+        [] if cfg.local_global else [ExecutionPlan.prism_sim(L=4, cr=9.9)])
+    session = InferenceSession(cfg, params, device="cuda", plans=plans)
     n_params = sum(t.numel() for t in _leaves(params))
     del params
     torch.cuda.synchronize()
@@ -1037,6 +1173,14 @@ def phase_arch_session(card: str, arch: str) -> dict:
                            generator=g, device="cuda")
     launches, _ = drive_generate(session, prompt, "local", N_NEW - 1, card,
                                  note)
+    out = dict(launches=launches, n_layers=n_layers)
+    if cfg.local_global:
+        long = torch.randint(0, cfg.vocab_size, (1, GEMMA_LONG), generator=g,
+                             device="cuda")
+        out["long_launches"], _ = drive_generate(
+            session, long, "local", N_NEW - 1, card,
+            f"{note} (window {cfg.window} masks every decode step)",
+            breakdown=False)
     peak = torch.cuda.max_memory_allocated()
     print(f"[memory] {arch}{note}: peak allocated {peak / 1e9:.2f} GB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
@@ -1044,7 +1188,7 @@ def phase_arch_session(card: str, arch: str) -> dict:
     del session
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, n_layers=n_layers)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1493,7 +1637,7 @@ def time_seg(case) -> dict:
 
 def prism_case(B, Np, H, Hk, dh, P, L, dtype, *, seed, causal=False,
                part=0, masked=True, softcap=None, dead_row=False,
-               strided=False):
+               strided=False, scale=None):
     """Local q/K/V of one partition, every partition's means, and the
     mean bias built as the exchange builds it (own partition hidden; with a
     mask, per-segment counts, one segment empty).  ``strided``: the means
@@ -1524,7 +1668,7 @@ def prism_case(B, Np, H, Hk, dh, P, L, dtype, *, seed, causal=False,
     bias = build_mean_bias(B, P, L, part, Np // L, causal=causal,
                            mean_counts=counts, device="cuda")
     return dict(args=(q, k, v, km, vm, bias, mask), causal=causal,
-                softcap=softcap)
+                softcap=softcap, scale=scale)
 
 
 def _flat(means):
@@ -1536,20 +1680,29 @@ def _flat(means):
 def prism_bound(case) -> tuple:
     """PRISM attention: q in and the output out; the bias and the mask;
     and the K and V rows of the keys a query of the batch row can see (its
-    unmasked local keys, its means with a bias above -1e30; every key for
-    a row that sees none).  4·H·dh flops per (query, key read)."""
+    unmasked local keys, causal ones at or before the query's position
+    included; its means with a bias above -1e30; every key for a row that
+    sees none).  4·H·dh flops per (query, key it sees): under causal
+    attention query i sees the unmasked local keys 0..i, not all of
+    them."""
     import torch
     q, k, v, km, vm, bias, mask = case["args"]
     B, Nq, H, dh = q.shape
-    Nk, Hk = k.shape[1], k.shape[2]
-    local = (mask.sum(dim=1) if mask is not None
-             else torch.full((B,), Nk, device=q.device))
-    keys = local + (bias > -1e30).sum(dim=1)
-    keys = keys.masked_fill(keys == 0, Nk + bias.shape[1])
-    n = int(keys.sum())
+    Nk, Hk, M = k.shape[1], k.shape[2], bias.shape[1]
+    local = (mask if mask is not None
+             else torch.ones(B, Nk, dtype=torch.bool, device=q.device))
+    seen = local.long().cumsum(dim=1)                   # [B, Nk]
+    if case["causal"]:                                  # q_offset 0
+        pos = torch.arange(Nq, device=q.device).clamp(max=Nk - 1)
+        per_q = seen[:, pos]                            # [B, Nq]
+    else:
+        per_q = seen[:, -1:].expand(B, Nq)
+    per_q = per_q + (bias > -1e30).sum(dim=1, keepdim=True)
+    per_q = per_q.masked_fill(per_q == 0, Nk + M)
+    keys = per_q.max(dim=1).values      # rows of K and V a batch row reads
     moved = (2 * nbytes(q) + nbytes(bias, mask)
-             + 2 * n * Hk * dh * k.element_size())
-    return roofline(moved, 4 * H * dh * Nq * n, q.dtype)
+             + 2 * int(keys.sum()) * Hk * dh * k.element_size())
+    return roofline(moved, 4 * H * dh * int(per_q.sum()), q.dtype)
 
 
 def _copy_prism_args(args):
@@ -1569,16 +1722,18 @@ def _copy_prism_args(args):
 def _prism_calls(case):
     from repro_torch.kernels.prism_attention import (prism_attention,
                                                      prism_attention_ref)
-    causal, cap = case["causal"], case["softcap"]
+    causal, cap, scale = case["causal"], case["softcap"], case["scale"]
 
     def kernel(q, k, v, km, vm, bias, mask, out_dtype=None):
         return prism_attention(q, k, v, km, vm, bias, causal=causal,
-                               softcap=cap, kv_mask=mask, out_dtype=out_dtype)
+                               scale=scale, softcap=cap, kv_mask=mask,
+                               out_dtype=out_dtype)
 
     def plain(q, k, v, km, vm, bias, mask, out_dtype=None):
         return prism_attention_ref(q, k, v, _flat(km), _flat(vm), bias,
-                                   causal=causal, logit_softcap=cap,
-                                   kv_mask=mask, out_dtype=out_dtype)
+                                   causal=causal, scale=scale,
+                                   logit_softcap=cap, kv_mask=mask,
+                                   out_dtype=out_dtype)
     return kernel, plain
 
 
@@ -1642,7 +1797,8 @@ def time_prism(case) -> dict:
         "plain_ms": time_ms(plain, copies),
         "library_ms": time_ms(
             lambda q, k, v, m: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=m, enable_gqa=True), lib_args),
+                q, k, v, attn_mask=m, enable_gqa=True, scale=case["scale"]),
+            lib_args),
         "bound_ms": b_ms, "bound_by": b_by,
         "warps": pk.row_plan(Nq * (H // k.shape[2]))}
     plan = pk.row_plan
@@ -1764,6 +1920,40 @@ def phase_exchange_kernels() -> dict:
           f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
           f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
           f"{t['library_ms']*1e3:.2f} us", flush=True)
+
+    # the gemma phase's prism forward: a global layer of gemma2-27b per
+    # rank, B 1, Np 2048 of 8192 over 4 ranks
+    from repro_torch.configs import get_config
+    c = get_config(GEMMA)
+    gnp, H, Hk = GEMMA_N // GEMMA_P, c.n_heads, c.n_kv_heads
+    seg = seg_case(1, gnp, (Hk, c.hd), GEMMA_L, bf16, seed=35, masked=False)
+    err = check_seg_kv(f"{GEMMA} bf16 2 x [1, {gnp}, {Hk}·{c.hd}] "
+                       f"L={GEMMA_L} unmasked", seg)
+    out["segment_means_gemma"] = t = dict(time_seg(seg), max_abs_err=err)
+    print(f"[kernel] segment_means {GEMMA} prism shape, K and V in one "
+          f"launch: kernel {t['ms']*1e3:.2f} us, bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, mean() yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
+    g = dict(causal=True, masked=False, strided=True, softcap=c.attn_softcap,
+             scale=c.query_scale)
+    check_prism(f"{GEMMA} causal GQA {H}/{Hk} dh {c.hd} bf16 [1, {gnp}] "
+                f"L={GEMMA_L} P={GEMMA_P} part 0, softcap "
+                f"{c.attn_softcap:g}, scale 1/12",
+                prism_case(1, gnp, H, Hk, c.hd, GEMMA_P, GEMMA_L, bf16,
+                           seed=36, part=0, **g))
+    gm = prism_case(1, gnp, H, Hk, c.hd, GEMMA_P, GEMMA_L, bf16, seed=37,
+                    part=GEMMA_P - 1, **g)
+    err = check_prism(f"{GEMMA} part {GEMMA_P - 1} (every earlier "
+                      f"partition's means), means strided as gathered", gm)
+    out["prism_attention_gemma"] = t = dict(time_prism(gm), max_abs_err=err)
+    print(f"[kernel] prism_attention {GEMMA} prism shape (part "
+          f"{GEMMA_P - 1}, causal, softcap, scale 1/12): kernel "
+          f"{t['ms']*1e3:.2f} us ({t['warps']} + 1 warps; 2 CTAs of 4 + 1: "
+          f"{t['split_ms']*1e3:.2f} us), bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
+          f"yardstick {t['library_ms']*1e3:.2f} us (sdpa computes no "
+          f"softcap)", flush=True)
     return out
 
 
@@ -1992,6 +2182,146 @@ def phase_small_lm_reference() -> None:
           f"{SMALL_LM_T0}] + {SMALL_LM_NEW} tokens exact on both ranks "
           f"(voltage, prism scan prefill, prism single-pass); "
           f"{time.perf_counter() - t0:.1f} s with rank start-up", flush=True)
+
+
+SMALL_GEMMA_T0, SMALL_GEMMA_NEW, SMALL_GEMMA_L = 8, 24, 2
+SMALL_GEMMA_N = (64, 16)       # Np 16 over 4 ranks: the halo; Np 4: Voltage
+
+
+def _small_gemma():
+    """(cfg, CPU params from seed 0) of the small f32 gemma2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = get_config(GEMMA).reduced(**SMALL_GEMMA)
+    return cfg, registry.init_params(cfg, seed=0, device="cpu")
+
+
+def _small_gemma_rank(rank, world, device):
+    """One rank of the small f32 gemma2 on ``device``: ``voltage`` and
+    ``prism`` forward logits at each of SMALL_GEMMA_N tokens, with the
+    bytes and calls of their staged collectives."""
+    import torch
+    from repro_torch.api import ExecutionPlan
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.models import transformer as tfm
+    _exact_fp32()
+    group = get_seq_group("seq")
+    cfg, params = _small_gemma()
+    params = _on(params, device)
+    g = torch.Generator().manual_seed(2)
+    out = {}
+    for N in SMALL_GEMMA_N:
+        tokens = torch.randint(0, cfg.vocab_size, (2, N), generator=g)
+        for plan in (ExecutionPlan.voltage(seq_shards=world),
+                     ExecutionPlan.prism(L=SMALL_GEMMA_L, cr=1.0,
+                                         seq_shards=world)):
+            group.reset_stats()
+            with torch.inference_mode():
+                lg = tfm.forward_lm(params, {"tokens": tokens.to(device)},
+                                    cfg, plan.to_exchange_config())[0]
+            st = group.stats
+            out[(plan.mode, N)] = (lg.cpu().numpy(), st.payload_bytes,
+                                   st.calls)
+    return out
+
+
+def phase_small_gemma_reference() -> None:
+    """The small f32 gemma2 (one local/global pair, window 16, int8 KV
+    cache, dh 64) on the card against the same weights on the CPU: 32
+    decode steps (an 8-token prompt, then 24 steps past the window), each
+    from the CPU's cache before it, logits ≤ 1e-4 with an f32 cache; with
+    the int8 cache the codes each step writes within one rounding step and
+    the logits printed (a code on a rounding boundary may round either way
+    on the two devices and move the step's logits by ~1e-4: ROADMAP, int8
+    KV rounding); greedy [2, 8] + 24 tokens exact through the int8 cache;
+    then across 4 ranks on the card against 4 CPU ranks under ``voltage``
+    and ``prism(L=2)`` at N 64 (the halo: n_halo 1 of P − 1 = 3) and N 16
+    (n_halo 3: the Voltage gather), forward logits ≤ 1e-4, the halo's
+    received bytes asserted."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.api.generation import generate
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models import transformer as tfm
+    cfg, params = _small_gemma()
+    sides = {"cpu": params, "cuda": _on(params, "cuda")}
+    g = torch.Generator().manual_seed(0)
+    steps = SMALL_GEMMA_T0 + SMALL_GEMMA_NEW
+    toks = torch.randint(0, cfg.vocab_size, (2, steps), generator=g)
+    xcfg = ExchangeConfig()
+    worst = {}
+    for quant in (False, True):
+        qcfg = dataclasses.replace(cfg, kv_quant=quant)
+        worst[quant] = 0.0
+        with torch.inference_mode():
+            cache = tfm.init_decode_cache(qcfg, 2, steps, device="cpu")
+            for t in range(steps):
+                card = _on(cache, "cuda")
+                step = {"tokens": toks[:, t:t + 1]}
+                want, cache = tfm.decode_step(sides["cpu"], step, cache, t,
+                                              qcfg, xcfg)
+                got, card = tfm.decode_step(sides["cuda"], _on(step, "cuda"),
+                                            card, t, qcfg, xcfg)
+                worst[quant] = max(worst[quant],
+                                   (got.cpu() - want).abs().max().item())
+                for half, leaves in card.items():
+                    for name in ("k", "v") if quant else ():
+                        flip = (leaves[name][:, :, t].cpu().int()
+                                - cache[half][name][:, :, t].int()).abs()
+                        if flip.max() > 1:
+                            raise AssertionError(
+                                f"small gemma2 {half} {name} step {t}: int8 "
+                                f"codes differ by {int(flip.max())}")
+    if not worst[False] <= 1e-4:
+        raise AssertionError(f"small f32 gemma2: card vs CPU decode logits "
+                             f"differ by {worst[False]:.3e} > 1e-4")
+    prompt = toks[:, :SMALL_GEMMA_T0]
+    tokens = {d: generate(p, prompt.to(d), SMALL_GEMMA_NEW, cfg, xcfg).cpu()
+              for d, p in sides.items()}
+    if not torch.equal(tokens["cuda"], tokens["cpu"]):
+        raise AssertionError("small f32 gemma2: card and CPU greedy tokens "
+                             "differ")
+    t0 = time.perf_counter()
+    ranks = {d: spawn(_small_gemma_rank, GEMMA_P, d, timeout=RANK_TIMEOUT_S)
+             for d in ("cpu", "cuda")}
+    P, Hk, dh, B = GEMMA_P, cfg.n_kv_heads, cfg.hd, 2
+    seen = {}
+    for key in ranks["cpu"][0]:
+        mode, N = key
+        Np = N // P
+        n_halo = min(-(-cfg.window // Np), P - 1)
+        diffs = []
+        for p, (c, r) in enumerate(zip(ranks["cpu"], ranks["cuda"])):
+            diffs.append(float(np.abs(r[key][0] - c[key][0]).max()))
+            if r[key][1:] != c[key][1:]:
+                raise AssertionError(f"small gemma2 {key} rank {p}: the card"
+                                     f" moved {r[key][1:]} (bytes, calls), "
+                                     f"the CPU {c[key][1:]}")
+            if mode == "prism" and n_halo < P - 1:
+                halo = min(p, n_halo) * 2 * B * Np * Hk * dh * 4
+                means = (P - 1) * 2 * B * SMALL_GEMMA_L * Hk * dh * 4
+                if r[key][1] != halo + means:
+                    raise AssertionError(f"small gemma2 {key} rank {p}: "
+                                         f"{r[key][1]} payload bytes, the "
+                                         f"halo and means are {halo + means}")
+        seen[key] = max(diffs)
+        if not seen[key] <= 1e-4:
+            raise AssertionError(f"small gemma2 {key}: 4 ranks on the card "
+                                 f"vs 4 CPU ranks differ by {seen[key]:.3e}")
+    print(f"[reference] reduced f32 {GEMMA} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
+          f"{cfg.hd}, window {cfg.window}): {steps} decode steps on the card "
+          f"vs the CPU, each from the CPU's cache, max |logit diff| f32 cache"
+          f" {worst[False]:.2e} (tol 1e-4), int8 cache {worst[True]:.2e} "
+          f"(codes within one rounding step); greedy [2, {SMALL_GEMMA_T0}] + "
+          f"{SMALL_GEMMA_NEW} tokens exact; {P} ranks on the card vs {P} CPU"
+          f" ranks, max |logit diff| " + ", ".join(
+              f"{m} N={n} {d:.2e}" for (m, n), d in seen.items())
+          + f" (tol 1e-4; prism at N={SMALL_GEMMA_N[0]} through the halo, "
+          f"its bytes as predicted); {time.perf_counter() - t0:.1f} s with "
+          f"rank start-up", flush=True)
 
 
 def _vit_rank(rank, world):
@@ -2448,6 +2778,211 @@ def phase_lm(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: gemma2-27b across 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+GEMMA_LAYERS = 2              # one local/global pair: 4 ranks share 80 GB
+
+
+def _gemma_rank(rank, world):
+    """One rank of gemma2-27b at full width, cut to one local/global pair,
+    on the shared card: the ``last_only`` forward of [1, 8192] under
+    ``local``, ``voltage`` and ``prism(L=16)`` (the windowed layer's halo,
+    n_halo 2 of P − 1 = 3, and the global layer's means; launches and
+    bytes by kind asserted), and greedy ``generate`` of the same prompt +
+    GEMMA_NEW under ``voltage`` (the sharded windowed decode: flash-decode
+    launches asserted, the same tokens on every rank), beside rank 0's
+    one-rank ``local`` run of the same weights."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    group = get_seq_group("seq")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_LAYERS)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    # f64 sums in slices: the embedding whole in f64 would be 9.4 GB a rank
+    sums = torch.stack([part.double().sum() for leaf in _leaves(params)
+                        for part in leaf.reshape(-1).split(1 << 26)]
+                       ).cpu().numpy().tobytes()
+    if group.broadcast_object(sums) != sums:
+        raise AssertionError(f"rank {rank}: weights differ from rank 0's")
+    plans = {"local": ExecutionPlan.local(),
+             "voltage": ExecutionPlan.voltage(seq_shards=world),
+             "prism": ExecutionPlan.prism(
+                 L=GEMMA_L, cr=GEMMA_N / (GEMMA_L * world),
+                 seq_shards=world)}
+    session = InferenceSession(cfg, params, device="cuda",
+                               plans=list(plans.values()))
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA_N), generator=g,
+                           device="cuda")
+    Np = GEMMA_N // world
+    n_halo = min(-(-cfg.window // Np), world - 1)
+    item = cfg.torch_dtype.itemsize
+    shard = 2 * Np * cfg.n_kv_heads * cfg.hd * item     # K and V
+    means = (world - 1) * 2 * GEMMA_L * cfg.n_kv_heads * cfg.hd * item
+    n_pairs = cfg.n_layers // 2
+    want = {"local": (0, 0),
+            "voltage": (2 * n_pairs * (world - 1) * shard, 2 * n_pairs + 1),
+            "prism": (n_pairs * (min(rank, n_halo) * shard + means),
+                      n_pairs * (n_halo + 1) + 1)}
+
+    def forward(key):
+        with torch.inference_mode():
+            return tfm.forward_lm(session.params, {"tokens": tokens}, cfg,
+                                  plans[key].to_exchange_config(),
+                                  last_only=True)[0]
+    for key in plans:                               # warm-up
+        forward(key)
+    fwd, last = {}, {}
+    for key in plans:                               # the main path
+        segment_means.launches = prism_attention.launches = 0
+        last[key], *_ = _timed(lambda: forward(key), group)
+        st = group.stats
+        counts = (segment_means.launches, prism_attention.launches)
+        moved = dict(payload=st.payload_bytes, meta=st.meta_bytes,
+                     cache=st.cache_bytes, output=st.output_bytes)
+        if (moved["payload"], st.calls) != want[key]:
+            raise AssertionError(f"rank {rank} {key}: {moved['payload']} "
+                                 f"payload bytes in {st.calls} calls, want "
+                                 f"{want[key]}")
+        n = n_pairs if key == "prism" else 0
+        if counts != (n, n):
+            raise AssertionError(f"rank {rank} {key}: (segment_means, "
+                                 f"prism_attention) launches {counts}, want "
+                                 f"{(n, n)}")
+        if last[key].shape != (1, 1, cfg.vocab_size) or not \
+                torch.isfinite(last[key]).all():
+            raise AssertionError(f"rank {rank} {key}: last logits not "
+                                 f"finite / wrong shape")
+        runs = [_timed(lambda: forward(key), group) for _ in range(3)]
+        fwd[key] = dict(counts=counts, moved=moved, calls=runs[0][3],
+                        ms=statistics.median(r[1] for r in runs),
+                        staged_ms=statistics.median(r[2] for r in runs))
+    err = {key: ((last[key] - last["local"]).abs().max()
+                 / last["local"].abs().max()).item()
+           for key in ("voltage", "prism")}
+    if not err["voltage"] <= 5e-2:
+        raise AssertionError(f"rank {rank}: voltage vs local last logits "
+                             f"differ by {err['voltage']:.3e} of the largest")
+    for key in ("voltage", "prism"):
+        every = group.all_gather(last[key], kind="meta")
+        if not all(torch.equal(every[0], e) for e in every[1:]):
+            raise AssertionError(f"{key} last logits differ between ranks")
+
+    # one windowed layer's exchange alone, no compute: its halo (n_halo
+    # point-to-point calls) against the Voltage gather of the same K/V
+    kv = torch.randn(2, 1, Np, cfg.n_kv_heads, cfg.hd, generator=g,
+                     device="cuda").to(cfg.torch_dtype)
+
+    def halo():
+        for sft in range(n_halo, 0, -1):
+            group.shift(kv, sft)
+    alone = {}
+    for name, fn in (("halo", halo), ("gather", lambda: group.all_gather(kv))):
+        fn()                                        # warm-up
+        runs = [_timed(fn, group) for _ in range(5)]
+        alone[name] = dict(staged_ms=statistics.median(r[2] for r in runs),
+                           calls=runs[0][3],
+                           mb=group.stats.payload_bytes / 1e6)
+
+    plan = plans["voltage"]
+    flash_decode.launches = 0                       # the main path
+    out, wall, staged, calls, merge = _timed(
+        lambda: session.generate(tokens, GEMMA_NEW, plan=plan), group)
+    launches = flash_decode.launches
+    if launches != (GEMMA_NEW - 1) * cfg.n_layers:
+        raise AssertionError(f"rank {rank}: flash_decode launched "
+                             f"{launches} times, want {GEMMA_NEW - 1} steps "
+                             f"x {cfg.n_layers} layers")
+    every = group.all_gather(out, kind="meta")
+    if not all(torch.equal(every[0], e) for e in every[1:]):
+        raise AssertionError("gemma2 voltage generate: the ranks drew "
+                             "different tokens")
+    agree = None
+    if rank == 0:
+        local = session.generate(tokens, GEMMA_NEW, plan=plans["local"])
+        agree = float((local == out).float().mean())
+    return dict(fwd=fwd, err=err, build_s=build_s, n_halo=n_halo, alone=alone,
+                gen=dict(tokens=out.cpu().numpy(), wall_s=wall / 1e3,
+                         staged_s=staged / 1e3, calls=calls,
+                         merge_bytes=merge, launches=launches, agree=agree),
+                peak=torch.cuda.max_memory_allocated(),
+                n_params=sum(t.numel() for t in _leaves(params)))
+
+
+def phase_gemma(card: str) -> dict:
+    """gemma2-27b at full width, cut to one local/global pair, across 4
+    ranks sharing the card → launch totals of the main path, summed over
+    the ranks: segment means and PRISM attention in the ``prism`` forward,
+    flash-decode's windowed shard partial in the ``voltage`` generate."""
+    import gc
+    import torch
+    from repro_torch.core.seq_group import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    ranks = spawn(_gemma_rank, GEMMA_P, timeout=RANK_TIMEOUT_S)
+    r0 = ranks[0]
+    print(f"[gemma] {GEMMA} full width cut to {GEMMA_LAYERS} of 46 layers "
+          f"(one local/global pair; {r0['n_params'] / 1e9:.2f} B parameters "
+          f"a rank, bf16, random from seed 0, equal on every rank) on "
+          f"{GEMMA_P} ranks sharing the card, gloo staged through host "
+          f"memory; Np {GEMMA_N // GEMMA_P}, n_halo {r0['n_halo']}; "
+          f"{time.perf_counter() - t0:.1f} s with rank start-up; peak "
+          f"allocated per rank " + ", ".join(
+              f"{r['peak'] / 1e9:.2f}" for r in ranks) + f" GB (the parent "
+          f"holds {held / 1e9:.2f} GB)", flush=True)
+    for key in r0["fwd"]:
+        for p, r in enumerate(ranks):
+            f = r["fwd"][key]
+            mb = {k: v / 1e6 for k, v in f["moved"].items()}
+            share = f["staged_ms"] / f["ms"] if f["ms"] else 0.0
+            print(f"[gemma] forward_lm(last_only) {key} B=1 N={GEMMA_N} "
+                  f"rank {p}: {f['ms']:.2f} ms, staged {f['staged_ms']:.2f} "
+                  f"ms ({share:.1%}) in {f['calls']} calls; received MB "
+                  f"payload {mb['payload']:.3f}, meta {mb['meta']:.3f}, "
+                  f"cache {mb['cache']:.3f}, output {mb['output']:.3f}; "
+                  f"segment_means {f['counts'][0]}, prism_attention "
+                  f"{f['counts'][1]} launches (median of 3) [{card}]",
+                  flush=True)
+    for p, r in enumerate(ranks):
+        h, v = r["alone"]["halo"], r["alone"]["gather"]
+        print(f"[gemma] one windowed layer's exchange alone (K and V [1, "
+              f"{GEMMA_N // GEMMA_P}, 16, 128] bf16, no compute, median of "
+              f"5) rank {p}: halo {h['staged_ms']:.2f} ms in {h['calls']} "
+              f"point-to-point calls, {h['mb']:.3f} MB received; Voltage "
+              f"gather {v['staged_ms']:.2f} ms in {v['calls']} call, "
+              f"{v['mb']:.3f} MB [{card}]", flush=True)
+    print(f"[gemma] last logits vs local, max |diff| of the largest: voltage"
+          f" {r0['err']['voltage']:.2e} (tol 5e-2), prism "
+          f"{r0['err']['prism']:.2e}; equal on every rank", flush=True)
+    gn = r0["gen"]
+    print(f"[gemma] generate voltage: [1, {GEMMA_N}] prompt + {GEMMA_NEW} "
+          f"greedy tokens in {gn['wall_s']:.3f} s (rank 0; staged "
+          f"{gn['staged_s']:.3f} s in {gn['calls']} calls, "
+          f"{gn['merge_bytes'] / 1e3:.1f} kB of merge partials); "
+          f"flash_decode launches {gn['launches']} per rank; tokens equal "
+          f"on every rank; agreement with rank 0's one-rank local run "
+          f"{gn['agree']:.0%} [{card}]", flush=True)
+    return {"flash_decode": sum(r["gen"]["launches"] for r in ranks),
+            "segment_means": sum(r["fwd"]["prism"]["counts"][0]
+                                 for r in ranks),
+            "prism_attention": sum(r["fwd"]["prism"]["counts"][1]
+                                   for r in ranks)}
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the codec exchanges and the ring executor across 2 ranks
 # ---------------------------------------------------------------------------
 
@@ -2841,12 +3376,14 @@ def main() -> None:
     phase_build()
     timed = phase_kernels()
     shard = phase_shard_partial()
+    gemma_shard = phase_gemma_shard_partial()
     paged = phase_paged_kernel()
     exchange = phase_exchange_kernels()
     phase_small_reference()
     phase_small_serving()
     phase_small_vit_reference()
     phase_small_lm_reference()
+    phase_small_gemma_reference()
     launches, session = phase_session(card)
     serve_dense, serve_paged = phase_serve(card, session)
     del session
@@ -2854,6 +3391,7 @@ def main() -> None:
     vit_launches = phase_vit(card)
     lm_launches = phase_lm(card)
     lm_launches["flash_decode"] += phase_codec(card)
+    gemma_launches = phase_gemma(card)
     archs = {arch: phase_arch_session(card, arch)
              for arch, _, _ in DECODE_ARCHS}
 
@@ -2882,8 +3420,37 @@ def main() -> None:
             "source": src.format("flash_decode", "flash_decode"),
             "replaces": rows[0][1], "launches": archs[arch]["launches"],
             "shape": f"{arch}: bf16 B={PROMPT_B} S={PROMPT_T + N_NEW} "
-                     f"{H}/{Hk} heads dh=128",
+                     f"{H}/{Hk} heads dh=128"
+                     + (" softcap=50 scale=1/12" if arch == GEMMA else ""),
             **{k: timed[(arch, PROMPT_T + N_NEW)][k] for k in keys}})
+    gnp = GEMMA_N // GEMMA_P
+    gemma_s = GEMMA_N + GEMMA_NEW
+    for kname, n, t, shape in (
+            ("flash_decode", archs[GEMMA]["long_launches"],
+             timed[(GEMMA, "window")],
+             f"{GEMMA} local layer at B 1: bf16 S={GEMMA_LONG + N_NEW} "
+             f"window=4096 32/16 heads dh=128 softcap=50 scale=1/12; "
+             f"launches: the whole B 1 generate, its "
+             f"{archs[GEMMA]['n_layers'] // 2} local layers at this shape "
+             f"and as many global layers at this S without a window"),
+            ("flash_decode", gemma_launches["flash_decode"], gemma_shard,
+             f"{GEMMA} windowed shard partial ({GEMMA_P} ranks): bf16 B=1 "
+             f"Sp={gemma_s // GEMMA_P} of S={gemma_s}, rank 2, window=4096 "
+             f"32/16 heads dh=128 softcap=50 scale=1/12"),
+            ("segment_means", gemma_launches["segment_means"],
+             exchange["segment_means_gemma"],
+             f"{GEMMA} prism forward per rank ({GEMMA_P} ranks): K and V "
+             f"bf16 [1, {gnp}, 16·128] L={GEMMA_L}"),
+            ("prism_attention", gemma_launches["prism_attention"],
+             exchange["prism_attention_gemma"],
+             f"{GEMMA} prism forward per rank: bf16 [1, {gnp}] 32/16 heads "
+             f"dh=128 causal softcap=50 scale=1/12 L={GEMMA_L} part "
+             f"{GEMMA_P - 1}")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src.format(kname, kname),
+            "replaces": {r[0]: r[1] for r in rows}[kname], "launches": n,
+            "shape": shape, **{k: t[k] for k in keys}})
     lm_np = LM_N // LM_P
     for kname, replaces, t, shape in (
             ("flash_decode", rows[0][1], shard,

@@ -150,12 +150,14 @@ def build_generate_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
 # shares the pool or on the order of admission.
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Dict[str, int]]:
-    """The batch axis of every leaf of ``init_decode_cache``.  The port's
-    cache layout is fixed (``{"kv": {leaf: [n_layers, B, S, ...]}}``), so
-    it is axis 1 for every leaf, the int8 cache's scales included."""
+    """The batch axis of every leaf of ``init_decode_cache``: each half of
+    the cache (``kv``, or gemma2's ``local`` and ``global``) stacks its
+    layers first (``[layers, B, S, ...]``), so it is axis 1 for every
+    leaf, the int8 cache's scales included."""
     tfm._require_dense(cfg)
     names = ("k", "v", "k_scale", "v_scale") if cfg.kv_quant else ("k", "v")
-    return {"kv": {name: 1 for name in names}}
+    return {half: {name: 1 for name in names}
+            for _, half, _, _ in tfm.layer_stacks(cfg)}
 
 
 SLOT_POOL_FAMILIES = ("dense",)
@@ -231,9 +233,10 @@ def build_admit_fn(cfg: ModelConfig) -> Callable:
     @torch.inference_mode()
     def admit(pool, tok, lengths, gens, temps, req_cache, slot, tok0,
               length0, gen0, temp0):
-        for name, a in axes["kv"].items():
-            pool["kv"][name].select(a, slot).copy_(
-                req_cache["kv"][name].select(a, 0))
+        for half, leaves in axes.items():
+            for name, a in leaves.items():
+                pool[half][name].select(a, slot).copy_(
+                    req_cache[half][name].select(a, 0))
         tok[slot] = tok0[0, 0]
         lengths[slot] = length0
         gens[slot] = gen0

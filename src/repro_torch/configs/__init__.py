@@ -1,8 +1,9 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-The port carries the dense decoders llama3.2-1b, internlm2-1.8b and
-qwen1.5-32b, and vit-base-16 (the paper's ViT encoder); the other
-architectures of the JAX package arrive with their model families.
+The port carries the dense decoders llama3.2-1b, internlm2-1.8b,
+qwen1.5-32b and gemma2-27b (windowed local/global layers), and vit-base-16
+(the paper's ViT encoder); the other architectures of the JAX package
+arrive with their model families.
 """
 from __future__ import annotations
 
@@ -16,13 +17,13 @@ _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "gemma2-27b": "gemma2_27b",
     "vit-base-16": "vit_base",
 }
 
 # archs of the JAX package that the port does not carry yet → the ROADMAP
 # queue 1 item that holds each
 _PENDING = {
-    "gemma2-27b": "6, 7.3",             # windowed local_global layers
     "deepseek-moe-16b": "11",
     "deepseek-v2-236b": "11",
     "hymba-1.5b": "11",

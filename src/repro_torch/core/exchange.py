@@ -10,7 +10,9 @@ Port of ``repro.core.exchange``:
   * PRISM     — one all-gather of L projected segment means per partition
                 (and their token counts); the scaling-aware softmax over
                 [local K/V ‖ remote means] runs on the PRISM-attention
-                kernel.
+                kernel.  A causal sliding-window layer whose window spans
+                fewer than P − 1 partitions exchanges only its halo: the
+                preceding partitions the window reaches, point to point.
   * PRISM_SIM — PRISM math on unpartitioned tensors.
   * decode-time attention: with one partition the cache is device-local
     and goes through the kernel-dispatch layer onto the flash-decode
@@ -24,9 +26,8 @@ staged through host memory): each rank calls them with its own partition
 ``[B, N/P, ...]``, in place of the JAX package's ``shard_map`` body.
 VOLTAGE with ``overlap_chunks > 0`` runs the ring executor and PRISM with
 a non-default codec the codec exchange (``repro_torch.transport.
-executor``).  Not ported yet (ROADMAP queue 1): the halo exchange of
-windowed layers ([6, 7.3]), the cross-attention and MLA exchanges ([11,
-7.5]).
+executor``).  Not ported yet (ROADMAP queue 1): the cross-attention and
+MLA exchanges ([11, 7.5]).
 """
 from __future__ import annotations
 
@@ -196,11 +197,35 @@ def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
     """Segment-Means exchange + scaling-aware softmax (the paper's PRISM):
     this rank's L means of K and V go to every rank, and its queries
     attend over [local K/V ‖ every other partition's means].  It gathers
-    no full K/V, so ``kv_sink`` is never called."""
-    if window is not None:
-        raise NotImplementedError("the halo exchange of windowed layers is "
-                                  "not ported yet (ROADMAP queue 1 item 7)")
+    no full K/V, so ``kv_sink`` is never called.
+
+    A sliding-window layer needs no means: far context is outside the
+    window.  Causal, with ``n_halo = ceil(window / Np)`` partitions of
+    history below P − 1, the rank receives the K and V of the ``n_halo``
+    partitions before it (``SeqGroup.shift``, one staged call each, K and
+    V in one buffer; a rank with fewer predecessors gets zeros, masked)
+    and attends exactly over [halo ‖ own] under the window; the key mask
+    is not read, as in the JAX package.  Otherwise the layer takes the
+    Voltage gather (``kv_sink`` and the mask passed on)."""
     group = seq_group_for(cfg)
+    if window is not None:
+        P, p, Np = group.world_size, group.rank, q.shape[1]
+        n_halo = min(-(-window // max(Np, 1)), P - 1)
+        if not (causal and n_halo < P - 1):
+            return exchange_attention(
+                q, k, v, cfg.with_mode(ExchangeMode.VOLTAGE), causal=causal,
+                window=window, logit_softcap=logit_softcap, scale=scale,
+                kv_mask=kv_mask, kv_sink=kv_sink)
+        halo = [group.shift(torch.stack([k, v]), sft)
+                for sft in range(n_halo, 0, -1)]
+        kg = torch.cat([h[0] for h in halo] + [k], dim=1)
+        vg = torch.cat([h[1] for h in halo] + [v], dim=1)
+        gpos = (p - n_halo) * Np + torch.arange((n_halo + 1) * Np,
+                                                device=q.device)
+        return chunked_reference_attention(
+            q, kg, vg, causal=True, q_offset=n_halo * Np, window=window,
+            logit_softcap=logit_softcap, scale=scale,
+            kv_mask=(gpos >= 0)[None].expand(q.shape[0], -1))
     L = cfg.L
     seg = q.shape[1] // L
     # K and V means in one launch, gathered as they come out; no mask →

@@ -15,10 +15,11 @@ sends from the card to pinned host memory, gathers over gloo, and copies
 the result back to the card.  The ring executor's point-to-point
 transfers (``ring_shift``: gloo ``isend``/``irecv`` to the next and from
 the previous rank) are staged the same way and return a handle, so the
-card can compute while the bytes travel.  On one card several ranks share
-it.  NCCL's
-device-side gather (the ``direct`` link, one card per rank) is ROADMAP
-queue 1 item 7.
+card can compute while the bytes travel.  ``shift`` is the one-way
+point-to-point transfer of PRISM's halo exchange (``jax.lax.ppermute``
+over ``i → i + sft``), staged the same way.  On one card several ranks
+share it.  NCCL's device-side gather (the ``direct`` link, one card per
+rank) is ROADMAP queue 1 item 7.
 
 A process registers its group under the mesh axis name that
 ``ExchangeConfig.seq_axis`` carries (``"seq"`` by default), and the
@@ -137,32 +138,58 @@ class SeqGroup:
         received tensor on t's device.  One call is booked per transfer,
         its received bytes under ``kind`` when it is waited on."""
         t0 = self._begin(t)
-        host = self._to_host(t)
-        return self._ring_post(host, t, kind, chunks, t0)
+        return self._post(self._to_host(t), t, kind, chunks, t0,
+                          *self._ring_peers())
 
     def ring_forward(self, prev: "RingTransfer", *,
                      chunks: int = 1) -> "RingTransfer":
         """Pass on what ``prev`` (waited on) received, from its host
         buffer: no copy off the card and no wait for it."""
-        return self._ring_post(prev.host, prev.like, prev.kind, chunks,
-                               time.perf_counter())
+        return self._post(prev.host, prev.like, prev.kind, chunks,
+                          time.perf_counter(), *self._ring_peers())
 
-    def _ring_post(self, host, like, kind, chunks, t0) -> "RingTransfer":
+    def _ring_peers(self):
+        P = self.world_size
+        return (self.rank + 1) % P, (self.rank - 1) % P
+
+    def shift(self, t: torch.Tensor, sft: int, *,
+              kind: str = "payload") -> torch.Tensor:
+        """Rank i sends ``t`` to rank ``i + sft`` and receives the same
+        shape and dtype from rank ``i − sft``, where those ranks exist (the
+        JAX package's ``ppermute`` over ``[(i, i + sft) for i in
+        range(P − sft)]``); a rank with no source gets zeros.  Staged as
+        the ring's transfer, one message; one call is booked, with the
+        bytes received under ``kind``."""
+        P = self.world_size
+        if not 0 < sft < P:
+            raise ValueError(f"shift {sft} outside 1..{P - 1} for {P} ranks")
+        t0 = self._begin(t)
+        dst, src = self.rank + sft, self.rank - sft
+        return self._post(self._to_host(t), t, kind, 1, t0,
+                          dst if dst < P else None,
+                          src if src >= 0 else None).wait()
+
+    def _post(self, host, like, kind, chunks, t0, dst: Optional[int],
+              src: Optional[int]) -> "RingTransfer":
+        """Send ``host``'s bytes to rank ``dst`` and receive as many from
+        rank ``src`` (None: no such message; the receive then holds
+        zeros), as ``chunks`` messages of equal size."""
         n = chunks if chunks > 1 and host.numel() % chunks == 0 else 1
-        recv = torch.empty(host.shape, dtype=torch.uint8,
-                           pin_memory=like.is_cuda)
+        alloc = torch.zeros if src is None else torch.empty
+        recv = alloc(host.shape, dtype=torch.uint8, pin_memory=like.is_cuda)
         size = host.numel() // n
         tags = range(self._tag, self._tag + n)
         self._tag += n                  # every rank counts alike (SPMD)
-        P = self.world_size
-        nxt, prv = (self.rank + 1) % P, (self.rank - 1) % P
         # every receive is posted before any send
-        works = [dist.irecv(recv[i * size:(i + 1) * size], prv, tag=tag)
-                 for i, tag in enumerate(tags)]
-        works += [dist.isend(host[i * size:(i + 1) * size], nxt, tag=tag)
-                  for i, tag in enumerate(tags)]
+        works = [] if src is None else [
+            dist.irecv(recv[i * size:(i + 1) * size], src, tag=tag)
+            for i, tag in enumerate(tags)]
+        works += [] if dst is None else [
+            dist.isend(host[i * size:(i + 1) * size], dst, tag=tag)
+            for i, tag in enumerate(tags)]
         self.stats.seconds += time.perf_counter() - t0
-        return RingTransfer(self, works, host, recv, like, kind)
+        return RingTransfer(self, works, host, recv, like, kind,
+                            received=0 if src is None else host.numel())
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank (same shape and dtype
@@ -186,9 +213,11 @@ class SeqGroup:
 class RingTransfer:
     """One ring transfer in flight (:meth:`SeqGroup.ring_shift`)."""
 
-    def __init__(self, group: SeqGroup, works, sent, host, like, kind):
+    def __init__(self, group: SeqGroup, works, sent, host, like, kind,
+                 received: int):
         self.group, self.works, self.sent = group, works, sent
         self.host, self.like, self.kind = host, like, kind
+        self.received = received
 
     def wait(self) -> torch.Tensor:
         """Block until every message of the transfer is through → the
@@ -200,7 +229,7 @@ class RingTransfer:
         like = self.like
         out = self.host.view(like.dtype).reshape(like.shape).to(
             like.device, non_blocking=True)
-        self.group._end(t0, self.kind, self.host.numel())
+        self.group._end(t0, self.kind, self.received)
         return out
 
 

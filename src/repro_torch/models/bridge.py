@@ -3,8 +3,10 @@
 ``params_from_numpy`` takes the JAX params tree as numpy arrays
 (``jax.tree.map(np.asarray, registry.init_params(cfg))``) and returns the
 port's parameter dict: the leading layer axis of ``params["layers"]`` (the
-JAX package's stacked scan layout) is unstacked into a list of per-layer
-dicts, and every leaf becomes a tensor on ``device`` with its dtype kept.
+JAX package's stacked scan layout), or of gemma2's ``local_layers`` and
+``global_layers`` (``[n_layers // 2, ...]`` each), is unstacked into a
+list of per-layer dicts, and every leaf becomes a tensor on ``device``
+with its dtype kept.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.models.transformer import layer_stacks
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -39,9 +43,10 @@ def _unstack(tree: Any, i: int) -> Any:
 
 def params_from_numpy(np_params: dict, cfg, device="cpu") -> dict:
     """JAX params tree (numpy leaves) → the port's params for ``cfg``."""
+    stacks = {name: depth for name, _, depth, _ in layer_stacks(cfg)}
     out = {k: _convert(v, device) for k, v in np_params.items()
-           if k != "layers"}
-    stacked = np_params["layers"]
-    out["layers"] = [_convert(_unstack(stacked, i), device)
-                     for i in range(cfg.n_layers)]
+           if k not in stacks}
+    for name, depth in stacks.items():
+        out[name] = [_convert(_unstack(np_params[name], i), device)
+                     for i in range(depth)]
     return out

@@ -280,13 +280,11 @@ def attention_decode(
     positions, ``[p·Sp, (p+1)·Sp)`` of a cache of ``P·Sp``: the rank that
     owns a write position writes there (at ``index − p·Sp``), the others
     write nothing, and attention merges every rank's block
-    (``exchange.decode_attention_sharded``)."""
+    (``exchange.decode_attention_sharded``; a sliding-window layer's
+    blocks under the window, where the JAX package attends its
+    mesh-sharded cache under the window in one call)."""
     B = x.shape[0]
     group = seq_group_for(xcfg) if partitioned(xcfg) else None
-    if group is not None and spec.window is not None:
-        raise NotImplementedError("windowed layers under a partitioned plan "
-                                  "are not ported yet (ROADMAP queue 1 item "
-                                  "[6, 7.3])")
     per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
     if per_row:
         idx = cache_index.to(device=x.device, dtype=torch.long)
@@ -315,17 +313,13 @@ def attention_decode(
             cache["v"][at] = v_new.to(cache["v"].dtype)
         k_cache, v_cache = cache["k"], cache["v"]
     cache_len = (idx + 1) if per_row else cache_index + 1
-    if spec.window is not None:
-        # sliding-window cache: only the last `window` positions are valid
-        from repro_torch.kernels import dispatch as kdsp
-        out = kdsp.decode_attention(q, k_cache, v_cache, cache_len,
-                                    window=spec.window,
-                                    logit_softcap=spec.logit_softcap,
-                                    scale=spec.scale)
-    else:
-        out = decode_attention_sharded(
-            q, k_cache, v_cache, cache_len, xcfg,
-            logit_softcap=spec.logit_softcap, scale=spec.scale)
+    # a sliding-window layer sees only the last `window` positions: with
+    # one partition straight onto the flash-decode kernel, across a seq
+    # group each block's windowed partial and the exact merge
+    out = decode_attention_sharded(
+        q, k_cache, v_cache, cache_len, xcfg,
+        logit_softcap=spec.logit_softcap, scale=spec.scale,
+        window=spec.window)
     y = out.reshape(B, 1, spec.n_heads * spec.head_dim) @ params["wo"]
     return y, cache
 

@@ -1,10 +1,15 @@
-"""Transformer stacks — the dense decoder family (llama / qwen / internlm).
+"""Transformer stacks — the dense decoder family (llama / qwen / internlm,
+and gemma2's local/global alternation).
 
-Port of ``repro.models.transformer`` for ``family == "dense"`` without
-local–global alternation.  Layer parameters are a Python list of per-layer
-dicts walked in a loop (in place of the JAX package's stacked ``lax.scan``
-layout); the decode cache keeps the stacked ``[n_layers, B, S, Hk, dh]``
-layout, and each layer updates its slice of it in place.
+Port of ``repro.models.transformer`` for ``family == "dense"``.  Layer
+parameters are Python lists of per-layer dicts walked in a loop (in place
+of the JAX package's stacked ``lax.scan`` layout): ``params["layers"]``,
+or for gemma2 (``cfg.local_global``) ``params["local_layers"]`` and
+``params["global_layers"]``, ``n_layers // 2`` each, walked in pairs — the
+local layer under the sliding ``cfg.window``, then the global one.  The
+decode cache keeps the stacked layout, ``{"kv": {leaf: [n_layers, B, S,
+...]}}`` or ``{"local": ..., "global": ...}`` stacked over the pairs, and
+each layer updates its slice of it in place.
 
 Entry points:
   init_lm(cfg, gen)                        → params dict
@@ -25,12 +30,14 @@ decode cache is sharded in contiguous blocks along S: rank p holds
 positions ``[p·Sp, (p+1)·Sp)``, and each decode step merges every
 block's partial attention (``exchange.decode_attention_sharded``).
 
-The other families (moe, mla, hybrid, ssm, audio, vlm) and gemma2's
-windowed layers are ROADMAP queue 1 items 6 and 11.
+Under a partitioned plan a windowed layer's prefill exchanges only its
+halo under ``prism`` (``exchange.prism_prefill_attention``) and its decode
+merges the blocks' windowed partials.  The other families (moe, mla,
+hybrid, ssm, audio, vlm) are ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -53,10 +60,10 @@ PREFILL_FAMILIES = ("dense",)
 
 
 def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.local_global:
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} (local_global={cfg.local_global}) is not "
-            f"ported yet (ROADMAP queue 1 items 6 and 11)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item "
+            f"11)")
 
 
 def _attn_spec(cfg: ModelConfig, *, window: Optional[int] = None,
@@ -118,7 +125,8 @@ def _apply_attn_mlp_prefill(p: Params, x, cfg: ModelConfig, xcfg,
     cache — same math as ``_apply_attn_mlp``.  In a seq group the rank
     fills its cache block with the prompt positions it owns, from the K/V
     the exchange gathered (VOLTAGE) or from a gather of its own (PRISM,
-    booked as ``cache`` bytes, apart from the exchange's)."""
+    and PRISM's halo exchange of a windowed layer, booked as ``cache``
+    bytes, apart from the exchange's)."""
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     q, k, v = project_qkv(p["attn"], xin, spec, positions)
     kw = dict(causal=spec.causal, window=spec.window,
@@ -164,6 +172,19 @@ def _apply_attn_mlp_decode_paged(p: Params, x, cfg: ModelConfig, xcfg,
 # model init
 # ---------------------------------------------------------------------------
 
+def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int,
+                                                  Optional[int]]]:
+    """The model's layer stacks in walk order → (params list name, decode
+    cache half, depth, attention window): ``layers`` over ``kv``, or
+    gemma2's ``local_layers`` (the sliding window) over ``local`` and
+    ``global_layers`` over ``global``, ``n_layers // 2`` each."""
+    if cfg.local_global:
+        n = cfg.n_layers // 2
+        return [("local_layers", "local", n, cfg.window),
+                ("global_layers", "global", n, None)]
+    return [("layers", "kv", cfg.n_layers, None)]
+
+
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Dense decoder parameters drawn from ``gen`` on its device."""
     _require_dense(cfg)
@@ -174,9 +195,20 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, d, dtype)
-    params["layers"] = [_init_dense_layer(cfg, gen)
-                        for _ in range(cfg.n_layers)]
+    for name, _, n, _ in layer_stacks(cfg):
+        params[name] = [_init_dense_layer(cfg, gen) for _ in range(n)]
     return params
+
+
+def _walk(params: Params, cfg: ModelConfig):
+    """Every layer in order → (its params, its attention spec, its cache
+    half, its index in that half).  gemma2 alternates: local layer i (the
+    sliding window), then global layer i."""
+    stacks = [(params[name], _attn_spec(cfg, window=w), half)
+              for name, half, _, w in layer_stacks(cfg)]
+    return [(lps[i], spec, half, i)
+            for i in range(len(stacks[0][0]))
+            for lps, spec, half in stacks]
 
 
 def _head(params: Params, cfg: ModelConfig) -> Params:
@@ -246,8 +278,8 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     tokens = tokens[:, start:start + n]
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
-    for lp in params["layers"]:
-        x = _apply_attn_mlp(lp, x, cfg, xcfg, _attn_spec(cfg), positions)
+    for lp, spec, _, _ in _walk(params, cfg):
+        x = _apply_attn_mlp(lp, x, cfg, xcfg, spec, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if last_only:
         return _last_logits(params, x, cfg, group), aux
@@ -266,23 +298,26 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
 def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
                       device=None, xcfg: Optional[ExchangeConfig] = None
                       ) -> Params:
-    """Cache dict with a stacked leading layer dim (the JAX layout).
-    Under a partitioned ``xcfg`` it is this rank's block of
-    ``ceil(seq / P)`` positions: the cache rounds up to a multiple of P,
-    and the padded slots are never valid."""
+    """Cache dict with a stacked leading layer dim (the JAX layout):
+    ``{"kv": ...}`` over the layers, or gemma2's ``{"local": ...,
+    "global": ...}`` over the pairs.  Under a partitioned ``xcfg`` every
+    half is this rank's block of ``ceil(seq / P)`` positions: the cache
+    rounds up to a multiple of P, and the padded slots are never valid."""
     _require_dense(cfg)
     if xcfg is not None and partitioned(xcfg):
         seq = -(-seq // xcfg.seq_shards)
     c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
                       quant=cfg.kv_quant, device=device)
-    return {"kv": {name: t[None].repeat(cfg.n_layers, *([1] * t.ndim))
-                   for name, t in c.items()}}
+    return {half: {name: t[None].repeat(n, *([1] * t.ndim))
+                   for name, t in c.items()}
+            for _, half, n, _ in layer_stacks(cfg)}
 
 
-def _layer_cache(cache: Params, i: int) -> Dict[str, torch.Tensor]:
-    """Views of layer ``i``'s slice of the stacked cache (writes land in
-    the stacked tensors)."""
-    return {name: t[i] for name, t in cache["kv"].items()}
+def _layer_cache(cache: Params, half: str, i: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Views of layer ``i``'s slice of the stacked cache half ``half``
+    (writes land in the stacked tensors)."""
+    return {name: t[i] for name, t in cache[half].items()}
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
@@ -297,10 +332,9 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
               scale_by_sqrt_d=cfg.embed_scale)
     if isinstance(cache_index, torch.Tensor):      # once, not per layer
         cache_index = cache_index.to(device=x.device, dtype=torch.long)
-    spec = _attn_spec(cfg)
-    for i, lp in enumerate(params["layers"]):
+    for lp, spec, half, i in _walk(params, cfg):
         x = _apply_attn_mlp_decode(lp, x, cfg, xcfg, spec,
-                                   _layer_cache(cache, i), cache_index)
+                                   _layer_cache(cache, half, i), cache_index)
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
     return logits, cache
@@ -348,8 +382,8 @@ def decode_step_paged(params: Params, batch: Dict[str, torch.Tensor],
     spec = _attn_spec(cfg)
     for i, lp in enumerate(params["layers"]):
         x = _apply_attn_mlp_decode_paged(lp, x, cfg, xcfg, spec,
-                                         _layer_cache(pool, i), page_table,
-                                         lengths)
+                                         _layer_cache(pool, "kv", i),
+                                         page_table, lengths)
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
     return logits, pool
@@ -379,8 +413,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     tokens = tokens[:, start:start + n]
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
-    spec = _attn_spec(cfg)
-    for i, lp in enumerate(params["layers"]):
+    for lp, spec, half, i in _walk(params, cfg):
         x = _apply_attn_mlp_prefill(lp, x, cfg, xcfg, spec, positions,
-                                    _layer_cache(cache, i), group)
+                                    _layer_cache(cache, half, i), group)
     return _last_logits(params, x, cfg, group), cache

@@ -14,7 +14,10 @@ partition's queries over the whole K/V).  Both take the unpartitioned
 ``[B, N, ...]`` arrays and return the partitions' outputs concatenated,
 so they can stand in for the exchange functions inside ``forward_vit``.
 The codec exchange and the ring executor of ``repro.transport.executor``
-are composed the same way (``codec_oracle``, ``ring_oracle``).
+are composed the same way (``codec_oracle``, ``ring_oracle``).  A
+sliding-window layer takes ``voltage_oracle`` in both PRISM oracles, as
+the JAX package routes it: its halo exchange attends exactly under the
+window, and its codec exchange falls back to the Voltage gather.
 """
 import jax.numpy as jnp
 
@@ -29,8 +32,11 @@ def _parts(t, P):
 
 def prism_oracle(q, k, v, cfg, *, causal=False, window=None,
                  logit_softcap=None, scale=None, kv_mask=None):
+    if window is not None:               # the halo, exact under the window
+        return voltage_oracle(q, k, v, cfg, causal=causal, window=window,
+                              logit_softcap=logit_softcap, scale=scale,
+                              kv_mask=kv_mask)
     P, L = cfg.seq_shards, cfg.L
-    assert window is None
     qs, ks, vs = _parts(q, P), _parts(k, P), _parts(v, P)
     seg = qs[0].shape[1] // L
     if kv_mask is not None:
@@ -104,7 +110,10 @@ def codec_oracle(q, k, v, cfg, *, causal=False, window=None,
     own partition exact, then ``reference_attention`` of the partition's
     queries over the whole sequence under the global key mask."""
     from repro.transport.codecs import CodecSpec, get_codec
-    assert window is None
+    if window is not None:               # the Voltage gather, exact
+        return voltage_oracle(q, k, v, cfg, causal=causal, window=window,
+                              logit_softcap=logit_softcap, scale=scale,
+                              kv_mask=kv_mask)
     P = cfg.seq_shards
     codec = get_codec(cfg.codec)
     spec = CodecSpec(L=cfg.L, param=cfg.codec_param)

@@ -28,10 +28,10 @@ def _xcfg(c, world):
 
 def exchange_cases(rank, world, cases):
     """Each case: global q/k/v (and kv_mask) plus exchange settings (mode,
-    causal, softcap, L, codec, codec_param, overlap_chunks); this rank
-    runs ``exchange_attention`` on its partition → per case (output,
-    payload bytes, meta bytes, calls, the global K and V handed to
-    ``kv_sink`` or None)."""
+    causal, softcap, window, scale, L, codec, codec_param,
+    overlap_chunks); this rank runs ``exchange_attention`` on its
+    partition → per case (output, payload bytes, meta bytes, calls, the
+    global K and V handed to ``kv_sink`` or None)."""
     group = get_seq_group("seq")
     outs = []
     for c in cases:
@@ -41,7 +41,8 @@ def exchange_cases(rank, world, cases):
         out = exchange_attention(
             _part(c["q"], rank, world), _part(c["k"], rank, world),
             _part(c["v"], rank, world), _xcfg(c, world), causal=c["causal"],
-            logit_softcap=c.get("softcap"),
+            logit_softcap=c.get("softcap"), window=c.get("window"),
+            scale=c.get("scale"),
             kv_mask=None if mask is None else _part(mask, rank, world),
             kv_sink=lambda *kv: seen.append([_np(t) for t in kv]))
         st = group.stats
@@ -236,4 +237,68 @@ def model_plans(rank, world, job):
         res[f"gen/{label}"] = _np(session.generate(
             torch.from_numpy(job["prompt"]), job["n_new"],
             plan=plans[label]))
+    return res
+
+
+def gemma_seq(rank, world, job):
+    """The reduced gemma2 (windowed local/global layers) from the JAX
+    weights across the group: ``job["exchange"]`` through
+    ``exchange_cases``; ``forward_lm`` under each of ``job["forwards"]``
+    (label → (plan fields, tokens name)) with what its staged calls moved
+    and its ``last_only`` logits; decode steps, each from the given JAX
+    cache (``job["caches"]``, its blocks taken by this rank); and greedy
+    ``generate`` under ``voltage`` and ``prism`` with the cache bytes its
+    prefill gathered, and under ``prism`` with the forced single-pass
+    prefill of ``job["long_prompt"]`` (the halo's prefill)."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    group = get_seq_group("seq")
+    res = {"exchange": exchange_cases(rank, world, job["exchange"])}
+    cfg = get_config("gemma2-27b").reduced(**job["reduced"])
+    session = InferenceSession.from_config(
+        "gemma2-27b", reduced=job["reduced"], device="cpu",
+        params=params_from_numpy(job["params"], cfg))
+    plans = {label: ExecutionPlan(seq_axis="seq", seq_shards=world, **kw)
+             for label, (kw, _) in job["forwards"].items()}
+    for label, (_, name) in job["forwards"].items():
+        xcfg = plans[label].to_exchange_config()
+        toks = torch.from_numpy(job["tokens"][name])
+        with torch.inference_mode():
+            group.reset_stats()
+            logits = tfm.forward_lm(session.params, {"tokens": toks}, cfg,
+                                    xcfg)[0]
+            st = group.stats
+            moved = (st.payload_bytes, st.meta_bytes, st.calls)
+            last = tfm.forward_lm(session.params, {"tokens": toks}, cfg,
+                                  xcfg, last_only=True)[0]
+        res[f"fwd/{label}"] = (_np(logits), *moved, _np(last))
+    steps = job["decode_tokens"]
+    with torch.inference_mode():
+        for label in ("voltage", "prism"):
+            xcfg = plans[label].to_exchange_config()
+            got = []
+            for t, full in enumerate(job["caches"]):
+                cache = {half: {k: torch.from_numpy(
+                    cache_block(v, rank, world, 2)) for k, v in leaves.items()}
+                    for half, leaves in full.items()}
+                group.reset_stats()
+                lg, cache = tfm.decode_step(
+                    session.params,
+                    {"tokens": torch.from_numpy(steps[:, t:t + 1])}, cache,
+                    t, cfg, xcfg)
+                got.append((_np(lg), group.stats.merge_bytes,
+                            group.stats.calls))
+            res[f"decode/{label}"] = got
+    prompt = torch.from_numpy(job["prompt"])
+    for label in ("voltage", "prism"):
+        group.reset_stats()
+        out = session.generate(prompt, job["n_new"], plan=plans[label])
+        res[f"gen/{label}"] = (_np(out), group.stats.cache_bytes)
+    group.reset_stats()
+    out = session.generate(torch.from_numpy(job["long_prompt"]), job["n_new"],
+                           plan=plans["prism"], prefill_mode="single_pass")
+    res["gen/prism/single_pass"] = (_np(out), group.stats.cache_bytes,
+                                    group.stats.payload_bytes)
     return res

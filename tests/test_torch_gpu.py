@@ -334,7 +334,8 @@ def _prism_inputs(device, B, Np, H, Hk, dh, P, L, part, *, causal, masked,
     return (q, k, v, means[0], means[1], bias), flat, mask
 
 
-def _assert_prism_close(args, flat, *, causal, mask):
+def _assert_prism_close(args, flat, *, causal, mask, scale=None,
+                        softcap=None):
     """The kernel on ``args`` against the plain version on the flat means:
     the f32 result before the cast within 1e-3 relative max error, the
     bf16 output within one bf16 step (2^-7 relative) per element.  One
@@ -342,16 +343,17 @@ def _assert_prism_close(args, flat, *, causal, mask):
     from repro_torch.kernels.prism_attention import (prism_attention,
                                                      prism_attention_ref)
     q, k, v, _, _, bias = args
+    kw = dict(causal=causal, kv_mask=mask, scale=scale)
     before = prism_attention.launches
-    got = prism_attention(*args, causal=causal, kv_mask=mask)
-    got32 = prism_attention(*args, causal=causal, kv_mask=mask,
-                            out_dtype=torch.float32)
+    got = prism_attention(*args, softcap=softcap, **kw)
+    got32 = prism_attention(*args, softcap=softcap, out_dtype=torch.float32,
+                            **kw)
     torch.cuda.synchronize()
     assert prism_attention.launches == before + 2
     plain = (q, k, v, *flat, bias)
-    want = prism_attention_ref(*plain, causal=causal, kv_mask=mask)
-    want32 = prism_attention_ref(*plain, causal=causal, kv_mask=mask,
-                                 out_dtype=torch.float32)
+    want = prism_attention_ref(*plain, logit_softcap=softcap, **kw)
+    want32 = prism_attention_ref(*plain, logit_softcap=softcap,
+                                 out_dtype=torch.float32, **kw)
     assert torch.isfinite(got32).all() and _rel_err(got32, want32) <= 1e-3
     assert torch.isclose(got.float(), want.float(), rtol=2.0 ** -7,
                          atol=1e-6 * want.float().abs().max().item()).all()
@@ -544,3 +546,109 @@ def test_codec_calibration_on_the_card(cuda_device):
         for n in ("int8", "int4", "topk"):
             get_codec(n).__dict__.pop("decode_bw", None)
             get_codec(n).__dict__.pop("decode_bw_measured", None)
+
+
+# gemma2-27b's attention: 32/16 heads, dh 128, softcap 50, query scale
+# (4608/32)^-0.5 = 1/12 (not dh^-0.5), window 4096 on the local layers
+GEMMA = dict(H=32, Hk=16, dh=128, softcap=50.0, scale=(4608 / 32) ** -0.5)
+# (B, S, cache lengths, window): the B 4 decode step of a 32-token prompt;
+# B 1 at S 4624, where the window masks the first 528 positions
+GEMMA_DECODE = {"b4_s48": (4, 48, [48] * 4, None),
+                "window": (1, 4624, [4624], 4096)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(GEMMA_DECODE))
+def test_flash_decode_at_gemma2_decode_shapes(cuda_device, dtype, shape):
+    B, S, lens, window = GEMMA_DECODE[shape]
+    H, Hk, dh = GEMMA["H"], GEMMA["Hk"], GEMMA["dh"]
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q = torch.randn(B, H, dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, S, Hk, dh, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    clen = torch.tensor(lens, device=cuda_device)
+    bias = validity_bias(B, S, clen, window=window, device=cuda_device)
+    if window is not None:
+        assert int((bias < 0).sum()) == S - window
+    kw = dict(scale=GEMMA["scale"], softcap=GEMMA["softcap"])
+    got = flash_decode(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    want = flash_decode_ref(q, k, v, bias, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    o_g, o_w = got[0] / got[2][..., None], want[0] / want[2][..., None]
+    for a, b in ((o_g, o_w), (got[1], want[1]), (got[2], want[2])):
+        assert _rel_err(a, b) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_shard_partials_merge_to_the_dense_kernel(cuda_device,
+                                                           dtype):
+    """A windowed layer's sharded decode: each block's partial under the
+    window, through the offset route, merged as the ranks merge them,
+    against the dense kernel under the same window; a block wholly outside
+    the window gives m = -1e30 and l = Sp."""
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.kernels.flash_decode import merge_partials
+    B, S, P, window = 2, 64, 4, 20
+    Sp = S // P
+    H, Hk, dh = GEMMA["H"], GEMMA["Hk"], GEMMA["dh"]
+    q, k, v = _shard_inputs(cuda_device, dtype, B, S, seed=3, H=H, Hk=Hk,
+                            dh=dh)
+    clen = torch.tensor([64, 40], device=cuda_device)
+    kw = dict(window=window, logit_softcap=GEMMA["softcap"],
+              scale=GEMMA["scale"])
+    parts = []
+    for r in range(P):
+        blk = slice(r * Sp, (r + 1) * Sp)
+        parts.append(kdsp.decode_partials(q, k[:, blk].contiguous(),
+                                          v[:, blk].contiguous(), clen,
+                                          offset=r * Sp, **kw))
+    o0, m0, l0 = parts[0]            # positions 0-15: both rows' windows
+    assert (m0 == -1e30).all() and (l0 == Sp).all()    # start at 44 and 20
+    got = merge_partials(*(torch.stack(p) for p in zip(*parts)))
+    o, m, l = kdsp.decode_partials(q, k, v, clen, **kw)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, o / l[..., None]) <= (
+        1e-5 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [0, 3])
+def test_prism_attention_at_the_gemma2_shape(cuda_device, part):
+    """A global layer's PRISM attention at gemma2's width across 4 ranks:
+    q [1, 2048, 32, 128], 16 KV heads, causal, softcap 50, scale 1/12,
+    L 16, means as gathered."""
+    args, flat, mask = _prism_inputs(cuda_device, 1, 2048, GEMMA["H"],
+                                     GEMMA["Hk"], GEMMA["dh"], 4, 16, part,
+                                     causal=True, masked=False, seed=12)
+    _assert_prism_close(args, flat, causal=True, mask=mask,
+                        scale=GEMMA["scale"], softcap=GEMMA["softcap"])
+
+
+@pytest.mark.gpu
+def test_small_gemma2_generates_the_cpus_tokens(cuda_device):
+    """A small f32 gemma2 (one local/global pair, window 16, int8 KV cache,
+    dh 64) generates past its window the same greedy tokens on the card,
+    through the flash-decode kernel, as on the CPU."""
+    from repro_torch.api import InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=4,
+                   d_model=256)
+    cfg = get_config("gemma2-27b").reduced(**reduced)
+    assert cfg.window == 16 and cfg.kv_quant
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        session = InferenceSession.from_config(
+            "gemma2-27b", reduced=reduced, params=_to(params, dev),
+            device=dev)
+        before = flash_decode.launches
+        out[dev] = session.generate(prompt, 24).cpu()
+        assert flash_decode.launches - before == (
+            23 * cfg.n_layers if dev == "cuda" else 0)
+    assert torch.equal(out["cuda"], out["cpu"]), (out["cuda"], out["cpu"])

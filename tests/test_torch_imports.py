@@ -32,6 +32,7 @@ def test_port_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30       # every module imported
     assert "repro_torch.transport.executor" in out.stdout.split()
+    assert "repro_torch.configs.gemma2_27b" in out.stdout.split()
 
 
 IMPORT_LINE = re.compile(r"^\s*(import jax|from jax|import repro\b|"
