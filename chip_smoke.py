@@ -145,6 +145,31 @@ Phases, one line each (more for the kernel table):
                launches asserted, the same tokens on every rank) and its
                agreement with a one-rank ``local`` run.
 
+12. profile-seq — ViT-B/16 at full width on 2 ranks sharing the card:
+               ``profile(backend="measured")`` on the H100 presets under
+               ``local``, ``voltage`` and ``prism(L=20)`` at B 1, 4 and 8,
+               SPMD on both ranks (partitioned plans charged per rank,
+               their measured staged seconds taken out of the compute):
+               the same map and decisions at B 1 and 8 on both ranks,
+               segment-means and PRISM-attention launches counted in the
+               ``prism`` timing, and per plan and batch the charged
+               rank's forward (the rank with the most compute), its
+               staged ms and calls, the compute charged and the modeled
+               staging at each swept bandwidth.
+13. fleet    — two ``WorkerHandle``s of llama3.2-1b at full width (bf16,
+               one seed, 4 slots each) behind a ``FleetRouter``: 24
+               requests fanned out, one worker failed after the first
+               step, every completion held against the survivor's B 1
+               generate (token-exact, or diverging only where the B 1
+               logits are within ``FLEET_TIE_TOL`` of a tie), flash-decode
+               launches counted; then two ``repro_torch.rpc.worker``
+               subprocesses (``--full --device cuda``, 4 slots) with their
+               codec decode measured on the card, a load under a
+               kill/revive schedule (SIGKILL and respawn) that must
+               reroute and readmit, every request served once and held
+               as above against an in-process session from the same
+               seed, and both workers closed at shutdown.
+
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
 that fails or hangs included) exits non-zero and prints no result.
@@ -3301,6 +3326,368 @@ def phase_codec(card: str) -> int:
     return sum(r["gen"]["launches"] for r in ranks)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the measured profile of partitioned plans across 2 ranks
+# ---------------------------------------------------------------------------
+
+SEQ_PROFILE_BATCHES = (1, 4, 8)
+SEQ_PROFILE_BWS = (100.0, 400.0, 1000.0)
+SEQ_PROFILE_ITERS, SEQ_PROFILE_WARMUP = 5, 2
+
+
+def _profile_seq_rank(rank, world):
+    """One rank of ViT-B/16 at full width: ``profile(backend="measured")``
+    on the H100 presets over ``local``, ``voltage`` and ``prism(L=20)``,
+    SPMD on every rank, with the segment-means and PRISM-attention
+    launches counted around it."""
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.profiling import (H100_GLOO_STAGED, H100_SXM,
+                                       SweepSpec, get_backend)
+    session = InferenceSession.from_config(
+        VIT, reduced=False, device="cuda", seed=0,
+        plans=[ExecutionPlan.local(),
+               ExecutionPlan.voltage(seq_shards=world),
+               ExecutionPlan.prism(L=VIT_L, cr=VIT_CR, seq_shards=world)])
+    spec = SweepSpec(batches=SEQ_PROFILE_BATCHES, crs=(VIT_CR,),
+                     bandwidths_mbps=SEQ_PROFILE_BWS)
+    torch.cuda.synchronize()
+    segment_means.launches = prism_attention.launches = 0     # main path
+    t0 = time.perf_counter()
+    pm = session.profile(spec, backend="measured", hardware=H100_SXM,
+                         link=H100_GLOO_STAGED, iters=SEQ_PROFILE_ITERS,
+                         warmup=SEQ_PROFILE_WARMUP)
+    seconds = time.perf_counter() - t0
+    counts = (segment_means.launches, prism_attention.launches)
+    decisions = {B: session.decide(B) for B in (1, 8)}
+    return dict(doc=json.dumps(pm.to_doc(), sort_keys=True), counts=counts,
+                seconds=seconds, scale=get_backend("measured").last_scale,
+                decisions={B: (d.mode, d.cr, d.codec, d.expected.total_ms)
+                           for B, d in decisions.items()},
+                n_layers=session.cfg.n_layers)
+
+
+def phase_profile_seq(card: str) -> None:
+    """The measured profile of ViT-B/16's partitioned plans on 2 ranks
+    sharing the card: the same map and decisions on both ranks, and per
+    plan and batch the charged rank's forward (the rank with the most
+    compute), its measured staged ms and calls, the compute charged and
+    the modeled staging at each swept bandwidth."""
+    from repro_torch.core.seq_group import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_profile_seq_rank, VIT_P, timeout=RANK_TIMEOUT_S)
+    r0 = ranks[0]
+    if any(r["doc"] != r0["doc"] for r in ranks):
+        raise AssertionError("[profile-seq] the ranks built different maps")
+    if any(r["decisions"] != r0["decisions"] for r in ranks):
+        raise AssertionError(f"[profile-seq] decisions differ: "
+                             f"{[r['decisions'] for r in ranks]}")
+    calls = (SEQ_PROFILE_WARMUP + SEQ_PROFILE_ITERS) * len(SEQ_PROFILE_BATCHES)
+    want = (calls * r0["n_layers"],) * 2      # the prism plan's calls only
+    for p, r in enumerate(ranks):
+        if r["counts"] != want:
+            raise AssertionError(f"[profile-seq] rank {p}: (segment_means, "
+                                 f"prism_attention) launches {r['counts']} "
+                                 f"during the profile, want {want}")
+    entries = json.loads(r0["doc"])["entries"]
+    print(f"[profile-seq] {VIT} full width on {VIT_P} ranks sharing the "
+          f"card: measured profile on H100_SXM + H100_GLOO_STAGED of local, "
+          f"voltage, prism(L={VIT_L}) at B {SEQ_PROFILE_BATCHES}, "
+          f"{SEQ_PROFILE_ITERS} timed calls after {SEQ_PROFILE_WARMUP} a "
+          f"plan and batch, in {r0['seconds']:.1f} s (rank 1 "
+          f"{ranks[1]['seconds']:.1f} s); the same map on both ranks "
+          f"({len(entries)} entries), anchor scale {r0['scale']:.4f}; "
+          f"segment_means and prism_attention launches {r0['counts']} per "
+          f"rank, all in the prism timing [{card}]", flush=True)
+    for B in SEQ_PROFILE_BATCHES:
+        local = entries[f"local|{B}|0|0"]
+        print(f"[profile-seq] local B={B}: compute charged "
+              f"{local['compute_ms']:.3f} ms (slowest rank's forward x "
+              f"anchor scale) [{card}]", flush=True)
+        for mode in ("voltage", "prism"):
+            rows = {k: e for k, e in entries.items()
+                    if k.startswith(f"{mode}|{B}|")}
+            m = next(iter(rows.values()))["meta"]
+            staging = ", ".join(
+                f"{float(k.split('|')[3]):g} Mbps {e['staging_ms']:.3f} ms "
+                f"(wire {e['comm_ms']:.3f} ms)"
+                for k, e in sorted(rows.items(),
+                                   key=lambda kv: float(kv[0].split("|")[3])))
+            e0 = next(iter(rows.values()))
+            print(f"[profile-seq] {mode} B={B}: charged rank's forward "
+                  f"{m['forward_ms_measured']:.2f} ms, staged "
+                  f"{m['staged_ms_measured']:.2f} ms in "
+                  f"{m['staged_calls']:g} calls (measured, in the median "
+                  f"call), "
+                  f"compute charged {e0['compute_ms']:.3f} ms per rank "
+                  f"(seq_group {m['seq_group']}, per_rank "
+                  f"{m['per_rank']}); modeled staging {staging} "
+                  f"[{card}]", flush=True)
+    for B, (mode, cr, codec, total) in sorted(r0["decisions"].items()):
+        print(f"[profile-seq] decide B={B} at 400 Mbps: {mode}"
+              + (f"@{cr:g}" if cr else "") + (f"+{codec}" if codec else "")
+              + f" ({total:.3f} ms expected) on both ranks", flush=True)
+    print(f"[profile-seq] phase {time.perf_counter() - t0:.1f} s with rank "
+          f"start-up", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the fleet tier — in process and over the RPC wire
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS, FLEET_PROMPT, FLEET_NEW = 24, 32, 16
+# the reference launcher's 4 slots a worker, so a worker decodes a batch
+FLEET_SLOTS, FLEET_CHUNK = 4, 8
+# a batched bf16 row may round differently from its B 1 generate; where a
+# completion diverges, the token it took at its first divergent step must
+# lie within this many logits of the top of the B 1 logits there
+FLEET_TIE_TOL = 0.125
+RPC_REQUESTS, RPC_RATE = 16, 16.0
+RPC_CHAOS = "kill:rpc-b@0.5;revive:rpc-b@1.5"
+
+
+def _fleet_ref_tokens(session, comps, prompts) -> tuple:
+    """Greedy tokens of each completion against ``session``'s B 1
+    ``generate`` of its prompt under the plan that served it → (count of
+    exact completions, ``{request: (first divergent step, logit gap)}``).
+    At a completion's first divergent step the B 1 logits of its common
+    prefix are taken; the gap is their top less the logit of the token
+    the completion took there, and it must not exceed FLEET_TIE_TOL."""
+    import numpy as np
+    exact, div = 0, {}
+    for rid, comp in comps.items():
+        plan = session.plans[comp.plan_key]
+        prompt = np.asarray(prompts[rid])
+        want = session.generate(prompt[None], FLEET_NEW,
+                                plan=plan).cpu().numpy()[0]
+        got = np.asarray(comp.tokens)
+        if got.shape != want.shape:
+            raise AssertionError(f"request {rid}: {len(got)} tokens, want "
+                                 f"{len(want)}")
+        if np.array_equal(got, want):
+            exact += 1
+            continue
+        t = int(np.argmax(got != want))
+        ctx = np.concatenate([prompt, got[:t]])[None]
+        *_, logits = session.prime_slot(
+            ctx, total_len=len(prompt) + FLEET_NEW, plan=plan,
+            with_logits=True)
+        row = logits.float().reshape(-1)
+        gap = float(row.max() - row[int(got[t])])
+        if gap > FLEET_TIE_TOL:
+            raise AssertionError(
+                f"request {rid} ({comp.plan_key}): token {int(got[t])} at "
+                f"step {t} is {gap:.4f} below the top of the B 1 logits "
+                f"(tolerance {FLEET_TIE_TOL}); B 1 generate {want}, fleet "
+                f"{got}")
+        div[rid] = (t, gap)
+    return exact, div
+
+
+def _divergence(exact: int, n: int, div: dict) -> str:
+    """A line's account of the completions against their B 1 generate."""
+    if not div:
+        return f"{exact}/{n} token-exact against"
+    steps = sorted(t for t, _ in div.values())
+    gap = max(g for _, g in div.values())
+    return (f"{exact}/{n} token-exact and {len(div)} diverging at a near "
+            f"tie (first divergent steps {steps}, largest gap {gap:.4f} "
+            f"logits, tolerance {FLEET_TIE_TOL}) against")
+
+
+def phase_fleet(card: str) -> int:
+    """Two ``WorkerHandle``s of llama3.2-1b at full width behind a
+    ``FleetRouter``, one failed after the first step; then two RPC worker
+    subprocesses under a kill/revive chaos schedule → flash-decode
+    launches of the in-process fleet."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.fleet import DeviceRegistry, FleetRouter, WorkerHandle
+    from repro_torch.kernels.flash_decode import flash_decode
+    t0 = time.perf_counter()
+
+    def make():
+        s = InferenceSession.from_config(
+            ARCH, reduced=False, device="cuda", seed=0,
+            plans=[ExecutionPlan.local(),
+                   ExecutionPlan.prism_sim(L=4, cr=9.9)])
+        s.profile(backend="simulated")
+        return s
+
+    s1, s2 = make(), make()
+    for a, b in zip(_leaves(s1.params), _leaves(s2.params)):
+        if not torch.equal(a, b):
+            raise AssertionError("[fleet] two sessions from one seed hold "
+                                 "different weights")
+    max_len = FLEET_PROMPT + FLEET_NEW
+    reg = DeviceRegistry(heartbeat_timeout_s=1e9)
+    for name, s in (("w1", s1), ("w2", s2)):
+        reg.add(WorkerHandle(name, s, n_slots=FLEET_SLOTS, chunk=FLEET_CHUNK,
+                             max_len=max_len))
+    router = FleetRouter(reg)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, s1.cfg.vocab_size, FLEET_PROMPT)
+               for _ in range(FLEET_REQUESTS)]
+    torch.cuda.synchronize()
+    flash_decode.launches = 0                           # the main path
+    t1 = time.perf_counter()
+    placed = router.fanout(prompts, FLEET_NEW)
+    if any(rec is None for _, rec in placed):
+        raise AssertionError("[fleet] a request was shed at placement")
+    router.step()
+    reg.fail("w1")
+    router.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = flash_decode.launches
+    if launches <= 0:
+        raise AssertionError("[fleet] no flash_decode launch in the fleet")
+    comps = {i: router.completion_for(req.id)
+             for i, (req, _) in enumerate(placed)}
+    if any(c is None for c in comps.values()):
+        raise AssertionError("[fleet] a request never completed")
+    served_by = {router.placement_for(req.id)[-1].worker
+                 for req, _ in placed}
+    if served_by != {"w2"}:
+        raise AssertionError(f"[fleet] served by {sorted(served_by)}, want "
+                             f"the survivor w2 only")
+    exact, div = _fleet_ref_tokens(s2, comps, prompts)
+    snap = router.stats_snapshot()
+    lats = [c.latency_ms for c in comps.values()]
+    plans = sorted({c.plan_key for c in comps.values()})
+    print(f"[fleet] in process: 2 WorkerHandles of {ARCH} full width, bf16,"
+          f" weights from seed 0 equal on both, {FLEET_SLOTS} slots a "
+          f"worker, chunk {FLEET_CHUNK}; {FLEET_REQUESTS} requests of "
+          f"{FLEET_PROMPT} tokens + {FLEET_NEW} fanned out, w1 failed after "
+          f"the first step: {FLEET_REQUESTS / wall:.2f} requests/s "
+          f"({wall:.2f} s), latency p50 {np.percentile(lats, 50):.0f} ms "
+          f"p99 {np.percentile(lats, 99):.0f} ms; routed {snap['routed']}, "
+          f"rerouted {snap['rerouted']}, dead {snap['dead']}; plans {plans};"
+          f" {_divergence(exact, FLEET_REQUESTS, div)} the survivor's B 1"
+          f" generate; flash_decode launches {launches} [{card}]",
+          flush=True)
+    del reg, router, s1, s2
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])
+    _phase_fleet_rpc(card)
+    print(f"[fleet] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def _phase_fleet_rpc(card: str) -> None:
+    """Two ``repro_torch.rpc.worker`` subprocesses (``--full --device
+    cuda``) behind the router under ``RPC_CHAOS`` (kill = SIGKILL, revive
+    = respawn): the kill reroutes and the revive readmits, every request
+    once and held against one in-process session from the same seed as
+    ``_fleet_ref_tokens`` says; shutdown closes both."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.chaos import ChaosController, FaultSchedule
+    from repro_torch.fleet import DeviceRegistry, FleetRouter
+    from repro_torch.rpc import RpcWorker
+    from repro_torch.rpc.worker import build_session
+    from repro_torch.runtime.fault import RetryPolicy
+    from repro_torch.serving.queue import Request
+    from repro_torch.transport.codecs import get_codec
+    workers = []
+    try:
+        reg = DeviceRegistry(heartbeat_timeout_s=60.0)
+        for name in ("rpc-a", "rpc-b"):
+            t1 = time.perf_counter()
+            w = RpcWorker(name, arch=ARCH, seed=0, n_slots=FLEET_SLOTS,
+                          chunk=FLEET_CHUNK, max_len=FLEET_PROMPT + FLEET_NEW,
+                          device="cuda", full=True,
+                          retry=RetryPolicy(max_retries=3,
+                                            backoff_base_s=0.05))
+            workers.append(w)
+            start_s = time.perf_counter() - t1
+            reg.add(w)                  # calibrates on the worker's card
+            if not w.codec_bws_measured:
+                raise AssertionError(f"[fleet] rpc worker {name}: codec "
+                                     f"calibration was not measured on its "
+                                     f"card")
+            bws = ", ".join(
+                f"{c} {bw / 1e9:.3f} GB/s (modeled "
+                f"{type(get_codec(c)).decode_bw / 1e9:.3f})"
+                for c, bw in sorted(w.codec_bws.items()))
+            print(f"[fleet] rpc worker {name}: pid {w.proc.pid}, ready and "
+                  f"profiled in {start_s:.1f} s (spawn, CUDA init, weights, "
+                  f"simulated profile); codec decode measured on its card "
+                  f"({'measured' if w.codec_bws_measured else 'estimated'}"
+                  f"): {bws} [{card}]", flush=True)
+        router = FleetRouter(reg, retry=RetryPolicy(max_retries=3))
+        rng = np.random.RandomState(1)
+        arrivals = np.cumsum(rng.exponential(1.0 / RPC_RATE, RPC_REQUESTS))
+        prompts = [rng.randint(0, 64, FLEET_PROMPT)
+                   for _ in range(RPC_REQUESTS)]
+        reqs = [Request(prompt=p, n_new=FLEET_NEW, seed=i,
+                        arrival_ts=float(arrivals[i]))
+                for i, p in enumerate(prompts)]
+        chaos = ChaosController(reg, FaultSchedule.parse(RPC_CHAOS),
+                                router=router)
+        out = router.drive_real(reqs, events=chaos.events(), timeout_s=300.0)
+        comps = out["completions"]
+        ids = sorted(c.request_id for c in comps)
+        if ids != sorted(r.id for r in reqs) or out["shed"]:
+            raise AssertionError(f"[fleet] rpc: completions {ids} for "
+                                 f"{sorted(r.id for r in reqs)} (shed "
+                                 f"{[r.id for r in out['shed']]})")
+        snap = router.stats_snapshot()
+        if (snap["rerouted"] < 1 or snap["readmissions"] < 1
+                or len(chaos.log) != 2):
+            raise AssertionError(
+                f"[fleet] rpc: the kill did not take effect: rerouted "
+                f"{snap['rerouted']}, readmissions {snap['readmissions']}, "
+                f"chaos log {chaos.log}")
+        t1 = time.perf_counter()
+        ref, _, _ = build_session(ARCH, seed=0, device="cuda", full=True)
+        base = reqs[0].id
+        exact, div = _fleet_ref_tokens(
+            ref, {c.request_id - base: c for c in comps}, prompts)
+        by_worker = {}
+        for c in comps:
+            by_worker[c.worker] = by_worker.get(c.worker, 0) + 1
+        lats = [c.latency_ms for c in comps]
+        print(f"[fleet] rpc: {RPC_REQUESTS} requests at {RPC_RATE:g}/s "
+              f"under '{RPC_CHAOS}' (kill = SIGKILL, revive = respawn): "
+              f"served once each in {out['makespan_s']:.2f} s, latency p50 "
+              f"{np.percentile(lats, 50):.0f} ms p99 "
+              f"{np.percentile(lats, 99):.0f} ms, by worker {by_worker}; "
+              f"routed {snap['routed']}, rerouted {snap['rerouted']}, lost "
+              f"{snap['lost']}, readmissions {snap['readmissions']}; chaos "
+              f"log {len(chaos.log)} events; "
+              f"{_divergence(exact, RPC_REQUESTS, div)} the B 1 generate of "
+              f"an in-process session from seed 0 "
+              f"(built and checked in {time.perf_counter() - t1:.1f} s) "
+              f"[{card}]", flush=True)
+        del ref
+    finally:
+        for w in workers:
+            try:
+                w.close()
+            except Exception:
+                w.kill_process()
+        gc.collect()
+        torch.cuda.empty_cache()
+    alive = [w.name for w in workers
+             if w.proc is not None and w.proc.poll() is None]
+    if alive:
+        raise AssertionError(f"[fleet] rpc workers still alive after "
+                             f"shutdown: {alive}")
+    print(f"[fleet] rpc shutdown: {len(workers)} workers closed", flush=True)
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -3392,13 +3779,15 @@ def main() -> None:
     lm_launches = phase_lm(card)
     lm_launches["flash_decode"] += phase_codec(card)
     gemma_launches = phase_gemma(card)
+    phase_profile_seq(card)
+    fleet_launches = phase_fleet(card)
     archs = {arch: phase_arch_session(card, arch)
              for arch, _, _ in DECODE_ARCHS}
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = (("flash_decode", "src/repro/kernels/flash_decode/kernel.py:61",
-             launches + serve_dense, main_shape),
+             launches + serve_dense + fleet_launches, main_shape),
             ("flash_decode_paged",
              "src/repro/kernels/flash_decode/paged.py:58", serve_paged,
              paged),

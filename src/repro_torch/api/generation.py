@@ -174,10 +174,12 @@ def require_one_partition(xcfg: ExchangeConfig) -> None:
 
 
 def supports_slot_pool(cfg: ModelConfig) -> bool:
-    """The port slot-pools the dense family; moe, hybrid and ssm come with
-    their families (ROADMAP queue 1 item 11), and audio/vlm/vit have no
-    poolable tokens-only cache."""
-    return cfg.family in SLOT_POOL_FAMILIES and not cfg.local_global
+    """The port slot-pools the dense family, gemma2's windowed local/global
+    stack included (its cache's ``local`` and ``global`` halves share the
+    slot axis); moe, hybrid and ssm come with their families (ROADMAP
+    queue 1 item 11), and audio/vlm/vit have no poolable tokens-only
+    cache."""
+    return cfg.family in SLOT_POOL_FAMILIES
 
 
 def sample_rows(logits: torch.Tensor, gens: List[Optional[torch.Generator]],

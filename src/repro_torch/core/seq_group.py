@@ -209,6 +209,12 @@ class SeqGroup:
         dist.broadcast_object_list(box, src)
         return box[0]
 
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        out: List[Any] = [None] * self.world_size
+        dist.all_gather_object(out, obj)
+        return out
+
 
 class RingTransfer:
     """One ring transfer in flight (:meth:`SeqGroup.ring_shift`)."""

@@ -7,6 +7,7 @@
         [--chunk 8] [--tokens 16] [--prompt-len 16] [--bandwidth 400] \
         [--objective latency|energy] [--codec none|int8|int4|topk] \
         [--pages 64 --page-size 16]   # paged KV mode (prefix caching on)
+        [--trace spans.jsonl] [--metrics]
 
 The counterpart of ``repro.launch.serve``: requests flow through the
 bounded queue → adaptive scheduler (micro-batches formed from the compiled
@@ -26,8 +27,9 @@ in the JAX package's launcher: the serving pools hold one partition (the
 JAX package's slot pool is not mesh-sharded), so the modes are the JAX
 launcher's ``prism``, ``local`` and ``adaptive``.  Sequence-sharded
 generation across the ranks of a seq group is ``InferenceSession.generate``
-under a ``voltage`` or ``prism`` plan.  The span exporters of
-``--trace``/``--metrics`` are not ported (ROADMAP queue 1 item 10).
+under a ``voltage`` or ``prism`` plan.  ``--trace PATH`` writes the
+request span trace as JSONL and prints the per-stage breakdown at exit;
+``--metrics`` dumps the metrics registries as Prometheus text.
 """
 import argparse
 import time
@@ -84,10 +86,21 @@ def main(argv=None):
                     help="paged mode: quantize prefix-cache pages idle for "
                          "this many admissions (LOSSY; 0 = never)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="write the request span trace as JSONL to PATH "
+                         "and print a per-stage breakdown at exit")
+    ap.add_argument("--metrics", action="store_true",
+                    help="dump the unified metrics registry "
+                         "(Prometheus text format) at exit")
     args = ap.parse_args(argv)
 
     from repro_torch.api import ExecutionPlan, InferenceSession
     from repro_torch.serving import ServingRuntime
+
+    tracer = None
+    if args.trace or args.metrics:
+        from repro_torch.obs import Tracer
+        tracer = Tracer(name="serve")
 
     allow = {"local": ("local",), "prism": ("prism",),
              "adaptive": None}[args.mode]
@@ -136,14 +149,16 @@ def main(argv=None):
                             page_size=args.page_size or None,
                             n_pages=args.pages or None,
                             prefix_cache=not args.no_prefix_cache,
-                            cold_horizon=args.cold_horizon or None)
+                            cold_horizon=args.cold_horizon or None,
+                            tracer=tracer)
         print(f"paged KV pool: {rt.n_pages} pages x {rt.page_size} "
               f"positions ({rt.n_slots} rows, prefix cache "
               f"{'off' if args.no_prefix_cache else 'on'}) on "
               f"{session.device}")
     else:
         rt = ServingRuntime(session, n_slots=n_slots, chunk=args.chunk,
-                            max_len=max_len)
+                            max_len=max_len, tracer=tracer)
+    session.tracer = tracer
 
     t_start = time.monotonic()
     comps = rt.drive(prompts, arrivals, args.tokens,
@@ -173,6 +188,22 @@ def main(argv=None):
     if args.slo_ms:
         met = sum(1 for c in comps if c.slo_met)
         print(f"SLO {args.slo_ms:g} ms: {met}/{len(comps)} met")
+    if tracer is not None:
+        from repro_torch.obs.export import (format_breakdown,
+                                            prometheus_text,
+                                            write_spans_jsonl)
+        spans = tracer.spans
+        if args.trace:
+            write_spans_jsonl(spans, args.trace)
+            print(f"trace: {len(spans)} spans -> {args.trace}")
+        # reconcile against summed per-request wall (requests overlap, so
+        # the host makespan is not the right denominator); request trees
+        # only — runtime-level traces (decode_chunk) overlap decode
+        # residency and would double-count
+        req_spans = [s for s in spans if s.trace_id.startswith("req:")]
+        print(format_breakdown(req_spans, wall_ms=sum(lats)))
+        if args.metrics:
+            print(prometheus_text(rt.metrics, session.metrics), end="")
     print(np.stack([c.tokens for c in comps[:2]]))
     print("SERVE OK")
 

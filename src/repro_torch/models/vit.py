@@ -97,7 +97,9 @@ def forward_vit(params: Params, images: torch.Tensor, cfg: ModelConfig,
         Np = N // group.world_size
         part = slice(group.rank * Np, (group.rank + 1) * Np)
         x, kv_mask = x[:, part], kv_mask[:, part]
-    kv_mask = kv_mask.contiguous()
+    # a copy, not a view: at B 1 a later rank's slice is contiguous but
+    # starts mid-row, and the kernels read the mask in 16-byte lanes
+    kv_mask = kv_mask.clone(memory_format=torch.contiguous_format)
 
     spec = _attn_spec(cfg, causal=False, use_rope=False)
     for lp in params["layers"]:

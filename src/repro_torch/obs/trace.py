@@ -1,8 +1,8 @@
 """Structured span tracing across the whole stack.
 
-A copy of ``repro.obs.trace``.  In the port the serving runtime
-(``repro_torch.serving``) emits these spans; the fleet, RPC and exporter
-tiers the text below names are not ported yet (ROADMAP queue 1 item 10).
+A copy of ``repro.obs.trace``: the port's serving runtime, fleet router
+and RPC workers emit these spans, and ``repro_torch.obs.export`` writes
+them out.
 
 One request touches five tiers — session, serving runtime, paged pool,
 fleet router, RPC subprocess worker — and the paper's central finding

@@ -14,9 +14,10 @@ Built-ins:
 * ``measured`` — times the **session's own registered plan executables**
   on its device (CUDA events on the card, the host clock on the CPU),
   scales the compute curve to the target hardware profile, and composes it
-  with the modeled staging/wire terms for each swept bandwidth.  Sessions
-  whose plans run in one process only: a plan partitioned over an
-  initialised seq group raises (ROADMAP queue 1 item [5.1]).
+  with the modeled staging/wire terms for each swept bandwidth.  A plan
+  partitioned over an initialised seq group is timed on every rank (SPMD)
+  with its measured staged seconds taken out, and every rank builds the
+  same map.
 * ``trace`` — replays a previously saved performance-map artifact
   (``path=``) or adopts an in-memory map (``perfmap=``) — the
   "profile once per fleet, ship the JSON" deployment story.
@@ -217,15 +218,27 @@ class MeasuredBackend(ProfileBackend):
     ``1/P`` of the measured single-process compute plus the coordination
     overhead.  On a CUDA device each call is timed between CUDA events.
 
-    A plan partitioned over an initialised seq group runs the real staged
-    exchange, so its time would already hold the staging the backend adds
-    from the link profile: such sessions raise (ROADMAP queue 1 item
-    [5.1]).
+    A plan partitioned over an initialised seq group runs SPMD: every rank
+    calls ``profile`` with the same spec and times the same executables in
+    the same order.  Such a plan's timed call holds the real staged
+    collectives, so its compute is the median call's time less the
+    group's measured staged seconds in that call (``GatherStats``), with
+    no ``1/P``
+    (a rank computes only its own partition); all of the transport is
+    modeled from the link profile, as for a single-process plan.  The
+    ranks then exchange their numbers and every plan and batch is charged
+    at its slowest rank, the one with the most compute (a partitioned step
+    ends when its last rank does; the others book their wait for it as
+    staged), so every rank builds the same map.  Its entries' ``meta`` say
+    so: ``seq_group`` (P), ``per_rank``, and that rank's measured
+    ``forward_ms_measured``, ``staged_ms_measured`` and ``staged_calls``
+    of that call, beside the modeled ``staging_ms``.
 
     ``last_times`` and ``last_scale`` report the last profile: the measured
-    median seconds per plan key and batch, and the anchor scale (the
-    hardware profile's anchor compute over the measured anchor time; 1 when
-    the profile predicts this device exactly).
+    median seconds per plan key and batch (the charged rank's, in a seq
+    group), and the anchor scale (the hardware profile's anchor compute
+    over the measured anchor time; 1 when the profile predicts this device
+    exactly).
     """
 
     name = "measured"
@@ -240,34 +253,46 @@ class MeasuredBackend(ProfileBackend):
                 "measured backend profiles the session's own executables: "
                 "build the context via InferenceSession.profile_context() "
                 "(register plans first), or pass cfg= and execs=")
-        _refuse_seq_group(ctx)
         workload = ctx.workload or workload_from_config(ctx.cfg, ctx.seq_len)
         model = ctx.edge_model(workload)
         device = "cuda" if ctx.device is None else ctx.device
         pm = PerfMap()
         anchor = "local" if "local" in ctx.execs else next(iter(ctx.execs))
         arch = getattr(ctx.cfg, "name", "?")
+        groups = {key: _plan_seq_group(ctx.plans.get(key))
+                  for key in ctx.execs}
+        group = next((g for g in groups.values() if g is not None), None)
         scale = None
         self.last_times = {key: {} for key in ctx.execs}
         for B in spec.batches:
             inputs = _dummy_batch(ctx.cfg, B, workload.n_tokens, device)
-            times = {key: timeit_torch(fn, inputs, iters=iters,
-                                       warmup=warmup)
-                     for key, fn in ctx.execs.items()}
+            times, staged = _time_on_every_rank(
+                ctx.execs, groups, group, inputs, iters, warmup,
+                timeit_torch)
             if scale is None:      # anchor: first swept batch of one plan
                 scale = (model.local(B)["compute_ms"] / 1e3) / times[anchor]
             for key, t in times.items():
                 self.last_times[key][B] = t
                 plan = self._plan_for(ctx, key, workload.n_tokens)
-                compute_ms = t * scale * 1e3
                 meta = {"measured": True, "arch": arch}
-                if not plan.distributed:
-                    r = model.pack(B, compute_ms, 0.0, 0.0, boards=1)
-                    pm.put(plan.to_perf_key(B), _entry(r, meta))
-                    continue
-                P = max(plan.seq_shards, 1)
+                if key in staged:          # partitioned over the group
+                    staged_s, calls = staged[key]
+                    compute_ms = max(t - staged_s, 0.0) * scale * 1e3
+                    P = groups[key].world_size
+                    per_dev_ms = compute_ms + model.c.coord_overhead_ms
+                    meta.update(seq_group=P, per_rank=True,
+                                forward_ms_measured=t * 1e3,
+                                staged_ms_measured=staged_s * 1e3,
+                                staged_calls=calls)
+                else:
+                    compute_ms = t * scale * 1e3
+                    if not plan.distributed:
+                        r = model.pack(B, compute_ms, 0.0, 0.0, boards=1)
+                        pm.put(plan.to_perf_key(B), _entry(r, meta))
+                        continue
+                    P = max(plan.seq_shards, 1)
+                    per_dev_ms = compute_ms / P + model.c.coord_overhead_ms
                 L = plan.L if plan.L > 0 else None
-                per_dev_ms = compute_ms / P + model.c.coord_overhead_ms
                 for bw in spec.bandwidths_mbps:
                     if plan.codec:     # non-default codec: transport terms
                         from repro_torch.transport import exchange_cost
@@ -304,21 +329,59 @@ class MeasuredBackend(ProfileBackend):
         return plan
 
 
-def _refuse_seq_group(ctx: ProfileContext) -> None:
-    """Raise when a registered plan is partitioned over a seq group that
-    this process has initialised: its executable runs the real staged
-    exchange, and the backend would add modeled staging on top."""
+def _plan_seq_group(plan):
+    """The initialised seq group ``plan`` is partitioned over in this
+    process, or None (single-process plans, hand-wired executables)."""
     from repro_torch.core.exchange import partitioned
-    from repro_torch.core.seq_group import has_seq_group
-    for key, plan in ctx.plans.items():
-        xcfg = plan.to_exchange_config()
-        if partitioned(xcfg) and has_seq_group(xcfg.seq_axis):
-            raise NotImplementedError(
-                f"measured profiling of plan {key!r}, partitioned over the "
-                f"initialised seq group {xcfg.seq_axis!r}, is not ported: "
-                f"its time would already hold the staged exchange that the "
-                f"backend models on top (ROADMAP queue 1 item [5.1]); "
-                f"profile a single-process session (local, prism_sim)")
+    from repro_torch.core.seq_group import get_seq_group, has_seq_group
+    if plan is None:
+        return None
+    xcfg = plan.to_exchange_config()
+    if partitioned(xcfg) and has_seq_group(xcfg.seq_axis):
+        return get_seq_group(xcfg.seq_axis)
+    return None
+
+
+def _time_on_every_rank(execs, groups, group, inputs, iters: int,
+                        warmup: int, timeit):
+    """Time every executable on this rank, in the order of ``execs`` (the
+    same on every rank: a partitioned call blocks in its collectives until
+    all ranks make it), then reduce across the ranks of ``group`` (this
+    process alone when it is None) → (``{key: seconds}``, ``{key: (staged
+    seconds, staged calls)}`` for the partitioned keys).  A partitioned
+    key is timed call by call, and its median call gives both its seconds
+    and the staged seconds and calls inside it; it is charged at the rank
+    whose compute (seconds less staged seconds) was largest, since a rank
+    that waits for another at a collective books the wait as staged.
+    Other keys are charged at the rank whose time was largest.  Every
+    rank returns the same numbers."""
+    mine = {}
+    for key, fn in execs.items():
+        g = groups[key]
+        if g is None:
+            mine[key] = (timeit(fn, inputs, iters=iters, warmup=warmup),
+                         None)
+            continue
+        for _ in range(warmup):
+            fn(inputs)
+        calls = []
+        for _ in range(iters):          # each call with its own staging
+            g.reset_stats()
+            calls.append((timeit(fn, inputs, iters=1, warmup=0),
+                          g.stats.seconds, g.stats.calls))
+        g.reset_stats()
+        t, staged_s, n = sorted(calls)[len(calls) // 2]     # median call
+        mine[key] = (t, (staged_s, n))
+    ranks = [mine] if group is None else group.all_gather_object(mine)
+    times, staged = {}, {}
+    for key in execs:
+        rows = [r[key] for r in ranks]
+        if rows[0][1] is None:
+            times[key] = max(t for t, _ in rows)
+            continue
+        t, st = max(rows, key=lambda ts: ts[0] - ts[1][0])
+        times[key], staged[key] = t, st
+    return times, staged
 
 
 def _dummy_batch(cfg, batch: int, seq_len: int, device) -> Dict[str, Any]:

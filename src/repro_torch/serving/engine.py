@@ -17,9 +17,12 @@ Greedy requests are token-exact with the JAX package too.
 
 Fault/straggler wiring: a :class:`FaultHook` (heartbeat miss → re-admit
 in-flight requests) and a :class:`StragglerHook` (observed step times →
-partition rebalance proposal) plug into ``step()``.  The JAX package's
-chaos hook (``runtime.chaos``: injected errors and stragglers per chunk)
-comes with the chaos tier (ROADMAP queue 1 item 10).
+partition rebalance proposal) plug into ``step()``, and so does the chaos
+hook: with ``runtime.chaos`` set (a
+:class:`~repro_torch.chaos.controller.ChaosController`), each chunk first
+consumes the dispatch fault armed for ``runtime.chaos_name`` — an
+injected error skips the chunk (retried next step), a straggler scales
+the step time the straggler hook observes.
 
 The JAX package's dry-run step builders (``build_prefill_step`` /
 ``build_decode_step``) are XLA shape tools and are not ported (ROADMAP
@@ -271,8 +274,11 @@ class ServingRuntime:
         self.scheduler = scheduler or AdaptiveScheduler(session)
         self.fault_hook = fault_hook
         self.straggler_hook = straggler_hook
+        self.chaos = None                 # ChaosController.attach target
+        self.chaos_name = "runtime"       # fault-schedule key for this node
         # optional streaming hook: called after every decode chunk with
-        # (request_id, tokens-so-far) per active request
+        # (request_id, tokens-so-far) per active request — the RPC worker
+        # turns this into TokenChunk frames (repro_torch.rpc.worker)
         self.on_progress: Optional[Callable[[int, List[int]], None]] = None
         self.clock = clock
         self.pools: Dict[str, Union[SlotPool, "PagedPool"]] = {}
@@ -291,7 +297,8 @@ class ServingRuntime:
         self.stats = StatsDict(
             self.metrics, "serving",
             {"steps": 0, "chunks": 0, "admitted": 0,
-             "requeued": 0, "max_concurrent": 0,
+             "requeued": 0, "max_concurrent": 0, "retries": 0,
+             "straggled": 0,
              "wire_bytes": 0},      # modeled bytes-on-wire admitted
             labels={"worker": worker} if worker else None)
 
@@ -417,10 +424,26 @@ class ServingRuntime:
         for key, pool in self.pools.items():
             if pool.n_active == 0:
                 continue
+            straggle = 1.0
+            if self.chaos is not None:
+                fault = self.chaos.dispatch_fault(self.chaos_name, now)
+                if fault is not None and fault.kind == "error":
+                    # the chunk's exchange failed before any token was
+                    # committed: nothing to roll back, retry next step
+                    self.stats["retries"] += 1
+                    if tr is not None:
+                        tr.record("retry", start=now, end=now,
+                                  kind="serving", trace_id=self._run_trace(),
+                                  worker=self.trace_worker, plan=key,
+                                  reason="chaos_error")
+                    continue
+                if fault is not None and fault.kind == "straggle":
+                    straggle = max(fault.value, 1.0)
+                    self.stats["straggled"] += 1
             t0 = self.clock()
             wall_ms = pool.decode_chunk(self.chunk)
             self.stats["chunks"] += 1
-            self._observe_stragglers(pool, wall_ms)
+            self._observe_stragglers(pool, wall_ms * straggle)
             if self.on_progress is not None:
                 for act in pool.slots:
                     if act is not None:

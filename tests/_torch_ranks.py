@@ -302,3 +302,60 @@ def gemma_seq(rank, world, job):
     res["gen/prism/single_pass"] = (_np(out), group.stats.cache_bytes,
                                     group.stats.payload_bytes)
     return res
+
+
+def profile_seq(rank, world, job):
+    """``session.profile(backend="measured")`` on every rank of a session
+    of the reduced ``job["arch"]`` (the port's seeded weights, on
+    ``job["device"]``, the CPU by default) holding
+    ``local``, ``voltage`` and ``prism`` (``job["L"]``) built with
+    P = world; with ``job["delay"]`` > 0 every staged call of the group
+    first sleeps that many seconds, inside its timed window, and with
+    ``job["load"]`` > 0 the last rank alone sleeps that many seconds
+    before each staged call opens its window (compute of that rank only,
+    which the other ranks wait for inside their windows).  → (the
+    map's JSON, ``last_times``, the decision at each batch of
+    ``job["decide"]`` at ``job["bw"]``, the plan ``dispatch`` ran)."""
+    import json
+    import time
+
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.profiling import SweepSpec, get_backend
+    group = get_seq_group("seq")
+    if job.get("delay"):
+        begin = group._begin
+
+        def slowed(t):
+            t0 = begin(t)
+            time.sleep(job["delay"])
+            return t0
+        group._begin = slowed
+    if job.get("load") and rank == world - 1:
+        begin = group._begin
+
+        def loaded(t):
+            time.sleep(job["load"])
+            return begin(t)
+        group._begin = loaded
+    n = job["n_tokens"]
+    plans = [ExecutionPlan.local(), ExecutionPlan.voltage(seq_shards=world),
+             ExecutionPlan.prism(L=job["L"], cr=n / (job["L"] * world),
+                                 seq_shards=world)]
+    session = InferenceSession.from_config(
+        job["arch"], plans=plans, reduced=job["reduced"],
+        device=job.get("device", "cpu"), initial_bandwidth_mbps=job["bw"])
+    spec = SweepSpec(batches=job["batches"], crs=(n / (job["L"] * world),),
+                     bandwidths_mbps=(job["bw"],))
+    pm = session.profile(spec, backend="measured", iters=job["iters"],
+                         warmup=1)
+    times = get_backend("measured").last_times
+    decisions = [(d.mode, d.cr, d.codec) for d in
+                 (session.decide(b, job["bw"]) for b in job["decide"])]
+    B = job["batches"][0]
+    if job["arch"] == "vit-base-16":
+        batch = {"images": torch.zeros(B, 224, 224, 3)}
+    else:
+        batch = {"tokens": torch.zeros(B, n, dtype=torch.int32)}
+    session.dispatch(batch)
+    return (json.dumps(pm.to_doc(), sort_keys=True), times, decisions,
+            session.history[-1].exec_key)

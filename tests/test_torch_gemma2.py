@@ -13,8 +13,12 @@ JAX weights carried across by the params bridge:
 * greedy ``generate`` through ``InferenceSession``: token-exact, prompt
   and new tokens past the window;
 * ``prism_sim`` (and its codec form) on windowed layers raises in both
-  packages; the serving pools refuse ``local_global``; ``input_specs``,
-  ``cache_batch_axes`` and the partitioned cache layout cover both halves.
+  packages; ``input_specs``, ``cache_batch_axes`` and the partitioned
+  cache layout cover both halves;
+* serving: the dense slot pool serves gemma2 token-exact against the JAX
+  package's ``ServingRuntime`` (int8 and f32 caches, prompts past the
+  window), and the paged pool refuses it in both packages, as the
+  reference has no paged decode path for ``local_global``.
 """
 import dataclasses
 
@@ -169,12 +173,77 @@ def test_prism_sim_raises_on_windowed_layers_in_both_packages(sessions,
 
 
 def test_serving_pools_refuse_local_global(sessions):
-    _, ts = sessions
-    with pytest.raises(NotImplementedError):
-        ts.init_slot_pool(2, 16)
+    """As in the JAX package, only the paged pool refuses ``local_global``
+    (no paged decode path, ``ValueError`` in both packages); the dense
+    slot pool takes gemma2, both halves of its cache."""
+    js, ts = sessions
     with pytest.raises(ValueError, match="local_global=True"):
         ttfm.init_page_pool(ts.cfg, 8, 4, device="cpu")
+    with pytest.raises(ValueError, match="local_global=True"):
+        jtfm.init_page_pool(js.cfg, 8, 4)
     assert not ttfm.supports_page_pool(ts.cfg)
+    assert not jtfm.supports_page_pool(js.cfg)
+    pool = ts.init_slot_pool(2, 16)
+    jpool = js.init_slot_pool(2, 16)
+    assert set(pool) == set(jpool) == {"local", "global"}
+    for half in ("local", "global"):
+        assert pool[half]["k"].shape == jpool[half]["k"].shape
+
+
+def _served_pair(kv_quant):
+    """The reduced gemma2 (window 16) served by both packages'
+    ``ServingRuntime`` on the dense slot pool: prompts of 5, 20 and 30
+    tokens (two past the window) and 24 new tokens each, 2 slots."""
+    from repro.serving import ServingRuntime as JRuntime
+    from repro_torch.serving import ServingRuntime as TRuntime
+    reduced = dict(REDUCED, kv_quant=kv_quant, vocab_size=64)
+    js = JSession.from_config(ARCH, plans=[JPlan.local()], reduced=reduced,
+                              seed=0)
+    ts = TSession.from_config(
+        ARCH, plans=[TPlan.local()], reduced=reduced, device="cpu",
+        params=params_from_numpy(jax.tree.map(np.asarray, js.params),
+                                 js.cfg))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 64, n) for n in (5, 20, 30)]
+    out = []
+    for sess, runtime in ((js, JRuntime), (ts, TRuntime)):
+        sess.profile(backend="simulated")
+        rt = runtime(sess, n_slots=2, chunk=4, max_len=56)
+        reqs = [rt.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+        done = {c.request_id: np.asarray(c.tokens) for c in rt.run()}
+        out.append([done[r.id] for r in reqs])
+    return prompts, js, out
+
+
+@pytest.mark.parametrize("kv_quant", [True, False])
+def test_slot_pool_serves_token_exact_against_the_jax_runtime(kv_quant):
+    """Greedy tokens of every request served through the port's dense slot
+    pool equal the JAX package's ``ServingRuntime`` on the same weights,
+    and its B=1 ``generate`` (window 16 masks both long prompts)."""
+    prompts, js, (want, got) = _served_pair(kv_quant)
+    for p, w, g in zip(prompts, want, got):
+        np.testing.assert_array_equal(g, w)
+        ref = np.asarray(js.generate(np.asarray(p, np.int32)[None], 24))[0]
+        np.testing.assert_array_equal(g, ref)
+
+
+def test_paged_runtime_refuses_gemma2_in_both_packages():
+    """The paged ``ServingRuntime`` refuses gemma2 when it builds the pool,
+    with the same class of error in both packages."""
+    from repro.serving import ServingRuntime as JRuntime
+    from repro_torch.serving import ServingRuntime as TRuntime
+    reduced = dict(REDUCED, vocab_size=64)
+    js = JSession.from_config(ARCH, plans=[JPlan.local()], reduced=reduced)
+    ts = TSession.from_config(ARCH, plans=[TPlan.local()], reduced=reduced,
+                              device="cpu")
+    prompt = np.arange(1, 9, dtype=np.int32)
+    for sess, runtime in ((js, JRuntime), (ts, TRuntime)):
+        sess.profile(backend="simulated")
+        rt = runtime(sess, n_slots=2, chunk=4, max_len=32, page_size=8,
+                     n_pages=16)
+        rt.submit(prompt, 4)
+        with pytest.raises(ValueError, match="no paged decode path"):
+            rt.run()
 
 
 def test_cache_layout_covers_both_halves(sessions):

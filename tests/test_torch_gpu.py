@@ -652,3 +652,72 @@ def test_small_gemma2_generates_the_cpus_tokens(cuda_device):
         assert flash_decode.launches - before == (
             23 * cfg.n_layers if dev == "cuda" else 0)
     assert torch.equal(out["cuda"], out["cpu"]), (out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+def test_rpc_worker_on_the_card_serves_the_in_process_tokens(cuda_device):
+    """A ``repro_torch.rpc.worker`` subprocess on the card (llama3.2-1b at
+    full width in f32 from seed 0 — the kernels take head dims 64 and 128,
+    the reduced config's is 16 — one slot) behind the router: every
+    request served once, with the tokens of an in-process session on the
+    card from the same seed; the worker closes at shutdown."""
+    import numpy as np
+    from repro_torch.fleet import DeviceRegistry, FleetRouter
+    from repro_torch.rpc import RpcWorker
+    from repro_torch.rpc.worker import build_session
+    from repro_torch.serving.queue import Request
+    w = None
+    try:
+        w = RpcWorker("card", seed=0, n_slots=1, chunk=4, max_len=24,
+                      device="cuda", full=True, dtype="float32",
+                      connect_timeout_s=120.0)
+        reg = DeviceRegistry(heartbeat_timeout_s=60.0)
+        reg.add(w)
+        assert w.codec_bws_measured and w.codec_bws
+        router = FleetRouter(reg)
+        reqs = [Request(prompt=np.arange(1 + i, 8 + i, dtype=np.int32),
+                        n_new=8, seed=i) for i in range(3)]
+        for r in reqs:
+            router.route(r)
+        done = {c.request_id: c for c in router.run()}
+        assert sorted(done) == sorted(r.id for r in reqs)
+        ref, _, _ = build_session("llama3.2-1b", seed=0, device="cuda",
+                                  full=True, dtype="float32")
+        for r in reqs:
+            want = ref.generate(r.prompt[None], r.n_new,
+                                plan=ref.plans[done[r.id].plan_key])
+            np.testing.assert_array_equal(np.asarray(done[r.id].tokens),
+                                          want.cpu().numpy()[0])
+    finally:
+        if w is not None:
+            w.close()
+    assert w.proc.poll() is not None
+
+
+@pytest.mark.gpu
+def test_measured_profile_across_two_ranks_on_the_card(cuda_device):
+    """``profile(backend="measured")`` of a small f32 ViT (2 layers, d 256,
+    head dim 64, which the kernels take) under local, voltage and prism on
+    2 ranks sharing the card, B 1 included: one map on both ranks, its
+    partitioned entries charged per rank with the measured staged seconds
+    beside the modeled staging, and one decision."""
+    import json
+
+    import _torch_ranks
+    from repro_torch.core.seq_group import spawn
+    small = dict(dtype="float32", n_layers=2, d_model=256, n_heads=4,
+                 n_kv_heads=4, head_dim=64, d_ff=512, vocab_size=10)
+    job = dict(arch="vit-base-16", reduced=small,
+               n_tokens=197, L=20, bw=400.0, batches=(1, 4), iters=3,
+               decide=(1, 8), delay=0.0, device="cuda")
+    runs = spawn(_torch_ranks.profile_seq, 2, job, timeout=300)
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][2] == runs[1][2] and runs[0][3] == runs[1][3]
+    parts = {k: e for k, e in json.loads(runs[0][0])["entries"].items()
+             if not k.startswith("local")}
+    assert len(parts) == 4
+    for e in parts.values():
+        m = e["meta"]
+        assert m["per_rank"] and m["seq_group"] == 2
+        assert 0 < m["staged_ms_measured"] < m["forward_ms_measured"]
+        assert m["staged_calls"] > 0 and e["staging_ms"] > 0

@@ -4,8 +4,12 @@
   packages to the same per-plan times, the two perf maps are equal key for
   key (entries within 1e-9 relative, the same meta, the same stamp);
 * a real CPU run of the port's backend (the JAX package's own test of it,
-  ``tests/test_profiling.py``), its ``ValueError`` without executables and
-  its ``NotImplementedError`` for a plan partitioned over a seq group;
+  ``tests/test_profiling.py``) and its ``ValueError`` without executables;
+* a measured profile across 2 gloo ranks (ViT and llama under ``local``,
+  ``voltage`` and ``prism``): one map on every rank, charged at the rank
+  with the most compute, with the measured staged seconds taken out of
+  it; with the seq-group timings stubbed, each partitioned entry equals
+  the JAX package's transport model composed with that compute;
 * ``models.registry.input_specs`` against the reference's shapes;
 * the session's trace hooks: ``from_trace`` (both packages on the same
   spans, and the port on its own tracer, fed back to ``calibrate``), the
@@ -134,30 +138,254 @@ def test_measured_backend_requires_executables():
         get_backend("measured").profile(ProfileContext(), TINY)
 
 
-def test_measured_backend_refuses_a_plan_over_a_seq_group(tmp_path):
-    """A partitioned plan's executable runs the real staged exchange, so the
-    backend would count staging twice: it raises naming the ROADMAP item.
-    With the same group up, a session of single-process plans (``local``,
-    ``prism_sim``) profiles as before."""
+def test_single_process_plans_profile_as_before_with_a_seq_group_up(
+        tmp_path):
+    """With a seq group initialised in this process, a session of
+    single-process plans (``local``, ``prism_sim``) takes the
+    single-process arithmetic: no entry says ``per_rank``."""
     from repro_torch.core.seq_group import (destroy_seq_group,
                                             has_seq_group, init_seq_group)
-    kw = dict(reduced={"vocab_size": 64}, device="cpu")
-    split = TSession.from_config("llama3.2-1b", **kw,
-                                 plans=[TPlan.local(),
-                                        TPlan.prism(L=4, cr=9.9)])
-    single = TSession.from_config("llama3.2-1b", **kw,
+    single = TSession.from_config("llama3.2-1b", reduced={"vocab_size": 64},
+                                  device="cpu",
                                   plans=[TPlan.local(),
                                          TPlan.prism_sim(L=4, cr=9.9)])
     init_seq_group(0, 1, str(tmp_path / "store"))
     try:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1 item \[5\.1\]"):
-            split.profile(TINY, backend="measured", iters=1, warmup=1)
-        assert len(single.profile(TINY, backend="measured", iters=1,
-                                  warmup=1)) == 4
+        pm = single.profile(TINY, backend="measured", iters=1, warmup=1)
     finally:
         destroy_seq_group()
     assert not has_seq_group("seq")
+    assert len(pm) == 4
+    assert not any("per_rank" in e.meta for _, e in pm.entries())
+
+
+# Two ranks' stubbed timings of a partitioned call at B = 1 (forward,
+# staged seconds, staged calls), growing with the batch like STUB_BASE:
+# this process waits long at the collectives, the other rank computes more
+# but finishes first, so the charged rank is the other one.
+STUB_RANKS = ((10.0e-3, 6.0e-3, 12), (9.5e-3, 2.0e-3, 12))
+
+
+class _StubGroup:
+    """A 2-rank seq group whose staged timings come from STUB_RANKS: the
+    stub timer books this rank's, ``all_gather_object`` adds the other
+    rank's numbers for the same calls."""
+    world_size = 2
+
+    def __init__(self):
+        from repro_torch.core.seq_group import GatherStats
+        self.stats = GatherStats()
+
+    def reset_stats(self):
+        from repro_torch.core.seq_group import GatherStats
+        self.stats = GatherStats()
+
+    def all_gather_object(self, mine):
+        other = {}
+        for key, (t, st) in mine.items():
+            if st is None:
+                other[key] = (t * 0.5, None)
+            else:
+                grow = t / STUB_RANKS[0][0]
+                ft, fs, n = STUB_RANKS[1]
+                other[key] = (ft * grow, (fs * grow, n))
+        return [mine, other]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "vit-base-16"])
+@pytest.mark.parametrize("presets", ["jetson", "h100"])
+def test_per_rank_entries_equal_the_jax_packages_model(monkeypatch, arch,
+                                                       presets):
+    """With the seq-group timings stubbed, each partitioned entry is the
+    JAX package's transport model (``model.distributed``, or
+    ``exchange_cost`` for a codec plan) at the same P, L, codec, batch
+    and bandwidth, composed with ``per_dev_ms = (t − staged)·scale +
+    coord`` of the rank with the most compute; the local anchor and the
+    scale are the single-process ones."""
+    import repro_torch.profiling.backends as tbackends
+    import repro_torch.utils.timing as ttiming
+    from repro.profiling import sweep as jsweep
+    from repro.transport import exchange_cost
+    reduced = REDUCED if arch != "vit-base-16" else {"dtype": "float32"}
+    plans = [TPlan.local(), TPlan.voltage(seq_shards=2),
+             TPlan.prism(L=4, cr=9.9, seq_shards=2),
+             TPlan("prism", 9.9, 4, "seq", 2, codec="int8")]
+    ts = TSession.from_config(arch, plans=plans, reduced=reduced,
+                              device="cpu")
+    group = _StubGroup()
+    parted = {key for key, plan in ts.plans.items() if plan.seq_shards > 1}
+    assert len(parted) == 3
+    for key in parted:              # warm-up calls run nothing
+        ts._execs[key] = lambda batch: None
+    monkeypatch.setattr(tbackends, "_plan_seq_group",
+                        lambda plan: group if plan is not None
+                        and plan.seq_shards > 1 else None)
+    names = {id(fn): key for key, fn in ts._execs.items()}
+
+    def timeit(fn, inputs, iters=10, warmup=2, **_):
+        B = int(next(iter(inputs.values())).shape[0])
+        grow = 1.0 + 0.4 * (B - 1)
+        if names[id(fn)] not in parted:
+            return 2.0e-3 * grow
+        t, staged, n = STUB_RANKS[0]
+        group.stats.seconds, group.stats.calls = staged * grow, n
+        return t * grow
+    monkeypatch.setattr(ttiming, "timeit_torch", timeit)
+    tkw = jkw = {}
+    if presets == "h100":
+        tkw = dict(hardware=H100_SXM, link=H100_GLOO_STAGED)
+        jkw = {k: _j_hardware(v) for k, v in tkw.items()}
+    pt = ts.profile(STUB_SPEC, backend="measured", **tkw)
+    js = JSession.from_config(arch, plans=[JPlan.local()], reduced=reduced)
+    jctx = js.profile_context(**jkw)
+    workload = jsweep.workload_from_config(jctx.cfg, 0)
+    model = jctx.edge_model(workload)
+    B0 = STUB_SPEC.batches[0]
+    scale = (model.local(B0)["compute_ms"] / 1e3) / 2.0e-3
+    assert get_backend("measured").last_scale == pytest.approx(scale,
+                                                               rel=1e-12)
+    n_entries = 0
+    for B in STUB_SPEC.batches:
+        grow = 1.0 + 0.4 * (B - 1)
+        want_local = model.pack(B, 2.0e-3 * grow * scale * 1e3, 0.0, 0.0,
+                                boards=1)
+        got = pt.get(PerfKey("local", B, 0.0, 0.0))
+        assert got.total_ms == pytest.approx(want_local["total_ms"],
+                                             rel=1e-9)
+        ft, fs, n = STUB_RANKS[1]
+        per_dev = ((ft - fs) * grow * scale * 1e3
+                   + model.c.coord_overhead_ms)
+        for key in sorted(parted):
+            plan = ts.plans[key]
+            for bw in STUB_SPEC.bandwidths_mbps:
+                e = pt.get(plan.to_perf_key(B, bw))
+                if plan.codec:
+                    terms = exchange_cost(
+                        plan.codec, n_tokens=workload.n_tokens,
+                        d_model=workload.d_model,
+                        bytes_per_el=workload.bytes_per_el, batch=B, P=2,
+                        n_layers=workload.n_layers, bandwidth_mbps=bw,
+                        profile=jctx.link, link=plan.link or "staged",
+                        L=plan.L, param=plan.codec_param)
+                    want = model.pack(B, per_dev + terms["decode_ms"],
+                                      terms["staging_ms"], terms["comm_ms"],
+                                      boards=2)
+                    assert e.meta["wire_bytes"] == terms["wire_bytes"]
+                else:
+                    rm = model.distributed(B, bw, 2,
+                                           L=plan.L if plan.L > 0 else None)
+                    want = model.pack(B, per_dev, rm["staging_ms"],
+                                      rm["comm_ms"], boards=2)
+                for f in ("total_ms", "per_sample_ms", "per_sample_j",
+                          "compute_ms", "staging_ms", "comm_ms"):
+                    assert getattr(e, f) == pytest.approx(want[f], rel=1e-9,
+                                                          abs=0), (key, f)
+                m = e.meta
+                assert (m["seq_group"], m["per_rank"], m["staged_calls"]) \
+                    == (2, True, n)
+                assert m["forward_ms_measured"] == pytest.approx(
+                    ft * grow * 1e3, rel=1e-12)
+                assert m["staged_ms_measured"] == pytest.approx(
+                    fs * grow * 1e3, rel=1e-12)
+                n_entries += 1
+    assert n_entries == len(STUB_SPEC.batches) * 3 * 3
+
+
+# A measured profile on 2 gloo ranks: reduced f32 ViT (197 tokens, L 20)
+# and llama (32 tokens, L 4) under local, voltage and prism.  DELAY slows
+# every staged call of the group by a known sleep inside its timed window.
+SEQ_JOBS = {
+    "vit-base-16": dict(reduced={"dtype": "float32"}, n_tokens=197, L=20),
+    "llama3.2-1b": dict(reduced={"dtype": "float32", "vocab_size": 64},
+                        n_tokens=32, L=4),
+}
+DELAY = 0.02
+# LOAD adds compute to the last rank alone: it sleeps before each staged
+# call opens, and the other rank waits for it inside its own window.
+LOAD = 0.02
+_SEQ_RUNS = {}
+
+
+def _seq_profile(arch, delay=0.0, load=0.0):
+    import _torch_ranks
+    from repro_torch.core.seq_group import spawn
+    if (arch, delay, load) not in _SEQ_RUNS:
+        job = dict(SEQ_JOBS[arch], arch=arch, bw=400.0, batches=(1, 2),
+                   iters=3, decide=(1, 8), delay=delay, load=load)
+        _SEQ_RUNS[arch, delay, load] = spawn(_torch_ranks.profile_seq, 2,
+                                             job, timeout=120)
+    return _SEQ_RUNS[arch, delay, load]
+
+
+def _partitioned_entries(doc):
+    return {k: e for k, e in json.loads(doc)["entries"].items()
+            if k.split("|")[0] in ("voltage", "prism")}
+
+
+@pytest.mark.parametrize("arch", sorted(SEQ_JOBS))
+def test_measured_profile_over_a_seq_group_is_one_map(arch):
+    """Every rank profiles SPMD and returns the same map, decisions and
+    dispatched plan; each partitioned entry's meta says it was charged
+    per rank at P 2, with the measured staged ms and calls beside the
+    modeled staging."""
+    runs = _seq_profile(arch)
+    docs = [r[0] for r in runs]
+    assert docs[0] == docs[1]
+    assert runs[0][1] == runs[1][1]             # last_times, slowest rank
+    assert runs[0][2] == runs[1][2] and runs[0][3] == runs[1][3]
+    parts = _partitioned_entries(docs[0])
+    assert len(parts) == 2 * 2                 # (voltage, prism) × 2 batches
+    for key, e in parts.items():
+        m = e["meta"]
+        assert m["measured"] and m["per_rank"] and m["seq_group"] == 2
+        assert m["staged_calls"] > 0 and m["staged_ms_measured"] > 0
+        assert 0 < m["staged_ms_measured"] < m["forward_ms_measured"]
+        assert e["staging_ms"] > 0 and e["comm_ms"] > 0    # modeled
+    local = json.loads(docs[0])["entries"]["local|1|0|0"]
+    assert "per_rank" not in local["meta"]
+
+
+@pytest.mark.parametrize("arch", sorted(SEQ_JOBS))
+def test_measured_profile_charges_compute_without_the_staged_seconds(arch):
+    """Slowing every staged call by DELAY puts at least calls × DELAY into
+    ``staged_ms_measured`` (every sleep lies inside a staged window; the
+    unslowed run's waits on the other rank may shrink under it) while
+    the compute charged (forward less staged) stays within noise of the
+    unslowed run."""
+    fast = _partitioned_entries(_seq_profile(arch)[0][0])
+    slow = _partitioned_entries(_seq_profile(arch, DELAY)[0][0])
+    assert fast.keys() == slow.keys()
+    for key in fast:
+        mf, ms = fast[key]["meta"], slow[key]["meta"]
+        added = mf["staged_calls"] * DELAY * 1e3
+        assert ms["staged_calls"] == mf["staged_calls"]
+        assert ms["staged_ms_measured"] >= added
+        grown = ms["staged_ms_measured"] - mf["staged_ms_measured"]
+        assert 0.5 * added <= grown <= 1.5 * added
+        cf = mf["forward_ms_measured"] - mf["staged_ms_measured"]
+        cs = ms["forward_ms_measured"] - ms["staged_ms_measured"]
+        assert abs(cs - cf) < 0.25 * added
+
+
+@pytest.mark.parametrize("arch", sorted(SEQ_JOBS))
+def test_measured_profile_charges_the_rank_with_the_most_compute(arch):
+    """With compute added to the last rank alone (LOAD before each of
+    its staged calls), both ranks' forwards end together, the other
+    rank's staged seconds hold its wait, and the compute charged (forward
+    less staged) is the loaded rank's: at least calls × LOAD, and about
+    that much above the unloaded run's."""
+    base = _partitioned_entries(_seq_profile(arch)[0][0])
+    runs = _seq_profile(arch, load=LOAD)
+    assert runs[0][0] == runs[1][0]
+    loaded = _partitioned_entries(runs[0][0])
+    assert base.keys() == loaded.keys()
+    for key in base:
+        mb, ml = base[key]["meta"], loaded[key]["meta"]
+        added = ml["staged_calls"] * LOAD * 1e3
+        cl = ml["forward_ms_measured"] - ml["staged_ms_measured"]
+        cb = mb["forward_ms_measured"] - mb["staged_ms_measured"]
+        assert cl >= added
+        assert cl - cb >= 0.5 * added
 
 
 SPEC_CASES = [(arch, kind) for arch in ("llama3.2-1b", "internlm2-1.8b",
