@@ -12,7 +12,7 @@ Phases, one line each (more for the kernel table):
                together), before any rank is spawned, and prints every
                instantiation's registers, spills, shared memory per CTA
                and CTAs per SM (flash-decode, segment means, PRISM
-               attention).
+               attention, its (192, 128) widths for MLA included).
 3. kernels   — calls each kernel's wrapper on tensors on the card and
                holds it against its plain PyTorch version on the same
                inputs (f32 inputs: relative max error ≤ 1e-5; bf16:
@@ -55,7 +55,15 @@ Phases, one line each (more for the kernel table):
                ``prism`` shape (K+V [4, 256, 8·64] L 16; causal GQA 32/8,
                parts 0 and 1), timed there, and at the ``gemma`` phase's
                (K+V [1, 2048, 16·128] L 16; q [1, 2048, 32, 128], 16 KV
-               heads, causal, softcap 50, scale 1/12, parts 0 and 3 of 4).
+               heads, causal, softcap 50, scale 1/12, parts 0 and 3 of 4);
+               and at the ``moe-seq`` phase's: deepseek-moe-16b's K+V
+               [4, 256, 16·128] L 16 and causal PRISM attention 16/16 dh
+               128 (parts 0 and 1), deepseek-v2-236b's latent [4, 256,
+               512 + 64] L 16 (one input) and its PRISM attention with
+               keys 192 and values 128, 128/128 heads (parts 0 and 1, f32,
+               a fully masked row), each timed beside ``mean()`` or sdpa;
+               flash-decode at deepseek-moe-16b's decode shape (B 4, S 48,
+               16/16, dh 128).
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -70,7 +78,13 @@ Phases, one line each (more for the kernel table):
                the CPU's cache, greedy tokens exact, and across 4 ranks on
                the card against 4 CPU ranks under ``voltage`` and
                ``prism(L=2)`` at N 64 (the halo) and N 16 (the Voltage
-               gather), the halo's bytes asserted.
+               gather), the halo's bytes asserted; a small f32
+               deepseek-moe (dh 64) and deepseek-v2 (MLA at its widths:
+               keys 128 + 64, values 128), in one process ``local``
+               forward, 12 decode steps and greedy tokens on the card vs
+               the CPU and the slot pool token-exact, and on 2 card ranks
+               vs 2 CPU ranks ``voltage`` and ``prism`` forwards, aux
+               loss, sharded decode steps (≤ 1e-4) and greedy tokens.
 5. session   — llama3.2-1b at full width: ``InferenceSession`` profile
                (``measured`` on the H100 presets, batches 1-32, the curve
                ``H100_SXM`` is fitted to, with the card's power draw
@@ -105,7 +119,8 @@ Phases, one line each (more for the kernel table):
                layer and the same tokens on both ranks asserted; prefill
                seconds, decode ms a step, merge bytes, agreement with
                ``local``); one ``dispatch`` of a ``prism`` plan.
-9. archs     — internlm2-1.8b, qwen1.5-32b and gemma2-27b at full width
+9. archs     — internlm2-1.8b, qwen1.5-32b, gemma2-27b and deepseek-moe-16b
+               at full width
                (each with all its layers where they fit beside nothing
                else, else fewer, whole local/global pairs for gemma2, as
                its lines say): the measured profile on the H100 presets at
@@ -114,7 +129,14 @@ Phases, one line each (more for the kernel table):
                asserted, decode time, device idle share and peak memory;
                gemma2 (no ``prism_sim`` plan: it raises on windowed layers,
                as in the JAX package) a second time at B 1 from a
-               4608-token prompt, so its window masks every decode step.
+               4608-token prompt, so its window masks every decode step;
+               deepseek-moe-16b (28 layers, 33 GB; its prompts prefill by
+               the decode loop, as ``auto`` keeps the moe family) also
+               under ``prism_sim`` and served through the slot pool: 8
+               greedy requests of 32 + 16 at 4 slots, held against B 1
+               ``generate`` (near ties counted); deepseek-v2-236b cut to
+               the layers that fit (the dense one and 8 of experts),
+               ``local`` generate, with no kernel on that path.
 10. codec    — the codecs' decode throughput measured on the card
                (``calibrate_codec_bws``) beside the modeled class
                constants; then 2 ranks sharing the card: ViT-B/16 B 8
@@ -169,6 +191,18 @@ Phases, one line each (more for the kernel table):
                reroute and readmit, every request served once and held
                as above against an in-process session from the same
                seed, and both workers closed at shutdown.
+14. moe-seq  — deepseek-moe-16b (the dense layer + 3 of experts) and
+               deepseek-v2-236b (the dense layer + 1 of experts) at full
+               width on 2 ranks sharing the card: ``forward_lm(last_only)``
+               B 4, N 512 under ``local`` (deepseek-moe), ``voltage`` (K/V,
+               or the latent) and ``prism(L=16)`` (their means), per rank
+               the forward ms, staged ms and share, calls (one a layer and
+               one routing call a MoE layer) and payload and meta bytes,
+               asserted against the shapes' count; greedy ``generate``
+               [4, 32] + 16 under ``voltage`` (flash-decode launches
+               asserted, the same tokens on both ranks, their agreement
+               with ``local`` in bf16; the same weights in f32
+               token-exact against ``local``).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -198,6 +232,7 @@ SMALL_VIT = dict(dtype="float32", n_layers=2, d_model=256, n_heads=4,
 SMALL_L = 5
 LM_P, LM_B, LM_N, LM_L, GEN_L = 2, 4, 512, 16, 4   # the lm phase
 GEMMA = "gemma2-27b"
+MOE, MLA_ARCH = "deepseek-moe-16b", "deepseek-v2-236b"
 GEMMA_P, GEMMA_N, GEMMA_L, GEMMA_NEW = 4, 8192, 16, 8   # the gemma phase
 GEMMA_LONG = 4608           # [arch]'s B 1 prompt: its window masks each step
 SMALL_GEMMA = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=4,
@@ -402,7 +437,7 @@ def time_case(case) -> dict:
 # heads, KV heads), dh 128, every row's cache full at S, each arch's
 # softcap and query scale
 DECODE_ARCHS = (("internlm2-1.8b", 16, 8), ("qwen1.5-32b", 40, 40),
-                (GEMMA, 32, 16))
+                (GEMMA, 32, 16), (MOE, 16, 16))
 
 
 def report_timed(case, label: str) -> dict:
@@ -1080,9 +1115,11 @@ def phase_session(card: str):
 
 
 def drive_generate(session, prompt, key: str, n_steps: int, card: str,
-                   note: str = "", breakdown: bool = True):
+                   note: str = "", breakdown: bool = True,
+                   per_step: int = None):
     """Greedy ``generate`` of N_NEW tokens under plan ``key``, flash-decode
-    launches counted around it and asserted = n_steps × layers, tokens and
+    launches counted around it and asserted = n_steps × ``per_step`` (the
+    layers by default; 0 for MLA, whose decode is plain torch), tokens and
     the logits over the generated sequence checked (the last position's
     when the prompt is longer than PROMPT_T); with ``breakdown``, the
     ``local`` plan's kernel time read by ``torch.profiler`` → (launches,
@@ -1097,7 +1134,8 @@ def drive_generate(session, prompt, key: str, n_steps: int, card: str,
     flash_decode.launches = 0
     out, w = timed_generate(session, prompt, N_NEW, plan)
     launches = flash_decode.launches
-    want = n_steps * cfg.n_layers
+    per_step = cfg.n_layers if per_step is None else per_step
+    want = n_steps * per_step
     if launches != want:
         raise AssertionError(f"{cfg.name} {key}: flash_decode launched "
                              f"{launches} times, want {want}")
@@ -1120,7 +1158,7 @@ def drive_generate(session, prompt, key: str, n_steps: int, card: str,
     decode_ms = (w - w1) / (N_NEW - 1)
     print(f"[generate] {cfg.name}{note} {key}: [{B}, {T0}] "
           f"prompt + {N_NEW} greedy tokens in {w:.1f} ms; flash_decode "
-          f"launches {launches} (= {n_steps} steps x {cfg.n_layers} layers);"
+          f"launches {launches} (= {n_steps} steps x {per_step} layers);"
           f" decode {decode_ms:.2f} ms/token step, "
           f"{B / decode_ms * 1e3:.1f} tokens/s at B={B} "
           f"[{card}]", flush=True)
@@ -1133,16 +1171,22 @@ def drive_generate(session, prompt, key: str, n_steps: int, card: str,
 def layers_that_fit(cfg, headroom_bytes: float = 6e9) -> int:
     """How many of ``cfg``'s layers fit in the card's free memory at full
     width beside its embedding and head, with ``headroom_bytes`` left for
-    activations."""
+    activations: the moe family's first dense layers, then as many expert
+    layers as fit beside the f32 draw of one expert stack (the weights are
+    drawn in f32 and cast, one tensor at a time)."""
     import torch
-    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
-    per_layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-                 + 3 * d * f + 2 * d
-                 + (hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
-                    if cfg.qkv_bias else 0)) * 2
-    head = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) * 2 + 2 * d
-    free = torch.cuda.mem_get_info()[0]
-    n = min(cfg.n_layers, int((free - head - headroom_bytes) // per_layer))
+    from repro_torch.models.registry import layer_weight_bytes
+    d = cfg.d_model
+    dense, moe = layer_weight_bytes(cfg)
+    head = (cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+            * cfg.torch_dtype.itemsize + d * 4)
+    room = torch.cuda.mem_get_info()[0] - head - headroom_bytes
+    if cfg.moe is not None:
+        e = cfg.moe
+        room -= e.n_experts * d * e.d_ff_expert * 4
+        fd = e.first_dense_layers
+        return min(cfg.n_layers, fd + int((room - fd * dense) // moe))
+    n = min(cfg.n_layers, int(room // dense))
     return n - n % 2 if cfg.local_global else n  # whole local/global pairs
 
 
@@ -1153,14 +1197,19 @@ def phase_arch_session(card: str, arch: str) -> dict:
     ``generate`` under ``local`` with flash-decode launches asserted
     (gemma2 has no ``prism_sim`` plan: it raises on windowed layers, as in
     the JAX package; it generates a second time at B 1 from a
-    GEMMA_LONG-token prompt, past its window) → (launches, layers driven,
-    and gemma2's B 1 launches)."""
+    GEMMA_LONG-token prompt, past its window).  The moe family prefills by
+    the decode loop (as ``auto`` keeps it), so every prompt token is a
+    decode step; deepseek-moe-16b also generates under ``prism_sim`` and
+    serves through the slot pool (``serve_moe``); deepseek-v2's MLA
+    decode launches no kernel, and it is asserted → (launches, layers
+    driven, and gemma2's B 1 launches)."""
     import dataclasses
     import gc
     import torch
     from repro_torch.api import ExecutionPlan, InferenceSession
     from repro_torch.configs import get_config
     from repro_torch.models import registry
+    from repro_torch.models.registry import layer_weight_bytes
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1177,10 +1226,22 @@ def phase_arch_session(card: str, arch: str) -> dict:
     torch.cuda.synchronize()
     note = ("" if n_layers == full.n_layers
             else f" ({n_layers} of {full.n_layers} layers)")
+    fam = ""
+    if cfg.moe is not None:
+        e = cfg.moe
+        fam = (f"; {e.first_dense_layers} dense layer(s) of d_ff "
+               f"{e.d_ff_dense}, then {e.n_experts} routed top-{e.top_k} + "
+               f"{e.n_shared} shared experts of {e.d_ff_expert}, "
+               f"{layer_weight_bytes(cfg)[1] / 1e9:.2f} GB a layer")
+    if cfg.mla is not None:
+        m = cfg.mla
+        fam += (f"; MLA latent {m.kv_lora_rank} + {m.qk_rope_dim}, q rank "
+                f"{m.q_lora_rank}, keys {m.qk_nope_dim + m.qk_rope_dim}, "
+                f"values {m.v_head_dim}")
     print(f"[session] {arch} full width ({n_layers} of {full.n_layers} "
           f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
           f"dh {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
-          f"{cfg.qkv_bias}, kv_quant {cfg.kv_quant}, {cfg.dtype}; "
+          f"{cfg.qkv_bias}, kv_quant {cfg.kv_quant}, {cfg.dtype}{fam}; "
           f"{n_params / 1e9:.2f} B parameters drawn on the card from seed 0) "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     pm, scale, raw = measured_profile(session, ARCH_SPEC, iters=3)
@@ -1196,9 +1257,21 @@ def phase_arch_session(card: str, arch: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
                            generator=g, device="cuda")
-    launches, _ = drive_generate(session, prompt, "local", N_NEW - 1, card,
-                                 note)
+    steps = N_NEW - 1 + (PROMPT_T if cfg.moe is not None else 0)
+    per_step = 0 if cfg.mla is not None else None
+    launches, _ = drive_generate(session, prompt, "local", steps, card,
+                                 note, per_step=per_step)
+    if cfg.mla is not None:
+        print(f"[generate] {arch}{note}: no kernel of the port runs on this "
+              f"path on one card (MLA's absorbed decode is plain torch in "
+              f"both packages, its experts plain matmuls; PRISM attention "
+              f"runs only across ranks, [moe-seq])", flush=True)
     out = dict(launches=launches, n_layers=n_layers)
+    if cfg.moe is not None and cfg.mla is None:
+        key = next(k for k in session.plans if k != "local")
+        out["launches"] += drive_generate(session, prompt, key, steps, card,
+                                          note, breakdown=False)[0]
+        out["launches"] += serve_moe(session, card, note)
     if cfg.local_global:
         long = torch.randint(0, cfg.vocab_size, (1, GEMMA_LONG), generator=g,
                              device="cuda")
@@ -1660,23 +1733,51 @@ def time_seg(case) -> dict:
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def time_seg_one(case) -> dict:
+    """The one-input call at ``case``'s shape (the MLA exchange's latent
+    means) beside the plain version and one ``mean()``."""
+    import torch
+    from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_ref)
+    x, L, mask = case
+    B, N, D = x.shape
+    copies = cold_copies((x, mask))
+    moved = nbytes(x) + nbytes(mask) + B * L * D * x.element_size() + B * L * 4
+    b_ms, b_by = roofline(moved, 2 * B * N * D, x.dtype)
+    return {
+        "ms": time_ms(lambda t, m: segment_means(t, L, m), copies),
+        "plain_ms": time_ms(lambda t, m: segment_means_ref(t, L, m), copies),
+        # yardstick only (the port never calls it)
+        "library_ms": time_ms(
+            lambda t, m: t.unflatten(1, (L, N // L)).mean(
+                2, dtype=torch.float32), copies),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
 def prism_case(B, Np, H, Hk, dh, P, L, dtype, *, seed, causal=False,
                part=0, masked=True, softcap=None, dead_row=False,
-               strided=False, scale=None):
+               strided=False, scale=None, dv=None):
     """Local q/K/V of one partition, every partition's means, and the
     mean bias built as the exchange builds it (own partition hidden; with a
     mask, per-segment counts, one segment empty).  ``strided``: the means
     as the exchange hands them to the kernel, [B, P, L, Hk, dh] views of
     the gathered [P, 2, B, L, Hk, dh] payload; else flat [B, P·L, Hk,
-    dh]."""
+    dh].  ``dv``: values (and their means) of that width, as the MLA
+    exchange hands them over: the means [B, P, L, Hk, ·] expanded from the
+    gathered latent, K and V apart."""
     import torch
     from repro_torch.kernels.prism_attention import build_mean_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
-    q, k, v = randn(B, Np, H, dh), randn(B, Np, Hk, dh), randn(B, Np, Hk, dh)
-    if strided:
+    q, k = randn(B, Np, H, dh), randn(B, Np, Hk, dh)
+    v = randn(B, Np, Hk, dh if dv is None else dv)
+    if dv is not None:
+        km, vm = randn(B, P, L, Hk, dh), randn(B, P, L, Hk, dv)
+        if not strided:
+            km, vm = km.flatten(1, 2), vm.flatten(1, 2)
+    elif strided:
         km, vm = randn(P, 2, B, L, Hk, dh).permute(1, 2, 0, 3, 4, 5)
     else:
         km, vm = randn(B, P * L, Hk, dh), randn(B, P * L, Hk, dh)
@@ -1707,13 +1808,14 @@ def prism_bound(case) -> tuple:
     and the K and V rows of the keys a query of the batch row can see (its
     unmasked local keys, causal ones at or before the query's position
     included; its means with a bias above -1e30; every key for a row that
-    sees none).  4·H·dh flops per (query, key it sees): under causal
-    attention query i sees the unmasked local keys 0..i, not all of
+    sees none).  2·H·(dh + dv) flops per (query, key it sees): under
+    causal attention query i sees the unmasked local keys 0..i, not all of
     them."""
     import torch
     q, k, v, km, vm, bias, mask = case["args"]
     B, Nq, H, dh = q.shape
     Nk, Hk, M = k.shape[1], k.shape[2], bias.shape[1]
+    dv = v.shape[3]
     local = (mask if mask is not None
              else torch.ones(B, Nk, dtype=torch.bool, device=q.device))
     seen = local.long().cumsum(dim=1)                   # [B, Nk]
@@ -1725,9 +1827,10 @@ def prism_bound(case) -> tuple:
     per_q = per_q + (bias > -1e30).sum(dim=1, keepdim=True)
     per_q = per_q.masked_fill(per_q == 0, Nk + M)
     keys = per_q.max(dim=1).values      # rows of K and V a batch row reads
-    moved = (2 * nbytes(q) + nbytes(bias, mask)
-             + 2 * int(keys.sum()) * Hk * dh * k.element_size())
-    return roofline(moved, 4 * H * dh * int(per_q.sum()), q.dtype)
+    moved = (nbytes(q) + B * Nq * H * dv * q.element_size()
+             + nbytes(bias, mask)
+             + int(keys.sum()) * Hk * (dh + dv) * k.element_size())
+    return roofline(moved, 2 * H * (dh + dv) * int(per_q.sum()), q.dtype)
 
 
 def _copy_prism_args(args):
@@ -1735,7 +1838,7 @@ def _copy_prism_args(args):
     originals (views of one gathered [P, 2, B, L, Hk, dh] tensor)."""
     import torch
     q, k, v, km, vm, bias, mask = args
-    if km.ndim == 5:
+    if km.ndim == 5 and km.shape == vm.shape:
         gathered = torch.stack([km, vm]).permute(2, 0, 1, 3, 4, 5).contiguous()
         km, vm = gathered.permute(1, 2, 0, 3, 4, 5)
     else:
@@ -1762,11 +1865,12 @@ def _prism_calls(case):
     return kernel, plain
 
 
-def check_prism(label: str, case) -> float:
+def check_prism(label: str, case, atol: float = 1e-6) -> float:
     """Kernel vs plain version on the f32 result before the final rounding
     to the inputs' type (relative max error within tolerance), and on the
     output as the serving path gets it (bf16: every element within one
-    bf16 rounding step, 2^-7 relative, of the plain version's)."""
+    bf16 rounding step, 2^-7 relative, of the plain version's, plus
+    ``atol`` of the largest output)."""
     import torch
     kernel, plain = _prism_calls(case)
     got32 = kernel(*case["args"], out_dtype=torch.float32)
@@ -1782,7 +1886,7 @@ def check_prism(label: str, case) -> float:
     step = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     scale = want.float().abs().max().item()
     if not torch.isclose(got.float(), want.float(), rtol=step,
-                         atol=1e-6 * scale).all():
+                         atol=atol * scale).all():
         raise AssertionError(f"prism_attention {label}: {dtype} output "
                              f"off by more than one rounding step")
     print(f"[kernel] prism_attention {label}: rel err {err:.2e} (tol "
@@ -1979,6 +2083,92 @@ def phase_exchange_kernels() -> dict:
           f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
           f"yardstick {t['library_ms']*1e3:.2f} us (sdpa computes no "
           f"softcap)", flush=True)
+    out.update(moe_exchange_kernels())
+    return out
+
+
+def moe_exchange_kernels() -> dict:
+    """The exchange kernels at the moe-seq phase's per-rank shapes (2
+    ranks, B 4, Np 256 of N 512, L 16): deepseek-moe-16b's K and V means
+    [4, 256, 16·128] and its causal PRISM attention (16/16 heads, dh 128);
+    deepseek-v2-236b's latent means [4, 256, 512 + 64] (one input) and
+    its PRISM attention over the expanded latent, keys 192 wide and values
+    128, 128/128 heads (parts 0 and 1, an f32 case, a fully masked row)."""
+    import torch
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    np_ = LM_N // LM_P
+    c = get_config(MOE)
+    H, Hk, dh = c.n_heads, c.n_kv_heads, c.hd
+    seg = seg_case(LM_B, np_, (Hk, dh), LM_L, bf16, seed=40, masked=False)
+    err = check_seg_kv(f"{MOE} bf16 2 x [{LM_B}, {np_}, {Hk}·{dh}] "
+                       f"L={LM_L} unmasked", seg)
+    out["segment_means_moe"] = t = dict(time_seg(seg), max_abs_err=err)
+    print(f"[kernel] segment_means {MOE} prism shape, K and V in one "
+          f"launch: kernel {t['ms']*1e3:.2f} us, bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, mean() yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
+    g = dict(causal=True, masked=False, strided=True)
+    check_prism(f"{MOE} causal {H}/{Hk} dh {dh} bf16 [{LM_B}, {np_}] "
+                f"L={LM_L} P={LM_P} part 0",
+                prism_case(LM_B, np_, H, Hk, dh, LM_P, LM_L, bf16, seed=41,
+                           part=0, **g))
+    pm = prism_case(LM_B, np_, H, Hk, dh, LM_P, LM_L, bf16, seed=42,
+                    part=1, **g)
+    err = check_prism(f"{MOE} part 1, means strided as gathered", pm)
+    out["prism_attention_moe"] = t = dict(time_prism(pm), max_abs_err=err)
+    print(f"[kernel] prism_attention {MOE} prism shape (part 1, causal): "
+          f"kernel {t['ms']*1e3:.2f} us ({t['warps']} + 1 warps; 2 CTAs of "
+          f"4 + 1: {t['split_ms']*1e3:.2f} us), bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
+
+    m = get_config(MLA_ARCH).mla
+    width = m.kv_lora_rank + m.qk_rope_dim
+    dqk, dv, H = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, \
+        get_config(MLA_ARCH).n_heads
+    lat = seg_case(LM_B, np_, (width,), LM_L, bf16, seed=43, masked=False)
+    err = check_seg(f"{MLA_ARCH} latent bf16 [{LM_B}, {np_}, "
+                    f"{m.kv_lora_rank} + {m.qk_rope_dim}] L={LM_L} unmasked",
+                    lat)
+    check_seg(f"{MLA_ARCH} latent f32 [{LM_B}, {np_}, {width}] L={LM_L} "
+              f"masked", seg_case(LM_B, np_, (width,), LM_L, f32, seed=44))
+    out["segment_means_mla"] = t = dict(time_seg_one(lat), max_abs_err=err)
+    print(f"[kernel] segment_means {MLA_ARCH} latent (one input): kernel "
+          f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, mean() "
+          f"yardstick {t['library_ms']*1e3:.2f} us", flush=True)
+    # the f32 results agree to ~2e-6 of the largest output at these widths,
+    # as at the others; over 16.8 M outputs a near-zero one can round to
+    # either side of a bf16 step, so the per-element check allows 1e-5 of
+    # the largest output
+    mla = dict(causal=True, masked=False, strided=True, dv=dv)
+    check_prism(f"{MLA_ARCH} causal {H}/{H} dqk {dqk} dv {dv} bf16 "
+                f"[{LM_B}, {np_}] L={LM_L} P={LM_P} part 0",
+                prism_case(LM_B, np_, H, H, dqk, LM_P, LM_L, bf16, seed=45,
+                           part=0, **mla), atol=1e-5)
+    pm = prism_case(LM_B, np_, H, H, dqk, LM_P, LM_L, bf16, seed=46, part=1,
+                    **mla)
+    err = check_prism(f"{MLA_ARCH} part 1, means expanded from the gathered "
+                      f"latent", pm, atol=1e-5)
+    check_prism(f"{MLA_ARCH} f32 dqk {dqk} dv {dv} [1, {np_}] part 1",
+                prism_case(1, np_, H, H, dqk, LM_P, LM_L, f32, seed=47,
+                           part=1, **mla))
+    check_prism(f"{MLA_ARCH} bf16 dqk {dqk} dv {dv} [2, 64] 16 heads, row 0 "
+                f"fully masked",
+                prism_case(2, 64, 16, 16, dqk, LM_P, 16, bf16, seed=48,
+                           part=1, dead_row=True, dv=dv), atol=1e-5)
+    out["prism_attention_mla"] = t = dict(time_prism(pm), max_abs_err=err)
+    print(f"[kernel] prism_attention {MLA_ARCH} prism shape (part 1, causal,"
+          f" dqk {dqk}, dv {dv}): kernel {t['ms']*1e3:.2f} us "
+          f"({t['warps']} + 1 warps; 2 CTAs of 4 + 1: "
+          f"{t['split_ms']*1e3:.2f} us), bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
+          f"yardstick {t['library_ms']*1e3:.2f} us (keys {dqk}, values {dv})",
+          flush=True)
     return out
 
 
@@ -3688,6 +3878,445 @@ def _phase_fleet_rpc(card: str) -> None:
     print(f"[fleet] rpc shutdown: {len(workers)} workers closed", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the moe family: deepseek-moe-16b (GQA attention, routed experts) and
+# deepseek-v2-236b (MLA attention, its latent exchange)
+# ---------------------------------------------------------------------------
+
+MOE_SERVE_REQUESTS, MOE_SERVE_SLOTS, MOE_SERVE_CHUNK = 8, 4, 8
+
+
+def serve_moe(session, card: str, note: str) -> int:
+    """deepseek-moe-16b served through the dense slot pool
+    (``ServingRuntime``, MOE_SERVE_SLOTS slots): MOE_SERVE_REQUESTS greedy
+    requests of PROMPT_T + N_NEW tokens at once, each held against the
+    B 1 ``generate`` of its prompt under the plan that served it (token-
+    exact, or diverging only where the B 1 logits sit within
+    FLEET_TIE_TOL of a tie), flash-decode launches asserted = layers ×
+    (chunk steps + the prompts' decode-loop prefill steps) → launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.serving import ServingRuntime
+    cfg = session.cfg
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, PROMPT_T)
+               for _ in range(MOE_SERVE_REQUESTS)]
+    rt = ServingRuntime(session, n_slots=MOE_SERVE_SLOTS,
+                        chunk=MOE_SERVE_CHUNK, max_len=PROMPT_T + N_NEW)
+    before = rt.stats_snapshot()
+    flash_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [rt.submit(p, N_NEW, seed=i) for i, p in enumerate(prompts)]
+    done = {c.request_id: c for c in rt.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_decode.launches
+    steps = (rt.stats_snapshot()["chunks"] - before["chunks"]) * \
+        MOE_SERVE_CHUNK
+    want = cfg.n_layers * (steps + MOE_SERVE_REQUESTS * PROMPT_T)
+    if launches != want:
+        raise AssertionError(f"serve {cfg.name}: flash_decode launched "
+                             f"{launches} times, want {want}")
+    comps = {i: done[r.id] for i, r in enumerate(reqs)}
+    exact, div = _fleet_ref_tokens(session, comps, prompts)
+    lat = [c.latency_ms for c in comps.values()]
+    plans = sorted({c.plan_key for c in comps.values()})
+    print(f"[serve] {cfg.name}{note} slot pool ({MOE_SERVE_SLOTS} slots, "
+          f"chunk {MOE_SERVE_CHUNK}, plans {plans}): {len(prompts)} requests"
+          f" x {N_NEW} greedy tokens after {PROMPT_T}-token prompts in "
+          f"{wall:.2f} s: {len(prompts) / wall:.2f} requests/s, "
+          f"{len(prompts) * N_NEW / wall:.1f} tokens/s; latency p50 "
+          f"{np.percentile(lat, 50):.0f} ms p99 {np.percentile(lat, 99):.0f}"
+          f" ms; {_divergence(exact, len(prompts), div)} B 1 generate; "
+          f"flash_decode launches {launches} = {cfg.n_layers} layers x "
+          f"({steps} chunk steps + {MOE_SERVE_REQUESTS} x {PROMPT_T} prefill"
+          f" steps) [{card}]", flush=True)
+    return launches
+
+
+def _small_moe(arch):
+    """(reduced overrides, cfg, CPU params from seed 0, forward tokens,
+    prompt, decode tokens) of the small f32 ``arch`` (d 256, 8 heads): GQA
+    at dh 64 for deepseek-moe, MLA at deepseek-v2's widths (keys 128 + 64,
+    values 128, latent 64 + 64) for deepseek-v2; the kernels take
+    those."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLACfg
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", n_heads=8, n_kv_heads=8, d_model=256)
+    if arch == MOE:
+        reduced["head_dim"] = 64
+    else:
+        reduced["mla"] = MLACfg(kv_lora_rank=64, q_lora_rank=96,
+                                qk_nope_dim=128, qk_rope_dim=64,
+                                v_head_dim=128)
+    cfg = get_config(arch).reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    return (reduced, cfg, params,
+            *(torch.randint(0, cfg.vocab_size, (SMALL_LM_B, n), generator=g)
+              for n in (SMALL_LM_N, SMALL_LM_T0, SMALL_LM_STEPS)))
+
+
+def _small_moe_rank(rank, world, arch, device):
+    """One rank of the small f32 ``arch`` on ``device``: ``voltage`` and
+    ``prism`` forward logits and aux loss, sharded decode steps, greedy
+    tokens under both."""
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.models import transformer as tfm
+    _exact_fp32()
+    reduced, cfg, params, tokens, prompt, steps = _small_moe(arch)
+    plans = (ExecutionPlan.voltage(seq_shards=world),
+             ExecutionPlan.prism(L=SMALL_LM_L, cr=1.0, seq_shards=world))
+    session = InferenceSession.from_config(
+        arch, reduced=reduced, params=_on(params, device), device=device,
+        plans=list(plans))
+    out = {}
+    with torch.inference_mode():
+        for p in plans:
+            lg, aux = tfm.forward_lm(session.params,
+                                     {"tokens": tokens.to(device)}, cfg,
+                                     p.to_exchange_config())
+            out[f"fwd/{p.mode}"] = lg.cpu()
+            out[f"aux/{p.mode}"] = aux.cpu()
+    out["decode"] = _decode_steps(session.params, cfg,
+                                  plans[0].to_exchange_config(), steps,
+                                  device)
+    for p in plans:
+        out[f"gen/{p.mode}"] = session.generate(prompt, SMALL_LM_NEW,
+                                                plan=p).cpu()
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def phase_small_moe_reference() -> None:
+    """The small f32 deepseek-moe and deepseek-v2 on the card against the
+    same weights on the CPU.  In one process: the ``local`` forward
+    logits, 12 decode steps (flash-decode for deepseek-moe, the plain MLA
+    decode for deepseek-v2) ≤ 1e-4, greedy tokens exact, and the dense
+    slot pool serving token-exact.  On 2 ranks on the card against 2
+    ranks on the CPU: ``voltage`` and ``prism`` forward logits and aux
+    loss (segment means and PRISM attention: K and V at dh 64, or the
+    latent and keys 192 / values 128), 12 sharded decode steps ≤ 1e-4,
+    the ``voltage`` forward ≤ 1e-4 against the CPU's ``local``, greedy
+    tokens exact under both."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.api.generation import generate
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServingRuntime
+    local = ExchangeConfig()
+    rng = np.random.RandomState(8)
+    for arch in (MOE, MLA_ARCH):
+        t0 = time.perf_counter()
+        reduced, cfg, params, tokens, prompt, steps = _small_moe(arch)
+        prompts = [rng.randint(1, cfg.vocab_size, n) for n in (5, 11, 3)]
+        side = {}
+        for dev in ("cpu", "cuda"):
+            p = _on(params, dev)
+            with torch.inference_mode():
+                lg = tfm.forward_lm(p, {"tokens": tokens.to(dev)}, cfg,
+                                    local)[0].cpu()
+            session = InferenceSession.from_config(
+                arch, reduced=reduced, params=p, device=dev,
+                plans=[ExecutionPlan.local()])
+            session.profile(backend="simulated")
+            rt = ServingRuntime(session, n_slots=2, chunk=4, max_len=40)
+            side[dev] = dict(
+                fwd=lg, decode=_decode_steps(p, cfg, local, steps, dev),
+                gen=generate(p, prompt.to(dev), SMALL_LM_NEW, cfg,
+                             local).cpu(),
+                served=_serve_all(rt, prompts, 9))
+        cpu, gpu = side["cpu"], side["cuda"]
+        worst = {k: (gpu[k] - cpu[k]).abs().max().item()
+                 for k in ("fwd", "decode")}
+        for key, err in worst.items():
+            if not err <= 1e-4:
+                raise AssertionError(f"small f32 {arch} local {key}: card vs "
+                                     f"CPU differ by {err:.3e} > 1e-4")
+        if not torch.equal(gpu["gen"], cpu["gen"]) or not all(
+                np.array_equal(a, b)
+                for a, b in zip(gpu["served"], cpu["served"])):
+            raise AssertionError(f"small f32 {arch}: card tokens differ from "
+                                 f"the CPU's (generate or slot pool)")
+        ranks = {dev: spawn(_small_moe_rank, LM_P, arch, dev,
+                            timeout=RANK_TIMEOUT_S)
+                 for dev in ("cuda", "cpu")}
+        want = ranks["cpu"][0]
+        seq = {}
+        for key in ("fwd/voltage", "fwd/prism", "aux/voltage", "aux/prism",
+                    "decode"):
+            seq[key] = max(float(np.abs(r[key] - want[key]).max())
+                           for r in ranks["cuda"])
+            if not seq[key] <= 1e-4:
+                raise AssertionError(f"small f32 {arch} {key}: {LM_P} ranks "
+                                     f"on the card vs {LM_P} on the CPU "
+                                     f"differ by {seq[key]:.3e} > 1e-4")
+        volt = max(float(np.abs(r["fwd/voltage"] - cpu["fwd"].numpy()).max())
+                   for r in ranks["cuda"])
+        if not volt <= 1e-4:
+            raise AssertionError(f"small f32 {arch}: voltage on the card vs "
+                                 f"local on the CPU differ by {volt:.3e}")
+        for key in ("gen/voltage", "gen/prism"):
+            for r in ranks["cuda"] + ranks["cpu"]:
+                if not np.array_equal(r[key], want[key]):
+                    raise AssertionError(f"small f32 {arch} {key}: greedy "
+                                         f"tokens differ across ranks/devices")
+        if not np.array_equal(want["gen/voltage"], cpu["gen"].numpy()):
+            raise AssertionError(f"small f32 {arch}: voltage tokens differ "
+                                 f"from local's")
+        attn = (f"MLA latent {cfg.mla.kv_lora_rank} + {cfg.mla.qk_rope_dim},"
+                f" keys {cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim}, values "
+                f"{cfg.mla.v_head_dim}" if cfg.mla is not None
+                else f"dh {cfg.hd}")
+        print(f"[reference] reduced f32 {arch} ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads} heads, {attn}, "
+              f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}): local on "
+              f"the card vs the CPU, max |logit diff| forward "
+              f"{worst['fwd']:.2e}, {SMALL_LM_STEPS} decode steps "
+              f"{worst['decode']:.2e} (tol 1e-4), greedy tokens and "
+              f"{len(prompts)} slot-pool requests exact; {LM_P} ranks on the "
+              f"card vs {LM_P} on the CPU: voltage forward "
+              f"{seq['fwd/voltage']:.2e} (vs CPU local {volt:.2e}), "
+              f"prism(L={SMALL_LM_L}) {seq['fwd/prism']:.2e}, aux loss "
+              f"{max(seq['aux/voltage'], seq['aux/prism']):.2e}, "
+              f"{SMALL_LM_STEPS} sharded decode steps {seq['decode']:.2e} "
+              f"(tol 1e-4), greedy tokens exact under both; "
+              f"{time.perf_counter() - t0:.1f} s with rank start-up",
+              flush=True)
+
+
+# per arch, the layers a rank holds in [moe-seq]: the first (dense) layer
+# and 3 (deepseek-moe) or 1 (deepseek-v2) expert layers
+MOE_SEQ = ((MOE, 4), (MLA_ARCH, 2))
+
+
+def moe_seq_bytes(cfg, plan: str, P: int) -> dict:
+    """What each rank's staged calls receive in one ``forward_lm`` of
+    [LM_B, LM_N] under ``plan``, from shapes: the attention payload (K and
+    V, or MLA's latent; in full under ``voltage``, L means a partition
+    under ``prism``), and the routing call's meta (each MoE layer's
+    counts [B, 1 group, E] and two sums [E], f32)."""
+    if plan == "local":
+        return dict(payload=0, meta=0, calls=0)
+    Np = LM_N // P
+    tokens = Np if plan == "voltage" else LM_L
+    width = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+             if cfg.mla is not None else 2 * cfg.n_kv_heads * cfg.hd)
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    E = cfg.moe.n_experts
+    return dict(payload=cfg.n_layers * (P - 1) * LM_B * tokens * width
+                * cfg.torch_dtype.itemsize,
+                meta=n_moe * (P - 1) * (LM_B + 2) * E * 4,
+                calls=cfg.n_layers + n_moe + 1)      # + the logits broadcast
+
+
+def _cast(tree, dtype):
+    """``tree``'s floating-point tensors in ``dtype``, one at a time."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _moe_seq_rank(rank, world):
+    """One rank of deepseek-moe-16b and then deepseek-v2-236b at full
+    width, cut to MOE_SEQ's layers, on the shared card: the ``last_only``
+    forward of [LM_B, LM_N] under each plan (launches, payload and meta
+    bytes and calls asserted), then greedy ``generate`` of [PROMPT_B,
+    PROMPT_T] + N_NEW under ``voltage`` (flash-decode launches asserted,
+    tokens equal on both ranks, their agreement with this rank's own
+    ``local`` counted), and the same weights in f32 under ``voltage``
+    token-exact against ``local``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    group = get_seq_group("seq")
+    res = {}
+    for arch, n_layers in MOE_SEQ:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        params = registry.init_params(cfg, seed=0, device="cuda")
+        sums = torch.stack([leaf.double().sum() for leaf in
+                            _leaves(params)]).cpu().numpy().tobytes()
+        if group.broadcast_object(sums) != sums:
+            raise AssertionError(f"rank {rank}: {arch} weights differ from "
+                                 f"rank 0's")
+        plans = {"local": ExecutionPlan.local(),
+                 "voltage": ExecutionPlan.voltage(seq_shards=world),
+                 "prism": ExecutionPlan.prism(
+                     L=LM_L, cr=LM_N / (LM_L * world), seq_shards=world)}
+        session = InferenceSession(cfg, params, device="cuda",
+                                   plans=list(plans.values()))
+        del params
+        build_s = time.perf_counter() - t0
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_N), generator=g,
+                               device="cuda")
+        prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                               generator=g, device="cuda")
+        keys = ["voltage", "prism"] + ([] if cfg.mla is not None
+                                       else ["local"])
+
+        def forward(key):
+            with torch.inference_mode():
+                return tfm.forward_lm(session.params, {"tokens": tokens},
+                                      cfg, plans[key].to_exchange_config(),
+                                      last_only=True)[0]
+        for key in keys:                                # warm-up
+            forward(key)
+        fwd = {}
+        for key in keys:                                # the main path
+            segment_means.launches = prism_attention.launches = 0
+            last, *_ = _timed(lambda: forward(key), group)
+            counts = (segment_means.launches, prism_attention.launches)
+            st = group.stats
+            got = dict(payload=st.payload_bytes, meta=st.meta_bytes,
+                       calls=st.calls)
+            want = moe_seq_bytes(cfg, key, world)
+            if got != want:
+                raise AssertionError(f"rank {rank} {arch} {key}: staged "
+                                     f"{got}, the shapes give {want}")
+            n = cfg.n_layers if key == "prism" else 0
+            if counts != (n, n):
+                raise AssertionError(f"rank {rank} {arch} {key}: "
+                                     f"(segment_means, prism_attention) "
+                                     f"launches {counts}, want {(n, n)}")
+            if not torch.isfinite(last).all():
+                raise AssertionError(f"rank {rank} {arch} {key}: last "
+                                     f"logits not finite")
+            both = group.all_gather(last, kind="meta")
+            if not torch.equal(both[0], both[1]):
+                raise AssertionError(f"{arch} {key}: last logits differ "
+                                     f"between ranks")
+            runs = [_timed(lambda: forward(key), group) for _ in range(3)]
+            fwd[key] = dict(got, counts=counts,
+                            ms=statistics.median(r[1] for r in runs),
+                            staged_ms=statistics.median(r[2] for r in runs))
+        want = session.generate(prompt, N_NEW, plan=plans["local"])
+        session.generate(prompt, 2, plan=plans["voltage"])   # warm-up
+        flash_decode.launches = 0                            # the main path
+        out, w, sd, cd, md = _timed(
+            lambda: session.generate(prompt, N_NEW, plan=plans["voltage"]),
+            group)
+        launches = flash_decode.launches
+        steps = PROMPT_T + N_NEW - 1                 # decode-loop prefill
+        per_step = 0 if cfg.mla is not None else cfg.n_layers
+        if launches != steps * per_step:
+            raise AssertionError(f"rank {rank} {arch} voltage generate: "
+                                 f"flash_decode launched {launches} times, "
+                                 f"want {steps} x {per_step}")
+        both = group.all_gather(out, kind="meta")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"{arch} voltage: the ranks drew different "
+                                 f"tokens")
+        agree = (out == want).float().mean().item()
+        # in bf16 the sharded merge and the local kernel round apart, and a
+        # router near a tie amplifies that into another expert; the same
+        # weights in f32 must give local's tokens exactly
+        peak = torch.cuda.max_memory_allocated()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _cast(session.params, torch.float32)
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+        s32 = InferenceSession(cfg32, params32, device="cuda",
+                               plans=[plans["local"], plans["voltage"]])
+        del params32
+        want32 = s32.generate(prompt, N_NEW, plan=plans["local"])
+        got32 = s32.generate(prompt, N_NEW, plan=plans["voltage"])
+        if not torch.equal(got32, want32):
+            raise AssertionError(f"rank {rank} {arch} f32: voltage tokens "
+                                 f"{got32.tolist()} differ from local's "
+                                 f"{want32.tolist()}")
+        res[arch] = dict(fwd=fwd, build_s=build_s, gen_s=w / 1e3,
+                         gen_staged_s=sd / 1e3, gen_calls=cd,
+                         gen_merge=md, launches=launches, agree=agree,
+                         peak=peak)
+        del s32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_seq(card: str) -> dict:
+    """deepseek-moe-16b and deepseek-v2-236b at full width, cut to
+    MOE_SEQ's layers, on 2 ranks sharing the card → launch totals of
+    their ``prism`` forwards and ``voltage`` generate, summed over the
+    ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_moe_seq_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    out = {}
+    for arch, n_layers in MOE_SEQ:
+        full = get_config(arch)
+        r0, r1 = ranks[0][arch], ranks[1][arch]
+        attn = ("MLA, latent 512 + 64" if full.mla is not None
+                else f"{full.n_heads}/{full.n_kv_heads} heads dh {full.hd}")
+        print(f"[moe-seq] {arch} full width, {n_layers} of {full.n_layers} "
+              f"layers (the dense one and {n_layers - 1} of experts), {attn},"
+              f" bf16, random weights from seed 0, equal on both ranks; "
+              f"{LM_P} ranks sharing the card, gloo staged through host "
+              f"memory; built in {r0['build_s']:.1f} s, peak "
+              f"{r0['peak'] / 1e9:.2f} GB a rank", flush=True)
+        for key, f in r0["fwd"].items():
+            share = f["staged_ms"] / f["ms"] if f["ms"] else 0.0
+            sm, pa = f["counts"]
+            print(f"[moe-seq] {arch} forward_lm(last_only) {key}: B={LM_B} "
+                  f"N={LM_N}, per rank {f['ms']:.2f} ms (rank 1: "
+                  f"{r1['fwd'][key]['ms']:.2f} ms), staged "
+                  f"{f['staged_ms']:.2f} ms ({share:.1%}) in {f['calls']} "
+                  f"calls; received {f['payload'] / 1e6:.4f} MB payload + "
+                  f"{f['meta'] / 1e3:.2f} kB meta (the routing calls), "
+                  f"= the shapes' count; segment_means {sm}, prism_attention"
+                  f" {pa} launches (median of 3) [{card}]", flush=True)
+        print(f"[moe-seq] {arch} generate voltage [{PROMPT_B}, {PROMPT_T}] +"
+              f" {N_NEW}: {r0['gen_s']:.3f} s ({r0['gen_staged_s']:.3f} s "
+              f"staged in {r0['gen_calls']} calls, "
+              f"{r0['gen_merge'] / 1e3:.1f} kB of merge partials), the same "
+              f"tokens on both ranks, {r0['agree']:.0%} of them local's in "
+              f"bf16 (rank 1: {r1['agree']:.0%}); the same weights in f32 "
+              f"token-exact against local on both ranks; flash_decode "
+              f"launches {r0['launches']} a rank [{card}]", flush=True)
+        tag = "mla" if full.mla is not None else "moe"
+        pf = [r[arch]["fwd"]["prism"]["counts"] for r in ranks]
+        out[f"segment_means_{tag}"] = sum(c[0] for c in pf)
+        out[f"prism_attention_{tag}"] = sum(c[1] for c in pf)
+        out[f"flash_decode_{tag}"] = sum(r[arch]["launches"] for r in ranks)
+    m = get_config(MLA_ARCH)
+    Np, H = LM_N // LM_P, m.n_heads
+    dqk = m.mla.qk_nope_dim + m.mla.qk_rope_dim
+    lat = m.mla.kv_lora_rank + m.mla.qk_rope_dim
+    c = get_config(MOE)
+    print(f"[moe-seq] bytes a layer a rank, from shapes: {MOE} voltage K+V "
+          f"{LM_B} x {Np} x {c.n_kv_heads} x {c.hd} x 2 x 2 B = "
+          f"{LM_B * Np * c.n_kv_heads * c.hd * 4 / 1e6:.2f} MB; {MLA_ARCH} "
+          f"voltage latent {LM_B} x {Np} x {lat} x 2 B = "
+          f"{LM_B * Np * lat * 2 / 1e6:.2f} MB, prism(L={LM_L}) {LM_B} x "
+          f"{LM_L} x {lat} x 2 B = {LM_B * LM_L * lat * 2 / 1e3:.1f} kB; the "
+          f"expanded K/V an exchange of K and V would ship instead: {LM_B} x"
+          f" {Np} x {H} x ({dqk} + {m.mla.v_head_dim}) x 2 B = "
+          f"{LM_B * Np * H * (dqk + m.mla.v_head_dim) * 2 / 1e6:.1f} MB; "
+          f"{time.perf_counter() - t0:.1f} s with rank start-up", flush=True)
+    return out
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -3728,19 +4357,22 @@ def phase_build() -> None:
               flush=True)
     from repro_torch.kernels.prism_attention.kernel import \
         attributes as prism_attributes
-    for dtype, out_dtype, dh, warps in (
-            (torch.bfloat16, torch.bfloat16, 64, 7),
-            (torch.bfloat16, torch.float32, 64, 7),
-            (torch.bfloat16, torch.bfloat16, 128, 8),
-            (torch.bfloat16, torch.float32, 128, 8),
-            (torch.float32, torch.float32, 64, 0),
-            (torch.float32, torch.float32, 128, 0)):
+    for dtype, out_dtype, dh, dv, warps in (
+            (torch.bfloat16, torch.bfloat16, 64, 64, 7),
+            (torch.bfloat16, torch.float32, 64, 64, 7),
+            (torch.bfloat16, torch.bfloat16, 128, 128, 8),
+            (torch.bfloat16, torch.float32, 128, 128, 8),
+            (torch.bfloat16, torch.bfloat16, 192, 128, 8),
+            (torch.bfloat16, torch.float32, 192, 128, 8),
+            (torch.float32, torch.float32, 64, 64, 0),
+            (torch.float32, torch.float32, 128, 128, 0),
+            (torch.float32, torch.float32, 192, 128, 0)):
         body = (f"{warps} + 1 warps" if dtype == torch.bfloat16
                 else "CUDA-core body")
+        a = prism_attributes(dh, dtype, out_dtype, warps, dv=dv)
         print(f"[build] prism_attention {str(dtype).split('.')[1]} → "
-              f"{str(out_dtype).split('.')[1]} dh={dh} ({body}): "
-              f"{_resources(prism_attributes(dh, dtype, out_dtype, warps))}",
-              flush=True)
+              f"{str(out_dtype).split('.')[1]} dqk={dh} dv={dv} ({body}): "
+              f"{_resources(a)}", flush=True)
 
 
 def _resources(a: dict) -> str:
@@ -3760,29 +4392,43 @@ def main() -> None:
     print(f"[device] {name}, {count} device(s); nvidia-smi: {card}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    phase_build()
-    timed = phase_kernels()
-    shard = phase_shard_partial()
-    gemma_shard = phase_gemma_shard_partial()
-    paged = phase_paged_kernel()
-    exchange = phase_exchange_kernels()
-    phase_small_reference()
-    phase_small_serving()
-    phase_small_vit_reference()
-    phase_small_lm_reference()
-    phase_small_gemma_reference()
-    launches, session = phase_session(card)
-    serve_dense, serve_paged = phase_serve(card, session)
+    start = time.perf_counter()
+
+    def run(name, fn, *args):
+        """``fn(*args)``, its seconds printed as a line of their own."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name} {time.perf_counter() - t0:.1f} s (run "
+              f"{time.perf_counter() - start:.1f} s)", flush=True)
+        return out
+
+    run("build", phase_build)
+    timed = run("kernels", phase_kernels)
+    shard = run("shard partial", phase_shard_partial)
+    gemma_shard = run("gemma shard partial", phase_gemma_shard_partial)
+    paged = run("paged kernel", phase_paged_kernel)
+    exchange = run("exchange kernels", phase_exchange_kernels)
+    run("reference", phase_small_reference)
+    run("reference serving", phase_small_serving)
+    run("reference vit", phase_small_vit_reference)
+    run("reference lm", phase_small_lm_reference)
+    run("reference gemma", phase_small_gemma_reference)
+    run("reference moe", phase_small_moe_reference)
+    launches, session = run("session", phase_session, card)
+    serve_dense, serve_paged = run("serve", phase_serve, card, session)
     del session
     torch.cuda.empty_cache()
-    vit_launches = phase_vit(card)
-    lm_launches = phase_lm(card)
-    lm_launches["flash_decode"] += phase_codec(card)
-    gemma_launches = phase_gemma(card)
-    phase_profile_seq(card)
-    fleet_launches = phase_fleet(card)
-    archs = {arch: phase_arch_session(card, arch)
+    vit_launches = run("vit", phase_vit, card)
+    lm_launches = run("lm", phase_lm, card)
+    lm_launches["flash_decode"] += run("codec", phase_codec, card)
+    gemma_launches = run("gemma", phase_gemma, card)
+    run("profile-seq", phase_profile_seq, card)
+    fleet_launches = run("fleet", phase_fleet, card)
+    archs = {arch: run(f"arch {arch}", phase_arch_session, card, arch)
              for arch, _, _ in DECODE_ARCHS}
+    archs[MLA_ARCH] = run(f"arch {MLA_ARCH}", phase_arch_session, card,
+                          MLA_ARCH)
+    moe = run("moe-seq", phase_moe_seq, card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -3858,6 +4504,30 @@ def main() -> None:
             "source": src.format(kname, kname), "replaces": replaces,
             "launches": lm_launches[kname], "shape": shape,
             **{k: t[k] for k in keys}})
+    mnp = LM_N // LM_P
+    for kname, n, t, shape in (
+            ("segment_means", moe["segment_means_moe"],
+             exchange["segment_means_moe"],
+             f"{MOE} prism forward per rank ({LM_P} ranks): K and V bf16 "
+             f"[{LM_B}, {mnp}, 16·128] L={LM_L}"),
+            ("prism_attention", moe["prism_attention_moe"],
+             exchange["prism_attention_moe"],
+             f"{MOE} prism forward per rank: bf16 [{LM_B}, {mnp}] 16/16 "
+             f"heads dh=128 causal L={LM_L} part 1"),
+            ("segment_means", moe["segment_means_mla"],
+             exchange["segment_means_mla"],
+             f"{MLA_ARCH} prism forward per rank: the latent bf16 [{LM_B}, "
+             f"{mnp}, 512 + 64] L={LM_L}, one input"),
+            ("prism_attention", moe["prism_attention_mla"],
+             exchange["prism_attention_mla"],
+             f"{MLA_ARCH} prism forward per rank: bf16 [{LM_B}, {mnp}] "
+             f"128/128 heads, keys 192 (128 + 64), values 128, causal "
+             f"L={LM_L} part 1 (the (192, 128) instantiation)")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src.format(kname, kname),
+            "replaces": {r[0]: r[1] for r in rows}[kname], "launches": n,
+            "shape": shape, **{k: t[k] for k in keys}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -151,16 +151,22 @@ def build_generate_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Dict[str, int]]:
     """The batch axis of every leaf of ``init_decode_cache``: each half of
-    the cache (``kv``, or gemma2's ``local`` and ``global``) stacks its
-    layers first (``[layers, B, S, ...]``), so it is axis 1 for every
-    leaf, the int8 cache's scales included."""
-    tfm._require_dense(cfg)
-    names = ("k", "v", "k_scale", "v_scale") if cfg.kv_quant else ("k", "v")
+    the cache (``kv``, gemma2's ``local`` and ``global``, or the moe
+    family's ``first`` and ``kv``) stacks its layers first (``[layers, B,
+    S, ...]``), so it is axis 1 for every leaf, the int8 cache's scales
+    and MLA's latent ``c_kv`` and ``k_pe`` included."""
+    tfm._require_ported(cfg)
+    if cfg.mla is not None:
+        names = ("c_kv", "k_pe")
+    elif cfg.kv_quant:
+        names = ("k", "v", "k_scale", "v_scale")
+    else:
+        names = ("k", "v")
     return {half: {name: 1 for name in names}
             for _, half, _, _ in tfm.layer_stacks(cfg)}
 
 
-SLOT_POOL_FAMILIES = ("dense",)
+SLOT_POOL_FAMILIES = ("dense", "moe")
 
 
 def require_one_partition(xcfg: ExchangeConfig) -> None:
@@ -176,9 +182,11 @@ def require_one_partition(xcfg: ExchangeConfig) -> None:
 def supports_slot_pool(cfg: ModelConfig) -> bool:
     """The port slot-pools the dense family, gemma2's windowed local/global
     stack included (its cache's ``local`` and ``global`` halves share the
-    slot axis); moe, hybrid and ssm come with their families (ROADMAP
-    queue 1 item 11), and audio/vlm/vit have no poolable tokens-only
-    cache."""
+    slot axis), and the moe family (its ``first`` and ``kv`` halves, MLA's
+    latent cache included; a slot's MoE layer routes its one token alone,
+    as the JAX package's per-slot ``vmap`` does); hybrid and ssm come with
+    their families (ROADMAP queue 1 item 11), and audio/vlm/vit have no
+    poolable tokens-only cache."""
     return cfg.family in SLOT_POOL_FAMILIES
 
 

@@ -1,7 +1,8 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
 The port carries the dense decoders llama3.2-1b, internlm2-1.8b,
-qwen1.5-32b and gemma2-27b (windowed local/global layers), and vit-base-16
+qwen1.5-32b and gemma2-27b (windowed local/global layers), the moe family
+deepseek-moe-16b and deepseek-v2-236b (MLA attention), and vit-base-16
 (the paper's ViT encoder); the other architectures of the JAX package
 arrive with their model families.
 """
@@ -18,14 +19,14 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen1.5-32b": "qwen1_5_32b",
     "gemma2-27b": "gemma2_27b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "vit-base-16": "vit_base",
 }
 
 # archs of the JAX package that the port does not carry yet → the ROADMAP
 # queue 1 item that holds each
 _PENDING = {
-    "deepseek-moe-16b": "11",
-    "deepseek-v2-236b": "11",
     "hymba-1.5b": "11",
     "xlstm-350m": "11",
     "whisper-large-v3": "11",

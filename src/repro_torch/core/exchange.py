@@ -26,8 +26,12 @@ staged through host memory): each rank calls them with its own partition
 ``[B, N/P, ...]``, in place of the JAX package's ``shard_map`` body.
 VOLTAGE with ``overlap_chunks > 0`` runs the ring executor and PRISM with
 a non-default codec the codec exchange (``repro_torch.transport.
-executor``).  Not ported yet (ROADMAP queue 1): the cross-attention and
-MLA exchanges ([11, 7.5]).
+executor``).  The MLA latent exchange (``exchange_attention_mla``,
+DeepSeek-V2) moves ``[c_kv ‖ k_pe]`` instead of K/V: VOLTAGE gathers the
+latent, PRISM its segment means, and every rank expands what it holds
+with the up-projections; its decode merges each rank's latent-space
+partials (``mla_decode_attention_sharded``).  Not ported yet (ROADMAP
+queue 1): the cross-attention exchange ([11, 7.5]).
 """
 from __future__ import annotations
 
@@ -316,3 +320,123 @@ def _prism_decode(q, k_cache, v_cache, cache_len, rank, offset, k_means,
                                                                 vm)
     denom = w.sum(dim=-1).transpose(1, 2)[..., None]
     return (o / denom).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA latent exchange (DeepSeek-V2): compress-then-exchange the latent c_kv
+# ---------------------------------------------------------------------------
+
+def _mla_expand(c: torch.Tensor, pe: torch.Tensor, w_uk: torch.Tensor,
+                w_uv: torch.Tensor):
+    """Latent ``c`` [B, n, r] and rotary key ``pe`` [B, n, dr] → K
+    [B, n, H, d_nope + dr] (``pe`` shared by every head) and V
+    [B, n, H, d_v]."""
+    k_nope = torch.einsum("bnr,rhd->bnhd", c, w_uk)
+    pe_b = pe[:, :, None, :].expand(*k_nope.shape[:3], pe.shape[-1])
+    k = torch.cat([k_nope, pe_b], dim=-1)
+    v = torch.einsum("bnr,rhd->bnhd", c, w_uv)
+    return k, v
+
+
+def exchange_attention_mla(
+    q: torch.Tensor,        # [B, N, H, dq]  (dq = nope + rope)
+    c_kv: torch.Tensor,     # [B, N, r]      latent KV (post-norm)
+    k_pe: torch.Tensor,     # [B, N, dr]     shared rotary key
+    w_uk: torch.Tensor,     # [r, H, d_nope] up-projection for keys
+    w_uv: torch.Tensor,     # [r, H, d_v]    up-projection for values
+    cfg: ExchangeConfig,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    latent_sink: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Attention over the MLA latent → [B, N, H, d_v].
+
+    LOCAL / PRISM_SIM (and one partition): expand, then exact attention
+    (chunked above a memory threshold).  Across a seq group each rank
+    holds its partition ``[B, Np, ...]``:
+
+    * VOLTAGE: one gather of the latent ``[c_kv ‖ k_pe]`` ``[B, Np, r +
+      dr]``; every rank re-expands the whole of it and attends its queries
+      at ``q_offset = p·Np``.  ``latent_sink`` receives the gathered
+      ``[B, P·Np, r + dr]`` (a prefill fills its cache block from it).
+    * PRISM: the segment means of ``[c_kv ‖ k_pe]`` in one segment-means
+      launch (per column, the means of the concatenation are the
+      concatenation of the means the JAX package takes apart), one gather,
+      then the local latent and every partition's means expanded (the
+      up-projections are linear: mean-then-expand is expand-then-mean) and
+      the PRISM-attention kernel, K width d_nope + dr, V width d_v.
+    """
+    r = c_kv.shape[-1]
+    if not partitioned(cfg):
+        k, v = _mla_expand(c_kv, k_pe, w_uk, w_uv)
+        B, Nq, H = q.shape[:3]
+        if B * H * Nq * k.shape[1] * 4 > 0.5e9:
+            return chunked_reference_attention(q, k, v, causal=causal,
+                                               scale=scale)
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+    group = seq_group_for(cfg)
+    B, Np, H, dq = q.shape
+    lat = torch.cat([c_kv, k_pe], dim=-1)                    # [B, Np, r+dr]
+    if cfg.mode == ExchangeMode.VOLTAGE:
+        lat_all = group.all_gather(lat).permute(1, 0, 2, 3).reshape(
+            B, -1, lat.shape[-1])
+        if latent_sink is not None:
+            latent_sink(lat_all)
+        k, v = _mla_expand(lat_all[..., :r], lat_all[..., r:], w_uk, w_uv)
+        return chunked_reference_attention(q, k, v, causal=causal,
+                                           q_offset=group.rank * Np,
+                                           scale=scale)
+    L = cfg.L
+    P = group.world_size
+    means = group.all_gather(kdsp.segment_means(lat, L, axis=1))  # [P,B,L,·]
+    means = means.transpose(0, 1).reshape(B, P * L, -1)
+    k_loc, v_loc = _mla_expand(c_kv, k_pe, w_uk, w_uv)
+    km, vm = _mla_expand(means[..., :r], means[..., r:], w_uk, w_uv)
+    return kdsp.prism_attention(q, k_loc, v_loc,
+                                km.reshape(B, P, L, H, dq),
+                                vm.reshape(B, P, L, H, -1), group.rank,
+                                Np // L, causal=causal, scale=scale)
+
+
+def _mla_partials(q_lat, q_pe, c, pe, cache_len, offset: int, scale: float):
+    """One block's latent-space partial softmax → (o·l [B, H, r], m [B, H],
+    l [B, H]) f32.  Positions at or past the global ``cache_len`` score
+    -1e30, so a block with no valid one gives m = -1e30."""
+    lg = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c.float())
+          + torch.einsum("bqhd,bsd->bhqs", q_pe.float(), pe.float())) * scale
+    B, S = c.shape[:2]
+    valid = validity_mask(B, S, cache_len, offset=offset, device=c.device)
+    lg = torch.where(valid[:, None, None, :], lg, NEG_INF)[:, :, 0]
+    m = lg.amax(dim=-1)                                      # [B, H]
+    w = torch.exp(lg - m[..., None])
+    return torch.einsum("bhs,bsr->bhr", w, c.float()), m, w.sum(dim=-1)
+
+
+def mla_decode_attention_sharded(
+    q_lat: torch.Tensor,    # [B, 1, H, r]  absorbed no-pe query
+    q_pe: torch.Tensor,     # [B, 1, H, dr] rotary query
+    c_cache: torch.Tensor,  # [B, S, r]     latent cache (this rank's block)
+    pe_cache: torch.Tensor,  # [B, S, dr]
+    cache_len,              # [B] or scalar — global valid prefix
+    cfg: ExchangeConfig,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """One-token absorbed MLA attention over the latent cache → [B, 1, H,
+    r] in ``q_lat``'s dtype (plain torch, as the JAX package's is plain
+    jnp).  Across a seq group rank p holds positions ``[p·Sp, (p+1)·Sp)``:
+    each rank's partial softmax over its block, one gather of the packed
+    ``[B, H, r + 2]`` partials (booked as ``merge``), and the exact
+    log-sum-exp merge in rank order (``merge_partials``)."""
+    if not partitioned(cfg):
+        o, m, l = _mla_partials(q_lat, q_pe, c_cache, pe_cache, cache_len, 0,
+                                scale)
+        return (o / l[..., None]).to(q_lat.dtype)[:, None]
+    group = seq_group_for(cfg)
+    o, m, l = _mla_partials(q_lat, q_pe, c_cache, pe_cache, cache_len,
+                            group.rank * c_cache.shape[1], scale)
+    parts = group.all_gather(torch.cat([o, m[..., None], l[..., None]],
+                                       dim=-1), kind="merge")
+    out = merge_partials(parts[..., :-2], parts[..., -2], parts[..., -1])
+    return out.to(q_lat.dtype)[:, None]

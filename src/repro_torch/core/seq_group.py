@@ -19,7 +19,7 @@ card can compute while the bytes travel.  ``shift`` is the one-way
 point-to-point transfer of PRISM's halo exchange (``jax.lax.ppermute``
 over ``i → i + sft``), staged the same way.  On one card several ranks
 share it.  NCCL's device-side gather (the ``direct`` link, one card per
-rank) is ROADMAP queue 1 item 7.
+rank) is ROADMAP queue 1 item [7.6].
 
 A process registers its group under the mesh axis name that
 ``ExchangeConfig.seq_axis`` carries (``"seq"`` by default), and the

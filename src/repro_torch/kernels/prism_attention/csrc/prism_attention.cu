@@ -18,10 +18,17 @@
 // ragged last tile contribute nothing.
 //
 // The means are read where the exchange's gather leaves them: a
-// [B, P, L, Hk, dh] view, strided over B and P (element strides sb, sp),
-// contiguous inside a partition's (L, Hk, dh).  Mean m is (p, l) =
-// (m / L, m % L) and its bias is bias[b, m].  The flat [B, M, Hk, dh] form
-// is P = 1, L = M.
+// [B, P, L, Hk, dh] view, strided over B and P (element strides sb, sp;
+// the V means have strides of their own), contiguous inside a partition's
+// (L, Hk, dh).  Mean m is (p, l) = (m / L, m % L) and its bias is
+// bias[b, m].  The flat [B, M, Hk, dh] form is P = 1, L = M.
+//
+// Widths.  Queries and keys are DQK wide, values and the output DV: the
+// instantiations are (DQK, DV) = (64, 64), (128, 128), and (192, 128) for
+// DeepSeek-V2's MLA attention, whose keys are the expanded latent (128)
+// beside the shared rotary key (64) and whose values are 128 wide (128
+// heads, one per KV head).  Each body is templated on both widths: Q K^T
+// runs over DQK, P V and the accumulator over DV.
 //
 // Bound: in bf16 at the exchange's shapes, bytes.  It must read q, the
 // local K/V, the mean K/V that a query can see, the bias and the mask once
@@ -120,11 +127,16 @@ constexpr int MAX_DEVICES = 64;
 
 // Where mean m of batch row b starts for KV head 0, in elements.
 struct MeanLayout {
-  long long sb, sp;                // strides over B and over P
+  long long sb, sp;                // K means: strides over B and over P
+  long long vsb, vsp;              // V means: strides over B and over P
   int P, L;
   __device__ __forceinline__ size_t at(int b, int m, int Hk, int dh) const {
     const int p = m / L, l = m - p * L;
     return (size_t)(b * sb + p * sp) + (size_t)l * Hk * dh;
+  }
+  __device__ __forceinline__ size_t atv(int b, int m, int Hk, int dv) const {
+    const int p = m / L, l = m - p * L;
+    return (size_t)(b * vsb + p * vsp) + (size_t)l * Hk * dv;
   }
 };
 
@@ -163,39 +175,42 @@ __device__ __forceinline__ void sts(float* to, const float* from,
                     from[e + 3] * mul);
 }
 
-// K rows are padded to DH + 4 floats (KS in the kernel).
-template <int DH>
+// K rows are padded to DQK + 4 floats (KS in the kernel).
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (R * DH + TK * (DH + 4) + TK * DH + R * TK + 4 * R);
+  return sizeof(float) *
+         (R * DQK + TK * (DQK + 4) + TK * DV + R * TK + 4 * R);
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT)
-kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
-       const float* __restrict__ k,          // [B, Nk, Hk, DH]
-       const float* __restrict__ v,          // [B, Nk, Hk, DH]
+kernel(const float* __restrict__ q,          // [B, Nq, H, DQK]
+       const float* __restrict__ k,          // [B, Nk, Hk, DQK]
+       const float* __restrict__ v,          // [B, Nk, Hk, DV]
        const float* __restrict__ km,         // means, see MeanLayout
        const float* __restrict__ vm,
        const float* __restrict__ mean_bias,  // [B, M]
        const uint8_t* __restrict__ kv_mask,  // [B, Nk] or null
-       float* __restrict__ out,              // [B, Nq, H, DH]
+       float* __restrict__ out,              // [B, Nq, H, DV]
        int Nq, int Nk, MeanLayout ml, int H, int Hk, int TQ, int causal,
        int q_offset, float scale, float softcap) {
-  constexpr int KS = DH + 4;         // padded K row, in floats
-  constexpr int RSTEP = NT / DH;     // rows between a thread's elements
+  constexpr int KS = DQK + 4;        // padded K row, in floats
+  constexpr int RSTEP = NT / DV;     // rows between a thread's elements
   constexpr int NOUT = R / RSTEP;    // accumulator elements per thread
   constexpr int VEC = 4;             // floats per 16-byte load
-  constexpr int QLOADS = R * DH / VEC / NT;    // q loads per thread
-  constexpr int KLOADS = TK * DH / VEC / NT;   // K (and V) loads per thread
-  static_assert(NT % DH == 0 && R % NWARPS == 0 && TK == 32 &&
-                QLOADS * VEC * NT == R * DH && KLOADS * VEC * NT == TK * DH,
+  constexpr int QLOADS = R * DQK / VEC / NT;   // q loads per thread
+  constexpr int KLOADS = TK * DQK / VEC / NT;  // K loads per thread
+  constexpr int VLOADS = TK * DV / VEC / NT;   // V loads per thread
+  static_assert(NT % DV == 0 && R % NWARPS == 0 && TK == 32 &&
+                QLOADS * VEC * NT == R * DQK &&
+                KLOADS * VEC * NT == TK * DQK && VLOADS * VEC * NT == TK * DV,
                 "tile shape");
 
   extern __shared__ __align__(16) float smem[];
-  float* sq = smem;                      // [R][DH]   scaled queries
-  float* sk = sq + R * DH;               // [TK][KS]  K tile
-  float* sv = sk + TK * KS;              // [TK][DH]  V tile
-  float* sp = sv + TK * DH;              // [R][TK]   probabilities
+  float* sq = smem;                      // [R][DQK]  scaled queries
+  float* sk = sq + R * DQK;              // [TK][KS]  K tile
+  float* sv = sk + TK * KS;              // [TK][DV]  V tile
+  float* sp = sv + TK * DV;              // [R][TK]   probabilities
   float* sa = sp + R * TK;               // [R]       rescale of this tile
   float* sm = sa + R;                    // [R]       running max
   float* sl = sm + R;                    // [R]       running sum
@@ -215,12 +230,12 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
 #pragma unroll
     for (int it = 0; it < QLOADS; ++it) {
       const int c = (tid + it * NT) * VEC;
-      const int r = c / DH, d = c % DH;
+      const int r = c / DQK, d = c % DQK;
       const int g = r / TQ, qi = q0 + r % TQ;
       raw[it] = make_uint4(0, 0, 0, 0);
       if (g < G && qi < Nq)
         raw[it] = *reinterpret_cast<const uint4*>(
-            q + (((size_t)b * Nq + qi) * H + hk * G + g) * DH + d);
+            q + (((size_t)b * Nq + qi) * H + hk * G + g) * DQK + d);
     }
 #pragma unroll
     for (int it = 0; it < QLOADS; ++it) {
@@ -237,8 +252,8 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
   float acc[NOUT];
 #pragma unroll
   for (int i = 0; i < NOUT; ++i) acc[i] = 0.f;
-  const int d_own = tid % DH;        // this thread's output dim
-  const int r_own = tid / DH;        // and its first output row
+  const int d_own = tid % DV;        // this thread's output dim
+  const int r_own = tid / DV;        // and its first output row
 
   const int n_loc = (Nk + TK - 1) / TK;
   const int n_tiles = n_loc + (M + TK - 1) / TK;
@@ -246,18 +261,30 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
     const bool is_mean = tile >= n_loc;
     const int j0 = (is_mean ? tile - n_loc : tile) * TK;
     const int n = is_mean ? M : Nk;
-    uint4 kraw[KLOADS], vraw[KLOADS];
+    uint4 kraw[KLOADS], vraw[VLOADS];
 #pragma unroll
     for (int it = 0; it < KLOADS; ++it) {
       const int c = (tid + it * NT) * VEC;
-      const int t = c / DH, d = c % DH;
-      kraw[it] = vraw[it] = make_uint4(0, 0, 0, 0);
+      const int t = c / DQK, d = c % DQK;
+      kraw[it] = make_uint4(0, 0, 0, 0);
       if (j0 + t < n) {
         const size_t src =
-            (is_mean ? ml.at(b, j0 + t, Hk, DH)
-                     : ((size_t)b * Nk + j0 + t) * Hk * DH) +
-            (size_t)hk * DH + d;
+            (is_mean ? ml.at(b, j0 + t, Hk, DQK)
+                     : ((size_t)b * Nk + j0 + t) * Hk * DQK) +
+            (size_t)hk * DQK + d;
         kraw[it] = *reinterpret_cast<const uint4*>((is_mean ? km : k) + src);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < VLOADS; ++it) {
+      const int c = (tid + it * NT) * VEC;
+      const int t = c / DV, d = c % DV;
+      vraw[it] = make_uint4(0, 0, 0, 0);
+      if (j0 + t < n) {
+        const size_t src =
+            (is_mean ? ml.atv(b, j0 + t, Hk, DV)
+                     : ((size_t)b * Nk + j0 + t) * Hk * DV) +
+            (size_t)hk * DV + d;
         vraw[it] = *reinterpret_cast<const uint4*>((is_mean ? vm : v) + src);
       }
     }
@@ -265,12 +292,16 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
 #pragma unroll
     for (int it = 0; it < KLOADS; ++it) {
       const int c = (tid + it * NT) * VEC;
-      const int t = c / DH, d = c % DH;
       float f[VEC];
       unpack(kraw[it], f);
-      sts<VEC>(sk + t * KS + d, f);
+      sts<VEC>(sk + (c / DQK) * KS + c % DQK, f);
+    }
+#pragma unroll
+    for (int it = 0; it < VLOADS; ++it) {
+      const int c = (tid + it * NT) * VEC;
+      float f[VEC];
       unpack(vraw[it], f);
-      sts<VEC>(sv + t * DH + d, f);
+      sts<VEC>(sv + c, f);           // rows of DV floats, unpadded
     }
     __syncthreads();
 
@@ -283,11 +314,11 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
     for (int i = 0; i < RPW; ++i) s[i] = 0.f;
     const float* krow = sk + lane * KS;
 #pragma unroll 2
-    for (int d = 0; d < DH; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       const float4 kd = lds4(krow + d);
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
-        const float4 qd = lds4(sq + (warp + NWARPS * i) * DH + d);
+        const float4 qd = lds4(sq + (warp + NWARPS * i) * DQK + d);
         s[i] = fmaf(qd.x, kd.x, fmaf(qd.y, kd.y, fmaf(qd.z, kd.z,
                     fmaf(qd.w, kd.w, s[i]))));
       }
@@ -338,8 +369,8 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
     for (int i = 0; i < NOUT; ++i) acc[i] *= sa[r_own + RSTEP * i];
 #pragma unroll 2
     for (int t = 0; t < TK; t += 4) {
-      const float v0 = sv[t * DH + d_own], v1 = sv[(t + 1) * DH + d_own];
-      const float v2 = sv[(t + 2) * DH + d_own], v3 = sv[(t + 3) * DH + d_own];
+      const float v0 = sv[t * DV + d_own], v1 = sv[(t + 1) * DV + d_own];
+      const float v2 = sv[(t + 2) * DV + d_own], v3 = sv[(t + 3) * DV + d_own];
 #pragma unroll
       for (int i = 0; i < NOUT; ++i) {
         const float4 pr = lds4(sp + (r_own + RSTEP * i) * TK + t);
@@ -355,7 +386,7 @@ kernel(const float* __restrict__ q,          // [B, Nq, H, DH]
     const int r = r_own + RSTEP * i;
     const int g = r / TQ, qi = q0 + r % TQ;
     if (g < G && qi < Nq)
-      out[(((size_t)b * Nq + qi) * H + hk * G + g) * DH + d_own] =
+      out[(((size_t)b * Nq + qi) * H + hk * G + g) * DV + d_own] =
           acc[i] / sl[r];
   }
 }
@@ -482,17 +513,19 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-template <int DH>
+template <int DQK, int DV>
 constexpr size_t ring_bytes() {
-  return (size_t)STAGES * (2 * TK * DH * sizeof(bf16) + TK * sizeof(float) +
-                           2 * sizeof(uint64_t) + sizeof(int));
+  return (size_t)STAGES * (TK * (DQK + DV) * sizeof(bf16) +
+                           TK * sizeof(float) + 2 * sizeof(uint64_t) +
+                           sizeof(int));
 }
 
 // Shared memory of one launch: the ring (tiles, key biases, barriers,
 // ordinals) and one bit per mean tile.
-template <int DH>
+template <int DQK, int DV>
 size_t smem_bytes(int n_mean_tiles) {
-  return ring_bytes<DH>() + sizeof(unsigned) * ((n_mean_tiles + 31) / 32);
+  return ring_bytes<DQK, DV>() +
+         sizeof(unsigned) * ((n_mean_tiles + 31) / 32);
 }
 
 // One ring tile: TK keys of the local K/V (ordinals 0 .. n_loc - 1) or of
@@ -509,29 +542,33 @@ struct Tile {
 // TO is the output type: bf16 on the serving path; f32 when a check
 // wants the result before its final rounding to bf16.  The CTA is
 // blockDim.x / 32 - 1 consumer warps of 16 query rows and one producer
-// warp, the last.
-template <typename TO, int DH>
+// warp, the last.  K rows are DQK wide (CPRK 16-byte chunks, swizzled
+// within each group of 8 chunks), V rows DV (CPRV chunks).
+template <typename TO, int DQK, int DV>
 __global__ void __launch_bounds__(NT_MAX, 1)
-kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
-       const bf16* __restrict__ k,           // [B, Nk, Hk, DH]
-       const bf16* __restrict__ v,           // [B, Nk, Hk, DH]
+kernel(const bf16* __restrict__ q,           // [B, Nq, H, DQK]
+       const bf16* __restrict__ k,           // [B, Nk, Hk, DQK]
+       const bf16* __restrict__ v,           // [B, Nk, Hk, DV]
        const bf16* __restrict__ km,          // means, see MeanLayout
        const bf16* __restrict__ vm,
        const float* __restrict__ mean_bias,  // [B, M]
        const uint8_t* __restrict__ kv_mask,  // [B, Nk] or null
-       TO* __restrict__ out,                 // [B, Nq, H, DH]
+       TO* __restrict__ out,                 // [B, Nq, H, DV]
        int Nq, int Nk, MeanLayout ml, int H, int Hk, int causal,
        int q_offset, float scale, float softcap) {
-  constexpr int CPR = DH / 8;        // 16-byte chunks per row
-  constexpr int KSTEPS = DH / 16;    // k-steps of Q K^T
+  constexpr int CPRK = DQK / 8;      // 16-byte chunks per K row
+  constexpr int CPRV = DV / 8;       // and per V row
+  constexpr int KSTEPS = DQK / 16;   // k-steps of Q K^T
   constexpr int NBLK = TK / 8;       // 8-key score blocks of a tile
   constexpr float LOG2E = 1.4426950408889634f;
-  static_assert(TK % 16 == 0 && CPR % 4 == 0 && TK / 4 + 1 <= TK, "tile");
+  static_assert(TK % 16 == 0 && CPRK % 8 == 0 && CPRV % 8 == 0 &&
+                    TK / 4 + 1 <= TK,
+                "tile");
 
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);                  // [ST][TK][DH]
-  bf16* sv = sk + STAGES * TK * DH;                          // [ST][TK][DH]
-  float* skb = reinterpret_cast<float*>(sv + STAGES * TK * DH);  // [ST][TK]
+  bf16* sk = reinterpret_cast<bf16*>(smem);                  // [ST][TK][DQK]
+  bf16* sv = sk + STAGES * TK * DQK;                         // [ST][TK][DV]
+  float* skb = reinterpret_cast<float*>(sv + STAGES * TK * DV);  // [ST][TK]
   uint64_t* full = reinterpret_cast<uint64_t*>(skb + STAGES * TK);
   uint64_t* empty = full + STAGES;
   int* sord = reinterpret_cast<int*>(empty + STAGES);        // [ST]
@@ -547,16 +584,17 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
   const int n_loc = (Nk + TK - 1) / TK;
   const int tpp = (ml.L + TK - 1) / TK;      // mean tiles per partition
   const int n_all = n_loc + ml.P * tpp;
-  const size_t krow = (size_t)Hk * DH;       // elements from key to key
+  const size_t krow = (size_t)Hk * DQK;      // elements from key to key
+  const size_t vrow = (size_t)Hk * DV;       // and from value to value
 
   auto tile_of = [&](int ord) {
     Tile t;
     if (ord < n_loc) {
       t.j0 = ord * TK;
       t.n = min(TK, Nk - t.j0);
-      const size_t base = ((size_t)b * Nk + t.j0) * krow + (size_t)hk * DH;
-      t.k = k + base;
-      t.v = v + base;
+      const size_t row = (size_t)b * Nk + t.j0;
+      t.k = k + row * krow + (size_t)hk * DQK;
+      t.v = v + row * vrow + (size_t)hk * DV;
       t.bias0 = 0;
       t.mean = false;
     } else {
@@ -565,9 +603,8 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
       t.j0 = 0;
       t.n = min(TK, ml.L - l0);
       t.bias0 = b * M + p * ml.L + l0;
-      const size_t base = ml.at(b, p * ml.L + l0, Hk, DH) + (size_t)hk * DH;
-      t.k = km + base;
-      t.v = vm + base;
+      t.k = km + ml.at(b, p * ml.L + l0, Hk, DQK) + (size_t)hk * DQK;
+      t.v = vm + ml.atv(b, p * ml.L + l0, Hk, DV) + (size_t)hk * DV;
       t.mean = true;
     }
     return t;
@@ -582,10 +619,11 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
   const int rA = row0 + warp * 16 + g, rB = rA + 8;
   const bool okA = !producer && rA < rows, okB = !producer && rB < rows;
   const int qiA = rA / G, qiB = rB / G;
-  const size_t outA = (((size_t)b * Nq + (okA ? qiA : 0)) * H + hk * G +
-                       rA % G) * DH;
-  const size_t outB = (((size_t)b * Nq + (okB ? qiB : 0)) * H + hk * G +
-                       rB % G) * DH;
+  // (query, head) rows A and B: their index into q (DQK wide) and into
+  // out (DV wide) are these times the width
+  const size_t hA = ((size_t)b * Nq + (okA ? qiA : 0)) * H + hk * G + rA % G;
+  const size_t hB = ((size_t)b * Nq + (okB ? qiB : 0)) * H + hk * G + rB % G;
+  const size_t outA = hA * DV, outB = hB * DV;
   float bpre[BPRE];
   uint32_t qa[KSTEPS][4];
   if (producer) {
@@ -595,8 +633,8 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
       bpre[i] = m < M ? mean_bias[(size_t)b * M + m] : NEG_INF;
     }
   } else {
-    const uint32_t* pA = reinterpret_cast<const uint32_t*>(q + outA);
-    const uint32_t* pB = reinterpret_cast<const uint32_t*>(q + outB);
+    const uint32_t* pA = reinterpret_cast<const uint32_t*>(q + hA * DQK);
+    const uint32_t* pB = reinterpret_cast<const uint32_t*>(q + hB * DQK);
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
       qa[ks][0] = okA ? pA[8 * ks + tig] : 0u;
@@ -625,16 +663,29 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
     // (b·Nk + j0) % 4 + x of the slot).
     auto issue = [&](int ord, int slot) {
       const Tile t = tile_of(ord);
-      bf16* dk = sk + slot * TK * DH;
-      bf16* dv = sv + slot * TK * DH;
+      bf16* dk = sk + slot * TK * DQK;
+      bf16* dv = sv + slot * TK * DV;
+      // K and V rows of equal width go out together, chunk by chunk;
+      // V rows of another width in a loop of their own
 #pragma unroll 4
-      for (int c = lane; c < TK * CPR; c += 32) {
-        const int r = c / CPR, ch = c % CPR;
+      for (int c = lane; c < TK * CPRK; c += 32) {
+        const int r = c / CPRK, ch = c % CPRK;
         const bool ok = r < t.n;
         const size_t off = ok ? r * krow + ch * 8 : 0;
-        const int dst = (r * CPR + (ch ^ (r & 7))) * 8;
+        const int dst = (r * CPRK + (ch ^ (r & 7))) * 8;
         cp_async16(dk + dst, t.k + off, ok ? 16 : 0);
-        cp_async16(dv + dst, t.v + off, ok ? 16 : 0);
+        if constexpr (CPRV == CPRK)
+          cp_async16(dv + dst, t.v + off, ok ? 16 : 0);
+      }
+      if constexpr (CPRV != CPRK) {
+#pragma unroll 4
+        for (int c = lane; c < TK * CPRV; c += 32) {
+          const int r = c / CPRV, ch = c % CPRV;
+          const bool ok = r < t.n;
+          const size_t off = ok ? r * vrow + ch * 8 : 0;
+          cp_async16(dv + (r * CPRV + (ch ^ (r & 7))) * 8, t.v + off,
+                     ok ? 16 : 0);
+        }
       }
       float* kb = skb + slot * TK;
       if (t.mean) {
@@ -730,9 +781,9 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
 
   // ---- the consumer warps ----
   const bool warp_live = row0 + warp * 16 < rows;
-  float o[DH / 8][4];
+  float o[CPRV][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < CPRV; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
 
   // The math of one tile for this warp's 16 rows, in the log2 domain.
@@ -742,18 +793,18 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
   const float rcap = softcap > 0.f ? 1.f / softcap : 0.f;
   // S = Q K^T of the tile in `slot`, one 8-key block per accumulator
   auto scores = [&](int slot, float (&s)[NBLK][4]) {
-    const bf16* kt = sk + slot * TK * DH;
+    const bf16* kt = sk + slot * TK * DQK;
 #pragma unroll
     for (int nb = 0; nb < NBLK; ++nb)
       s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < CPR / 4; ++kc) {
+    for (int kc = 0; kc < CPRK / 4; ++kc) {
       uint32_t kr[NBLK][4];
 #pragma unroll
       for (int nb = 0; nb < NBLK; ++nb) {
         const int row = nb * 8 + (lane & 7);
         const int ch = 4 * kc + (lane >> 3);
-        ldm(kt + (row * CPR + (ch ^ (row & 7))) * 8, kr[nb], false);
+        ldm(kt + (row * CPRK + (ch ^ (row & 7))) * 8, kr[nb], false);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -765,7 +816,7 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
   // the online softmax of the tile's scores `s` and O += P V
   auto update = [&](int ord, int slot, float (&s)[NBLK][4]) {
     const Tile t = tile_of(ord);
-    const bf16* vt = sv + slot * TK * DH;
+    const bf16* vt = sv + slot * TK * DV;
     const float* kb = skb + slot * TK;
     // scale, softcap, then the bias (means) or the mask (local keys);
     // times log2(e); the tile's max of each row
@@ -839,7 +890,7 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
     lA = lA * aA + sA;
     lB = lB * aB + sB;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < CPRV; ++n) {
       o[n][0] *= aA;
       o[n][1] *= aA;
       o[n][2] *= aB;
@@ -855,19 +906,19 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
       split(s[2 * ks + 1][0], s[2 * ks + 1][1], hi[2], lo[2]);
       split(s[2 * ks + 1][2], s[2 * ks + 1][3], hi[3], lo[3]);
       const int row = ks * 16 + (j & 1) * 8 + (lane & 7);
-      uint32_t vr[CPR / 2][4];
+      uint32_t vr[CPRV / 2][4];
 #pragma unroll
-      for (int c = 0; c < CPR / 2; ++c) {
+      for (int c = 0; c < CPRV / 2; ++c) {
         const int ch = 2 * c + (j >> 1);
-        ldm(vt + (row * CPR + (ch ^ (row & 7))) * 8, vr[c], true);
+        ldm(vt + (row * CPRV + (ch ^ (row & 7))) * 8, vr[c], true);
       }
 #pragma unroll
-      for (int c = 0; c < CPR / 2; ++c) {
+      for (int c = 0; c < CPRV / 2; ++c) {
         mma(o[2 * c], hi, vr[c][0], vr[c][1]);
         mma(o[2 * c + 1], hi, vr[c][2], vr[c][3]);
       }
 #pragma unroll
-      for (int c = 0; c < CPR / 2; ++c) {
+      for (int c = 0; c < CPRV / 2; ++c) {
         mma(o[2 * c], lo, vr[c][0], vr[c][1]);
         mma(o[2 * c + 1], lo, vr[c][2], vr[c][3]);
       }
@@ -902,7 +953,7 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DH]
   lB += __shfl_xor_sync(0xffffffffu, lB, 2);
   const float iA = 1.f / lA, iB = 1.f / lB;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < CPRV; ++n) {
     if (okA) store2(out + outA + 8 * n + 2 * tig, o[n][0] * iA, o[n][1] * iA);
     if (okB) store2(out + outB + 8 * n + 2 * tig, o[n][2] * iB, o[n][3] * iB);
   }
@@ -939,23 +990,25 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The instantiation for (T, TO, DH): its kernel and launch geometry.
-template <typename T, typename TO, int DH>
+// The instantiation for (T, TO, DQK, DV): its kernel and launch geometry.
+template <typename T, typename TO, int DQK, int DV>
 struct Body;
 
-template <int DH>
-struct Body<float, float, DH> {
-  static auto fn() { return fma_body::kernel<DH>; }
+template <int DQK, int DV>
+struct Body<float, float, DQK, DV> {
+  static auto fn() { return fma_body::kernel<DQK, DV>; }
   static cudaError_t ready() {
     static bool done[MAX_DEVICES] = {};
     return allow_smem(fn(), done);
   }
   static int threads(int) { return fma_body::NT; }
-  static size_t smem(const Args&) { return fma_body::smem_bytes<DH>(); }
+  static size_t smem(const Args&) {
+    return fma_body::smem_bytes<DQK, DV>();
+  }
   static int launch(const Args& a, int) {
     const int TQ = fma_body::R / (a.H / a.Hk);
     const dim3 grid((a.Nq + TQ - 1) / TQ, a.Hk, a.B);
-    fma_body::kernel<DH><<<grid, fma_body::NT, smem(a), a.stream>>>(
+    fma_body::kernel<DQK, DV><<<grid, fma_body::NT, smem(a), a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.km),
         static_cast<const float*>(a.vm), static_cast<const float*>(a.bias),
@@ -966,9 +1019,9 @@ struct Body<float, float, DH> {
   }
 };
 
-template <typename TO, int DH>
-struct Body<__nv_bfloat16, TO, DH> {
-  static auto fn() { return mma_body::kernel<TO, DH>; }
+template <typename TO, int DQK, int DV>
+struct Body<__nv_bfloat16, TO, DQK, DV> {
+  static auto fn() { return mma_body::kernel<TO, DQK, DV>; }
   static cudaError_t ready() {
     static bool done[MAX_DEVICES] = {};
     return allow_smem(fn(), done);
@@ -976,14 +1029,15 @@ struct Body<__nv_bfloat16, TO, DH> {
   static int threads(int warps) { return 32 * (warps + 1); }
   static size_t smem(const Args& a) {
     const int tpp = (a.ml.L + mma_body::TK - 1) / mma_body::TK;
-    return mma_body::smem_bytes<DH>(a.ml.P * tpp);
+    return mma_body::smem_bytes<DQK, DV>(a.ml.P * tpp);
   }
   static int launch(const Args& a, int warps) {
     if (warps < 1 || warps > mma_body::MAX_WARPS) return -1;
     const int rows = a.Nq * (a.H / a.Hk), per = 16 * warps;
     const dim3 grid((rows + per - 1) / per, a.Hk, a.B);
     using bf16 = __nv_bfloat16;
-    mma_body::kernel<TO, DH><<<grid, threads(warps), smem(a), a.stream>>>(
+    mma_body::kernel<TO, DQK, DV>
+        <<<grid, threads(warps), smem(a), a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.km),
         static_cast<const bf16*>(a.vm), static_cast<const float*>(a.bias),
@@ -993,10 +1047,10 @@ struct Body<__nv_bfloat16, TO, DH> {
   }
 };
 
-template <typename T, typename TO, int DH>
+template <typename T, typename TO, int DQK, int DV>
 struct Launch {
   static int run(const Args& a, int warps) {
-    using Bd = Body<T, TO, DH>;
+    using Bd = Body<T, TO, DQK, DV>;
     cudaError_t err = Bd::ready();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int rc = Bd::launch(a, warps);
@@ -1007,10 +1061,10 @@ struct Launch {
 
 // Registers, spilled bytes, shared memory per CTA and resident CTAs per SM
 // (the bf16 body with `warps` warps and one word of tile bits).
-template <typename T, typename TO, int DH>
+template <typename T, typename TO, int DQK, int DV>
 struct Attributes {
   static int run(int warps, int* out) {
-    using Bd = Body<T, TO, DH>;
+    using Bd = Body<T, TO, DQK, DV>;
     cudaError_t err = Bd::ready();
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaFuncAttributes a;
@@ -1032,31 +1086,34 @@ struct Attributes {
   }
 };
 
-// Calls F<T, TO, DH>::run(args...) for the runtime choice, or returns -2
-// for a type or head dim the kernel does not take.
-template <template <typename, typename, int> class F, typename... A>
-int dispatch(int dh, int is_bf16, int out_f32, A... args) {
-  using bf16 = __nv_bfloat16;
-  if (!is_bf16) {
-    if (dh == 64) return F<float, float, 64>::run(args...);
-    if (dh == 128) return F<float, float, 128>::run(args...);
-  } else if (out_f32) {
-    if (dh == 64) return F<bf16, float, 64>::run(args...);
-    if (dh == 128) return F<bf16, float, 128>::run(args...);
-  } else {
-    if (dh == 64) return F<bf16, bf16, 64>::run(args...);
-    if (dh == 128) return F<bf16, bf16, 128>::run(args...);
-  }
+// Calls F<T, TO, DQK, DV>::run(args...) for the (DQK, DV) widths, or
+// returns -2 for widths the kernel does not take.
+template <template <typename, typename, int, int> class F, typename T,
+          typename TO, typename... A>
+int widths(int dqk, int dv, A... args) {
+  if (dqk == 64 && dv == 64) return F<T, TO, 64, 64>::run(args...);
+  if (dqk == 128 && dv == 128) return F<T, TO, 128, 128>::run(args...);
+  if (dqk == 192 && dv == 128) return F<T, TO, 192, 128>::run(args...);
   return -2;
+}
+
+// The same for the runtime choice of input and output types.
+template <template <typename, typename, int, int> class F, typename... A>
+int dispatch(int dqk, int dv, int is_bf16, int out_f32, A... args) {
+  using bf16 = __nv_bfloat16;
+  if (!is_bf16) return widths<F, float, float>(dqk, dv, args...);
+  if (out_f32) return widths<F, bf16, float>(dqk, dv, args...);
+  return widths<F, bf16, bf16>(dqk, dv, args...);
 }
 
 }  // namespace
 
 // Plain C entry point.  Returns cudaGetLastError() after the launch (0 on
 // success), or a negative code for a shape the kernel does not take.
-// Means: [B, P, L, Hk, dh] with element strides mean_sb (over B) and
-// mean_sp (over P), contiguous inside (L, Hk, dh); M = P * L, and the bias
-// is [B, M].  kv_mask may be null (every local key valid).  is_bf16: 1 for
+// q and K are dqk wide, V and out dv wide.  Means: K [B, P, L, Hk, dqk]
+// with element strides mean_sb (over B) and mean_sp (over P), V
+// [B, P, L, Hk, dv] with mean_vsb and mean_vsp, each contiguous inside
+// (L, Hk, ·); M = P * L, and the bias is [B, M].  kv_mask may be null (every local key valid).  is_bf16: 1 for
 // bfloat16 q/k/v/means, 0 for float32.  out_f32: 1 writes the output as
 // float32, 0 in the inputs' type (float32 inputs: 0 or 1 alike).  softcap
 // 0 means none.  warps: warps per CTA of the bf16 body (1 to 8, from
@@ -1065,24 +1122,25 @@ extern "C" int prism_attention_launch(
     const void* q, const void* k, const void* v, const void* km,
     const void* vm, const void* mean_bias, const void* kv_mask, void* out,
     int B, int Nq, int Nk, int P, int L, long long mean_sb,
-    long long mean_sp, int H, int Hk, int dh, int is_bf16, int out_f32,
-    int causal, int q_offset, float scale, float softcap, int warps,
-    void* stream) {
+    long long mean_sp, long long mean_vsb, long long mean_vsp, int H, int Hk,
+    int dqk, int dv, int is_bf16, int out_f32, int causal, int q_offset,
+    float scale, float softcap, int warps, void* stream) {
   if (B < 1 || Nq < 1 || Nk < 1 || P < 0 || L < 0 || Hk < 1 || H % Hk != 0)
     return -1;
   if (H / Hk > GMAX || B > 65535 || Hk > 65535) return -1;
   if ((long long)Nq * (H / Hk) > 0x7fffffffLL) return -1;
   if (P == 0 || L == 0) P = L = 0;
   const Args a = {q, k, v, km, vm, mean_bias, kv_mask, out, B, Nq, Nk, H,
-                  Hk, causal, q_offset, {mean_sb, mean_sp, P, L}, scale,
+                  Hk, causal, q_offset,
+                  {mean_sb, mean_sp, mean_vsb, mean_vsp, P, L}, scale,
                   softcap, static_cast<cudaStream_t>(stream)};
-  return dispatch<Launch>(dh, is_bf16, out_f32, a, warps);
+  return dispatch<Launch>(dqk, dv, is_bf16, out_f32, a, warps);
 }
 
 // out[4] = registers, spilled bytes, shared memory per CTA, CTAs per SM of
-// the instantiation (dh, input type, output type; `warps` warps for the
-// bf16 body); 0 on success.
-extern "C" int prism_attention_attributes(int dh, int is_bf16, int out_f32,
-                                          int warps, int* out) {
-  return dispatch<Attributes>(dh, is_bf16, out_f32, warps, out);
+// the instantiation (widths, input type, output type; `warps` warps for
+// the bf16 body); 0 on success.
+extern "C" int prism_attention_attributes(int dqk, int dv, int is_bf16,
+                                          int out_f32, int warps, int* out) {
+  return dispatch<Attributes>(dqk, dv, is_bf16, out_f32, warps, out);
 }

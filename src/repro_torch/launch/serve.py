@@ -20,7 +20,9 @@ over 2 partitions exchanging through that codec at its default parameter,
 and adds the codec to the simulated profiling sweep, so the policy may
 pick it (the policy line then names it).  Everything runs on ``--device``
 (the card unless ``--device cpu``); the model is the reduced config of
-``--arch`` unless ``--full`` asks for the published widths.
+``--arch`` unless ``--full`` asks for the published widths (refused,
+naming the sizes, where those weights exceed one device's memory:
+deepseek-v2-236b's 472 GB).
 
 PRISM here runs in its single-host simulation form (``prism_sim``), as
 in the JAX package's launcher: the serving pools hold one partition (the
@@ -35,6 +37,32 @@ import argparse
 import time
 
 import numpy as np
+
+
+def require_one_device_fits(arch: str, device: str) -> None:
+    """Raise ``SystemExit`` naming the sizes when ``arch``'s weights at
+    their published widths exceed the memory of one ``device`` (the card,
+    or the host's for the CPU): the serving pools hold a whole model on
+    one device."""
+    import os
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import weight_bytes
+    need = weight_bytes(get_config(arch))
+    if device == "cuda":
+        have = torch.cuda.get_device_properties(0).total_memory
+        where = torch.cuda.get_device_name(0)
+    else:
+        have = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        where = "this host"
+    if need > have:
+        raise SystemExit(
+            f"--arch {arch} --full: its weights take {need / 1e9:.1f} GB "
+            f"and do not fit one device ({where}: {have / 1e9:.1f} GB); "
+            f"serve it without --full (the reduced config), or cut its depth "
+            f"for a sharded run as chip_smoke.py's [arch] and [moe-seq] "
+            f"phases do")
 
 
 def main(argv=None):
@@ -113,6 +141,8 @@ def main(argv=None):
                                    codec_param=get_codec(
                                        args.codec).default_param))
         codecs = (args.codec,)
+    if args.full:
+        require_one_device_fits(args.arch, args.device)
     session = InferenceSession.from_config(
         args.arch, reduced=False if args.full else {"vocab_size": 512},
         plans=plans, objective=args.objective, allow_modes=allow,

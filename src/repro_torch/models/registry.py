@@ -1,5 +1,5 @@
 """Config → parameters, forward function and input specs, by model family
-(dense, vit).
+(dense, moe, vit).
 
 Port of ``repro.models.registry``.  ``init_params`` is the port's own
 initialisation: the JAX package's distributions, drawn from a
@@ -20,7 +20,7 @@ from repro_torch.models import vit as vit_mod
 
 # families whose inputs the port can describe; the others arrive with their
 # models (ROADMAP queue 1 item [11])
-INPUT_FAMILIES = ("dense", "vit")
+INPUT_FAMILIES = ("dense", "moe", "vit")
 
 
 class TensorSpec(NamedTuple):
@@ -49,6 +49,47 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
             specs["labels"] = TensorSpec((B, N), torch.int32)
         return specs
     return {"tokens": TensorSpec((B, 1), torch.int32)}
+
+
+def layer_weight_bytes(cfg: ModelConfig) -> Tuple[int, int]:
+    """Bytes of one decoder layer's weights → (a layer with a dense MLP: of
+    ``d_ff``, or the moe family's first layers' ``moe.d_ff_dense``; a
+    layer of experts, or 0): attention (GQA, or MLA's projections) and
+    norms, then the MLP or the experts (``E`` routed and the shared ones,
+    three matrices each, and the f32 router); weights in ``cfg.dtype``,
+    norms f32."""
+    d, hd, w = cfg.d_model, cfg.hd, cfg.torch_dtype.itemsize
+    if cfg.mla is not None:
+        m, H = cfg.mla, cfg.n_heads
+        attn = (d * m.q_lora_rank
+                + m.q_lora_rank * H * (m.qk_nope_dim + m.qk_rope_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_dim)
+                + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)
+                + H * m.v_head_dim * d) * w \
+            + (m.q_lora_rank + m.kv_lora_rank) * 4
+    else:
+        attn = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                + (hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                   if cfg.qkv_bias else 0)) * w
+    norms = 2 * d * 4
+    if cfg.moe is None:
+        return attn + norms + 3 * d * cfg.d_ff * w, 0
+    e = cfg.moe
+    experts = (3 * d * e.d_ff_expert * (e.n_experts + e.n_shared) * w
+               + d * e.n_experts * 4)
+    return attn + norms + 3 * d * e.d_ff_dense * w, attn + norms + experts
+
+
+def weight_bytes(cfg: ModelConfig) -> int:
+    """Bytes of a decoder's weights (``layer_weight_bytes`` over its
+    layers, the embedding and the head, the final norm)."""
+    dense, moe = layer_weight_bytes(cfg)
+    head = (cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+            * cfg.torch_dtype.itemsize + cfg.d_model * 4)
+    if cfg.moe is None:
+        return head + cfg.n_layers * dense
+    fd = cfg.moe.first_dense_layers
+    return head + fd * dense + (cfg.n_layers - fd) * moe
 
 
 def init_fn(cfg: ModelConfig) -> Callable:

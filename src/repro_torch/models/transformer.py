@@ -1,15 +1,28 @@
 """Transformer stacks — the dense decoder family (llama / qwen / internlm,
-and gemma2's local/global alternation).
+and gemma2's local/global alternation) and the moe family (deepseek-moe,
+and deepseek-v2 with MLA attention).
 
-Port of ``repro.models.transformer`` for ``family == "dense"``.  Layer
-parameters are Python lists of per-layer dicts walked in a loop (in place
-of the JAX package's stacked ``lax.scan`` layout): ``params["layers"]``,
-or for gemma2 (``cfg.local_global``) ``params["local_layers"]`` and
-``params["global_layers"]``, ``n_layers // 2`` each, walked in pairs — the
-local layer under the sliding ``cfg.window``, then the global one.  The
-decode cache keeps the stacked layout, ``{"kv": {leaf: [n_layers, B, S,
-...]}}`` or ``{"local": ..., "global": ...}`` stacked over the pairs, and
-each layer updates its slice of it in place.
+Port of ``repro.models.transformer`` for ``family`` "dense" and "moe".
+Layer parameters are Python lists of per-layer dicts walked in a loop (in
+place of the JAX package's stacked ``lax.scan`` layout), one list a stack
+(``layer_stacks``):
+
+* dense: ``params["layers"]``, or for gemma2 (``cfg.local_global``)
+  ``params["local_layers"]`` and ``params["global_layers"]``,
+  ``n_layers // 2`` each, walked in pairs — the local layer under the
+  sliding ``cfg.window``, then the global one;
+* moe: ``params["first_layers"]`` (``moe.first_dense_layers`` layers with
+  a dense MLP), then ``params["layers"]`` (routed and shared experts,
+  ``models.moe``); attention is GQA, or MLA (``models.mla``) where
+  ``cfg.mla`` is set.  ``forward_lm`` returns the experts' summed
+  load-balance loss as its ``aux``.
+
+The decode cache keeps the stacked layout, one half a stack: ``{"kv":
+{leaf: [n_layers, B, S, ...]}}``, gemma2's ``{"local": ..., "global":
+...}`` stacked over the pairs, or the moe family's ``{"first": ...,
+"kv": ...}`` (MLA: the latent leaves ``c_kv`` ``[.., B, S, r]`` and
+``k_pe`` ``[.., B, S, dr]``), and each layer updates its slice of it in
+place.
 
 Entry points:
   init_lm(cfg, gen)                        → params dict
@@ -32,8 +45,11 @@ block's partial attention (``exchange.decode_attention_sharded``).
 
 Under a partitioned plan a windowed layer's prefill exchanges only its
 halo under ``prism`` (``exchange.prism_prefill_attention``) and its decode
-merges the blocks' windowed partials.  The other families (moe, mla,
-hybrid, ssm, audio, vlm) are ROADMAP queue 1 item 11.
+merges the blocks' windowed partials.  A MoE layer routes a rank's tokens
+as the whole sequence's (one staged call of counts a layer,
+``moe.apply_moe``); its decode, whose token every rank holds, makes none.
+The other families (hybrid, ssm, audio, vlm) are ROADMAP queue 1 item
+11.
 """
 from __future__ import annotations
 
@@ -45,22 +61,27 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
                                        exchange_attention, gather_kv,
                                        partitioned, seq_group_for)
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_block, attention_decode,
                                        attention_decode_paged,
                                        embed, init_attention, init_embedding,
                                        init_kv_cache, init_mlp, init_norm,
                                        prefill_kv_cache, project_qkv, unembed)
+from repro_torch.models.moe import apply_moe, init_moe
 
 Params = Dict[str, Any]
 
 # single-pass prefill is defined for the attention-cached families the port
 # carries; the rest prefill by the teacher-forced decode loop
-PREFILL_FAMILIES = ("dense",)
+PREFILL_FAMILIES = ("dense", "moe")
+
+# the families whose stacks the port carries
+FAMILIES = ("dense", "moe")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item "
             f"11)")
@@ -119,14 +140,15 @@ def _apply_attn_mlp(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
     return _mlp_residual(p, x, h, cfg)
 
 
-def _apply_attn_mlp_prefill(p: Params, x, cfg: ModelConfig, xcfg,
-                            spec: AttnSpec, positions, cache, group=None):
-    """Full-sequence block that also writes the prompt K/V into the decode
-    cache — same math as ``_apply_attn_mlp``.  In a seq group the rank
-    fills its cache block with the prompt positions it owns, from the K/V
-    the exchange gathered (VOLTAGE) or from a gather of its own (PRISM,
-    and PRISM's halo exchange of a windowed layer, booked as ``cache``
-    bytes, apart from the exchange's)."""
+def _attn_prefill(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
+                  positions, cache, group=None):
+    """The attention of a full-sequence block (before its residual) that
+    also writes the prompt K/V into the decode cache — same math as
+    ``attention_block``.  In a seq group the rank fills its cache block
+    with the prompt positions it owns, from the K/V the exchange gathered
+    (VOLTAGE) or from a gather of its own (PRISM, and PRISM's halo
+    exchange of a windowed layer, booked as ``cache`` bytes, apart from
+    the exchange's)."""
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     q, k, v = project_qkv(p["attn"], xin, spec, positions)
     kw = dict(causal=spec.causal, window=spec.window,
@@ -146,8 +168,7 @@ def _apply_attn_mlp_prefill(p: Params, x, cfg: ModelConfig, xcfg,
         if hi > lo:
             prefill_kv_cache(cache, k_all[:, lo:hi], v_all[:, lo:hi])
     B, N = x.shape[:2]
-    h = attn.reshape(B, N, spec.n_heads * spec.head_dim) @ p["attn"]["wo"]
-    return _mlp_residual(p, x, h, cfg)
+    return attn.reshape(B, N, spec.n_heads * spec.head_dim) @ p["attn"]["wo"]
 
 
 def _apply_attn_mlp_decode(p: Params, x, cfg: ModelConfig, xcfg,
@@ -169,15 +190,90 @@ def _apply_attn_mlp_decode_paged(p: Params, x, cfg: ModelConfig, xcfg,
 
 
 # ---------------------------------------------------------------------------
+# moe layer init / apply
+# ---------------------------------------------------------------------------
+
+def _init_moe_layer(cfg: ModelConfig, gen: torch.Generator,
+                    dense_mlp: bool) -> Params:
+    """A moe-family layer: GQA or MLA attention, then a dense MLP of
+    ``moe.d_ff_dense`` (the first layers) or the experts."""
+    d, dtype, dev = cfg.d_model, cfg.torch_dtype, gen.device
+    p = {"ln1": init_norm(cfg.norm_type, d, dev),
+         "ln2": init_norm(cfg.norm_type, d, dev)}
+    if cfg.mla is not None:
+        p["attn"] = mla_mod.init_mla(gen, d, cfg.n_heads, cfg.mla, dtype)
+    else:
+        p["attn"] = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, dtype, qkv_bias=cfg.qkv_bias)
+    if dense_mlp:
+        p["mlp"] = init_mlp(gen, d, cfg.moe.d_ff_dense, dtype)
+    else:
+        p["moe"] = init_moe(gen, d, cfg.moe, dtype)
+    return p
+
+
+def _ffn_residual(p: Params, x, h, cfg: ModelConfig, group=None):
+    """Tail of a moe-family block: x + h, then x + ffn(ln2(x)) with the
+    layer's dense MLP or its experts (routed as the whole sequence of a
+    seq ``group``) → (x, the experts' aux loss or None)."""
+    x = x + h
+    hin = apply_norm(cfg.norm_type, p["ln2"], x)
+    if "moe" in p:
+        y, aux = apply_moe(p["moe"], hin, cfg.moe, cfg.act, group=group)
+        return x + y, aux
+    return x + apply_mlp(p["mlp"], hin, cfg.act), None
+
+
+def _apply_moe_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
+                     positions, group=None):
+    xin = apply_norm(cfg.norm_type, p["ln1"], x)
+    if cfg.mla is not None:
+        h = mla_mod.mla_block(p["attn"], xin, cfg.n_heads, cfg.mla, xcfg,
+                              positions=positions, rope_theta=cfg.rope_theta)
+    else:
+        h = attention_block(p["attn"], xin, spec, xcfg, positions=positions)
+    return _ffn_residual(p, x, h, cfg, group)
+
+
+def _apply_moe_prefill(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
+                       positions, cache, group=None):
+    if cfg.mla is not None:
+        h, _ = mla_mod.mla_prefill(
+            p["attn"], apply_norm(cfg.norm_type, p["ln1"], x), cfg.n_heads,
+            cfg.mla, xcfg, cache, positions=positions,
+            rope_theta=cfg.rope_theta)
+    else:
+        h = _attn_prefill(p, x, cfg, xcfg, spec, positions, cache, group)
+    return _ffn_residual(p, x, h, cfg, group)[0]
+
+
+def _apply_moe_decode(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
+                      cache, index):
+    xin = apply_norm(cfg.norm_type, p["ln1"], x)
+    if cfg.mla is not None:
+        h, _ = mla_mod.mla_decode(p["attn"], xin, cfg.n_heads, cfg.mla, xcfg,
+                                  cache, index, rope_theta=cfg.rope_theta)
+    else:
+        h, _ = attention_decode(p["attn"], xin, spec, xcfg, cache, index)
+    return _ffn_residual(p, x, h, cfg)[0]
+
+
+# ---------------------------------------------------------------------------
 # model init
 # ---------------------------------------------------------------------------
 
 def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int,
                                                   Optional[int]]]:
     """The model's layer stacks in walk order → (params list name, decode
-    cache half, depth, attention window): ``layers`` over ``kv``, or
+    cache half, depth, attention window): ``layers`` over ``kv``,
     gemma2's ``local_layers`` (the sliding window) over ``local`` and
-    ``global_layers`` over ``global``, ``n_layers // 2`` each."""
+    ``global_layers`` over ``global``, ``n_layers // 2`` each, or the moe
+    family's ``first_layers`` (dense MLPs) over ``first`` and then
+    ``layers`` (experts) over ``kv``."""
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        return [("first_layers", "first", fd, None),
+                ("layers", "kv", cfg.n_layers - fd, None)]
     if cfg.local_global:
         n = cfg.n_layers // 2
         return [("local_layers", "local", n, cfg.window),
@@ -186,8 +282,8 @@ def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int,
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """Dense decoder parameters drawn from ``gen`` on its device."""
-    _require_dense(cfg)
+    """Decoder parameters drawn from ``gen`` on its device."""
+    _require_ported(cfg)
     d, dtype = cfg.d_model, cfg.torch_dtype
     params: Params = {
         "embed": init_embedding(gen, cfg.vocab_size, d, dtype),
@@ -196,16 +292,24 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, d, dtype)
     for name, _, n, _ in layer_stacks(cfg):
-        params[name] = [_init_dense_layer(cfg, gen) for _ in range(n)]
+        if cfg.family == "moe":
+            params[name] = [_init_moe_layer(cfg, gen, name == "first_layers")
+                            for _ in range(n)]
+        else:
+            params[name] = [_init_dense_layer(cfg, gen) for _ in range(n)]
     return params
 
 
 def _walk(params: Params, cfg: ModelConfig):
     """Every layer in order → (its params, its attention spec, its cache
     half, its index in that half).  gemma2 alternates: local layer i (the
-    sliding window), then global layer i."""
+    sliding window), then global layer i; the moe family walks its stacks
+    one after the other."""
     stacks = [(params[name], _attn_spec(cfg, window=w), half)
               for name, half, _, w in layer_stacks(cfg)]
+    if cfg.family == "moe":
+        return [(lp, spec, half, i) for lps, spec, half in stacks
+                for i, lp in enumerate(lps)]
     return [(lps[i], spec, half, i)
             for i in range(len(stacks[0][0]))
             for lps, spec, half in stacks]
@@ -270,17 +374,23 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     """Full-sequence forward. batch: {"tokens": [B, N]} → (logits
     [B, N, V] f32, aux scalar).  ``last_only`` unembeds just the final
     position (logits [B, 1, V]).  Under a partitioned plan each rank runs
-    its part of the sequence and every rank returns the global logits."""
-    _require_dense(cfg)
+    its part of the sequence and every rank returns the global logits.
+    ``aux`` is the moe family's summed load-balance loss (0 otherwise)."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, N = tokens.shape
     group, start, n = _shard(xcfg, N)
     tokens = tokens[:, start:start + n]
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
-    for lp, spec, _, _ in _walk(params, cfg):
-        x = _apply_attn_mlp(lp, x, cfg, xcfg, spec, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, spec, _, _ in _walk(params, cfg):
+        if cfg.family == "moe":
+            x, a = _apply_moe_layer(lp, x, cfg, xcfg, spec, positions, group)
+            if a is not None:
+                aux = aux + a
+        else:
+            x = _apply_attn_mlp(lp, x, cfg, xcfg, spec, positions)
     if last_only:
         return _last_logits(params, x, cfg, group), aux
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
@@ -298,16 +408,22 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
 def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
                       device=None, xcfg: Optional[ExchangeConfig] = None
                       ) -> Params:
-    """Cache dict with a stacked leading layer dim (the JAX layout):
-    ``{"kv": ...}`` over the layers, or gemma2's ``{"local": ...,
-    "global": ...}`` over the pairs.  Under a partitioned ``xcfg`` every
-    half is this rank's block of ``ceil(seq / P)`` positions: the cache
-    rounds up to a multiple of P, and the padded slots are never valid."""
-    _require_dense(cfg)
+    """Cache dict with a stacked leading layer dim (the JAX layout), one
+    half a stack of ``layer_stacks``: ``{"kv": ...}`` over the layers,
+    gemma2's ``{"local": ..., "global": ...}`` over the pairs, or the moe
+    family's ``{"first": ..., "kv": ...}`` (MLA: the latent ``c_kv`` and
+    ``k_pe`` leaves).  Under a partitioned ``xcfg`` every half is this
+    rank's block of ``ceil(seq / P)`` positions: the cache rounds up to a
+    multiple of P, and the padded slots are never valid."""
+    _require_ported(cfg)
     if xcfg is not None and partitioned(xcfg):
         seq = -(-seq // xcfg.seq_shards)
-    c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
-                      quant=cfg.kv_quant, device=device)
+    if cfg.mla is not None:
+        c = mla_mod.init_mla_cache(batch, seq, cfg.mla, cfg.torch_dtype,
+                                   device=device)
+    else:
+        c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd,
+                          cfg.torch_dtype, quant=cfg.kv_quant, device=device)
     return {half: {name: t[None].repeat(n, *([1] * t.ndim))
                    for name, t in c.items()}
             for _, half, n, _ in layer_stacks(cfg)}
@@ -327,14 +443,16 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     cache updated in place). ``cache_index`` is the write position: an int
     for every row, or a ``[B]`` int tensor, one position per row (see
     ``layers.attention_decode``)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed(params["embed"], batch["tokens"],
               scale_by_sqrt_d=cfg.embed_scale)
     if isinstance(cache_index, torch.Tensor):      # once, not per layer
         cache_index = cache_index.to(device=x.device, dtype=torch.long)
+    layer = _apply_moe_decode if cfg.family == "moe" else \
+        _apply_attn_mlp_decode
     for lp, spec, half, i in _walk(params, cfg):
-        x = _apply_attn_mlp_decode(lp, x, cfg, xcfg, spec,
-                                   _layer_cache(cache, half, i), cache_index)
+        x = layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
+                  cache_index)
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
     return logits, cache
@@ -406,7 +524,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
         raise ValueError(f"family {cfg.family!r} has no single-pass "
                          f"prefill; use the decode-loop prefill "
                          f"(repro_torch.api.generation.prefill_by_decode)")
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, T0 = tokens.shape
     group, start, n = _shard(xcfg, T0)
@@ -414,6 +532,11 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
     for lp, spec, half, i in _walk(params, cfg):
-        x = _apply_attn_mlp_prefill(lp, x, cfg, xcfg, spec, positions,
-                                    _layer_cache(cache, half, i), group)
+        c = _layer_cache(cache, half, i)
+        if cfg.family == "moe":
+            x = _apply_moe_prefill(lp, x, cfg, xcfg, spec, positions, c,
+                                   group)
+        else:
+            h = _attn_prefill(lp, x, cfg, xcfg, spec, positions, c, group)
+            x = _mlp_residual(lp, x, h, cfg)
     return _last_logits(params, x, cfg, group), cache

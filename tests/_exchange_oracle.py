@@ -14,7 +14,11 @@ partition's queries over the whole K/V).  Both take the unpartitioned
 ``[B, N, ...]`` arrays and return the partitions' outputs concatenated,
 so they can stand in for the exchange functions inside ``forward_vit``.
 The codec exchange and the ring executor of ``repro.transport.executor``
-are composed the same way (``codec_oracle``, ``ring_oracle``).  A
+are composed the same way (``codec_oracle``, ``ring_oracle``), and so is
+the MLA latent exchange of ``repro.core.exchange.exchange_attention_mla``
+and ``mla_decode_attention_sharded`` (``mla_voltage_oracle``,
+``mla_prism_oracle``, ``mla_oracle`` choosing by mode,
+``mla_decode_sharded_oracle``).  A
 sliding-window layer takes ``voltage_oracle`` in both PRISM oracles, as
 the JAX package routes it: its halo exchange attends exactly under the
 window, and its codec exchange falls back to the Voltage gather.
@@ -23,6 +27,7 @@ import jax.numpy as jnp
 
 from repro.core import prism_attention as jpa
 from repro.core import segment_means as jsm
+from repro.kernels import dispatch as kdsp
 
 
 def _parts(t, P):
@@ -160,3 +165,95 @@ def ring_oracle(q, k, v, P, *, causal=False, logit_softcap=None,
         o, _, l = acc
         outs.append(o / l.transpose(0, 2, 1)[..., None])
     return jnp.concatenate(outs, axis=1)
+
+
+def _mla_expand(c, pe, w_uk, w_uv):
+    """The ``expand`` of ``repro.core.exchange.exchange_attention_mla``."""
+    k_nope = jnp.einsum("bnr,rhd->bnhd", c, w_uk)
+    pe_b = jnp.broadcast_to(pe[:, :, None, :],
+                            (*k_nope.shape[:3], pe.shape[-1]))
+    return (jnp.concatenate([k_nope, pe_b], axis=-1),
+            jnp.einsum("bnr,rhd->bnhd", c, w_uv))
+
+
+def mla_voltage_oracle(q, c_kv, k_pe, w_uk, w_uv, cfg, *, causal=True,
+                       scale=None):
+    """The per-device body of the VOLTAGE branch, partition by partition:
+    the whole latent re-expanded, each partition's queries at
+    ``q_offset = p·Np``."""
+    P = cfg.seq_shards
+    Np = q.shape[1] // P
+    k, v = _mla_expand(c_kv, k_pe, w_uk, w_uv)
+    return jnp.concatenate(
+        [jpa.chunked_reference_attention(qp, k, v, causal=causal,
+                                         q_offset=p * Np, scale=scale)
+         for p, qp in enumerate(_parts(q, P))], axis=1)
+
+
+def mla_prism_oracle(q, c_kv, k_pe, w_uk, w_uv, cfg, *, causal=True,
+                     scale=None):
+    """The per-device body of the PRISM branch (``prism_mla``), partition
+    by partition: the segment means of each partition's ``c_kv`` and
+    ``k_pe``, every partition's means expanded, the local latent expanded,
+    then ``kdsp.prism_attention``."""
+    P, L = cfg.seq_shards, cfg.L
+    B, _, H, dq = q.shape
+    r, d_v = c_kv.shape[-1], w_uv.shape[-1]
+    qs, cs, ps = _parts(q, P), _parts(c_kv, P), _parts(k_pe, P)
+    seg = cs[0].shape[1] // L
+    cm = jnp.stack([kdsp.segment_means(c, L, axis=1) for c in cs], axis=1)
+    pm = jnp.stack([kdsp.segment_means(pe, L, axis=1) for pe in ps], axis=1)
+    km, vm = _mla_expand(cm.reshape(B, P * L, r), pm.reshape(B, P * L, -1),
+                         w_uk, w_uv)
+    km = km.reshape(B, P, L, H, dq)
+    vm = vm.reshape(B, P, L, H, d_v)
+    outs = []
+    for p in range(P):
+        k_loc, v_loc = _mla_expand(cs[p], ps[p], w_uk, w_uv)
+        outs.append(kdsp.prism_attention(qs[p], k_loc, v_loc, km, vm, p,
+                                         seg, causal=causal, scale=scale))
+    return jnp.concatenate(outs, axis=1)
+
+
+def mla_oracle(q, c_kv, k_pe, w_uk, w_uv, cfg, *, causal=True, scale=None):
+    """``exchange_attention_mla`` with the partitioned branches composed:
+    VOLTAGE and PRISM through the oracles above, the rest as is."""
+    from repro.core import exchange as jx
+    if cfg.seq_axis is not None and cfg.seq_shards > 1:
+        if cfg.mode == jx.ExchangeMode.VOLTAGE:
+            return mla_voltage_oracle(q, c_kv, k_pe, w_uk, w_uv, cfg,
+                                      causal=causal, scale=scale)
+        if cfg.mode == jx.ExchangeMode.PRISM:
+            return mla_prism_oracle(q, c_kv, k_pe, w_uk, w_uv, cfg,
+                                    causal=causal, scale=scale)
+    return jx.exchange_attention_mla(q, c_kv, k_pe, w_uk, w_uv, cfg,
+                                     causal=causal, scale=scale)
+
+
+def mla_decode_sharded_oracle(q_lat, q_pe, c_cache, pe_cache, cache_len, P,
+                              *, scale):
+    """The per-device body (``shard_fn``) of the sharded branch of
+    ``mla_decode_attention_sharded`` on the cache [B, S, ...] split into P
+    blocks: each block's logits at its offset, the global max (``pmax``),
+    the summed weights and weighted latents (``psum``), then the quotient.
+    ``cache_len`` is a scalar, as the JAX function takes it."""
+    Sp = c_cache.shape[1] // P
+
+    def partial_attn(c, pe, off):
+        lg = (jnp.einsum("bqhr,bsr->bhqs", q_lat.astype(jnp.float32),
+                         c.astype(jnp.float32))
+              + jnp.einsum("bqhd,bsd->bhqs", q_pe.astype(jnp.float32),
+                           pe.astype(jnp.float32))) * scale
+        gpos = off + jnp.arange(c.shape[1])
+        return jnp.where((gpos < cache_len)[None, None, None, :], lg,
+                         jpa.NEG_INF)
+    blocks = [(c_cache[:, i * Sp:(i + 1) * Sp],
+               pe_cache[:, i * Sp:(i + 1) * Sp]) for i in range(P)]
+    lgs = [partial_attn(c, pe, i * Sp) for i, (c, pe) in enumerate(blocks)]
+    m_g = jnp.max(jnp.stack([jnp.max(lg, axis=-1, keepdims=True)
+                             for lg in lgs]), axis=0)
+    ws = [jnp.exp(lg - m_g) for lg in lgs]
+    l_g = sum(jnp.sum(w, axis=-1) for w in ws)
+    o_g = sum(jnp.einsum("bhqs,bsr->bqhr", w, c.astype(jnp.float32))
+              for w, (c, _) in zip(ws, blocks))
+    return (o_g / l_g.transpose(0, 2, 1)[..., None]).astype(q_lat.dtype)

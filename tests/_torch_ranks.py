@@ -359,3 +359,120 @@ def profile_seq(rank, world, job):
     session.dispatch(batch)
     return (json.dumps(pm.to_doc(), sort_keys=True), times, decisions,
             session.history[-1].exec_key)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.ascontiguousarray(tree))
+
+
+def moe_seq(rank, world, job):
+    """The moe family across the group, from the JAX weights:
+
+    * ``job["moe"]``: ``apply_moe`` on this rank's part of each case's
+      global x (routed as the whole sequence) → (y, aux, meta bytes,
+      calls);
+    * ``job["mla"]``: ``exchange_attention_mla`` on this rank's part →
+      (out, payload bytes, meta bytes, calls, segment-means calls);
+    * ``job["mla_decode"]``: ``mla_decode_attention_sharded`` on this
+      rank's block of the latent cache → (out, merge bytes, calls);
+    * per arch in ``job["archs"]``: ``forward_lm`` under each plan of
+      ``job["plans"]`` (logits, aux, payload, meta, calls, ``last_only``
+      logits), decode steps each from the given JAX cache (logits, merge
+      bytes, calls), greedy ``generate`` under each plan, and under
+      ``voltage`` with the single-pass prefill (tokens, cache bytes)."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.core import exchange as tx
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.moe import apply_moe
+    group = get_seq_group("seq")
+    res = {"moe": [], "mla": [], "mla_decode": []}
+    with torch.inference_mode():
+        for c in job["moe"]:
+            group.reset_stats()
+            y, aux = apply_moe(_tensors(c["params"]),
+                               _part(c["x"], rank, world),
+                               MoECfg(**c["cfg"]), group=group)
+            st = group.stats
+            res["moe"].append((_np(y), float(aux), st.meta_bytes, st.calls))
+        seg_calls = []
+        real = kdsp.segment_means
+
+        def counted(*a, **kw):
+            seg_calls.append(1)
+            return real(*a, **kw)
+        kdsp.segment_means = counted
+        try:
+            for c in job["mla"]:
+                group.reset_stats()
+                seg_calls.clear()
+                out = tx.exchange_attention_mla(
+                    _part(c["q"], rank, world), _part(c["c"], rank, world),
+                    _part(c["pe"], rank, world),
+                    torch.from_numpy(c["w_uk"]), torch.from_numpy(c["w_uv"]),
+                    _xcfg(c, world), causal=True, scale=c["scale"])
+                st = group.stats
+                res["mla"].append((_np(out), st.payload_bytes, st.meta_bytes,
+                                   st.calls, len(seg_calls)))
+        finally:
+            kdsp.segment_means = real
+        for c in job["mla_decode"]:
+            group.reset_stats()
+            out = tx.mla_decode_attention_sharded(
+                torch.from_numpy(c["q_lat"]), torch.from_numpy(c["q_pe"]),
+                torch.from_numpy(cache_block(c["c"], rank, world, 1)),
+                torch.from_numpy(cache_block(c["pe"], rank, world, 1)),
+                c["cache_len"], _xcfg(c, world), scale=c["scale"])
+            res["mla_decode"].append((_np(out), group.stats.merge_bytes,
+                                      group.stats.calls))
+    for label, a in job["archs"].items():
+        cfg = get_config(a["arch"]).reduced(**a["reduced"])
+        session = InferenceSession.from_config(
+            a["arch"], reduced=a["reduced"], device="cpu",
+            params=params_from_numpy(a["params"], cfg))
+        plans = {name: ExecutionPlan(seq_axis="seq", seq_shards=world, **kw)
+                 for name, kw in job["plans"].items()}
+        r = res[label] = {}
+        toks = torch.from_numpy(job["tokens"])
+        with torch.inference_mode():
+            for name, plan in plans.items():
+                xcfg = plan.to_exchange_config()
+                group.reset_stats()
+                logits, aux = tfm.forward_lm(session.params, {"tokens": toks},
+                                             cfg, xcfg)
+                st = group.stats
+                moved = (st.payload_bytes, st.meta_bytes, st.calls)
+                last = tfm.forward_lm(session.params, {"tokens": toks}, cfg,
+                                      xcfg, last_only=True)[0]
+                r[f"fwd/{name}"] = (_np(logits), float(aux), *moved,
+                                    _np(last))
+                steps = job["decode_tokens"]
+                got = []
+                for t, full in enumerate(a["caches"]):
+                    cache = {half: {k: torch.from_numpy(
+                        cache_block(v, rank, world, 2))
+                        for k, v in leaves.items()}
+                        for half, leaves in full.items()}
+                    group.reset_stats()
+                    lg, _ = tfm.decode_step(
+                        session.params,
+                        {"tokens": torch.from_numpy(steps[:, t:t + 1])},
+                        cache, t, cfg, xcfg)
+                    got.append((_np(lg), group.stats.merge_bytes,
+                                group.stats.calls))
+                r[f"decode/{name}"] = got
+        prompt = torch.from_numpy(job["prompt"])
+        for name, plan in plans.items():
+            r[f"gen/{name}"] = _np(session.generate(prompt, job["n_new"],
+                                                    plan=plan))
+        group.reset_stats()
+        out = session.generate(prompt, job["n_new"], plan=plans["voltage"],
+                               prefill_mode="single_pass")
+        r["gen/voltage/single_pass"] = (_np(out), group.stats.cache_bytes,
+                                        group.stats.meta_bytes)
+    return res

@@ -308,20 +308,26 @@ def test_segment_means_kv_kernel_matches_plain_version(cuda_device, case):
 
 
 def _prism_inputs(device, B, Np, H, Hk, dh, P, L, part, *, causal, masked,
-                  seed):
+                  seed, dv=None, dtype=torch.bfloat16):
     """q/K/V of one partition, every partition's means as the exchange
     hands them over (a [B, P, L, Hk, dh] view of the gathered
-    [P, 2, B, L, Hk, dh] payload) and flat, and the mean bias."""
+    [P, 2, B, L, Hk, dh] payload; with a value width ``dv`` apart, the
+    MLA exchange's contiguous [B, P, L, Hk, ·] K and V means) and flat,
+    and the mean bias."""
     from repro_torch.kernels.prism_attention import build_mean_bias
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(*shape, generator=g, device=device).to(
-            torch.bfloat16)
-    q, k, v = randn(B, Np, H, dh), randn(B, Np, Hk, dh), randn(B, Np, Hk, dh)
-    gathered = randn(P, 2, B, L, Hk, dh)
-    means = gathered.permute(1, 2, 0, 3, 4, 5)
-    flat = [m.reshape(B, P * L, Hk, dh) for m in means]
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+    q, k = randn(B, Np, H, dh), randn(B, Np, Hk, dh)
+    if dv is None:
+        v = randn(B, Np, Hk, dh)
+        gathered = randn(P, 2, B, L, Hk, dh)
+        means = gathered.permute(1, 2, 0, 3, 4, 5)
+    else:
+        v = randn(B, Np, Hk, dv)
+        means = (randn(B, P, L, Hk, dh), randn(B, P, L, Hk, dv))
+    flat = [m.reshape(B, P * L, Hk, m.shape[-1]) for m in means]
     mask = counts = None
     if masked:
         mask = torch.rand(B, Np, generator=g, device=device) > 0.1
@@ -335,11 +341,11 @@ def _prism_inputs(device, B, Np, H, Hk, dh, P, L, part, *, causal, masked,
 
 
 def _assert_prism_close(args, flat, *, causal, mask, scale=None,
-                        softcap=None):
+                        softcap=None, atol=1e-6):
     """The kernel on ``args`` against the plain version on the flat means:
     the f32 result before the cast within 1e-3 relative max error, the
-    bf16 output within one bf16 step (2^-7 relative) per element.  One
-    launch per call."""
+    bf16 output within one bf16 step (2^-7 relative) per element, plus
+    ``atol`` times the largest output.  One launch per call."""
     from repro_torch.kernels.prism_attention import (prism_attention,
                                                      prism_attention_ref)
     q, k, v, _, _, bias = args
@@ -356,7 +362,7 @@ def _assert_prism_close(args, flat, *, causal, mask, scale=None,
                                  out_dtype=torch.float32, **kw)
     assert torch.isfinite(got32).all() and _rel_err(got32, want32) <= 1e-3
     assert torch.isclose(got.float(), want.float(), rtol=2.0 ** -7,
-                         atol=1e-6 * want.float().abs().max().item()).all()
+                         atol=atol * want.float().abs().max().item()).all()
 
 
 @pytest.mark.gpu
@@ -625,6 +631,59 @@ def test_prism_attention_at_the_gemma2_shape(cuda_device, part):
                                      causal=True, masked=False, seed=12)
     _assert_prism_close(args, flat, causal=True, mask=mask,
                         scale=GEMMA["scale"], softcap=GEMMA["softcap"])
+
+
+MLA = dict(H=128, dqk=192, dv=128)     # deepseek-v2's PRISM attention
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [0, 1])
+def test_prism_attention_at_the_mla_shape(cuda_device, part):
+    """deepseek-v2's latent exchange on 2 ranks: q [4, 256, 128, 192],
+    128 KV heads (G 1), V 128 wide, causal, L 16, the means expanded
+    from the gathered latent; partitions 0 and 1.  The f32 results agree
+    to about 2e-6 of the largest output, as at the other widths; over 16.8
+    M outputs a near-zero one can then round to either side of a bf16
+    step, so the per-element check allows 1e-5 of the largest output."""
+    args, flat, mask = _prism_inputs(cuda_device, 4, 256, MLA["H"],
+                                     MLA["H"], MLA["dqk"], 2, 16, part,
+                                     causal=True, masked=False, seed=20,
+                                     dv=MLA["dv"])
+    _assert_prism_close(args, flat, causal=True, mask=mask, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_prism_attention_at_the_mla_shape_in_f32_and_masked(cuda_device):
+    """The (192, 128) instantiation's CUDA-core body in f32 (≤ 1e-5) and
+    its tensor-core body with a key mask that hides every local key of a
+    batch row whose means are hidden too (part 0, causal: the uniform
+    row), against the plain version; output V-wide."""
+    from repro_torch.kernels.prism_attention import (prism_attention,
+                                                     prism_attention_ref)
+    args, flat, _ = _prism_inputs(cuda_device, 2, 64, 8, 8, MLA["dqk"], 2,
+                                  16, 1, causal=True, masked=False, seed=21,
+                                  dv=MLA["dv"], dtype=torch.float32)
+    got = prism_attention(*args, causal=True)
+    want = prism_attention_ref(*args[:3], *flat, args[5], causal=True)
+    assert got.shape == (2, 64, 8, MLA["dv"])
+    assert _rel_err(got, want) <= 1e-5
+    args, flat, _ = _prism_inputs(cuda_device, 2, 64, 8, 8, MLA["dqk"], 2,
+                                  16, 0, causal=True, masked=False, seed=22,
+                                  dv=MLA["dv"])
+    mask = torch.ones(2, 64, dtype=torch.bool, device=cuda_device)
+    mask[1] = False
+    _assert_prism_close(args, flat, causal=True, mask=mask)
+
+
+@pytest.mark.gpu
+def test_prism_attention_refuses_widths_it_has_no_body_for(cuda_device):
+    """A CUDA tensor at widths no instantiation takes raises; it is never
+    sent to the plain version."""
+    from repro_torch.kernels.prism_attention import prism_attention
+    args, _, _ = _prism_inputs(cuda_device, 1, 32, 4, 4, 128, 2, 4, 1,
+                               causal=True, masked=False, seed=23, dv=64)
+    with pytest.raises(ValueError, match="widths"):
+        prism_attention(*args, causal=True)
 
 
 @pytest.mark.gpu

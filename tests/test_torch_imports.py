@@ -35,6 +35,8 @@ def test_port_imports_without_jax_or_repro():
     assert int(out.stdout.split()[-1]) >= 30       # every module imported
     assert "repro_torch.transport.executor" in out.stdout.split()
     assert "repro_torch.configs.gemma2_27b" in out.stdout.split()
+    for name in MOE_FAMILY:
+        assert name in out.stdout.split()
     for name in FLEET_TIER:
         assert name in out.stdout.split()
 
@@ -43,6 +45,9 @@ IMPORT_LINE = re.compile(r"^\s*(import jax|from jax|import repro\b|"
                          r"from repro(\.| )|import ml_dtypes|from ml_dtypes)")
 FLEET_TIER = ("repro_torch.fleet.router", "repro_torch.rpc.worker",
               "repro_torch.chaos.controller")
+MOE_FAMILY = ("repro_torch.models.moe", "repro_torch.models.mla",
+              "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.configs.deepseek_v2_236b")
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -52,6 +57,18 @@ def test_no_source_line_imports_jax_or_repro():
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if IMPORT_LINE.match(line)]
     assert len(files) > 30 and not bad, bad
+
+
+def test_moe_family_sources_import_nothing_of_jax():
+    """The moe family's modules (experts, MLA, both configs) and the
+    exchange that carries the MLA latent import neither JAX, nor `repro`,
+    nor `ml_dtypes`, in any line."""
+    for name in MOE_FAMILY + ("repro_torch.core.exchange",
+                              "repro_torch.models.transformer"):
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        bad = [i for i, line in enumerate(path.read_text().splitlines(), 1)
+               if IMPORT_LINE.match(line)]
+        assert not bad, (name, bad)
 
 
 def test_fleet_tier_sources_import_nothing_of_jax():

@@ -413,7 +413,7 @@ def test_input_specs_of_unported_families_raise():
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models import registry
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), family="moe")
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), family="hybrid")
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP queue 1 item \[11\]"):
         registry.input_specs(cfg, ShapeSpec("s", 8, 1, "prefill"))

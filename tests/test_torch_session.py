@@ -132,7 +132,7 @@ def test_card_is_never_replaced_by_the_cpu():
 def test_unported_paths_raise_naming_the_roadmap():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("deepseek-moe-16b")
+        get_config("hymba-1.5b")
     js, ts = _pair()
     # a codec plan runs now, as in the JAX package (its logits as JAX's)
     key = ts.add_plan(TPlan("prism_sim", 0.0, 0, "seq", 2, codec="int8"))
