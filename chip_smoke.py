@@ -64,6 +64,17 @@ Phases, one line each (more for the kernel table):
                a fully masked row), each timed beside ``mean()`` or sdpa;
                flash-decode at deepseek-moe-16b's decode shape (B 4, S 48,
                16/16, dh 128).
+   The cross-attention memories (``xattn kernels``): flash-decode over
+               whisper-large-v3's 1500 frames (20/20 heads, dh 64) and
+               llama-3.2-vision-11b's 1601 image tokens (32/8, dh 128) at
+               B 4; the shard partial of rank 1 of 2 over the memory
+               padded for L 16 (Mp 752 with 748 valid, Mp 816 with 785)
+               and both blocks merged; the masked segment means of that
+               block's K and V (held before the cast to bf16, the bf16
+               means within one rounding step); the masked non-causal
+               PRISM attention of a text partition q [4, 256] over the
+               block (Nq ≠ Nk) and both blocks' means (parts 0 and 1),
+               each timed beside sdpa or ``mean()``.
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -84,7 +95,13 @@ Phases, one line each (more for the kernel table):
                forward, 12 decode steps and greedy tokens on the card vs
                the CPU and the slot pool token-exact, and on 2 card ranks
                vs 2 CPU ranks ``voltage`` and ``prism`` forwards, aux
-               loss, sharded decode steps (≤ 1e-4) and greedy tokens.
+               loss, sharded decode steps (≤ 1e-4) and greedy tokens; a
+               small f32 whisper and vision model (dh 64, a 13-token
+               memory, the vision gates at 0.5), in one process ``local``
+               and ``prism_sim`` forwards, 12 decode steps over the padded
+               memory and greedy tokens on the card vs the CPU, and on 2
+               card ranks vs 2 CPU ranks ``voltage`` and ``prism``
+               forwards, sharded decode steps (≤ 1e-4) and greedy tokens.
 5. session   — llama3.2-1b at full width: ``InferenceSession`` profile
                (``measured`` on the H100 presets, batches 1-32, the curve
                ``H100_SXM`` is fitted to, with the card's power draw
@@ -203,6 +220,28 @@ Phases, one line each (more for the kernel table):
                asserted, the same tokens on both ranks, their agreement
                with ``local`` in bf16; the same weights in f32
                token-exact against ``local``).
+15. audio, vlm — whisper-large-v3 (32 encoder + 32 decoder layers) and
+               llama-3.2-vision-11b (40 layers, 8 of them cross; every
+               gate at 0.5: the reference's zero gate would erase the
+               cross-attention) at full width and depth: ``prefill_memory``
+               (whisper's encoder over 1500 frames), the measured profile
+               at B 1 and 4, one ``dispatch`` with the memory input, and
+               greedy ``generate`` [4, 32] + 16 with the memory under
+               ``local`` (whisper also ``prism_sim``), flash-decode
+               launches of the self- and the cross-attention counted apart
+               and asserted, decode ms a step, device idle share, peak
+               memory.
+16. xattn-seq — whisper cut to 4 encoder + 4 decoder layers and the vision
+               model to one group (4 dense + 1 cross layer), full width,
+               on 2 ranks sharing the card: ``forward_lm(last_only)`` B 4,
+               N 512 with the memory under ``local``, ``voltage`` and
+               ``prism(L=16)``, per rank the forward ms, staged ms and
+               share, calls and payload and meta bytes (asserted against
+               the shapes' count), the cross layers' segment-means and
+               PRISM-attention launches apart; greedy ``generate`` [4, 32]
+               + 16 under ``voltage`` (the memory's shard partials
+               counted apart, the same tokens on both ranks, the same
+               weights in f32 token-exact against ``local``).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -1701,6 +1740,48 @@ def check_seg_kv(label: str, case) -> float:
     return worst
 
 
+def check_seg_kv_steps(label: str, case) -> float:
+    """The K+V call (one launch) on bf16 inputs, each bf16 mean within one
+    rounding step (2^-7 relative) of the plain version's (a long
+    segment's mean on a rounding boundary may take either neighbour: the
+    kernel multiplies by 1 / count where the plain version divides, and
+    sums in another order), counts exact; and the same values in f32
+    through the kernel's f32 instantiation within the f32 tolerance → max
+    abs error of the bf16 means; raises past tolerance."""
+    import torch
+    from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_kv,
+                                                   segment_means_ref)
+    x, L, mask = case
+    y = torch.flip(x, dims=(2,)).contiguous()          # a second input
+    before = segment_means.launches
+    got, got_c = segment_means_kv(x, y, L, mask)
+    got32, c32 = segment_means_kv(x.float(), y.float(), L, mask)
+    torch.cuda.synchronize()
+    if segment_means.launches != before + 2:
+        raise AssertionError(f"segment_means K+V {label}: not one launch "
+                             f"a call")
+    err, worst = 0.0, 0.0
+    for i, t in enumerate((x, y)):
+        want, want_c = segment_means_ref(t, L, mask)
+        want32, _ = segment_means_ref(t.float(), L, mask)
+        err = max(err, rel_err(got32[i], want32))
+        worst = max(worst, (got[i].float() - want.float()).abs().max().item())
+        if not (torch.equal(got_c, want_c) and torch.equal(c32, want_c)):
+            raise AssertionError(f"segment_means K+V {label}: counts differ")
+        if not torch.isclose(got[i].float(), want.float(), rtol=2.0 ** -7,
+                             atol=0.0).all():
+            raise AssertionError(f"segment_means K+V {label}: bf16 means off "
+                                 f"by more than one rounding step")
+    if not err <= _tol(torch.float32):
+        raise AssertionError(f"segment_means K+V {label}: f32 relative error "
+                             f"{err:.3e} > {_tol(torch.float32):g}")
+    print(f"[kernel] segment_means K+V {label}: bf16 means within one "
+          f"rounding step, f32 rel err {err:.2e} (tol "
+          f"{_tol(torch.float32):g}), counts exact, one launch", flush=True)
+    return worst
+
+
 def time_seg(case) -> dict:
     """The K+V call at ``case``'s shape (K and V the same shape, one
     launch, as the exchange calls it) beside the plain version and one
@@ -2304,13 +2385,17 @@ def _small_llama():
               for n in (SMALL_LM_N, SMALL_LM_T0, SMALL_LM_STEPS)))
 
 
-def _decode_steps(params, cfg, xcfg, steps, device):
+def _decode_steps(params, cfg, xcfg, steps, device, extras=None):
     """Logits of SMALL_LM_STEPS decode steps from a fresh cache (sharded
-    under a partitioned ``xcfg``) → [B, steps, V] on the CPU."""
+    under a partitioned ``xcfg``; audio and vlm: with the memory of
+    ``extras`` filled in first) → [B, steps, V] on the CPU."""
     import torch
     from repro_torch.models import transformer as tfm
     cache = tfm.init_decode_cache(cfg, steps.shape[0], steps.shape[1],
                                   device=device, xcfg=xcfg)
+    if extras:
+        with torch.inference_mode():
+            cache = tfm.prefill_memory(params, extras, cfg, xcfg, cache)
     out = []
     with torch.inference_mode():
         for t in range(steps.shape[1]):
@@ -4317,6 +4402,903 @@ def phase_moe_seq(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the audio and vlm families: cross-attention to an encoder or image memory
+# ---------------------------------------------------------------------------
+
+WHISPER, VISION = "whisper-large-v3", "llama-3.2-vision-11b"
+XATTN_ARCHS = (WHISPER, VISION)
+XATTN_GATE = 0.5        # every vlm gate: tanh(0) erases the cross-attention
+# [xattn-seq]: whisper cut to 4 encoder + 4 decoder layers, the vision
+# model to one group (4 dense layers and its cross layer), full width
+XATTN_SEQ = ((WHISPER, dict(encoder_layers=4, n_layers=4)),
+             (VISION, dict(n_layers=5)))
+SMALL_XATTN_M = 13      # the small models' memory: padded to 16 under prism
+
+
+def _memory_name(cfg) -> str:
+    return "frames" if cfg.family == "audio" else "image_embeds"
+
+
+def _memory_len(cfg) -> int:
+    return cfg.encoder_seq if cfg.family == "audio" else cfg.image_tokens
+
+
+def _memory_layers(cfg) -> tuple:
+    """(layers that self-attend in the decoder, layers that attend the
+    memory)."""
+    if cfg.family == "audio":
+        return cfg.n_layers, cfg.n_layers
+    n = cfg.n_layers // cfg.cross_attn_every
+    return cfg.n_layers - n, n
+
+
+def _memory_shape(arch) -> tuple:
+    """(heads, KV heads, dh, real memory length, the memory padded for
+    PRISM over LM_P ranks at LM_L means) of ``arch``'s main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import pad_len
+    c = get_config(arch)
+    M0 = _memory_len(c)
+    return c.n_heads, c.n_kv_heads, c.hd, M0, pad_len(M0, LM_P, LM_L)
+
+
+def _open_gates(params) -> None:
+    for cp in params.get("cross_layers", []):
+        cp["gate"].fill_(XATTN_GATE)
+
+
+class Inside:
+    """Kernel launches made inside calls of ``module.<name>``, counted
+    apart while the block runs (``counts``: kernel name → launches); the
+    wrappers count every launch as always."""
+
+    def __init__(self, module, name: str, kernels: dict):
+        self.module, self.name, self.kernels = module, name, kernels
+        self.counts = {k: 0 for k in kernels}
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            before = {k: obj.launches for k, obj in self.kernels.items()}
+            out = real(*a, **kw)
+            for k, obj in self.kernels.items():
+                self.counts[k] += obj.launches - before[k]
+            return out
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def mem_seg_case(Mp, D, pad, *, seed):
+    """K of the memory's last block [PROMPT_B, Mp, D] bf16, LM_L means, its
+    last ``pad`` positions padding."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(PROMPT_B, Mp, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    mask = (torch.arange(Mp, device="cuda") < Mp - pad)[None].repeat(
+        PROMPT_B, 1)
+    return x, LM_L, mask
+
+
+def cross_prism_case(Nq, arch, part, *, seed):
+    """PRISM cross-attention of text partition ``part`` of LM_P: q
+    [PROMPT_B, Nq, H, dh] over its memory block (Mp keys under the block's
+    mask, non-causal), both blocks' means strided as gathered ([B, P, L,
+    Hk, dh] views of [P, 2, B, L, Hk, dh]) with the counts the padded
+    memory gives."""
+    import torch
+    from repro_torch.kernels.prism_attention import build_mean_bias
+    H, Hk, dh, M0, M = _memory_shape(arch)
+    B, P, L, Mp = PROMPT_B, LM_P, LM_L, M // LM_P
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+    q, k, v = randn(B, Nq, H, dh), randn(B, Mp, Hk, dh), randn(B, Mp, Hk, dh)
+    km, vm = randn(P, 2, B, L, Hk, dh).permute(1, 2, 0, 3, 4, 5)
+    real = (torch.arange(M, device="cuda") < M0).reshape(P, L, -1)
+    counts = real.sum(dim=-1).float()[None].repeat(B, 1, 1)
+    mask = (torch.arange(Mp, device="cuda") + part * Mp < M0)[None].repeat(
+        B, 1)
+    bias = build_mean_bias(B, P, L, part, Mp // L, causal=False,
+                           mean_counts=counts)
+    return dict(args=(q, k, v, km, vm, bias, mask), causal=False,
+                softcap=None, scale=None)
+
+
+def _print_seg(label: str, t: dict) -> None:
+    print(f"[kernel] segment_means {label}, K and V in one launch: kernel "
+          f"{t['ms']*1e3:.2f} us, bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, mean() "
+          f"yardstick (unmasked) {t['library_ms']*1e3:.2f} us", flush=True)
+
+
+def _print_prism(label: str, t: dict) -> None:
+    print(f"[kernel] prism_attention {label}: kernel {t['ms']*1e3:.2f} us "
+          f"({t['warps']} + 1 warps; 2 CTAs of 4 + 1: "
+          f"{t['split_ms']*1e3:.2f} us), bound {t['bound_ms']*1e3:.2f} us "
+          f"({t['bound_by']}), plain {t['plain_ms']*1e3:.2f} us, sdpa "
+          f"yardstick {t['library_ms']*1e3:.2f} us", flush=True)
+
+
+def _print_shard(label: str, t: dict, errs: dict) -> None:
+    print(f"[kernel] flash_decode shard partial {label}: err "
+          f"{err_text(errs)} (tol 1e-3) | kernel {t['ms']*1e3:.2f} us, bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick over the block "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
+
+
+def phase_xattn_kernels() -> dict:
+    """The kernels at every shape the memory models' main paths give them,
+    bf16, each held against its plain version and timed beside its bound
+    and the library yardstick.  Flash-decode, B 4: over whisper's 1500
+    frames (20/20 heads, dh 64) and the vision model's 1601 image tokens
+    (32/8, dh 128), every position valid, and the decoder's self-attention
+    cache (S 48); the shard partial of rank 1 of 2 at offset Mp over the
+    memory padded for P only (``voltage``: Mp 750 all valid, Mp 801 with
+    800) and for L 16 as well (``prism``: Mp 752 with 748 valid, Mp 816
+    with 785), both blocks merged against the dense kernel, and over the
+    self-attention cache (Sp 24 of S 48).  Under ``prism`` across 2 ranks:
+    the segment means of K and V in one launch over the memory block
+    (masked, the last 4 or 31 positions padding), over whisper's encoder
+    block (unmasked, [4, 752, 20·64]) and over the text partition ([4,
+    256, Hk·dh]); PRISM attention, both partitions' means as gathered:
+    the masked non-causal cross-attention of q [4, 256, H, dh] over the
+    memory block (parts 0 and 1), whisper's encoder (non-causal, q = K =
+    752, unmasked) and the decoder's causal self-attention (part 1)."""
+    import torch
+    from repro_torch.models.transformer import pad_len
+    bf16 = torch.bfloat16
+    S, np_ = PROMPT_T + N_NEW, LM_N // LM_P
+    out = {}
+    for i, arch in enumerate(XATTN_ARCHS):
+        tag = ("whisper", "vision")[i]
+        H, Hk, dh, M0, M = _memory_shape(arch)
+        Mp, B = M // LM_P, PROMPT_B
+        heads = f"{H}/{Hk} heads dh {dh}"
+        out[f"decode_{tag}"] = report_timed(
+            decode_case(B, M0, dh, bf16, seed=200 + i, heads=(H, Hk),
+                        lens=[M0] * B),
+            f"{arch} cross-attention decode over the memory (every "
+            f"position valid)")
+        out[f"self_decode_{tag}"] = report_timed(
+            decode_case(B, S, dh, bf16, seed=205 + i, heads=(H, Hk),
+                        lens=[S] * B),
+            f"{arch} self-attention decode")
+        check_merge(f"{arch} memory: B {B} S {M} ({M0} valid), {heads}",
+                    B, M, LM_P, dh, bf16, seed=215 + i, lens=[M0] * B,
+                    heads=(H, Hk))
+        for key, Mall, plan in ((f"shard_{tag}", M, "prism"),
+                                (f"vshard_{tag}", pad_len(M0, LM_P, 0),
+                                 "voltage")):
+            case = shard_case(B, Mall, LM_P, 1, dh, bf16, seed=210 + i,
+                              lens=[M0] * B, heads=(H, Hk))
+            errs = check_case(case, got=shard_partials(case))
+            out[key] = t = dict(time_case(case),
+                                max_abs_err=errs["max_abs_err"])
+            bp = Mall // LM_P
+            _print_shard(f"over {arch}'s memory block under {plan} (rank 1 "
+                         f"of {LM_P}: B {B}, Mp {bp} of {Mall}, offset {bp}"
+                         f", {M0 - bp} valid, bf16, {heads})", t, errs)
+        case = shard_case(B, S, LM_P, 1, dh, bf16, seed=212 + i,
+                          lens=[40] * B, heads=(H, Hk))
+        errs = check_case(case, got=shard_partials(case))
+        out[f"self_shard_{tag}"] = t = dict(time_case(case),
+                                            max_abs_err=errs["max_abs_err"])
+        _print_shard(f"over {arch}'s self-attention cache (rank 1 of {LM_P}:"
+                     f" B {B}, Sp {S // LM_P} of {S}, offset {S // LM_P}, 16 "
+                     f"valid, bf16, {heads})", t, errs)
+        seg_rows = [(f"seg_{tag}", mem_seg_case(Mp, Hk * dh, M - M0,
+                                                seed=220 + i),
+                     f"{arch} memory block bf16 2 x [{B}, {Mp}, {Hk}·{dh}] "
+                     f"L={LM_L}, last {M - M0} padding"),
+                    (f"seg_self_{tag}",
+                     seg_case(LM_B, np_, (Hk, dh), LM_L, bf16, seed=222 + i,
+                              masked=False),
+                     f"{arch} text partition bf16 2 x [{LM_B}, {np_}, "
+                     f"{Hk}·{dh}] L={LM_L}")]
+        if arch == WHISPER:
+            seg_rows.append((
+                "seg_enc_whisper",
+                seg_case(LM_B, Mp, (Hk, dh), LM_L, bf16, seed=224,
+                         masked=False),
+                f"{arch} encoder block bf16 2 x [{LM_B}, {Mp}, {Hk}·{dh}] "
+                f"L={LM_L}, unmasked"))
+        for key, seg, label in seg_rows:
+            err = check_seg_kv_steps(label, seg)
+            out[key] = t = dict(time_seg(seg), max_abs_err=err)
+            _print_seg(label, t)
+        check_prism(f"{arch} cross, non-causal, {heads}, q [{B}, {np_}] "
+                    f"over a memory block of {Mp} (part 0, all valid), "
+                    f"means strided as gathered",
+                    cross_prism_case(np_, arch, 0, seed=230 + i))
+        prism_rows = [
+            (f"prism_{tag}", cross_prism_case(np_, arch, 1, seed=235 + i),
+             f"{arch} cross part 1 (masked, non-causal, Nq {np_} ≠ Nk "
+             f"{Mp}: {M0 - Mp} of {Mp} keys valid, the last segment's mean "
+             f"count {Mp // LM_L - (M - M0)})"),
+            (f"prism_self_{tag}",
+             prism_case(LM_B, np_, H, Hk, dh, LM_P, LM_L, bf16, seed=238 + i,
+                        causal=True, part=1, masked=False, strided=True),
+             f"{arch} decoder self-attention, causal, {heads}, q/K/V "
+             f"[{LM_B}, {np_}], part 1, means strided as gathered")]
+        if arch == WHISPER:
+            prism_rows.append((
+                "prism_enc_whisper",
+                prism_case(LM_B, Mp, H, Hk, dh, LM_P, LM_L, bf16, seed=240,
+                           causal=False, part=1, masked=False, strided=True),
+                f"{arch} encoder, non-causal, unmasked, {heads}, q/K/V "
+                f"[{LM_B}, {Mp}], part 1, means strided as gathered"))
+        for key, pc, label in prism_rows:
+            err = check_prism(label, pc)
+            out[key] = t = dict(time_prism(pc), max_abs_err=err)
+            _print_prism(label, t)
+    return out
+
+
+def _small_xattn(arch):
+    """(reduced overrides, cfg, CPU params from seed 0 with the gates at
+    XATTN_GATE, the memory input, forward tokens, prompt, decode tokens)
+    of the small f32 ``arch`` (d 256, 8 heads of 64: 8 KV heads for
+    whisper, 2 for the vision model)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=8, d_model=256,
+                   n_kv_heads=8 if arch == WHISPER else 2)
+    cfg = get_config(arch).reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    _open_gates(params)
+    g = torch.Generator().manual_seed(0)
+    extras = {_memory_name(cfg): torch.randn(SMALL_LM_B, SMALL_XATTN_M,
+                                             cfg.d_model, generator=g)}
+    return (reduced, cfg, params, extras,
+            *(torch.randint(0, cfg.vocab_size, (SMALL_LM_B, n), generator=g)
+              for n in (SMALL_LM_N, SMALL_LM_T0, SMALL_LM_STEPS)))
+
+
+def _small_xattn_rank(rank, world, arch, device):
+    """One rank of the small f32 ``arch`` on ``device``: ``voltage`` and
+    ``prism`` forward logits, sharded decode steps over the memory's
+    blocks, greedy tokens under both."""
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.models import transformer as tfm
+    _exact_fp32()
+    reduced, cfg, params, extras, tokens, prompt, steps = _small_xattn(arch)
+    plans = (ExecutionPlan.voltage(seq_shards=world),
+             ExecutionPlan.prism(L=SMALL_LM_L, cr=1.0, seq_shards=world))
+    session = InferenceSession(cfg, _on(params, device), device=device,
+                               plans=list(plans))
+    mem = _on(extras, device)
+    out = {}
+    with torch.inference_mode():
+        for p in plans:
+            out[f"fwd/{p.mode}"] = tfm.forward_lm(
+                session.params, {"tokens": tokens.to(device), **mem}, cfg,
+                p.to_exchange_config())[0].cpu()
+    out["decode"] = _decode_steps(session.params, cfg,
+                                  plans[0].to_exchange_config(), steps,
+                                  device, extras=mem)
+    for p in plans:
+        out[f"gen/{p.mode}"] = session.generate(prompt, SMALL_LM_NEW, plan=p,
+                                                batch_extras=mem).cpu()
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def phase_small_xattn_reference() -> None:
+    """The small f32 whisper and vision model (dh 64; a 13-token memory
+    that pads to 16 under ``prism_sim`` and ``prism``; the vision gates at
+    0.5) on the card against the same weights on the CPU.  In one
+    process: ``local`` and ``prism_sim`` forward logits, 12 decode steps
+    over the padded memory (self- and cross-attention through the
+    flash-decode kernel) ≤ 1e-4, greedy tokens exact under both.  On 2
+    ranks on the card against 2 ranks on the CPU: ``voltage`` and
+    ``prism`` forward logits (the masked segment means and masked PRISM
+    attention on the memory blocks), 12 sharded decode steps ≤ 1e-4,
+    greedy tokens exact under both."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan
+    from repro_torch.api.generation import generate
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models import transformer as tfm
+    plans = {"local": ExecutionPlan.local(),
+             "prism_sim": ExecutionPlan.prism_sim(L=SMALL_LM_L, cr=1.0)}
+    for arch in XATTN_ARCHS:
+        t0 = time.perf_counter()
+        reduced, cfg, params, extras, tokens, prompt, steps = \
+            _small_xattn(arch)
+        side = {}
+        for dev in ("cpu", "cuda"):
+            p, mem = _on(params, dev), _on(extras, dev)
+            r = side[dev] = {}
+            for key, plan in plans.items():
+                xcfg = plan.to_exchange_config()
+                with torch.inference_mode():
+                    r[f"fwd/{key}"] = tfm.forward_lm(
+                        p, {"tokens": tokens.to(dev), **mem}, cfg,
+                        xcfg)[0].cpu()
+                r[f"gen/{key}"] = generate(p, prompt.to(dev), SMALL_LM_NEW,
+                                           cfg, xcfg,
+                                           batch_extras=mem).cpu()
+            r["decode"] = _decode_steps(
+                p, cfg, plans["prism_sim"].to_exchange_config(), steps, dev,
+                extras=mem)
+        cpu, gpu = side["cpu"], side["cuda"]
+        worst = {k: (gpu[k] - cpu[k]).abs().max().item()
+                 for k in ("fwd/local", "fwd/prism_sim", "decode")}
+        for key, err in worst.items():
+            if not err <= 1e-4:
+                raise AssertionError(f"small f32 {arch} {key}: card vs CPU "
+                                     f"differ by {err:.3e} > 1e-4")
+        for key in ("gen/local", "gen/prism_sim"):
+            if not torch.equal(gpu[key], cpu[key]):
+                raise AssertionError(f"small f32 {arch} {key}: card tokens "
+                                     f"differ from the CPU's")
+        ranks = {dev: spawn(_small_xattn_rank, LM_P, arch, dev,
+                            timeout=RANK_TIMEOUT_S)
+                 for dev in ("cuda", "cpu")}
+        want = ranks["cpu"][0]
+        seq = {}
+        for key in ("fwd/voltage", "fwd/prism", "decode"):
+            seq[key] = max(float(np.abs(r[key] - want[key]).max())
+                           for r in ranks["cuda"])
+            if not seq[key] <= 1e-4:
+                raise AssertionError(f"small f32 {arch} {key}: {LM_P} ranks "
+                                     f"on the card vs {LM_P} on the CPU "
+                                     f"differ by {seq[key]:.3e} > 1e-4")
+        for key in ("gen/voltage", "gen/prism"):
+            for r in ranks["cuda"] + ranks["cpu"]:
+                if not np.array_equal(r[key], want[key]):
+                    raise AssertionError(f"small f32 {arch} {key}: greedy "
+                                         f"tokens differ across ranks/devices")
+        n_self, n_mem = _memory_layers(cfg)
+        print(f"[reference] reduced f32 {arch} ({n_self} self-attention and "
+              f"{n_mem} cross-attention decoder layers"
+              + (f", {cfg.encoder_layers} encoder layers"
+                 if cfg.family == "audio" else "")
+              + f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads dh "
+              f"{cfg.hd}, a {SMALL_XATTN_M}-token memory): on the card vs "
+              f"the CPU, max |logit diff| local {worst['fwd/local']:.2e}, "
+              f"prism_sim {worst['fwd/prism_sim']:.2e}, {SMALL_LM_STEPS} "
+              f"decode steps over the padded memory {worst['decode']:.2e} "
+              f"(tol 1e-4), greedy tokens exact under both; {LM_P} ranks on "
+              f"the card vs {LM_P} on the CPU: voltage "
+              f"{seq['fwd/voltage']:.2e}, prism(L={SMALL_LM_L}) "
+              f"{seq['fwd/prism']:.2e}, {SMALL_LM_STEPS} sharded decode "
+              f"steps {seq['decode']:.2e}, greedy tokens exact under both; "
+              f"{time.perf_counter() - t0:.1f} s with rank start-up",
+              flush=True)
+
+
+def phase_xattn_arch(card: str, arch: str) -> dict:
+    """``arch`` at full width and depth, bf16, random weights from seed 0
+    (the vision gates at 0.5): ``prefill_memory``'s time (whisper: its
+    32-layer encoder over 1500 frames), the measured profile at B 1 and 4
+    and one ``dispatch`` with the memory input, then greedy ``generate``
+    of [4, 32] + 16 with the memory (``local``; whisper also
+    ``prism_sim``), flash-decode launches counted for the self- and the
+    cross-attention apart and asserted, the prefill (the memory and the
+    prompt) and the decode steps timed apart, the device's idle share
+    (``local``) and the peak memory → launches."""
+    import gc
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.api import generation as gen_api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    _open_gates(params)
+    plans = [ExecutionPlan.local()] + (
+        [ExecutionPlan.prism_sim(L=4, cr=9.9)] if cfg.family == "audio"
+        else [])
+    session = InferenceSession(cfg, params, device="cuda", plans=plans)
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params
+    n_self, n_mem = _memory_layers(cfg)
+    M0, name = _memory_len(cfg), _memory_name(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                           generator=g, device="cuda")
+    extras = {name: torch.randn(PROMPT_B, M0, cfg.d_model, generator=g,
+                                device="cuda").to(cfg.torch_dtype)}
+    torch.cuda.synchronize()
+    enc = (f"{cfg.encoder_layers} encoder layers, " if cfg.family == "audio"
+           else "")
+    print(f"[session] {arch} full width and depth ({enc}{n_self} "
+          f"self-attention and {n_mem} cross-attention decoder layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {n_params / 1e9:.2f} B parameters, "
+          f"{registry.weight_bytes(cfg) / 1e9:.2f} GB, drawn on the card "
+          f"from seed 0; memory {M0} {name}) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    local = plans[0].to_exchange_config()
+
+    def memory():
+        cache = tfm.init_decode_cache(cfg, PROMPT_B, PROMPT_T + N_NEW,
+                                      device="cuda")
+        with torch.inference_mode():
+            return tfm.prefill_memory(session.params, extras, cfg, local,
+                                      cache)
+    memory()
+    mem_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        memory()
+        torch.cuda.synchronize()
+        mem_ms.append((time.perf_counter() - t1) * 1e3)
+    pm, scale, raw = measured_profile(
+        session, dict(batches=(1, 4), crs=(9.9,), bandwidths_mbps=(400.0,)),
+        iters=2)
+    print_measured(arch, pm, scale, raw, card)
+    one = {"tokens": prompt[:1], name: extras[name][:1]}
+    logits = session.dispatch(one)
+    rec = session.history[-1]
+    if logits.shape != (1, PROMPT_T, cfg.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"{arch}: dispatch logits "
+                             f"{tuple(logits.shape)} not finite / wrong")
+    print(f"[memory-model] {arch}: prefill_memory of B {PROMPT_B} "
+          + (f"(the encoder over {M0} frames and {n_mem} layers' K/V)"
+             if cfg.family == "audio" else f"({n_mem} layers' K/V of {M0} "
+                                           f"image tokens)")
+          + f" {statistics.median(mem_ms):.2f} ms (median of 3); dispatch of"
+          f" [1, {PROMPT_T}] with its memory ran {rec.exec_key!r} in "
+          f"{rec.wall_ms:.1f} ms [{card}]", flush=True)
+    del logits
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+    launches = {"self": 0, "cross": 0}
+    for plan in plans:
+        xcfg = plan.to_exchange_config()
+        mode = gen_api.resolve_prefill_mode(cfg, xcfg)
+        session.generate(prompt, 2, plan=plan, batch_extras=extras)  # warm-up
+        flash_decode.launches = 0                            # the main path
+        with Inside(tfm, "decode_attention_sharded",
+                    {"flash_decode": flash_decode}) as cross:
+            out, w = timed(lambda: session.generate(
+                prompt, N_NEW, plan=plan, batch_extras=extras))
+        total, n_cross = flash_decode.launches, cross.counts["flash_decode"]
+        steps = N_NEW - 1 + (PROMPT_T if mode == "scan" else 0)
+
+        # generate's parts timed apart: the memory and the prompt's
+        # prefill, then the decode steps
+        def prefill():
+            cache = tfm.init_decode_cache(cfg, PROMPT_B, PROMPT_T + N_NEW,
+                                          device="cuda")
+            return gen_api.prefill_prompt(session.params, prompt, extras,
+                                          cache, cfg, xcfg, mode)
+        (logits, cache), w_pre = timed(prefill)
+        tok = gen_api.sample_token(logits, None)[:, 0:1]
+        rest, w_dec = timed(lambda: gen_api.decode_scan(
+            session.params, cache, tok, PROMPT_T, None, cfg, xcfg, 0.0,
+            N_NEW - 1)[0])
+        if not torch.equal(torch.cat([tok, rest], dim=1), out):
+            raise AssertionError(f"{arch} {plan.key}: prefill and decode "
+                                 f"timed apart drew other tokens than "
+                                 f"generate")
+        del cache
+        if (total - n_cross, n_cross) != (steps * n_self, steps * n_mem):
+            raise AssertionError(
+                f"{arch} {plan.key}: flash_decode launched {total - n_cross}"
+                f" (self) + {n_cross} (cross) times, want {steps} steps x "
+                f"({n_self} + {n_mem}) layers")
+        launches["self"] += total - n_cross
+        launches["cross"] += n_cross
+        if out.shape != (PROMPT_B, N_NEW) or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch} {plan.key}: bad tokens")
+        with torch.inference_mode():
+            lg = tfm.forward_lm(session.params,
+                                {"tokens": torch.cat([prompt, out], dim=1),
+                                 **extras}, cfg, xcfg, last_only=True)[0]
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{arch} {plan.key}: non-finite logits over"
+                                 f" the generated sequence")
+        decode_ms = w_dec / (N_NEW - 1)
+        print(f"[generate] {arch} {plan.key}: [{PROMPT_B}, {PROMPT_T}] "
+              f"prompt + {N_NEW} greedy tokens with the {M0}-token memory in "
+              f"{w:.1f} ms; flash_decode launches {total} = {steps} steps x "
+              f"({n_self} self-attention + {n_mem} cross-attention layers), "
+              f"{n_cross} of them over the memory; timed apart: prefill "
+              f"({mode}, the memory included) {w_pre:.1f} ms, decode "
+              f"{decode_ms:.2f} ms/token step, "
+              f"{PROMPT_B / decode_ms * 1e3:.1f} tokens/s at B={PROMPT_B} "
+              f"[{card}]", flush=True)
+        if plan.mode == "local":
+            print_breakdown(f"{arch} {plan.key}", lambda: session.generate(
+                prompt, N_NEW, plan=plan, batch_extras=extras), w)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[memory] {arch}: peak allocated {peak / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xattn_seq_bytes(cfg, plan: str, P: int) -> dict:
+    """What each rank's staged calls receive in one ``forward_lm`` of
+    [LM_B, LM_N] with the memory under ``plan``, from shapes: every
+    exchange's K and V (whisper's encoder over the frames, unmasked; the
+    decoder's self-attention over the text; each cross layer over the
+    memory), in full under ``voltage``, L means a partition under
+    ``prism``; a cross layer's mask (``voltage``) or its means' counts
+    (``prism``) as meta; one call each, a cross layer two, and the last
+    logits' broadcast."""
+    from repro_torch.models.transformer import pad_len
+    if plan == "local":
+        return dict(payload=0, meta=0, calls=0)
+    prism = plan == "prism"
+    Mp = pad_len(_memory_len(cfg), P, LM_L if prism else 0) // P
+    kv = LM_B * cfg.n_kv_heads * cfg.hd * 2 * cfg.torch_dtype.itemsize
+    n_self, n_mem = _memory_layers(cfg)
+    n_enc = cfg.encoder_layers if cfg.family == "audio" else 0
+
+    def per(n):
+        return (P - 1) * (LM_L if prism else n) * kv
+    return dict(payload=n_enc * per(Mp) + n_self * per(LM_N // P)
+            + n_mem * per(Mp),
+            meta=n_mem * (P - 1) * LM_B * (LM_L * 4 if prism else Mp),
+            calls=n_enc + n_self + 2 * n_mem + 1)
+
+
+def _xattn_seq_rank(rank, world):
+    """One rank of whisper-large-v3 and then llama-3.2-vision-11b at full
+    width, cut to XATTN_SEQ's layers, on the shared card: the
+    ``last_only`` forward of [LM_B, LM_N] with the memory under each plan
+    (launches, whisper's encoder's, the decoder's self-attention's and
+    the cross layers' apart, payload and meta bytes and calls asserted),
+    then greedy ``generate`` of [PROMPT_B, PROMPT_T] + N_NEW under
+    ``voltage`` and under ``prism`` (flash-decode launches, the memory's
+    shard partials apart, asserted; tokens equal on both ranks; the
+    ``voltage`` tokens' agreement with this rank's ``local`` counted), and
+    the same weights in f32 under ``voltage`` token-exact against
+    ``local``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    group = get_seq_group("seq")
+    kernels = {"segment_means": segment_means,
+               "prism_attention": prism_attention}
+    res = {}
+    for arch, cut in XATTN_SEQ:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        params = registry.init_params(cfg, seed=0, device="cuda")
+        _open_gates(params)
+        sums = torch.stack([leaf.double().sum() for leaf in
+                            _leaves(params)]).cpu().numpy().tobytes()
+        if group.broadcast_object(sums) != sums:
+            raise AssertionError(f"rank {rank}: {arch} weights differ from "
+                                 f"rank 0's")
+        plans = {"local": ExecutionPlan.local(),
+                 "voltage": ExecutionPlan.voltage(seq_shards=world),
+                 "prism": ExecutionPlan.prism(
+                     L=LM_L, cr=LM_N / (LM_L * world), seq_shards=world)}
+        session = InferenceSession(cfg, params, device="cuda",
+                                   plans=list(plans.values()))
+        del params
+        build_s = time.perf_counter() - t0
+        n_self, n_mem = _memory_layers(cfg)
+        name, M0 = _memory_name(cfg), _memory_len(cfg)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_N), generator=g,
+                               device="cuda")
+        mem = torch.randn(LM_B, M0, cfg.d_model, generator=g,
+                          device="cuda").to(cfg.torch_dtype)
+        prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                               generator=g, device="cuda")
+        extras = {name: mem[:PROMPT_B]}
+
+        def forward(key):
+            with torch.inference_mode():
+                return tfm.forward_lm(session.params,
+                                      {"tokens": tokens, name: mem}, cfg,
+                                      plans[key].to_exchange_config(),
+                                      last_only=True)[0]
+        for key in plans:                               # warm-up
+            forward(key)
+        fwd = {}
+        for key in plans:                               # the main path
+            segment_means.launches = prism_attention.launches = 0
+            with Inside(tfm, "exchange_cross_attention", kernels) as cross, \
+                    Inside(tfm, "_encode_audio", kernels) as enc:
+                last, *_ = _timed(lambda: forward(key), group)
+            counts = (segment_means.launches, prism_attention.launches)
+            st = group.stats
+            got = dict(payload=st.payload_bytes, meta=st.meta_bytes,
+                       calls=st.calls)
+            want = xattn_seq_bytes(cfg, key, world)
+            if got != want:
+                raise AssertionError(f"rank {rank} {arch} {key}: staged "
+                                     f"{got}, the shapes give {want}")
+            n_enc = cfg.encoder_layers if cfg.family == "audio" else 0
+            on = key == "prism"
+            kinds = {"enc": enc, "cross": cross}
+            apart = {kind: tuple(c.counts[k] for k in kernels)
+                     for kind, c in kinds.items()}
+            apart["self"] = tuple(counts[j] - apart["enc"][j]
+                                  - apart["cross"][j] for j in range(2))
+            want = {kind: (n * on,) * 2 for kind, n in (
+                ("enc", n_enc), ("cross", n_mem), ("self", n_self))}
+            if apart != want:
+                raise AssertionError(f"rank {rank} {arch} {key}: "
+                                     f"(segment_means, prism_attention) "
+                                     f"launches {apart} by layer kind; want "
+                                     f"{want}")
+            if not torch.isfinite(last).all():
+                raise AssertionError(f"rank {rank} {arch} {key}: last "
+                                     f"logits not finite")
+            both = group.all_gather(last, kind="meta")
+            if not torch.equal(both[0], both[1]):
+                raise AssertionError(f"{arch} {key}: last logits differ "
+                                     f"between ranks")
+            runs = [_timed(lambda: forward(key), group) for _ in range(3)]
+            fwd[key] = dict(got, counts=counts, kinds=apart,
+                            ms=statistics.median(r[1] for r in runs),
+                            staged_ms=statistics.median(r[2] for r in runs))
+        want = session.generate(prompt, N_NEW, plan=plans["local"],
+                                batch_extras=extras)
+        session.generate(prompt, 2, plan=plans["voltage"],
+                         batch_extras=extras)                # warm-up
+        flash_decode.launches = 0                            # the main path
+        with Inside(tfm, "decode_attention_sharded",
+                    {"flash_decode": flash_decode}) as cross:
+            out, w, sd, cd, md = _timed(
+                lambda: session.generate(prompt, N_NEW, plan=plans["voltage"],
+                                         batch_extras=extras), group)
+        launches, n_cross = flash_decode.launches, \
+            cross.counts["flash_decode"]
+        steps = N_NEW - 1                            # single-pass prefill
+        if (launches - n_cross, n_cross) != (steps * n_self,
+                                             steps * n_mem):
+            raise AssertionError(f"rank {rank} {arch} voltage generate: "
+                                 f"flash_decode launched "
+                                 f"{launches - n_cross} + {n_cross} times, "
+                                 f"want {steps} x ({n_self} + {n_mem})")
+        both = group.all_gather(out, kind="meta")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"{arch} voltage: the ranks drew different "
+                                 f"tokens")
+        agree = (out == want).float().mean().item()
+        flash_decode.launches = 0                            # the main path
+        t1 = time.perf_counter()
+        with Inside(tfm, "decode_attention_sharded",
+                    {"flash_decode": flash_decode}) as pcross:
+            pout = session.generate(prompt, N_NEW, plan=plans["prism"],
+                                    batch_extras=extras)
+        prism_s = time.perf_counter() - t1
+        p_launches, p_cross = flash_decode.launches, \
+            pcross.counts["flash_decode"]
+        p_steps = PROMPT_T + N_NEW - 1               # decode-loop prefill
+        if (p_launches - p_cross, p_cross) != (p_steps * n_self,
+                                               p_steps * n_mem):
+            raise AssertionError(f"rank {rank} {arch} prism generate: "
+                                 f"flash_decode launched "
+                                 f"{p_launches - p_cross} + {p_cross} "
+                                 f"times, want {p_steps} x ({n_self} + "
+                                 f"{n_mem})")
+        both = group.all_gather(pout, kind="meta")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"{arch} prism: the ranks drew different "
+                                 f"tokens")
+        peak = torch.cuda.max_memory_allocated()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _cast(session.params, torch.float32)
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+        s32 = InferenceSession(cfg32, params32, device="cuda",
+                               plans=[plans["local"], plans["voltage"]])
+        del params32
+        ext32 = {name: extras[name].float()}
+        want32 = s32.generate(prompt, N_NEW, plan=plans["local"],
+                              batch_extras=ext32)
+        got32 = s32.generate(prompt, N_NEW, plan=plans["voltage"],
+                             batch_extras=ext32)
+        if not torch.equal(got32, want32):
+            raise AssertionError(f"rank {rank} {arch} f32: voltage tokens "
+                                 f"{got32.tolist()} differ from local's "
+                                 f"{want32.tolist()}")
+        res[arch] = dict(fwd=fwd, build_s=build_s, gen_s=w / 1e3,
+                         gen_staged_s=sd / 1e3, gen_calls=cd, gen_merge=md,
+                         launches=launches, cross=n_cross, agree=agree,
+                         prism_s=prism_s, prism_launches=p_launches,
+                         prism_cross=p_cross, peak=peak)
+        del s32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_xattn_seq(card: str) -> dict:
+    """whisper-large-v3 and llama-3.2-vision-11b at full width, cut to
+    XATTN_SEQ's layers, on 2 ranks sharing the card → launch totals over
+    the ranks: segment means and PRISM attention of the ``prism`` forwards
+    by layer kind (whisper's encoder, the decoder's self-attention, the
+    cross layers), flash-decode's shard partials over the memory in the
+    ``voltage`` and the ``prism`` generates, and over the self-attention
+    cache in both."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models.transformer import pad_len
+    t0 = time.perf_counter()
+    ranks = spawn(_xattn_seq_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    out = {}
+    for i, (arch, cut) in enumerate(XATTN_SEQ):
+        tag = ("whisper", "vision")[i]
+        full = get_config(arch)
+        r0, r1 = ranks[0][arch], ranks[1][arch]
+        print(f"[xattn-seq] {arch} full width cut to {cut}, "
+              f"{full.n_heads}/{full.n_kv_heads} heads dh {full.hd}, "
+              f"{_memory_len(full)} {_memory_name(full)}, bf16, random "
+              f"weights from seed 0, equal on both ranks; {LM_P} ranks "
+              f"sharing the card, gloo staged through host memory; built in "
+              f"{r0['build_s']:.1f} s, peak {r0['peak'] / 1e9:.2f} GB a rank",
+              flush=True)
+        for key, f in r0["fwd"].items():
+            share = f["staged_ms"] / f["ms"] if f["ms"] else 0.0
+            sm, pa = f["counts"]
+            kinds = ", ".join(f"{kind} {n[0]}" for kind, n in
+                              f["kinds"].items() if n[0])
+            print(f"[xattn-seq] {arch} forward_lm(last_only) {key}: B={LM_B}"
+                  f" N={LM_N}, per rank {f['ms']:.2f} ms (rank 1: "
+                  f"{r1['fwd'][key]['ms']:.2f} ms), staged "
+                  f"{f['staged_ms']:.2f} ms ({share:.1%}) in {f['calls']} "
+                  f"calls; received {f['payload'] / 1e6:.4f} MB payload + "
+                  f"{f['meta'] / 1e3:.2f} kB meta (masks or counts), = the "
+                  f"shapes' count; segment_means {sm}, prism_attention {pa} "
+                  f"launches each{' (' + kinds + ')' if kinds else ''} "
+                  f"(median of 3) [{card}]", flush=True)
+        print(f"[xattn-seq] {arch} generate voltage [{PROMPT_B}, {PROMPT_T}]"
+              f" + {N_NEW} with the memory: {r0['gen_s']:.3f} s "
+              f"({r0['gen_staged_s']:.3f} s staged in {r0['gen_calls']} "
+              f"calls, {r0['gen_merge'] / 1e3:.1f} kB of merge partials), "
+              f"the same tokens on both ranks, {r0['agree']:.0%} of them "
+              f"local's in bf16 (rank 1: {r1['agree']:.0%}); the same "
+              f"weights in f32 token-exact against local on both ranks; "
+              f"flash_decode launches {r0['launches']} a rank, "
+              f"{r0['cross']} of them shard partials over the memory "
+              f"[{card}]", flush=True)
+        print(f"[xattn-seq] {arch} generate prism(L={LM_L}) [{PROMPT_B}, "
+              f"{PROMPT_T}] + {N_NEW} with the memory (decode-loop prefill):"
+              f" {r0['prism_s']:.3f} s, the same tokens on both ranks; "
+              f"flash_decode launches {r0['prism_launches']} a rank, "
+              f"{r0['prism_cross']} of them shard partials over the memory "
+              f"[{card}]", flush=True)
+        for kind in ("enc", "self", "cross"):
+            for j, kname in enumerate(("segment_means", "prism_attention")):
+                out[f"{kname}_{kind}_{tag}"] = sum(
+                    r[arch]["fwd"]["prism"]["kinds"][kind][j] for r in ranks)
+        out[f"flash_decode_voltage_{tag}"] = sum(r[arch]["cross"]
+                                                 for r in ranks)
+        out[f"flash_decode_prism_{tag}"] = sum(r[arch]["prism_cross"]
+                                               for r in ranks)
+        out[f"flash_decode_self_{tag}"] = sum(
+            r[arch]["launches"] - r[arch]["cross"] + r[arch]["prism_launches"]
+            - r[arch]["prism_cross"] for r in ranks)
+        kv = LM_B * full.n_kv_heads * full.hd * 2 * 2
+        Mv = pad_len(_memory_len(full), LM_P, 0) // LM_P
+        print(f"[xattn-seq] {arch} bytes a cross layer a rank, from shapes: "
+              f"voltage K+V {LM_B} x {Mv} x {full.n_kv_heads} x {full.hd} x "
+              f"2 x 2 B = {Mv * kv / 1e6:.2f} MB (+ the mask, {LM_B * Mv} "
+              f"B); prism(L={LM_L}) {LM_B} x {LM_L} means = "
+              f"{LM_L * kv / 1e6:.3f} MB (+ counts, {LM_B * LM_L * 4} B)",
+              flush=True)
+    print(f"[xattn-seq] {time.perf_counter() - t0:.1f} s with rank start-up",
+          flush=True)
+    return out
+
+
+def xattn_kernel_rows(xa: dict, xk: dict, xs: dict, replaces: dict,
+                      keys: tuple) -> list:
+    """The kernels line's rows of the memory models: one a shape their
+    main paths launch a kernel at, its numbers from ``phase_xattn_kernels``
+    (``xk``) and its launches from ``[arch]`` (``xa``) or ``[xattn-seq]``
+    (``xs``)."""
+    from repro_torch.models.transformer import pad_len
+    S, out = PROMPT_T + N_NEW, []
+    for i, arch in enumerate(XATTN_ARCHS):
+        tag = ("whisper", "vision")[i]
+        H, Hk, dh, M0, M = _memory_shape(arch)
+        Mp, Mv = M // LM_P, pad_len(M0, LM_P, 0) // LM_P
+        heads = f"{H}/{Hk} heads dh={dh}"
+        rows_x = [
+            ("flash_decode", xa[arch]["cross"], xk[f"decode_{tag}"],
+             f"{arch} cross-attention decode over the memory: bf16 "
+             f"B={PROMPT_B} S={M0} (every position valid) {heads}; "
+             f"launches: the memory's, in `[arch]`"),
+            ("flash_decode", xa[arch]["self"], xk[f"self_decode_{tag}"],
+             f"{arch} self-attention decode: bf16 B={PROMPT_B} S={S} "
+             f"{heads}; launches: the self-attention's, in `[arch]`"),
+            ("flash_decode", xs[f"flash_decode_voltage_{tag}"],
+             xk[f"vshard_{tag}"],
+             f"{arch} shard partial over the memory ({LM_P} ranks, the "
+             f"blocks padded for P): bf16 B={PROMPT_B} Mp={Mv} of "
+             f"{Mv * LM_P}, offset {Mv}, {M0 - Mv} valid, {heads}; "
+             f"launches: the memory's, in `[xattn-seq]`'s voltage generate"),
+            ("flash_decode", xs[f"flash_decode_prism_{tag}"],
+             xk[f"shard_{tag}"],
+             f"{arch} shard partial over the memory ({LM_P} ranks, the "
+             f"blocks padded for P and L={LM_L}): bf16 B={PROMPT_B} "
+             f"Mp={Mp} of {M}, offset {Mp}, {M0 - Mp} valid, {heads}; "
+             f"launches: the memory's, in `[xattn-seq]`'s prism generate"),
+            ("flash_decode", xs[f"flash_decode_self_{tag}"],
+             xk[f"self_shard_{tag}"],
+             f"{arch} shard partial over the self-attention cache ({LM_P} "
+             f"ranks): bf16 B={PROMPT_B} Sp={S // LM_P} of S={S}, offset "
+             f"{S // LM_P}, {heads}; launches: the self-attention's, in "
+             f"`[xattn-seq]`'s voltage and prism generates"),
+            ("segment_means", xs[f"segment_means_cross_{tag}"],
+             xk[f"seg_{tag}"],
+             f"{arch} cross prism per rank: the memory block's K and V "
+             f"bf16 [{PROMPT_B}, {Mp}, {Hk}·{dh}] L={LM_L}, masked "
+             f"(last {M - M0} padding)"),
+            ("segment_means", xs[f"segment_means_self_{tag}"],
+             xk[f"seg_self_{tag}"],
+             f"{arch} decoder self-attention prism per rank: K and V bf16 "
+             f"[{LM_B}, {LM_N // LM_P}, {Hk}·{dh}] L={LM_L}"),
+            ("prism_attention", xs[f"prism_attention_cross_{tag}"],
+             xk[f"prism_{tag}"],
+             f"{arch} cross prism per rank: bf16 q [{PROMPT_B}, "
+             f"{LM_N // LM_P}] over {Mp} keys, {heads}, masked, "
+             f"non-causal, L={LM_L} part 1"),
+            ("prism_attention", xs[f"prism_attention_self_{tag}"],
+             xk[f"prism_self_{tag}"],
+             f"{arch} decoder self-attention prism per rank: bf16 q/K/V "
+             f"[{LM_B}, {LM_N // LM_P}] {heads}, causal, L={LM_L} part 1")]
+        if arch == WHISPER:
+            rows_x += [
+                ("segment_means", xs["segment_means_enc_whisper"],
+                 xk["seg_enc_whisper"],
+                 f"{arch} encoder prism per rank: the frame block's K and V "
+                 f"bf16 [{LM_B}, {Mp}, {Hk}·{dh}] L={LM_L}, unmasked"),
+                ("prism_attention", xs["prism_attention_enc_whisper"],
+                 xk["prism_enc_whisper"],
+                 f"{arch} encoder prism per rank: bf16 q/K/V [{LM_B}, {Mp}] "
+                 f"{heads}, non-causal, unmasked (the padded frames "
+                 f"attended), L={LM_L} part 1")]
+        out += [{"name": kname, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
+                 "replaces": replaces[kname], "launches": n, "shape": shape,
+                 **{k: t[k] for k in keys}} for kname, n, t, shape in rows_x]
+    return out
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -4408,12 +5390,14 @@ def main() -> None:
     gemma_shard = run("gemma shard partial", phase_gemma_shard_partial)
     paged = run("paged kernel", phase_paged_kernel)
     exchange = run("exchange kernels", phase_exchange_kernels)
+    xk = run("xattn kernels", phase_xattn_kernels)
     run("reference", phase_small_reference)
     run("reference serving", phase_small_serving)
     run("reference vit", phase_small_vit_reference)
     run("reference lm", phase_small_lm_reference)
     run("reference gemma", phase_small_gemma_reference)
     run("reference moe", phase_small_moe_reference)
+    run("reference xattn", phase_small_xattn_reference)
     launches, session = run("session", phase_session, card)
     serve_dense, serve_paged = run("serve", phase_serve, card, session)
     del session
@@ -4429,6 +5413,9 @@ def main() -> None:
     archs[MLA_ARCH] = run(f"arch {MLA_ARCH}", phase_arch_session, card,
                           MLA_ARCH)
     moe = run("moe-seq", phase_moe_seq, card)
+    xa = {arch: run(f"arch {arch}", phase_xattn_arch, card, arch)
+          for arch in XATTN_ARCHS}
+    xs = run("xattn-seq", phase_xattn_seq, card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -4528,6 +5515,8 @@ def main() -> None:
             "source": src.format(kname, kname),
             "replaces": {r[0]: r[1] for r in rows}[kname], "launches": n,
             "shape": shape, **{k: t[k] for k in keys}})
+    kernels += xattn_kernel_rows(xa, xk, xs,
+                                 {r[0]: r[1] for r in rows}, keys)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,8 +5,11 @@ runs eagerly, so the JAX package's one jitted executable per shape becomes
 a Python loop over ``decode_step`` with the cache updated in place; tokens
 stay on the device between steps (no host round-trip per token).
 
-* **Prefill** — ``transformer.prefill`` runs the prompt through
-  ``exchange_attention`` once and writes the KV cache (``single_pass``).
+* **Prefill** — audio and vlm first fill the cache's memory from the
+  request's ``frames`` or ``image_embeds`` (``transformer.prefill_memory``:
+  whisper's encoder, the cross layers' K/V).  ``transformer.prefill`` runs
+  the prompt through ``exchange_attention`` once and writes the KV cache
+  (``single_pass``).
   PRISM plans under ``prefill_mode="auto"`` (whose compressed prefill is
   not equivalent to exact per-token decode) use ``prefill_by_decode``: the
   teacher-forced decode loop over the prompt.
@@ -75,8 +78,11 @@ def resolve_prefill_mode(cfg: ModelConfig, xcfg: ExchangeConfig,
 
 def prefill_prompt(params, prompt_tokens: torch.Tensor, extras, cache,
                    cfg: ModelConfig, xcfg: ExchangeConfig, mode: str):
-    """Prompt prefill by ``mode`` (``resolve_prefill_mode``'s
-    "single_pass" or "scan") → (last logits [B, 1, V], primed cache)."""
+    """The request's memory (audio, vlm: from ``extras``), then the prompt
+    prefill by ``mode`` (``resolve_prefill_mode``'s "single_pass" or
+    "scan") → (last logits [B, 1, V], primed cache)."""
+    cache = tfm.prefill_memory(params, {"tokens": prompt_tokens, **extras},
+                               cfg, xcfg, cache)
     if mode == "single_pass":
         return tfm.prefill(params, {"tokens": prompt_tokens, **extras},
                            cache, cfg, xcfg)
@@ -163,7 +169,7 @@ def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Dict[str, int]]:
     else:
         names = ("k", "v")
     return {half: {name: 1 for name in names}
-            for _, half, _, _ in tfm.layer_stacks(cfg)}
+            for _, half, _, _, _ in tfm.layer_stacks(cfg) if half is not None}
 
 
 SLOT_POOL_FAMILIES = ("dense", "moe")
@@ -185,8 +191,9 @@ def supports_slot_pool(cfg: ModelConfig) -> bool:
     slot axis), and the moe family (its ``first`` and ``kv`` halves, MLA's
     latent cache included; a slot's MoE layer routes its one token alone,
     as the JAX package's per-slot ``vmap`` does); hybrid and ssm come with
-    their families (ROADMAP queue 1 item 11), and audio/vlm/vit have no
-    poolable tokens-only cache."""
+    their families (ROADMAP queue 1 item 11, [11.4]), and audio, vlm and
+    vit have no poolable tokens-only cache in either package (a request's
+    memory is part of its cache)."""
     return cfg.family in SLOT_POOL_FAMILIES
 
 

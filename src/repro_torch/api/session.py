@@ -529,9 +529,11 @@ class InferenceSession:
                  prefill_mode: str = "auto") -> torch.Tensor:
         """Greedy/temperature generation: prompt [B, T0] → [B, n_new]
         int32 tokens on the session's device.  ``plan`` defaults to the
-        local plan (or the first registered one).  Under a partitioned
-        plan every rank of its seq group calls this with the same prompt
-        and seed, and every rank returns the same tokens."""
+        local plan (or the first registered one).  ``batch_extras`` holds
+        audio's ``frames`` or the vlm's ``image_embeds`` [B, M0, D].  Under
+        a partitioned plan every rank of its seq group calls this with the
+        same prompt, extras and seed, and every rank returns the same
+        tokens."""
         from repro_torch.api import generation as gen
         from repro_torch.obs import maybe_span
         plan = self._plan_or_default(plan)
@@ -540,7 +542,8 @@ class InferenceSession:
                         plan=plan.key, n_new=n_new):
             return gen.generate(self.params, self._to_device(prompt_tokens),
                                 n_new, self.cfg, plan.to_exchange_config(),
-                                batch_extras=batch_extras, seed=seed,
+                                batch_extras=self._to_device(
+                                    dict(batch_extras or {})), seed=seed,
                                 temperature=T, prefill_mode=prefill_mode)
 
     # -- slot-pool serving primitives (used by repro_torch.serving) ----------
@@ -562,8 +565,8 @@ class InferenceSession:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} cannot share a slot pool in the "
                 f"port (supported: {gen.SLOT_POOL_FAMILIES}; hybrid and ssm "
-                f"are ROADMAP queue 1 item 11, and audio, vlm and vit have "
-                f"no slot pool in either package)")
+                f"are ROADMAP queue 1 item 11, [11.4], and audio, vlm and vit "
+                f"have no slot pool in either package)")
 
     def _require_one_partition(self) -> None:
         """The pools serve the default plan, which must hold one

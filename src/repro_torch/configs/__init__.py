@@ -2,9 +2,10 @@
 
 The port carries the dense decoders llama3.2-1b, internlm2-1.8b,
 qwen1.5-32b and gemma2-27b (windowed local/global layers), the moe family
-deepseek-moe-16b and deepseek-v2-236b (MLA attention), and vit-base-16
-(the paper's ViT encoder); the other architectures of the JAX package
-arrive with their model families.
+deepseek-moe-16b and deepseek-v2-236b (MLA attention), the encoder-decoder
+whisper-large-v3 (audio) and llama-3.2-vision-11b (vlm: cross-attention
+to image tokens), and vit-base-16 (the paper's ViT encoder); the other
+architectures of the JAX package arrive with their model families.
 """
 from __future__ import annotations
 
@@ -21,16 +22,16 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "whisper-large-v3": "whisper_large_v3",
+    "llama-3.2-vision-11b": "llama3_2_vision_11b",
     "vit-base-16": "vit_base",
 }
 
 # archs of the JAX package that the port does not carry yet → the ROADMAP
 # queue 1 item that holds each
 _PENDING = {
-    "hymba-1.5b": "11",
-    "xlstm-350m": "11",
-    "whisper-large-v3": "11",
-    "llama-3.2-vision-11b": "11",
+    "hymba-1.5b": "11.4",
+    "xlstm-350m": "11.4",
 }
 
 

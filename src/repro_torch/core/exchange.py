@@ -30,8 +30,11 @@ executor``).  The MLA latent exchange (``exchange_attention_mla``,
 DeepSeek-V2) moves ``[c_kv ‖ k_pe]`` instead of K/V: VOLTAGE gathers the
 latent, PRISM its segment means, and every rank expands what it holds
 with the up-projections; its decode merges each rank's latent-space
-partials (``mla_decode_attention_sharded``).  Not ported yet (ROADMAP
-queue 1): the cross-attention exchange ([11, 7.5]).
+partials (``mla_decode_attention_sharded``).  The cross-attention
+exchange (``exchange_cross_attention``: whisper's encoder memory,
+llama-3.2-vision's image tokens) partitions the memory as the text: each
+rank attends its text partition over its memory block and the other
+blocks' K/V (VOLTAGE) or their masked segment means (PRISM).
 """
 from __future__ import annotations
 
@@ -242,6 +245,57 @@ def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
     return kdsp.prism_attention(q, k, v, means[0], means[1], group.rank, seg,
                                 causal=causal, logit_softcap=logit_softcap,
                                 scale=scale, kv_mask=kv_mask,
+                                mean_counts=counts)
+
+
+def exchange_cross_attention(
+    q: torch.Tensor,         # [B, Nq, H, dh] — this rank's text partition
+    k_mem: torch.Tensor,     # [B, M, Hk, dh] — this rank's memory block
+    v_mem: torch.Tensor,     # [B, M, Hk, dh]
+    mem_mask: torch.Tensor,  # [B, M] bool — False for padding
+    cfg: ExchangeConfig,
+    *,
+    logit_softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Cross-attention of text queries onto a position-partitioned memory
+    (the paper's exchange applied to an encoder or image memory) →
+    [B, Nq, H, dh].
+
+    LOCAL / PRISM_SIM (and one partition): exact attention under the
+    memory mask.  Across a seq group rank p holds its text partition and
+    memory block ``[p·Mp, (p+1)·Mp)`` (the two lengths differ):
+
+    * VOLTAGE: one gather of the block's K and V and one of its mask
+      (``meta``), then attention over the whole memory;
+    * PRISM: the masked segment means of the block's K and V in one
+      segment-means launch, one gather of the means and one of their
+      counts (``meta``), then the PRISM-attention kernel, non-causal, over
+      [the block under its mask ‖ every other block's means], each mean
+      weighted by its count (an all-padding segment weighs 0).
+    """
+    if not partitioned(cfg):
+        return local_prefill_attention(q, k_mem, v_mem, cfg,
+                                       logit_softcap=logit_softcap,
+                                       scale=scale, kv_mask=mem_mask)
+    group = seq_group_for(cfg)
+    B = q.shape[0]
+    if cfg.mode == ExchangeMode.VOLTAGE:
+        k_all, v_all = gather_kv(group, k_mem, v_mem)
+        mask = group.all_gather(mem_mask, kind="meta")      # [P, B, M]
+        return chunked_reference_attention(
+            q, k_all, v_all, logit_softcap=logit_softcap, scale=scale,
+            kv_mask=mask.permute(1, 0, 2).reshape(B, -1))
+    L = cfg.L
+    kv_means, counts = kdsp.segment_means_kv(k_mem, v_mem, L, mem_mask,
+                                             axis=1)
+    counts = group.all_gather(counts, kind="meta").transpose(0, 1)
+    means = group.all_gather(kv_means)               # [P, 2, B, L, Hk, dh]
+    means = means.permute(1, 2, 0, 3, 4, 5)          # [2, B, P, L, Hk, dh]
+    return kdsp.prism_attention(q, k_mem, v_mem, means[0], means[1],
+                                group.rank, k_mem.shape[1] // L,
+                                causal=False, logit_softcap=logit_softcap,
+                                scale=scale, kv_mask=mem_mask,
                                 mean_counts=counts)
 
 

@@ -2,11 +2,14 @@
 
 ``params_from_numpy`` takes the JAX params tree as numpy arrays
 (``jax.tree.map(np.asarray, registry.init_params(cfg))``) and returns the
-port's parameter dict: the leading layer axis of ``params["layers"]`` (the
-JAX package's stacked scan layout), or of gemma2's ``local_layers`` and
-``global_layers`` (``[n_layers // 2, ...]`` each), is unstacked into a
-list of per-layer dicts, and every leaf becomes a tensor on ``device``
-with its dtype kept.
+port's parameter dict: the leading layer axis of every stack of
+``transformer.layer_stacks`` (the JAX package's stacked scan layout:
+``layers``, gemma2's ``local_layers`` and ``global_layers``, the moe
+family's ``first_layers``, whisper's ``enc_layers`` and ``dec_layers``,
+the vlm's ``cross_layers``) is unstacked into a list of per-layer dicts;
+the vlm's doubly stacked ``self_layers`` (``[n_groups, k_every − 1,
+...]``) becomes one list, group by group.  Every leaf becomes a tensor on
+``device`` with its dtype kept (the vlm's ``gate`` an f32 scalar).
 """
 from __future__ import annotations
 
@@ -35,18 +38,22 @@ def _convert(tree: Any, device) -> Any:
     return tensor_from_numpy(tree, device)
 
 
-def _unstack(tree: Any, i: int) -> Any:
+def _unstack(tree: Any, i: int, lead: int) -> Any:
+    """Layer ``i`` of a stack whose leaves hold the layers on their first
+    ``lead`` axes (2: groups of layers), in walk order."""
     if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _unstack(v, i, lead) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.reshape((-1,) + a.shape[lead:])[i]
 
 
 def params_from_numpy(np_params: dict, cfg, device="cpu") -> dict:
     """JAX params tree (numpy leaves) → the port's params for ``cfg``."""
-    stacks = {name: depth for name, _, depth, _ in layer_stacks(cfg)}
+    stacks = {name: (depth, lead)
+              for name, _, depth, _, lead in layer_stacks(cfg)}
     out = {k: _convert(v, device) for k, v in np_params.items()
            if k not in stacks}
-    for name, depth in stacks.items():
-        out[name] = [_convert(_unstack(np_params[name], i), device)
+    for name, (depth, lead) in stacks.items():
+        out[name] = [_convert(_unstack(np_params[name], i, lead), device)
                      for i in range(depth)]
     return out

@@ -1,5 +1,5 @@
 """Config → parameters, forward function and input specs, by model family
-(dense, moe, vit).
+(dense, moe, audio, vlm, vit).
 
 Port of ``repro.models.registry``.  ``init_params`` is the port's own
 initialisation: the JAX package's distributions, drawn from a
@@ -18,9 +18,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models import vit as vit_mod
 
 
-# families whose inputs the port can describe; the others arrive with their
-# models (ROADMAP queue 1 item [11])
-INPUT_FAMILIES = ("dense", "moe", "vit")
+# families whose inputs the port can describe; hybrid and ssm arrive with
+# their models (ROADMAP queue 1 item [11], row [11.4])
+INPUT_FAMILIES = ("dense", "moe", "audio", "vlm", "vit")
 
 
 class TensorSpec(NamedTuple):
@@ -32,13 +32,15 @@ class TensorSpec(NamedTuple):
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
     """Inputs for (arch × shape): train/prefill take full token sequences
-    (train also labels), decode one new token (the cache is built
+    (train also labels; the stub frontends' memory: whisper's ``frames``
+    [B, encoder_seq, d], the vlm's ``image_embeds`` [B, image_tokens, d],
+    in the config's dtype), decode one new token (the cache is built
     separately); a ViT takes ``[B, 224, 224, 3]`` f32 images."""
     if cfg.family not in INPUT_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} has no input specs in the port yet "
-            f"(supported: {INPUT_FAMILIES}; the other families are ROADMAP "
-            f"queue 1 item [11])")
+            f"(supported: {INPUT_FAMILIES}; hybrid and ssm are ROADMAP "
+            f"queue 1 item [11], row [11.4])")
     B, N = shape.global_batch, shape.seq_len
     if cfg.family == "vit":
         return {"images": TensorSpec((B, vit_mod.IMAGE, vit_mod.IMAGE, 3),
@@ -47,17 +49,35 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
         specs = {"tokens": TensorSpec((B, N), torch.int32)}
         if shape.kind == "train":
             specs["labels"] = TensorSpec((B, N), torch.int32)
+        if cfg.family == "audio":
+            specs["frames"] = TensorSpec((B, cfg.encoder_seq, cfg.d_model),
+                                         cfg.torch_dtype)
+        if cfg.family == "vlm":
+            specs["image_embeds"] = TensorSpec(
+                (B, cfg.image_tokens, cfg.d_model), cfg.torch_dtype)
         return specs
     return {"tokens": TensorSpec((B, 1), torch.int32)}
+
+
+def _norm_bytes(cfg: ModelConfig) -> int:
+    """One f32 norm: a scale (rmsnorm), or a scale and a bias
+    (layernorm)."""
+    return cfg.d_model * 4 * (2 if cfg.norm_type == "layernorm" else 1)
+
+
+def _gqa_bytes(cfg: ModelConfig) -> int:
+    """One GQA attention's projections (no bias) in ``cfg.dtype``."""
+    return (cfg.d_model * cfg.hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+            * cfg.torch_dtype.itemsize)
 
 
 def layer_weight_bytes(cfg: ModelConfig) -> Tuple[int, int]:
     """Bytes of one decoder layer's weights → (a layer with a dense MLP: of
     ``d_ff``, or the moe family's first layers' ``moe.d_ff_dense``; a
     layer of experts, or 0): attention (GQA, or MLA's projections) and
-    norms, then the MLP or the experts (``E`` routed and the shared ones,
-    three matrices each, and the f32 router); weights in ``cfg.dtype``,
-    norms f32."""
+    norms, then the MLP (three matrices, two ungated under ``gelu``) or
+    the experts (``E`` routed and the shared ones, three matrices each,
+    and the f32 router); weights in ``cfg.dtype``, norms f32."""
     d, hd, w = cfg.d_model, cfg.hd, cfg.torch_dtype.itemsize
     if cfg.mla is not None:
         m, H = cfg.mla, cfg.n_heads
@@ -71,9 +91,10 @@ def layer_weight_bytes(cfg: ModelConfig) -> Tuple[int, int]:
         attn = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
                 + (hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
                    if cfg.qkv_bias else 0)) * w
-    norms = 2 * d * 4
+    norms = 2 * _norm_bytes(cfg)
     if cfg.moe is None:
-        return attn + norms + 3 * d * cfg.d_ff * w, 0
+        mats = 2 if cfg.act == "gelu" else 3
+        return attn + norms + mats * d * cfg.d_ff * w, 0
     e = cfg.moe
     experts = (3 * d * e.d_ff_expert * (e.n_experts + e.n_shared) * w
                + d * e.n_experts * 4)
@@ -82,10 +103,19 @@ def layer_weight_bytes(cfg: ModelConfig) -> Tuple[int, int]:
 
 def weight_bytes(cfg: ModelConfig) -> int:
     """Bytes of a decoder's weights (``layer_weight_bytes`` over its
-    layers, the embedding and the head, the final norm)."""
+    layers, the embedding and the head, the final norm; whisper's encoder
+    layers and ``enc_norm`` and each decoder layer's cross-attention and
+    its norm; the vlm's cross layers, one a group in place of a dense
+    layer, each with its f32 gate)."""
     dense, moe = layer_weight_bytes(cfg)
     head = (cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-            * cfg.torch_dtype.itemsize + cfg.d_model * 4)
+            * cfg.torch_dtype.itemsize + _norm_bytes(cfg))
+    if cfg.family == "audio":
+        return (head + cfg.encoder_layers * dense + _norm_bytes(cfg)
+                + cfg.n_layers * (dense + _gqa_bytes(cfg) + _norm_bytes(cfg)))
+    if cfg.family == "vlm":
+        return head + cfg.n_layers * dense + \
+            cfg.n_layers // cfg.cross_attn_every * 4
     if cfg.moe is None:
         return head + cfg.n_layers * dense
     fd = cfg.moe.first_dense_layers

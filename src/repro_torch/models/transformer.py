@@ -1,8 +1,11 @@
 """Transformer stacks — the dense decoder family (llama / qwen / internlm,
-and gemma2's local/global alternation) and the moe family (deepseek-moe,
-and deepseek-v2 with MLA attention).
+and gemma2's local/global alternation), the moe family (deepseek-moe, and
+deepseek-v2 with MLA attention), the encoder-decoder audio family
+(whisper) and the vlm family (llama-3.2-vision: cross-attention to image
+tokens).
 
-Port of ``repro.models.transformer`` for ``family`` "dense" and "moe".
+Port of ``repro.models.transformer`` for ``family`` "dense", "moe",
+"audio" and "vlm".
 Layer parameters are Python lists of per-layer dicts walked in a loop (in
 place of the JAX package's stacked ``lax.scan`` layout), one list a stack
 (``layer_stacks``):
@@ -15,19 +18,39 @@ place of the JAX package's stacked ``lax.scan`` layout), one list a stack
   a dense MLP), then ``params["layers"]`` (routed and shared experts,
   ``models.moe``); attention is GQA, or MLA (``models.mla``) where
   ``cfg.mla`` is set.  ``forward_lm`` returns the experts' summed
-  load-balance loss as its ``aux``.
+  load-balance loss as its ``aux``;
+* audio: ``params["enc_layers"]`` (``encoder_layers`` non-causal dense
+  layers over the frames, then ``enc_norm``) and ``params["dec_layers"]``
+  (causal self-attention, then cross-attention to the encoder memory
+  (``ln_x``, ``xattn``), then the MLP);
+* vlm: ``params["self_layers"]`` (``n_layers // cross_attn_every`` groups
+  of ``cross_attn_every − 1`` dense layers, one list in walk order) and
+  ``params["cross_layers"]``, one a group after its dense layers
+  (cross-attention to the image tokens through ``tanh(gate)``, then the
+  MLP).
+
+The memory (the encoded frames, or the image embeddings) is padded to
+``pad_len(M0, P, L)`` with a key mask.  Each cross layer projects it to
+K and V once (``_memory_kv``); a full-sequence query attends through
+``exchange.exchange_cross_attention``, a decode step's one token through
+``exchange.decode_attention_sharded`` (the flash-decode kernel; across
+ranks the exact merge) over the ``valid`` real memory tokens.
 
 The decode cache keeps the stacked layout, one half a stack: ``{"kv":
 {leaf: [n_layers, B, S, ...]}}``, gemma2's ``{"local": ..., "global":
 ...}`` stacked over the pairs, or the moe family's ``{"first": ...,
 "kv": ...}`` (MLA: the latent leaves ``c_kv`` ``[.., B, S, r]`` and
 ``k_pe`` ``[.., B, S, dr]``), and each layer updates its slice of it in
-place.
+place.  audio's ``{"kv", "mem_kv", "mem_mask"}`` and vlm's ``{"self",
+"mem_kv", "mem_mask"}`` add the memory: ``mem_kv`` ``{"k", "v": [n_cross,
+B, M, Hk, dh]}`` (one entry a cross layer) and the key mask ``[B, M]``,
+filled once a request by ``prefill_memory``.
 
 Entry points:
   init_lm(cfg, gen)                        → params dict
   forward_lm(params, batch, cfg, xcfg, last_only) → (logits, aux)
   init_decode_cache(cfg, B, S, device, xcfg) → cache dict
+  prefill_memory(params, batch, cfg, xcfg, cache) → cache with its memory
   prefill(params, batch, cache, cfg, xcfg) → (last logits, primed cache)
   decode_step(params, batch, cache, i, cfg, xcfg) → (logits, cache)
   init_page_pool(cfg, n_pages, page_size, device) → paged pool dict
@@ -42,14 +65,20 @@ layer; ``forward_lm`` returns the global logits on every rank.  The
 decode cache is sharded in contiguous blocks along S: rank p holds
 positions ``[p·Sp, (p+1)·Sp)``, and each decode step merges every
 block's partial attention (``exchange.decode_attention_sharded``).
+The memory splits the same way: rank p holds frames or image tokens
+``[p·Mp, (p+1)·Mp)`` of the padded memory (its padding a suffix of the
+last blocks).  whisper's encoder runs each rank's block at its global
+positions under the plan's exchange, with no key mask, as the JAX
+package's encoder attends its own padded frames; the decode cache keeps
+the rank's block of ``mem_kv`` and the global mask, so every rank knows
+the memory's real length.
 
 Under a partitioned plan a windowed layer's prefill exchanges only its
 halo under ``prism`` (``exchange.prism_prefill_attention``) and its decode
 merges the blocks' windowed partials.  A MoE layer routes a rank's tokens
 as the whole sequence's (one staged call of counts a layer,
 ``moe.apply_moe``); its decode, whose token every rank holds, makes none.
-The other families (hybrid, ssm, audio, vlm) are ROADMAP queue 1 item
-11.
+The other families (hybrid, ssm) are ROADMAP queue 1 item 11, [11.4].
 """
 from __future__ import annotations
 
@@ -59,7 +88,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
-                                       exchange_attention, gather_kv,
+                                       decode_attention_sharded,
+                                       exchange_attention,
+                                       exchange_cross_attention, gather_kv,
                                        partitioned, seq_group_for)
 from repro_torch.models import mla as mla_mod
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
@@ -74,17 +105,24 @@ Params = Dict[str, Any]
 
 # single-pass prefill is defined for the attention-cached families the port
 # carries; the rest prefill by the teacher-forced decode loop
-PREFILL_FAMILIES = ("dense", "moe")
+PREFILL_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 # the families whose stacks the port carries
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "audio", "vlm")
+
+# the families that cross-attend to a memory (encoder frames, image tokens)
+MEMORY_FAMILIES = ("audio", "vlm")
+
+# ``_walk``'s half of a layer that attends the memory: its K and V are the
+# cache's ``mem_kv`` entry of its index
+MEMORY = "mem_kv"
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item "
-            f"11)")
+            f"11: hybrid and ssm, [11.4])")
 
 
 def _attn_spec(cfg: ModelConfig, *, window: Optional[int] = None,
@@ -122,10 +160,14 @@ def _init_dense_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def _mlp_residual(p: Params, x, h, cfg: ModelConfig):
-    """Shared tail of every block: x + h, then x + mlp(ln2(x))."""
+    """Shared tail of every block: x + h, then x + mlp(ln2(x)); a layer
+    without an MLP (whisper's self-attention, whose MLP follows its
+    cross-attention) stops at x + h."""
     if cfg.post_norms:
         h = apply_norm(cfg.norm_type, p["post_attn"], h)
     x = x + h
+    if "mlp" not in p:
+        return x
     h2 = apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg.act)
     if cfg.post_norms:
         h2 = apply_norm(cfg.norm_type, p["post_mlp"], h2)
@@ -259,26 +301,194 @@ def _apply_moe_decode(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
 
 
 # ---------------------------------------------------------------------------
+# audio / vlm: the memory and the cross-attention layers
+# ---------------------------------------------------------------------------
+
+def _init_encdec_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """whisper decoder layer: causal self-attention, cross-attention to the
+    encoder memory, MLP."""
+    d, dtype, dev = cfg.d_model, cfg.torch_dtype, gen.device
+    return {"ln1": init_norm(cfg.norm_type, d, dev),
+            "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, dtype),
+            "ln_x": init_norm(cfg.norm_type, d, dev),
+            "xattn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.hd, dtype),
+            "ln2": init_norm(cfg.norm_type, d, dev),
+            "mlp": init_mlp(gen, d, cfg.d_ff, dtype, gated=cfg.act != "gelu")}
+
+
+def _init_cross_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """vlm cross-attention layer (to the image tokens, through
+    ``tanh(gate)``, the gate an f32 scalar starting at 0) and MLP."""
+    d, dtype, dev = cfg.d_model, cfg.torch_dtype, gen.device
+    return {"ln1": init_norm(cfg.norm_type, d, dev),
+            "xattn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.hd, dtype),
+            "gate": torch.zeros((), dtype=torch.float32, device=dev),
+            "ln2": init_norm(cfg.norm_type, d, dev),
+            "mlp": init_mlp(gen, d, cfg.d_ff, dtype)}
+
+
+def _memory_kv(p_attn: Params, mem: torch.Tensor, cfg: ModelConfig
+               ) -> Dict[str, torch.Tensor]:
+    """Project a memory [B, M, D] to K and V once (every query of the
+    layer attends them)."""
+    B, M, _ = mem.shape
+    return {"k": (mem @ p_attn["wk"]).reshape(B, M, cfg.n_kv_heads, cfg.hd),
+            "v": (mem @ p_attn["wv"]).reshape(B, M, cfg.n_kv_heads, cfg.hd)}
+
+
+def _padded_memory(x: torch.Tensor, cfg: ModelConfig, xcfg: ExchangeConfig):
+    """A memory input [B, M0, D] padded to ``M = pad_len(M0, P, L)`` →
+    (this rank's block of it (the whole of it without a seq group), in
+    ``cfg``'s dtype; the block's first global position; the global key
+    mask [B, M], False on the padding)."""
+    B, M0, _ = x.shape
+    M = pad_len(M0, xcfg.seq_shards, xcfg.L)
+    mask = (torch.arange(M, device=x.device) < M0)[None].expand(B, M)
+    _, start, m = _shard(xcfg, M)
+    x = torch.nn.functional.pad(x.to(cfg.torch_dtype), (0, 0, 0, M - M0))
+    return x[:, start:start + m], start, mask
+
+
+def _encode_audio(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, xcfg: ExchangeConfig):
+    """whisper's encoder over the stub frame embeddings ``batch["frames"]``
+    [B, M0, D], padded → (this rank's block of the encoded memory, the
+    global mask).  Non-causal self-attention under the plan's exchange at
+    the block's global positions, with no key mask: the encoder attends
+    its own padded frames, as the JAX package's does."""
+    mem, start, mask = _padded_memory(batch["frames"], cfg, xcfg)
+    pos = _positions(mem.shape[0], mem.shape[1], mem.device, start)
+    spec = _attn_spec(cfg, causal=False)
+    for lp in params["enc_layers"]:
+        mem = _apply_attn_mlp(lp, mem, cfg, xcfg, spec, pos)
+    return apply_norm(cfg.norm_type, params["enc_norm"], mem), mask
+
+
+def _image_memory(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  xcfg: ExchangeConfig):
+    """The stub image-patch embeddings ``batch["image_embeds"]`` [B, T0,
+    D], padded → (this rank's block, the global mask)."""
+    mem, _, mask = _padded_memory(batch["image_embeds"], cfg, xcfg)
+    return mem, mask
+
+
+def _memory(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, xcfg: ExchangeConfig):
+    if cfg.family == "audio":
+        return _encode_audio(params, batch, cfg, xcfg)
+    return _image_memory(batch, cfg, xcfg)
+
+
+def _memory_layers(params: Params, cfg: ModelConfig) -> List[Params]:
+    """The layers that attend the memory, one ``mem_kv`` entry each."""
+    return params["dec_layers" if cfg.family == "audio" else "cross_layers"]
+
+
+def prefill_memory(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig, xcfg: ExchangeConfig, cache: Params
+                   ) -> Params:
+    """Fill the decode cache's memory slots (audio / vlm; other families'
+    caches come back as they are): ``mem_kv``, every cross layer's K and V
+    of this rank's memory block stacked over the layers, and the global
+    ``mem_mask``."""
+    if cfg.family not in MEMORY_FAMILIES:
+        return cache
+    mem, mask = _memory(params, batch, cfg, xcfg)
+    kvs = [_memory_kv(lp["xattn"], mem, cfg)
+           for lp in _memory_layers(params, cfg)]
+    cache["mem_kv"] = {n: torch.stack([kv[n] for kv in kvs])
+                       for n in ("k", "v")}
+    cache["mem_mask"] = mask
+    return cache
+
+
+def _cross_attend(p: Params, x, mem_kv: Dict[str, torch.Tensor], mem_mask,
+                  cfg: ModelConfig, xcfg: ExchangeConfig, decode: bool):
+    """x + the cross-attention of x onto the memory's K and V (this rank's
+    block) under the global ``mem_mask`` [B, M].
+
+    Full-sequence queries go through ``exchange_cross_attention`` (across
+    ranks: the rank's text partition over its memory block); a decode
+    step's one token (``decode``) through ``decode_attention_sharded``
+    over the ``valid`` real memory tokens (the padding is a suffix), the
+    exact merge across ranks (the plan's own config without a seq group).
+    A layer with a ``gate`` scales its output by ``tanh(gate)``."""
+    B, N, _ = x.shape
+    xin = apply_norm(cfg.norm_type, p["ln1"], x)
+    q = (xin @ p["xattn"]["wq"]).reshape(B, N, cfg.n_heads, cfg.hd)
+    k, v = mem_kv["k"], mem_kv["v"]
+    kw = dict(logit_softcap=cfg.attn_softcap, scale=cfg.query_scale)
+    if decode:
+        dcfg = (xcfg.with_mode(ExchangeMode.VOLTAGE) if partitioned(xcfg)
+                else xcfg)
+        valid = mem_mask.sum(dim=-1)
+        out = decode_attention_sharded(q, k, v, valid, dcfg, **kw)
+    else:
+        if partitioned(xcfg):   # this rank's block's mask, dense and aligned
+            lo = seq_group_for(xcfg).rank * k.shape[1]
+            mem_mask = mem_mask[:, lo:lo + k.shape[1]].clone(
+                memory_format=torch.contiguous_format)
+        out = exchange_cross_attention(q, k, v, mem_mask, xcfg, **kw)
+    out = out.reshape(B, N, cfg.n_heads * cfg.hd) @ p["xattn"]["wo"]
+    if "gate" in p:
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
+    return x + out
+
+
+def _cross_block(p: Params, x, mem_kv, mem_mask, cfg: ModelConfig,
+                 xcfg: ExchangeConfig, decode: bool):
+    """Cross-attention, then x + mlp(ln2(x))."""
+    x = _cross_attend(p, x, mem_kv, mem_mask, cfg, xcfg, decode)
+    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
+                         cfg.act)
+
+
+def _cached_kv(cache: Params, i: int) -> Dict[str, torch.Tensor]:
+    """Memory layer ``i``'s K and V from the cache's ``mem_kv``."""
+    mem = cache["mem_kv"]
+    if mem is None:
+        raise ValueError("the decode cache holds no memory: call "
+                         "prefill_memory first")
+    return {"k": mem["k"][i], "v": mem["v"][i]}
+
+
+# ---------------------------------------------------------------------------
 # model init
 # ---------------------------------------------------------------------------
 
-def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int,
-                                                  Optional[int]]]:
+def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, Optional[str], int,
+                                                  Optional[int], int]]:
     """The model's layer stacks in walk order → (params list name, decode
-    cache half, depth, attention window): ``layers`` over ``kv``,
+    cache half or None, depth, attention window, the lead axes that hold
+    the layers in the JAX package's stacked layout): ``layers`` over ``kv``,
     gemma2's ``local_layers`` (the sliding window) over ``local`` and
     ``global_layers`` over ``global``, ``n_layers // 2`` each, or the moe
     family's ``first_layers`` (dense MLPs) over ``first`` and then
-    ``layers`` (experts) over ``kv``."""
+    ``layers`` (experts) over ``kv``; audio's ``enc_layers`` (no cache)
+    and ``dec_layers`` over ``kv``; vlm's ``self_layers`` (every group's
+    dense layers, group by group: two lead axes, ``[n_groups,
+    cross_attn_every − 1, ...]``) over ``self`` and ``cross_layers`` (no
+    self-attention cache: their memory K/V is ``mem_kv``)."""
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
-        return [("first_layers", "first", fd, None),
-                ("layers", "kv", cfg.n_layers - fd, None)]
+        return [("first_layers", "first", fd, None, 1),
+                ("layers", "kv", cfg.n_layers - fd, None, 1)]
+    if cfg.family == "audio":
+        return [("enc_layers", None, cfg.encoder_layers, None, 1),
+                ("dec_layers", "kv", cfg.n_layers, None, 1)]
+    if cfg.family == "vlm":
+        n = cfg.n_layers // cfg.cross_attn_every
+        return [("self_layers", "self", n * (cfg.cross_attn_every - 1), None,
+                 2),
+                ("cross_layers", None, n, None, 1)]
     if cfg.local_global:
         n = cfg.n_layers // 2
-        return [("local_layers", "local", n, cfg.window),
-                ("global_layers", "global", n, None)]
-    return [("layers", "kv", cfg.n_layers, None)]
+        return [("local_layers", "local", n, cfg.window, 1),
+                ("global_layers", "global", n, None, 1)]
+    return [("layers", "kv", cfg.n_layers, None, 1)]
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -291,22 +501,44 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, d, dtype)
-    for name, _, n, _ in layer_stacks(cfg):
-        if cfg.family == "moe":
-            params[name] = [_init_moe_layer(cfg, gen, name == "first_layers")
-                            for _ in range(n)]
-        else:
-            params[name] = [_init_dense_layer(cfg, gen) for _ in range(n)]
+    init = {"first_layers": lambda: _init_moe_layer(cfg, gen, True),
+            "dec_layers": lambda: _init_encdec_layer(cfg, gen),
+            "cross_layers": lambda: _init_cross_layer(cfg, gen)}
+    if cfg.family == "moe":
+        init["layers"] = lambda: _init_moe_layer(cfg, gen, False)
+    for name, _, n, _, _ in layer_stacks(cfg):
+        params[name] = [init.get(name, lambda: _init_dense_layer(cfg, gen))()
+                        for _ in range(n)]
+    if cfg.family == "audio":
+        params["enc_norm"] = init_norm(cfg.norm_type, d, gen.device)
     return params
 
 
 def _walk(params: Params, cfg: ModelConfig):
-    """Every layer in order → (its params, its attention spec, its cache
-    half, its index in that half).  gemma2 alternates: local layer i (the
-    sliding window), then global layer i; the moe family walks its stacks
-    one after the other."""
+    """Every decoder layer in order → (its params, its attention spec, its
+    cache half, its index in that half).  gemma2 alternates: local layer
+    i (the sliding window), then global layer i; the moe family walks its
+    stacks one after the other.  A layer that attends the memory comes
+    with the half ``MEMORY`` and the index of its K and V in ``mem_kv``:
+    whisper's decoder layer i as its self-attention (params without an
+    MLP) and then its cross-attention and MLP; the vlm's cross layer of
+    group g after the group's dense layers."""
+    spec = _attn_spec(cfg)
+    if cfg.family == "audio":
+        return [e for i, lp in enumerate(params["dec_layers"])
+                for e in (({"ln1": lp["ln1"], "attn": lp["attn"]}, spec,
+                           "kv", i),
+                          ({"ln1": lp["ln_x"], "xattn": lp["xattn"],
+                            "ln2": lp["ln2"], "mlp": lp["mlp"]}, spec,
+                           MEMORY, i))]
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every - 1
+        return [e for g, cp in enumerate(params["cross_layers"])
+                for e in [(params["self_layers"][j], spec, "self", j)
+                          for j in range(g * k, (g + 1) * k)]
+                + [(cp, spec, MEMORY, g)]]
     stacks = [(params[name], _attn_spec(cfg, window=w), half)
-              for name, half, _, w in layer_stacks(cfg)]
+              for name, half, _, w, _ in layer_stacks(cfg)]
     if cfg.family == "moe":
         return [(lp, spec, half, i) for lps, spec, half in stacks
                 for i, lp in enumerate(lps)]
@@ -371,11 +603,13 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, xcfg: ExchangeConfig,
                last_only: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: {"tokens": [B, N]} → (logits
+    """Full-sequence forward. batch: {"tokens": [B, N]}, and audio's
+    ``"frames"`` [B, M0, D] or vlm's ``"image_embeds"`` [B, M0, D] → (logits
     [B, N, V] f32, aux scalar).  ``last_only`` unembeds just the final
     position (logits [B, 1, V]).  Under a partitioned plan each rank runs
-    its part of the sequence and every rank returns the global logits.
-    ``aux`` is the moe family's summed load-balance loss (0 otherwise)."""
+    its part of the sequence (and of the memory) and every rank returns
+    the global logits.  ``aux`` is the moe family's summed load-balance
+    loss (0 otherwise)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, N = tokens.shape
@@ -384,8 +618,13 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, spec, _, _ in _walk(params, cfg):
-        if cfg.family == "moe":
+    if cfg.family in MEMORY_FAMILIES:
+        mem, mem_mask = _memory(params, batch, cfg, xcfg)
+    for lp, spec, half, _ in _walk(params, cfg):
+        if half == MEMORY:
+            x = _cross_block(lp, x, _memory_kv(lp["xattn"], mem, cfg),
+                             mem_mask, cfg, xcfg, decode=N == 1)
+        elif cfg.family == "moe":
             x, a = _apply_moe_layer(lp, x, cfg, xcfg, spec, positions, group)
             if a is not None:
                 aux = aux + a
@@ -412,9 +651,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     half a stack of ``layer_stacks``: ``{"kv": ...}`` over the layers,
     gemma2's ``{"local": ..., "global": ...}`` over the pairs, or the moe
     family's ``{"first": ..., "kv": ...}`` (MLA: the latent ``c_kv`` and
-    ``k_pe`` leaves).  Under a partitioned ``xcfg`` every half is this
-    rank's block of ``ceil(seq / P)`` positions: the cache rounds up to a
-    multiple of P, and the padded slots are never valid."""
+    ``k_pe`` leaves); audio's ``{"kv": ...}`` and vlm's ``{"self": ...}``
+    with empty ``mem_kv`` and ``mem_mask`` slots (``prefill_memory`` fills
+    them).  Under a partitioned ``xcfg`` every half is this rank's block of
+    ``ceil(seq / P)`` positions: the cache rounds up to a multiple of P,
+    and the padded slots are never valid."""
     _require_ported(cfg)
     if xcfg is not None and partitioned(xcfg):
         seq = -(-seq // xcfg.seq_shards)
@@ -424,9 +665,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     else:
         c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd,
                           cfg.torch_dtype, quant=cfg.kv_quant, device=device)
-    return {half: {name: t[None].repeat(n, *([1] * t.ndim))
-                   for name, t in c.items()}
-            for _, half, n, _ in layer_stacks(cfg)}
+    cache = {half: {name: t[None].repeat(n, *([1] * t.ndim))
+                    for name, t in c.items()}
+             for _, half, n, _, _ in layer_stacks(cfg) if half is not None}
+    if cfg.family in MEMORY_FAMILIES:
+        cache.update(mem_kv=None, mem_mask=None)
+    return cache
 
 
 def _layer_cache(cache: Params, half: str, i: int
@@ -442,7 +686,8 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     """One-token step. batch: {"tokens": [B, 1]} → (logits [B, 1, V],
     cache updated in place). ``cache_index`` is the write position: an int
     for every row, or a ``[B]`` int tensor, one position per row (see
-    ``layers.attention_decode``)."""
+    ``layers.attention_decode``).  audio and vlm attend the memory that
+    ``prefill_memory`` put in the cache."""
     _require_ported(cfg)
     x = embed(params["embed"], batch["tokens"],
               scale_by_sqrt_d=cfg.embed_scale)
@@ -451,8 +696,12 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     layer = _apply_moe_decode if cfg.family == "moe" else \
         _apply_attn_mlp_decode
     for lp, spec, half, i in _walk(params, cfg):
-        x = layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
-                  cache_index)
+        if half == MEMORY:
+            x = _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
+                             cfg, xcfg, decode=True)
+        else:
+            x = layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
+                      cache_index)
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
     return logits, cache
@@ -519,7 +768,9 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     [0, T0) → (last-position logits [B, 1, V] f32, primed cache).  Under a
     partitioned plan each rank runs its part of the prompt and fills its
     cache block; PRISM's prompt then attends through segment means (the
-    paper's distributed prefill), which is not T0 exact decode steps."""
+    paper's distributed prefill), which is not T0 exact decode steps.
+    audio and vlm attend the memory that ``prefill_memory`` put in the
+    cache."""
     if not supports_prefill(cfg):
         raise ValueError(f"family {cfg.family!r} has no single-pass "
                          f"prefill; use the decode-loop prefill "
@@ -532,6 +783,10 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
     for lp, spec, half, i in _walk(params, cfg):
+        if half == MEMORY:
+            x = _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
+                             cfg, xcfg, decode=T0 == 1)
+            continue
         c = _layer_cache(cache, half, i)
         if cfg.family == "moe":
             x = _apply_moe_prefill(lp, x, cfg, xcfg, spec, positions, c,

@@ -18,7 +18,10 @@ are composed the same way (``codec_oracle``, ``ring_oracle``), and so is
 the MLA latent exchange of ``repro.core.exchange.exchange_attention_mla``
 and ``mla_decode_attention_sharded`` (``mla_voltage_oracle``,
 ``mla_prism_oracle``, ``mla_oracle`` choosing by mode,
-``mla_decode_sharded_oracle``).  A
+``mla_decode_sharded_oracle``), and so is the cross-attention exchange
+of ``repro.core.exchange.exchange_cross_attention`` (``cross_oracle``:
+each text partition over its memory block and the other blocks' masked
+means, or over the whole memory).  A
 sliding-window layer takes ``voltage_oracle`` in both PRISM oracles, as
 the JAX package routes it: its halo exchange attends exactly under the
 window, and its codec exchange falls back to the Voltage gather.
@@ -257,3 +260,42 @@ def mla_decode_sharded_oracle(q_lat, q_pe, c_cache, pe_cache, cache_len, P,
     o_g = sum(jnp.einsum("bhqs,bsr->bqhr", w, c.astype(jnp.float32))
               for w, (c, _) in zip(ws, blocks))
     return (o_g / l_g.transpose(0, 2, 1)[..., None]).astype(q_lat.dtype)
+
+
+def cross_oracle(q, k_mem, v_mem, mem_mask, cfg, *, logit_softcap=None,
+                 scale=None):
+    """``exchange_cross_attention`` with its partitioned branches composed
+    partition by partition, text and memory split alike: VOLTAGE each text
+    partition's queries over the whole memory under its mask; PRISM the
+    per-device body (``prism_x``): each memory block's masked segment means
+    of K and V (``kdsp.segment_means_masked``), every block's means and
+    counts side by side, then ``kdsp.prism_attention`` of the text
+    partition over its block (non-causal, the block's mask) and the means;
+    the rest as is."""
+    from repro.core import exchange as jx
+    P, L = cfg.seq_shards, cfg.L
+    if cfg.seq_axis is None or P == 1 or cfg.mode not in (
+            jx.ExchangeMode.VOLTAGE, jx.ExchangeMode.PRISM):
+        return jx.exchange_cross_attention(q, k_mem, v_mem, mem_mask, cfg,
+                                           logit_softcap=logit_softcap,
+                                           scale=scale)
+    qs = _parts(q, P)
+    if cfg.mode == jx.ExchangeMode.VOLTAGE:
+        return jnp.concatenate(
+            [jpa.reference_attention(qp, k_mem, v_mem, kv_mask=mem_mask,
+                                     logit_softcap=logit_softcap, scale=scale)
+             for qp in qs], axis=1)
+    ks, vs, ms = _parts(k_mem, P), _parts(v_mem, P), _parts(mem_mask, P)
+    kc = [kdsp.segment_means_masked(ks[p], L, ms[p], axis=1)
+          for p in range(P)]
+    vc = [kdsp.segment_means_masked(vs[p], L, ms[p], axis=1)
+          for p in range(P)]
+    km = jnp.stack([m for m, _ in kc], axis=1)              # [B, P, L, ...]
+    vm = jnp.stack([m for m, _ in vc], axis=1)
+    counts = jnp.stack([c for _, c in kc], axis=1)          # [B, P, L]
+    seg = ks[0].shape[1] // L
+    return jnp.concatenate(
+        [kdsp.prism_attention(qs[p], ks[p], vs[p], km, vm, p, seg_size=seg,
+                              causal=False, logit_softcap=logit_softcap,
+                              scale=scale, kv_mask=ms[p], mean_counts=counts)
+         for p in range(P)], axis=1)

@@ -476,3 +476,104 @@ def moe_seq(rank, world, job):
         r["gen/voltage/single_pass"] = (_np(out), group.stats.cache_bytes,
                                         group.stats.meta_bytes)
     return res
+
+
+def _flat_layers(a):
+    """A JAX cache leaf with the vlm's [groups, layers] axes as one."""
+    return a.reshape(-1, *a.shape[-4:])
+
+
+def xattn_seq(rank, world, job):
+    """The audio and vlm families across the group, from the JAX weights:
+
+    * ``job["cross"]``: ``exchange_cross_attention`` on this rank's text
+      partition and memory block of each case → (out, payload bytes, meta
+      bytes, calls, segment-means K+V calls, PRISM-attention calls);
+    * per arch in ``job["archs"]``: ``forward_lm`` under each plan of
+      ``job["plans"]`` with the arch's memory input (logits, payload,
+      meta, calls, ``last_only`` logits); decode steps under each plan,
+      each from the given JAX cache (the self-attention cache's and the
+      memory's blocks, the global mask) → (logits, merge bytes, calls);
+      greedy ``generate`` under each plan, and under ``voltage`` with the
+      memory input of ``"gen_memory"``."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.core import exchange as tx
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    group = get_seq_group("seq")
+    res = {"cross": []}
+    calls = {"segment_means_kv": [], "prism_attention": []}
+    real = {name: getattr(kdsp, name) for name in calls}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name].append(1)
+            return real[name](*a, **kw)
+        return fn
+    for name in calls:
+        setattr(kdsp, name, counted(name))
+    try:
+        with torch.inference_mode():
+            for c in job["cross"]:
+                group.reset_stats()
+                for n in calls.values():
+                    n.clear()
+                out = tx.exchange_cross_attention(
+                    _part(c["q"], rank, world), _part(c["k"], rank, world),
+                    _part(c["v"], rank, world),
+                    _part(c["mask"], rank, world), _xcfg(c, world))
+                st = group.stats
+                res["cross"].append((_np(out), st.payload_bytes,
+                                     st.meta_bytes, st.calls,
+                                     len(calls["segment_means_kv"]),
+                                     len(calls["prism_attention"])))
+    finally:
+        for name, fn in real.items():
+            setattr(kdsp, name, fn)
+    for label, a in job["archs"].items():
+        cfg = get_config(a["arch"]).reduced(**a["reduced"])
+        session = InferenceSession(
+            cfg, params_from_numpy(a["params"], cfg), device="cpu")
+        plans = {name: ExecutionPlan(seq_axis="seq", seq_shards=world, **kw)
+                 for name, kw in job["plans"].items()}
+        r = res[label] = {}
+        mem = {a["memory_name"]: torch.from_numpy(a["memory"])}
+        batch = {"tokens": torch.from_numpy(job["tokens"]), **mem}
+        with torch.inference_mode():
+            for name, plan in plans.items():
+                xcfg = plan.to_exchange_config()
+                group.reset_stats()
+                logits, _ = tfm.forward_lm(session.params, batch, cfg, xcfg)
+                st = group.stats
+                moved = (st.payload_bytes, st.meta_bytes, st.calls)
+                last = tfm.forward_lm(session.params, batch, cfg, xcfg,
+                                      last_only=True)[0]
+                r[f"fwd/{name}"] = (_np(logits), *moved, _np(last))
+                steps = job["decode_tokens"]
+                got = []
+                for t, full in enumerate(a["caches"][name]):
+                    cache = {"mem_mask": torch.from_numpy(full["mem_mask"])}
+                    for half, leaves in full.items():
+                        if half != "mem_mask":
+                            cache[half] = {k: torch.from_numpy(cache_block(
+                                _flat_layers(v), rank, world, 2))
+                                for k, v in leaves.items()}
+                    group.reset_stats()
+                    lg, _ = tfm.decode_step(
+                        session.params,
+                        {"tokens": torch.from_numpy(steps[:, t:t + 1])},
+                        cache, t, cfg, xcfg)
+                    got.append((_np(lg), group.stats.merge_bytes,
+                                group.stats.calls))
+                r[f"decode/{name}"] = got
+        prompt = torch.from_numpy(job["prompt"])
+        for name, plan in plans.items():
+            r[f"gen/{name}"] = _np(session.generate(
+                prompt, job["n_new"], plan=plan, batch_extras=mem))
+        r["gen/voltage/memory"] = _np(session.generate(
+            prompt, job["n_new"], plan=plans["voltage"],
+            batch_extras={a["memory_name"]: torch.from_numpy(
+                a["gen_memory"])}))
+    return res

@@ -780,3 +780,189 @@ def test_measured_profile_across_two_ranks_on_the_card(cuda_device):
         assert m["per_rank"] and m["seq_group"] == 2
         assert 0 < m["staged_ms_measured"] < m["forward_ms_measured"]
         assert m["staged_calls"] > 0 and e["staging_ms"] > 0
+
+
+# the cross-attention memories: (heads, KV heads, dh, real length M0, the
+# memory padded for P 2 and L 16), whisper-large-v3's encoder frames and
+# llama-3.2-vision-11b's image tokens
+MEMORY = {"whisper": (20, 20, 64, 1500, 1504),
+          "vision": (32, 8, 128, 1601, 1632)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", sorted(MEMORY))
+def test_flash_decode_over_the_cross_attention_memories(cuda_device, dtype,
+                                                        memory):
+    """A decode step's cross-attention on one card: B 4 over the whole
+    memory (S 1500 at 20/20 heads dh 64, S 1601 at 32/8 dh 128, every
+    position valid) through ``dispatch.decode_attention`` and
+    ``dispatch.decode_partials``, one launch each, against the plain
+    version: the f32 partials (o·l / l, m, l) within 1e-5 / 1e-3
+    relative, and the output in the inputs' dtype (f32: within 1e-5
+    relative; bf16: every element within one bf16 rounding step, 2^-7
+    relative, of the plain version's rounded output, plus 1e-6 of the
+    largest)."""
+    from repro_torch.kernels import dispatch as kdsp
+    H, Hk, dh, M0, _ = MEMORY[memory]
+    q, k, v = _shard_inputs(cuda_device, dtype, 4, M0, seed=30, H=H, Hk=Hk,
+                            dh=dh)
+    valid = torch.full((4,), M0, device=cuda_device)
+    before = flash_decode.launches
+    out = kdsp.decode_attention(q, k, v, valid)
+    got = kdsp.decode_partials(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 2
+    assert out.shape == (4, 1, H, dh) and out.dtype == dtype
+    want = flash_decode_ref(q[:, 0], k, v, torch.zeros(4, M0,
+                                                       device=cuda_device))
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    for a, b in ((got[0] / got[2][..., None], want[0] / want[2][..., None]),
+                 (got[1], want[1]), (got[2], want[2])):
+        assert _rel_err(a, b) <= tol
+    want_out = (want[0] / want[2][..., None]).to(dtype).float()
+    if dtype == torch.float32:
+        assert _rel_err(out[:, 0], want_out) <= tol
+    else:
+        assert torch.isclose(out[:, 0].float(), want_out, rtol=2.0 ** -7,
+                             atol=1e-6 * want_out.abs().max().item()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", sorted(MEMORY))
+def test_shard_partial_over_a_memory_block(cuda_device, dtype, memory):
+    """Rank 1 of 2's block of the padded memory (Mp 752 with 748 real
+    frames, Mp 816 with 785 real image tokens) at offset Mp under the
+    global valid length, and both blocks merged against the dense kernel
+    over the unpadded memory."""
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.kernels.flash_decode import merge_partials
+    H, Hk, dh, M0, M = MEMORY[memory]
+    Mp = M // 2
+    q, k, v = _shard_inputs(cuda_device, dtype, 4, M, seed=31, H=H, Hk=Hk,
+                            dh=dh)
+    valid = torch.full((4,), M0, device=cuda_device)
+    parts = [kdsp.decode_partials(q, k[:, r * Mp:(r + 1) * Mp].contiguous(),
+                                  v[:, r * Mp:(r + 1) * Mp].contiguous(),
+                                  valid, offset=r * Mp) for r in (0, 1)]
+    bias = validity_bias(4, Mp, valid, offset=Mp, device=cuda_device)
+    assert int((bias == 0).sum(dim=1)[0]) == M0 - Mp
+    want = flash_decode_ref(q[:, 0], k[:, Mp:].contiguous(),
+                            v[:, Mp:].contiguous(), bias)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    got = parts[1]
+    assert _rel_err(got[0] / got[2][..., None], want[0] / want[2][..., None]
+                    ) <= tol
+    merged = merge_partials(*(torch.stack(p) for p in zip(*parts)))
+    o, _, l = kdsp.decode_partials(q, k[:, :M0].contiguous(),
+                                   v[:, :M0].contiguous(), valid)
+    assert _rel_err(merged, o / l[..., None]) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("memory", sorted(MEMORY))
+def test_masked_segment_means_over_a_memory_block(cuda_device, memory):
+    """K and V of the last block of the padded memory in one launch, L 16
+    (segments of 47 or 51 tokens): [4, 752, 20·64] with its last 4 frames
+    padding, [4, 816, 8·128] with its last 31 image tokens, against the
+    plain version: the bf16 means each within one bf16 rounding step (a
+    mean on a rounding boundary may take either neighbour: the kernel
+    multiplies by 1 / count where the plain version divides, and sums in
+    another order), the same values in f32 within 1e-5 relative, counts
+    exact."""
+    from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_kv,
+                                                   segment_means_ref)
+    H, Hk, dh, M0, M = MEMORY[memory]
+    Mp, L = M // 2, 16
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    k, v = (torch.randn(4, Mp, Hk * dh, generator=g, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    mask = (torch.arange(Mp, device=cuda_device) < M0 - Mp)[None].repeat(
+        4, 1)
+    before = segment_means.launches
+    means, counts = segment_means_kv(k, v, L, mask)
+    means32, counts32 = segment_means_kv(k.float(), v.float(), L, mask)
+    torch.cuda.synchronize()
+    assert segment_means.launches == before + 2
+    assert means.dtype == torch.bfloat16 and means32.dtype == torch.float32
+    for i, x in enumerate((k, v)):
+        want, want_c = segment_means_ref(x, L, mask)
+        assert torch.isclose(means[i].float(), want.float(), rtol=2.0 ** -7,
+                             atol=0.0).all()
+        want32, _ = segment_means_ref(x.float(), L, mask)
+        assert _rel_err(means32[i], want32) <= 1e-5
+        assert torch.equal(counts, want_c) and torch.equal(counts32, want_c)
+    assert counts[0, -1] == Mp // L - (M - M0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [0, 1])
+@pytest.mark.parametrize("memory", sorted(MEMORY))
+def test_masked_cross_prism_attention_over_a_memory_block(cuda_device, memory,
+                                                          part):
+    """The PRISM cross-attention of a text partition q [4, 256, H, dh]
+    over its memory block of 752 or 816 keys under the block's mask
+    (non-causal, Nq ≠ Nk) and the means of both blocks as gathered
+    ([4, 2, 16, Hk, dh] views), their counts from the masks: partitions
+    0 and 1 against the plain version."""
+    from repro_torch.kernels.prism_attention import build_mean_bias
+    H, Hk, dh, M0, M = MEMORY[memory]
+    Mp, L = M // 2, 16
+    g = torch.Generator(device=cuda_device).manual_seed(33 + part)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+    q, k, v = randn(4, 256, H, dh), randn(4, Mp, Hk, dh), randn(4, Mp, Hk, dh)
+    means = randn(2, 2, 4, L, Hk, dh).permute(1, 2, 0, 3, 4, 5)
+    flat = [m.reshape(4, 2 * L, Hk, dh) for m in means]
+    real = (torch.arange(M, device=cuda_device) < M0).reshape(2, L, -1)
+    counts = real.sum(dim=-1).float()[None].repeat(4, 1, 1)    # [B, P, L]
+    mask = (torch.arange(Mp, device=cuda_device) + part * Mp < M0)[None]
+    mask = mask.repeat(4, 1)
+    bias = build_mean_bias(4, 2, L, part, Mp // L, causal=False,
+                           mean_counts=counts)
+    _assert_prism_close((q, k, v, means[0], means[1], bias), flat,
+                        causal=False, mask=mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_small_memory_models_generate_the_cpus_tokens(cuda_device, arch):
+    """A small f32 whisper and vision model (dh 64, a memory that pads
+    under ``prism_sim``, the vlm gates at 0.5) generate with
+    ``batch_extras`` the same greedy tokens on the card, self- and
+    cross-attention decode through the flash-decode kernel, as on the
+    CPU, under ``local`` and ``prism_sim``."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=4, d_model=256,
+                   n_kv_heads=4 if arch == "whisper-large-v3" else 2)
+    cfg = get_config(arch).reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    for cp in params.get("cross_layers", []):
+        cp["gate"].fill_(0.5)
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    name = "frames" if cfg.family == "audio" else "image_embeds"
+    extras = {name: torch.randn(2, 13, cfg.d_model, generator=g)}
+    plans = [ExecutionPlan.local(), ExecutionPlan.prism_sim(L=2, cr=1.0)]
+    n_mem = cfg.n_layers if cfg.family == "audio" else \
+        cfg.n_layers // cfg.cross_attn_every
+    n_self = cfg.n_layers if cfg.family == "audio" else cfg.n_layers - n_mem
+    out = {}
+    for dev in ("cpu", "cuda"):
+        session = InferenceSession(cfg, _to(params, dev), device=dev,
+                                   plans=plans)
+        for plan in plans:
+            before = flash_decode.launches
+            out[dev, plan.mode] = session.generate(
+                prompt, 6, plan=plan, batch_extras=extras).cpu()
+            steps = 5 + (8 if plan.mode == "prism_sim" else 0)
+            assert flash_decode.launches - before == (
+                steps * (n_self + n_mem) if dev == "cuda" else 0)
+    for plan in plans:
+        assert torch.equal(out["cuda", plan.mode], out["cpu", plan.mode])

@@ -417,9 +417,11 @@ def test_session_profiles_decides_and_dispatches(sessions):
 
 def test_families_still_to_port_raise_naming_the_roadmap():
     from repro_torch.configs import get_config
-    for arch in ("hymba-1.5b", "xlstm-350m", "whisper-large-v3"):
+    for arch in ("hymba-1.5b", "xlstm-350m"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_config(arch)
+    assert get_config("whisper-large-v3").family == "audio"
+    assert get_config("llama-3.2-vision-11b").family == "vlm"
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
                               family="hybrid")
     with pytest.raises(NotImplementedError, match="item 11"):

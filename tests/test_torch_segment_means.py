@@ -162,3 +162,27 @@ def test_kv_call_on_the_cpu_counts_no_launch():
         assert torch.equal(means[i], want) and torch.equal(counts, want_c)
     with pytest.raises(ValueError, match="no kernel"):
         segment_means_kv(k.to("meta"), v.to("meta"), 3)
+
+
+@pytest.mark.parametrize("Mp,pad", [(752, 4), (816, 31)])
+def test_kv_means_over_a_padded_memory_block_match_the_jax_package(Mp, pad):
+    """The cross-attention exchange's call: K and V of the memory's last
+    block (whisper's 752 frames with 4 padding, the vision model's 816
+    image tokens with 31), L 16, so the padding is a suffix of the last
+    segment, against the JAX package's masked composition (its Pallas
+    path): means to 1e-5, counts exact, the last segment's count the real
+    tokens it holds."""
+    r = np.random.RandomState(Mp)
+    L = 16
+    k, v = (r.randn(2, Mp, 24).astype(np.float32) for _ in range(2))
+    m = np.repeat((np.arange(Mp) < Mp - pad)[None], 2, axis=0)
+    means, counts = segment_means_kv(torch.from_numpy(k), torch.from_numpy(v),
+                                     L, torch.from_numpy(m))
+    assert (counts[:, -1] == Mp // L - pad).all()
+    assert (counts[:, :-1] == Mp // L).all()
+    for i, x in enumerate((k, v)):
+        with jdsp.force_backend("pallas"):
+            jm, jc = jdsp.segment_means_masked(jnp.asarray(x), L,
+                                               jnp.asarray(m), axis=1)
+        np.testing.assert_array_equal(np.asarray(jc), counts.numpy())
+        _close(jm, means[i])
