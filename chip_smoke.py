@@ -75,6 +75,15 @@ Phases, one line each (more for the kernel table):
                PRISM attention of a text partition q [4, 256] over the
                block (Nq ≠ Nk) and both blocks' means (parts 0 and 1),
                each timed beside sdpa or ``mean()``.
+   hymba-1.5b's shapes (``ssm kernels``; 25/5 heads, dh 64: G = 5, the
+               kernels' row tiles part full): flash-decode at B 4, S 48 in
+               bf16 and f32 and with a fully masked row, and at the slot
+               pool's B 2 step (each slot its own length) and B 1
+               admission prefill; the shard
+               partial of rank 1 of 2 in both types and every block
+               merged; the segment means of K+V [4, 256, 5·64] L 16;
+               causal PRISM attention q [4, 256, 25, 64] over 5 KV heads,
+               parts 0 and 1; each timed beside sdpa or ``mean()``.
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -101,7 +110,15 @@ Phases, one line each (more for the kernel table):
                and ``prism_sim`` forwards, 12 decode steps over the padded
                memory and greedy tokens on the card vs the CPU, and on 2
                card ranks vs 2 CPU ranks ``voltage`` and ``prism``
-               forwards, sharded decode steps (≤ 1e-4) and greedy tokens.
+               forwards, sharded decode steps (≤ 1e-4) and greedy tokens;
+               a small f32 hymba at G 5 (10/2 heads of 64, d = 640) and
+               a two-group xLSTM, in
+               one process the ``local`` forward, 12 decode steps, greedy
+               tokens and the slot pool (a slot re-admitted) on the card
+               vs the CPU and B 1 ``generate``, and on 2 card ranks vs 2
+               CPU ranks ``voltage`` and ``prism`` forwards (the state
+               hand-off), sharded decode steps (≤ 1e-4) and greedy
+               tokens.
 5. session   — llama3.2-1b at full width: ``InferenceSession`` profile
                (``measured`` on the H100 presets, batches 1-32, the curve
                ``H100_SXM`` is fitted to, with the card's power draw
@@ -147,13 +164,15 @@ Phases, one line each (more for the kernel table):
                gemma2 (no ``prism_sim`` plan: it raises on windowed layers,
                as in the JAX package) a second time at B 1 from a
                4608-token prompt, so its window masks every decode step;
-               deepseek-moe-16b (28 layers, 33 GB; its prompts prefill by
+               deepseek-moe-16b (cut to 4 of its 28 layers for time: its
+               host loop was most of the phase; its prompts prefill by
                the decode loop, as ``auto`` keeps the moe family) also
-               under ``prism_sim`` and served through the slot pool: 8
-               greedy requests of 32 + 16 at 4 slots, held against B 1
-               ``generate`` (near ties counted); deepseek-v2-236b cut to
-               the layers that fit (the dense one and 8 of experts),
-               ``local`` generate, with no kernel on that path.
+               under ``prism_sim`` and served through the slot pool: 5
+               greedy requests of 32 + 16 at 4 slots (one re-admitted),
+               held against B 1 ``generate`` (near ties counted);
+               deepseek-v2-236b cut to the layers that fit (the dense one
+               and 8 of experts), ``local`` generate, with no kernel on
+               that path.
 10. codec    — the codecs' decode throughput measured on the card
                (``calibrate_codec_bws``) beside the modeled class
                constants; then 2 ranks sharing the card: ViT-B/16 B 8
@@ -242,6 +261,27 @@ Phases, one line each (more for the kernel table):
                + 16 under ``voltage`` (the memory's shard partials
                counted apart, the same tokens on both ranks, the same
                weights in f32 token-exact against ``local``).
+17. hybrid, ssm — hymba-1.5b (32 layers of attention beside a Mamba
+               mixer) and xlstm-350m (3 groups of 7 mLSTM + 1 sLSTM
+               blocks) at full width and depth: the measured profile at
+               B 1 and 4, decide, greedy ``generate`` [4, 32] + 16 under
+               ``local`` and ``prism_sim`` (the decode-loop prefill),
+               flash-decode launches asserted (hymba: every layer every
+               step; xLSTM: none), decode ms a step, device idle share,
+               the slot pool (3 requests, 2 slots: one re-admitted) held
+               against B 1 ``generate``, peak memory.
+18. ssm-seq  — hymba-1.5b cut to 8 layers and xlstm-350m whole, full
+               width, on 2 ranks sharing the card: ``forward_lm(last_only)``
+               B 4, N 512 under ``local``, ``voltage`` and ``prism(L=16)``,
+               every mixer starting from the state the rank before ended
+               with (the chain of ``state`` messages), per rank the
+               forward ms, staged ms and share, calls and the payload,
+               meta and state bytes (asserted against the shapes' count),
+               hymba's segment-means and PRISM-attention launches; greedy
+               ``generate`` [4, 32] + 16 under ``voltage`` (no state
+               moved, flash-decode launches asserted, the same tokens on
+               both ranks, their agreement with ``local`` in bf16; the
+               same weights in f32 token-exact against ``local``).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -1255,6 +1295,8 @@ def phase_arch_session(card: str, arch: str) -> dict:
     t0 = time.perf_counter()
     full = get_config(arch)
     n_layers = layers_that_fit(full)
+    if arch == MOE:
+        n_layers = min(n_layers, MOE_ARCH_LAYERS)
     cfg = dataclasses.replace(full, n_layers=n_layers)
     params = registry.init_params(cfg, seed=0, device="cuda")
     plans = [ExecutionPlan.local()] + (
@@ -2262,7 +2304,13 @@ def _on(tree, device):
         return {k: _on(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_on(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
 
 
 def _exact_fp32() -> None:
@@ -2736,7 +2784,7 @@ def _leaves(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
@@ -3968,57 +4016,18 @@ def _phase_fleet_rpc(card: str) -> None:
 # deepseek-v2-236b (MLA attention, its latent exchange)
 # ---------------------------------------------------------------------------
 
-MOE_SERVE_REQUESTS, MOE_SERVE_SLOTS, MOE_SERVE_CHUNK = 8, 4, 8
+MOE_SERVE_REQUESTS, MOE_SERVE_SLOTS, MOE_SERVE_CHUNK = 5, 4, 8
+# [arch]'s deepseek-moe-16b runs this many of its 28 layers (the dense
+# first one and 3 of experts): its host loop was most of the phase
+MOE_ARCH_LAYERS = 4
 
 
 def serve_moe(session, card: str, note: str) -> int:
-    """deepseek-moe-16b served through the dense slot pool
-    (``ServingRuntime``, MOE_SERVE_SLOTS slots): MOE_SERVE_REQUESTS greedy
-    requests of PROMPT_T + N_NEW tokens at once, each held against the
-    B 1 ``generate`` of its prompt under the plan that served it (token-
-    exact, or diverging only where the B 1 logits sit within
-    FLEET_TIE_TOL of a tie), flash-decode launches asserted = layers ×
-    (chunk steps + the prompts' decode-loop prefill steps) → launches."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.serving import ServingRuntime
-    cfg = session.cfg
-    rng = np.random.RandomState(3)
-    prompts = [rng.randint(0, cfg.vocab_size, PROMPT_T)
-               for _ in range(MOE_SERVE_REQUESTS)]
-    rt = ServingRuntime(session, n_slots=MOE_SERVE_SLOTS,
-                        chunk=MOE_SERVE_CHUNK, max_len=PROMPT_T + N_NEW)
-    before = rt.stats_snapshot()
-    flash_decode.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reqs = [rt.submit(p, N_NEW, seed=i) for i, p in enumerate(prompts)]
-    done = {c.request_id: c for c in rt.run()}
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = flash_decode.launches
-    steps = (rt.stats_snapshot()["chunks"] - before["chunks"]) * \
-        MOE_SERVE_CHUNK
-    want = cfg.n_layers * (steps + MOE_SERVE_REQUESTS * PROMPT_T)
-    if launches != want:
-        raise AssertionError(f"serve {cfg.name}: flash_decode launched "
-                             f"{launches} times, want {want}")
-    comps = {i: done[r.id] for i, r in enumerate(reqs)}
-    exact, div = _fleet_ref_tokens(session, comps, prompts)
-    lat = [c.latency_ms for c in comps.values()]
-    plans = sorted({c.plan_key for c in comps.values()})
-    print(f"[serve] {cfg.name}{note} slot pool ({MOE_SERVE_SLOTS} slots, "
-          f"chunk {MOE_SERVE_CHUNK}, plans {plans}): {len(prompts)} requests"
-          f" x {N_NEW} greedy tokens after {PROMPT_T}-token prompts in "
-          f"{wall:.2f} s: {len(prompts) / wall:.2f} requests/s, "
-          f"{len(prompts) * N_NEW / wall:.1f} tokens/s; latency p50 "
-          f"{np.percentile(lat, 50):.0f} ms p99 {np.percentile(lat, 99):.0f}"
-          f" ms; {_divergence(exact, len(prompts), div)} B 1 generate; "
-          f"flash_decode launches {launches} = {cfg.n_layers} layers x "
-          f"({steps} chunk steps + {MOE_SERVE_REQUESTS} x {PROMPT_T} prefill"
-          f" steps) [{card}]", flush=True)
-    return launches
+    """deepseek-moe-16b served through the dense slot pool (``serve_pool``:
+    MOE_SERVE_REQUESTS requests over MOE_SERVE_SLOTS slots, one slot
+    re-admitted) → flash-decode launches."""
+    return sum(serve_pool(session, card, note, MOE_SERVE_REQUESTS,
+                          MOE_SERVE_SLOTS, MOE_SERVE_CHUNK).values())
 
 
 def _small_moe(arch):
@@ -4208,6 +4217,8 @@ def _cast(tree, dtype):
         return {k: _cast(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast(v, dtype) for v in tree]
+    if tree is None:
+        return None
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
@@ -5299,6 +5310,697 @@ def xattn_kernel_rows(xa: dict, xk: dict, xs: dict, replaces: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: hymba-1.5b (hybrid) and xlstm-350m (ssm)
+# ---------------------------------------------------------------------------
+
+HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
+SSM_ARCHS = (HYMBA, XLSTM)
+# [arch]'s slot pool: more requests than slots, so a slot is re-admitted
+SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS, SSM_SERVE_CHUNK = 3, 2, 8
+# [arch]'s kernel time: torch.profiler over this many decode steps from a
+# primed cache (over a whole generate, 47 steps of ~2000 launches, the
+# profiler alone took most of a minute)
+SSM_PROFILE_STEPS = 4
+# [ssm-seq]: full width; hymba cut to 8 of its 32 layers, xLSTM whole (its
+# 21 mLSTM states hand on 352 MB a hop at B 4)
+SSM_SEQ = ((HYMBA, dict(n_layers=8)), (XLSTM, {}))
+# the small f32 models: hymba at G 5 (10/2 heads of 64) with n_heads·hd = d
+# (hymba runs only there, in both packages), and a two-group xLSTM
+SMALL_SSM = {
+    "hymba": (HYMBA, dict(dtype="float32", head_dim=64, n_heads=10,
+                          n_kv_heads=2, d_model=640)),
+    "xlstm": (XLSTM, dict(dtype="float32", d_model=256, n_layers=4))}
+
+
+def _print_decode(label: str, t: dict, errs: dict, tol: float) -> None:
+    print(f"[kernel] flash_decode {label}: err {err_text(errs)} (tol "
+          f"{tol:g}) | kernel {t['ms']*1e3:.2f} us, bound "
+          f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}), plain "
+          f"{t['plain_ms']*1e3:.2f} us, sdpa yardstick "
+          f"{t['library_ms']*1e3:.2f} us", flush=True)
+
+
+def phase_ssm_kernels() -> dict:
+    """The kernels at every shape hymba-1.5b's main paths give them (25/5
+    heads, dh 64: a group of G = 5 query heads a KV head, the first that
+    is neither a power of two nor a divisor of a warp, so the kernels'
+    row tiles run part full), each held against its plain version over
+    every head and timed beside its bound and the library yardstick.
+    Flash-decode at B 4, S 48 in bf16 and f32 (every position valid),
+    and at random lengths with a fully masked row (checked); at the slot
+    pool's shapes: its step at B SSM_SERVE_SLOTS, S 48 with each slot's
+    own length (a ``[B]`` cache index), and its admissions' B 1
+    decode-loop prefill over S 48 (32 valid); the shard
+    partial of rank 1 of 2 (Sp 24 of 48, 16 valid) in both types, every
+    block merged against the dense kernel with a block holding no valid
+    position; the segment means of K and V [4, 256, 5·64] at L 16 in one
+    launch; causal PRISM attention of q [4, 256, 25, 64] over 5 KV heads,
+    both partitions' means as gathered, parts 0 and 1."""
+    import torch
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    c = get_config(HYMBA)
+    H, Hk, dh = c.n_heads, c.n_kv_heads, c.hd
+    B, S, np_ = PROMPT_B, PROMPT_T + N_NEW, LM_N // LM_P
+    heads = f"{H}/{Hk} heads dh {dh}, G {H // Hk}"
+    out = {"decode": report_timed(
+        decode_case(B, S, dh, bf16, seed=300, heads=(H, Hk), lens=[S] * B),
+        f"{HYMBA} decode (G {H // Hk})")}
+    case = decode_case(B, S, dh, f32, seed=301, heads=(H, Hk), lens=[S] * B)
+    errs = check_case(case)
+    out["decode_f32"] = t = dict(time_case(case),
+                                 max_abs_err=errs["max_abs_err"])
+    _print_decode(f"{HYMBA} decode f32 B={B} S={S} {heads}", t, errs, 1e-5)
+    out["pool"] = report_timed(
+        decode_case(SSM_SERVE_SLOTS, S, dh, bf16, seed=303, heads=(H, Hk),
+                    lens=[40, 17][:SSM_SERVE_SLOTS]),
+        f"{HYMBA} slot pool step, per-slot lengths 40/17 (G {H // Hk})")
+    out["prefill"] = report_timed(
+        decode_case(1, S, dh, bf16, seed=304, heads=(H, Hk), lens=[PROMPT_T]),
+        f"{HYMBA} slot pool admission, B 1 prefill step, {PROMPT_T} valid "
+        f"(G {H // Hk})")
+    for dtype in (bf16, f32):
+        errs = check_case(decode_case(B, S, dh, dtype, seed=302,
+                                      heads=(H, Hk), masked_row=True))
+        print(f"[kernel] flash_decode {HYMBA} {str(dtype).split('.')[1]} "
+              f"B={B} S={S} {heads}, random lengths, row 0 fully masked: "
+              f"err {err_text(errs)} (tol {_tol(dtype):g}), every head",
+              flush=True)
+    for dtype, key in ((bf16, "shard"), (f32, "shard_f32")):
+        name = str(dtype).split(".")[1]
+        check_merge(f"{HYMBA} {name}: B {B} S {S}, lengths 40/17/24/48 (a "
+                    f"block with no valid position), {heads}", B, S, LM_P,
+                    dh, dtype, seed=305, lens=[40, 17, 24, 48], heads=(H, Hk))
+        case = shard_case(B, S, LM_P, 1, dh, dtype, seed=306, lens=[40] * B,
+                          heads=(H, Hk))
+        errs = check_case(case, got=shard_partials(case))
+        out[key] = t = dict(time_case(case), max_abs_err=errs["max_abs_err"])
+        _print_decode(f"shard partial {HYMBA} {name} (rank 1 of {LM_P}: B "
+                      f"{B}, Sp {S // LM_P} of {S}, offset {S // LM_P}, 16 "
+                      f"valid, {heads})", t, errs, _tol(dtype))
+    label = (f"{HYMBA} prism per rank bf16 2 x [{LM_B}, {np_}, {Hk}·{dh}] "
+             f"L={LM_L}")
+    seg = seg_case(LM_B, np_, (Hk, dh), LM_L, bf16, seed=310, masked=False)
+    err = check_seg_kv_steps(label, seg)
+    out["seg"] = t = dict(time_seg(seg), max_abs_err=err)
+    _print_seg(label, t)
+    for part in range(LM_P):
+        label = (f"{HYMBA} causal, {heads}, q/K/V [{LM_B}, {np_}], part "
+                 f"{part}, means strided as gathered")
+        pc = prism_case(LM_B, np_, H, Hk, dh, LM_P, LM_L, bf16,
+                        seed=315 + part, causal=True, part=part,
+                        masked=False, strided=True)
+        err = check_prism(label, pc)
+        out[f"prism_{part}"] = t = dict(time_prism(pc), max_abs_err=err)
+        _print_prism(label, t)
+    return out
+
+
+def _small_ssm(label):
+    """(arch, reduced overrides, cfg, CPU params from seed 0, forward
+    tokens, prompt, decode tokens) of the small f32 model ``label``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    arch, reduced = SMALL_SSM[label]
+    cfg = get_config(arch).reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    return (arch, reduced, cfg, params,
+            *(torch.randint(0, cfg.vocab_size, (SMALL_LM_B, n), generator=g)
+              for n in (SMALL_LM_N, SMALL_LM_T0, SMALL_LM_STEPS)))
+
+
+def _small_ssm_rank(rank, world, device):
+    """One rank of every small f32 recurrent model on ``device``:
+    ``voltage`` and ``prism`` forward logits (the state hand-off), sharded
+    decode steps, greedy tokens under both."""
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.models import transformer as tfm
+    _exact_fp32()
+    plans = (ExecutionPlan.voltage(seq_shards=world),
+             ExecutionPlan.prism(L=SMALL_LM_L, cr=1.0, seq_shards=world))
+    out = {}
+    for label in SMALL_SSM:
+        _, _, cfg, params, tokens, prompt, steps = _small_ssm(label)
+        session = InferenceSession(cfg, _on(params, device), device=device,
+                                   plans=list(plans))
+        with torch.inference_mode():
+            for p in plans:
+                out[f"{label}/fwd/{p.mode}"] = tfm.forward_lm(
+                    session.params, {"tokens": tokens.to(device)}, cfg,
+                    p.to_exchange_config())[0].cpu()
+        out[f"{label}/decode"] = _decode_steps(
+            session.params, cfg, plans[0].to_exchange_config(), steps,
+            device)
+        for p in plans:
+            out[f"{label}/gen/{p.mode}"] = session.generate(
+                prompt, SMALL_LM_NEW, plan=p).cpu()
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def phase_small_ssm_reference() -> None:
+    """The small f32 recurrent models — hymba at G 5 (10/2 heads, dh 64,
+    n_heads·hd = d) and a two-group xLSTM — on the card against the same weights on the CPU.
+    In one process: the ``local`` forward, 12 decode steps (hymba's
+    attention through the flash-decode kernel) ≤ 1e-4, greedy tokens
+    exact, and the slot pool (2 slots, 3 requests: one slot re-admitted)
+    token-exact against B 1 ``generate``.  On 2 ranks on the card against
+    2 ranks on the CPU: ``voltage`` and ``prism`` forward logits (the
+    state hand-off; hymba's segment means and PRISM attention), 12 sharded
+    decode steps ≤ 1e-4, greedy tokens exact under both."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.api.generation import generate
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServingRuntime
+    t0 = time.perf_counter()
+    local = ExecutionPlan.local()
+    xcfg = local.to_exchange_config()
+    worst = {}
+    for label in SMALL_SSM:
+        arch, reduced, cfg, params, tokens, prompt, steps = _small_ssm(label)
+        side = {}
+        for dev in ("cpu", "cuda"):
+            p = _on(params, dev)
+            r = side[dev] = {}
+            with torch.inference_mode():
+                r["fwd"] = tfm.forward_lm(p, {"tokens": tokens.to(dev)}, cfg,
+                                          xcfg)[0].cpu()
+            r["gen"] = generate(p, prompt.to(dev), SMALL_LM_NEW, cfg,
+                                xcfg).cpu()
+            r["decode"] = _decode_steps(p, cfg, xcfg, steps, dev)
+        cpu, gpu = side["cpu"], side["cuda"]
+        for key in ("fwd", "decode"):
+            err = worst[f"{label}/{key}"] = (gpu[key] - cpu[key]).abs().max(
+            ).item()
+            if not err <= 1e-4:
+                raise AssertionError(f"small f32 {label} {key}: card vs CPU "
+                                     f"differ by {err:.3e} > 1e-4")
+        if not torch.equal(gpu["gen"], cpu["gen"]):
+            raise AssertionError(f"small f32 {label}: card tokens differ "
+                                 f"from the CPU's")
+        session = InferenceSession(cfg, _on(params, "cuda"), device="cuda",
+                                   plans=[local])
+        session.profile(backend="simulated")
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 11, 3)]
+        rt = ServingRuntime(session, n_slots=2, chunk=4, max_len=32)
+        reqs = [rt.submit(q, 10, seed=i) for i, q in enumerate(prompts)]
+        done = {c.request_id: np.asarray(c.tokens) for c in rt.run()}
+        if rt.stats["admitted"] != 3:
+            raise AssertionError(f"small f32 {label}: {rt.stats['admitted']}"
+                                 f" admissions, want 3")
+        for q, req in zip(prompts, reqs):
+            want = session.generate(np.asarray(q, np.int32)[None], 10,
+                                    plan=local).cpu().numpy()[0]
+            if not np.array_equal(done[req.id], want):
+                raise AssertionError(f"small f32 {label}: the slot pool's "
+                                     f"tokens differ from B 1 generate")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # both at once
+        ranks = dict(zip(("cuda", "cpu"), pool.map(
+            lambda dev: spawn(_small_ssm_rank, LM_P, dev,
+                              timeout=RANK_TIMEOUT_S), ("cuda", "cpu"))))
+    want = ranks["cpu"][0]
+    seq = {}
+    for label in SMALL_SSM:
+        for key in ("fwd/voltage", "fwd/prism", "decode"):
+            k = f"{label}/{key}"
+            seq[k] = max(float(np.abs(r[k] - want[k]).max())
+                         for r in ranks["cuda"])
+            if not seq[k] <= 1e-4:
+                raise AssertionError(f"small f32 {k}: {LM_P} ranks on the "
+                                     f"card vs {LM_P} on the CPU differ by "
+                                     f"{seq[k]:.3e} > 1e-4")
+        for key in ("gen/voltage", "gen/prism"):
+            k = f"{label}/{key}"
+            for r in ranks["cuda"] + ranks["cpu"]:
+                if not np.array_equal(r[k], want[k]):
+                    raise AssertionError(f"small f32 {k}: greedy tokens "
+                                         f"differ across ranks/devices")
+    for label in SMALL_SSM:
+        arch, reduced = SMALL_SSM[label]
+        print(f"[reference] reduced f32 {arch} ({label}: {reduced}) on the "
+              f"card vs the CPU: max |logit diff| local "
+              f"{worst[label + '/fwd']:.2e}, {SMALL_LM_STEPS} decode steps "
+              f"{worst[label + '/decode']:.2e} (tol 1e-4), greedy tokens "
+              f"exact, the slot pool (2 slots, 3 requests, one slot "
+              f"re-admitted) token-exact against B 1 generate; {LM_P} ranks "
+              f"on the card vs {LM_P} on the CPU: voltage "
+              f"{seq[label + '/fwd/voltage']:.2e}, prism(L={SMALL_LM_L}) "
+              f"{seq[label + '/fwd/prism']:.2e}, {SMALL_LM_STEPS} sharded "
+              f"decode steps {seq[label + '/decode']:.2e}, greedy tokens "
+              f"exact under both", flush=True)
+    print(f"[reference] the small recurrent models: "
+          f"{time.perf_counter() - t0:.1f} s with rank start-up", flush=True)
+
+
+def serve_pool(session, card: str, note: str, n_requests: int, n_slots: int,
+               chunk: int) -> int:
+    """``session``'s arch served through the slot pool (``ServingRuntime``,
+    ``n_slots`` slots): ``n_requests`` greedy requests of PROMPT_T + N_NEW
+    tokens at once (more requests than slots: slots are re-admitted),
+    each held against the B 1 ``generate`` of its prompt under the plan
+    that served it (token-exact, or diverging only where the B 1 logits
+    sit within FLEET_TIE_TOL of a tie), flash-decode launches asserted =
+    the attention layers × (chunk steps + the prompts' decode-loop
+    prefill steps) → launches: ``step``, the pool's steps at B
+    ``n_slots``, and ``prefill``, the admissions' B 1 decode-loop prefill
+    (the two add up to the launches counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.serving import ServingRuntime
+    cfg = session.cfg
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, PROMPT_T)
+               for _ in range(n_requests)]
+    rt = ServingRuntime(session, n_slots=n_slots, chunk=chunk,
+                        max_len=PROMPT_T + N_NEW)
+    before = rt.stats_snapshot()
+    flash_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [rt.submit(p, N_NEW, seed=i) for i, p in enumerate(prompts)]
+    done = {c.request_id: c for c in rt.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_decode.launches
+    after = rt.stats_snapshot()
+    steps = (after["chunks"] - before["chunks"]) * chunk
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    want = attn * (steps + n_requests * PROMPT_T)
+    if launches != want:
+        raise AssertionError(f"serve {cfg.name}: flash_decode launched "
+                             f"{launches} times, want {want}")
+    admitted = after["admitted"] - before["admitted"]
+    if admitted != n_requests:
+        raise AssertionError(f"serve {cfg.name}: {admitted} admissions, "
+                             f"want {n_requests}")
+    comps = {i: done[r.id] for i, r in enumerate(reqs)}
+    exact, div = _fleet_ref_tokens(session, comps, prompts)
+    lat = [c.latency_ms for c in comps.values()]
+    plans = sorted({c.plan_key for c in comps.values()})
+    print(f"[serve] {cfg.name}{note} slot pool ({n_slots} slots, chunk "
+          f"{chunk}, plans {plans}): {len(prompts)} requests x {N_NEW} "
+          f"greedy tokens after {PROMPT_T}-token prompts ({admitted} "
+          f"admissions, {admitted - n_slots} into a re-admitted slot) in "
+          f"{wall:.2f} s: {len(prompts) / wall:.2f} requests/s, "
+          f"{len(prompts) * N_NEW / wall:.1f} tokens/s; latency p50 "
+          f"{np.percentile(lat, 50):.0f} ms p99 {np.percentile(lat, 99):.0f}"
+          f" ms; {_divergence(exact, len(prompts), div)} B 1 generate; "
+          f"flash_decode launches {launches} = {attn} attention layers x "
+          f"({steps} chunk steps + {n_requests} x {PROMPT_T} prefill steps) "
+          f"[{card}]", flush=True)
+    return dict(step=attn * steps, prefill=attn * n_requests * PROMPT_T)
+
+
+def phase_ssm_arch(card: str, arch: str) -> dict:
+    """``arch`` at full width and depth, bf16, random weights from seed 0:
+    a measured profile at B 1 and 4 on the H100 presets, decide at B 1, 8
+    and 32, greedy ``generate`` of [4, 32] + 16 under ``local`` (the
+    kernel time and the device's idle share from ``torch.profiler``) and
+    ``prism_sim``, both prefilling by the decode loop, flash-decode
+    launches asserted (hymba: every step of every layer; xLSTM: none), the
+    kernel time and the device's idle share over SSM_PROFILE_STEPS
+    ``local`` decode steps after the prompt, then the slot pool with a
+    slot re-admitted, and the peak memory → (the generates' launches,
+    local decode ms a step, the slot pool's launches at its steps and at
+    its admissions' prefill)."""
+    import gc
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.api import generation as gen_api
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    plans = [ExecutionPlan.local(), ExecutionPlan.prism_sim(L=4, cr=9.9)]
+    session = InferenceSession(cfg, params, device="cuda", plans=plans)
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    if cfg.family == "hybrid":
+        fam = (f"{cfg.n_layers} layers of attention ({cfg.n_heads}/"
+               f"{cfg.n_kv_heads} heads, dh {cfg.hd}) beside a Mamba mixer "
+               f"(d_inner {s.expand * cfg.d_model}, state {s.state_size}, "
+               f"conv {s.conv_width}), d_ff {cfg.d_ff}")
+    else:
+        G = cfg.n_layers // s.slstm_every
+        fam = (f"{G} groups of {s.slstm_every - 1} mLSTM blocks "
+               f"({s.mlstm_heads} heads of "
+               f"{int(cfg.d_model * s.proj_factor) // s.mlstm_heads}) and "
+               f"one sLSTM block, no attention")
+    print(f"[session] {arch} full width and depth ({fam}, d {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.2f} B "
+          f"parameters, {registry.weight_bytes(cfg) / 1e9:.2f} GB, drawn on "
+          f"the card from seed 0) built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    pm, scale, raw = measured_profile(
+        session, dict(batches=(1, 4), crs=(9.9,), bandwidths_mbps=(400.0,)),
+        iters=2)
+    print_measured(arch, pm, scale, raw, card,
+                   f" (profile {time.perf_counter() - t1:.1f} s)")
+    for B in DECIDE_BATCHES:
+        d = session.decide(B)
+        print(f"[decide] {arch} B={B} @ {session.bandwidth:g} Mbps → "
+              f"{d.mode}" + (f" CR={d.cr:g}" if d.cr else "")
+              + f" ({d.expected.per_sample_ms:.2f} ms/sample, measured on "
+              f"{pm.hardware.name})", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                           generator=g, device="cuda")
+    steps = PROMPT_T + N_NEW - 1                 # the decode-loop prefill
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    launches, decode_ms = drive_generate(session, prompt, "local", steps,
+                                         card, breakdown=False, per_step=attn)
+    xcfg = session.plans["local"].to_exchange_config()
+    with torch.inference_mode():
+        cache = tfm.init_decode_cache(cfg, PROMPT_B, PROMPT_T + N_NEW,
+                                      device="cuda")
+        logits, primed = gen_api.prefill_by_decode(session.params, prompt,
+                                                   cache, cfg, xcfg)
+        tok = gen_api.sample_token(logits, None)[:, 0:1]
+        copies = [_clone(primed) for _ in range(2)]
+
+    def decode(c):
+        with torch.inference_mode():
+            return gen_api.decode_scan(session.params, c, tok, PROMPT_T,
+                                       None, cfg, xcfg, 0.0,
+                                       SSM_PROFILE_STEPS)[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decode(copies[0])
+    torch.cuda.synchronize()
+    print_breakdown(f"{arch} local: {SSM_PROFILE_STEPS} decode steps of a",
+                    lambda: decode(copies[1]),
+                    (time.perf_counter() - t1) * 1e3)
+    del cache, primed, copies
+    key = next(k for k in session.plans if k != "local")
+    launches += drive_generate(session, prompt, key, steps, card,
+                               breakdown=False, per_step=attn)[0]
+    pool = serve_pool(session, card, "", SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS,
+                      SSM_SERVE_CHUNK)
+    if not attn:
+        print(f"[generate] {arch}: no kernel of the port runs on its path "
+              f"(no softmax attention; its mixers are plain torch, as they "
+              f"are plain jnp in the JAX package); flash_decode launches 0, "
+              f"asserted", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[memory] {arch}: peak allocated {peak / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, decode_ms=decode_ms,
+                pool_step=pool["step"], pool_prefill=pool["prefill"])
+
+
+def ssm_seq_bytes(cfg, plan: str, P: int, rank: int) -> dict:
+    """What rank ``rank``'s staged calls receive in one ``forward_lm`` of
+    [LM_B, LM_N] under ``plan``, from shapes: hymba's attention K and V
+    (in full under ``voltage``, L means a partition under ``prism``), one
+    call a layer; on a rank after the first one ``state`` message a
+    mixer (Mamba: h [B, di, S] f32 and the conv tail [B, W − 1, di] in the
+    model dtype; mLSTM: C, n, m f32; sLSTM: c, n, h, m f32); the last
+    logits' broadcast."""
+    if plan == "local":
+        return dict(payload=0, meta=0, state=0, calls=0)
+    s, B, d = cfg.ssm, LM_B, cfg.d_model
+    w = cfg.torch_dtype.itemsize
+    if cfg.family == "hybrid":
+        di = s.expand * d
+        kv = B * cfg.n_kv_heads * cfg.hd * 2 * w
+        n = LM_L if plan == "prism" else LM_N // P
+        payload = cfg.n_layers * (P - 1) * n * kv
+        states = [B * di * (s.state_size * 4 + (s.conv_width - 1) * w)] \
+            * cfg.n_layers
+        exchanges = cfg.n_layers
+    else:
+        H = s.mlstm_heads
+        dh = int(d * s.proj_factor) // H
+        states = ([B * H * (dh * dh + dh + 1) * 4] * (s.slstm_every - 1)
+                  + [4 * B * d * 4]) * (cfg.n_layers // s.slstm_every)
+        payload, exchanges = 0, 0
+    received = rank > 0
+    return dict(payload=payload, meta=0, state=sum(states) * received,
+                calls=exchanges + len(states) * received + 1)
+
+
+def _ssm_seq_rank(rank, world):
+    """One rank of hymba-1.5b and then xlstm-350m at full width, cut to
+    SSM_SEQ's layers, on the shared card: the ``last_only`` forward of
+    [LM_B, LM_N] under each plan (payload, meta and state bytes and calls
+    asserted against the shapes; hymba's segment means and PRISM
+    attention launches asserted), then greedy ``generate`` of [PROMPT_B,
+    PROMPT_T] + N_NEW under ``voltage`` (flash-decode launches asserted;
+    tokens equal on both ranks, their agreement with ``local`` counted;
+    no state moved), and the same weights in f32 under ``local`` and
+    ``voltage``, token-exact, with their launches."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    group = get_seq_group("seq")
+    res = {}
+    for arch, cut in SSM_SEQ:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        params = registry.init_params(cfg, seed=0, device="cuda")
+        sums = torch.stack([leaf.double().sum() for leaf in
+                            _leaves(params)]).cpu().numpy().tobytes()
+        if group.broadcast_object(sums) != sums:
+            raise AssertionError(f"rank {rank}: {arch} weights differ from "
+                                 f"rank 0's")
+        plans = {"local": ExecutionPlan.local(),
+                 "voltage": ExecutionPlan.voltage(seq_shards=world),
+                 "prism": ExecutionPlan.prism(
+                     L=LM_L, cr=LM_N / (LM_L * world), seq_shards=world)}
+        session = InferenceSession(cfg, params, device="cuda",
+                                   plans=list(plans.values()))
+        del params
+        build_s = time.perf_counter() - t0
+        attn = 0 if cfg.family == "ssm" else cfg.n_layers
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_N), generator=g,
+                               device="cuda")
+        prompt = torch.randint(0, cfg.vocab_size, (PROMPT_B, PROMPT_T),
+                               generator=g, device="cuda")
+
+        def forward(key):
+            with torch.inference_mode():
+                return tfm.forward_lm(session.params, {"tokens": tokens},
+                                      cfg, plans[key].to_exchange_config(),
+                                      last_only=True)[0]
+        for key in plans:                               # warm-up
+            forward(key)
+        fwd = {}
+        for key in plans:                               # the main path
+            segment_means.launches = prism_attention.launches = 0
+            last, ms, staged, calls, _ = _timed(lambda: forward(key), group)
+            counts = (segment_means.launches, prism_attention.launches)
+            st = group.stats
+            got = dict(payload=st.payload_bytes, meta=st.meta_bytes,
+                       state=st.state_bytes, calls=st.calls)
+            want = ssm_seq_bytes(cfg, key, world, rank)
+            if got != want:
+                raise AssertionError(f"rank {rank} {arch} {key}: staged "
+                                     f"{got}, the shapes give {want}")
+            n = attn * (key == "prism")
+            if counts != (n, n):
+                raise AssertionError(f"rank {rank} {arch} {key}: "
+                                     f"(segment_means, prism_attention) "
+                                     f"launched {counts}, want {(n, n)}")
+            if not torch.isfinite(last).all():
+                raise AssertionError(f"rank {rank} {arch} {key}: last "
+                                     f"logits not finite")
+            both = group.all_gather(last, kind="meta")
+            if not torch.equal(both[0], both[1]):
+                raise AssertionError(f"{arch} {key}: last logits differ "
+                                     f"between ranks")
+            runs = [(ms, staged)] + [_timed(lambda: forward(key), group)[1:3]
+                                     for _ in range(2)]
+            fwd[key] = dict(got, counts=counts,
+                            ms=statistics.median(r[0] for r in runs),
+                            staged_ms=statistics.median(r[1] for r in runs))
+        want = session.generate(prompt, N_NEW, plan=plans["local"])
+        session.generate(prompt, 2, plan=plans["voltage"])    # warm-up
+        flash_decode.launches = 0                            # the main path
+        out, w, sd, cd, md = _timed(
+            lambda: session.generate(prompt, N_NEW, plan=plans["voltage"]),
+            group)
+        launches, state = flash_decode.launches, group.stats.state_bytes
+        steps = PROMPT_T + N_NEW - 1                 # decode-loop prefill
+        if launches != steps * attn or state:
+            raise AssertionError(f"rank {rank} {arch} voltage generate: "
+                                 f"flash_decode launched {launches} times "
+                                 f"(want {steps} x {attn}), {state} state "
+                                 f"bytes (want 0)")
+        both = group.all_gather(out, kind="meta")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"{arch} voltage: the ranks drew different "
+                                 f"tokens")
+        agree = (out == want).float().mean().item()
+        peak = torch.cuda.max_memory_allocated()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _cast(session.params, torch.float32)
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+        s32 = InferenceSession(cfg32, params32, device="cuda",
+                               plans=[plans["local"], plans["voltage"]])
+        del params32
+        flash_decode.launches = 0                            # the main path
+        want32 = s32.generate(prompt, N_NEW, plan=plans["local"])
+        local32 = flash_decode.launches
+        flash_decode.launches = 0                            # the main path
+        got32 = s32.generate(prompt, N_NEW, plan=plans["voltage"])
+        volt32 = flash_decode.launches
+        if not torch.equal(got32, want32):
+            raise AssertionError(f"rank {rank} {arch} f32: voltage tokens "
+                                 f"{got32.tolist()} differ from local's "
+                                 f"{want32.tolist()}")
+        if (local32, volt32) != (steps * attn,) * 2:
+            raise AssertionError(f"rank {rank} {arch} f32: flash_decode "
+                                 f"launched {local32} + {volt32} times, want"
+                                 f" {steps} x {attn} each")
+        res[arch] = dict(fwd=fwd, build_s=build_s, gen_s=w / 1e3,
+                         gen_staged_s=sd / 1e3, gen_calls=cd, gen_merge=md,
+                         launches=launches, agree=agree, local32=local32,
+                         volt32=volt32, peak=peak)
+        del s32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_ssm_seq(card: str) -> dict:
+    """hymba-1.5b and xlstm-350m at full width, cut to SSM_SEQ's layers, on
+    2 ranks sharing the card → launch totals over the ranks: segment means
+    and PRISM attention (part 0 on rank 0, part 1 on rank 1) of hymba's
+    ``prism`` forward, flash-decode's shard partials in the bf16 and f32
+    ``voltage`` generates and its dense launches in the f32 ``local``
+    one."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_ssm_seq_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    out = {}
+    for arch, cut in SSM_SEQ:
+        full = get_config(arch)
+        r0, r1 = ranks[0][arch], ranks[1][arch]
+        depth = cut.get("n_layers", full.n_layers)
+        print(f"[ssm-seq] {arch} full width, {depth} of {full.n_layers} "
+              f"layers{' (cut for time)' if depth < full.n_layers else ''}, "
+              f"bf16, random weights from seed 0, equal on both ranks; "
+              f"{LM_P} ranks sharing the card, gloo staged through host "
+              f"memory, B {LM_B}; built in {r0['build_s']:.1f} s, peak "
+              f"{r0['peak'] / 1e9:.2f} GB a rank", flush=True)
+        for key, f in r0["fwd"].items():
+            f1 = r1["fwd"][key]
+            share = f1["staged_ms"] / f1["ms"] if f1["ms"] else 0.0
+            sm, pa = f["counts"]
+            print(f"[ssm-seq] {arch} forward_lm(last_only) {key}: B={LM_B} "
+                  f"N={LM_N}, rank 0 {f['ms']:.2f} ms (staged "
+                  f"{f['staged_ms']:.2f} ms), rank 1 {f1['ms']:.2f} ms "
+                  f"(staged {f1['staged_ms']:.2f} ms, {share:.1%}, the wait "
+                  f"for rank 0's states included); calls {f['calls']} / "
+                  f"{f1['calls']}; received a rank (rank 0 / rank 1): "
+                  f"payload {f['payload'] / 1e6:.4f} / "
+                  f"{f1['payload'] / 1e6:.4f} MB, meta {f['meta']} / "
+                  f"{f1['meta']} B, state {f['state'] / 1e6:.4f} / "
+                  f"{f1['state'] / 1e6:.4f} MB, = the shapes' count; "
+                  f"segment_means {sm}, prism_attention {pa} launches a rank"
+                  f" (median of 3) [{card}]", flush=True)
+        print(f"[ssm-seq] {arch} generate voltage [{PROMPT_B}, {PROMPT_T}] "
+              f"+ {N_NEW} (decode-loop prefill, every rank a full copy of "
+              f"the states): {r0['gen_s']:.3f} s ({r0['gen_staged_s']:.3f} s"
+              f" staged in {r0['gen_calls']} calls, "
+              f"{r0['gen_merge'] / 1e3:.1f} kB of merge partials, no state "
+              f"bytes), the same tokens on both ranks, {r0['agree']:.0%} of "
+              f"them local's in bf16 (rank 1: {r1['agree']:.0%}); the same "
+              f"weights in f32 token-exact against local on both ranks; "
+              f"flash_decode launches {r0['launches']} a rank (f32: local "
+              f"{r0['local32']}, voltage {r0['volt32']}) [{card}]",
+              flush=True)
+        if full.family == "hybrid":
+            out["segment_means"] = sum(r[arch]["fwd"]["prism"]["counts"][0]
+                                       for r in ranks)
+            for p in range(LM_P):
+                out[f"prism_attention_{p}"] = \
+                    ranks[p][arch]["fwd"]["prism"]["counts"][1]
+            out["shard"] = sum(r[arch]["launches"] for r in ranks)
+            out["shard_f32"] = sum(r[arch]["volt32"] for r in ranks)
+            out["decode_f32"] = sum(r[arch]["local32"] for r in ranks)
+    print(f"[ssm-seq] {time.perf_counter() - t0:.1f} s with rank start-up",
+          flush=True)
+    return out
+
+
+def ssm_kernel_rows(sa: dict, sk: dict, ss: dict, replaces: dict,
+                    keys: tuple) -> list:
+    """The kernels line's rows of hymba-1.5b: one a shape its main paths
+    launch a kernel at, its numbers from ``phase_ssm_kernels`` (``sk``)
+    and its launches from ``[arch]`` (``sa``) or ``[ssm-seq]`` (``ss``)."""
+    from repro_torch.configs import get_config
+    c = get_config(HYMBA)
+    H, Hk, dh = c.n_heads, c.n_kv_heads, c.hd
+    S, np_ = PROMPT_T + N_NEW, LM_N // LM_P
+    heads = f"{H}/{Hk} heads dh={dh} (G {H // Hk})"
+    shard = (f"rank 1 of {LM_P}: B={PROMPT_B} Sp={S // LM_P} of S={S}, "
+             f"offset {S // LM_P}, {heads}")
+    rows = [
+        ("flash_decode", sa[HYMBA]["launches"], sk["decode"],
+         f"{HYMBA} decode: bf16 B={PROMPT_B} S={S} {heads}; launches: "
+         f"`[arch]` local and prism_sim generate"),
+        ("flash_decode", sa[HYMBA]["pool_step"], sk["pool"],
+         f"{HYMBA} decode: bf16 B={SSM_SERVE_SLOTS} S={S} {heads}, each "
+         f"slot its own length (a [B] cache index; 40/17 valid); launches: "
+         f"`[arch]`'s slot pool steps"),
+        ("flash_decode", sa[HYMBA]["pool_prefill"], sk["prefill"],
+         f"{HYMBA} decode: bf16 B=1 S={S} {heads}, {PROMPT_T} valid; "
+         f"launches: `[arch]`'s slot pool admissions (the B 1 decode-loop "
+         f"prefill)"),
+        ("flash_decode", ss["decode_f32"], sk["decode_f32"],
+         f"{HYMBA} decode: f32 B={PROMPT_B} S={S} {heads}; launches: "
+         f"`[ssm-seq]`'s f32 local generate"),
+        ("flash_decode", ss["shard"], sk["shard"],
+         f"{HYMBA} shard partial, bf16 {shard}; launches: `[ssm-seq]`'s "
+         f"voltage generate"),
+        ("flash_decode", ss["shard_f32"], sk["shard_f32"],
+         f"{HYMBA} shard partial, f32 {shard}; launches: `[ssm-seq]`'s f32 "
+         f"voltage generate"),
+        ("segment_means", ss["segment_means"], sk["seg"],
+         f"{HYMBA} prism forward per rank: K and V bf16 [{LM_B}, {np_}, "
+         f"{Hk}·{dh}] L={LM_L}")]
+    rows += [("prism_attention", ss[f"prism_attention_{p}"], sk[f"prism_{p}"],
+              f"{HYMBA} prism forward, rank {p}: bf16 [{LM_B}, {np_}] "
+              f"{heads} causal L={LM_L} part {p}") for p in range(LM_P)]
+    return [{"name": kname, "route": "cuda",
+             "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
+             "replaces": replaces[kname], "launches": n, "shape": shape,
+             **{k: t[k] for k in keys}} for kname, n, t, shape in rows]
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -5391,6 +6093,7 @@ def main() -> None:
     paged = run("paged kernel", phase_paged_kernel)
     exchange = run("exchange kernels", phase_exchange_kernels)
     xk = run("xattn kernels", phase_xattn_kernels)
+    sk = run("ssm kernels", phase_ssm_kernels)
     run("reference", phase_small_reference)
     run("reference serving", phase_small_serving)
     run("reference vit", phase_small_vit_reference)
@@ -5398,6 +6101,7 @@ def main() -> None:
     run("reference gemma", phase_small_gemma_reference)
     run("reference moe", phase_small_moe_reference)
     run("reference xattn", phase_small_xattn_reference)
+    run("reference ssm", phase_small_ssm_reference)
     launches, session = run("session", phase_session, card)
     serve_dense, serve_paged = run("serve", phase_serve, card, session)
     del session
@@ -5416,6 +6120,9 @@ def main() -> None:
     xa = {arch: run(f"arch {arch}", phase_xattn_arch, card, arch)
           for arch in XATTN_ARCHS}
     xs = run("xattn-seq", phase_xattn_seq, card)
+    sa = {arch: run(f"arch {arch}", phase_ssm_arch, card, arch)
+          for arch in SSM_ARCHS}
+    ss = run("ssm-seq", phase_ssm_seq, card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -5517,6 +6224,7 @@ def main() -> None:
             "shape": shape, **{k: t[k] for k in keys}})
     kernels += xattn_kernel_rows(xa, xk, xs,
                                  {r[0]: r[1] for r in rows}, keys)
+    kernels += ssm_kernel_rows(sa, sk, ss, {r[0]: r[1] for r in rows}, keys)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -156,23 +156,26 @@ def build_generate_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
 # shares the pool or on the order of admission.
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Dict[str, int]]:
-    """The batch axis of every leaf of ``init_decode_cache``: each half of
-    the cache (``kv``, gemma2's ``local`` and ``global``, or the moe
-    family's ``first`` and ``kv``) stacks its layers first (``[layers, B,
-    S, ...]``), so it is axis 1 for every leaf, the int8 cache's scales
-    and MLA's latent ``c_kv`` and ``k_pe`` included."""
-    tfm._require_ported(cfg)
-    if cfg.mla is not None:
-        names = ("c_kv", "k_pe")
-    elif cfg.kv_quant:
-        names = ("k", "v", "k_scale", "v_scale")
-    else:
-        names = ("k", "v")
-    return {half: {name: 1 for name in names}
-            for _, half, _, _, _ in tfm.layer_stacks(cfg) if half is not None}
+    """The batch axis of every leaf of ``init_decode_cache`` (the same
+    nesting; the memory slots, None, left out), found from the shapes as
+    the JAX package does: the one axis whose size follows the batch,
+    between caches of B 1 and B 2 on the meta device.  Every half stacks
+    its layers first, so it is axis 1 (the int8 cache's scales, MLA's
+    latent and the recurrent states included), but axis 2 for xLSTM's
+    mLSTM states, stacked ``[groups, blocks, B, ...]``."""
+    def axis(a, b):
+        if isinstance(a, dict):
+            return {k: axis(a[k], b[k]) for k in a if a[k] is not None}
+        diff = [i for i, (p, q) in enumerate(zip(a.shape, b.shape)) if p != q]
+        if len(diff) != 1:
+            raise ValueError(f"no single batch axis in cache leaf "
+                             f"{tuple(a.shape)}")
+        return diff[0]
+    return axis(tfm.init_decode_cache(cfg, 1, 8, device="meta"),
+                tfm.init_decode_cache(cfg, 2, 8, device="meta"))
 
 
-SLOT_POOL_FAMILIES = ("dense", "moe")
+SLOT_POOL_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def require_one_partition(xcfg: ExchangeConfig) -> None:
@@ -186,14 +189,15 @@ def require_one_partition(xcfg: ExchangeConfig) -> None:
 
 
 def supports_slot_pool(cfg: ModelConfig) -> bool:
-    """The port slot-pools the dense family, gemma2's windowed local/global
-    stack included (its cache's ``local`` and ``global`` halves share the
-    slot axis), and the moe family (its ``first`` and ``kv`` halves, MLA's
-    latent cache included; a slot's MoE layer routes its one token alone,
-    as the JAX package's per-slot ``vmap`` does); hybrid and ssm come with
-    their families (ROADMAP queue 1 item 11, [11.4]), and audio, vlm and
-    vit have no poolable tokens-only cache in either package (a request's
-    memory is part of its cache)."""
+    """The tokens-only generative families share a slot pool, as in the
+    JAX package: dense, gemma2's windowed local/global stack included (its
+    cache's ``local`` and ``global`` halves share the slot axis), moe
+    (its ``first`` and ``kv`` halves, MLA's latent cache included; a
+    slot's MoE layer routes its one token alone, as the JAX package's
+    per-slot ``vmap`` does), hybrid and ssm (a slot's row of the
+    recurrent states, which admission copies whole with the KV rows).
+    audio, vlm and vit have no poolable tokens-only cache in either
+    package (a request's memory is part of its cache)."""
     return cfg.family in SLOT_POOL_FAMILIES
 
 
@@ -240,7 +244,9 @@ def build_prefill_fn(cfg: ModelConfig, xcfg: ExchangeConfig, *,
 
 def build_admit_fn(cfg: ModelConfig) -> Callable:
     """Slot admission: copy a primed B=1 request cache into row ``slot`` of
-    the pool and set the slot's state, in place.
+    the pool and set the slot's state, in place.  The whole row goes,
+    the recurrent states included, so a re-admitted slot starts from the
+    new request's primed state.
 
     ``fn(pool, tok, lengths, gens, temps, req_cache, slot, tok0 [1,1],
     length0, gen0, temp0) → (pool, tok, lengths, gens, temps)`` (the same
@@ -250,10 +256,13 @@ def build_admit_fn(cfg: ModelConfig) -> Callable:
     @torch.inference_mode()
     def admit(pool, tok, lengths, gens, temps, req_cache, slot, tok0,
               length0, gen0, temp0):
-        for half, leaves in axes.items():
-            for name, a in leaves.items():
-                pool[half][name].select(a, slot).copy_(
-                    req_cache[half][name].select(a, 0))
+        def copy(pool, req, axes):
+            for name, a in axes.items():
+                if isinstance(a, dict):
+                    copy(pool[name], req[name], a)
+                else:
+                    pool[name].select(a, slot).copy_(req[name].select(a, 0))
+        copy(pool, req_cache, axes)
         tok[slot] = tok0[0, 0]
         lengths[slot] = length0
         gens[slot] = gen0

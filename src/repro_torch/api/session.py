@@ -564,9 +564,8 @@ class InferenceSession:
         if not gen.supports_slot_pool(self.cfg):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} cannot share a slot pool in the "
-                f"port (supported: {gen.SLOT_POOL_FAMILIES}; hybrid and ssm "
-                f"are ROADMAP queue 1 item 11, [11.4], and audio, vlm and vit "
-                f"have no slot pool in either package)")
+                f"port (supported: {gen.SLOT_POOL_FAMILIES}; audio, vlm and "
+                f"vit have no slot pool in either package)")
 
     def _require_one_partition(self) -> None:
         """The pools serve the default plan, which must hold one

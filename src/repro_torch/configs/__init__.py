@@ -1,11 +1,12 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-The port carries the dense decoders llama3.2-1b, internlm2-1.8b,
-qwen1.5-32b and gemma2-27b (windowed local/global layers), the moe family
-deepseek-moe-16b and deepseek-v2-236b (MLA attention), the encoder-decoder
-whisper-large-v3 (audio) and llama-3.2-vision-11b (vlm: cross-attention
-to image tokens), and vit-base-16 (the paper's ViT encoder); the other
-architectures of the JAX package arrive with their model families.
+The port carries every architecture of the JAX package: the dense
+decoders llama3.2-1b, internlm2-1.8b, qwen1.5-32b and gemma2-27b
+(windowed local/global layers), the moe family deepseek-moe-16b and
+deepseek-v2-236b (MLA attention), the encoder-decoder whisper-large-v3
+(audio) and llama-3.2-vision-11b (vlm: cross-attention to image tokens),
+hymba-1.5b (hybrid: attention and Mamba heads side by side), xlstm-350m
+(ssm: mLSTM and sLSTM blocks), and vit-base-16 (the paper's ViT encoder).
 """
 from __future__ import annotations
 
@@ -24,22 +25,13 @@ _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "whisper-large-v3": "whisper_large_v3",
     "llama-3.2-vision-11b": "llama3_2_vision_11b",
+    "hymba-1.5b": "hymba_1_5b",
+    "xlstm-350m": "xlstm_350m",
     "vit-base-16": "vit_base",
-}
-
-# archs of the JAX package that the port does not carry yet → the ROADMAP
-# queue 1 item that holds each
-_PENDING = {
-    "hymba-1.5b": "11.4",
-    "xlstm-350m": "11.4",
 }
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _PENDING:
-        raise KeyError(f"arch {name!r} is not ported yet: it is queued in "
-                       f"ROADMAP queue 1 (item [{_PENDING[name]}]); "
-                       f"ported: {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

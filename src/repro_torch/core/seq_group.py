@@ -17,9 +17,11 @@ transfers (``ring_shift``: gloo ``isend``/``irecv`` to the next and from
 the previous rank) are staged the same way and return a handle, so the
 card can compute while the bytes travel.  ``shift`` is the one-way
 point-to-point transfer of PRISM's halo exchange (``jax.lax.ppermute``
-over ``i → i + sft``), staged the same way.  On one card several ranks
-share it.  NCCL's device-side gather (the ``direct`` link, one card per
-rank) is ROADMAP queue 1 item [7.6].
+over ``i → i + sft``), staged the same way.  ``pass_on`` is the chain of
+the recurrent families' state hand-off: rank p receives from p − 1, works,
+and sends to p + 1 (P − 1 messages a hand-off across the group).  On one
+card several ranks share it.  NCCL's device-side gather (the ``direct``
+link, one card per rank) is ROADMAP queue 1 item [7.6].
 
 A process registers its group under the mesh axis name that
 ``ExchangeConfig.seq_axis`` carries (``"seq"`` by default), and the
@@ -41,7 +43,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,6 +60,8 @@ class GatherStats:
     cache_bytes: int = 0      # prompt K/V moved to the rank owning its
                               # cache slots (single-pass PRISM prefill)
     output_bytes: int = 0     # logits gathered or broadcast
+    state_bytes: int = 0      # recurrent states handed on by the rank
+                              # before (the hybrid and ssm families)
     seconds: float = 0.0      # host clock inside the collectives, staging
                               # copies included (the card is synchronised
                               # before the clock starts)
@@ -72,6 +76,8 @@ class SeqGroup:
         self.world_size = world_size
         self.stats = GatherStats()
         self._tag = 0                   # next point-to-point message tag
+        # pass_on's sends in flight: (work, host buffer)
+        self._sends: List[Tuple[Any, torch.Tensor]] = []
 
     def reset_stats(self) -> None:
         self.stats = GatherStats()
@@ -79,7 +85,51 @@ class SeqGroup:
     def _begin(self, t: torch.Tensor) -> float:
         if t.is_cuda:
             torch.cuda.current_stream(t.device).synchronize()
+        self.flush()
         return time.perf_counter()
+
+    def flush(self) -> None:
+        """Wait until every message ``pass_on`` sent has been taken (a
+        collective does this first; the wait is booked as staged
+        seconds)."""
+        if self._sends:
+            t0 = time.perf_counter()
+            for work, _ in self._sends:
+                work.wait()
+            self._sends.clear()
+            self.stats.seconds += time.perf_counter() - t0
+
+    def pass_on(self, fn: Callable[[Optional[torch.Tensor]],
+                                   Tuple[Any, torch.Tensor]],
+                nbytes: int, device, *, kind: str = "state") -> Any:
+        """One hand-off down the chain 0 → 1 → … → P − 1, called on every
+        rank: rank p > 0 receives ``nbytes`` bytes (a flat uint8 tensor on
+        ``device``) from rank p − 1 (rank 0 receives nothing: None), then
+        ``fn(received) → (out, to_send)`` runs, and ``to_send`` goes to
+        rank p + 1 (the last rank sends nothing) → out.  P − 1 messages
+        across the group: a receiving rank books one call and the bytes
+        under ``kind`` (its wait for the rank before it included in the
+        seconds); the send is posted and returns at once (staged through
+        host memory, pinned for a CUDA device), and the next collective,
+        or :meth:`flush`, waits for it."""
+        tag = self._tag
+        self._tag += 1                  # every rank counts alike (SPMD)
+        got = None
+        if self.rank > 0:               # (no flush: the chain may pipeline)
+            t0 = time.perf_counter()
+            cuda = torch.device(device).type == "cuda"
+            host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=cuda)
+            dist.recv(host, self.rank - 1, tag=tag)
+            got = host.to(device)
+            self._end(t0, kind, nbytes)
+        out, to_send = fn(got)
+        if self.rank < self.world_size - 1:
+            t0 = time.perf_counter()
+            host = self._to_host(to_send)
+            self._sends.append((dist.isend(host, self.rank + 1, tag=tag),
+                                host))
+            self.stats.seconds += time.perf_counter() - t0
+        return out
 
     def _end(self, t0: float, kind: str, received: int) -> None:
         field = f"{kind}_bytes"            # a GatherStats field

@@ -6,10 +6,14 @@ port's parameter dict: the leading layer axis of every stack of
 ``transformer.layer_stacks`` (the JAX package's stacked scan layout:
 ``layers``, gemma2's ``local_layers`` and ``global_layers``, the moe
 family's ``first_layers``, whisper's ``enc_layers`` and ``dec_layers``,
-the vlm's ``cross_layers``) is unstacked into a list of per-layer dicts;
-the vlm's doubly stacked ``self_layers`` (``[n_groups, k_every − 1,
-...]``) becomes one list, group by group.  Every leaf becomes a tensor on
-``device`` with its dtype kept (the vlm's ``gate`` an f32 scalar).
+the vlm's ``cross_layers``, hymba's ``layers``, xLSTM's ``groups``) is
+unstacked into a list of per-layer dicts; the vlm's doubly stacked
+``self_layers`` (``[n_groups, k_every − 1, ...]``) becomes one list,
+group by group, and a stack's inner stacks (``Stack.inner``: xLSTM's
+``mlstm`` and ``m_ln``, ``[groups, slstm_every − 1, ...]``) become a list
+inside each layer.  Every leaf becomes a tensor on ``device`` with its
+dtype kept (the vlm's ``gate`` an f32 scalar); a None leaf (hymba's
+``fuse`` where ``n_heads·hd == d``) stays None.
 """
 from __future__ import annotations
 
@@ -35,6 +39,10 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 def _convert(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_convert(v, device) for v in tree]
+    if tree is None:
+        return None
     return tensor_from_numpy(tree, device)
 
 
@@ -43,17 +51,26 @@ def _unstack(tree: Any, i: int, lead: int) -> Any:
     ``lead`` axes (2: groups of layers), in walk order."""
     if isinstance(tree, dict):
         return {k: _unstack(v, i, lead) for k, v in tree.items()}
+    if tree is None:
+        return None
     a = np.asarray(tree)
     return a.reshape((-1,) + a.shape[lead:])[i]
 
 
+def _layer(stacked: Any, i: int, lead: int, inner: dict) -> Any:
+    """Layer ``i`` of a stack, its inner stacks unstacked into lists."""
+    layer = _unstack(stacked, i, lead)
+    for key, depth in inner.items():
+        layer[key] = [_unstack(layer[key], j, 1) for j in range(depth)]
+    return layer
+
+
 def params_from_numpy(np_params: dict, cfg, device="cpu") -> dict:
     """JAX params tree (numpy leaves) → the port's params for ``cfg``."""
-    stacks = {name: (depth, lead)
-              for name, _, depth, _, lead in layer_stacks(cfg)}
+    stacks = {st.name: st for st in layer_stacks(cfg)}
     out = {k: _convert(v, device) for k, v in np_params.items()
            if k not in stacks}
-    for name, (depth, lead) in stacks.items():
-        out[name] = [_convert(_unstack(np_params[name], i, lead), device)
-                     for i in range(depth)]
+    for name, st in stacks.items():
+        out[name] = [_convert(_layer(np_params[name], i, st.lead, st.inner),
+                              device) for i in range(st.depth)]
     return out

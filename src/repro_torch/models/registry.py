@@ -1,5 +1,5 @@
 """Config → parameters, forward function and input specs, by model family
-(dense, moe, audio, vlm, vit).
+(dense, moe, audio, vlm, hybrid, ssm, vit).
 
 Port of ``repro.models.registry``.  ``init_params`` is the port's own
 initialisation: the JAX package's distributions, drawn from a
@@ -18,9 +18,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models import vit as vit_mod
 
 
-# families whose inputs the port can describe; hybrid and ssm arrive with
-# their models (ROADMAP queue 1 item [11], row [11.4])
-INPUT_FAMILIES = ("dense", "moe", "audio", "vlm", "vit")
+# families whose inputs the port can describe (every family of the JAX
+# package)
+INPUT_FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm", "vit")
 
 
 class TensorSpec(NamedTuple):
@@ -38,9 +38,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
     separately); a ViT takes ``[B, 224, 224, 3]`` f32 images."""
     if cfg.family not in INPUT_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} has no input specs in the port yet "
-            f"(supported: {INPUT_FAMILIES}; hybrid and ssm are ROADMAP "
-            f"queue 1 item [11], row [11.4])")
+            f"family {cfg.family!r} has no input specs (families: "
+            f"{INPUT_FAMILIES})")
     B, N = shape.global_batch, shape.seq_len
     if cfg.family == "vit":
         return {"images": TensorSpec((B, vit_mod.IMAGE, vit_mod.IMAGE, 3),
@@ -101,6 +100,40 @@ def layer_weight_bytes(cfg: ModelConfig) -> Tuple[int, int]:
     return attn + norms + 3 * d * e.d_ff_dense * w, attn + norms + experts
 
 
+def _mamba_bytes(cfg: ModelConfig) -> int:
+    """One Mamba mixer: its projections and conv in ``cfg.dtype``; the
+    time-step bias, A's log and the skip f32."""
+    d, S, W = cfg.d_model, cfg.ssm.state_size, cfg.ssm.conv_width
+    di = cfg.ssm.expand * d
+    w = cfg.torch_dtype.itemsize
+    return ((2 * d * di + W * di + 2 * di * S + di * di + di * d) * w
+            + (2 * di + di * S) * 4)
+
+
+def _hymba_layer_bytes(cfg: ModelConfig) -> int:
+    """One hymba layer: attention, the Mamba mixer, the MLP and four norms
+    (each d wide: hymba runs only at ``n_heads·hd == d``)."""
+    w = cfg.torch_dtype.itemsize
+    return (_gqa_bytes(cfg) + _mamba_bytes(cfg) + 3 * cfg.d_model * cfg.d_ff * w
+            + 4 * _norm_bytes(cfg))
+
+
+def _xlstm_group_bytes(cfg: ModelConfig) -> int:
+    """One xLSTM group: ``slstm_every − 1`` mLSTM blocks (up, q, k, v, the
+    gates and down in ``cfg.dtype``, the gate bias and groupnorm scale f32,
+    a norm each) and one sLSTM block (input, recurrent and FFN weights,
+    f32 bias and scale, its norm)."""
+    d, w = cfg.d_model, cfg.torch_dtype.itemsize
+    H = cfg.ssm.mlstm_heads
+    di = (int(d * cfg.ssm.proj_factor) // H) * H
+    du = int(d * 4 / 3)
+    mlstm = ((2 * d * di + 3 * di * di + 2 * di * H + di * d) * w
+             + (2 * H + di) * 4 + _norm_bytes(cfg))
+    slstm = ((4 * d * d + 4 * d * (d // H) + 3 * d * du) * w + 5 * d * 4
+             + _norm_bytes(cfg))
+    return (cfg.ssm.slstm_every - 1) * mlstm + slstm
+
+
 def weight_bytes(cfg: ModelConfig) -> int:
     """Bytes of a decoder's weights (``layer_weight_bytes`` over its
     layers, the embedding and the head, the final norm; whisper's encoder
@@ -116,6 +149,11 @@ def weight_bytes(cfg: ModelConfig) -> int:
     if cfg.family == "vlm":
         return head + cfg.n_layers * dense + \
             cfg.n_layers // cfg.cross_attn_every * 4
+    if cfg.family == "hybrid":
+        return head + cfg.n_layers * _hymba_layer_bytes(cfg)
+    if cfg.family == "ssm":
+        return head + (cfg.n_layers // cfg.ssm.slstm_every
+                       * _xlstm_group_bytes(cfg))
     if cfg.moe is None:
         return head + cfg.n_layers * dense
     fd = cfg.moe.first_dense_layers

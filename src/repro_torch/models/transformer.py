@@ -1,11 +1,11 @@
 """Transformer stacks — the dense decoder family (llama / qwen / internlm,
 and gemma2's local/global alternation), the moe family (deepseek-moe, and
 deepseek-v2 with MLA attention), the encoder-decoder audio family
-(whisper) and the vlm family (llama-3.2-vision: cross-attention to image
-tokens).
+(whisper), the vlm family (llama-3.2-vision: cross-attention to image
+tokens), the hybrid family (hymba: attention and Mamba heads side by side)
+and the ssm family (xLSTM: mLSTM and sLSTM blocks).
 
-Port of ``repro.models.transformer`` for ``family`` "dense", "moe",
-"audio" and "vlm".
+Port of ``repro.models.transformer``, every family of it.
 Layer parameters are Python lists of per-layer dicts walked in a loop (in
 place of the JAX package's stacked ``lax.scan`` layout), one list a stack
 (``layer_stacks``):
@@ -27,7 +27,17 @@ place of the JAX package's stacked ``lax.scan`` layout), one list a stack
   of ``cross_attn_every − 1`` dense layers, one list in walk order) and
   ``params["cross_layers"]``, one a group after its dense layers
   (cross-attention to the image tokens through ``tanh(gate)``, then the
-  MLP).
+  MLP);
+* hybrid: ``params["layers"]``, each attention and a Mamba mixer
+  (``models.ssm``) over the same normed input, each path normed and the
+  two averaged, then the MLP.  ``n_heads · hd`` must equal ``d_model``
+  (every hymba config): ``attn_norm`` is ``n_heads · hd`` wide and norms
+  the d-wide ``wo`` output, so the JAX package's layer cannot run at
+  another width either, and the port refuses it;
+* ssm: ``params["groups"]``, ``n_layers // slstm_every`` groups, each a
+  dict of ``slstm_every − 1`` mLSTM blocks (the lists ``mlstm`` and
+  ``m_ln``, one norm a block) and then one sLSTM block (``slstm``,
+  ``s_ln``); no attention and no MLP.
 
 The memory (the encoded frames, or the image embeddings) is padded to
 ``pad_len(M0, P, L)`` with a key mask.  Each cross layer projects it to
@@ -44,7 +54,12 @@ The decode cache keeps the stacked layout, one half a stack: ``{"kv":
 place.  audio's ``{"kv", "mem_kv", "mem_mask"}`` and vlm's ``{"self",
 "mem_kv", "mem_mask"}`` add the memory: ``mem_kv`` ``{"k", "v": [n_cross,
 B, M, Hk, dh]}`` (one entry a cross layer) and the key mask ``[B, M]``,
-filled once a request by ``prefill_memory``.
+filled once a request by ``prefill_memory``.  hybrid's is ``{"kv": ...,
+"ssm": {"h": [n_layers, B, di, S] f32, "conv": [n_layers, B, W − 1,
+di]}}``, ssm's ``{"m": {"C", "n", "m": [G, n_m, B, ...]}, "s": {"c",
+"n", "h", "m": [G, B, D]}}``, the recurrent states f32: the JAX package's
+layout, so the bridge and the slot pool address the same axes (each
+leaf's batch axis is the one whose size follows B).
 
 Entry points:
   init_lm(cfg, gen)                        → params dict
@@ -78,11 +93,16 @@ halo under ``prism`` (``exchange.prism_prefill_attention``) and its decode
 merges the blocks' windowed partials.  A MoE layer routes a rank's tokens
 as the whole sequence's (one staged call of counts a layer,
 ``moe.apply_moe``); its decode, whose token every rank holds, makes none.
-The other families (hybrid, ssm) are ROADMAP queue 1 item 11, [11.4].
+A recurrent mixer (Mamba, mLSTM, sLSTM) starts from the state the mixer
+ended with on the rank before (``core.handoff``: one message a mixer down
+the chain of ranks, exact); hymba's attention in the same layer runs the
+plan's exchange.  Their decode keeps a full copy of the recurrent state
+on every rank, updated alike, with no staged call; hymba's KV cache is
+sharded and merged as the dense family's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,7 +112,9 @@ from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
                                        exchange_attention,
                                        exchange_cross_attention, gather_kv,
                                        partitioned, seq_group_for)
+from repro_torch.core.handoff import handoff_scan
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_block, attention_decode,
                                        attention_decode_paged,
@@ -103,12 +125,13 @@ from repro_torch.models.moe import apply_moe, init_moe
 
 Params = Dict[str, Any]
 
-# single-pass prefill is defined for the attention-cached families the port
-# carries; the rest prefill by the teacher-forced decode loop
+# single-pass prefill is defined for the attention-cached families; the
+# recurrent ones (hybrid: mamba's conv and SSM state, ssm: xLSTM) prefill by
+# the teacher-forced decode loop, as in the JAX package
 PREFILL_FAMILIES = ("dense", "moe", "audio", "vlm")
 
-# the families whose stacks the port carries
-FAMILIES = ("dense", "moe", "audio", "vlm")
+# the decoder families (every one of the JAX package's)
+FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm")
 
 # the families that cross-attend to a memory (encoder frames, image tokens)
 MEMORY_FAMILIES = ("audio", "vlm")
@@ -121,8 +144,13 @@ MEMORY = "mem_kv"
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item "
-            f"11: hybrid and ssm, [11.4])")
+            f"family {cfg.family!r} has no decoder stack (families: "
+            f"{FAMILIES})")
+    if cfg.family == "hybrid" and cfg.n_heads * cfg.hd != cfg.d_model:
+        raise ValueError(
+            f"hymba needs n_heads·hd == d_model ({cfg.n_heads}·{cfg.hd} ≠ "
+            f"{cfg.d_model}): attn_norm is n_heads·hd wide and norms the "
+            f"d-wide wo output (the JAX package's layer raises there too)")
 
 
 def _attn_spec(cfg: ModelConfig, *, window: Optional[int] = None,
@@ -456,14 +484,162 @@ def _cached_kv(cache: Params, i: int) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# hybrid (hymba: attention ‖ Mamba heads) and ssm (xLSTM)
+# ---------------------------------------------------------------------------
+
+def _init_hymba_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Attention and a Mamba mixer side by side; ``fuse`` is None, as in
+    the JAX package at ``n_heads · hd == d``, the only width either runs."""
+    d, dtype, dev = cfg.d_model, cfg.torch_dtype, gen.device
+    return {"ln1": init_norm(cfg.norm_type, d, dev),
+            "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, dtype),
+            "mamba": ssm_mod.init_mamba(gen, d, cfg.ssm, dtype),
+            "attn_norm": init_norm(cfg.norm_type, cfg.n_heads * cfg.hd, dev),
+            "ssm_norm": init_norm(cfg.norm_type, d, dev),
+            "fuse": None,
+            "ln2": init_norm(cfg.norm_type, d, dev),
+            "mlp": init_mlp(gen, d, cfg.d_ff, dtype)}
+
+
+def _hymba_mix(p: Params, attn_out: torch.Tensor, ssm_out: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """hymba's fusion (arXiv:2411.13676): each path normed, then their
+    mean."""
+    a = apply_norm(cfg.norm_type, p["attn_norm"], attn_out)
+    s = apply_norm(cfg.norm_type, p["ssm_norm"], ssm_out)
+    return 0.5 * (a + s)
+
+
+def _mamba_like(x: torch.Tensor, cfg: ModelConfig):
+    return ssm_mod.init_mamba_state(x.shape[0], cfg.d_model, cfg.ssm,
+                                    x.dtype, device="meta")
+
+
+def _apply_hymba_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
+                       positions, group=None):
+    """Attention under the plan's exchange and the Mamba scan (across a
+    seq group: from the state the rank before ended with) over the same
+    normed input, mixed, then the MLP."""
+    xin = apply_norm(cfg.norm_type, p["ln1"], x)
+    q, k, v = project_qkv(p["attn"], xin, spec, positions)
+    heads = exchange_attention(q, k, v, xcfg, causal=spec.causal,
+                               window=spec.window,
+                               logit_softcap=spec.logit_softcap,
+                               scale=spec.scale)
+    B, N = x.shape[:2]
+    attn_out = heads.reshape(B, N, spec.n_heads * spec.head_dim) \
+        @ p["attn"]["wo"]
+    ssm_out = handoff_scan(
+        group, lambda st: ssm_mod.mamba_scan(
+            p["mamba"], xin, cfg.ssm, *((None, None) if st is None
+                                        else (st["h"], st["conv"]))),
+        lambda: _mamba_like(xin, cfg), xin.device)
+    x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
+    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
+                         cfg.act)
+
+
+def _store(views: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
+    """Write a new recurrent state into its slice of the stacked cache."""
+    for name, t in views.items():
+        t.copy_(new[name])
+
+
+def _apply_hymba_decode(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
+                        kv, state, index):
+    xin = apply_norm(cfg.norm_type, p["ln1"], x)
+    attn_out, _ = attention_decode(p["attn"], xin, spec, xcfg, kv, index)
+    ssm_out, new = ssm_mod.mamba_step(p["mamba"], xin, cfg.ssm, state)
+    _store(state, new)
+    x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
+    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
+                         cfg.act)
+
+
+def _init_xlstm_group(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """One group: ``slstm_every − 1`` mLSTM blocks (each with its own
+    norm), then one sLSTM block."""
+    d, dtype, dev = cfg.d_model, cfg.torch_dtype, gen.device
+    n_m = cfg.ssm.slstm_every - 1
+    return {"m_ln": [init_norm(cfg.norm_type, d, dev) for _ in range(n_m)],
+            "mlstm": [ssm_mod.init_mlstm(gen, d, cfg.ssm, dtype)
+                      for _ in range(n_m)],
+            "s_ln": init_norm(cfg.norm_type, d, dev),
+            "slstm": ssm_mod.init_slstm(gen, d, cfg.ssm, dtype)}
+
+
+def _apply_xlstm_group(p: Params, x, cfg: ModelConfig, group=None):
+    """The group over the whole sequence (across a seq group each block
+    starts from the state the rank before ended with)."""
+    B, dev = x.shape[0], x.device
+    for ln, lp in zip(p["m_ln"], p["mlstm"]):
+        xin = apply_norm(cfg.norm_type, ln, x)
+        x = x + handoff_scan(
+            group, lambda st: ssm_mod.mlstm_scan(lp, xin, cfg.ssm, st),
+            lambda: ssm_mod.init_mlstm_state(B, cfg.d_model, cfg.ssm,
+                                             device="meta"), dev)
+    xin = apply_norm(cfg.norm_type, p["s_ln"], x)
+    return x + handoff_scan(
+        group, lambda st: ssm_mod.slstm_scan(p["slstm"], xin, cfg.ssm, st),
+        lambda: ssm_mod.init_slstm_state(B, cfg.d_model, device="meta"), dev)
+
+
+def _apply_xlstm_decode(p: Params, x, cfg: ModelConfig, m_states, s_state):
+    """One token through the group; ``m_states`` holds the mLSTM blocks'
+    states stacked ``[n_m, B, ...]``, ``s_state`` the sLSTM's (views into
+    the cache, updated in place)."""
+    for j, (ln, lp) in enumerate(zip(p["m_ln"], p["mlstm"])):
+        st = {name: t[j] for name, t in m_states.items()}
+        y, new = ssm_mod.mlstm_step(lp, apply_norm(cfg.norm_type, ln, x),
+                                    cfg.ssm, st)
+        _store(st, new)
+        x = x + y
+    y, new = ssm_mod.slstm_step(
+        p["slstm"], apply_norm(cfg.norm_type, p["s_ln"], x), cfg.ssm,
+        s_state)
+    _store(s_state, new)
+    return x + y
+
+
+def _recurrent_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    """The recurrent halves of the decode cache: hybrid's ``ssm`` (every
+    layer's Mamba state), ssm's ``m`` and ``s`` (every group's mLSTM and
+    sLSTM states); {} for the attention families."""
+    def stack(state, *lead):
+        return {name: t.expand(*lead, *t.shape).clone()
+                for name, t in state.items()}
+    if cfg.family == "hybrid":
+        return {"ssm": stack(ssm_mod.init_mamba_state(
+            batch, cfg.d_model, cfg.ssm, cfg.torch_dtype, device=device),
+            cfg.n_layers)}
+    if cfg.family == "ssm":
+        G, n_m = cfg.n_layers // cfg.ssm.slstm_every, cfg.ssm.slstm_every - 1
+        return {"m": stack(ssm_mod.init_mlstm_state(
+                    batch, cfg.d_model, cfg.ssm, device=device), G, n_m),
+                "s": stack(ssm_mod.init_slstm_state(
+                    batch, cfg.d_model, device=device), G)}
+    return {}
+
+
+# ---------------------------------------------------------------------------
 # model init
 # ---------------------------------------------------------------------------
 
-def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, Optional[str], int,
-                                                  Optional[int], int]]:
-    """The model's layer stacks in walk order → (params list name, decode
-    cache half or None, depth, attention window, the lead axes that hold
-    the layers in the JAX package's stacked layout): ``layers`` over ``kv``,
+class Stack(NamedTuple):
+    """One layer stack of ``layer_stacks``."""
+    name: str                   # the params list
+    half: Optional[str]         # its KV half of the decode cache, or None
+    depth: int
+    window: Optional[int]       # attention window
+    lead: int                   # lead axes holding the layers in the JAX
+                                # package's stacked layout
+    inner: Dict[str, int] = {}  # keys of a layer that are stacks of their
+                                # own (one lead axis more there) → depth
+
+
+def layer_stacks(cfg: ModelConfig) -> List[Stack]:
+    """The model's layer stacks in walk order: ``layers`` over ``kv``,
     gemma2's ``local_layers`` (the sliding window) over ``local`` and
     ``global_layers`` over ``global``, ``n_layers // 2`` each, or the moe
     family's ``first_layers`` (dense MLPs) over ``first`` and then
@@ -471,24 +647,32 @@ def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, Optional[str], int,
     and ``dec_layers`` over ``kv``; vlm's ``self_layers`` (every group's
     dense layers, group by group: two lead axes, ``[n_groups,
     cross_attn_every − 1, ...]``) over ``self`` and ``cross_layers`` (no
-    self-attention cache: their memory K/V is ``mem_kv``)."""
+    self-attention cache: their memory K/V is ``mem_kv``); hybrid's
+    ``layers`` over ``kv`` (its Mamba states are the cache's ``ssm``);
+    ssm's ``groups`` (no KV cache; their states are ``m`` and ``s``), whose
+    ``mlstm`` and ``m_ln`` are stacks of ``slstm_every − 1`` of their own
+    (``[groups, slstm_every − 1, ...]`` in the JAX package)."""
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
-        return [("first_layers", "first", fd, None, 1),
-                ("layers", "kv", cfg.n_layers - fd, None, 1)]
+        return [Stack("first_layers", "first", fd, None, 1),
+                Stack("layers", "kv", cfg.n_layers - fd, None, 1)]
     if cfg.family == "audio":
-        return [("enc_layers", None, cfg.encoder_layers, None, 1),
-                ("dec_layers", "kv", cfg.n_layers, None, 1)]
+        return [Stack("enc_layers", None, cfg.encoder_layers, None, 1),
+                Stack("dec_layers", "kv", cfg.n_layers, None, 1)]
     if cfg.family == "vlm":
         n = cfg.n_layers // cfg.cross_attn_every
-        return [("self_layers", "self", n * (cfg.cross_attn_every - 1), None,
-                 2),
-                ("cross_layers", None, n, None, 1)]
+        return [Stack("self_layers", "self", n * (cfg.cross_attn_every - 1),
+                      None, 2),
+                Stack("cross_layers", None, n, None, 1)]
+    if cfg.family == "ssm":
+        n_m = cfg.ssm.slstm_every - 1
+        return [Stack("groups", None, cfg.n_layers // cfg.ssm.slstm_every,
+                      None, 1, {"mlstm": n_m, "m_ln": n_m})]
     if cfg.local_global:
         n = cfg.n_layers // 2
-        return [("local_layers", "local", n, cfg.window, 1),
-                ("global_layers", "global", n, None, 1)]
-    return [("layers", "kv", cfg.n_layers, None, 1)]
+        return [Stack("local_layers", "local", n, cfg.window, 1),
+                Stack("global_layers", "global", n, None, 1)]
+    return [Stack("layers", "kv", cfg.n_layers, None, 1)]
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -503,12 +687,16 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, d, dtype)
     init = {"first_layers": lambda: _init_moe_layer(cfg, gen, True),
             "dec_layers": lambda: _init_encdec_layer(cfg, gen),
-            "cross_layers": lambda: _init_cross_layer(cfg, gen)}
+            "cross_layers": lambda: _init_cross_layer(cfg, gen),
+            "groups": lambda: _init_xlstm_group(cfg, gen)}
     if cfg.family == "moe":
         init["layers"] = lambda: _init_moe_layer(cfg, gen, False)
-    for name, _, n, _, _ in layer_stacks(cfg):
-        params[name] = [init.get(name, lambda: _init_dense_layer(cfg, gen))()
-                        for _ in range(n)]
+    if cfg.family == "hybrid":
+        init["layers"] = lambda: _init_hymba_layer(cfg, gen)
+    for st in layer_stacks(cfg):
+        params[st.name] = [
+            init.get(st.name, lambda: _init_dense_layer(cfg, gen))()
+            for _ in range(st.depth)]
     if cfg.family == "audio":
         params["enc_norm"] = init_norm(cfg.norm_type, d, gen.device)
     return params
@@ -522,7 +710,8 @@ def _walk(params: Params, cfg: ModelConfig):
     with the half ``MEMORY`` and the index of its K and V in ``mem_kv``:
     whisper's decoder layer i as its self-attention (params without an
     MLP) and then its cross-attention and MLP; the vlm's cross layer of
-    group g after the group's dense layers."""
+    group g after the group's dense layers.  An xLSTM group comes whole,
+    with no cache half (its states are the cache's ``m`` and ``s``)."""
     spec = _attn_spec(cfg)
     if cfg.family == "audio":
         return [e for i, lp in enumerate(params["dec_layers"])
@@ -537,8 +726,8 @@ def _walk(params: Params, cfg: ModelConfig):
                 for e in [(params["self_layers"][j], spec, "self", j)
                           for j in range(g * k, (g + 1) * k)]
                 + [(cp, spec, MEMORY, g)]]
-    stacks = [(params[name], _attn_spec(cfg, window=w), half)
-              for name, half, _, w, _ in layer_stacks(cfg)]
+    stacks = [(params[st.name], _attn_spec(cfg, window=st.window), st.half)
+              for st in layer_stacks(cfg)]
     if cfg.family == "moe":
         return [(lp, spec, half, i) for lps, spec, half in stacks
                 for i, lp in enumerate(lps)]
@@ -628,6 +817,10 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
             x, a = _apply_moe_layer(lp, x, cfg, xcfg, spec, positions, group)
             if a is not None:
                 aux = aux + a
+        elif cfg.family == "hybrid":
+            x = _apply_hymba_layer(lp, x, cfg, xcfg, spec, positions, group)
+        elif cfg.family == "ssm":
+            x = _apply_xlstm_group(lp, x, cfg, group)
         else:
             x = _apply_attn_mlp(lp, x, cfg, xcfg, spec, positions)
     if last_only:
@@ -653,21 +846,29 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     family's ``{"first": ..., "kv": ...}`` (MLA: the latent ``c_kv`` and
     ``k_pe`` leaves); audio's ``{"kv": ...}`` and vlm's ``{"self": ...}``
     with empty ``mem_kv`` and ``mem_mask`` slots (``prefill_memory`` fills
-    them).  Under a partitioned ``xcfg`` every half is this rank's block of
-    ``ceil(seq / P)`` positions: the cache rounds up to a multiple of P,
-    and the padded slots are never valid."""
+    them); hybrid's ``{"kv": ..., "ssm": ...}`` and ssm's ``{"m": ...,
+    "s": ...}`` recurrent states (f32; the Mamba conv tail in the model
+    dtype).  Under a partitioned ``xcfg`` every KV half is this rank's
+    block of ``ceil(seq / P)`` positions: the cache rounds up to a
+    multiple of P, and the padded slots are never valid; every rank holds
+    the whole recurrent state."""
     _require_ported(cfg)
     if xcfg is not None and partitioned(xcfg):
         seq = -(-seq // xcfg.seq_shards)
-    if cfg.mla is not None:
-        c = mla_mod.init_mla_cache(batch, seq, cfg.mla, cfg.torch_dtype,
-                                   device=device)
-    else:
-        c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd,
-                          cfg.torch_dtype, quant=cfg.kv_quant, device=device)
-    cache = {half: {name: t[None].repeat(n, *([1] * t.ndim))
-                    for name, t in c.items()}
-             for _, half, n, _, _ in layer_stacks(cfg) if half is not None}
+    halves = [(st.half, st.depth) for st in layer_stacks(cfg)
+              if st.half is not None]
+    cache = {}
+    if halves:
+        if cfg.mla is not None:
+            c = mla_mod.init_mla_cache(batch, seq, cfg.mla, cfg.torch_dtype,
+                                       device=device)
+        else:
+            c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd,
+                              cfg.torch_dtype, quant=cfg.kv_quant,
+                              device=device)
+        cache = {half: {name: t[None].repeat(n, *([1] * t.ndim))
+                        for name, t in c.items()} for half, n in halves}
+    cache.update(_recurrent_cache(cfg, batch, device))
     if cfg.family in MEMORY_FAMILIES:
         cache.update(mem_kv=None, mem_mask=None)
     return cache
@@ -699,6 +900,14 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
         if half == MEMORY:
             x = _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
                              cfg, xcfg, decode=True)
+        elif cfg.family == "hybrid":
+            x = _apply_hymba_decode(lp, x, cfg, xcfg, spec,
+                                    _layer_cache(cache, half, i),
+                                    _layer_cache(cache, "ssm", i),
+                                    cache_index)
+        elif cfg.family == "ssm":
+            x = _apply_xlstm_decode(lp, x, cfg, _layer_cache(cache, "m", i),
+                                    _layer_cache(cache, "s", i))
         else:
             x = layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
                       cache_index)

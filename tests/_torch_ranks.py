@@ -577,3 +577,77 @@ def xattn_seq(rank, world, job):
             batch_extras={a["memory_name"]: torch.from_numpy(
                 a["gen_memory"])}))
     return res
+
+
+def _nested(tree, fn):
+    """``fn`` on every array leaf of a nested dict (None kept)."""
+    if isinstance(tree, dict):
+        return {k: _nested(v, fn) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def ssm_seq(rank, world, job):
+    """The recurrent families across the group, from the JAX weights; per
+    arch in ``job["archs"]``:
+
+    * ``forward_lm`` under each plan of ``job["plans"]`` at each
+      ``(N, L)`` of ``job["forwards"]`` → (logits, payload, meta and state
+      bytes, calls);
+    * decode steps, each from the given JAX cache (the KV half in this
+      rank's block, the recurrent states whole) → (logits, merge and state
+      bytes, calls);
+    * greedy ``generate`` under each plan → (tokens, state bytes)."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    group = get_seq_group("seq")
+
+    def plan_of(kw, L):
+        return ExecutionPlan(seq_axis="seq", seq_shards=world,
+                             L=L if kw["mode"] == "prism" else 0, **kw)
+    res = {}
+    for label, a in job["archs"].items():
+        cfg = get_config(a["arch"]).reduced(**a["reduced"])
+        session = InferenceSession.from_config(
+            a["arch"], reduced=a["reduced"], device="cpu",
+            params=params_from_numpy(a["params"], cfg))
+        r = res[label] = {}
+        with torch.inference_mode():
+            for name, kw in job["plans"].items():
+                for i, (N, L) in enumerate(job["forwards"]):
+                    xcfg = plan_of(kw, L).to_exchange_config()
+                    group.reset_stats()
+                    logits, _ = tfm.forward_lm(
+                        session.params,
+                        {"tokens": torch.from_numpy(job["tokens"][i])}, cfg,
+                        xcfg)
+                    st = group.stats
+                    r[f"fwd/{name}/{i}"] = (_np(logits), st.payload_bytes,
+                                            st.meta_bytes, st.state_bytes,
+                                            st.calls)
+                xcfg = plan_of(kw, job["L"]).to_exchange_config()
+                got = []
+                for t, full in enumerate(a["caches"]):
+                    cache = {half: _nested(leaves, lambda v, h=half:
+                                           torch.from_numpy(
+                                               cache_block(v, rank, world, 2)
+                                               if h == "kv" else np.array(v)))
+                             for half, leaves in full.items()}
+                    group.reset_stats()
+                    lg, _ = tfm.decode_step(
+                        session.params,
+                        {"tokens": torch.from_numpy(
+                            job["decode_tokens"][:, t:t + 1])},
+                        cache, t, cfg, xcfg)
+                    st = group.stats
+                    got.append((_np(lg), st.merge_bytes, st.state_bytes,
+                                st.calls))
+                r[f"decode/{name}"] = got
+        prompt = torch.from_numpy(job["prompt"])
+        for name, kw in job["plans"].items():
+            plan = plan_of(kw, job["L"])
+            group.reset_stats()
+            out = session.generate(prompt, job["n_new"], plan=plan)
+            r[f"gen/{name}"] = (_np(out), group.stats.state_bytes)
+    return res

@@ -458,7 +458,7 @@ def _to(tree, device):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 @pytest.mark.gpu
@@ -966,3 +966,128 @@ def test_small_memory_models_generate_the_cpus_tokens(cuda_device, arch):
                 steps * (n_self + n_mem) if dev == "cuda" else 0)
     for plan in plans:
         assert torch.equal(out["cuda", plan.mode], out["cpu", plan.mode])
+
+
+# hymba-1.5b's attention: 25 query heads over 5 KV heads of 64, a group of
+# G = 5, the first neither a power of two nor a divisor of a warp (the
+# kernels' row tiles run part full)
+HYMBA_HEADS = (25, 5, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_a_group_of_five(cuda_device, dtype):
+    """B 4, S 48 at 25/5 heads: every head of every row (random lengths,
+    row 0 fully masked) against the plain version, as the dense case."""
+    H, Hk, dh = HYMBA_HEADS
+    g = torch.Generator(device=cuda_device).manual_seed(40)
+    q = torch.randn(4, H, dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(4, 48, Hk, dh, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    clen = torch.tensor([0, 48, 17, 5], device=cuda_device)
+    bias = validity_bias(4, 48, clen, device=cuda_device)
+    got = flash_decode(q, k, v, bias)
+    want = flash_decode_ref(q, k, v, bias)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    live = clen > 0
+    o_g, o_w = got[0] / got[2][..., None], want[0] / want[2][..., None]
+    for a, b in ((o_g, o_w), (got[1], want[1]), (got[2], want[2])):
+        assert _rel_err(a[live], b[live]) <= tol
+    assert (got[1][0] == -1e30).all() and (got[2][0] == 48).all()
+    # each query head of a group reads its own row of q: no head repeats
+    # another's output
+    assert not torch.equal(o_g[1, 0], o_g[1, 4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shard_partials_merge_at_a_group_of_five(cuda_device, dtype):
+    """Both blocks of S 48 over 2 ranks at 25/5 heads (one row with no
+    valid position in block 1) through ``dispatch.decode_partials``,
+    merged against the dense kernel on the whole cache."""
+    from repro_torch.kernels import dispatch as kdsp
+    from repro_torch.kernels.flash_decode import merge_partials
+    H, Hk, dh = HYMBA_HEADS
+    q, k, v = _shard_inputs(cuda_device, dtype, 4, 48, seed=41, H=H, Hk=Hk,
+                            dh=dh)
+    valid = torch.tensor([40, 17, 24, 48], device=cuda_device)
+    parts = [kdsp.decode_partials(q, k[:, r * 24:(r + 1) * 24].contiguous(),
+                                  v[:, r * 24:(r + 1) * 24].contiguous(),
+                                  valid, offset=r * 24) for r in (0, 1)]
+    merged = merge_partials(*(torch.stack(p) for p in zip(*parts)))
+    o, _, l = kdsp.decode_partials(q, k, v, valid)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert _rel_err(merged, o / l[..., None]) <= tol
+    assert (parts[1][1][1] == -1e30).all()
+
+
+@pytest.mark.gpu
+def test_segment_means_at_hymba_width(cuda_device):
+    """K and V [4, 256, 5·64] in one launch at L 16, the width the hymba
+    ``prism`` exchange gives: bf16 means within one rounding step, f32
+    within 1e-5."""
+    from repro_torch.kernels.segment_means import (segment_means_kv,
+                                                   segment_means_ref)
+    g = torch.Generator(device=cuda_device).manual_seed(42)
+    k, v = (torch.randn(4, 256, 5 * 64, generator=g, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    means, _ = segment_means_kv(k, v, 16, None)
+    means32, _ = segment_means_kv(k.float(), v.float(), 16, None)
+    for i, x in enumerate((k, v)):
+        want, _ = segment_means_ref(x, 16, None)
+        assert torch.isclose(means[i].float(), want.float(), rtol=2.0 ** -7,
+                             atol=0.0).all()
+        assert _rel_err(means32[i], segment_means_ref(x.float(), 16,
+                                                      None)[0]) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [0, 1])
+def test_causal_prism_attention_at_a_group_of_five(cuda_device, part):
+    """q [4, 256, 25, 64] over 5 KV heads, causal, both partitions' means
+    as gathered (L 16): partitions 0 and 1 against the plain version."""
+    from repro_torch.kernels.prism_attention import build_mean_bias
+    H, Hk, dh = HYMBA_HEADS
+    g = torch.Generator(device=cuda_device).manual_seed(43 + part)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+    q, k, v = randn(4, 256, H, dh), randn(4, 256, Hk, dh), randn(4, 256, Hk,
+                                                                dh)
+    means = randn(2, 2, 4, 16, Hk, dh).permute(1, 2, 0, 3, 4, 5)
+    flat = [m.reshape(4, 32, Hk, dh) for m in means]
+    bias = build_mean_bias(4, 2, 16, part, 16, causal=True,
+                           device=cuda_device)
+    _assert_prism_close((q, k, v, means[0], means[1], bias), flat,
+                        causal=True, mask=None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_small_recurrent_models_generate_the_cpus_tokens(cuda_device, arch):
+    """A small f32 hymba at G 5 (10/2 heads of 64) and a small xLSTM
+    generate the same greedy tokens on the card as on the CPU; hymba's
+    decode runs every attention layer through the flash-decode kernel,
+    xLSTM launches none."""
+    from repro_torch.api import ExecutionPlan, InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    reduced = (dict(dtype="float32", head_dim=64, n_heads=10, n_kv_heads=2,
+                    d_model=640) if arch == "hymba-1.5b"
+               else dict(dtype="float32", d_model=256, n_layers=4))
+    cfg = get_config(arch).reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    plan = ExecutionPlan.local()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        session = InferenceSession(cfg, _to(params, dev), device=dev,
+                                   plans=[plan])
+        before = flash_decode.launches
+        out[dev] = session.generate(prompt, 6, plan=plan).cpu()
+        attn = cfg.n_layers if cfg.family == "hybrid" else 0
+        assert flash_decode.launches - before == (
+            13 * attn if dev == "cuda" else 0)
+    assert torch.equal(out["cuda"], out["cpu"])

@@ -39,12 +39,17 @@ def test_port_imports_without_jax_or_repro():
         assert name in out.stdout.split()
     for name in FLEET_TIER:
         assert name in out.stdout.split()
+    for name in RECURRENT_FAMILIES:
+        assert name in out.stdout.split()
 
 
 IMPORT_LINE = re.compile(r"^\s*(import jax|from jax|import repro\b|"
                          r"from repro(\.| )|import ml_dtypes|from ml_dtypes)")
 FLEET_TIER = ("repro_torch.fleet.router", "repro_torch.rpc.worker",
               "repro_torch.chaos.controller")
+RECURRENT_FAMILIES = ("repro_torch.models.ssm", "repro_torch.core.handoff",
+                      "repro_torch.configs.hymba_1_5b",
+                      "repro_torch.configs.xlstm_350m")
 MOE_FAMILY = ("repro_torch.models.moe", "repro_torch.models.mla",
               "repro_torch.configs.deepseek_moe_16b",
               "repro_torch.configs.deepseek_v2_236b")

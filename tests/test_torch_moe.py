@@ -416,15 +416,22 @@ def test_session_profiles_decides_and_dispatches(sessions):
 
 
 def test_families_still_to_port_raise_naming_the_roadmap():
+    """No family is left to port: every arch of the JAX package's config
+    registry has a port config equal field for field, and only a family
+    neither package has is refused."""
+    from repro.configs import _MODULES as jmodules
+    from repro.configs import get_config as jget
     from repro_torch.configs import get_config
-    for arch in ("hymba-1.5b", "xlstm-350m"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
-    assert get_config("whisper-large-v3").family == "audio"
-    assert get_config("llama-3.2-vision-11b").family == "vlm"
+    for arch in jmodules:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget(arch))
+    assert get_config("hymba-1.5b").family == "hybrid"
+    assert get_config("xlstm-350m").family == "ssm"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba-2.8b")
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
-                              family="hybrid")
-    with pytest.raises(NotImplementedError, match="item 11"):
+                              family="rnn")
+    with pytest.raises(NotImplementedError, match="no decoder stack"):
         ttfm.init_decode_cache(cfg, 1, 4)
 
 

@@ -419,9 +419,8 @@ def test_input_specs_of_unported_families_raise():
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models import registry
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), family="hybrid")
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item \[11\]"):
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), family="rnn")
+    with pytest.raises(NotImplementedError, match="has no input specs"):
         registry.input_specs(cfg, ShapeSpec("s", 8, 1, "prefill"))
 
 

@@ -430,7 +430,8 @@ def test_prime_slot_forwards_prefill_mode(session):
 def test_slot_pool_rejects_unsupported_families():
     sess = TSession.from_config("vit-base-16", reduced={"n_layers": 1},
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="slot pool.*item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="slot pool.*audio, vlm and vit"):
         sess.init_slot_pool(2, 16)
     with pytest.raises(NotImplementedError, match="slot pool"):
         sess.prime_slot(np.zeros((1, 4), np.int32), total_len=16)

@@ -146,7 +146,7 @@ def test_bridge_unstacks_every_stack(arch):
     jcfg, np_params = _np_params(arch)
     tcfg = _pair(arch)[2]
     tp = params_from_numpy(np_params, tcfg)
-    for name, half, depth, _, lead in ttfm.layer_stacks(tcfg):
+    for name, half, depth, _, lead, _ in ttfm.layer_stacks(tcfg):
         assert len(tp[name]) == depth
         leaves = jax.tree_util.tree_leaves_with_path(np_params[name])
         for path, leaf in leaves:
