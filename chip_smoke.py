@@ -156,8 +156,9 @@ Phases, one line each (more for the kernel table):
 9. archs     — internlm2-1.8b, qwen1.5-32b, gemma2-27b and deepseek-moe-16b
                at full width
                (each with all its layers where they fit beside nothing
-               else, else fewer, whole local/global pairs for gemma2, as
-               its lines say): the measured profile on the H100 presets at
+               else, else fewer, whole local/global pairs for gemma2, and
+               at most ARCH_LAYERS: qwen 32 of 64, gemma2 24 of 46,
+               deepseek-moe 4 of 28, as its lines say): the measured profile on the H100 presets at
                B 1, 8 and 32 with the anchor scale, decide and explain, and
                greedy generate under ``local`` with flash-decode launches
                asserted, decode time, device idle share and peak memory;
@@ -261,9 +262,9 @@ Phases, one line each (more for the kernel table):
                + 16 under ``voltage`` (the memory's shard partials
                counted apart, the same tokens on both ranks, the same
                weights in f32 token-exact against ``local``).
-17. hybrid, ssm — hymba-1.5b (32 layers of attention beside a Mamba
-               mixer) and xlstm-350m (3 groups of 7 mLSTM + 1 sLSTM
-               blocks) at full width and depth: the measured profile at
+17. hybrid, ssm — hymba-1.5b (16 of its 32 layers of attention beside a
+               Mamba mixer, ARCH_LAYERS) and xlstm-350m (3 groups of 7
+               mLSTM + 1 sLSTM blocks, full depth) at full width: the measured profile at
                B 1 and 4, decide, greedy ``generate`` [4, 32] + 16 under
                ``local`` and ``prism_sim`` (the decode-loop prefill),
                flash-decode launches asserted (hymba: every layer every
@@ -282,6 +283,38 @@ Phases, one line each (more for the kernel table):
                moved, flash-decode launches asserted, the same tokens on
                both ranks, their agreement with ``local`` in bf16; the
                same weights in f32 token-exact against ``local``).
+19. train-kernels — the segment-means and PRISM-attention autograd
+               functions on the card (kernel forward, explicit PyTorch
+               backward) against autograd of their plain versions on the
+               same inputs and cotangent, f32 (≤ 1e-5 relative) and bf16
+               (one rounding step at the largest value), at llama's
+               ``prism`` train shape (B 4, Np 256, 32/8 heads, dh 64, L 16,
+               causal, part 1) and ViT-B/16's (B 8, 100 tokens with 3
+               pads, 12 heads, L 20, masked, counts); bf16 times of each
+               forward kernel, its backward alone (beside its bound), the
+               plain forward + backward and a yardstick's (sdpa over [K ‖
+               means] with the bias as a mask; ``mean()``).
+20. train-reference — a small f32 llama's summed gradient and 2 AdamW
+               steps on the card against the same on the CPU: one process
+               ``local``, and 2 card ranks against 2 CPU ranks under
+               ``voltage`` and ``prism`` (loss and grad_norm ≤ 1e-5,
+               gradients ≤ 1e-4 of each leaf's largest, params 99 %
+               within 1e-5 and none past AdamW's sign-flip bound; the
+               replicas bit-identical; under ``prism`` both kernels
+               launched); then a ``Trainer`` on the card with a failure
+               injected at step 3 resumes through ``FaultTolerantLoop``
+               to the uninterrupted run's params and moments, bit for bit.
+21. train    — llama3.2-1b at full width and depth (bf16 params, f32
+               moments), B 4, N 512, ``local``, 5 AdamW steps through
+               ``Trainer``: each step's ms and loss, tokens/s, the last
+               step's device idle share (torch.profiler), peak memory.
+22. train-seq — llama3.2-1b cut to 4 of 16 layers at full width on 2 ranks
+               sharing the card, B 4, N 512, 3 steps each under
+               ``voltage`` and ``prism(L=16)``: step ms, staged ms and
+               share, the bytes received by kind (payload, meta, grad)
+               asserted equal to the shapes, one segment-means and one
+               PRISM-attention launch a layer a step under ``prism``, the
+               loss at each step, the replicas bit-identical.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -1209,7 +1242,9 @@ def drive_generate(session, prompt, key: str, n_steps: int, card: str,
     cfg = session.cfg
     plan = session.plans[key]
     timed_generate(session, prompt, 2, plan)                 # warm-up
-    _, w1 = timed_generate(session, prompt, 1, plan)
+    # the prefill-dominated 1-token generate, the faster of 2: a host spike
+    # only slows a run, and in one run it outweighed hymba's 15 decode steps
+    w1 = min(timed_generate(session, prompt, 1, plan)[1] for _ in range(2))
     flash_decode.launches = 0
     out, w = timed_generate(session, prompt, N_NEW, plan)
     launches = flash_decode.launches
@@ -1271,8 +1306,9 @@ def layers_that_fit(cfg, headroom_bytes: float = 6e9) -> int:
 
 def phase_arch_session(card: str, arch: str) -> dict:
     """``arch`` at full width, bf16, on the card (all its layers if they fit
-    beside nothing else): the measured profile on the H100 presets over
-    three batches, decide and explain at B 1, 8 and 32, and greedy
+    beside nothing else, at most ARCH_LAYERS[arch]): the measured profile
+    on the H100 presets over three batches, decide and explain at B 1, 8
+    and 32, and greedy
     ``generate`` under ``local`` with flash-decode launches asserted
     (gemma2 has no ``prism_sim`` plan: it raises on windowed layers, as in
     the JAX package; it generates a second time at B 1 from a
@@ -1294,9 +1330,7 @@ def phase_arch_session(card: str, arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     full = get_config(arch)
-    n_layers = layers_that_fit(full)
-    if arch == MOE:
-        n_layers = min(n_layers, MOE_ARCH_LAYERS)
+    n_layers = min(layers_that_fit(full), ARCH_LAYERS.get(arch, 10 ** 9))
     cfg = dataclasses.replace(full, n_layers=n_layers)
     params = registry.init_params(cfg, seed=0, device="cuda")
     plans = [ExecutionPlan.local()] + (
@@ -4017,9 +4051,6 @@ def _phase_fleet_rpc(card: str) -> None:
 # ---------------------------------------------------------------------------
 
 MOE_SERVE_REQUESTS, MOE_SERVE_SLOTS, MOE_SERVE_CHUNK = 5, 4, 8
-# [arch]'s deepseek-moe-16b runs this many of its 28 layers (the dense
-# first one and 3 of experts): its host loop was most of the phase
-MOE_ARCH_LAYERS = 4
 
 
 def serve_moe(session, card: str, note: str) -> int:
@@ -5315,6 +5346,11 @@ def xattn_kernel_rows(xa: dict, xk: dict, xs: dict, replaces: dict,
 # ---------------------------------------------------------------------------
 
 HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
+# [arch]'s depth cuts (PERF.md §4), each a host-bound loop over layers that
+# kept the script near its time limit: deepseek-moe-16b's dense first layer
+# and 3 of experts; half of qwen1.5-32b's 64 and of hymba's 32; 12 of
+# gemma2's 23 local/global pairs
+ARCH_LAYERS = {MOE: 4, "qwen1.5-32b": 32, GEMMA: 24, HYMBA: 16}
 SSM_ARCHS = (HYMBA, XLSTM)
 # [arch]'s slot pool: more requests than slots, so a slot is re-admitted
 SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS, SSM_SERVE_CHUNK = 3, 2, 8
@@ -5620,7 +5656,8 @@ def serve_pool(session, card: str, note: str, n_requests: int, n_slots: int,
 
 
 def phase_ssm_arch(card: str, arch: str) -> dict:
-    """``arch`` at full width and depth, bf16, random weights from seed 0:
+    """``arch`` at full width and depth (at most ARCH_LAYERS[arch] layers),
+    bf16, random weights from seed 0:
     a measured profile at B 1 and 4 on the H100 presets, decide at B 1, 8
     and 32, greedy ``generate`` of [4, 32] + 16 under ``local`` (the
     kernel time and the device's idle share from ``torch.profiler``) and
@@ -5631,6 +5668,7 @@ def phase_ssm_arch(card: str, arch: str) -> dict:
     slot re-admitted, and the peak memory → (the generates' launches,
     local decode ms a step, the slot pool's launches at its steps and at
     its admissions' prefill)."""
+    import dataclasses
     import gc
     import torch
     from repro_torch.api import ExecutionPlan, InferenceSession
@@ -5642,7 +5680,9 @@ def phase_ssm_arch(card: str, arch: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=min(
+        full.n_layers, ARCH_LAYERS.get(arch, full.n_layers)))
     params = registry.init_params(cfg, seed=0, device="cuda")
     plans = [ExecutionPlan.local(), ExecutionPlan.prism_sim(L=4, cr=9.9)]
     session = InferenceSession(cfg, params, device="cuda", plans=plans)
@@ -5661,9 +5701,11 @@ def phase_ssm_arch(card: str, arch: str) -> dict:
                f"({s.mlstm_heads} heads of "
                f"{int(cfg.d_model * s.proj_factor) // s.mlstm_heads}) and "
                f"one sLSTM block, no attention")
-    print(f"[session] {arch} full width and depth ({fam}, d {cfg.d_model}, "
-          f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.2f} B "
-          f"parameters, {registry.weight_bytes(cfg) / 1e9:.2f} GB, drawn on "
+    depth = ("depth" if cfg.n_layers == full.n_layers
+             else f"{cfg.n_layers} of {full.n_layers} layers")
+    print(f"[session] {arch} full width and {depth} ({fam}, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{n_params / 1e9:.2f} B parameters, {registry.weight_bytes(cfg) / 1e9:.2f} GB, drawn on "
           f"the card from seed 0) built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t1 = time.perf_counter()
@@ -6001,6 +6043,668 @@ def ssm_kernel_rows(sa: dict, sk: dict, ss: dict, replaces: dict,
              **{k: t[k] for k in keys}} for kname, n, t, shape in rows]
 
 
+# ---------------------------------------------------------------------------
+# training: the autograd functions, a small reference, llama3.2-1b
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_N, TRAIN_STEPS = 4, 512, 5          # [train]: full depth
+TRAIN_SEQ_LAYERS, TRAIN_SEQ_STEPS = 4, 3            # [train-seq], 2 ranks
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)           # [train-reference]
+TRAIN_REF_STEPS, TRAIN_REF_N = 2, 32
+# (B, Np, H, Hk, dh, P, L, part, causal, masked): llama3.2-1b's prism train
+# shape (rank 1 of 2 at N 512) and ViT-B/16's (197 tokens padded to 200,
+# rank 1's 100 with the 3 pads, L 20)
+TRAIN_KERNEL_SHAPES = {
+    "llama": (LM_B, LM_N // LM_P, N_HEADS, N_KV, 64, LM_P, LM_L, 1, True,
+              False),
+    "vit": (VIT_B, 100, 12, 12, 64, VIT_P, VIT_L, 1, False, True)}
+
+
+def graph_ms(fn) -> float:
+    """Median device ms of one ``fn()``, captured in a CUDA graph with its
+    autograd work (``time_ms`` with one argument set: inputs warm in
+    L2)."""
+    return time_ms(lambda: fn(), [()])
+
+
+def _grad_errs(label, names, got, want, dtype) -> float:
+    """Each gradient of the kernel route (its forward, the explicit
+    backward) vs autograd of the plain version → the worst relative max
+    error; raises past tolerance: f32 1e-5; bf16 one bf16 rounding step at
+    the largest value (2^-7 of it: both sides round one f32 gradient whose
+    last bits differ)."""
+    import torch
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        err = rel_err(a, b)
+        if not (err <= tol and torch.isfinite(a).all()):
+            raise AssertionError(f"{label} d{name}: relative error {err:.3e}"
+                                 f" > {tol:g} (or not finite)")
+        worst = max(worst, err)
+    return worst
+
+
+def train_kernel_case(shape: str, dtype, seed: int) -> dict:
+    """The inputs of one PRISM step at ``TRAIN_KERNEL_SHAPES[shape]`` as
+    leaves that require grad: q, K, V of the partition and the gathered
+    [P, 2, B, L, Hk, dh] means (the kernel reads its strided view), the
+    key mask and the means' counts (ViT: rank 1 holds the 3 pads)."""
+    import torch
+    B, Np, H, Hk, dh, P, L, part, causal, masked = TRAIN_KERNEL_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf(*s):
+        return torch.randn(*s, generator=g, device="cuda").to(
+            dtype).requires_grad_()
+    q, k, v = leaf(B, Np, H, dh), leaf(B, Np, Hk, dh), leaf(B, Np, Hk, dh)
+    gathered = leaf(P, 2, B, L, Hk, dh)
+    mask = counts = None
+    seg = Np // L
+    if masked:
+        mask = torch.ones(B, Np, dtype=torch.bool, device="cuda")
+        mask[:, -3:] = False
+        counts = torch.full((B, P, L), float(seg), device="cuda")
+        counts[:, part, -1] = seg - 3
+    return dict(q=q, k=k, v=v, gathered=gathered, mask=mask, counts=counts,
+                part=part, seg=seg, causal=causal, L=L)
+
+
+def _prism_routes(c):
+    """(kernel route through the autograd function, plain version under
+    autograd) of the case's PRISM attention."""
+    from repro_torch.kernels.prism_attention import (build_mean_bias,
+                                                     prism_attention_op,
+                                                     prism_attention_ref)
+    q, k, v = c["q"], c["k"], c["v"]
+    B, P, L = q.shape[0], c["gathered"].shape[0], c["L"]
+
+    def means():
+        return c["gathered"].permute(1, 2, 0, 3, 4, 5)
+
+    def kernel():
+        km, vm = means()
+        return prism_attention_op(q, k, v, km, vm, c["part"], c["seg"],
+                                  causal=c["causal"], kv_mask=c["mask"],
+                                  mean_counts=c["counts"])
+
+    def plain():
+        km, vm = means()
+        bias = build_mean_bias(B, P, L, c["part"], c["seg"],
+                               causal=c["causal"], mean_counts=c["counts"],
+                               device=q.device)
+        return prism_attention_ref(q, k, v, km.flatten(1, 2),
+                                   vm.flatten(1, 2), bias,
+                                   causal=c["causal"], kv_mask=c["mask"])
+    return kernel, plain
+
+
+def _seg_routes(c):
+    """(kernel route, plain version) of the case's K and V segment means
+    (one launch; the counts from the key mask)."""
+    import torch
+    from repro_torch.kernels.segment_means import (segment_means_kv_op,
+                                                   segment_means_ref)
+    k, v, mask, L = c["k"], c["v"], c["mask"], c["L"]
+    B, Np = k.shape[:2]
+
+    def kernel():
+        return segment_means_kv_op(k, v, L, mask)[0]
+
+    def plain():
+        return torch.stack([segment_means_ref(t.reshape(B, Np, -1), L,
+                                              mask)[0] for t in (k, v)]
+                           ).reshape(2, B, L, *k.shape[2:])
+    return kernel, plain
+
+
+def _pairs(c) -> int:
+    """(query, key) pairs the PRISM step computes: each query's unmasked
+    local keys (causal: those at or before it) and the means it sees."""
+    B, Np = c["q"].shape[:2]
+    P, L = c["gathered"].shape[0], c["L"]
+    seen_means = (c["part"] if c["causal"] else P - 1) * L
+    if c["causal"]:
+        return B * (Np * (Np + 1) // 2 + Np * seen_means)
+    keys = Np - (3 if c["mask"] is not None else 0)
+    return B * Np * (keys + seen_means)
+
+
+def check_train_kernels(shape: str, dtype) -> dict:
+    """Both autograd functions at ``shape`` in ``dtype``: forward output
+    and every gradient of the kernel route vs autograd of the plain
+    version on the same inputs and cotangent → errors."""
+    import torch
+    c = train_kernel_case(shape, dtype, seed=41)
+    leaves = (c["q"], c["k"], c["v"], c["gathered"])
+    out = {}
+    for name, routes, wrt, names in (
+            ("prism_attention", _prism_routes(c), leaves,
+             ("q", "k", "v", "means")),
+            ("segment_means", _seg_routes(c), leaves[1:3], ("k", "v"))):
+        kernel, plain = routes
+        got = kernel()
+        g = torch.randn(got.shape, generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda").to(dtype)
+        grads = torch.autograd.grad(got, wrt, g)
+        torch.cuda.synchronize()
+        want = plain()
+        fwd = rel_err(got, want)
+        step = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        if not fwd <= step:
+            raise AssertionError(f"{name} {shape} {dtype}: forward relative "
+                                 f"error {fwd:.3e} > {step:g}")
+        bwd = _grad_errs(f"{name} {shape} {dtype}", names, grads,
+                         torch.autograd.grad(want, wrt, g), dtype)
+        out[name] = dict(fwd=fwd, bwd=bwd, max_abs_err=(
+            got.float() - want.float()).abs().max().item())
+    return out
+
+
+def time_train_kernels(shape: str) -> dict:
+    """bf16 at ``shape``: each kernel's forward, its explicit backward
+    alone, the plain version's forward + backward under autograd, and a
+    yardstick's forward + backward (sdpa over [K ‖ means] with the bias as
+    a float mask; ``mean()`` of K and V stacked), each captured in a CUDA
+    graph (``graph_ms``: host launches excluded, inputs warm in L2);
+    the backward's bound (every input and the cotangent read once, every
+    gradient written once; PRISM: 2·H·(3·dh + 2·dv) flops a (query, key)
+    pair it recomputes: scores, dp, dq, dk, dv)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.prism_attention import build_mean_bias
+    from repro_torch.kernels.prism_attention.ops import prism_attention_grads
+    from repro_torch.kernels.segment_means.ops import _token_grad
+    dtype = torch.bfloat16
+    c = train_kernel_case(shape, dtype, seed=43)
+    q, k, v, gm = c["q"], c["k"], c["v"], c["gathered"]
+    B, Np, H, dh = q.shape
+    Hk, P, L = k.shape[2], gm.shape[0], c["L"]
+    out = {}
+    kernel, plain = _prism_routes(c)
+    go = torch.randn(B, Np, H, dh, device="cuda").to(dtype)
+    bias = build_mean_bias(B, P, L, c["part"], c["seg"], causal=c["causal"],
+                           mean_counts=c["counts"], device="cuda")
+    km, vm = gm.detach().permute(1, 2, 0, 3, 4, 5)
+    leaves = (q, k, v, gm)
+    with torch.no_grad():
+        fwd = graph_ms(kernel)
+        bwd = graph_ms(lambda: prism_attention_grads(
+            q, k, v, km, vm, bias, go, causal=c["causal"], scale=None,
+            softcap=None, kv_mask=c["mask"], q_offset=0))
+    keys = torch.where(c["mask"], 0.0, -1e30) if c["mask"] is not None \
+        else torch.zeros(B, Np, device="cuda")
+    full = torch.cat([keys, bias], dim=1).to(dtype)[:, None, None, :]
+    if c["causal"]:
+        tri = torch.ones(Np, Np, dtype=torch.bool, device="cuda").tril()
+        local = torch.where(tri, 0.0, -1e30).to(dtype)
+        full = torch.cat([local.expand(B, 1, Np, Np),
+                          full[..., Np:].expand(B, 1, Np, P * L)], dim=-1)
+    else:
+        full = full.expand(B, 1, Np, Np + P * L)
+
+    def sdpa():
+        kk = torch.cat([k, gm[:, 0].permute(1, 0, 2, 3, 4).flatten(1, 2)], 1)
+        vv = torch.cat([v, gm[:, 1].permute(1, 0, 2, 3, 4).flatten(1, 2)], 1)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            attn_mask=full, enable_gqa=True)
+    pairs = _pairs(c)
+    moved = 2 * nbytes(q, k, v, gm) + nbytes(go, bias, c["mask"])
+    b_ms, b_by = roofline(moved, 2 * H * 5 * dh * pairs, dtype)
+    out["prism_attention"] = dict(
+        fwd_ms=fwd, bwd_ms=bwd,
+        plain_ms=graph_ms(lambda: torch.autograd.grad(plain(), leaves,
+                                                         go)),
+        library_ms=graph_ms(lambda: torch.autograd.grad(
+            sdpa(), (q, k, v, gm), go.transpose(1, 2))),
+        bwd_bound_ms=b_ms, bwd_bound_by=b_by)
+    skernel, splain = _seg_routes(c)
+    gs = torch.randn(2, B, L, Hk, dh, device="cuda").to(dtype)
+    counts = (torch.full((B, L), float(c["seg"]), device="cuda")
+              if c["mask"] is None else
+              c["mask"].reshape(B, L, -1).float().sum(-1))
+    with torch.no_grad():
+        sfwd = graph_ms(skernel)
+        sbwd = graph_ms(lambda: _token_grad(
+            gs.reshape(2, B, L, -1), Np, c["mask"], counts, dtype))
+    s_moved = 2 * nbytes(k, v) + nbytes(gs, c["mask"])
+    sb_ms, sb_by = roofline(s_moved, 2 * nbytes(k, v) // k.element_size(),
+                            dtype)
+    kv = (k, v)
+    out["segment_means"] = dict(
+        fwd_ms=sfwd, bwd_ms=sbwd,
+        plain_ms=graph_ms(lambda: torch.autograd.grad(splain(), kv, gs)),
+        library_ms=graph_ms(lambda: torch.autograd.grad(
+            torch.stack(kv).reshape(2, B, L, -1, Hk, dh).mean(3), kv, gs)),
+        bwd_bound_ms=sb_ms, bwd_bound_by=sb_by)
+    return out
+
+
+def phase_train_kernels(card: str) -> dict:
+    """``[train-kernels]``: each autograd function on the card (kernel
+    forward, explicit backward) against autograd of its plain version, f32
+    and bf16, at llama's and ViT-B/16's shapes; times at bf16 → the timed
+    rows by (kernel, shape)."""
+    import torch
+    timed = {}
+    for shape in TRAIN_KERNEL_SHAPES:
+        B, Np, H, Hk, dh, P, L, part, causal, masked = \
+            TRAIN_KERNEL_SHAPES[shape]
+        errs = {str(dt).split(".")[1]: check_train_kernels(shape, dt)
+                for dt in (torch.float32, torch.bfloat16)}
+        t = time_train_kernels(shape)
+        for name in ("prism_attention", "segment_means"):
+            e = {dt: errs[dt][name] for dt in errs}
+            r = t[name]
+            what = (f"q [{B}, {Np}, {H}, {dh}] over {Hk} KV heads, "
+                    f"{'causal' if causal else 'masked'}, P {P} L {L} part "
+                    f"{part}" if name == "prism_attention" else
+                    f"K and V [{B}, {Np}, {Hk}·{dh}] L {L}"
+                    + (" masked" if masked else ""))
+            print(f"[train-kernels] {name} {shape}: {what}; forward err "
+                  f"f32 {e['float32']['fwd']:.2e} bf16 "
+                  f"{e['bfloat16']['fwd']:.2e}, gradients f32 "
+                  f"{e['float32']['bwd']:.2e} (tol 1e-5) bf16 "
+                  f"{e['bfloat16']['bwd']:.2e} (tol 2^-7 of the largest) | "
+                  f"bf16 kernel forward {r['fwd_ms'] * 1e3:.2f} us, explicit "
+                  f"backward {r['bwd_ms'] * 1e3:.2f} us (bound "
+                  f"{r['bwd_bound_ms'] * 1e3:.2f} us, {r['bwd_bound_by']}), "
+                  f"plain forward+backward {r['plain_ms'] * 1e3:.2f} us, "
+                  + ("sdpa" if name == "prism_attention" else "mean()")
+                  + f" forward+backward {r['library_ms'] * 1e3:.2f} us "
+                  f"[{card}]", flush=True)
+            timed[(name, shape)] = dict(r, max_abs_err=e["bfloat16"][
+                "max_abs_err"])
+    return timed
+
+
+# --- [train-reference]: a small f32 llama on the card vs the CPU -----------
+
+def _train_ref_batches(cfg, n: int):
+    """``n`` batches of [SMALL_LM_B, TRAIN_REF_N] tokens and labels."""
+    import torch
+    g = torch.Generator().manual_seed(5)
+    return [{k: torch.randint(0, cfg.vocab_size, (SMALL_LM_B, TRAIN_REF_N),
+                              generator=g) for k in ("tokens", "labels")}
+            for _ in range(n)]
+
+
+def _train_ref_run(params, cfg, xcfg, device):
+    """The summed gradient of the first batch (f32 leaves), then
+    TRAIN_REF_STEPS train steps → numpy results on the CPU."""
+    import torch
+    from repro_torch.core.exchange import partitioned, seq_group_for
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.train_step import _grads_of, build_train_step
+    from repro_torch.utils.tree import tree_leaves
+    p = _on(params, device)
+    batches = [_on(b, device) for b in _train_ref_batches(
+        cfg, TRAIN_REF_STEPS)]
+    loss, _, grads = _grads_of(p, batches[0], cfg, xcfg)
+    if partitioned(xcfg):
+        group = seq_group_for(xcfg)
+        grads = group.all_reduce(grads, kind="grad")
+        loss = group.all_reduce([loss[None]], kind="meta")[0][0]
+    step = build_train_step(cfg, xcfg, OptConfig(**TRAIN_OPT))
+    o, metrics = adamw_init(p), []
+    for b in batches:
+        p, o, m = step(p, o, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return dict(loss=float(loss), metrics=metrics,
+                grads=[g.float().cpu().numpy() for g in grads],
+                params=[t.float().cpu().numpy() for t in tree_leaves(p)])
+
+
+def _train_ref_rank(rank, world):
+    """One rank of the small f32 llama, on the card and then on the CPU,
+    under ``voltage`` and ``prism``: the summed gradient and two train
+    steps, and the kernels' launches on the card."""
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    _exact_fp32()
+    cfg, params = _small_llama()[:2]
+    out = {}
+    for mode in ("voltage", "prism"):
+        xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
+                              seq_shards=world, L=SMALL_LM_L)
+        for device in ("cuda", "cpu"):
+            before = (segment_means.launches, prism_attention.launches)
+            out[f"{mode}/{device}"] = _train_ref_run(params, cfg, xcfg,
+                                                     device)
+            out[f"{mode}/{device}"]["launches"] = (
+                segment_means.launches - before[0],
+                prism_attention.launches - before[1])
+    return out
+
+
+def _leaf_errs(got, want) -> float:
+    """Worst over leaves of max |got − want| / max |want|."""
+    import numpy as np
+    return max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                1e-30)
+               for a, b in zip(got, want))
+
+
+def _params_close(got, want, steps: int) -> tuple:
+    """(share of elements within 1e-5, max |Δ|) of two runs' params; raises
+    where an element moved further apart than AdamW's sign-flip bound
+    (2 · lr a step: an element whose gradient sits near 0 may move the
+    other way)."""
+    import numpy as np
+    d = np.concatenate([np.abs(a - b).ravel() for a, b in zip(got, want)])
+    bound = 2 * steps * TRAIN_OPT["lr"] + 1e-5
+    if not float(d.max()) <= bound:
+        raise AssertionError(f"params differ by {d.max():.3e} > {bound:g}")
+    share = float((d <= 1e-5).mean())
+    if not share >= 0.99:
+        raise AssertionError(f"only {share:.2%} of the params within 1e-5")
+    return share, float(d.max())
+
+
+def _check_ref(label, got, want) -> str:
+    """Card vs CPU: loss and each step's loss and grad_norm ≤ 1e-5
+    relative, the gradient ≤ 1e-4 of each leaf's largest value, the params
+    after the steps as ``_params_close``."""
+    g_err = _leaf_errs(got["grads"], want["grads"])
+    if not g_err <= 1e-4:
+        raise AssertionError(f"{label}: gradient off by {g_err:.3e} > 1e-4")
+    m_err = max([abs(got["loss"] - want["loss"]) / abs(want["loss"])]
+                + [abs(a[k] - b[k]) / abs(b[k])
+                   for a, b in zip(got["metrics"], want["metrics"])
+                   for k in ("loss", "grad_norm")])
+    if not m_err <= 1e-5:
+        raise AssertionError(f"{label}: loss / grad_norm off by {m_err:.3e}"
+                             f" > 1e-5")
+    share, worst = _params_close(got["params"], want["params"],
+                                 TRAIN_REF_STEPS)
+    return (f"{label}: gradient {g_err:.2e} of the largest (tol 1e-4), "
+            f"losses and grad_norm {m_err:.2e} (tol 1e-5), params after "
+            f"{TRAIN_REF_STEPS} steps {share:.2%} within 1e-5 (max "
+            f"{worst:.2e})")
+
+
+def phase_train_reference(card: str) -> None:
+    """``[train-reference]``: the small f32 llama's gradient and 2 AdamW
+    steps on the card against the same on the CPU's plain versions: one
+    process ``local``, and 2 ranks under ``voltage`` and ``prism`` (the
+    kernels' forward, the explicit backward, the gather's reduce-scattered
+    cotangent); then a ``Trainer`` on the card resumed through
+    ``FaultTolerantLoop`` after an injected failure, to the params of an
+    uninterrupted run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.utils.tree import tree_leaves
+    cfg, params = _small_llama()[:2]
+    t0 = time.perf_counter()
+    local = {dev: _train_ref_run(params, cfg, ExchangeConfig(), dev)
+             for dev in ("cuda", "cpu")}
+    print(f"[train-reference] reduced f32 {ARCH} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
+          f"{cfg.hd}), B {SMALL_LM_B} N {TRAIN_REF_N}, one process local, "
+          f"card vs CPU: " + _check_ref("local", local["cuda"], local["cpu"]),
+          flush=True)
+    ranks = spawn(_train_ref_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    for mode in ("voltage", "prism"):
+        for rank, r in enumerate(ranks):
+            text = _check_ref(f"{mode} rank {rank}", r[f"{mode}/cuda"],
+                              r[f"{mode}/cpu"])
+            for a, b in zip(r[f"{mode}/cuda"]["params"],
+                            ranks[0][f"{mode}/cuda"]["params"]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{mode}: the replicas differ")
+            sm, pa = r[f"{mode}/cuda"]["launches"]
+            if mode == "prism" and not (sm > 0 and pa > 0):
+                raise AssertionError("prism training launched no kernel")
+            print(f"[train-reference] {LM_P} ranks on the card vs {LM_P} "
+                  f"CPU ranks, {text}; segment_means {sm}, prism_attention "
+                  f"{pa} launches; replicas bit-identical", flush=True)
+    runs = []
+    for fail in (None, {3: "host0"}):
+        with tempfile.TemporaryDirectory() as d:
+            tr = Trainer(cfg, ExchangeConfig(), TrainerConfig(
+                steps=6, ckpt_every=2, batch_size=SMALL_LM_B,
+                seq_len=TRAIN_REF_N, ckpt_dir=d), OptConfig(**TRAIN_OPT),
+                device="cuda", params=_on(params, "cuda"))
+            tr.run(fail_at=fail)
+            runs.append(tr)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((runs[0].params, runs[0].opt_state)),
+        tree_leaves((runs[1].params, runs[1].opt_state))))
+    kinds = [e.kind for e in runs[1].loop.events]
+    if not (same and kinds == ["node_down", "restart"]):
+        raise AssertionError(f"resumed Trainer: events {kinds}, params "
+                             f"{'equal' if same else 'differ'}")
+    print(f"[train-reference] Trainer on the card, 6 steps, checkpoint every"
+          f" 2, failure injected at step 3: restored step "
+          f"{runs[1].loop.events[1].step}, ends on the uninterrupted run's "
+          f"params and moments bit for bit; {time.perf_counter() - t0:.1f} s"
+          f" with rank start-up [{card}]", flush=True)
+
+
+# --- [train]: llama3.2-1b at full width and depth, one process -------------
+
+def _profile_step(fn) -> tuple:
+    """(result, wall ms, kernel-busy ms) of one ``fn()`` under
+    torch.profiler (device activity only: a train step's host ops are
+    thousands of events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    return out, wall, busy
+
+
+def phase_train(card: str) -> None:
+    """``[train]``: llama3.2-1b at full width and depth, bf16 params and
+    f32 moments, B 4 N 512 under ``local``, TRAIN_STEPS AdamW steps through
+    ``Trainer`` (no checkpoint: the state is ~12 GB; its directory is a
+    fresh temporary one, so no earlier run's checkpoint is restored) →
+    each step's ms and loss, tokens/s, the last step's device idle share
+    (torch.profiler), peak memory."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.utils.tree import param_count
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = tempfile.TemporaryDirectory()
+    tr = Trainer(cfg, ExchangeConfig(), TrainerConfig(
+        steps=TRAIN_STEPS, ckpt_every=10 ** 9, batch_size=TRAIN_B,
+        seq_len=TRAIN_N, ckpt_dir=ckpt_dir.name), device="cuda")
+    inner, ms, prof = tr.step_fn, [], {}
+
+    def timed(params, opt, batch):
+        if len(ms) == TRAIN_STEPS - 1:
+            out, wall, busy = _profile_step(lambda: inner(params, opt,
+                                                          batch))
+            prof.update(wall=wall, busy=busy)
+            ms.append(wall)
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    tr.step_fn = timed
+    with ckpt_dir:
+        tr.run()
+    losses = [m["loss"] for m in tr.metrics_log]
+    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
+        raise AssertionError(f"[train] losses {losses}")
+    steady = float(np.median(ms[1:-1]))
+    print(f"[train] {ARCH} full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{param_count(tr.params) / 1e9:.3f} B params bf16, AdamW moments "
+          f"f32), B {TRAIN_B} N {TRAIN_N}, local, {TRAIN_STEPS} steps "
+          f"through Trainer: step ms " + ", ".join(f"{t:.1f}" for t in ms)
+          + f" (the last under torch.profiler); steady {steady:.1f} ms = "
+          f"{TRAIN_B * TRAIN_N / steady * 1e3:.0f} tokens/s; last step "
+          f"kernels busy {prof['busy']:.1f} of {prof['wall']:.1f} ms (device "
+          f"idle {1 - prof['busy'] / prof['wall']:.1%}); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss "
+          + " → ".join(f"{x:.4f}" for x in losses) + f" [{card}]",
+          flush=True)
+    del tr
+    torch.cuda.empty_cache()
+
+
+# --- [train-seq]: llama3.2-1b at full width on 2 ranks ---------------------
+
+def train_seq_bytes(cfg, mode: str, P: int, n_params: int) -> dict:
+    """Bytes one rank receives in a train step, from the shapes: the
+    forward's K/V (``voltage``) or means (``prism``) gather a layer in
+    bf16, the backward's reduce-scattered cotangent of each in f32 with
+    the summed parameter gradients (f32) as ``grad``, and the metrics'
+    sum (3 f32) as ``meta``."""
+    Np = LM_N // P
+    rows = Np if mode == "voltage" else LM_L
+    kv = 2 * LM_B * rows * cfg.n_kv_heads * cfg.hd
+    return dict(payload=cfg.n_layers * (P - 1) * kv * 2,
+                grad=cfg.n_layers * (P - 1) * kv * 4
+                + (P - 1) * 4 * n_params,
+                meta=(P - 1) * 3 * 4)
+
+
+def _train_seq_rank(rank, world):
+    """One rank of llama3.2-1b cut to TRAIN_SEQ_LAYERS layers at full width
+    on the shared card: TRAIN_SEQ_STEPS steps under ``voltage`` and
+    ``prism(L=16)`` from the same weights → per step ms, staged ms, bytes
+    by kind, kernel launches and loss, and the digest of the final
+    params."""
+    import dataclasses
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import build_train_step
+    from repro_torch.utils.tree import param_count, tree_leaves
+    group = get_seq_group("seq")
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_SEQ_LAYERS)
+    params0 = registry.init_params(cfg, seed=0, device="cuda")
+    ds = SyntheticLMDataset(cfg.vocab_size, LM_N, LM_B)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.sample(
+        np.random.RandomState(1000 + s)).items()}
+        for s in range(TRAIN_SEQ_STEPS)]
+    out = dict(n_params=param_count(params0), steps={})
+    for mode in ("voltage", "prism"):
+        xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
+                              seq_shards=world, L=LM_L)
+        step = build_train_step(cfg, xcfg)
+        p, o = params0, adamw_init(params0)
+        rows = []
+        for b in batches:
+            group.reset_stats()
+            before = (segment_means.launches, prism_attention.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, b)
+            torch.cuda.synchronize()
+            st = group.stats
+            rows.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                staged_ms=st.seconds * 1e3, calls=st.calls,
+                payload=st.payload_bytes, meta=st.meta_bytes,
+                grad=st.grad_bytes, loss=float(m["loss"]),
+                launches=(segment_means.launches - before[0],
+                          prism_attention.launches - before[1])))
+        h = hashlib.sha1()
+        for t in tree_leaves(p):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        out["steps"][mode] = dict(rows=rows, digest=h.hexdigest())
+        del p, o
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_train_seq(card: str) -> dict:
+    """``[train-seq]``: llama3.2-1b cut to 4 of 16 layers at full width on 2
+    ranks sharing the card → segment-means and PRISM-attention launches
+    of the ``prism`` train steps, summed over the ranks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_train_seq_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_SEQ_LAYERS)
+    n_params = ranks[0]["n_params"]
+    print(f"[train-seq] {ARCH} cut to {TRAIN_SEQ_LAYERS} of 16 layers at full"
+          f" width (d {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params bf16, f32 moments) on {LM_P} ranks "
+          f"sharing the card, B {LM_B} N {LM_N}, {TRAIN_SEQ_STEPS} steps "
+          f"each; {time.perf_counter() - t0:.1f} s with rank start-up; peak "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB a rank", flush=True)
+    launches = {"segment_means": 0, "prism_attention": 0}
+    for mode in ("voltage", "prism"):
+        want = train_seq_bytes(cfg, mode, LM_P, n_params)
+        digests = {r["steps"][mode]["digest"] for r in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"[train-seq] {mode}: the replicas differ")
+        for rank, r in enumerate(ranks):
+            rows = r["steps"][mode]["rows"]
+            for row in rows:
+                for kind, n in want.items():
+                    if row[kind] != n:
+                        raise AssertionError(
+                            f"[train-seq] {mode} rank {rank}: {kind} bytes "
+                            f"{row[kind]} != {n} from the shapes")
+                sm, pa = row["launches"]
+                if mode == "prism" and (sm, pa) != (cfg.n_layers,
+                                                    cfg.n_layers):
+                    raise AssertionError(f"[train-seq] prism: launches "
+                                         f"{(sm, pa)} a step, want one of "
+                                         f"each a layer")
+                if mode == "prism":
+                    launches["segment_means"] += sm
+                    launches["prism_attention"] += pa
+            losses = [x["loss"] for x in rows]
+            if not all(x == x and abs(x) < 1e9 for x in losses):
+                raise AssertionError(f"[train-seq] {mode}: loss {losses}")
+            steady = rows[1:] or rows
+            ms = statistics.median(x["ms"] for x in steady)
+            staged = statistics.median(x["staged_ms"] for x in steady)
+            print(f"[train-seq] {mode}{'' if mode == 'voltage' else f'(L={LM_L})'}"
+                  f" rank {rank}: step ms "
+                  + ", ".join(f"{x['ms']:.1f}" for x in rows)
+                  + f"; steady {ms:.1f} ms, staged {staged:.1f} ms "
+                  f"({staged / ms:.1%}) in {steady[0]['calls']} calls; "
+                  f"received payload {want['payload'] / 1e6:.3f} MB, meta "
+                  f"{want['meta']} B, grad {want['grad'] / 1e6:.1f} MB a step"
+                  f" (= the shapes); segment_means {rows[0]['launches'][0]}, "
+                  f"prism_attention {rows[0]['launches'][1]} launches a step;"
+                  f" loss " + " → ".join(f"{x:.4f}" for x in losses)
+                  + f"; replicas bit-identical [{card}]", flush=True)
+    return launches
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -6123,6 +6827,10 @@ def main() -> None:
     sa = {arch: run(f"arch {arch}", phase_ssm_arch, card, arch)
           for arch in SSM_ARCHS}
     ss = run("ssm-seq", phase_ssm_seq, card)
+    tk = run("train-kernels", phase_train_kernels, card)
+    run("train-reference", phase_train_reference, card)
+    run("train", phase_train, card)
+    ts = run("train-seq", phase_train_seq, card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -6225,6 +6933,22 @@ def main() -> None:
     kernels += xattn_kernel_rows(xa, xk, xs,
                                  {r[0]: r[1] for r in rows}, keys)
     kernels += ssm_kernel_rows(sa, sk, ss, {r[0]: r[1] for r in rows}, keys)
+    for kname, t in (("segment_means", exchange["segment_means_lm"]),
+                     ("prism_attention", exchange["prism_attention_lm"])):
+        b = tk[(kname, "llama")]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src.format(kname, kname),
+            "replaces": {r[0]: r[1] for r in rows}[kname],
+            "launches": ts[kname],
+            "shape": f"{ARCH} prism train step per rank ({LM_P} ranks, "
+                     f"{TRAIN_SEQ_LAYERS} of 16 layers): the forward's "
+                     f"kernel at the lm phase's prism shape, its explicit "
+                     f"PyTorch backward timed beside it",
+            **{k: t[k] for k in keys},
+            "backward_ms": b["bwd_ms"], "backward_bound_ms": b["bwd_bound_ms"],
+            "plain_fwd_bwd_ms": b["plain_ms"],
+            "library_fwd_bwd_ms": b["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

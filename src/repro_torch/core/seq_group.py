@@ -1,7 +1,6 @@
 """Sequence-partition process groups: the port's counterpart of the JAX
 package's mesh axis + ``shard_map`` (``repro.utils.compat``) and of
-``repro.core.exchange.all_gather_grad_safe`` (forward only: serving needs
-no backward).
+``repro.core.exchange.all_gather_grad_safe``.
 
 Layout: SPMD, as in the paper's prototype.  Each rank is one process that
 holds its own partition ``[B, N/P, ...]`` of the sequence; no process ever
@@ -22,6 +21,20 @@ the recurrent families' state hand-off: rank p receives from p − 1, works,
 and sends to p + 1 (P − 1 messages a hand-off across the group).  On one
 card several ranks share it.  NCCL's device-side gather (the ``direct``
 link, one card per rank) is ROADMAP queue 1 item [7.6].
+
+Gradients: ``all_gather`` is differentiable.  Its backward, as
+``all_gather_grad_safe``'s, reduce-scatters the cotangent in f32 (gloo
+``reduce_scatter``): each rank receives the sum over ranks of the
+cotangent of its own slot.  ``all_reduce`` sums tensors over the ranks in
+f32 (the parameter gradients of a training step, packed into buckets).
+Both book their bytes under the kind ``grad``.  ``all_reduce`` itself
+and the other staged collectives (``all_gather_packed``, ``shift``,
+``ring_shift``, ``pass_on``, ``broadcast``) have no backward: each
+raises when an input requires grad, so a partitioned training step that reaches one (gemma2's
+halo, the codecs, the ring, the recurrent hand-off, ``last_only``
+logits) fails instead of training on a missing gradient (ROADMAP queue 1
+item [12.1]).  Backward collectives run in autograd's order, which is the
+same on every rank because every rank builds the same graph.
 
 A process registers its group under the mesh axis name that
 ``ExchangeConfig.seq_axis`` carries (``"seq"`` by default), and the
@@ -62,9 +75,44 @@ class GatherStats:
     output_bytes: int = 0     # logits gathered or broadcast
     state_bytes: int = 0      # recurrent states handed on by the rank
                               # before (the hybrid and ssm families)
+    grad_bytes: int = 0       # gradients: the gather's reduce-scattered
+                              # cotangents and the summed parameter
+                              # gradients (f32)
     seconds: float = 0.0      # host clock inside the collectives, staging
                               # copies included (the card is synchronised
                               # before the clock starts)
+
+
+BUCKET_BYTES = 1 << 28        # all_reduce's f32 staging bucket
+
+_NO_BACKWARD = ("has no backward: a partitioned training step may not pass "
+                "a tensor that requires grad through it (ROADMAP queue 1 "
+                "item [12.1])")
+
+
+def _no_backward(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through the collective
+    ``name`` for any of ``tensors``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"SeqGroup.{name} {_NO_BACKWARD}")
+
+
+class _StagedGather(torch.autograd.Function):
+    """``SeqGroup.all_gather`` with the backward of the JAX package's
+    ``all_gather_grad_safe``: the cotangent ``[P, *t.shape]`` is
+    reduce-scattered in f32, and each rank gets the sum over ranks of its
+    own slot, in t's dtype."""
+
+    @staticmethod
+    def forward(ctx, group, t, kind):
+        ctx.group, ctx.dtype = group, t.dtype
+        return group._gather(t, kind)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ctx.group.reduce_scatter(ct).to(ctx.dtype), None
 
 
 class SeqGroup:
@@ -123,6 +171,7 @@ class SeqGroup:
             got = host.to(device)
             self._end(t0, kind, nbytes)
         out, to_send = fn(got)
+        _no_backward("pass_on", to_send)
         if self.rank < self.world_size - 1:
             t0 = time.perf_counter()
             host = self._to_host(to_send)
@@ -138,18 +187,31 @@ class SeqGroup:
         self.stats.seconds += time.perf_counter() - t0
 
     @staticmethod
-    def _to_host(t: torch.Tensor) -> torch.Tensor:
-        """t's bytes in (pinned, for a CUDA tensor) host memory, flat."""
-        flat = t.contiguous().reshape(-1)
-        host = torch.empty(flat.shape, dtype=flat.dtype,
+    def _host_copy(t: torch.Tensor, dtype=None) -> torch.Tensor:
+        """t (cast to ``dtype``) in (pinned, for a CUDA tensor) host
+        memory, flat."""
+        flat = t.detach().contiguous().reshape(-1)
+        host = torch.empty(flat.shape, dtype=dtype or flat.dtype,
                            pin_memory=flat.is_cuda)
         host.copy_(flat)
-        return host.view(torch.uint8)
+        return host
+
+    @classmethod
+    def _to_host(cls, t: torch.Tensor) -> torch.Tensor:
+        """t's bytes in (pinned, for a CUDA tensor) host memory, flat."""
+        return cls._host_copy(t).view(torch.uint8)
 
     def all_gather(self, t: torch.Tensor, *, kind: str = "payload"
                    ) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order → ``[P, *t.shape]`` on
-        t's device; the bytes received are booked under ``kind``."""
+        t's device; the bytes received are booked under ``kind``.  Where
+        ``t`` requires grad the gather is differentiable (the cotangent
+        reduce-scattered in f32, booked as ``grad``)."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _StagedGather.apply(self, t, kind)
+        return self._gather(t, kind)
+
+    def _gather(self, t: torch.Tensor, kind: str) -> torch.Tensor:
         t0 = self._begin(t)
         host = self._to_host(t)
         parts = [torch.empty_like(host) for _ in range(self.world_size)]
@@ -159,13 +221,71 @@ class SeqGroup:
         self._end(t0, kind, host.numel() * (self.world_size - 1))
         return out
 
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` ``[P, ...]`` on every rank → the sum over ranks of slot
+        ``rank`` ``[...]`` in f32 on t's device (gloo ``reduce_scatter``
+        of f32 host buffers); the other ranks' slots received, (P − 1) ×
+        the slot's f32 bytes, are booked as ``grad``."""
+        P = self.world_size
+        if t.shape[0] != P:
+            raise ValueError(f"reduce_scatter: leading dim {t.shape[0]} is "
+                             f"not the group's {P} ranks")
+        t0 = self._begin(t)
+        host = self._host_copy(t, torch.float32).reshape(P, -1)
+        out = torch.empty(host.shape[1:], dtype=torch.float32,
+                          pin_memory=t.is_cuda)
+        dist.reduce_scatter(out, list(host.unbind(0)))
+        res = out.reshape(t.shape[1:]).to(t.device)
+        self._end(t0, "grad", out.numel() * 4 * (P - 1))
+        return res
+
+    def all_reduce(self, tensors: List[torch.Tensor], *, kind: str = "grad"
+                   ) -> List[torch.Tensor]:
+        """The sum over ranks of each tensor, in f32 on its device, the
+        same bits on every rank (gloo ``all_reduce``).  The tensors go
+        packed into f32 buckets of at most ``BUCKET_BYTES`` (a tensor
+        larger than that is a bucket of its own: the pinned staging
+        buffers stay that size), one staged call each; each call books
+        (P − 1) × its f32 bytes under ``kind``."""
+        _no_backward("all_reduce", *tensors)
+        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        bucket: List[int] = []
+        size = 0
+
+        def run():
+            parts = [tensors[i].detach().float().reshape(-1)
+                     for i in bucket]
+            flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+            t0 = self._begin(flat)
+            host = self._host_copy(flat)
+            dist.all_reduce(host)
+            got = host.to(flat.device)
+            off = 0
+            for i in bucket:
+                n = tensors[i].numel()
+                out[i] = got[off:off + n].reshape(tensors[i].shape)
+                off += n
+            self._end(t0, kind, host.numel() * 4 * (self.world_size - 1))
+
+        for i, t in enumerate(tensors):
+            nb = t.numel() * 4
+            if bucket and size + nb > BUCKET_BYTES:
+                run()
+                bucket, size = [], 0
+            bucket.append(i)
+            size += nb
+        if bucket:
+            run()
+        return out
+
     def all_gather_packed(self, tensors: List[torch.Tensor], *,
                           kind: str = "payload") -> List[torch.Tensor]:
         """Every rank's ``tensors`` (any dtypes and shapes, the same on
         every rank) in one gather: their bytes go out concatenated and come
         back split by offsets → one ``[P, *t.shape]`` tensor each, on the
         first tensor's device; the bytes received are booked under
-        ``kind`` as one call."""
+        ``kind`` as one call.  No backward."""
+        _no_backward("all_gather_packed", *tensors)
         flat = [t.contiguous().reshape(-1).view(torch.uint8)
                 for t in tensors]
         got = self.all_gather(torch.cat(flat), kind=kind)    # [P, total]
@@ -186,7 +306,9 @@ class SeqGroup:
         size, each with its own tag.  Returns at once: the card may compute
         while the transfer runs, and :meth:`RingTransfer.wait` gives the
         received tensor on t's device.  One call is booked per transfer,
-        its received bytes under ``kind`` when it is waited on."""
+        its received bytes under ``kind`` when it is waited on.  No
+        backward."""
+        _no_backward("ring_shift", t)
         t0 = self._begin(t)
         return self._post(self._to_host(t), t, kind, chunks, t0,
                           *self._ring_peers())
@@ -209,7 +331,8 @@ class SeqGroup:
         JAX package's ``ppermute`` over ``[(i, i + sft) for i in
         range(P − sft)]``); a rank with no source gets zeros.  Staged as
         the ring's transfer, one message; one call is booked, with the
-        bytes received under ``kind``."""
+        bytes received under ``kind``.  No backward."""
+        _no_backward("shift", t)
         P = self.world_size
         if not 0 < sft < P:
             raise ValueError(f"shift {sft} outside 1..{P - 1} for {P} ranks")
@@ -245,7 +368,8 @@ class SeqGroup:
         """Rank ``src``'s ``t`` on every rank (same shape and dtype
         everywhere), on t's device; a receiving rank books its bytes as
         ``output`` (the model outputs broadcast from the rank holding
-        them)."""
+        them).  No backward."""
+        _no_backward("broadcast", t)
         t0 = self._begin(t)
         host = self._to_host(t)
         dist.broadcast(host, src)

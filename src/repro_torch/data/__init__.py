@@ -1,3 +1,6 @@
-from repro_torch.data.pipeline import SyntheticImageDataset
+from repro_torch.data.pipeline import (Prefetcher, SyntheticImageDataset,
+                                       SyntheticLMDataset, make_lm_batch,
+                                       synthetic_vit_task)
 
-__all__ = ["SyntheticImageDataset"]
+__all__ = ["Prefetcher", "SyntheticImageDataset", "SyntheticLMDataset",
+           "make_lm_batch", "synthetic_vit_task"]

@@ -16,6 +16,9 @@ Forms, per mixer:
     at once; the loop carries only the recurrence.
   * ``*_step`` — one token of decode with the O(1) carried state.
 
+The loops keep their steps as a list and stack it once, so autograd
+(a train step) can follow them.
+
 Numerics follow the JAX package: the states are f32, the casts to the
 model dtype sit where it casts, log σ(f) is ``-softplus(-f)``, the
 stabiliser ``m`` starts at −1e30, the mLSTM's denominator is
@@ -131,9 +134,11 @@ def mamba_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
         dA = torch.exp(dt_c * A)                          # [c, B, di, S]
         b = B_in[:, t0:t1].float().transpose(0, 1)[:, :, None, :]
         dBx = dt_c * b * xcf[:, t0:t1].transpose(0, 1)[..., None]
-        hs = torch.empty_like(dA)
+        steps = []
         for t in range(t1 - t0):
-            h = torch.addcmul(dBx[t], dA[t], h, out=hs[t])
+            h = torch.addcmul(dBx[t], dA[t], h)
+            steps.append(h)
+        hs = torch.stack(steps)
         c = C_in[:, t0:t1].float().transpose(0, 1)        # [c, B, S]
         ys[t0:t1] = torch.matmul(hs, c[..., None])[..., 0]
         h = hs[-1].clone()
@@ -198,10 +203,12 @@ def _stabilised_gates(i_pre: torch.Tensor, logf: torch.Tensor,
     """Time-major [N, ...] input and log-forget pre-activations and the
     stabiliser before them → (the forget and input gates, each step's
     stabiliser m_t = max(log f_t + m_{t−1}, i_t)); only m is sequential."""
-    ms = torch.empty_like(i_pre)
     m = m0
+    steps = []
     for t in range(i_pre.shape[0]):
-        m = torch.maximum(logf[t] + m, i_pre[t], out=ms[t])
+        m = torch.maximum(logf[t] + m, i_pre[t])
+        steps.append(m)
+    ms = torch.stack(steps)
     m_prev = torch.cat([m0[None], ms[:-1]])
     fg = torch.exp(logf + m_prev - ms)
     ig = torch.exp(i_pre - ms)
@@ -234,15 +241,14 @@ def mlstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     fg, ig, ms = _stabilised_gates(i_pre, _log_sigmoid(f_pre), state0["m"])
     fg_c, ig_c = fg[..., None, None], ig[..., None, None]
     C, n = state0["C"], state0["n"]
-    nums = torch.empty((N, B, H, 1, dh), dtype=torch.float32,
-                       device=x.device)
-    ns = torch.empty((N, B, H, dh), dtype=torch.float32, device=x.device)
+    n_list, num_list = [], []
     for t in range(N):
         kv = kf[t][..., :, None] * vf[t][..., None, :]    # [B, H, dh, dh]
         C = (fg_c[t] * C).addcmul_(ig_c[t], kv)
-        n = torch.mul(fg[t][..., None], n, out=ns[t]).addcmul_(
-            ig[t][..., None], kf[t])
-        torch.matmul(qf[t][..., None, :], C, out=nums[t])
+        n = (fg[t][..., None] * n).addcmul_(ig[t][..., None], kf[t])
+        n_list.append(n)
+        num_list.append(torch.matmul(qf[t][..., None, :], C))
+    ns, nums = torch.stack(n_list), torch.stack(num_list)
     qn = (qf * ns).sum(dim=-1)                              # [N, B, H]
     den = torch.maximum(qn.abs(), torch.exp(-ms))[..., None]
     h = (nums[..., 0, :] / den).transpose(0, 1).reshape(B, N, di)
@@ -313,7 +319,7 @@ def slstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     if state0 is None:
         state0 = init_slstm_state(B, D, device=x.device)
     c, n, h, m = (state0[k] for k in ("c", "n", "h", "m"))
-    hs = torch.empty((N, B, D), dtype=torch.float32, device=x.device)
+    hs = []
     for t in range(N):
         rec = torch.einsum("bhd,ghde->bghe", h.reshape(B, H, dh), r)
         pre = wx[t] + rec.reshape(B, 4 * D) + b
@@ -324,9 +330,10 @@ def slstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
         fg = torch.exp(logf + m - m_new)
         c = fg * c + ig * torch.tanh(z_p)
         n = fg * n + ig
-        h = torch.div(torch.sigmoid(o_p) * c, torch.clamp(n, min=1.0),
-                      out=hs[t])
+        h = torch.div(torch.sigmoid(o_p) * c, torch.clamp(n, min=1.0))
+        hs.append(h)
         m = m_new
+    hs = torch.stack(hs)
     hseq = _groupnorm_heads(hs.transpose(0, 1), H,
                             params["gn_scale"]).to(x.dtype)
     du = params["w_down"].shape[0]

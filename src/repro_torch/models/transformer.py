@@ -790,14 +790,16 @@ def _last_logits(params: Params, x, cfg: ModelConfig, group):
 
 def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, xcfg: ExchangeConfig,
-               last_only: bool = False
+               last_only: bool = False, local_logits: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. batch: {"tokens": [B, N]}, and audio's
     ``"frames"`` [B, M0, D] or vlm's ``"image_embeds"`` [B, M0, D] → (logits
     [B, N, V] f32, aux scalar).  ``last_only`` unembeds just the final
     position (logits [B, 1, V]).  Under a partitioned plan each rank runs
     its part of the sequence (and of the memory) and every rank returns
-    the global logits.  ``aux`` is the moe family's summed load-balance
+    the global logits, or with ``local_logits`` only its own part's
+    ``[B, N/P, V]`` (the train step's loss reads its own tokens, and no
+    logits cross ranks).  ``aux`` is the moe family's summed load-balance
     loss (0 otherwise)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
@@ -827,7 +829,7 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
         return _last_logits(params, x, cfg, group), aux
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
     logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
-    if group is not None:                 # [P, B, Np, V] → [B, N, V]
+    if group is not None and not local_logits:   # [P, B, Np, V] → [B, N, V]
         logits = group.all_gather(logits, kind="output")
         logits = logits.permute(1, 0, 2, 3).reshape(B, N, -1)
     return logits, aux

@@ -1,18 +1,26 @@
-"""Fault tolerance: heartbeats and failure detection.
+"""Fault tolerance: heartbeats, failure detection, checkpoint-restart loop.
 
 ``HeartbeatMonitor`` (deadline-based liveness, used by the serving
-runtime's ``FaultHook`` and the fleet registry) and ``FaultEvent``; the
-monitor is transport-agnostic: callers feed ``beat()``/``fail()``.
-``RetryPolicy`` (bounded exponential backoff) and ``CircuitBreaker``
-(per-worker dispatch-failure breaker) are shared by the fleet router and
-its workers.  ``FaultTolerantLoop`` needs the checkpoint manager and
-waits for ROADMAP queue 1 item 12.
+runtime's ``FaultHook``, the fleet registry and the trainer) and
+``FaultEvent``; the monitor is transport-agnostic: callers feed
+``beat()``/``fail()``.  ``RetryPolicy`` (bounded exponential backoff) and
+``CircuitBreaker`` (per-worker dispatch-failure breaker) are shared by the
+fleet router and its workers.  ``FaultTolerantLoop`` (port of the JAX
+package's, step for step) drives a training step under checkpoints: on a
+detected failure it restores the newest checkpoint and replays from its
+step.
+
+Determinism on restart: the data pipeline is cursor-addressable (seed +
+step), so a restart replays from the last checkpoint step with identical
+batches.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from repro_torch.checkpoint.manager import CheckpointManager
 
 
 @dataclasses.dataclass
@@ -152,3 +160,76 @@ class CircuitBreaker:
     def snapshot(self) -> Dict[str, Any]:
         return {"state": self.state, "failures": self.failures,
                 "opened_total": self.opened_total}
+
+
+class FaultTolerantLoop:
+    """Checkpoint/restart training loop.
+
+    step_fn(state, batch) → (state, metrics); batch_fn(step) → batch
+    (cursor-addressable).  On a detected failure: restore the newest
+    checkpoint (``on_failure`` is called first, with the dead nodes) and
+    resume from the restored step.
+
+    One repair against the JAX package's loop: before it reads the newest
+    step it waits for the asynchronous save in flight, and it restores
+    that step by number.  The JAX loop reads ``ckpt.latest`` while the
+    last ``save_async`` may still be writing, and then restores whatever
+    is newest by the time it loads, so it can resume the state of step s
+    at an earlier step and replay batches onto it (the intermittent
+    failure of ``tests/test_fault.py::test_restart_deterministic``).
+    """
+
+    def __init__(self, step_fn: Callable, batch_fn: Callable,
+                 ckpt: CheckpointManager, monitor: HeartbeatMonitor,
+                 ckpt_every: int = 50,
+                 on_failure: Optional[Callable[[List[str]], Any]] = None):
+        self.step_fn = step_fn
+        self.batch_fn = batch_fn
+        self.ckpt = ckpt
+        self.monitor = monitor
+        self.ckpt_every = ckpt_every
+        self.on_failure = on_failure
+        self.events: List[FaultEvent] = []
+
+    def run(self, state, start_step: int, n_steps: int,
+            fail_at: Optional[Dict[int, str]] = None):
+        """``fail_at``: {step: node} — injected failures."""
+        step = start_step
+        self.ckpt.wait()
+        restored = self.ckpt.restore_or_none(state)
+        if restored is not None and self.ckpt.latest is not None:
+            state, step = restored, self.ckpt.latest
+            self.events.append(FaultEvent("restart",
+                                          f"resumed step {step}", step))
+        end = start_step + n_steps
+        fail_at = dict(fail_at) if fail_at else None
+        while step < end:
+            if fail_at and step in fail_at:
+                # consume the injection: a node fails once and the
+                # controller replaces it (otherwise restart → replay would
+                # re-trigger it forever)
+                self.monitor.fail(fail_at.pop(step))
+            dead = self.monitor.dead_nodes()
+            if dead:
+                self.events.append(FaultEvent("node_down", ",".join(dead),
+                                              step))
+                if self.on_failure is not None:
+                    self.on_failure(dead)
+                # restore from newest checkpoint and resume (the save in
+                # flight published first, and the step restored by number)
+                self.ckpt.wait()
+                latest = self.ckpt.latest
+                if latest is not None:
+                    state = self.ckpt.restore(state, step=latest)
+                    step = latest
+                for n in dead:       # controller replaces / drops the node
+                    self.monitor.revive(n)
+                self.events.append(FaultEvent("restart",
+                                              f"resume step {step}", step))
+            batch = self.batch_fn(step)
+            state, metrics = self.step_fn(state, batch)
+            step += 1
+            if step % self.ckpt_every == 0:
+                self.ckpt.save_async(state, step)
+        self.ckpt.wait()
+        return state, step

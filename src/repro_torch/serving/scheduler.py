@@ -22,10 +22,10 @@ serving loop:
   active PRISM plan.
 * :class:`FaultHook` — heartbeat-miss detection
   (:class:`~repro_torch.runtime.fault.HeartbeatMonitor`) → elastic
-  re-mesh (any ``mesh_manager`` with ``devices`` and ``drop(ids,
-  rebuild=False)``, given the *explicit* failed ids; the JAX package's
-  ``ElasticMeshManager`` is not ported) → the runtime re-admits in-flight
-  requests.
+  re-mesh (:meth:`~repro_torch.runtime.elastic.ElasticMeshManager.drop`,
+  or any ``mesh_manager`` with ``devices`` and ``drop(ids,
+  rebuild=False)``, given the *explicit* failed ids) → the runtime
+  re-admits in-flight requests.
 """
 from __future__ import annotations
 

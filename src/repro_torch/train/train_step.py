@@ -1,0 +1,145 @@
+"""The loss, the train step and the eval step.
+
+Port of ``repro.train.train_step``: next-token cross-entropy in f32 with a
+z-loss and the model's aux loss, gradients by autograd, gradient
+accumulation over microbatches into an f32 accumulator, and the AdamW
+update.  ``_pin_vocab`` (a GSPMD sharding hint) has no counterpart; the
+one-hot contraction becomes an index of the gold logit, which gives the
+same value.
+
+Under a partitioned plan (``voltage``/``prism`` across the ranks of a seq
+group) every rank holds a full replica of the params and the same global
+batch, runs its part of the sequence, and takes the loss of its own
+tokens only: its logits never cross ranks (``forward_lm(...,
+local_logits=True)``).  Each rank's loss is its tokens' sum divided by the
+global B·N (and the aux loss, the same on every rank, divided by P), so
+the ranks' losses sum to the reference's loss and their gradients sum to
+its gradient.  The exchanges' gathers carry the gradient back across the
+ranks (``SeqGroup.all_gather``'s backward), and one staged ``all_reduce``
+sums the parameter gradients in f32, the same bits on every rank, so the
+replicas stay identical.  The metrics are the global ones on every rank.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.exchange import (ExchangeConfig, partitioned,
+                                       seq_group_for)
+from repro_torch.models import transformer as tfm
+from repro_torch.train.optimizer import OptConfig, adamw_update, decay_mask
+from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+
+def _group(xcfg: ExchangeConfig):
+    return seq_group_for(xcfg) if partitioned(xcfg) else None
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            xcfg: ExchangeConfig):
+    """Next-token cross-entropy (causal LMs) in f32 with z-loss → (loss,
+    {"nll", "aux"}).  Under a partitioned plan: this rank's share (see the
+    module's note)."""
+    if cfg.family == "vit":
+        raise ValueError("loss_fn is the causal LMs' next-token loss; a ViT "
+                         "has no labels per token")
+    group = _group(xcfg)
+    logits, aux = tfm.forward_lm(params, batch, cfg, xcfg,
+                                 local_logits=True)
+    labels = batch["labels"]
+    B, N = labels.shape
+    if group is not None:
+        n = logits.shape[1]
+        labels = labels[:, group.rank * n:(group.rank + 1) * n]
+        aux = aux / group.world_size
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold).sum() / (B * N)
+    zloss = 1e-4 * torch.square(logz).sum() / (B * N)
+    return nll + zloss + aux, {"nll": nll, "aux": aux}
+
+
+def _grads_of(params, batch, cfg, xcfg
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                         List[torch.Tensor]]:
+    """(loss, parts, the gradient of every leaf in ``tree_leaves`` order,
+    in the leaf's dtype; zeros for a leaf the loss does not reach)."""
+    leaves = tree_leaves(params)
+    live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
+    loss, parts = loss_fn(tree_unflatten_like(params, live), batch, cfg,
+                          xcfg)
+    wrt = [t for t in live if t.requires_grad]
+    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    grads = [next(got) if t.requires_grad else None for t in live]
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def _split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict]:
+    """``n`` microbatches of equal size along the batch axis, in order."""
+    chunks = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
+              for k, v in batch.items()}
+    return [{k: v[i] for k, v in chunks.items()} for i in range(n)]
+
+
+def build_train_step(cfg: ModelConfig, xcfg: ExchangeConfig,
+                     opt_cfg: Optional[OptConfig] = None,
+                     grad_accum: int = 1) -> Callable:
+    """(params, opt_state, batch) → (params, opt_state, metrics).
+
+    ``grad_accum`` > 1 splits the global batch into microbatches run one
+    after another with an f32 gradient accumulator: live
+    activations shrink by the accumulation factor while keeping the global
+    batch size.  Weight decay follows the JAX package's layout
+    (``optimizer.decay_mask``)."""
+    opt_cfg = opt_cfg or OptConfig()
+
+    def train_step(params, opt_state, batch):
+        group = _group(xcfg)
+        if grad_accum == 1:
+            loss, parts, grads = _grads_of(params, batch, cfg, xcfg)
+        else:
+            acc = None
+            losses, partss = [], []
+            for mb in _split(batch, grad_accum):
+                l, pa, g = _grads_of(params, mb, cfg, xcfg)
+                acc = ([gi.float() for gi in g] if acc is None else
+                       [a + gi.float() for a, gi in zip(acc, g)])
+                losses.append(l)
+                partss.append(pa)
+            grads = [a / grad_accum for a in acc]
+            loss = torch.stack(losses).mean()
+            parts = {k: torch.stack([p[k] for p in partss]).mean()
+                     for k in partss[0]}
+        if group is not None:        # every rank: the global sums
+            grads = group.all_reduce(grads, kind="grad")
+            keys = list(parts)
+            tot = group.all_reduce(
+                [torch.stack([loss] + [parts[k] for k in keys]).float()],
+                kind="meta")[0]
+            loss, parts = tot[0], {k: tot[i + 1] for i, k in enumerate(keys)}
+        new_params, new_state, om = adamw_update(
+            tree_unflatten_like(params, grads), opt_state, params, opt_cfg,
+            decay_mask(params, cfg))
+        return new_params, new_state, {"loss": loss, **parts, **om}
+
+    return train_step
+
+
+def build_eval_step(cfg: ModelConfig, xcfg: ExchangeConfig) -> Callable:
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, parts = loss_fn(params, batch, cfg, xcfg)
+            group = _group(xcfg)
+            if group is not None:
+                keys = list(parts)
+                tot = group.all_reduce(
+                    [torch.stack([loss] + [parts[k] for k in keys]).float()],
+                    kind="meta")[0]
+                loss = tot[0]
+                parts = {k: tot[i + 1] for i, k in enumerate(keys)}
+        return {"loss": loss, **parts}
+    return eval_step

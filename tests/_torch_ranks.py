@@ -651,3 +651,72 @@ def ssm_seq(rank, world, job):
             out = session.generate(prompt, job["n_new"], plan=plan)
             r[f"gen/{name}"] = (_np(out), group.stats.state_bytes)
     return res
+
+
+def train_seq(rank, world, job):
+    """The dense LM's training across the group, from the JAX weights
+    (``job["params"]``, numpy), for each mode of ``job["modes"]``: this
+    rank's loss share and its gradient, summed over the ranks by the
+    staged ``all_reduce`` (every leaf f32, ``tree_leaves`` order), with
+    the bytes and calls the step booked (forward + backward, then the
+    sum); then ``len(job["steps"])`` train steps from the same weights →
+    the params every rank ends on and each step's metrics.  With
+    ``job["compress"]``: ``compressed_cross_pod_mean`` of this rank's
+    gradient tree and residuals.  ``job["device"]`` (default the CPU)
+    runs it on the card; ``job["tparams"]`` (the port's params as CPU
+    tensors) stands in for the JAX weights.  With a card the result also
+    counts the kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.train.grad_compress import compressed_cross_pod_mean
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.train_step import _grads_of, build_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    group = get_seq_group("seq")
+    device = job.get("device", "cpu")
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(job["arch"]).reduced(**job["reduced"])
+    params = (tree_map(lambda t: t.to(device), job["tparams"])
+              if "tparams" in job else
+              params_from_numpy(job["params"], cfg, device=device))
+
+    def tensors(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in b.items()}
+
+    out = {}
+    for mode in job["modes"]:
+        xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
+                              seq_shards=world, L=job["L"])
+        group.reset_stats()
+        before = (segment_means.launches, prism_attention.launches)
+        loss, _, grads = _grads_of(params, tensors(job["batch"]), cfg, xcfg)
+        st = group.stats
+        booked = dict(payload=st.payload_bytes, meta=st.meta_bytes,
+                      grad=st.grad_bytes, output=st.output_bytes,
+                      calls=st.calls,
+                      launches=(segment_means.launches - before[0],
+                                prism_attention.launches - before[1]))
+        summed = group.all_reduce(grads, kind="grad")
+        booked["grad_total"] = group.stats.grad_bytes
+        booked["calls_total"] = group.stats.calls
+        step = build_train_step(cfg, xcfg, OptConfig(lr=1e-3,
+                                                     warmup_steps=1))
+        p, o, metrics = params, adamw_init(params), []
+        for sb in job["steps"]:
+            p, o, m = step(p, o, tensors(sb))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[mode] = dict(loss=float(loss),
+                         grads=[_np(t.cpu()) for t in summed],
+                         booked=booked, metrics=metrics,
+                         params=[_np(t.cpu()) for t in tree_leaves(p)])
+    if "compress" in job:
+        c = job["compress"]
+        red, res = compressed_cross_pod_mean(
+            tree_map(torch.from_numpy, c["grads"][rank]),
+            tree_map(torch.from_numpy, c["residuals"][rank]), c["L"], group)
+        out["compress"] = (tree_map(_np, red), tree_map(_np, res))
+    return out

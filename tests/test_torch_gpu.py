@@ -1091,3 +1091,115 @@ def test_small_recurrent_models_generate_the_cpus_tokens(cuda_device, arch):
         assert flash_decode.launches - before == (
             13 * attn if dev == "cuda" else 0)
     assert torch.equal(out["cuda"], out["cpu"])
+
+
+# --- training: the autograd functions and the gradient across 2 ranks -----
+
+def _train_leaf(g, shape, dtype):
+    return torch.randn(*shape, generator=g, device="cuda").to(
+        dtype).requires_grad_()
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+# (B, Np, H, Hk, dh, P, L, part, causal, masked): llama3.2-1b's prism train
+# shape (rank 1 of 2 at N 512) and ViT-B/16's (rank 1's 100 tokens, 3 pads)
+TRAIN_SHAPES = {"llama": (4, 256, 32, 8, 64, 2, 16, 1, True, False),
+                "vit": (8, 100, 12, 12, 64, 2, 20, 1, False, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(TRAIN_SHAPES))
+def test_prism_autograd_functions_on_the_card(cuda_device, shape, dtype):
+    """The kernel route (CUDA forward, explicit backward) of
+    ``prism_attention_op`` and ``segment_means_kv_op`` against autograd of
+    the plain versions on the same inputs: the gradients of q, K, V and
+    the gathered means within 1e-5 (f32) or one bf16 rounding step at the
+    largest value (2^-7 of it), relative max error; the kernels launched."""
+    from repro_torch.kernels.prism_attention import (build_mean_bias,
+                                                     prism_attention,
+                                                     prism_attention_op,
+                                                     prism_attention_ref)
+    from repro_torch.kernels.segment_means import (segment_means,
+                                                   segment_means_kv_op,
+                                                   segment_means_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Np, H, Hk, dh, P, L, part, causal, masked = TRAIN_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = _train_leaf(g, (B, Np, H, dh), dtype)
+    k, v = (_train_leaf(g, (B, Np, Hk, dh), dtype) for _ in range(2))
+    gathered = _train_leaf(g, (P, 2, B, L, Hk, dh), dtype)
+    km, vm = gathered.permute(1, 2, 0, 3, 4, 5)
+    seg = Np // L
+    mask = counts = None
+    if masked:
+        mask = torch.ones(B, Np, dtype=torch.bool, device="cuda")
+        mask[:, -3:] = False
+        counts = torch.full((B, P, L), float(seg), device="cuda")
+        counts[:, part, -1] = seg - 3
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    before = (prism_attention.launches, segment_means.launches)
+    out = prism_attention_op(q, k, v, km, vm, part, seg, causal=causal,
+                             kv_mask=mask, mean_counts=counts)
+    means, _ = segment_means_kv_op(k, v, L, mask)
+    assert (prism_attention.launches, segment_means.launches) == (
+        before[0] + 1, before[1] + 1)
+    go = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    gm = torch.randn(means.shape, generator=g, device="cuda").to(dtype)
+    leaves = (q, k, v, gathered)
+    got = torch.autograd.grad((out, means), leaves, (go, gm))
+    bias = build_mean_bias(B, P, L, part, seg, causal=causal,
+                           mean_counts=counts, device="cuda")
+    ref = prism_attention_ref(q, k, v, km.flatten(1, 2), vm.flatten(1, 2),
+                              bias, causal=causal, kv_mask=mask)
+    ref_means = torch.stack([segment_means_ref(t.reshape(B, Np, -1), L,
+                                               mask)[0]
+                             for t in (k, v)]).reshape(means.shape)
+    want = torch.autograd.grad((ref, ref_means), leaves, (go, gm),
+                               allow_unused=True)
+    assert _rel(out, ref) <= tol and _rel(means, ref_means) <= tol
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _rel(a, b) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["voltage", "prism"])
+def test_two_rank_gradient_sum_on_the_card_matches_the_cpu(cuda_device,
+                                                           mode):
+    """A small f32 llama's gradient summed over 2 ranks on the card (the
+    kernels' forward, the explicit backward, the gather's reduce-scattered
+    cotangent) against the same 2 ranks on the CPU: the loss shares' sum
+    ≤ 1e-5 relative, every leaf ≤ 1e-4 of its largest value; the two
+    ranks' sums bit-identical; under ``prism`` both kernels launched."""
+    import numpy as np
+
+    import _torch_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=2,
+                   d_model=256)
+    cfg = get_config("llama3.2-1b").reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(1)
+
+    def batch():
+        return {k: rng.randint(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+                for k in ("tokens", "labels")}
+    job = dict(arch="llama3.2-1b", reduced=reduced, tparams=params, L=4,
+               modes=(mode,), batch=batch(), steps=[])
+    runs = {dev: spawn(_torch_ranks.train_seq, 2, dict(job, device=dev),
+                       timeout=300) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(sum(r[mode]["loss"] for r in card),
+                               sum(r[mode]["loss"] for r in cpu), rtol=1e-5)
+    for a, b in zip(card[0][mode]["grads"], cpu[0][mode]["grads"]):
+        assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-30)
+    for a, b in zip(card[1][mode]["grads"], card[0][mode]["grads"]):
+        np.testing.assert_array_equal(a, b)
+    if mode == "prism":
+        assert all(min(r[mode]["booked"]["launches"]) > 0 for r in card)
