@@ -158,7 +158,8 @@ Phases, one line each (more for the kernel table):
                (each with all its layers where they fit beside nothing
                else, else fewer, whole local/global pairs for gemma2, and
                at most ARCH_LAYERS: qwen 32 of 64, gemma2 24 of 46,
-               deepseek-moe 4 of 28, as its lines say): the measured profile on the H100 presets at
+               deepseek-moe 4 of 28, deepseek-v2 4 of 60, as its lines
+               say): the measured profile on the H100 presets at
                B 1, 8 and 32 with the anchor scale, decide and explain, and
                greedy generate under ``local`` with flash-decode launches
                asserted, decode time, device idle share and peak memory;
@@ -171,9 +172,9 @@ Phases, one line each (more for the kernel table):
                under ``prism_sim`` and served through the slot pool: 5
                greedy requests of 32 + 16 at 4 slots (one re-admitted),
                held against B 1 ``generate`` (near ties counted);
-               deepseek-v2-236b cut to the layers that fit (the dense one
-               and 8 of experts), ``local`` generate, with no kernel on
-               that path.
+               deepseek-v2-236b cut to 4 of its 60 layers (the dense one
+               and 3 of experts; ARCH_LAYERS, for time: 9 fit), ``local``
+               generate, with no kernel on that path.
 10. codec    — the codecs' decode throughput measured on the card
                (``calibrate_codec_bws``) beside the modeled class
                constants; then 2 ranks sharing the card: ViT-B/16 B 8
@@ -315,6 +316,27 @@ Phases, one line each (more for the kernel table):
                asserted equal to the shapes, one segment-means and one
                PRISM-attention launch a layer a step under ``prism``, the
                loss at each step, the replicas bit-identical.
+23. train-families — every family's partitioned training, small f32
+               configs (heads of 64; MLA at (192, 128)), B 2, N 32, card
+               ranks against CPU ranks (gradient ≤ 1e-4 of each leaf's
+               largest, loss ≤ 1e-5, the ranks' sums bit-identical, both
+               kernels launched under ``prism``): gemma2's halo on 4
+               ranks; the ring, the int8/int4/topk codec gather, the moe
+               routing call, MLA's latent, whisper, the vision model,
+               hymba's and xLSTM's hand-off, the ViT's and ``last_only``'s
+               logits broadcast on 2.
+24. train-seq-families — gemma2-27b's local/global pair at full width
+               (the vocabulary cut to 128000: 4 ranks' f32 logits of the
+               full 256000 did not fit the card) on 4 ranks, B 1, N 8192
+               (parts of 2048: the windowed layer's halo, 2 shifts), one
+               forward + backward + gradient sum under ``prism(L=16)``
+               with no optimizer; hymba-1.5b cut to 4 of 32 layers on 2
+               ranks, B 4, N 512, 2 steps under ``voltage`` and
+               ``prism(L=16)``: ms, staged ms and share, the bytes received
+               by kind (payload, meta, state, grad: the halo's and the
+               state's cotangents in it) asserted equal to the shapes,
+               halo and hand-off calls, the kernels' launches, peak
+               memory, the ranks bit-identical.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -5350,7 +5372,8 @@ HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
 # kept the script near its time limit: deepseek-moe-16b's dense first layer
 # and 3 of experts; half of qwen1.5-32b's 64 and of hymba's 32; 12 of
 # gemma2's 23 local/global pairs
-ARCH_LAYERS = {MOE: 4, "qwen1.5-32b": 32, GEMMA: 24, HYMBA: 16}
+ARCH_LAYERS = {MOE: 4, MLA_ARCH: 4, "qwen1.5-32b": 32, GEMMA: 24,
+               HYMBA: 16}
 SSM_ARCHS = (HYMBA, XLSTM)
 # [arch]'s slot pool: more requests than slots, so a slot is re-admitted
 SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS, SSM_SERVE_CHUNK = 3, 2, 8
@@ -6705,6 +6728,516 @@ def phase_train_seq(card: str) -> dict:
     return launches
 
 
+# --- [train-reference], every family: small f32 configs, card vs CPU ranks -
+
+# label → (arch, mode, exchange options, ranks): every family's partitioned
+# training and every collective's backward (the halo's shift on 4 ranks,
+# the ring, the packed codec gather, the routing call, MLA's latent, the
+# cross-attention exchange, the recurrent hand-off, the logits broadcast)
+TRAIN_FAMILIES = {
+    "gemma2 prism, the halo": (GEMMA, "prism", {}, 4),
+    "llama voltage, the ring": (ARCH, "voltage", dict(overlap_chunks=2), 2),
+    "llama prism+int8": (ARCH, "prism", dict(codec="int8"), 2),
+    "llama prism+int4": (ARCH, "prism", dict(codec="int4"), 2),
+    "llama prism+topk": (ARCH, "prism", dict(codec="topk", codec_param=8),
+                         2),
+    "deepseek-moe prism, the routing call": (MOE, "prism", {}, 2),
+    "deepseek-v2 prism, MLA's latent": (MLA_ARCH, "prism", {}, 2),
+    "whisper prism, the encoder and cross": (WHISPER, "prism", {}, 2),
+    "vision prism, the gated cross": (VISION, "prism", {}, 2),
+    "hymba prism, the hand-off": (HYMBA, "prism", {}, 2),
+    "xlstm voltage, the hand-off": (XLSTM, "voltage", {}, 2),
+    "vit prism, the logits broadcast": (VIT, "prism", {}, 2),
+    "llama prism, last_only's broadcast": (ARCH, "prism", {}, 2),
+}
+TRAIN_FAMILY_B, TRAIN_FAMILY_N, TRAIN_FAMILY_M = 2, 32, 13
+
+
+def _family_reduced(arch) -> dict:
+    """The small f32 config's overrides of ``arch``: the reference phases'
+    (heads of 64, MLA at deepseek-v2's widths), which the kernels take."""
+    from repro_torch.configs.base import MLACfg
+    if arch in (MOE, MLA_ARCH):
+        over = dict(dtype="float32", n_heads=8, n_kv_heads=8, d_model=256)
+        if arch == MOE:
+            return dict(over, head_dim=64)
+        return dict(over, mla=MLACfg(kv_lora_rank=64, q_lora_rank=96,
+                                     qk_nope_dim=128, qk_rope_dim=64,
+                                     v_head_dim=128))
+    if arch in (WHISPER, VISION):
+        return dict(dtype="float32", head_dim=64, n_heads=8, d_model=256,
+                    n_kv_heads=8 if arch == WHISPER else 2)
+    return {GEMMA: SMALL_GEMMA, ARCH: SMALL_LLAMA, VIT: SMALL_VIT,
+            HYMBA: SMALL_SSM["hymba"][1], XLSTM: SMALL_SSM["xlstm"][1]}[arch]
+
+
+def _family_grad(label, world, device) -> dict:
+    """Case ``label`` of TRAIN_FAMILIES on this rank: the small f32
+    config from seed 0 (vlm gates at XATTN_GATE), its loss share and
+    gradient summed over the ranks → numpy, with the kernels' launches.
+    A broadcast case's loss reads logits every rank receives by
+    ``SeqGroup.broadcast`` (the ViT's class cross-entropy, an LM's
+    ``last_only`` logsumexp), 1/P of it a rank."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
+                                           seq_group_for)
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.vit import forward_vit
+    from repro_torch.train.train_step import _grads_of
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+    arch, mode, kw, _ = TRAIN_FAMILIES[label]
+    cfg = get_config(arch).reduced(**_family_reduced(arch))
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    _open_gates(params)
+    Np = TRAIN_FAMILY_N // world
+    xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
+                          seq_shards=world, **kw,
+                          L=(Np // 4 if mode == "prism" else 0))
+    group = seq_group_for(xcfg)
+    g = torch.Generator().manual_seed(5)
+    B = TRAIN_FAMILY_B
+    if arch == VIT:
+        batch = {"images": torch.randn(B, 224, 224, 3, generator=g),
+                 "labels": torch.randint(0, cfg.vocab_size, (B,),
+                                         generator=g)}
+    else:
+        batch = {k: torch.randint(0, cfg.vocab_size, (B, TRAIN_FAMILY_N),
+                                  generator=g) for k in ("tokens", "labels")}
+    if cfg.family in ("audio", "vlm"):
+        batch[_memory_name(cfg)] = torch.randn(B, TRAIN_FAMILY_M, cfg.d_model,
+                                               generator=g)
+    p, batch = _on(params, device), _on(batch, device)
+    before = (segment_means.launches, prism_attention.launches)
+    if "broadcast" in label:
+        leaves = tree_leaves(p)
+        live = [t.detach().requires_grad_() for t in leaves]
+        tree = tree_unflatten_like(p, live)
+        if arch == VIT:
+            logits = forward_vit(tree, batch["images"], cfg, xcfg)
+            loss = torch.nn.functional.cross_entropy(
+                logits, batch["labels"].long())
+        else:
+            logits, _ = tfm.forward_lm(tree, {"tokens": batch["tokens"]},
+                                       cfg, xcfg, last_only=True)
+            loss = torch.logsumexp(logits, dim=-1).mean()
+        loss = loss / world
+        grads = [torch.zeros_like(t) if d is None else d for t, d in zip(
+            leaves, torch.autograd.grad(loss, live, allow_unused=True))]
+        loss = loss.detach()
+    else:
+        loss, _, grads = _grads_of(p, batch, cfg, xcfg)
+    launches = (segment_means.launches - before[0],
+                prism_attention.launches - before[1])
+    grads = group.all_reduce(grads, kind="grad")
+    loss = group.all_reduce([loss[None]], kind="meta")[0][0]
+    return dict(loss=float(loss), launches=launches,
+                grads=[t.float().cpu().numpy() for t in grads])
+
+
+def _train_family_rank(rank, world, labels):
+    """Each case of ``labels`` on the card, then on the CPU."""
+    _exact_fp32()
+    return {label: {dev: _family_grad(label, world, dev)
+                    for dev in ("cuda", "cpu")} for label in labels}
+
+
+def phase_train_families(card: str) -> None:
+    """``[train-reference]``, every family: each case of TRAIN_FAMILIES on
+    card ranks against the same ranks on the CPU (the plain versions):
+    gradient ≤ 1e-4 of each leaf's largest value, loss ≤ 1e-5 relative,
+    the ranks' summed gradients bit-identical on the card; a ``prism``
+    case with attention and no codec launches both kernels."""
+    import numpy as np
+    from repro_torch.core.seq_group import spawn
+    t0 = time.perf_counter()
+    runs = {}
+    for world in sorted({c[3] for c in TRAIN_FAMILIES.values()}):
+        labels = [lb for lb, c in TRAIN_FAMILIES.items() if c[3] == world]
+        ranks = spawn(_train_family_rank, world, labels,
+                      timeout=RANK_TIMEOUT_S)
+        for lb in labels:
+            runs[lb] = [r[lb] for r in ranks]
+    for label, (arch, mode, kw, world) in TRAIN_FAMILIES.items():
+        ranks = runs[label]
+        g_err = max(_leaf_errs(r["cuda"]["grads"], r["cpu"]["grads"])
+                    for r in ranks)
+        l_err = max(abs(r["cuda"]["loss"] - r["cpu"]["loss"])
+                    / abs(r["cpu"]["loss"]) for r in ranks)
+        if not (g_err <= 1e-4 and l_err <= 1e-5):
+            raise AssertionError(f"[train-reference] {label}: gradient off "
+                                 f"by {g_err:.3e} (tol 1e-4), loss by "
+                                 f"{l_err:.3e} (tol 1e-5)")
+        for r in ranks[1:]:
+            for a, b in zip(r["cuda"]["grads"], ranks[0]["cuda"]["grads"]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"[train-reference] {label}: the "
+                                         f"ranks' summed gradients differ")
+        sm = sum(r["cuda"]["launches"][0] for r in ranks)
+        pa = sum(r["cuda"]["launches"][1] for r in ranks)
+        kernels = mode == "prism" and not kw.get("codec")
+        if kernels and not (sm > 0 and pa > 0):
+            raise AssertionError(f"[train-reference] {label}: launched "
+                                 f"segment_means {sm}, prism_attention {pa}")
+        print(f"[train-reference] {label} ({arch} reduced f32, B "
+              f"{TRAIN_FAMILY_B} N {TRAIN_FAMILY_N}, {mode}"
+              + "".join(f" {k}={v}" for k, v in kw.items())
+              + f", {world} card ranks vs {world} CPU ranks): gradient "
+              f"{g_err:.2e} of the largest (tol 1e-4), loss {l_err:.2e} "
+              f"(tol 1e-5); summed gradients bit-identical over the ranks; "
+              f"segment_means {sm}, prism_attention {pa} launches",
+              flush=True)
+    print(f"[train-reference] {len(TRAIN_FAMILIES)} family cases in "
+          f"{time.perf_counter() - t0:.1f} s with rank start-up [{card}]",
+          flush=True)
+
+
+# --- [train-seq-families]: gemma2-27b and hymba-1.5b at full width ---------
+
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_B = 2, 1      # one local/global pair, B 1,
+                                              # N GEMMA_N on GEMMA_P ranks
+GEMMA_TRAIN_VOCAB = 128000    # of 256000: at the full vocabulary each of
+                              # the 4 ranks' f32 logits and their backward
+                              # take ~10 GB, and the 4 ranks did not fit 80 GB
+HYMBA_TRAIN_LAYERS, HYMBA_TRAIN_STEPS = 4, 2  # 2 ranks, B LM_B, N LM_N
+SUM_PIECE = 1 << 26           # elements an all_reduce call of [train-seq-
+                              # families]' gradient sum: 256 MB of f32
+
+
+def gemma_train_bytes(cfg, rank: int, n_params: int) -> dict:
+    """Bytes rank ``rank`` receives in [train-seq-families]' gemma2 step,
+    from the shapes: the windowed layer's halo (a shift of K and V
+    ``[2, B, Np, Hk, dh]`` bf16 from each of the ``n_halo`` ranks before
+    it that exist) and its cotangents back (bf16, from each of the
+    ``n_halo`` ranks after it), the global layer's means ``[2, B, L, Hk,
+    dh]`` bf16 gathered and their f32 cotangents reduce-scattered, the
+    loss's sum (one f32) and the gradient sum ((P − 1) × 4 × the params)."""
+    P, Np = GEMMA_P, GEMMA_N // GEMMA_P
+    n_halo = -(-cfg.window // Np)
+    blk = 2 * GEMMA_TRAIN_B * Np * cfg.n_kv_heads * cfg.hd
+    means = 2 * GEMMA_TRAIN_B * GEMMA_L * cfg.n_kv_heads * cfg.hd
+    fwd = sum(1 for s in range(1, n_halo + 1) if rank - s >= 0)
+    bwd = sum(1 for s in range(1, n_halo + 1) if rank + s < P)
+    return dict(payload=fwd * blk * 2 + (P - 1) * means * 2,
+                grad=bwd * blk * 2 + (P - 1) * means * 4
+                + (P - 1) * 4 * n_params,
+                meta=(P - 1) * 4, halo_calls=n_halo, state=0)
+
+
+def _sum_in_pieces(group, grads) -> tuple:
+    """The gradient sum of a step through ``SeqGroup.all_reduce``, in
+    pieces of at most SUM_PIECE elements, each dropped once summed (the f32
+    sums of 2.3 B parameters would not fit beside 4 ranks' models) →
+    (ms, staged ms, the f64 sum of squares of the summed gradient)."""
+    import torch
+    t0, s0 = time.perf_counter(), group.stats.seconds
+    sq = torch.zeros((), dtype=torch.float64, device=grads[0].device)
+    for gr in grads:
+        for piece in gr.reshape(-1).split(SUM_PIECE):
+            sq += group.all_reduce([piece], kind="grad")[0].double(
+                ).square().sum()
+    sq = float(sq)
+    return ((time.perf_counter() - t0) * 1e3,
+            (group.stats.seconds - s0) * 1e3, sq)
+
+
+def _gemma_train_rank(rank, world):
+    """One rank of gemma2-27b's local/global pair at full width: one
+    forward + backward (``_grads_of``, the train step's) of B 1 over
+    GEMMA_N tokens under ``prism(L=16)``, then the gradient sum → its ms,
+    staged ms, bytes by kind, halo calls, launches and peak memory."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.train.train_step import _grads_of
+    from repro_torch.utils.tree import param_count
+    group = get_seq_group("seq")
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_TRAIN_LAYERS,
+                              vocab_size=GEMMA_TRAIN_VOCAB)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    ds = SyntheticLMDataset(cfg.vocab_size, GEMMA_N, GEMMA_TRAIN_B)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in ds.sample(
+        np.random.RandomState(1000)).items()}
+    xcfg = ExchangeConfig(ExchangeMode.PRISM, seq_axis="seq",
+                          seq_shards=world, L=GEMMA_L)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    group.reset_stats()
+    before = (segment_means.launches, prism_attention.launches)
+    t0 = time.perf_counter()
+    loss, _, grads = _grads_of(params, batch, cfg, xcfg)
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    st = group.stats
+    fb = dict(staged_ms=st.seconds * 1e3, fb_calls=st.calls,
+              halo_calls=st.halo_calls,
+              launches=(segment_means.launches - before[0],
+                        prism_attention.launches - before[1]))
+    peak_fb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(group.all_reduce([loss[None]], kind="meta")[0][0])
+    sum_ms, sum_staged, sq = _sum_in_pieces(group, grads)
+    st = group.stats
+    return dict(fb_ms=fb_ms, sum_ms=sum_ms, sum_staged_ms=sum_staged,
+                loss=loss, sq=sq, n_params=param_count(params),
+                payload=st.payload_bytes, meta=st.meta_bytes,
+                grad=st.grad_bytes, state=st.state_bytes,
+                calls=st.calls, peak_fb_gb=peak_fb,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, **fb)
+
+
+def hymba_train_bytes(cfg, mode: str, rank: int, n_params: int) -> dict:
+    """Bytes rank ``rank`` receives in a [train-seq-families] hymba step,
+    from the shapes: each layer's K/V (``voltage``) or means (``prism``)
+    gather in bf16 and its f32 cotangent reduce-scattered; rank 1 the
+    Mamba state a layer (h ``[B, di, S]`` f32 and the conv tail ``[B,
+    W − 1, di]`` bf16), rank 0 its cotangent back (f32, the same leaves);
+    the metrics' sum (3 f32); the gradient sum in f32."""
+    P, Np = LM_P, LM_N // LM_P
+    rows = Np if mode == "voltage" else LM_L
+    kv = 2 * LM_B * rows * cfg.n_kv_heads * cfg.hd
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    h, conv = LM_B * di * s.state_size, LM_B * (s.conv_width - 1) * di
+    n = cfg.n_layers
+    return dict(payload=n * (P - 1) * kv * 2,
+                state=n * (h * 4 + conv * 2) if rank > 0 else 0,
+                grad=n * (P - 1) * kv * 4
+                + (n * (h + conv) * 4 if rank < P - 1 else 0)
+                + (P - 1) * 4 * n_params,
+                meta=(P - 1) * 3 * 4, halo_calls=0)
+
+
+def _hymba_train_rank(rank, world):
+    """One rank of hymba-1.5b cut to HYMBA_TRAIN_LAYERS layers at full
+    width: HYMBA_TRAIN_STEPS train steps (AdamW) under ``voltage`` and
+    ``prism(L=16)`` from the same weights → per step ms, staged ms, bytes
+    by kind, state calls, launches, loss, and the digest of the params."""
+    import dataclasses
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import build_train_step
+    from repro_torch.utils.tree import param_count, tree_leaves
+    group = get_seq_group("seq")
+    cfg = dataclasses.replace(get_config(HYMBA), n_layers=HYMBA_TRAIN_LAYERS)
+    params0 = registry.init_params(cfg, seed=0, device="cuda")
+    ds = SyntheticLMDataset(cfg.vocab_size, LM_N, LM_B)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.sample(
+        np.random.RandomState(1000 + i)).items()}
+        for i in range(HYMBA_TRAIN_STEPS)]
+    out = dict(n_params=param_count(params0), steps={})
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("voltage", "prism"):
+        xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
+                              seq_shards=world, L=LM_L)
+        step = build_train_step(cfg, xcfg)
+        p, o, rows = params0, adamw_init(params0), []
+        for b in batches:
+            group.reset_stats()
+            before = (segment_means.launches, prism_attention.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, b)
+            torch.cuda.synchronize()
+            st = group.stats
+            rows.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                staged_ms=st.seconds * 1e3, calls=st.calls,
+                payload=st.payload_bytes, meta=st.meta_bytes,
+                state=st.state_bytes, grad=st.grad_bytes,
+                halo_calls=st.halo_calls, state_calls=st.state_calls,
+                loss=float(m["loss"]),
+                launches=(segment_means.launches - before[0],
+                          prism_attention.launches - before[1])))
+        h = hashlib.sha1()
+        for t in tree_leaves(p):
+            h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        out["steps"][mode] = dict(rows=rows, digest=h.hexdigest())
+        del p, o
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _check_bytes(tag: str, got: dict, want: dict) -> None:
+    for kind, n in want.items():
+        if got[kind] != n:
+            raise AssertionError(f"{tag}: {kind} {got[kind]} != {n} from "
+                                 f"the shapes")
+
+
+def phase_train_seq_families(card: str) -> dict:
+    """``[train-seq-families]``: gemma2-27b's local/global pair at full
+    width (the vocabulary cut to GEMMA_TRAIN_VOCAB) on GEMMA_P ranks
+    sharing the card (B 1, N GEMMA_N: parts of 2048, so the windowed
+    layer's halo runs; one forward + backward + gradient sum, no
+    optimizer: 4 ranks' f32 moments would not fit), then
+    hymba-1.5b cut to HYMBA_TRAIN_LAYERS layers on LM_P ranks (B LM_B, N
+    LM_N, HYMBA_TRAIN_STEPS steps under each plan) → the kernels'
+    launches in both, summed over the ranks."""
+    import dataclasses
+    import gc
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn
+    # this process's cached blocks from the phases before go back to the
+    # card: the 4 ranks need all but ~10 GB of it
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-seq-families] this process holds "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card before "
+          f"the ranks start", flush=True)
+    launches = dict.fromkeys(
+        ("segment_means_gemma", "prism_attention_gemma",
+         "segment_means_hymba", *[f"prism_attention_hymba_{p}"
+                                  for p in range(LM_P)]), 0)
+    t0 = time.perf_counter()
+    # the ranks' allocators grow segments in place (4 ranks share 80 GB)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    ranks = spawn(_gemma_train_rank, GEMMA_P, timeout=RANK_TIMEOUT_S)
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_TRAIN_LAYERS,
+                              vocab_size=GEMMA_TRAIN_VOCAB)
+    n_params = ranks[0]["n_params"]
+    if len({(r["sq"], r["loss"]) for r in ranks}) != 1:
+        raise AssertionError("[train-seq-families] gemma2: the ranks' summed "
+                             "gradients or losses differ")
+    for rank, r in enumerate(ranks):
+        want = gemma_train_bytes(cfg, rank, n_params)
+        _check_bytes(f"[train-seq-families] gemma2 rank {rank}", r, want)
+        sm, pa = r["launches"]
+        if (sm, pa) != (cfg.n_layers // 2, cfg.n_layers // 2):
+            raise AssertionError(f"[train-seq-families] gemma2: launches "
+                                 f"{(sm, pa)}, want one of each a global "
+                                 f"layer")
+        launches["segment_means_gemma"] += sm
+        launches["prism_attention_gemma"] += pa
+        if not (r["loss"] == r["loss"] and r["sq"] > 0):
+            raise AssertionError(f"[train-seq-families] gemma2: loss "
+                                 f"{r['loss']}, |g|² {r['sq']}")
+        print(f"[train-seq-families] {GEMMA} {GEMMA_TRAIN_LAYERS} layers "
+              f"(one windowed, one global) at full width (d {cfg.d_model}; "
+              f"vocab cut to {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+              f"params bf16) "
+              f"rank {rank} of {GEMMA_P}, B {GEMMA_TRAIN_B} N {GEMMA_N}, "
+              f"prism(L={GEMMA_L}): forward + backward {r['fb_ms']:.1f} ms, "
+              f"staged {r['staged_ms']:.1f} ms "
+              f"({r['staged_ms'] / r['fb_ms']:.1%}) in {r['fb_calls']} calls "
+              f"with {r['halo_calls']} halo shifts; gradient sum "
+              f"{r['sum_ms']:.1f} ms ({r['sum_staged_ms']:.1f} staged); "
+              f"received payload {want['payload'] / 1e6:.3f} MB, grad "
+              f"{want['grad'] / 1e6:.1f} MB, meta {want['meta']} B (= the "
+              f"shapes); segment_means {sm}, prism_attention {pa} launches;"
+              f" loss {r['loss']:.4f}; peak {r['peak_fb_gb']:.2f} GB "
+              f"(forward + backward) / {r['peak_gb']:.2f} GB [{card}]",
+              flush=True)
+    print(f"[train-seq-families] gemma2: {time.perf_counter() - t0:.1f} s with "
+          f"rank start-up; the ranks' summed gradients and losses "
+          f"bit-identical", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn(_hymba_train_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    cfg = dataclasses.replace(get_config(HYMBA), n_layers=HYMBA_TRAIN_LAYERS)
+    n_params = ranks[0]["n_params"]
+    for mode in ("voltage", "prism"):
+        if len({r["steps"][mode]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"[train-seq-families] hymba {mode}: the "
+                                 f"replicas differ")
+        for rank, r in enumerate(ranks):
+            rows = r["steps"][mode]["rows"]
+            want = hymba_train_bytes(cfg, mode, rank, n_params)
+            for row in rows:
+                _check_bytes(f"[train-seq-families] hymba {mode} rank {rank}",
+                             row, want)
+                if row["state_calls"] != cfg.n_layers:
+                    raise AssertionError(f"[train-seq-families] hymba: "
+                                         f"{row['state_calls']} hand-offs")
+                sm, pa = row["launches"]
+                if mode == "prism":
+                    if (sm, pa) != (cfg.n_layers, cfg.n_layers):
+                        raise AssertionError(f"[train-seq-families] hymba "
+                                             f"prism: launches {(sm, pa)}")
+                    launches["segment_means_hymba"] += sm
+                    launches[f"prism_attention_hymba_{rank}"] += pa
+            losses = [x["loss"] for x in rows]
+            if not all(x == x and abs(x) < 1e9 for x in losses):
+                raise AssertionError(f"[train-seq-families] hymba {mode}: "
+                                     f"loss {losses}")
+            ms = [x["ms"] for x in rows]
+            staged = rows[-1]["staged_ms"]
+            print(f"[train-seq-families] {HYMBA} cut to {HYMBA_TRAIN_LAYERS}"
+                  f" of 32 layers at full width ({n_params / 1e9:.3f} B "
+                  f"params bf16, f32 moments) rank {rank} of {LM_P}, B "
+                  f"{LM_B} N {LM_N}, {mode}"
+                  + ("" if mode == "voltage" else f"(L={LM_L})")
+                  + ": step ms " + ", ".join(f"{x:.1f}" for x in ms)
+                  + f"; last step staged {staged:.1f} ms "
+                  f"({staged / ms[-1]:.1%}) in {rows[-1]['calls']} calls; "
+                  f"received payload {want['payload'] / 1e6:.3f} MB, state "
+                  f"{want['state'] / 1e6:.3f} MB, grad "
+                  f"{want['grad'] / 1e6:.1f} MB (the state's cotangent "
+                  f"{'in it' if rank < LM_P - 1 else 'none: the last rank'})"
+                  f", meta {want['meta']} B a step (= the shapes); "
+                  f"segment_means {rows[0]['launches'][0]}, prism_attention "
+                  f"{rows[0]['launches'][1]} launches a step; loss "
+                  + " → ".join(f"{x:.4f}" for x in losses)
+                  + f"; replicas bit-identical [{card}]", flush=True)
+    print(f"[train-seq-families] hymba: {time.perf_counter() - t0:.1f} s with "
+          f"rank start-up; peak {max(r['peak_gb'] for r in ranks):.2f} GB a "
+          f"rank", flush=True)
+    return launches
+
+
+def train_family_kernel_rows(tsf: dict, exchange: dict, sk: dict,
+                             replaces: dict, keys: tuple) -> list:
+    """The kernels line's rows of [train-seq-families]: the forward kernels
+    of the gemma2 and hymba train steps, timed at the same shapes in the
+    exchange phases (``exchange``: gemma2's part 3; ``sk``: hymba's parts
+    0 and 1), their launches summed over the ranks' steps."""
+    gnp, np_ = GEMMA_N // GEMMA_P, LM_N // LM_P
+    rows = [
+        ("segment_means", tsf["segment_means_gemma"],
+         exchange["segment_means_gemma"],
+         f"{GEMMA} prism train step ({GEMMA_P} ranks, one local/global pair"
+         f" at full width): K and V bf16 [1, {gnp}, 16·128] L={GEMMA_L} "
+         f"under autograd (explicit PyTorch backward)"),
+        ("prism_attention", tsf["prism_attention_gemma"],
+         exchange["prism_attention_gemma"],
+         f"{GEMMA} prism train step: bf16 [1, {gnp}] 32/16 heads dh=128 "
+         f"causal softcap=50 scale=1/12 L={GEMMA_L}, launched on parts "
+         f"0-{GEMMA_P - 1}, timed at part {GEMMA_P - 1}"),
+        ("segment_means", tsf["segment_means_hymba"], sk["seg"],
+         f"{HYMBA} prism train steps ({LM_P} ranks, {HYMBA_TRAIN_LAYERS} "
+         f"layers): K and V bf16 [{LM_B}, {np_}, 5·64] L={LM_L}")]
+    rows += [("prism_attention", tsf[f"prism_attention_hymba_{p}"],
+              sk[f"prism_{p}"],
+              f"{HYMBA} prism train steps, rank {p}: bf16 [{LM_B}, {np_}] "
+              f"25/5 heads dh=64 (G 5) causal L={LM_L} part {p}")
+             for p in range(LM_P)]
+    return [{"name": kname, "route": "cuda",
+             "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
+             "replaces": replaces[kname], "launches": n, "shape": shape,
+             **{k: t[k] for k in keys}} for kname, n, t, shape in rows]
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -6831,6 +7364,8 @@ def main() -> None:
     run("train-reference", phase_train_reference, card)
     run("train", phase_train, card)
     ts = run("train-seq", phase_train_seq, card)
+    run("train-families", phase_train_families, card)
+    tsf = run("train-seq-families", phase_train_seq_families, card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -6949,6 +7484,8 @@ def main() -> None:
             "backward_ms": b["bwd_ms"], "backward_bound_ms": b["bwd_bound_ms"],
             "plain_fwd_bwd_ms": b["plain_ms"],
             "library_fwd_bwd_ms": b["library_ms"]})
+    kernels += train_family_kernel_rows(tsf, exchange, sk,
+                                        {r[0]: r[1] for r in rows}, keys)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

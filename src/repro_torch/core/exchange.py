@@ -212,8 +212,11 @@ def prism_prefill_attention(q, k, v, cfg, *, causal=False, window=None,
     partitions before it (``SeqGroup.shift``, one staged call each, K and
     V in one buffer; a rank with fewer predecessors gets zeros, masked)
     and attends exactly over [halo ‖ own] under the window; the key mask
-    is not read, as in the JAX package.  Otherwise the layer takes the
-    Voltage gather (``kv_sink`` and the mask passed on)."""
+    is not read, as in the JAX package.  Under autograd the shift's
+    backward sends each halo block's cotangent back to its source, and a
+    zero block's (no source) goes nowhere; the position mask is boolean.
+    Otherwise the layer takes the Voltage gather (``kv_sink`` and the
+    mask passed on)."""
     group = seq_group_for(cfg)
     if window is not None:
         P, p, Np = group.world_size, group.rank, q.shape[1]

@@ -22,19 +22,36 @@ and sends to p + 1 (P − 1 messages a hand-off across the group).  On one
 card several ranks share it.  NCCL's device-side gather (the ``direct``
 link, one card per rank) is ROADMAP queue 1 item [7.6].
 
-Gradients: ``all_gather`` is differentiable.  Its backward, as
-``all_gather_grad_safe``'s, reduce-scatters the cotangent in f32 (gloo
-``reduce_scatter``): each rank receives the sum over ranks of the
-cotangent of its own slot.  ``all_reduce`` sums tensors over the ranks in
-f32 (the parameter gradients of a training step, packed into buckets).
-Both book their bytes under the kind ``grad``.  ``all_reduce`` itself
-and the other staged collectives (``all_gather_packed``, ``shift``,
-``ring_shift``, ``pass_on``, ``broadcast``) have no backward: each
-raises when an input requires grad, so a partitioned training step that reaches one (gemma2's
-halo, the codecs, the ring, the recurrent hand-off, ``last_only``
-logits) fails instead of training on a missing gradient (ROADMAP queue 1
-item [12.1]).  Backward collectives run in autograd's order, which is the
-same on every rank because every rank builds the same graph.
+Gradients: every staged collective that a training path reaches is
+differentiable, and each backward is the transpose of its forward, as
+JAX's transpose of the collective it stands for:
+
+* ``all_gather`` (and the moe routing call and the exchanges' gathers
+  that use it), as ``all_gather_grad_safe``: the cotangent is
+  reduce-scattered in f32 (gloo ``reduce_scatter``); each rank receives
+  the sum over ranks of the cotangent of its own slot;
+* ``all_gather_packed``: a reduce-scatter of the f32 cotangents of its
+  floating-point pieces in one call (int8/int4 scales, topk values);
+  integer pieces (codes, indices) carry no gradient;
+* ``shift`` (``ppermute``): the cotangent goes back the way the data came,
+  from rank p + sft to rank p; a rank that received zeros sends nothing;
+* ``ring_shift`` / ``ring_forward``: the cotangent of each received block
+  goes back along the ring, to the rank it came from, chunk for chunk;
+* ``pass_on``: the reverse chain P − 1 → … → 0.  Rank p's send waits for
+  the cotangent of its state from rank p + 1; its receive posts the
+  cotangent of the state it received to rank p − 1 without waiting (the
+  next collective, or ``flush``, waits for it); f32, in the layout of the
+  flat state bytes;
+* ``broadcast``: the cotangents summed onto ``src`` (gloo ``reduce``).
+
+Every backward books its received bytes under the kind ``grad`` and one
+call.  Backward collectives run in autograd's order, which is the same on
+every rank because every rank builds the same graph; point-to-point
+backward messages take tags reserved in the forward, so they match on
+every rank.  ``all_reduce`` sums tensors over the ranks in f32 (the
+parameter gradients of a training step, packed into buckets), booked as
+``grad``; it alone has no backward and raises when an input requires
+grad: it sums gradients and is never differentiated.
 
 A process registers its group under the mesh axis name that
 ``ExchangeConfig.seq_axis`` carries (``"seq"`` by default), and the
@@ -78,6 +95,8 @@ class GatherStats:
     grad_bytes: int = 0       # gradients: the gather's reduce-scattered
                               # cotangents and the summed parameter
                               # gradients (f32)
+    halo_calls: int = 0       # ``shift`` calls (PRISM's halo), every rank
+    state_calls: int = 0      # ``pass_on`` hand-offs, every rank
     seconds: float = 0.0      # host clock inside the collectives, staging
                               # copies included (the card is synchronised
                               # before the clock starts)
@@ -85,18 +104,8 @@ class GatherStats:
 
 BUCKET_BYTES = 1 << 28        # all_reduce's f32 staging bucket
 
-_NO_BACKWARD = ("has no backward: a partitioned training step may not pass "
-                "a tensor that requires grad through it (ROADMAP queue 1 "
-                "item [12.1])")
-
-
-def _no_backward(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a gradient through the collective
-    ``name`` for any of ``tensors``."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in tensors):
-        raise RuntimeError(f"SeqGroup.{name} {_NO_BACKWARD}")
+_NO_BACKWARD = ("has no backward: it sums gradients after the backward "
+                "pass and is never differentiated")
 
 
 class _StagedGather(torch.autograd.Function):
@@ -113,6 +122,174 @@ class _StagedGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         return None, ctx.group.reduce_scatter(ct).to(ctx.dtype), None
+
+
+class _PackedGather(torch.autograd.Function):
+    """``SeqGroup.all_gather_packed`` with its transpose: the f32
+    cotangents of the floating-point pieces, ``[P, ...]`` each, are
+    reduce-scattered in one call; integer pieces take no gradient."""
+
+    @staticmethod
+    def forward(ctx, group, kind, *tensors):
+        ctx.group = group
+        ctx.like = [(t.dtype, t.shape) for t in tensors]
+        outs = group._gather_packed(list(tensors), kind)
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        g, P = ctx.group, ctx.group.world_size
+        floats = [i for i, (dt, _) in enumerate(ctx.like)
+                  if dt.is_floating_point]
+        got = g.reduce_scatter(torch.cat(
+            [cts[i].float().reshape(P, -1) for i in floats], dim=1))
+        out: List[Optional[torch.Tensor]] = [None] * len(ctx.like)
+        off = 0
+        for i in floats:
+            dtype, shape = ctx.like[i]
+            n = shape.numel()
+            out[i] = got[off:off + n].reshape(shape).to(dtype)
+            off += n
+        return (None, None, *out)
+
+
+class _Shift(torch.autograd.Function):
+    """``SeqGroup.shift`` with its transpose (``ppermute``'s): the
+    cotangent of what rank i received goes back to rank i − sft, and rank
+    i's input gets what rank i + sft sends back (zeros where that rank
+    does not exist)."""
+
+    @staticmethod
+    def forward(ctx, group, t, sft, kind, tag):
+        ctx.group, ctx.sft, ctx.tag = group, sft, tag
+        return group._shift(t, group.rank + sft, group.rank - sft, kind)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g, sft = ctx.group, ctx.sft
+        return (None, g._shift(ct, g.rank - sft, g.rank + sft, "grad",
+                               tag=ctx.tag), None, None, None)
+
+
+class _RingLink(torch.autograd.Function):
+    """One ring transfer, already waited on: ``sent`` (what this rank sent
+    to rank p + 1) → ``received`` (what it got from rank p − 1).  The
+    backward is the transfer reversed: the cotangent of ``received`` goes
+    back to rank p − 1 in the forward's chunks, and rank p + 1's comes in
+    as the cotangent of ``sent``."""
+
+    @staticmethod
+    def forward(ctx, group, sent, received, chunks, tag):
+        ctx.group, ctx.chunks, ctx.tag = group, chunks, tag
+        return received
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ctx.group
+        P = g.world_size
+        t0 = g._begin(ct)
+        back = g._post(g._to_host(ct), ct, "grad", ctx.chunks, t0,
+                       (g.rank - 1) % P, (g.rank + 1) % P, tag=ctx.tag)
+        return None, back.wait(), None, None, None
+
+
+class _ChainReceived(torch.autograd.Function):
+    """The state rank p received in ``pass_on``, as leaves shaped as
+    ``like``, tied to ``anchor`` (a tensor of this rank's graph, so the
+    node runs in the backward).  The backward sends the leaves' cotangents,
+    f32 and flat in ``like``'s order, to rank p − 1 without waiting; it
+    gives ``anchor`` nothing."""
+
+    @staticmethod
+    def forward(ctx, group, tag, like, buf, anchor):
+        ctx.group, ctx.tag = group, tag
+        return tuple(t.clone() for t in unpack_leaves(buf, like).values())
+
+    @staticmethod
+    def backward(ctx, *cts):
+        g = ctx.group
+        t0 = time.perf_counter()
+        host = g._host_copy(torch.cat([c.float().reshape(-1) for c in cts]))
+        g._sends.append((dist.isend(host, g.rank - 1, tag=ctx.tag), host))
+        g.stats.seconds += time.perf_counter() - t0
+        return None, None, None, None, None
+
+
+class _ChainSent(torch.autograd.Function):
+    """``out`` of rank p's ``pass_on``, tied to the ``final`` state it sent
+    to rank p + 1.  The backward passes ``out``'s cotangent through and
+    waits for the f32 cotangent of ``final`` from rank p + 1 (one ``grad``
+    call)."""
+
+    @staticmethod
+    def forward(ctx, group, tag, out, *final):
+        ctx.group, ctx.tag = group, tag
+        ctx.like = [(t.dtype, t.shape) for t in final]
+        return out
+
+    @staticmethod
+    def backward(ctx, ct_out, *_):
+        g = ctx.group
+        n = sum(shape.numel() for _, shape in ctx.like)
+        t0 = time.perf_counter()
+        dev = ct_out.device
+        host = torch.empty((n,), dtype=torch.float32,
+                           pin_memory=dev.type == "cuda")
+        dist.recv(host, g.rank + 1, tag=ctx.tag)
+        got = host.to(dev)
+        g._end(t0, "grad", n * 4)
+        out, off = [], 0
+        for dtype, shape in ctx.like:
+            out.append(got[off:off + shape.numel()].reshape(shape).to(dtype))
+            off += shape.numel()
+        return (None, None, ct_out, *out)
+
+
+class _Broadcast(torch.autograd.Function):
+    """``SeqGroup.broadcast`` with its transpose: every rank's cotangent
+    summed onto ``src`` in f32 (gloo ``reduce``); the other ranks' inputs
+    get none."""
+
+    @staticmethod
+    def forward(ctx, group, t, src):
+        ctx.group, ctx.src, ctx.dtype = group, src, t.dtype
+        return group._broadcast(t, src)
+
+    @staticmethod
+    def backward(ctx, ct):
+        got = ctx.group._reduce_to(ct, ctx.src)
+        return None, None if got is None else got.to(ctx.dtype), None
+
+
+def pack_leaves(leaves: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The leaves, in key order, as one flat uint8 buffer."""
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in leaves.values()])
+
+
+def unpack_leaves(buf: torch.Tensor, like: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """``pack_leaves``' inverse: views of ``buf`` shaped and typed as
+    ``like``'s leaves."""
+    out, off = {}, 0
+    for name, t in like.items():
+        n = t.numel() * t.element_size()
+        out[name] = buf[off:off + n].view(t.dtype).reshape(t.shape)
+        off += n
+    return out
+
+
+def leaves_bytes(like: Dict[str, torch.Tensor]) -> int:
+    """Bytes of ``pack_leaves`` of leaves shaped as ``like``."""
+    return sum(t.numel() * t.element_size() for t in like.values())
+
+
+def _tracked(*tensors) -> bool:
+    """Does autograd need a gradient through any of ``tensors``?"""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 class SeqGroup:
@@ -147,37 +324,60 @@ class SeqGroup:
             self._sends.clear()
             self.stats.seconds += time.perf_counter() - t0
 
-    def pass_on(self, fn: Callable[[Optional[torch.Tensor]],
-                                   Tuple[Any, torch.Tensor]],
-                nbytes: int, device, *, kind: str = "state") -> Any:
-        """One hand-off down the chain 0 → 1 → … → P − 1, called on every
-        rank: rank p > 0 receives ``nbytes`` bytes (a flat uint8 tensor on
-        ``device``) from rank p − 1 (rank 0 receives nothing: None), then
-        ``fn(received) → (out, to_send)`` runs, and ``to_send`` goes to
-        rank p + 1 (the last rank sends nothing) → out.  P − 1 messages
-        across the group: a receiving rank books one call and the bytes
-        under ``kind`` (its wait for the rank before it included in the
-        seconds); the send is posted and returns at once (staged through
-        host memory, pinned for a CUDA device), and the next collective,
-        or :meth:`flush`, waits for it."""
+    def _take_tags(self, n: int) -> int:
+        """The first of ``n`` point-to-point tags (every rank counts alike:
+        SPMD)."""
         tag = self._tag
-        self._tag += 1                  # every rank counts alike (SPMD)
+        self._tag += n
+        return tag
+
+    def pass_on(self, fn: Callable[[Optional[Dict[str, torch.Tensor]]],
+                                   Tuple[Any, Dict[str, torch.Tensor]]],
+                like: Dict[str, torch.Tensor], device,
+                anchor: Optional[torch.Tensor], *,
+                kind: str = "state") -> Any:
+        """One hand-off down the chain 0 → 1 → … → P − 1, called on every
+        rank: rank p > 0 receives from rank p − 1 the leaves shaped and
+        typed as ``like`` (on ``device``; rank 0 receives nothing: None),
+        then ``fn(received) → (out, to_send)`` runs, and ``to_send`` (leaves
+        as ``like``) goes to rank p + 1 (the last rank sends nothing) →
+        out.  P − 1 messages across the group: a receiving rank books one
+        call and the bytes under ``kind`` (its wait for the rank before it
+        included in the seconds); the send is posted and returns at once
+        (staged through host memory, pinned for a CUDA device), and the
+        next collective, or :meth:`flush`, waits for it.
+
+        Differentiable where ``anchor`` (a tensor of this rank's graph that
+        ``fn`` reads, e.g. the scan's input) requires grad: the received
+        leaves then require grad, and the backward runs the chain in
+        reverse (see the module's note); ``out`` must be a tensor."""
+        tag = self._take_tags(2)        # the forward's, then the backward's
+        self.stats.state_calls += 1
+        grad = _tracked(anchor)
         got = None
         if self.rank > 0:               # (no flush: the chain may pipeline)
             t0 = time.perf_counter()
+            nbytes = leaves_bytes(like)
             cuda = torch.device(device).type == "cuda"
             host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=cuda)
             dist.recv(host, self.rank - 1, tag=tag)
-            got = host.to(device)
+            buf = host.to(device)
             self._end(t0, kind, nbytes)
+            if grad:
+                got = dict(zip(like, _ChainReceived.apply(
+                    self, tag + 1, like, buf, anchor)))
+            else:
+                got = unpack_leaves(buf, like)
         out, to_send = fn(got)
-        _no_backward("pass_on", to_send)
         if self.rank < self.world_size - 1:
             t0 = time.perf_counter()
-            host = self._to_host(to_send)
+            final = [to_send[name] for name in like]
+            host = self._to_host(pack_leaves(dict(zip(like, final))))
             self._sends.append((dist.isend(host, self.rank + 1, tag=tag),
                                 host))
             self.stats.seconds += time.perf_counter() - t0
+            if grad and _tracked(*final):
+                out = _ChainSent.apply(self, tag + 1, out, *final)
         return out
 
     def _end(self, t0: float, kind: str, received: int) -> None:
@@ -207,7 +407,7 @@ class SeqGroup:
         t's device; the bytes received are booked under ``kind``.  Where
         ``t`` requires grad the gather is differentiable (the cotangent
         reduce-scattered in f32, booked as ``grad``)."""
-        if torch.is_grad_enabled() and t.requires_grad:
+        if _tracked(t):
             return _StagedGather.apply(self, t, kind)
         return self._gather(t, kind)
 
@@ -247,7 +447,8 @@ class SeqGroup:
         larger than that is a bucket of its own: the pinned staging
         buffers stay that size), one staged call each; each call books
         (P − 1) × its f32 bytes under ``kind``."""
-        _no_backward("all_reduce", *tensors)
+        if _tracked(*tensors):
+            raise RuntimeError(f"SeqGroup.all_reduce {_NO_BACKWARD}")
         out: List[Optional[torch.Tensor]] = [None] * len(tensors)
         bucket: List[int] = []
         size = 0
@@ -284,11 +485,18 @@ class SeqGroup:
         every rank) in one gather: their bytes go out concatenated and come
         back split by offsets → one ``[P, *t.shape]`` tensor each, on the
         first tensor's device; the bytes received are booked under
-        ``kind`` as one call.  No backward."""
-        _no_backward("all_gather_packed", *tensors)
-        flat = [t.contiguous().reshape(-1).view(torch.uint8)
+        ``kind`` as one call.  Differentiable in its floating-point
+        pieces (the backward: one f32 reduce-scatter of their
+        cotangents)."""
+        if _tracked(*tensors):
+            return list(_PackedGather.apply(self, kind, *tensors))
+        return self._gather_packed(tensors, kind)
+
+    def _gather_packed(self, tensors: List[torch.Tensor], kind: str
+                       ) -> List[torch.Tensor]:
+        flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
                 for t in tensors]
-        got = self.all_gather(torch.cat(flat), kind=kind)    # [P, total]
+        got = self._gather(torch.cat(flat), kind)            # [P, total]
         out, off = [], 0
         for t, f in zip(tensors, flat):
             part = got[:, off:off + f.numel()].contiguous()
@@ -306,19 +514,22 @@ class SeqGroup:
         size, each with its own tag.  Returns at once: the card may compute
         while the transfer runs, and :meth:`RingTransfer.wait` gives the
         received tensor on t's device.  One call is booked per transfer,
-        its received bytes under ``kind`` when it is waited on.  No
-        backward."""
-        _no_backward("ring_shift", t)
+        its received bytes under ``kind`` when it is waited on.  Where
+        ``t`` requires grad the received tensor does too, and the
+        backward sends its cotangent back to rank ``(rank-1) % P``."""
         t0 = self._begin(t)
         return self._post(self._to_host(t), t, kind, chunks, t0,
-                          *self._ring_peers())
+                          *self._ring_peers(), tracked=t)
 
     def ring_forward(self, prev: "RingTransfer", *,
                      chunks: int = 1) -> "RingTransfer":
         """Pass on what ``prev`` (waited on) received, from its host
-        buffer: no copy off the card and no wait for it."""
+        buffer: no copy off the card and no wait for it.  Differentiable
+        as :meth:`ring_shift` (the cotangent of what was passed on comes
+        back from rank ``(rank+1) % P``)."""
         return self._post(prev.host, prev.like, prev.kind, chunks,
-                          time.perf_counter(), *self._ring_peers())
+                          time.perf_counter(), *self._ring_peers(),
+                          tracked=prev.out)
 
     def _ring_peers(self):
         P = self.world_size
@@ -331,51 +542,88 @@ class SeqGroup:
         JAX package's ``ppermute`` over ``[(i, i + sft) for i in
         range(P − sft)]``); a rank with no source gets zeros.  Staged as
         the ring's transfer, one message; one call is booked, with the
-        bytes received under ``kind``.  No backward."""
-        _no_backward("shift", t)
+        bytes received under ``kind``.  Differentiable: the backward sends
+        the cotangent back from rank i + sft to rank i (``ppermute``'s
+        transpose), one ``grad`` call."""
         P = self.world_size
         if not 0 < sft < P:
             raise ValueError(f"shift {sft} outside 1..{P - 1} for {P} ranks")
+        self.stats.halo_calls += 1
+        if _tracked(t):
+            return _Shift.apply(self, t, sft, kind, self._take_tags(1))
+        return self._shift(t, self.rank + sft, self.rank - sft, kind)
+
+    def _shift(self, t: torch.Tensor, dst: int, src: int, kind: str,
+               tag: Optional[int] = None) -> torch.Tensor:
+        """Send ``t`` to rank ``dst`` and receive as many bytes from rank
+        ``src`` (either outside the group: no such message; zeros
+        received), one message, waited for."""
+        P = self.world_size
         t0 = self._begin(t)
-        dst, src = self.rank + sft, self.rank - sft
         return self._post(self._to_host(t), t, kind, 1, t0,
-                          dst if dst < P else None,
-                          src if src >= 0 else None).wait()
+                          dst if 0 <= dst < P else None,
+                          src if 0 <= src < P else None, tag=tag).wait()
 
     def _post(self, host, like, kind, chunks, t0, dst: Optional[int],
-              src: Optional[int]) -> "RingTransfer":
+              src: Optional[int], *, tag: Optional[int] = None,
+              tracked: Optional[torch.Tensor] = None) -> "RingTransfer":
         """Send ``host``'s bytes to rank ``dst`` and receive as many from
         rank ``src`` (None: no such message; the receive then holds
-        zeros), as ``chunks`` messages of equal size."""
+        zeros), as ``chunks`` messages of equal size, tagged from ``tag``
+        on (default: the next free tags).  ``tracked`` (the tensor whose
+        bytes ``host`` holds), where it requires grad, makes the received
+        tensor differentiable (``_RingLink``; its backward's tags are
+        reserved here)."""
         n = chunks if chunks > 1 and host.numel() % chunks == 0 else 1
         alloc = torch.zeros if src is None else torch.empty
         recv = alloc(host.shape, dtype=torch.uint8, pin_memory=like.is_cuda)
         size = host.numel() // n
-        tags = range(self._tag, self._tag + n)
-        self._tag += n                  # every rank counts alike (SPMD)
+        start = self._take_tags(n) if tag is None else tag
+        tags = range(start, start + n)
         # every receive is posted before any send
         works = [] if src is None else [
-            dist.irecv(recv[i * size:(i + 1) * size], src, tag=tag)
-            for i, tag in enumerate(tags)]
+            dist.irecv(recv[i * size:(i + 1) * size], src, tag=tg)
+            for i, tg in enumerate(tags)]
         works += [] if dst is None else [
-            dist.isend(host[i * size:(i + 1) * size], dst, tag=tag)
-            for i, tag in enumerate(tags)]
+            dist.isend(host[i * size:(i + 1) * size], dst, tag=tg)
+            for i, tg in enumerate(tags)]
         self.stats.seconds += time.perf_counter() - t0
+        link = ((tracked, n, self._take_tags(n)) if _tracked(tracked)
+                else None)
         return RingTransfer(self, works, host, recv, like, kind,
-                            received=0 if src is None else host.numel())
+                            received=0 if src is None else host.numel(),
+                            link=link)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank (same shape and dtype
         everywhere), on t's device; a receiving rank books its bytes as
         ``output`` (the model outputs broadcast from the rank holding
-        them).  No backward."""
-        _no_backward("broadcast", t)
+        them).  Differentiable where ``t`` requires grad on every rank: the
+        backward sums every rank's cotangent onto ``src`` (f32, one
+        ``grad`` call each rank, the bytes booked on ``src``)."""
+        if _tracked(t):
+            return _Broadcast.apply(self, t, src)
+        return self._broadcast(t, src)
+
+    def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         t0 = self._begin(t)
         host = self._to_host(t)
         dist.broadcast(host, src)
         out = host.view(t.dtype).reshape(t.shape).to(t.device)
         self._end(t0, "output", 0 if self.rank == src else host.numel())
         return out
+
+    def _reduce_to(self, t: torch.Tensor, dst: int) -> Optional[torch.Tensor]:
+        """The sum over ranks of ``t`` in f32 on rank ``dst`` (gloo
+        ``reduce``; None elsewhere); ``dst`` books (P − 1) × the f32
+        bytes as ``grad``, every rank one call."""
+        t0 = self._begin(t)
+        host = self._host_copy(t, torch.float32)
+        dist.reduce(host, dst)
+        mine = self.rank == dst
+        self._end(t0, "grad", host.numel() * 4 * (self.world_size - 1)
+                  if mine else 0)
+        return host.reshape(t.shape).to(t.device) if mine else None
 
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """Rank ``src``'s picklable ``obj`` on every rank."""
@@ -394,10 +642,12 @@ class RingTransfer:
     """One ring transfer in flight (:meth:`SeqGroup.ring_shift`)."""
 
     def __init__(self, group: SeqGroup, works, sent, host, like, kind,
-                 received: int):
+                 received: int, link=None):
         self.group, self.works, self.sent = group, works, sent
         self.host, self.like, self.kind = host, like, kind
         self.received = received
+        self.link = link        # (tracked tensor sent, chunks, backward tag)
+        self.out: Optional[torch.Tensor] = None
 
     def wait(self) -> torch.Tensor:
         """Block until every message of the transfer is through → the
@@ -410,6 +660,10 @@ class RingTransfer:
         out = self.host.view(like.dtype).reshape(like.shape).to(
             like.device, non_blocking=True)
         self.group._end(t0, self.kind, self.received)
+        if self.link is not None:
+            tracked, chunks, tag = self.link
+            out = _RingLink.apply(self.group, tracked, out, chunks, tag)
+        self.out = out
         return out
 
 

@@ -9,13 +9,34 @@ The counterpart of ``repro.launch.train``.  In place of its debug mesh
 ``repro_torch.core.seq_group.spawn``, a seq group over gloo, all on the
 one card (or the CPU).  Every rank holds a replica of the params and
 optimizer state, trains its part of the sequence of every batch under
-``--mode voltage`` or ``prism`` (the exchanges' gathers carry the
+``--mode voltage`` or ``prism`` (the exchanges' collectives carry the
 gradient back across the ranks; under ``prism`` the segment means and
 PRISM attention run on their kernels), and the ranks sum their gradients
 in one staged ``all_reduce``, so the replicas stay identical; the launcher
 checks that they end bit-identical.  The JAX launcher's data axis has no
 counterpart: one batch, P sequence parts.  ``--mode local`` trains one
 process (``--ranks 1``).
+
+``--arch`` takes every causal LM of the JAX launcher, and what each needs
+of ``--ranks`` P: P divides ``--seq`` (and, under ``prism``, each part
+splits into ``--L`` segments); beyond that
+
+* the dense LMs, the moe family (routed as the whole sequence: one
+  routing call a layer) and deepseek-v2's MLA (the latent exchanged):
+  any P ≥ 2;
+* gemma2-27b: its windowed layers exchange only their halo under
+  ``prism`` where the window spans fewer than P − 1 parts, so at P ≥ 3
+  (the reduced config's window 16 at the default ``--seq 128`` and
+  ``--ranks 4``: parts of 32, one halo shift a windowed layer); at P 2,
+  or a wider window, they take the Voltage gather, as in the JAX package;
+* whisper-large-v3 and llama-3.2-vision-11b: any P ≥ 2, the memory (the
+  encoded frames, the image tokens, drawn from the batch's seed:
+  ``encoder_seq`` or ``image_tokens`` embeddings) split like the text;
+* hymba-1.5b and xlstm-350m: any P ≥ 2, each mixer's state handed from
+  rank to rank (one ``state`` message a mixer and its cotangent back).
+
+Rank 0 prints each logged step's halo and state calls, so a run shows
+which path ran.
 
 The model is the reduced config of ``--arch`` (vocabulary 512, as the JAX
 launcher's ``--reduced``) unless ``--full`` asks for the published widths
@@ -36,6 +57,9 @@ import time
 import numpy as np
 
 CKPT_EVERY = 50
+LM_ARCHS = ("llama3.2-1b", "internlm2-1.8b", "qwen1.5-32b", "gemma2-27b",
+            "deepseek-moe-16b", "deepseek-v2-236b", "whisper-large-v3",
+            "llama-3.2-vision-11b", "hymba-1.5b", "xlstm-350m")
 RANK_TIMEOUT_S = 3000.0        # the ranks' whole run (full width: minutes)
 
 
@@ -61,9 +85,23 @@ def _digest(tree) -> str:
     from repro_torch.utils.tree import tree_leaves
     h = hashlib.sha1()
     for t in tree_leaves(tree):
-        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
-                 .tobytes())
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def draw_batch(ds, cfg, step: int) -> dict:
+    """Batch ``step``: the Markov stream's tokens and labels from
+    ``RandomState(1000 + step)``, then, for the memory families, the stub
+    memory (whisper's frames ``[B, encoder_seq, d]``, the vlm's image
+    embeddings ``[B, image_tokens, d]``, f32) from the same stream."""
+    rng = np.random.RandomState(1000 + step)
+    b = ds.sample(rng)
+    if cfg.family in ("audio", "vlm"):
+        name, m = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+                   else ("image_embeds", cfg.image_tokens))
+        b[name] = rng.randn(ds.batch_size, m, cfg.d_model).astype(np.float32)
+    return b
 
 
 def train(a: dict, rank: int = 0, world: int = 1) -> dict:
@@ -95,8 +133,8 @@ def train(a: dict, rank: int = 0, world: int = 1) -> dict:
     card = card_name(device) if rank == 0 else ""
     losses, ms, staged = [], [], []
     for step in range(a["steps"]):
-        b = ds.sample(np.random.RandomState(1000 + step))
-        batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 draw_batch(ds, cfg, step).items()}
         if group is not None:
             group.reset_stats()
         t0 = time.perf_counter()
@@ -107,9 +145,11 @@ def train(a: dict, rank: int = 0, world: int = 1) -> dict:
         staged.append(0.0 if group is None else group.stats.seconds * 1e3)
         losses.append(float(m["loss"]))
         if rank == 0 and (step % 10 == 0 or step == a["steps"] - 1):
+            st = group.stats if group is not None else None
             print(f"step {step:4d} loss {losses[-1]:.4f} "
                   f"gnorm {float(m['grad_norm']):.3f} ({ms[-1]:.1f} ms"
-                  + (f", {staged[-1]:.1f} ms staged" if group else "")
+                  + (f", {staged[-1]:.1f} ms staged, {st.halo_calls} halo "
+                     f"calls, {st.state_calls} state calls" if st else "")
                   + f"; {card})", flush=True)
         if ckpt is not None and (step + 1) % CKPT_EVERY == 0:
             ckpt.save_async((params, opt), step + 1)
@@ -128,7 +168,7 @@ def train_rank(rank: int, world: int, a: dict) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=LM_ARCHS)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--mode", default="prism",
                     choices=["prism", "voltage", "local"])

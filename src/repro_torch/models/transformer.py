@@ -534,7 +534,7 @@ def _apply_hymba_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
         group, lambda st: ssm_mod.mamba_scan(
             p["mamba"], xin, cfg.ssm, *((None, None) if st is None
                                         else (st["h"], st["conv"]))),
-        lambda: _mamba_like(xin, cfg), xin.device)
+        lambda: _mamba_like(xin, cfg), xin.device, anchor=xin)
     x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
     return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
                          cfg.act)
@@ -578,11 +578,12 @@ def _apply_xlstm_group(p: Params, x, cfg: ModelConfig, group=None):
         x = x + handoff_scan(
             group, lambda st: ssm_mod.mlstm_scan(lp, xin, cfg.ssm, st),
             lambda: ssm_mod.init_mlstm_state(B, cfg.d_model, cfg.ssm,
-                                             device="meta"), dev)
+                                             device="meta"), dev, anchor=xin)
     xin = apply_norm(cfg.norm_type, p["s_ln"], x)
     return x + handoff_scan(
         group, lambda st: ssm_mod.slstm_scan(p["slstm"], xin, cfg.ssm, st),
-        lambda: ssm_mod.init_slstm_state(B, cfg.d_model, device="meta"), dev)
+        lambda: ssm_mod.init_slstm_state(B, cfg.d_model, device="meta"), dev,
+        anchor=xin)
 
 
 def _apply_xlstm_decode(p: Params, x, cfg: ModelConfig, m_states, s_state):
@@ -770,9 +771,12 @@ def _shard(xcfg: ExchangeConfig, N: int):
 
 def _last_logits(params: Params, x, cfg: ModelConfig, group):
     """Logits of the sequence's last position [B, 1, V] f32 on every rank:
-    it lies on the last rank of a seq group, which broadcasts them."""
+    it lies on the last rank of a seq group, which broadcasts them.  Under
+    autograd every rank unembeds its own last position (the others'
+    values are dropped), so the broadcast's backward, which sums the
+    cotangents onto the last rank, runs on every rank."""
     last = group is None or group.rank == group.world_size - 1
-    if last:
+    if last or (torch.is_grad_enabled() and x.requires_grad):
         x = apply_norm(cfg.norm_type, params["final_norm"], x[:, -1:])
         logits = unembed(_head(params, cfg), x,
                          final_softcap=cfg.final_softcap)

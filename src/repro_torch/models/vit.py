@@ -118,7 +118,11 @@ def forward_vit(params: Params, images: torch.Tensor, cfg: ModelConfig,
 
     if group is None:
         return head(x[:, 0])
-    logits = (head(x[:, 0]) if group.rank == 0 else
+    # rank 0 holds the CLS token; under autograd every rank runs the head
+    # (the others' values are dropped), so the broadcast's backward, which
+    # sums the cotangents onto rank 0, runs on every rank
+    tracked = torch.is_grad_enabled() and x.requires_grad
+    logits = (head(x[:, 0]) if group.rank == 0 or tracked else
               torch.empty((B, cfg.vocab_size), dtype=torch.float32,
                           device=x.device))
     return group.broadcast(logits, src=0)

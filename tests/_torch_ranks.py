@@ -720,3 +720,172 @@ def train_seq(rank, world, job):
             tree_map(torch.from_numpy, c["residuals"][rank]), c["L"], group)
         out["compress"] = (tree_map(_np, red), tree_map(_np, res))
     return out
+
+
+def _dyadic(rng, shape, dtype=torch.float64, device="cpu"):
+    """Small multiples of 1/4: every sum and product below is exact in f32
+    as in f64, so a transpose identity holds bit for bit."""
+    return torch.from_numpy(rng.randint(-8, 9, shape) / 4.0).to(
+        device=device, dtype=dtype)
+
+
+def grad_collectives(rank, world, job):
+    """Each differentiable staged collective as a linear map of this rank's
+    input x, with a cotangent y: → per case (⟨op(x), y⟩ on this rank,
+    ⟨x, opᵀ(y)⟩ on this rank (the backward of the first), the ``grad``
+    bytes and calls the backward booked).  Inputs are drawn from
+    ``RandomState(job["seed"] + rank)``; see ``_dyadic``.  ``job["device"]``
+    (default the CPU) puts them on the card."""
+    group = get_seq_group("seq")
+    rng = np.random.RandomState(job["seed"] + rank)
+    dev = job.get("device", "cpu")
+    P = world
+    out = {}
+
+    def draw(shape, dtype=torch.float64):
+        return _dyadic(rng, shape, dtype, dev)
+
+    def case(name, xs, fn):
+        """``fn(*xs)`` → outputs; y drawn like each; one backward."""
+        xs = [x.requires_grad_() if x.is_floating_point() else x
+              for x in xs]
+        group.reset_stats()
+        ys = fn(*xs)
+        fwd = group.stats
+        cot = [draw(tuple(o.shape), o.dtype) for o in ys]
+        dot = sum(float((o.detach().double() * c.double()).sum())
+                  for o, c in zip(ys, cot))
+        group.reset_stats()
+        torch.autograd.backward(list(ys), cot)
+        group.flush()
+        back = sum(float((x.detach().double() * x.grad.double()).sum())
+                   for x in xs if x.is_floating_point()
+                   and x.grad is not None)
+        out[name] = dict(dot=dot, back=back, grad=group.stats.grad_bytes,
+                         calls=group.stats.calls, fwd_calls=fwd.calls,
+                         no_grad=[x.grad is None for x in xs
+                                  if x.is_floating_point()])
+
+    for sft in range(1, P):
+        case(f"shift/{sft}", [draw((2, 3, 5))],
+             lambda x, s=sft: [group.shift(x, s)])
+    for chunks in (1, 2):
+        def ring(x, chunks=chunks):
+            got, t = [], group.ring_shift(x, chunks=chunks)
+            got.append(t.wait())
+            for _ in range(P - 2):
+                t = group.ring_forward(t, chunks=chunks)
+                got.append(t.wait())
+            return [g * (i + 1) for i, g in enumerate(got)]
+        case(f"ring/{chunks}", [draw((4, 6))], ring)
+    case("packed", [draw((3, 4), torch.float32),
+                    torch.from_numpy(rng.randint(-9, 9, (5,))
+                                     ).to(device=dev, dtype=torch.int8),
+                    draw((2, 2))],
+         lambda a, q, c: [t for t in group.all_gather_packed([a, q, c])
+                          if t.is_floating_point()])
+    like = {"a": torch.empty((2, 3), dtype=torch.float64, device="meta"),
+            "b": torch.empty((4,), dtype=torch.float32, device="meta")}
+
+    def chain(xa, xb, xo):
+        def fn(got):
+            if got is None:
+                return xo * 1, {"a": xa * 1, "b": xb * 1}
+            return (xo + got["a"].sum() + 3 * got["b"].sum(),
+                    {"a": xa + got["a"], "b": xb + 2 * got["b"]})
+        return [group.pass_on(fn, like, dev, anchor=xo)]
+    case("pass_on", [draw((2, 3)),
+                     draw((4,), torch.float32),
+                     draw((5,))], chain)
+    for src in (0, P - 1):
+        case(f"broadcast/{src}", [draw((3, 7), torch.float32)],
+             lambda x, s=src: [group.broadcast(x, src=s)])
+    return out
+
+
+def train_families(rank, world, job):
+    """Partitioned training of each case of ``job["cases"]`` (arch, mode
+    and exchange options: L, codec, codec_param, overlap_chunks) from the
+    JAX weights of its arch (``job["params"][arch]``, numpy): this rank's
+    loss share and its gradient, summed over the ranks by the staged
+    ``all_reduce`` (every leaf f32, ``tree_leaves`` order), with what the
+    forward + backward booked (bytes by kind, calls, halo and state
+    calls); then ``len(job["steps"])`` train steps from the same weights →
+    the params every rank ends on and each step's metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.train_step import _grads_of, build_train_step
+    from repro_torch.utils.tree import tree_leaves
+    group = get_seq_group("seq")
+
+    def tensors(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in b.items()}
+
+    out = {}
+    for label, c in job["cases"].items():
+        cfg = get_config(c["arch"]).reduced(**job["reduced"])
+        params = params_from_numpy(job["params"][c["arch"]], cfg)
+        xcfg = _xcfg(c, world)
+        group.reset_stats()
+        loss, parts, grads = _grads_of(params, tensors(job["batch"][label]),
+                                       cfg, xcfg)
+        st = group.stats
+        booked = dict(payload=st.payload_bytes, meta=st.meta_bytes,
+                      state=st.state_bytes, grad=st.grad_bytes,
+                      output=st.output_bytes, calls=st.calls,
+                      halo_calls=st.halo_calls, state_calls=st.state_calls)
+        summed = group.all_reduce(grads, kind="grad")
+        step = build_train_step(cfg, xcfg, OptConfig(lr=1e-3,
+                                                     warmup_steps=1))
+        p, o, metrics = params, adamw_init(params), []
+        for sb in job["steps"][label]:
+            p, o, m = step(p, o, tensors(sb))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[label] = dict(loss=float(loss), aux=float(parts["aux"]),
+                          grads=[_np(t) for t in summed], booked=booked,
+                          metrics=metrics,
+                          params=[_np(t) for t in tree_leaves(p)])
+    for label, c in job.get("broadcast", {}).items():
+        out[label] = _broadcast_grads(group, world, c)
+    return out
+
+
+def _broadcast_grads(group, world, c):
+    """The gradient of a loss of logits that reach every rank by the seq
+    group's ``broadcast``: the ViT's class logits (cross-entropy against
+    ``c["labels"]``) or an LM's ``last_only`` logits (their logsumexp),
+    each rank taking 1/P of it → (loss summed over the ranks, the gradient
+    summed by ``all_reduce``, the bytes booked)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.vit import forward_vit
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+    cfg = get_config(c["arch"]).reduced(dtype="float32")
+    params = params_from_numpy(c["params"], cfg)
+    xcfg = _xcfg(c, world)
+    leaves = tree_leaves(params)
+    live = [t.detach().requires_grad_() for t in leaves]
+    tree = tree_unflatten_like(params, live)
+    group.reset_stats()
+    if cfg.family == "vit":
+        logits = forward_vit(tree, torch.from_numpy(c["images"]), cfg, xcfg)
+        labels = torch.from_numpy(c["labels"]).long()
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+    else:
+        logits, _ = tfm.forward_lm(tree, {"tokens": torch.from_numpy(
+            c["tokens"])}, cfg, xcfg, last_only=True)
+        loss = torch.logsumexp(logits, dim=-1).mean()
+    share = loss / world
+    grads = torch.autograd.grad(share, live, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    st = group.stats
+    booked = dict(output=st.output_bytes, grad=st.grad_bytes,
+                  calls=st.calls)
+    summed = group.all_reduce(grads, kind="grad")
+    total = group.all_reduce([share.detach()[None]], kind="meta")[0]
+    return dict(loss=float(total[0]), grads=[_np(t) for t in summed],
+                logits=_np(logits), booked=booked)

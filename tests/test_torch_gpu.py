@@ -1203,3 +1203,26 @@ def test_two_rank_gradient_sum_on_the_card_matches_the_cpu(cuda_device,
         np.testing.assert_array_equal(a, b)
     if mode == "prism":
         assert all(min(r[mode]["booked"]["launches"]) > 0 for r in card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [2, 4])
+def test_collective_backwards_are_transposes_on_the_card(cuda_device, P):
+    """The staged collectives' backwards with CUDA tensors (staged through
+    pinned host memory), on P ranks sharing the card: Σ ⟨op(x), y⟩ =
+    Σ ⟨x, opᵀ(y)⟩ bit for bit (dyadic inputs: every sum exact), and each
+    backward's ``grad`` bytes what the CPU ranks book
+    (``tests/test_torch_grad_collectives.py``)."""
+    import _torch_ranks
+    from repro_torch.core.seq_group import spawn
+    runs = {dev: spawn(_torch_ranks.grad_collectives, P,
+                       dict(seed=3, device=dev), timeout=300)
+            for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card[0].keys() == cpu[0].keys()
+    for name in card[0]:
+        dot = sum(r[name]["dot"] for r in card)
+        assert dot == sum(r[name]["back"] for r in card), name
+        assert dot == sum(r[name]["dot"] for r in cpu), name
+        assert [r[name]["grad"] for r in card] == [r[name]["grad"]
+                                                   for r in cpu], name

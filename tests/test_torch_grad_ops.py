@@ -14,8 +14,8 @@
   both sides round the same f32 gradient, whose last bits differ, to
   bf16).
 * The counts and the bias take no gradient.
-* The staged collectives without a backward raise when an input requires
-  grad, before they touch the process group.
+* ``all_reduce``, the one staged collective without a backward, raises
+  when an input requires grad, before it touches the process group.
 * The recurrent scans give the same bits with and without autograd
   (their preallocated ``out=`` buffers take no gradient, so under
   autograd they stack their steps instead).
@@ -170,24 +170,15 @@ def test_the_bias_and_counts_take_no_gradient():
     assert counts.grad is None
 
 
-COLLECTIVES = {
-    "all_gather_packed": lambda g, t: g.all_gather_packed([t]),
-    "shift": lambda g, t: g.shift(t, 1),
-    "ring_shift": lambda g, t: g.ring_shift(t),
-    "pass_on": lambda g, t: g.pass_on(lambda got: (None, t * 2), 64, "cpu"),
-    "broadcast": lambda g, t: g.broadcast(t),
-    "all_reduce": lambda g, t: g.all_reduce([t]),
-}
-
-
-@pytest.mark.parametrize("name", sorted(COLLECTIVES))
-def test_collectives_without_a_backward_raise_under_grad(name):
-    """Rank 0 of a group of 2 (of 1 for the chain's ``pass_on``): each
-    raises before it reaches the process group (none is initialised)."""
-    group = SeqGroup("seq", 0, 1 if name == "pass_on" else 2)
+def test_collectives_without_a_backward_raise_under_grad():
+    """``all_reduce`` (the parameter gradients' sum) alone has no backward:
+    it raises before it reaches the process group (none is initialised).
+    Every other staged collective trains
+    (``tests/test_torch_grad_collectives.py``)."""
+    group = SeqGroup("seq", 0, 2)
     t = torch.ones(4, requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
-        COLLECTIVES[name](group, t)
+        group.all_reduce([t])
 
 
 def test_recurrent_scans_give_the_same_bits_under_autograd():

@@ -19,7 +19,13 @@ the bridge, 2 and 4 gloo ranks, one spawn per world size):
   (``grad``, f32) equal the shapes;
 * ``compressed_cross_pod_mean`` over 2 ranks against the single-process
   JAX formula (the mean of the ranks' compressed payloads, with error
-  feedback).
+  feedback);
+* the launcher on CPU ranks: reduced llama under ``prism``, and gemma2
+  (4 ranks: its halo) and hymba (2 ranks: the state hand-off), each
+  ending with bit-identical replicas.
+
+The other families' partitioned training is held against JAX in
+``tests/test_torch_train_seq_families.py``.
 
 Tolerances (PERF.md §6): gradients ≤ 2e-5 of each leaf's largest value,
 the loss ≤ 1e-5 relative, the two steps' metrics ≤ 1e-4.
@@ -202,6 +208,22 @@ def test_launcher_trains_prism_on_two_cpu_ranks(tmp_path):
     assert "replicas: bit-identical after 3 steps" in lines
     assert any(ln.startswith("done: loss ") and "mode=prism" in ln
                for ln in lines)
+
+
+@pytest.mark.parametrize("arch,ranks,halo,state", [
+    ("gemma2-27b", "4", 1, 0),        # parts of 16 > window 16 / 2: a halo
+    ("hymba-1.5b", "2", 0, 2)])       # one Mamba hand-off a layer
+def test_launcher_trains_other_families_on_cpu_ranks(tmp_path, arch, ranks,
+                                                     halo, state):
+    out = _launch("--device", "cpu", "--arch", arch, "--mode", "prism",
+                  "--ranks", ranks, "--steps", "2", "--batch", "2",
+                  "--seq", "64", "--ckpt-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "TRAIN OK"
+    assert "replicas: bit-identical after 2 steps" in lines
+    step0 = next(ln for ln in lines if ln.startswith("step    0 loss "))
+    assert f"{halo} halo calls, {state} state calls" in step0
 
 
 def test_launcher_asks_for_a_card_by_default():
