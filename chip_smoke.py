@@ -84,6 +84,18 @@ Phases, one line each (more for the kernel table):
                merged; the segment means of K+V [4, 256, 5·64] L 16;
                causal PRISM attention q [4, 256, 25, 64] over 5 KV heads,
                parts 0 and 1; each timed beside sdpa or ``mean()``.
+   Head width 16 (``dh16 kernels``; the reduced configs' width, every
+               example's): flash-decode at the reduced llama's generate
+               shape (B 2, S 16, 4/2 heads) in bf16 and f32, and at 8
+               splits, fully masked rows, S 1, a window with softcap, MHA
+               and G 8; the paged kernel at the reduced serving launcher's
+               pool (B 8, ps 8) in both types, ps 5 with shared pages and
+               a fully masked row; segment means of K+V [8, 64, 2·16] L 4
+               and the reduced ViT's [4, 100, 4·16] L 20; PRISM attention
+               at widths (16, 16) at the reduced prism train step's shape
+               (q [8, 64, 4, 16], 2 KV heads, causal, parts 0 and 1, f32)
+               and the reduced ViT's masked exchange (a row that sees no
+               key); the main shapes timed beside sdpa or ``mean()``.
 4. reference — small f32 models on the card against the same weights on
                the CPU: a llama decoded 12 steps; the same llama served by
                ``ServingRuntime`` in dense and paged mode with full and
@@ -157,8 +169,9 @@ Phases, one line each (more for the kernel table):
                at full width
                (each with all its layers where they fit beside nothing
                else, else fewer, whole local/global pairs for gemma2, and
-               at most ARCH_LAYERS: qwen 32 of 64, gemma2 24 of 46,
-               deepseek-moe 4 of 28, deepseek-v2 4 of 60, as its lines
+               at most ARCH_LAYERS: internlm2 12 of 24, qwen 8 of 64,
+               gemma2 6 of 46, deepseek-moe 2 of 28, deepseek-v2 2 of
+               60, as its lines
                say): the measured profile on the H100 presets at
                B 1, 8 and 32 with the anchor scale, decide and explain, and
                greedy generate under ``local`` with flash-decode launches
@@ -166,7 +179,7 @@ Phases, one line each (more for the kernel table):
                gemma2 (no ``prism_sim`` plan: it raises on windowed layers,
                as in the JAX package) a second time at B 1 from a
                4608-token prompt, so its window masks every decode step;
-               deepseek-moe-16b (cut to 4 of its 28 layers for time: its
+               deepseek-moe-16b (cut to 2 of its 28 layers for time: its
                host loop was most of the phase; its prompts prefill by
                the decode loop, as ``auto`` keeps the moe family) also
                under ``prism_sim`` and served through the slot pool: 5
@@ -241,10 +254,11 @@ Phases, one line each (more for the kernel table):
                asserted, the same tokens on both ranks, their agreement
                with ``local`` in bf16; the same weights in f32
                token-exact against ``local``).
-15. audio, vlm — whisper-large-v3 (32 encoder + 32 decoder layers) and
-               llama-3.2-vision-11b (40 layers, 8 of them cross; every
+15. audio, vlm — whisper-large-v3 (8 of its 32 encoder and 8 of its 32
+               decoder layers) and llama-3.2-vision-11b (20 of its 40
+               layers, 4 of them cross; XATTN_ARCH_CUT; every
                gate at 0.5: the reference's zero gate would erase the
-               cross-attention) at full width and depth: ``prefill_memory``
+               cross-attention) at full width: ``prefill_memory``
                (whisper's encoder over 1500 frames), the measured profile
                at B 1 and 4, one ``dispatch`` with the memory input, and
                greedy ``generate`` [4, 32] + 16 with the memory under
@@ -263,16 +277,17 @@ Phases, one line each (more for the kernel table):
                + 16 under ``voltage`` (the memory's shard partials
                counted apart, the same tokens on both ranks, the same
                weights in f32 token-exact against ``local``).
-17. hybrid, ssm — hymba-1.5b (16 of its 32 layers of attention beside a
-               Mamba mixer, ARCH_LAYERS) and xlstm-350m (3 groups of 7
-               mLSTM + 1 sLSTM blocks, full depth) at full width: the measured profile at
+17. hybrid, ssm — hymba-1.5b (4 of its 32 layers of attention beside a
+               Mamba mixer) and xlstm-350m (1 of its 3 groups of 7 mLSTM
+               + 1 sLSTM blocks; ARCH_LAYERS) at full width: the measured
+               profile at
                B 1 and 4, decide, greedy ``generate`` [4, 32] + 16 under
                ``local`` and ``prism_sim`` (the decode-loop prefill),
                flash-decode launches asserted (hymba: every layer every
                step; xLSTM: none), decode ms a step, device idle share,
                the slot pool (3 requests, 2 slots: one re-admitted) held
                against B 1 ``generate``, peak memory.
-18. ssm-seq  — hymba-1.5b cut to 8 layers and xlstm-350m whole, full
+18. ssm-seq  — hymba-1.5b cut to 4 layers and xlstm-350m to 1 group, full
                width, on 2 ranks sharing the card: ``forward_lm(last_only)``
                B 4, N 512 under ``local``, ``voltage`` and ``prism(L=16)``,
                every mixer starting from the state the rank before ended
@@ -307,15 +322,22 @@ Phases, one line each (more for the kernel table):
                to the uninterrupted run's params and moments, bit for bit.
 21. train    — llama3.2-1b at full width and depth (bf16 params, f32
                moments), B 4, N 512, ``local``, 5 AdamW steps through
-               ``Trainer``: each step's ms and loss, tokens/s, the last
-               step's device idle share (torch.profiler), peak memory.
+               ``Trainer``, each layer rematerialised (the default), then
+               without (``remat.disabled``): each step's ms and loss,
+               tokens/s, the last step's device idle share
+               (torch.profiler), peak memory, and the memory one more
+               forward holds for its backward.
 22. train-seq — llama3.2-1b cut to 4 of 16 layers at full width on 2 ranks
-               sharing the card, B 4, N 512, 3 steps each under
-               ``voltage`` and ``prism(L=16)``: step ms, staged ms and
-               share, the bytes received by kind (payload, meta, grad)
-               asserted equal to the shapes, one segment-means and one
-               PRISM-attention launch a layer a step under ``prism``, the
-               loss at each step, the replicas bit-identical.
+               sharing the card, B 4, N 512, 2 steps each under
+               ``voltage`` and ``prism(L=16)``, rematerialised: step ms,
+               staged ms and share, the bytes received by kind (payload,
+               meta, grad) asserted equal to the shapes (the recompute
+               sends nothing), two segment-means and two PRISM-attention
+               launches a layer a step under ``prism`` (the forward and
+               its recompute), the loss at each step, the replicas
+               bit-identical; then launch.train's reduced llama (4/2
+               heads of 16) under ``prism(L=4)``, B 8, N 128, 2 steps:
+               PRISM attention at widths (16, 16).
 23. train-families — every family's partitioned training, small f32
                configs (heads of 64; MLA at (192, 128)), B 2, N 32, card
                ranks against CPU ranks (gradient ≤ 1e-4 of each leaf's
@@ -335,8 +357,23 @@ Phases, one line each (more for the kernel table):
                ``prism(L=16)``: ms, staged ms and share, the bytes received
                by kind (payload, meta, state, grad: the halo's and the
                state's cotangents in it) asserted equal to the shapes,
-               halo and hand-off calls, the kernels' launches, peak
-               memory, the ranks bit-identical.
+               halo and hand-off calls, the kernels' launches (forward
+               and recompute), peak memory, the ranks bit-identical.
+Between 4 and 5 (its number kept out of the others' way):
+   examples  — the port's twins of the JAX package's four examples
+               (``repro_torch.examples``: quickstart, serve_adaptive,
+               train_lm, finetune_prism) in this process on the card at
+               their reference configs, each printing its reference's
+               lines and closing line; the reduced serving launcher
+               through the dense slot pool and the paged pool; a reduced
+               f32 llama's greedy tokens on the card against the CPU
+               (``generate`` and the paged pool): flash-decode at head
+               width 16 in both layouts and types, launches counted.
+
+``python3 chip_smoke.py --only dh16,examples,train,train-seq,
+train-seq-families [--remat on|off|both]`` runs those phases alone after
+the build (the training phases rematerialised, without, or both in
+turn), for measurements; it prints no kernels line.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure (a rank
@@ -577,6 +614,7 @@ DECODE_ARCHS = (("internlm2-1.8b", 16, 8), ("qwen1.5-32b", 40, 40),
 def report_timed(case, label: str) -> dict:
     """Check, time and print one flash-decode case → its kernels-line
     numbers."""
+    import torch
     errs = check_case(case)
     t = time_case(case)
     B, H, dh = case["q"].shape
@@ -585,9 +623,11 @@ def report_timed(case, label: str) -> dict:
     cap = case["softcap"]
     extra = ("" if cap is None else f" softcap={cap:g}") + (
         "" if case["scale"] is None else f" scale={case['scale']:.6g}")
-    print(f"[kernel] flash_decode {label} bf16 B={B} S={S} H={H} Hk={Hk} "
-          f"dh={dh}{extra}, splits {splits} ({B * Hk * splits} CTAs): err "
-          f"{err_text(errs)} (tol 1e-3) | kernel {t['ms']*1e3:.2f} us, bound "
+    f32 = case["q"].dtype == torch.float32
+    print(f"[kernel] flash_decode {label} {'f32' if f32 else 'bf16'} B={B} "
+          f"S={S} H={H} Hk={Hk} dh={dh}{extra}, splits {splits} "
+          f"({B * Hk * splits} CTAs): err {err_text(errs)} (tol "
+          f"{'1e-5' if f32 else '1e-3'}) | kernel {t['ms']*1e3:.2f} us, bound "
           f"{t['bound_ms']*1e3:.2f} us ({t['bound_by']}; whole cache "
           f"{t['full_bound_ms']*1e3:.2f} us), plain {t['plain_ms']*1e3:.2f} "
           f"us, sdpa yardstick {t['library_ms']*1e3:.2f} us"
@@ -845,12 +885,13 @@ def phase_gemma_shard_partial() -> dict:
 # ---------------------------------------------------------------------------
 
 def paged_case(B, ps, MP, dh, dtype, *, seed, softcap=None, shuffled=True,
-               shared=False, trash=True, masked_row=False, lens=None):
+               shared=False, trash=True, masked_row=False, lens=None,
+               heads=(N_HEADS, N_KV)):
     """Pools of P = B·MP pages plus the trash page (id P); ragged lengths
     (or ``lens``); each row's pages drawn from a permutation of the page
     ids (or in order), table entries past a row's pages on the trash page
     (or on other pages); ``shared`` points row 1's first pages at
-    row 0's."""
+    row 0's; ``heads`` = (query heads, KV heads)."""
     import torch
     from repro_torch.kernels.flash_decode import validity_bias
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -858,9 +899,9 @@ def paged_case(B, ps, MP, dh, dtype, *, seed, softcap=None, shuffled=True,
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
     P = B * MP
-    q = randn(B, N_HEADS, dh)
-    k_pool = randn(P + 1, ps, N_KV, dh)
-    v_pool = randn(P + 1, ps, N_KV, dh)
+    q = randn(B, heads[0], dh)
+    k_pool = randn(P + 1, ps, heads[1], dh)
+    v_pool = randn(P + 1, ps, heads[1], dh)
     lens = (torch.randint(1, MP * ps + 1, (B,), generator=g, device="cuda")
             if lens is None else torch.tensor(lens, device="cuda"))
     if masked_row:
@@ -913,9 +954,9 @@ def check_paged(label: str, case) -> float:
             raise AssertionError(f"flash_decode_paged {label}: fully masked "
                                  f"row: o = sum v off by "
                                  f"{errs['masked o']:.3e} > {tol:g}")
-    print(f"[kernel] flash_decode_paged {label}, splits "
-          f"{splits_of(args[0], N_KV, S)}: err {err_text(errs)} (tol "
-          f"{tol:g})", flush=True)
+    splits = splits_of(args[0], args[1].shape[2], S)
+    print(f"[kernel] flash_decode_paged {label}, splits {splits}: err "
+          f"{err_text(errs)} (tol {tol:g})", flush=True)
     return (o_g[live] - o_w[live]).abs().max().item()
 
 
@@ -4472,6 +4513,11 @@ def phase_moe_seq(card: str) -> dict:
 
 WHISPER, VISION = "whisper-large-v3", "llama-3.2-vision-11b"
 XATTN_ARCHS = (WHISPER, VISION)
+# [arch]'s depth cuts (for time): whisper 8 + 8 of its 32 + 32
+# layers (its encoder over 1500 frames is most of the phase), the vision
+# model 20 of its 40 (4 of 8 cross layers)
+XATTN_ARCH_CUT = {WHISPER: dict(encoder_layers=8, n_layers=8),
+                  VISION: dict(n_layers=20)}
 XATTN_GATE = 0.5        # every vlm gate: tanh(0) erases the cross-attention
 # [xattn-seq]: whisper cut to 4 encoder + 4 decoder layers, the vision
 # model to one group (4 dense layers and its cross layer), full width
@@ -4854,6 +4900,7 @@ def phase_xattn_arch(card: str, arch: str) -> dict:
     cross-attention apart and asserted, the prefill (the memory and the
     prompt) and the decode steps timed apart, the device's idle share
     (``local``) and the peak memory → launches."""
+    import dataclasses
     import gc
     import torch
     from repro_torch.api import ExecutionPlan, InferenceSession
@@ -4866,7 +4913,8 @@ def phase_xattn_arch(card: str, arch: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              **XATTN_ARCH_CUT.get(arch, {}))
     params = registry.init_params(cfg, seed=0, device="cuda")
     _open_gates(params)
     plans = [ExecutionPlan.local()] + (
@@ -4885,7 +4933,8 @@ def phase_xattn_arch(card: str, arch: str) -> dict:
     torch.cuda.synchronize()
     enc = (f"{cfg.encoder_layers} encoder layers, " if cfg.family == "audio"
            else "")
-    print(f"[session] {arch} full width and depth ({enc}{n_self} "
+    depth = "cut" if arch in XATTN_ARCH_CUT else "and depth"
+    print(f"[session] {arch} full width {depth} ({enc}{n_self} "
           f"self-attention and {n_mem} cross-attention decoder layers, d "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
           f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
@@ -5369,11 +5418,13 @@ def xattn_kernel_rows(xa: dict, xk: dict, xs: dict, replaces: dict,
 
 HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
 # [arch]'s depth cuts (PERF.md §4), each a host-bound loop over layers that
-# kept the script near its time limit: deepseek-moe-16b's dense first layer
-# and 3 of experts; half of qwen1.5-32b's 64 and of hymba's 32; 12 of
-# gemma2's 23 local/global pairs
-ARCH_LAYERS = {MOE: 4, MLA_ARCH: 4, "qwen1.5-32b": 32, GEMMA: 24,
-               HYMBA: 16}
+# kept the script near its time limit: the moe family's dense first layer
+# and one of experts; 8 of qwen1.5-32b's 64, 3 of gemma2's 23
+# local/global pairs, 4 of hymba's 32, half of internlm2-1.8b's 24, one of
+# xlstm-350m's 3 groups (for the time of [examples] and the recompute;
+# before them: 4, 4, 32, 24, 16, whole, whole)
+ARCH_LAYERS = {MOE: 2, MLA_ARCH: 2, "qwen1.5-32b": 8, GEMMA: 6, HYMBA: 4,
+               "internlm2-1.8b": 12, XLSTM: 8}
 SSM_ARCHS = (HYMBA, XLSTM)
 # [arch]'s slot pool: more requests than slots, so a slot is re-admitted
 SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS, SSM_SERVE_CHUNK = 3, 2, 8
@@ -5381,9 +5432,10 @@ SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS, SSM_SERVE_CHUNK = 3, 2, 8
 # primed cache (over a whole generate, 47 steps of ~2000 launches, the
 # profiler alone took most of a minute)
 SSM_PROFILE_STEPS = 4
-# [ssm-seq]: full width; hymba cut to 8 of its 32 layers, xLSTM whole (its
-# 21 mLSTM states hand on 352 MB a hop at B 4)
-SSM_SEQ = ((HYMBA, dict(n_layers=8)), (XLSTM, {}))
+# [ssm-seq]: full width; hymba cut to 4 of its 32 layers, xLSTM to one of
+# its 3 groups (8 layers and whole before, for time: its 21 mLSTM states
+# handed on 352 MB a hop at B 4)
+SSM_SEQ = ((HYMBA, dict(n_layers=4)), (XLSTM, dict(n_layers=8)))
 # the small f32 models: hymba at G 5 (10/2 heads of 64) with n_heads·hd = d
 # (hymba runs only there, in both packages), and a two-group xLSTM
 SMALL_SSM = {
@@ -6071,7 +6123,7 @@ def ssm_kernel_rows(sa: dict, sk: dict, ss: dict, replaces: dict,
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_N, TRAIN_STEPS = 4, 512, 5          # [train]: full depth
-TRAIN_SEQ_LAYERS, TRAIN_SEQ_STEPS = 4, 3            # [train-seq], 2 ranks
+TRAIN_SEQ_LAYERS, TRAIN_SEQ_STEPS = 4, 2            # [train-seq], 2 ranks
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)           # [train-reference]
 TRAIN_REF_STEPS, TRAIN_REF_N = 2, 32
 # (B, Np, H, Hk, dh, P, L, part, causal, masked): llama3.2-1b's prism train
@@ -6532,63 +6584,129 @@ def _profile_step(fn) -> tuple:
     return out, wall, busy
 
 
-def phase_train(card: str) -> None:
+def _forward_held(cfg, params, batch, xcfg) -> tuple:
+    """One forward and backward of the train step's loss (as
+    ``_grads_of`` runs them) → (GB allocated between the end of the
+    forward and its backward: what the backward keeps alive, the logits'
+    f32 log-sum-exp pieces included; GB of the tensors autograd saved
+    outside rematerialised regions, parameters not counted: without
+    rematerialisation every layer's activations; the peak GB of the
+    forward and backward alone)."""
+    import torch
+    from repro_torch.train.train_step import loss_fn
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+    leaves = tree_leaves(params)
+    owned = {t.untyped_storage().data_ptr() for t in leaves}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in owned:
+            saved[st.data_ptr()] = st.nbytes()
+        return t
+    live = [t.detach().requires_grad_(t.is_floating_point()) for t in leaves]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = loss_fn(tree_unflatten_like(params, live), batch, cfg,
+                          xcfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - m0
+    torch.autograd.grad(loss, [t for t in live if t.requires_grad])
+    torch.cuda.synchronize()
+    return (held / 1e9, sum(saved.values()) / 1e9,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_train(card: str) -> dict:
     """``[train]``: llama3.2-1b at full width and depth, bf16 params and
     f32 moments, B 4 N 512 under ``local``, TRAIN_STEPS AdamW steps through
     ``Trainer`` (no checkpoint: the state is ~12 GB; its directory is a
-    fresh temporary one, so no earlier run's checkpoint is restored) →
-    each step's ms and loss, tokens/s, the last step's device idle share
-    (torch.profiler), peak memory."""
+    fresh temporary one, so no earlier run's checkpoint is restored), with
+    each layer rematerialised (the default) and then without
+    (``remat.disabled``) → per mode each step's ms and loss, tokens/s,
+    the last step's device idle share (torch.profiler), peak memory, and
+    one more forward's held memory, saved-tensor bytes and the peak of the
+    forward and backward alone."""
+    import contextlib
+    import gc
     import tempfile
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.models import remat
     from repro_torch.train.loop import Trainer, TrainerConfig
     from repro_torch.utils.tree import param_count
     cfg = get_config(ARCH)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ckpt_dir = tempfile.TemporaryDirectory()
-    tr = Trainer(cfg, ExchangeConfig(), TrainerConfig(
-        steps=TRAIN_STEPS, ckpt_every=10 ** 9, batch_size=TRAIN_B,
-        seq_len=TRAIN_N, ckpt_dir=ckpt_dir.name), device="cuda")
-    inner, ms, prof = tr.step_fn, [], {}
+    out = {}
+    for mode in ("remat", "no remat"):
+        gc.collect()                   # the last mode's trainer: a cycle
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ckpt_dir = tempfile.TemporaryDirectory()
+        tr = Trainer(cfg, ExchangeConfig(), TrainerConfig(
+            steps=TRAIN_STEPS, ckpt_every=10 ** 9, batch_size=TRAIN_B,
+            seq_len=TRAIN_N, ckpt_dir=ckpt_dir.name), device="cuda")
+        inner, ms, prof = tr.step_fn, [], {}
 
-    def timed(params, opt, batch):
-        if len(ms) == TRAIN_STEPS - 1:
-            out, wall, busy = _profile_step(lambda: inner(params, opt,
-                                                          batch))
-            prof.update(wall=wall, busy=busy)
-            ms.append(wall)
-            return out
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = inner(params, opt, batch)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-    tr.step_fn = timed
-    with ckpt_dir:
-        tr.run()
-    losses = [m["loss"] for m in tr.metrics_log]
-    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
-        raise AssertionError(f"[train] losses {losses}")
-    steady = float(np.median(ms[1:-1]))
-    print(f"[train] {ARCH} full width and depth ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, "
-          f"{param_count(tr.params) / 1e9:.3f} B params bf16, AdamW moments "
-          f"f32), B {TRAIN_B} N {TRAIN_N}, local, {TRAIN_STEPS} steps "
-          f"through Trainer: step ms " + ", ".join(f"{t:.1f}" for t in ms)
-          + f" (the last under torch.profiler); steady {steady:.1f} ms = "
-          f"{TRAIN_B * TRAIN_N / steady * 1e3:.0f} tokens/s; last step "
-          f"kernels busy {prof['busy']:.1f} of {prof['wall']:.1f} ms (device "
-          f"idle {1 - prof['busy'] / prof['wall']:.1%}); peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss "
-          + " → ".join(f"{x:.4f}" for x in losses) + f" [{card}]",
-          flush=True)
-    del tr
+        def timed(params, opt, batch):
+            if len(ms) == TRAIN_STEPS - 1:
+                res, wall, busy = _profile_step(lambda: inner(params, opt,
+                                                              batch))
+                prof.update(wall=wall, busy=busy)
+                ms.append(wall)
+                return res
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inner(params, opt, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+        tr.step_fn = timed
+        off = remat.disabled() if mode == "no remat" else \
+            contextlib.nullcontext()
+        with ckpt_dir, off:
+            tr.run()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            held, saved, fb_peak = _forward_held(
+                cfg, tr.params, tr.batch_for_step(0), ExchangeConfig())
+        losses = [m["loss"] for m in tr.metrics_log]
+        if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
+            raise AssertionError(f"[train] {mode}: losses {losses}")
+        steady = float(np.median(ms[1:-1]))
+        print(f"[train] {ARCH} full width and depth ({cfg.n_layers} layers, "
+              f"d {cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"{param_count(tr.params) / 1e9:.3f} B params bf16, AdamW "
+              f"moments f32), B {TRAIN_B} N {TRAIN_N}, local, {mode}, "
+              f"{TRAIN_STEPS} steps through Trainer: step ms "
+              + ", ".join(f"{t:.1f}" for t in ms)
+              + f" (the last under torch.profiler); steady {steady:.1f} ms ="
+              f" {TRAIN_B * TRAIN_N / steady * 1e3:.0f} tokens/s; last step "
+              f"kernels busy {prof['busy']:.1f} of {prof['wall']:.1f} ms "
+              f"(device idle {1 - prof['busy'] / prof['wall']:.1%}); peak "
+              f"{peak:.2f} GB (a forward and backward alone: "
+              f"{fb_peak:.2f} GB); a forward holds {held:.2f} GB for its "
+              f"backward, autograd saving {saved:.2f} GB outside "
+              f"rematerialised regions; loss "
+              + " → ".join(f"{x:.4f}" for x in losses) + f" [{card}]",
+              flush=True)
+        out[mode] = dict(peak=peak, steady=steady, held=held, saved=saved,
+                         fb_peak=fb_peak, losses=losses)
+        del tr, inner, timed
+    on, no = out["remat"], out["no remat"]
+    print(f"[train] rematerialised: peak {on['peak']:.2f} GB (without "
+          f"{no['peak']:.2f} GB; earlier runs, PERF.md §5: 39.92 / 40.99 "
+          f"GB), steady step {on['steady']:.1f} ms (without "
+          f"{no['steady']:.1f} ms; earlier runs 209.3 / 198.5 ms), held "
+          f"for the backward {on['held']:.2f} GB "
+          f"(without {no['held']:.2f} GB), forward + backward peak "
+          f"{on['fb_peak']:.2f} GB (without {no['fb_peak']:.2f} GB) "
+          f"[{card}]", flush=True)
+    gc.collect()
     torch.cuda.empty_cache()
+    return out
 
 
 # --- [train-seq]: llama3.2-1b at full width on 2 ranks ---------------------
@@ -6608,14 +6726,45 @@ def train_seq_bytes(cfg, mode: str, P: int, n_params: int) -> dict:
                 meta=(P - 1) * 3 * 4)
 
 
-def _train_seq_rank(rank, world):
+def _warm_remat() -> float:
+    """Seconds of this process's first rematerialised call, made on a
+    scalar before anything is timed: torch's checkpoint imports
+    ``torch._dynamo`` on its first call in a process."""
+    import torch
+    from repro_torch.models import remat
+    t0 = time.perf_counter()
+    x = torch.ones(1, device="cuda", requires_grad=True)
+    remat.region(torch.sin, x).sum().backward()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _remat_mode(remat_on: bool):
+    """A context with rematerialisation on (the default) or off."""
+    import contextlib
+    from repro_torch.models import remat
+    return contextlib.nullcontext() if remat_on else remat.disabled()
+
+
+def _digest(tree) -> str:
+    import hashlib
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    h = hashlib.sha1()
+    for t in tree_leaves(tree):
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _train_seq_rank(rank, world, remat_on=True):
     """One rank of llama3.2-1b cut to TRAIN_SEQ_LAYERS layers at full width
     on the shared card: TRAIN_SEQ_STEPS steps under ``voltage`` and
     ``prism(L=16)`` from the same weights → per step ms, staged ms, bytes
-    by kind, kernel launches and loss, and the digest of the final
-    params."""
+    by kind, kernel launches and loss, and the digest of the final params;
+    then DH16_TRAIN's steps of launch.train's reduced llama under
+    ``prism`` (head width 16) → their launches, losses and digest."""
     import dataclasses
-    import hashlib
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -6627,15 +6776,16 @@ def _train_seq_rank(rank, world):
     from repro_torch.models import registry
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import build_train_step
-    from repro_torch.utils.tree import param_count, tree_leaves
+    from repro_torch.utils.tree import param_count
     group = get_seq_group("seq")
+    warm = _warm_remat() if remat_on else 0.0
     cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_SEQ_LAYERS)
     params0 = registry.init_params(cfg, seed=0, device="cuda")
     ds = SyntheticLMDataset(cfg.vocab_size, LM_N, LM_B)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.sample(
         np.random.RandomState(1000 + s)).items()}
         for s in range(TRAIN_SEQ_STEPS)]
-    out = dict(n_params=param_count(params0), steps={})
+    out = dict(n_params=param_count(params0), steps={}, warm_s=warm)
     for mode in ("voltage", "prism"):
         xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
                               seq_shards=world, L=LM_L)
@@ -6647,7 +6797,8 @@ def _train_seq_rank(rank, world):
             before = (segment_means.launches, prism_attention.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p, o, m = step(p, o, b)
+            with _remat_mode(remat_on):
+                p, o, m = step(p, o, b)
             torch.cuda.synchronize()
             st = group.stats
             rows.append(dict(
@@ -6657,34 +6808,62 @@ def _train_seq_rank(rank, world):
                 grad=st.grad_bytes, loss=float(m["loss"]),
                 launches=(segment_means.launches - before[0],
                           prism_attention.launches - before[1])))
-        h = hashlib.sha1()
-        for t in tree_leaves(p):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes())
-        out["steps"][mode] = dict(rows=rows, digest=h.hexdigest())
+        out["steps"][mode] = dict(rows=rows, digest=_digest(p))
         del p, o
         torch.cuda.empty_cache()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    tr = DH16_TRAIN
+    rcfg = get_config(ARCH).reduced(vocab_size=tr["vocab"])
+    p = registry.init_params(rcfg, seed=0, device="cuda")
+    o = adamw_init(p)
+    step = build_train_step(rcfg, ExchangeConfig(
+        ExchangeMode.PRISM, seq_axis="seq", seq_shards=world, L=tr["L"]))
+    ds = SyntheticLMDataset(rcfg.vocab_size, tr["N"], tr["B"])
+    before = (segment_means.launches, prism_attention.launches)
+    losses = []
+    for i in range(tr["steps"]):
+        b = {k: torch.from_numpy(v).cuda() for k, v in ds.sample(
+            np.random.RandomState(2000 + i)).items()}
+        with _remat_mode(remat_on):
+            p, o, m = step(p, o, b)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out["reduced"] = dict(
+        n_layers=rcfg.n_layers, losses=losses, digest=_digest(p),
+        launches=(segment_means.launches - before[0],
+                  prism_attention.launches - before[1]))
     return out
 
 
-def phase_train_seq(card: str) -> dict:
+def phase_train_seq(card: str, remat_on: bool = True) -> dict:
     """``[train-seq]``: llama3.2-1b cut to 4 of 16 layers at full width on 2
-    ranks sharing the card → segment-means and PRISM-attention launches
-    of the ``prism`` train steps, summed over the ranks."""
+    ranks sharing the card, each layer rematerialised (``remat_on``, the
+    default) or not; then launch.train's reduced llama under ``prism`` at
+    head width 16 → segment-means and PRISM-attention launches of the
+    ``prism`` train steps (full width; head width 16), summed over the
+    ranks."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.seq_group import spawn
+    runs = 2 if remat_on else 1        # the forward and its recompute
+    label = "rematerialised" if remat_on else "without rematerialisation"
     t0 = time.perf_counter()
-    ranks = spawn(_train_seq_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    ranks = spawn(_train_seq_rank, LM_P, remat_on, timeout=RANK_TIMEOUT_S)
     cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_SEQ_LAYERS)
     n_params = ranks[0]["n_params"]
     print(f"[train-seq] {ARCH} cut to {TRAIN_SEQ_LAYERS} of 16 layers at full"
           f" width (d {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e9:.3f} B params bf16, f32 moments) on {LM_P} ranks "
           f"sharing the card, B {LM_B} N {LM_N}, {TRAIN_SEQ_STEPS} steps "
-          f"each; {time.perf_counter() - t0:.1f} s with rank start-up; peak "
-          f"{max(r['peak_gb'] for r in ranks):.2f} GB a rank", flush=True)
+          f"each, {label}; {time.perf_counter() - t0:.1f} s with rank "
+          f"start-up (the first rematerialised call "
+          f"{max(r['warm_s'] for r in ranks):.1f} s of it: torch imports "
+          f"torch._dynamo once a process); peak "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB a rank (earlier "
+          f"runs without rematerialisation, PERF.md §5: 15.55 GB; steady "
+          f"steps voltage 2474.1 / 1907.0 ms, prism 2025.1 / 1999.0 ms) "
+          f"[{card}]",
+          flush=True)
     launches = {"segment_means": 0, "prism_attention": 0}
     for mode in ("voltage", "prism"):
         want = train_seq_bytes(cfg, mode, LM_P, n_params)
@@ -6700,10 +6879,10 @@ def phase_train_seq(card: str) -> dict:
                             f"[train-seq] {mode} rank {rank}: {kind} bytes "
                             f"{row[kind]} != {n} from the shapes")
                 sm, pa = row["launches"]
-                if mode == "prism" and (sm, pa) != (cfg.n_layers,
-                                                    cfg.n_layers):
+                want_n = runs * cfg.n_layers
+                if mode == "prism" and (sm, pa) != (want_n, want_n):
                     raise AssertionError(f"[train-seq] prism: launches "
-                                         f"{(sm, pa)} a step, want one of "
+                                         f"{(sm, pa)} a step, want {runs} of "
                                          f"each a layer")
                 if mode == "prism":
                     launches["segment_means"] += sm
@@ -6725,6 +6904,29 @@ def phase_train_seq(card: str) -> dict:
                   f"prism_attention {rows[0]['launches'][1]} launches a step;"
                   f" loss " + " → ".join(f"{x:.4f}" for x in losses)
                   + f"; replicas bit-identical [{card}]", flush=True)
+    red = [r["reduced"] for r in ranks]
+    if len({r["digest"] for r in red}) != 1:
+        raise AssertionError("[train-seq] reduced llama prism: the replicas "
+                             "differ")
+    tr = DH16_TRAIN
+    want_n = runs * red[0]["n_layers"] * tr["steps"]
+    launches["segment_means_dh16"] = launches["prism_attention_dh16"] = 0
+    for rank, r in enumerate(red):
+        if r["launches"] != (want_n, want_n) or not all(
+                x == x and abs(x) < 1e9 for x in r["losses"]):
+            raise AssertionError(f"[train-seq] reduced llama prism rank "
+                                 f"{rank}: launches {r['launches']} (want "
+                                 f"{want_n} of each), losses {r['losses']}")
+        launches["segment_means_dh16"] += r["launches"][0]
+        launches["prism_attention_dh16"] += r["launches"][1]
+    print(f"[train-seq] launch.train's reduced {ARCH} (vocab {tr['vocab']}, "
+          f"{red[0]['n_layers']} layers, {DH16_HEADS[0]}/{DH16_HEADS[1]} "
+          f"heads of 16) on {LM_P} ranks, B {tr['B']} N {tr['N']}, "
+          f"prism(L={tr['L']}), {tr['steps']} steps, {label}: segment_means "
+          f"{red[0]['launches'][0]}, prism_attention {red[0]['launches'][1]}"
+          f" launches a rank (head width 16); loss "
+          + " → ".join(f"{x:.4f}" for x in red[0]["losses"])
+          + f"; replicas bit-identical [{card}]", flush=True)
     return launches
 
 
@@ -6944,11 +7146,12 @@ def _sum_in_pieces(group, grads) -> tuple:
             (group.stats.seconds - s0) * 1e3, sq)
 
 
-def _gemma_train_rank(rank, world):
+def _gemma_train_rank(rank, world, remat_on=True):
     """One rank of gemma2-27b's local/global pair at full width: one
     forward + backward (``_grads_of``, the train step's) of B 1 over
-    GEMMA_N tokens under ``prism(L=16)``, then the gradient sum → its ms,
-    staged ms, bytes by kind, halo calls, launches and peak memory."""
+    GEMMA_N tokens under ``prism(L=16)``, each layer rematerialised
+    (``remat_on``) or not, then the gradient sum → its ms, staged ms, bytes
+    by kind, halo calls, launches and peak memory."""
     import dataclasses
     import numpy as np
     import torch
@@ -6962,6 +7165,7 @@ def _gemma_train_rank(rank, world):
     from repro_torch.train.train_step import _grads_of
     from repro_torch.utils.tree import param_count
     group = get_seq_group("seq")
+    warm = _warm_remat() if remat_on else 0.0
     cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_TRAIN_LAYERS,
                               vocab_size=GEMMA_TRAIN_VOCAB)
     params = registry.init_params(cfg, seed=0, device="cuda")
@@ -6975,7 +7179,8 @@ def _gemma_train_rank(rank, world):
     group.reset_stats()
     before = (segment_means.launches, prism_attention.launches)
     t0 = time.perf_counter()
-    loss, _, grads = _grads_of(params, batch, cfg, xcfg)
+    with _remat_mode(remat_on):
+        loss, _, grads = _grads_of(params, batch, cfg, xcfg)
     torch.cuda.synchronize()
     fb_ms = (time.perf_counter() - t0) * 1e3
     st = group.stats
@@ -6991,7 +7196,7 @@ def _gemma_train_rank(rank, world):
                 loss=loss, sq=sq, n_params=param_count(params),
                 payload=st.payload_bytes, meta=st.meta_bytes,
                 grad=st.grad_bytes, state=st.state_bytes,
-                calls=st.calls, peak_fb_gb=peak_fb,
+                calls=st.calls, peak_fb_gb=peak_fb, warm_s=warm,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, **fb)
 
 
@@ -7017,13 +7222,13 @@ def hymba_train_bytes(cfg, mode: str, rank: int, n_params: int) -> dict:
                 meta=(P - 1) * 3 * 4, halo_calls=0)
 
 
-def _hymba_train_rank(rank, world):
+def _hymba_train_rank(rank, world, remat_on=True):
     """One rank of hymba-1.5b cut to HYMBA_TRAIN_LAYERS layers at full
     width: HYMBA_TRAIN_STEPS train steps (AdamW) under ``voltage`` and
-    ``prism(L=16)`` from the same weights → per step ms, staged ms, bytes
-    by kind, state calls, launches, loss, and the digest of the params."""
+    ``prism(L=16)`` from the same weights, each layer rematerialised
+    (``remat_on``) or not → per step ms, staged ms, bytes by kind, state
+    calls, launches, loss, and the digest of the params."""
     import dataclasses
-    import hashlib
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -7035,15 +7240,16 @@ def _hymba_train_rank(rank, world):
     from repro_torch.models import registry
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import build_train_step
-    from repro_torch.utils.tree import param_count, tree_leaves
+    from repro_torch.utils.tree import param_count
     group = get_seq_group("seq")
+    warm = _warm_remat() if remat_on else 0.0
     cfg = dataclasses.replace(get_config(HYMBA), n_layers=HYMBA_TRAIN_LAYERS)
     params0 = registry.init_params(cfg, seed=0, device="cuda")
     ds = SyntheticLMDataset(cfg.vocab_size, LM_N, LM_B)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.sample(
         np.random.RandomState(1000 + i)).items()}
         for i in range(HYMBA_TRAIN_STEPS)]
-    out = dict(n_params=param_count(params0), steps={})
+    out = dict(n_params=param_count(params0), steps={}, warm_s=warm)
     torch.cuda.reset_peak_memory_stats()
     for mode in ("voltage", "prism"):
         xcfg = ExchangeConfig(ExchangeMode(mode), seq_axis="seq",
@@ -7055,7 +7261,8 @@ def _hymba_train_rank(rank, world):
             before = (segment_means.launches, prism_attention.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p, o, m = step(p, o, b)
+            with _remat_mode(remat_on):
+                p, o, m = step(p, o, b)
             torch.cuda.synchronize()
             st = group.stats
             rows.append(dict(
@@ -7067,11 +7274,7 @@ def _hymba_train_rank(rank, world):
                 loss=float(m["loss"]),
                 launches=(segment_means.launches - before[0],
                           prism_attention.launches - before[1])))
-        h = hashlib.sha1()
-        for t in tree_leaves(p):
-            h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu()
-                     .numpy().tobytes())
-        out["steps"][mode] = dict(rows=rows, digest=h.hexdigest())
+        out["steps"][mode] = dict(rows=rows, digest=_digest(p))
         del p, o
         torch.cuda.empty_cache()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -7085,14 +7288,15 @@ def _check_bytes(tag: str, got: dict, want: dict) -> None:
                                  f"the shapes")
 
 
-def phase_train_seq_families(card: str) -> dict:
+def phase_train_seq_families(card: str, remat_on: bool = True) -> dict:
     """``[train-seq-families]``: gemma2-27b's local/global pair at full
     width (the vocabulary cut to GEMMA_TRAIN_VOCAB) on GEMMA_P ranks
     sharing the card (B 1, N GEMMA_N: parts of 2048, so the windowed
     layer's halo runs; one forward + backward + gradient sum, no
     optimizer: 4 ranks' f32 moments would not fit), then
     hymba-1.5b cut to HYMBA_TRAIN_LAYERS layers on LM_P ranks (B LM_B, N
-    LM_N, HYMBA_TRAIN_STEPS steps under each plan) → the kernels'
+    LM_N, HYMBA_TRAIN_STEPS steps under each plan), each layer
+    rematerialised (``remat_on``, the default) or not → the kernels'
     launches in both, summed over the ranks."""
     import dataclasses
     import gc
@@ -7114,7 +7318,10 @@ def phase_train_seq_families(card: str) -> dict:
     t0 = time.perf_counter()
     # the ranks' allocators grow segments in place (4 ranks share 80 GB)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    ranks = spawn(_gemma_train_rank, GEMMA_P, timeout=RANK_TIMEOUT_S)
+    runs = 2 if remat_on else 1        # the forward and its recompute
+    label = "rematerialised" if remat_on else "without rematerialisation"
+    ranks = spawn(_gemma_train_rank, GEMMA_P, remat_on,
+                  timeout=RANK_TIMEOUT_S)
     cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_TRAIN_LAYERS,
                               vocab_size=GEMMA_TRAIN_VOCAB)
     n_params = ranks[0]["n_params"]
@@ -7125,9 +7332,10 @@ def phase_train_seq_families(card: str) -> dict:
         want = gemma_train_bytes(cfg, rank, n_params)
         _check_bytes(f"[train-seq-families] gemma2 rank {rank}", r, want)
         sm, pa = r["launches"]
-        if (sm, pa) != (cfg.n_layers // 2, cfg.n_layers // 2):
+        want_n = runs * (cfg.n_layers // 2)
+        if (sm, pa) != (want_n, want_n):
             raise AssertionError(f"[train-seq-families] gemma2: launches "
-                                 f"{(sm, pa)}, want one of each a global "
+                                 f"{(sm, pa)}, want {runs} of each a global "
                                  f"layer")
         launches["segment_means_gemma"] += sm
         launches["prism_attention_gemma"] += pa
@@ -7139,7 +7347,8 @@ def phase_train_seq_families(card: str) -> dict:
               f"vocab cut to {cfg.vocab_size}; {n_params / 1e9:.3f} B "
               f"params bf16) "
               f"rank {rank} of {GEMMA_P}, B {GEMMA_TRAIN_B} N {GEMMA_N}, "
-              f"prism(L={GEMMA_L}): forward + backward {r['fb_ms']:.1f} ms, "
+              f"prism(L={GEMMA_L}), {label}: forward + backward "
+              f"{r['fb_ms']:.1f} ms, "
               f"staged {r['staged_ms']:.1f} ms "
               f"({r['staged_ms'] / r['fb_ms']:.1%}) in {r['fb_calls']} calls "
               f"with {r['halo_calls']} halo shifts; gradient sum "
@@ -7151,10 +7360,15 @@ def phase_train_seq_families(card: str) -> dict:
               f"(forward + backward) / {r['peak_gb']:.2f} GB [{card}]",
               flush=True)
     print(f"[train-seq-families] gemma2: {time.perf_counter() - t0:.1f} s with "
-          f"rank start-up; the ranks' summed gradients and losses "
-          f"bit-identical", flush=True)
+          f"rank start-up (the first rematerialised call "
+          f"{max(r['warm_s'] for r in ranks):.1f} s of it, before the "
+          f"timed step); the ranks' summed gradients and losses "
+          f"bit-identical (earlier runs without rematerialisation, "
+          f"PERF.md §5: forward + "
+          f"backward 3426.0–3500.9 / 2553.9–2563.3 ms, 17.10 GB a rank)",
+          flush=True)
     t0 = time.perf_counter()
-    ranks = spawn(_hymba_train_rank, LM_P, timeout=RANK_TIMEOUT_S)
+    ranks = spawn(_hymba_train_rank, LM_P, remat_on, timeout=RANK_TIMEOUT_S)
     cfg = dataclasses.replace(get_config(HYMBA), n_layers=HYMBA_TRAIN_LAYERS)
     n_params = ranks[0]["n_params"]
     for mode in ("voltage", "prism"):
@@ -7172,7 +7386,8 @@ def phase_train_seq_families(card: str) -> dict:
                                          f"{row['state_calls']} hand-offs")
                 sm, pa = row["launches"]
                 if mode == "prism":
-                    if (sm, pa) != (cfg.n_layers, cfg.n_layers):
+                    if (sm, pa) != (runs * cfg.n_layers,
+                                    runs * cfg.n_layers):
                         raise AssertionError(f"[train-seq-families] hymba "
                                              f"prism: launches {(sm, pa)}")
                     launches["segment_means_hymba"] += sm
@@ -7188,6 +7403,7 @@ def phase_train_seq_families(card: str) -> dict:
                   f"params bf16, f32 moments) rank {rank} of {LM_P}, B "
                   f"{LM_B} N {LM_N}, {mode}"
                   + ("" if mode == "voltage" else f"(L={LM_L})")
+                  + f", {label}"
                   + ": step ms " + ", ".join(f"{x:.1f}" for x in ms)
                   + f"; last step staged {staged:.1f} ms "
                   f"({staged / ms[-1]:.1%}) in {rows[-1]['calls']} calls; "
@@ -7201,8 +7417,12 @@ def phase_train_seq_families(card: str) -> dict:
                   + " → ".join(f"{x:.4f}" for x in losses)
                   + f"; replicas bit-identical [{card}]", flush=True)
     print(f"[train-seq-families] hymba: {time.perf_counter() - t0:.1f} s with "
-          f"rank start-up; peak {max(r['peak_gb'] for r in ranks):.2f} GB a "
-          f"rank", flush=True)
+          f"rank start-up (the first rematerialised call "
+          f"{max(r['warm_s'] for r in ranks):.1f} s of it); peak "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB a rank (earlier "
+          f"runs without rematerialisation, PERF.md §5: 8.78 GB; voltage "
+          f"steps 2103.5 / 2230.3 ms, prism 2050.5 / 2042.5 ms)",
+          flush=True)
     return launches
 
 
@@ -7238,6 +7458,266 @@ def train_family_kernel_rows(tsf: dict, exchange: dict, sk: dict,
              **{k: t[k] for k in keys}} for kname, n, t, shape in rows]
 
 
+# --- [dh16]: the kernels at the reduced configs' head width ---------------
+
+# the reduced llama of the examples and launchers: 4/2 heads of 16 (G 2)
+DH16_HEADS = (4, 2)
+# serve_adaptive's generate: B 2, a prompt of 8 and 8 new tokens
+DH16_GEN_B, DH16_GEN_S = 2, 16
+# the reduced serving launcher's paged pool in [examples]: ps 8
+DH16_PS = 8
+# launch.train's reduced default across 2 ranks (vocab 512, B 8, N 128,
+# prism(L=4)): [train-seq] runs it, so PRISM attention runs at (16, 16)
+DH16_TRAIN = dict(vocab=512, B=8, N=128, L=4, steps=2)
+
+
+def phase_dh16_kernels() -> dict:
+    """Flash-decode (dense and paged, bf16 and f32), segment means at Hk·16
+    columns and PRISM attention at (16, 16): the reduced configs' head
+    width (every example's and reduced launcher's), each against its plain
+    version at the shapes [examples] and the reduced prism train step give
+    it and at harder ones (8 splits, fully masked rows, S 1, a window and
+    softcap, MHA and G 8, page size 5 with shared pages, the ViT's masked
+    exchange); the main shapes timed → {row: kernels-line numbers}."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, Hk = DH16_HEADS
+    out = {}
+    for dtype in (bf16, f32):
+        out[("dense", dtype)] = report_timed(
+            decode_case(DH16_GEN_B, DH16_GEN_S, 16, dtype, seed=400,
+                        heads=DH16_HEADS, lens=[DH16_GEN_S] * DH16_GEN_B),
+            "reduced llama generate (dh 16)")
+    for label, case in (
+            ("bf16 B=1 S=2048 dh=16",
+             decode_case(1, 2048, 16, bf16, seed=401, heads=DH16_HEADS)),
+            ("f32 B=1 S=2048 dh=16",
+             decode_case(1, 2048, 16, f32, seed=402, heads=DH16_HEADS)),
+            ("bf16 B=4 S=48 dh=16, row 0 fully masked",
+             decode_case(4, 48, 16, bf16, seed=403, heads=DH16_HEADS,
+                         masked_row=True)),
+            ("f32 B=4 S=48 dh=16, row 0 fully masked",
+             decode_case(4, 48, 16, f32, seed=404, heads=DH16_HEADS,
+                         masked_row=True)),
+            ("bf16 B=1 S=1 dh=16",
+             decode_case(1, 1, 16, bf16, seed=405, heads=DH16_HEADS)),
+            ("f32 B=2 S=300 dh=16 window=256 softcap=50",
+             decode_case(2, 300, 16, f32, seed=406, heads=DH16_HEADS,
+                         window=256, softcap=50.0, lens=[300, 290])),
+            ("bf16 B=4 S=2048 4/4 heads dh=16 (MHA)",
+             decode_case(4, 2048, 16, bf16, seed=407, heads=(4, 4))),
+            ("f32 B=4 S=48 8/1 heads dh=16 (G 8)",
+             decode_case(4, 48, 16, f32, seed=408, heads=(8, 1)))):
+        errs = check_case(case)
+        tol = "1e-5" if case["q"].dtype == f32 else "1e-3"
+        S, hk = case["k"].shape[1], case["k"].shape[2]
+        print(f"[kernel] flash_decode {label}, splits "
+              f"{splits_of(case['q'], hk, S)}: err {err_text(errs)} (tol "
+              f"{tol})", flush=True)
+    for dtype in (bf16, f32):
+        name = "bf16" if dtype == bf16 else "f32"
+        case = paged_case(8, DH16_PS, 4, 16, dtype, seed=410 + (dtype == f32),
+                          heads=DH16_HEADS)
+        err = check_paged(f"{name} B=8 ps={DH16_PS} MP=4 dh=16 (the reduced "
+                          f"serving launcher's pool)", case)
+        t = time_paged(case)
+        print(f"[kernel] flash_decode_paged {name} dh=16 timed: kernel "
+              f"{t['ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"gather + sdpa {t['yardstick_ms'] * 1e3:.2f} us, the dense "
+              f"kernel on the gathered cache {t['dense_ms'] * 1e3:.2f} us",
+              flush=True)
+        out[("paged", dtype)] = dict(t, max_abs_err=err)
+    check_paged("bf16 ps=5 MP=12 dh=16, shared pages",
+                paged_case(4, 5, 12, 16, bf16, seed=412, shared=True,
+                           heads=DH16_HEADS))
+    check_paged("f32 ps=8 MP=6 dh=16, row 0 fully masked",
+                paged_case(4, 8, 6, 16, f32, seed=413, masked_row=True,
+                           heads=DH16_HEADS))
+    tr = DH16_TRAIN
+    np_ = tr["N"] // LM_P
+    seg = seg_case(tr["B"], np_, (Hk, 16), tr["L"], bf16, seed=414,
+                   masked=False)
+    err = check_seg_kv(f"bf16 K+V [{tr['B']}, {np_}, {Hk}·16] L={tr['L']} "
+                       f"(the reduced prism train step)", seg)
+    out["seg"] = dict(time_seg(seg), max_abs_err=err)
+    check_seg_kv("f32 K+V [4, 100, 4·16] L=20 masked (the reduced ViT's)",
+                 seg_case(4, 100, (4, 16), 20, f32, seed=415))
+    main = prism_case(tr["B"], np_, H, Hk, 16, LM_P, tr["L"], bf16,
+                      seed=416, causal=True, part=1, masked=False,
+                      strided=True)
+    err = check_prism(f"bf16 (16, 16) [{tr['B']}, {np_}] {H}/{Hk} heads "
+                      f"causal L={tr['L']} part 1, strided means (the "
+                      f"reduced prism train step)", main)
+    t = time_prism(main)
+    print(f"[kernel] prism_attention (16, 16) timed: kernel "
+          f"{t['ms'] * 1e3:.2f} us ({t['warps']} + 1 warps; 2 CTAs "
+          f"{t['split_ms'] * 1e3:.2f} us), bound {t['bound_ms'] * 1e3:.2f} "
+          f"us ({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us, sdpa "
+          f"{t['library_ms'] * 1e3:.2f} us", flush=True)
+    out["prism"] = dict(t, max_abs_err=err)
+    for label, case in (
+            ("bf16 (16, 16) part 0", prism_case(
+                tr["B"], np_, H, Hk, 16, LM_P, tr["L"], bf16, seed=417,
+                causal=True, part=0, masked=False, strided=True)),
+            ("f32 (16, 16) causal part 1", prism_case(
+                tr["B"], np_, H, Hk, 16, LM_P, tr["L"], f32, seed=418,
+                causal=True, part=1, masked=False, strided=True)),
+            ("bf16 (16, 16) ViT-shaped [4, 100] 4/4 heads masked L=20",
+             prism_case(4, 100, 4, 4, 16, 2, 20, bf16, seed=419,
+                        strided=True)),
+            ("f32 (16, 16) ViT-shaped, batch row 0 sees no key",
+             prism_case(4, 100, 4, 4, 16, 2, 20, f32, seed=420,
+                        dead_row=True))):
+        check_prism(label, case)
+    return out
+
+
+def dh16_kernel_rows(dk: dict, ex: dict, ts: dict, replaces: dict,
+                     keys: tuple) -> list:
+    """The kernels line's rows at head width 16: flash-decode dense and
+    paged in bf16 and f32 (launched by [examples]), segment means and
+    PRISM attention at (16, 16) (launched by [train-seq]'s reduced prism
+    train steps)."""
+    import torch
+    H, Hk = DH16_HEADS
+    tr = DH16_TRAIN
+    np_ = tr["N"] // LM_P
+    rows = []
+    for layout in ("dense", "paged"):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            shape = (f"B={DH16_GEN_B} S={DH16_GEN_S}" if layout == "dense"
+                     else f"B=8 ps={DH16_PS} MP=4")
+            kname = "flash_decode" + ("_paged" if layout == "paged" else "")
+            rows.append((kname, "flash_decode", ex[f"{layout}_{name}"],
+                         dk[(layout, dtype)],
+                         f"reduced llama {layout} decode at dh 16: {name} "
+                         f"{shape} {H}/{Hk} heads ([examples])"))
+    rows.append(("segment_means", "segment_means", ts["segment_means_dh16"],
+                 dk["seg"], f"reduced llama prism train step ({LM_P} ranks):"
+                 f" K and V bf16 [{tr['B']}, {np_}, {Hk}·16] L={tr['L']}"))
+    rows.append(("prism_attention", "prism_attention",
+                 ts["prism_attention_dh16"], dk["prism"],
+                 f"reduced llama prism train step ({LM_P} ranks): bf16 "
+                 f"[{tr['B']}, {np_}] {H}/{Hk} heads, widths (16, 16), causal"
+                 f" L={tr['L']} part 1"))
+    return [{"name": kname, "route": "cuda",
+             "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
+             "replaces": replaces[kname], "launches": n, "shape": shape,
+             **{k: t[k] for k in keys}} for kname, src, n, t, shape in rows]
+
+
+# --- [examples]: the port's examples on the card --------------------------
+
+def _captured(fn, *args, **kw):
+    """(``fn(*args, **kw)``, the lines it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_examples(card: str) -> dict:
+    """``[examples]``: the four twins of the JAX package's examples
+    (``repro_torch.examples``) in this process on the card at their
+    reference configs, each printing its reference's lines and closing
+    line; then the reduced serving launcher through the dense slot pool
+    and through the paged pool (bf16), and a reduced f32 llama's greedy
+    tokens on the card against the CPU (``generate`` and the paged pool,
+    token-exact), so that flash-decode runs at head width 16 in both
+    layouts and both types → each row's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (finetune_prism, quickstart,
+                                      serve_adaptive, train_lm)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged)
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import registry
+    from repro_torch.serving import ServingRuntime
+
+    def counts():
+        return flash_decode.launches, flash_decode_paged.launches
+
+    launches = dict.fromkeys(("dense_bf16", "dense_f32", "paged_bf16",
+                              "paged_f32"), 0)
+    serve_argv = ["--mode", "local", "--requests", "6", "--batch", "2",
+                  "--tokens", "4", "--prompt-len", "8"]
+    runs = (("quickstart", quickstart.main, [], "QUICKSTART OK", None),
+            ("serve_adaptive", serve_adaptive.main, [], "SERVE ADAPTIVE OK",
+             "dense_bf16"),
+            ("train_lm", train_lm.main, [], "TRAIN LM OK", None),
+            ("finetune_prism", finetune_prism.main, [], "FINETUNE PRISM OK",
+             None),
+            ("launch.serve", serve_launch.main, serve_argv, "SERVE OK",
+             "dense_bf16"),
+            ("launch.serve --pages", serve_launch.main,
+             serve_argv + ["--pages", "48", "--page-size", str(DH16_PS)],
+             "SERVE OK", "paged_bf16"))
+    for name, fn, argv, closing, row in runs:
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lines = _captured(fn, ["--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for ln in lines:
+            print(f"[examples] {name}: {ln}", flush=True)
+        if closing not in lines:
+            raise AssertionError(f"[examples] {name}: no {closing!r}")
+        dense, paged = (a - b for a, b in zip(counts(), before))
+        if row is not None:
+            launches[row] += paged if row.startswith("paged") else dense
+            if not (paged if row.startswith("paged") else dense):
+                raise AssertionError(f"[examples] {name}: no flash-decode "
+                                     f"launch at dh 16")
+        print(f"[examples] {name}: {dt:.1f} s on the card; "
+              f"flash_decode {dense}, flash_decode_paged {paged} launches "
+              f"(head width 16) [{card}]", flush=True)
+    # a reduced f32 llama on the card vs the CPU: greedy tokens exact
+    reduced = {"dtype": "float32", "vocab_size": 128}
+    params = registry.init_params(get_config(ARCH).reduced(**reduced),
+                                  seed=0, device="cpu")
+    rng = np.random.RandomState(9)
+    prompt = torch.from_numpy(rng.randint(0, 128, (DH16_GEN_B, 8)))
+    base = list(rng.randint(1, 128, 21))
+    prompts = [base, base + [5, 6], list(rng.randint(1, 128, 11))]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        session = InferenceSession.from_config(
+            ARCH, reduced=reduced, params=_on(params, dev), device=dev,
+            allow_modes=("local",))
+        session.profile(backend="simulated")
+        before = counts()
+        tokens = session.generate(prompt.to(dev), 8).cpu()
+        paged = ServingRuntime(session, chunk=4, max_len=40,
+                               page_size=DH16_PS, n_pages=32, n_rows=3)
+        served = _serve_all(paged, prompts, 9)
+        if dev == "cuda":
+            d, p = (a - b for a, b in zip(counts(), before))
+            launches["dense_f32"] += d
+            launches["paged_f32"] += p
+        got[dev] = (tokens, served)
+    if not torch.equal(got["cuda"][0], got["cpu"][0]) or not all(
+            np.array_equal(a, b) for a, b in zip(got["cuda"][1],
+                                                 got["cpu"][1])):
+        raise AssertionError("[examples] reduced f32 llama: card tokens "
+                             "differ from the CPU's")
+    print(f"[examples] reduced f32 llama (4/2 heads of 16) on the card vs "
+          f"the CPU: generate B {DH16_GEN_B} 8 + 8 and {len(prompts)} "
+          f"requests × 9 tokens through the paged pool (ps {DH16_PS}) "
+          f"token-exact; flash_decode {launches['dense_f32']}, "
+          f"flash_decode_paged {launches['paged_f32']} launches [{card}]",
+          flush=True)
+    return launches
+
+
+
 def phase_build() -> None:
     """Every kernel of the main paths, built together (one ``nvcc`` per
     source; ``flash_decode.cu`` holds the dense and the paged entry
@@ -7260,7 +7740,10 @@ def phase_build() -> None:
     import torch
     from repro_torch.kernels.flash_decode.kernel import attributes
     for paged in (False, True):
-        for dtype, dh, group in ((torch.bfloat16, 64, 8),
+        for dtype, dh, group in ((torch.bfloat16, 16, 8),
+                                 (torch.float32, 16, 4),
+                                 (torch.float32, 16, 8),
+                                 (torch.bfloat16, 64, 8),
                                  (torch.bfloat16, 128, 8),
                                  (torch.float32, 64, 4),
                                  (torch.float32, 64, 8),
@@ -7279,6 +7762,9 @@ def phase_build() -> None:
     from repro_torch.kernels.prism_attention.kernel import \
         attributes as prism_attributes
     for dtype, out_dtype, dh, dv, warps in (
+            (torch.bfloat16, torch.bfloat16, 16, 16, 4),
+            (torch.bfloat16, torch.float32, 16, 16, 4),
+            (torch.float32, torch.float32, 16, 16, 0),
             (torch.bfloat16, torch.bfloat16, 64, 64, 7),
             (torch.bfloat16, torch.float32, 64, 64, 7),
             (torch.bfloat16, torch.bfloat16, 128, 128, 8),
@@ -7302,8 +7788,19 @@ def _resources(a: dict) -> str:
             f"{a['ctas_per_sm']} CTAs per SM")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="The port's chip smoke: every "
+                                 "phase with no arguments.")
+    ap.add_argument("--only", default="", help="a comma-separated subset "
+                    "of dh16, examples, train, train-seq, train-seq-families "
+                    "to run after the build, for measurements (no kernels "
+                    "line)")
+    ap.add_argument("--remat", default="on", choices=["on", "off", "both"],
+                    help="--only's train-seq and train-seq-families with "
+                    "each layer rematerialised, without, or both in turn")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
              "card")
@@ -7324,6 +7821,23 @@ def main() -> None:
         return out
 
     run("build", phase_build)
+    if args.only:
+        modes = {"on": (True,), "off": (False,), "both": (True, False)}
+        for phase in args.only.split(","):
+            if phase in ("train-seq", "train-seq-families"):
+                fn = (phase_train_seq if phase == "train-seq"
+                      else phase_train_seq_families)
+                for on in modes[args.remat]:
+                    run(f"{phase} remat {'on' if on else 'off'}", fn, card,
+                        on)
+            else:
+                run(phase, {"dh16": lambda _: phase_dh16_kernels(),
+                            "examples": phase_examples,
+                            "train": phase_train}[phase], card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return
     timed = run("kernels", phase_kernels)
     shard = run("shard partial", phase_shard_partial)
     gemma_shard = run("gemma shard partial", phase_gemma_shard_partial)
@@ -7331,6 +7845,7 @@ def main() -> None:
     exchange = run("exchange kernels", phase_exchange_kernels)
     xk = run("xattn kernels", phase_xattn_kernels)
     sk = run("ssm kernels", phase_ssm_kernels)
+    dk = run("dh16 kernels", phase_dh16_kernels)
     run("reference", phase_small_reference)
     run("reference serving", phase_small_serving)
     run("reference vit", phase_small_vit_reference)
@@ -7339,6 +7854,7 @@ def main() -> None:
     run("reference moe", phase_small_moe_reference)
     run("reference xattn", phase_small_xattn_reference)
     run("reference ssm", phase_small_ssm_reference)
+    ex = run("examples", phase_examples, card)
     launches, session = run("session", phase_session, card)
     serve_dense, serve_paged = run("serve", phase_serve, card, session)
     del session
@@ -7486,6 +8002,8 @@ def main() -> None:
             "library_fwd_bwd_ms": b["library_ms"]})
     kernels += train_family_kernel_rows(tsf, exchange, sk,
                                         {r[0]: r[1] for r in rows}, keys)
+    kernels += dh16_kernel_rows(dk, ex, ts, {r[0]: r[1] for r in rows},
+                                keys)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,7 @@ from repro_torch.api.strategies import (ExchangeStrategy, get_strategy,
 from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
 from repro_torch.core.perfmap import PerfEntry, PerfKey, PerfMap
 from repro_torch.core.policy import (AdaptivePolicy, Decision, PolicyTable,
+                                     SLOObjective, WeightedObjective,
                                      resolve_objective)
 from repro_torch.core.profiler import profile_measured, profile_simulated
 from repro_torch.profiling import SweepSpec
@@ -25,6 +26,7 @@ __all__ = [
     "ExchangeStrategy", "register_strategy", "get_strategy",
     "list_strategies", "ExchangeConfig", "ExchangeMode",
     "PerfKey", "PerfEntry", "PerfMap", "AdaptivePolicy", "Decision",
-    "PolicyTable", "resolve_objective", "SweepSpec", "from_trace",
+    "PolicyTable", "resolve_objective", "WeightedObjective", "SLOObjective",
+    "SweepSpec", "from_trace",
     "profile_simulated", "profile_measured",
 ]

@@ -29,6 +29,12 @@ _MODULES = {
     "xlstm-350m": "xlstm_350m",
     "vit-base-16": "vit_base",
 }
+# the decoder LMs (every arch but the paper's ViT), in the JAX package's
+# order
+ASSIGNED_ARCHS = ("qwen1.5-32b", "llama3.2-1b", "internlm2-1.8b",
+                  "gemma2-27b", "deepseek-v2-236b", "deepseek-moe-16b",
+                  "whisper-large-v3", "llama-3.2-vision-11b", "hymba-1.5b",
+                  "xlstm-350m")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -38,6 +44,6 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["get_config", "ALL_SHAPES", "SHAPES_BY_NAME",
+__all__ = ["get_config", "ASSIGNED_ARCHS", "ALL_SHAPES", "SHAPES_BY_NAME",
            "ModelConfig", "MoECfg", "MLACfg", "SSMCfg", "ShapeSpec",
            "shapes_for", "LONG_CONTEXT_ARCHS"]

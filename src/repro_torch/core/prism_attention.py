@@ -231,3 +231,23 @@ def prism_attention(
     out = (_grouped_values(p_attn[..., :Nk_loc], v_local)
            + _grouped_values(p_attn[..., Nk_loc:], vm_flat))
     return out.to(q.dtype)
+
+
+def prism_attention_from_projected(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, part_idx: int, *,
+                                   L: int, seg_size: int,
+                                   causal: bool = False) -> torch.Tensor:
+    """Convenience wrapper: the means of the local projected K/V as the
+    only partition's (P = 1: a degenerate case for unit tests, in which
+    the own partition's means are masked out), then ``prism_attention``."""
+    km = segment_means_nd(k, L)[:, None]
+    vm = segment_means_nd(v, L)[:, None]
+    return prism_attention(q, k, v, km, vm, part_idx, seg_size,
+                           causal=causal)
+
+
+def segment_means_nd(x: torch.Tensor, L: int) -> torch.Tensor:
+    """Segment means over the token axis of [B, N, Hk, dh] → [B, L, Hk,
+    dh]."""
+    from repro_torch.core.segment_means import segment_means
+    return segment_means(x, L, axis=1)

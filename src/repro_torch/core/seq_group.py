@@ -44,6 +44,12 @@ JAX's transpose of the collective it stands for:
   flat state bytes;
 * ``broadcast``: the cotangents summed onto ``src`` (gloo ``reduce``).
 
+Rematerialised layers (``repro_torch.models.remat``) run their forward
+twice, the second time in the backward.  A ``Tape`` keeps that second run
+off the wire: inside ``taping(tape)`` the forward collectives record their
+outputs on the tape the first time and hand them back in the same order
+every later time, sending nothing, taking no tag and booking nothing.
+
 Every backward books its received bytes under the kind ``grad`` and one
 call.  Backward collectives run in autograd's order, which is the same on
 every rank because every rank builds the same graph; point-to-point
@@ -65,6 +71,7 @@ their axis::
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import multiprocessing
 import os
@@ -73,7 +80,8 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -286,6 +294,50 @@ def leaves_bytes(like: Dict[str, torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in like.values())
 
 
+class Tape:
+    """What the forward collectives of one rematerialised region returned,
+    in call order: recorded by its first run, replayed by every later one
+    (``SeqGroup.taping``)."""
+
+    def __init__(self):
+        self.outs: List[Any] = []
+        self.recorded = False      # the first run is over: replay
+        self.next = 0              # the next output to replay
+
+
+class _Kept(NamedTuple):
+    """A tensor a tape keeps: detached, and whether it required grad."""
+    t: torch.Tensor
+    grad: bool
+
+
+def _frozen(out: Any) -> Any:
+    """A collective's output (a tensor, or a list, tuple or dict of them,
+    or None) as the tape keeps it."""
+    if isinstance(out, torch.Tensor):
+        return _Kept(out.detach(), out.requires_grad)
+    if isinstance(out, dict):
+        return {k: _frozen(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_frozen(v) for v in out)
+    return out
+
+
+def _revived(kept: Any) -> Any:
+    """``_frozen``'s output back as tensors for the replay: one that
+    required grad comes back as a copy that does (a non-leaf, as the
+    collective's own output was), so the recompute saves what the first
+    run saved."""
+    if isinstance(kept, _Kept):
+        return kept.t.detach().requires_grad_().clone() if kept.grad \
+            else kept.t
+    if isinstance(kept, dict):
+        return {k: _revived(v) for k, v in kept.items()}
+    if isinstance(kept, (list, tuple)):
+        return type(kept)(_revived(v) for v in kept)
+    return kept
+
+
 def _tracked(*tensors) -> bool:
     """Does autograd need a gradient through any of ``tensors``?"""
     return torch.is_grad_enabled() and any(
@@ -303,6 +355,41 @@ class SeqGroup:
         self._tag = 0                   # next point-to-point message tag
         # pass_on's sends in flight: (work, host buffer)
         self._sends: List[Tuple[Any, torch.Tensor]] = []
+        self._tape: Optional[Tape] = None   # see taping
+
+    @contextlib.contextmanager
+    def taping(self, tape: Tape):
+        """Inside the block, the forward collectives (``all_gather``,
+        ``all_gather_packed``, ``shift``, ``ring_shift`` / ``ring_forward``
+        and their waits, ``pass_on``, ``broadcast``) record their outputs
+        on ``tape`` the first time the block runs; every later run takes
+        them from the tape in the same order and sends nothing, takes no
+        tag and books nothing (``pass_on`` still runs its ``fn`` on the
+        state it received)."""
+        prev, self._tape = self._tape, tape
+        tape.next = 0
+        try:
+            yield
+        finally:
+            self._tape = prev
+            tape.recorded = True
+
+    def _replaying(self) -> bool:
+        return self._tape is not None and self._tape.recorded
+
+    def _replay(self) -> Any:
+        tape = self._tape
+        if tape.next >= len(tape.outs):
+            raise RuntimeError("a rematerialised region called more "
+                               "collectives in its recompute than in its "
+                               "forward")
+        tape.next += 1
+        return _revived(tape.outs[tape.next - 1])
+
+    def _record(self, out: Any) -> Any:
+        if self._tape is not None and not self._tape.recorded:
+            self._tape.outs.append(_frozen(out))
+        return out
 
     def reset_stats(self) -> None:
         self.stats = GatherStats()
@@ -351,6 +438,8 @@ class SeqGroup:
         ``fn`` reads, e.g. the scan's input) requires grad: the received
         leaves then require grad, and the backward runs the chain in
         reverse (see the module's note); ``out`` must be a tensor."""
+        if self._replaying():
+            return fn(self._replay())[0]
         tag = self._take_tags(2)        # the forward's, then the backward's
         self.stats.state_calls += 1
         grad = _tracked(anchor)
@@ -368,7 +457,7 @@ class SeqGroup:
                     self, tag + 1, like, buf, anchor)))
             else:
                 got = unpack_leaves(buf, like)
-        out, to_send = fn(got)
+        out, to_send = fn(self._record(got))
         if self.rank < self.world_size - 1:
             t0 = time.perf_counter()
             final = [to_send[name] for name in like]
@@ -407,9 +496,11 @@ class SeqGroup:
         t's device; the bytes received are booked under ``kind``.  Where
         ``t`` requires grad the gather is differentiable (the cotangent
         reduce-scattered in f32, booked as ``grad``)."""
+        if self._replaying():
+            return self._replay()
         if _tracked(t):
-            return _StagedGather.apply(self, t, kind)
-        return self._gather(t, kind)
+            return self._record(_StagedGather.apply(self, t, kind))
+        return self._record(self._gather(t, kind))
 
     def _gather(self, t: torch.Tensor, kind: str) -> torch.Tensor:
         t0 = self._begin(t)
@@ -488,9 +579,12 @@ class SeqGroup:
         ``kind`` as one call.  Differentiable in its floating-point
         pieces (the backward: one f32 reduce-scatter of their
         cotangents)."""
+        if self._replaying():
+            return self._replay()
         if _tracked(*tensors):
-            return list(_PackedGather.apply(self, kind, *tensors))
-        return self._gather_packed(tensors, kind)
+            return self._record(list(_PackedGather.apply(self, kind,
+                                                         *tensors)))
+        return self._record(self._gather_packed(tensors, kind))
 
     def _gather_packed(self, tensors: List[torch.Tensor], kind: str
                        ) -> List[torch.Tensor]:
@@ -517,9 +611,11 @@ class SeqGroup:
         its received bytes under ``kind`` when it is waited on.  Where
         ``t`` requires grad the received tensor does too, and the
         backward sends its cotangent back to rank ``(rank-1) % P``."""
+        if self._replaying():
+            return _TapedTransfer(self)
         t0 = self._begin(t)
         return self._post(self._to_host(t), t, kind, chunks, t0,
-                          *self._ring_peers(), tracked=t)
+                          *self._ring_peers(), tracked=t).taped()
 
     def ring_forward(self, prev: "RingTransfer", *,
                      chunks: int = 1) -> "RingTransfer":
@@ -527,9 +623,11 @@ class SeqGroup:
         buffer: no copy off the card and no wait for it.  Differentiable
         as :meth:`ring_shift` (the cotangent of what was passed on comes
         back from rank ``(rank+1) % P``)."""
+        if self._replaying():
+            return _TapedTransfer(self)
         return self._post(prev.host, prev.like, prev.kind, chunks,
                           time.perf_counter(), *self._ring_peers(),
-                          tracked=prev.out)
+                          tracked=prev.out).taped()
 
     def _ring_peers(self):
         P = self.world_size
@@ -548,10 +646,14 @@ class SeqGroup:
         P = self.world_size
         if not 0 < sft < P:
             raise ValueError(f"shift {sft} outside 1..{P - 1} for {P} ranks")
+        if self._replaying():
+            return self._replay()
         self.stats.halo_calls += 1
         if _tracked(t):
-            return _Shift.apply(self, t, sft, kind, self._take_tags(1))
-        return self._shift(t, self.rank + sft, self.rank - sft, kind)
+            return self._record(_Shift.apply(self, t, sft, kind,
+                                             self._take_tags(1)))
+        return self._record(self._shift(t, self.rank + sft, self.rank - sft,
+                                        kind))
 
     def _shift(self, t: torch.Tensor, dst: int, src: int, kind: str,
                tag: Optional[int] = None) -> torch.Tensor:
@@ -601,9 +703,11 @@ class SeqGroup:
         them).  Differentiable where ``t`` requires grad on every rank: the
         backward sums every rank's cotangent onto ``src`` (f32, one
         ``grad`` call each rank, the bytes booked on ``src``)."""
+        if self._replaying():
+            return self._replay()
         if _tracked(t):
-            return _Broadcast.apply(self, t, src)
-        return self._broadcast(t, src)
+            return self._record(_Broadcast.apply(self, t, src))
+        return self._record(self._broadcast(t, src))
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         t0 = self._begin(t)
@@ -648,6 +752,13 @@ class RingTransfer:
         self.received = received
         self.link = link        # (tracked tensor sent, chunks, backward tag)
         self.out: Optional[torch.Tensor] = None
+        self.record = False     # a ring transfer: its wait goes on the tape
+
+    def taped(self) -> "RingTransfer":
+        """This transfer, its received tensor recorded on the group's tape
+        (if one is recording) when it is waited on."""
+        self.record = True
+        return self
 
     def wait(self) -> torch.Tensor:
         """Block until every message of the transfer is through → the
@@ -663,8 +774,21 @@ class RingTransfer:
         if self.link is not None:
             tracked, chunks, tag = self.link
             out = _RingLink.apply(self.group, tracked, out, chunks, tag)
-        self.out = out
+        self.out = self.group._record(out) if self.record else out
         return out
+
+
+class _TapedTransfer:
+    """A ring transfer of a rematerialised region's recompute: its wait
+    takes the tensor its first run received from the tape."""
+
+    def __init__(self, group: SeqGroup):
+        self.group = group
+        self.out: Optional[torch.Tensor] = None
+
+    def wait(self) -> torch.Tensor:
+        self.out = self.group._replay()
+        return self.out
 
 
 _GROUPS: Dict[str, SeqGroup] = {}    # per process, like torch.distributed's

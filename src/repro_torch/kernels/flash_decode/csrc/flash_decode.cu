@@ -76,10 +76,17 @@
 // three barriers (data ready, scores, softmax).  At G = 4 each bf16
 // element read feeds 8 FMAs, so on the CUDA cores bf16 is bound by the
 // math's latency rather than by memory.  Tile TS = 128 positions in bf16
-// (16 per warp), 64 or 32 in f32 (a 16 KB K tile); the ring is ~98 KB
+// (16 per warp), 256, 64 or 32 in f32 (a 16 KB K tile); the ring is ~98 KB
 // (bf16 dh 64, f32) or ~194 KB (bf16 dh 128) of dynamic shared memory
-// (cudaFuncSetAttribute).  One CTA per SM: two would cap registers at
-// 128, where the bf16 path spills.
+// (cudaFuncSetAttribute).  One CTA per SM at dh 64 and 128: two would cap
+// registers at 128, where the bf16 path spills.
+//
+// Head widths 16, 64 and 128.  16 is the reduced configs' width (every
+// example and CPU test config): a row is 2 bf16 or 4 f32 chunks, swizzled
+// within the row (`swz`), one k-step of Q K^T whose K fragments for both
+// n-tiles come from one ldmatrix.x4.  It exists so that small configs run
+// on the card, not for speed: its rows are 32 bytes, so a bf16 ring is
+// 26 KB that moves little per barrier.
 //
 // Paged addressing per page.  One ring step before its copies, the
 // threads read the tile's page ids once each (at most TS of them, one per
@@ -206,6 +213,15 @@ __device__ __forceinline__ int next_tile(const unsigned* mask, int from,
   return n;
 }
 
+// Where chunk `ch` of row `r` of a ring tile with CPR 16-byte chunks a row
+// is stored: XOR-swizzled by r & 7 (rows of 8 chunks or more), or by the
+// low bits of r that stay inside the row (dh 16: 2 bf16 or 4 f32 chunks,
+// so 8 rows at one chunk fall in 4 or 2 bank groups, not 1).
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return ch ^ (r & ((CPR < 8 ? CPR : 8) - 1));
+}
+
 // The math of one tile, two ways.  Both keep the un-normalised online
 // softmax of every query head of the group in f32 and leave, at the end,
 // RG partial sums of o in `red` ([RG][8][DH]) and m, l in sm, sl.
@@ -288,26 +304,37 @@ struct MmaMath {
                                        const float* bt, int s0, int S) {
     constexpr int CPR = DH / 8;        // 16-byte chunks per row
     const int p0 = warp * 16;
-    // all K fragments first, then four independent chains of mma
-    uint32_t kr[2][CPR / 4][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int row = p0 + 8 * nt + (lane & 7);
-#pragma unroll
-      for (int kc = 0; kc < CPR / 4; ++kc) {
-        const int ch = 4 * kc + (lane >> 3);
-        ldm(kt + (row * CPR + (ch ^ (row & 7))) * 8, kr[nt][kc], false);
-      }
-    }
     float sa[2][2][2] = {};              // [n-tile][k-step parity][2]
+    if constexpr (CPR >= 4) {
+      // all K fragments first, then four independent chains of mma
+      uint32_t kr[2][CPR / 4][4];
 #pragma unroll
-    for (int kc = 0; kc < CPR / 4; ++kc)
+      for (int nt = 0; nt < 2; ++nt) {
+        const int row = p0 + 8 * nt + (lane & 7);
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int kc = 0; kc < CPR / 4; ++kc) {
+          const int ch = 4 * kc + (lane >> 3);
+          ldm(kt + (row * CPR + swz<CPR>(row, ch)) * 8, kr[nt][kc], false);
+        }
+      }
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          mma(sa[nt][h], qa[2 * kc + h][0], qa[2 * kc + h][1],
-              kr[nt][kc][2 * h], kr[nt][kc][2 * h + 1]);
+      for (int kc = 0; kc < CPR / 4; ++kc)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            mma(sa[nt][h], qa[2 * kc + h][0], qa[2 * kc + h][1],
+                kr[nt][kc][2 * h], kr[nt][kc][2 * h + 1]);
+    } else {
+      // dh 16: one k-step; one ldmatrix.x4 reads both n-tiles' two chunks
+      // (matrix lane >> 3 is n-tile lane >> 4, chunk (lane >> 3) & 1)
+      uint32_t kr[4];
+      const int row = p0 + 8 * (lane >> 4) + (lane & 7);
+      ldm(kt + (row * CPR + swz<CPR>(row, (lane >> 3) & 1)) * 8, kr, false);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        mma(sa[nt][0], qa[0][0], qa[0][1], kr[2 * nt], kr[2 * nt + 1]);
+    }
     float sc[2][2];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
@@ -362,7 +389,7 @@ struct MmaMath {
 #pragma unroll
     for (int c = 0; c < CPR / 2; ++c) {
       const int ch = 2 * c + (j >> 1);
-      ldm(vt + (row * CPR + (ch ^ (row & 7))) * 8, vr[c], true);
+      ldm(vt + (row * CPR + swz<CPR>(row, ch)) * 8, vr[c], true);
     }
 #pragma unroll
     for (int c = 0; c < CPR / 2; ++c) {
@@ -460,7 +487,7 @@ struct FmaMath {
 #pragma unroll
       for (int e = 0; e < CPP; ++e) {
         const int ch = part * CPP + e;
-        chunk_f32(kr + (ch ^ (t & 7)) * EPC, kf + e * EPC);
+        chunk_f32(kr + swz<CPR>(t, ch) * EPC, kf + e * EPC);
       }
       const float bs = bt[t];
       const bool live = s0 + t < S;
@@ -533,7 +560,7 @@ struct FmaMath {
     for (int j = 0; j < TS / TG; ++j) {
       const int t = vtg + TG * j;
       float vf[EPC];
-      chunk_f32(vt + (t * CPR + (vch ^ (t & 7))) * EPC, vf);
+      chunk_f32(vt + (t * CPR + swz<CPR>(t, vch)) * EPC, vf);
       float p[GP];
 #pragma unroll
       for (int g4 = 0; g4 < GP; g4 += 4) {
@@ -598,7 +625,7 @@ struct Shape {
   static constexpr int CPR = DH / EPC;            // chunks per row
   static constexpr size_t RING_BYTES =
       (size_t)STAGES * (2 * TS * DH * sizeof(T) + TS * sizeof(float));
-  static_assert(CPR >= 8 && TS <= NT && (TS * CPR) % NT == 0 &&
+  static_assert(CPR >= 2 && TS <= NT && (TS * CPR) % NT == 0 &&
                 ((size_t)Math::RG * 8 * DH +
                  (size_t)MAX_SPLITS * (8 * DH + 16)) * sizeof(float) <=
                     RING_BYTES,
@@ -656,7 +683,7 @@ flash_decode_body(const T* __restrict__ q,        // [B, H, DH]
       const int s = s0 + t;
       const bool ok = s < S;
       const size_t off = ok ? rows.at(s, s0, slot) + ch * EPC : 0;
-      const int dst = (t * CPR + (ch ^ (t & 7))) * EPC;
+      const int dst = (t * CPR + swz<CPR>(t, ch)) * EPC;
       cp_async16(dk + dst, kb + off, ok);
       cp_async16(dv + dst, vb + off, ok);
     }
@@ -1000,9 +1027,13 @@ template <template <bool, typename, int, int> class F, bool PAGED,
 int dispatch(int dh, int is_bf16, int G, A... args) {
   const bool wide = G > 4;             // f32 only: bf16 pads to 16 rows
   if (is_bf16) {
+    if (dh == 16) return F<PAGED, __nv_bfloat16, 16, 8>::run(args...);
     if (dh == 64) return F<PAGED, __nv_bfloat16, 64, 8>::run(args...);
     if (dh == 128) return F<PAGED, __nv_bfloat16, 128, 8>::run(args...);
   } else {
+    if (dh == 16)
+      return wide ? F<PAGED, float, 16, 8>::run(args...)
+                  : F<PAGED, float, 16, 4>::run(args...);
     if (dh == 64)
       return wide ? F<PAGED, float, 64, 8>::run(args...)
                   : F<PAGED, float, 64, 4>::run(args...);

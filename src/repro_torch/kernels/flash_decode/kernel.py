@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.nvcc import CudaLibrary
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 8                      # GMAX in the CUDA source
 MAX_SPLITS = 8                     # a cluster's CTAs, MAX_SPLITS there
 
@@ -49,8 +49,8 @@ LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
 
 def tile_size(dtype: torch.dtype, dh: int) -> int:
     """Cache positions per kernel tile, TS in the CUDA source: 128 in bf16
-    (16 per warp for the tensor cores); in f32 a K tile of 16 KB (64
-    positions at dh 64, 32 at dh 128)."""
+    (16 per warp for the tensor cores); in f32 a K tile of 16 KB (256
+    positions at dh 16, 64 at dh 64, 32 at dh 128)."""
     return 128 if dtype == torch.bfloat16 else 4096 // dh
 
 

@@ -24,11 +24,15 @@
 // bias[b, m].  The flat [B, M, Hk, dh] form is P = 1, L = M.
 //
 // Widths.  Queries and keys are DQK wide, values and the output DV: the
-// instantiations are (DQK, DV) = (64, 64), (128, 128), and (192, 128) for
-// DeepSeek-V2's MLA attention, whose keys are the expanded latent (128)
-// beside the shared rotary key (64) and whose values are 128 wide (128
-// heads, one per KV head).  Each body is templated on both widths: Q K^T
-// runs over DQK, P V and the accumulator over DV.
+// instantiations are (DQK, DV) = (16, 16), (64, 64), (128, 128), and
+// (192, 128) for DeepSeek-V2's MLA attention, whose keys are the expanded
+// latent (128) beside the shared rotary key (64) and whose values are 128
+// wide (128 heads, one per KV head).  Each body is templated on both
+// widths: Q K^T runs over DQK, P V and the accumulator over DV.  (16, 16)
+// is the reduced configs' width, for small configs on the card, not for
+// speed: a row is two 16-byte chunks, swizzled within the row (`swz`), and
+// Q K^T is one k-step whose K fragments for two 8-key blocks come from one
+// ldmatrix.x4.
 //
 // Bound: in bf16 at the exchange's shapes, bytes.  It must read q, the
 // local K/V, the mean K/V that a query can see, the bias and the mask once
@@ -451,6 +455,14 @@ __device__ __forceinline__ void ldm(const void* p, uint32_t (&r)[4],
         : "r"(a));
 }
 
+// Where chunk `ch` of row `r` of a tile with CPR 16-byte chunks a row is
+// stored: XOR-swizzled by r & 7 within each group of 8 chunks, or, for
+// rows of 2 chunks (width 16), by r & 1.
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return ch ^ (r & ((CPR < 8 ? CPR : 8) - 1));
+}
+
 // mbarriers in shared memory: init, arrive, arrive when this thread's
 // cp.async copies so far have landed (not counted in advance: .noinc),
 // and wait for the completion of the phase of the given parity.
@@ -561,8 +573,8 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DQK]
   constexpr int KSTEPS = DQK / 16;   // k-steps of Q K^T
   constexpr int NBLK = TK / 8;       // 8-key score blocks of a tile
   constexpr float LOG2E = 1.4426950408889634f;
-  static_assert(TK % 16 == 0 && CPRK % 8 == 0 && CPRV % 8 == 0 &&
-                    TK / 4 + 1 <= TK,
+  static_assert(TK % 16 == 0 && (CPRK % 8 == 0 || CPRK == 2) &&
+                    (CPRV % 8 == 0 || CPRV == 2) && TK / 4 + 1 <= TK,
                 "tile");
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -672,7 +684,7 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DQK]
         const int r = c / CPRK, ch = c % CPRK;
         const bool ok = r < t.n;
         const size_t off = ok ? r * krow + ch * 8 : 0;
-        const int dst = (r * CPRK + (ch ^ (r & 7))) * 8;
+        const int dst = (r * CPRK + swz<CPRK>(r, ch)) * 8;
         cp_async16(dk + dst, t.k + off, ok ? 16 : 0);
         if constexpr (CPRV == CPRK)
           cp_async16(dv + dst, t.v + off, ok ? 16 : 0);
@@ -683,7 +695,7 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DQK]
           const int r = c / CPRV, ch = c % CPRV;
           const bool ok = r < t.n;
           const size_t off = ok ? r * vrow + ch * 8 : 0;
-          cp_async16(dv + (r * CPRV + (ch ^ (r & 7))) * 8, t.v + off,
+          cp_async16(dv + (r * CPRV + swz<CPRV>(r, ch)) * 8, t.v + off,
                      ok ? 16 : 0);
         }
       }
@@ -797,20 +809,35 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DQK]
 #pragma unroll
     for (int nb = 0; nb < NBLK; ++nb)
       s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+    if constexpr (CPRK == 2) {
+      // width 16: one k-step; each ldmatrix.x4 reads the two chunks of two
+      // 8-key blocks (matrix lane >> 3 is block 2i + (lane >> 4), chunk
+      // (lane >> 3) & 1)
 #pragma unroll
-    for (int kc = 0; kc < CPRK / 4; ++kc) {
-      uint32_t kr[NBLK][4];
-#pragma unroll
-      for (int nb = 0; nb < NBLK; ++nb) {
-        const int row = nb * 8 + (lane & 7);
-        const int ch = 4 * kc + (lane >> 3);
-        ldm(kt + (row * CPRK + (ch ^ (row & 7))) * 8, kr[nb], false);
+      for (int i = 0; i < NBLK / 2; ++i) {
+        uint32_t kr[4];
+        const int row = (2 * i + (lane >> 4)) * 8 + (lane & 7);
+        ldm(kt + (row * CPRK + swz<CPRK>(row, (lane >> 3) & 1)) * 8, kr,
+            false);
+        mma(s[2 * i], qa[0], kr[0], kr[1]);
+        mma(s[2 * i + 1], qa[0], kr[2], kr[3]);
       }
+    } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int kc = 0; kc < CPRK / 4; ++kc) {
+        uint32_t kr[NBLK][4];
 #pragma unroll
-        for (int nb = 0; nb < NBLK; ++nb)
-          mma(s[nb], qa[2 * kc + h], kr[nb][2 * h], kr[nb][2 * h + 1]);
+        for (int nb = 0; nb < NBLK; ++nb) {
+          const int row = nb * 8 + (lane & 7);
+          const int ch = 4 * kc + (lane >> 3);
+          ldm(kt + (row * CPRK + swz<CPRK>(row, ch)) * 8, kr[nb], false);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nb = 0; nb < NBLK; ++nb)
+            mma(s[nb], qa[2 * kc + h], kr[nb][2 * h], kr[nb][2 * h + 1]);
+      }
     }
   };
   // the online softmax of the tile's scores `s` and O += P V
@@ -910,7 +937,7 @@ kernel(const bf16* __restrict__ q,           // [B, Nq, H, DQK]
 #pragma unroll
       for (int c = 0; c < CPRV / 2; ++c) {
         const int ch = 2 * c + (j >> 1);
-        ldm(vt + (row * CPRV + (ch ^ (row & 7))) * 8, vr[c], true);
+        ldm(vt + (row * CPRV + swz<CPRV>(row, ch)) * 8, vr[c], true);
       }
 #pragma unroll
       for (int c = 0; c < CPRV / 2; ++c) {
@@ -1091,6 +1118,7 @@ struct Attributes {
 template <template <typename, typename, int, int> class F, typename T,
           typename TO, typename... A>
 int widths(int dqk, int dv, A... args) {
+  if (dqk == 16 && dv == 16) return F<T, TO, 16, 16>::run(args...);
   if (dqk == 64 && dv == 64) return F<T, TO, 64, 64>::run(args...);
   if (dqk == 128 && dv == 128) return F<T, TO, 128, 128>::run(args...);
   if (dqk == 192 && dv == 128) return F<T, TO, 192, 128>::run(args...);

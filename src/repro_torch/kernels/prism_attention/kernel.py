@@ -27,7 +27,7 @@ from repro_torch.kernels.nvcc import CudaLibrary
 from repro_torch.kernels.prism_attention.ref import prism_attention_ref
 
 # (query/key width, value width) pairs the kernel is instantiated for
-WIDTHS = ((64, 64), (128, 128), (192, 128))
+WIDTHS = ((16, 16), (64, 64), (128, 128), (192, 128))
 ROWS = 32                          # GMAX in the CUDA source: G may not exceed it
 MAX_WARPS = 8                      # consumer warps of 16 query rows (bf16)
 

@@ -1,0 +1,87 @@
+"""Per-layer rematerialisation in training: the port's counterpart of the
+JAX package's ``jax.checkpoint`` around every layer of its layer scans
+(``repro.models.transformer``, its encoder, ``repro.models.vit``) and
+around every chunk of its recurrent time scans
+(``repro.models.ssm.chunked_time_scan``).
+
+Where autograd follows a layer (grad enabled and a tensor of it requires
+grad), ``region`` runs it under ``torch.utils.checkpoint``
+(non-reentrant): the forward keeps the layer's inputs and drops its
+activations, and the backward runs the layer again to get them back.  A
+block of recurrent time steps goes the same way, so a scan keeps its
+state only at block boundaries.  Serving, decode and profiling run
+without grad and take the plain call.  (torch imports ``torch._dynamo``
+at a process's first checkpoint: a few seconds, once.)
+
+A layer of a partitioned plan calls staged collectives (the exchange's
+gather, packed gather, ring and halo ``shift``, the recurrent ``pass_on``,
+the moe routing call).  Its recompute must send nothing: a second
+message would take fresh tags and meet the cotangents the backward is
+exchanging.  So ``region`` hands the seq group a ``Tape``: the forward
+records each collective's output on it (what crossed the wire, kept until
+the backward), and the recompute takes the outputs from it in the same
+order.  Every message is sent once, every tag is taken in the forward, and
+the bytes booked by kind are those of a step without rematerialisation.
+
+It is on by default, as in the reference, which has no off.  ``disabled``
+turns it off inside a ``with`` block (the tests compare gradients with
+and without it, bit for bit).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Any, Callable, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.seq_group import SeqGroup, Tape
+from repro_torch.utils.tree import tree_leaves
+
+_ON = contextvars.ContextVar("remat", default=True)
+
+
+@contextlib.contextmanager
+def disabled():
+    """No rematerialisation inside the block: every activation is kept."""
+    token = _ON.set(False)
+    try:
+        yield
+    finally:
+        _ON.reset(token)
+
+
+def active(*trees: Any) -> bool:
+    """Would ``region`` rematerialise a region that reads ``trees``
+    (tensors, or trees of them such as a layer's params)?"""
+    return _ON.get() and torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for tree in trees for t in tree_leaves(tree))
+
+
+def region(fn: Callable, *args, group: Optional[SeqGroup] = None) -> Any:
+    """``fn(*args)``, rematerialised where ``active(args)``: a layer, or a
+    block of a recurrent scan's time steps (the scan decides which blocks
+    qualify: ``chunked``).  ``fn`` reads its tensors from ``args`` (a
+    closure over a loop variable would be read again at recompute time);
+    ``group`` is the seq group whose collectives ``fn`` may call (None:
+    none)."""
+    if not active(args):
+        return fn(*args)
+    if group is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    tape = Tape()
+
+    def run(*a):
+        with group.taping(tape):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def chunked(T: int, chunk_len: int) -> bool:
+    """Does a scan of ``T`` steps keep its state only at block boundaries
+    (``repro.models.ssm.chunked_time_scan``'s rule: not when ``chunk_len
+    <= 1``, ``T % chunk_len`` or ``T <= chunk_len``)?"""
+    return not (chunk_len <= 1 or T % chunk_len or T <= chunk_len)

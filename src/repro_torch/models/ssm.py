@@ -17,7 +17,11 @@ Forms, per mixer:
   * ``*_step`` — one token of decode with the O(1) carried state.
 
 The loops keep their steps as a list and stack it once, so autograd
-(a train step) can follow them.
+(a train step) can follow them.  Under grad each block of ``cfg.chunk``
+steps is rematerialised (``remat.region``; ``chunked_time_scan``'s
+``jax.checkpoint`` and its rule: none when ``chunk <= 1``, ``T % chunk``
+or ``T <= chunk``), so the backward keeps the state only at block
+boundaries and recomputes the steps inside.
 
 Numerics follow the JAX package: the states are f32, the casts to the
 model dtype sit where it casts, log σ(f) is ``-softplus(-f)``, the
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMCfg
+from repro_torch.models import remat
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, Any]
@@ -125,25 +130,37 @@ def mamba_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     A = -torch.exp(params["a_log"])                       # [di, S]
     h = (torch.zeros((B, di, cfg.state_size), dtype=torch.float32,
                      device=x.device) if h0 is None else h0)
-    ys = torch.empty((N, B, di), dtype=torch.float32, device=x.device)
     xcf = xc.float()
     step = max(cfg.chunk, 1)
+    run = remat.region if remat.chunked(N, cfg.chunk) else _call
+    blocks = []
     for t0 in range(0, N, step):                # time-major blocks of steps
-        t1 = min(t0 + step, N)
-        dt_c = dt[:, t0:t1].transpose(0, 1)[..., None]    # [c, B, di, 1]
-        dA = torch.exp(dt_c * A)                          # [c, B, di, S]
-        b = B_in[:, t0:t1].float().transpose(0, 1)[:, :, None, :]
-        dBx = dt_c * b * xcf[:, t0:t1].transpose(0, 1)[..., None]
-        steps = []
-        for t in range(t1 - t0):
-            h = torch.addcmul(dBx[t], dA[t], h)
-            steps.append(h)
-        hs = torch.stack(steps)
-        c = C_in[:, t0:t1].float().transpose(0, 1)        # [c, B, S]
-        ys[t0:t1] = torch.matmul(hs, c[..., None])[..., 0]
-        h = hs[-1].clone()
+        y_c, h = run(_mamba_block, h, dt, A, B_in, C_in, xcf, t0,
+                     min(t0 + step, N))
+        blocks.append(y_c)
+    ys = torch.cat(blocks)                                # [N, B, di]
     y = _mamba_out(params, ys.transpose(0, 1), xc, z, x.dtype)
     return y, {"h": h, "conv": conv_carry}
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _mamba_block(h, dt, A, B_in, C_in, xcf, t0: int, t1: int):
+    """Time steps t0 .. t1 − 1 of the selective scan from state ``h`` →
+    (their y [t1 − t0, B, di] f32, the state after them)."""
+    dt_c = dt[:, t0:t1].transpose(0, 1)[..., None]        # [c, B, di, 1]
+    dA = torch.exp(dt_c * A)                              # [c, B, di, S]
+    b = B_in[:, t0:t1].float().transpose(0, 1)[:, :, None, :]
+    dBx = dt_c * b * xcf[:, t0:t1].transpose(0, 1)[..., None]
+    steps = []
+    for t in range(t1 - t0):
+        h = torch.addcmul(dBx[t], dA[t], h)
+        steps.append(h)
+    hs = torch.stack(steps)
+    c = C_in[:, t0:t1].float().transpose(0, 1)            # [c, B, S]
+    return torch.matmul(hs, c[..., None])[..., 0], hs[-1].clone()
 
 
 def mamba_step(params: Params, x: torch.Tensor, cfg: SSMCfg,
@@ -239,22 +256,36 @@ def mlstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     i_pre, f_pre = (g.transpose(0, 1) for g in (gates[..., :H],
                                                 gates[..., H:]))
     fg, ig, ms = _stabilised_gates(i_pre, _log_sigmoid(f_pre), state0["m"])
-    fg_c, ig_c = fg[..., None, None], ig[..., None, None]
     C, n = state0["C"], state0["n"]
-    n_list, num_list = [], []
-    for t in range(N):
-        kv = kf[t][..., :, None] * vf[t][..., None, :]    # [B, H, dh, dh]
-        C = (fg_c[t] * C).addcmul_(ig_c[t], kv)
-        n = (fg[t][..., None] * n).addcmul_(ig[t][..., None], kf[t])
-        n_list.append(n)
-        num_list.append(torch.matmul(qf[t][..., None, :], C))
-    ns, nums = torch.stack(n_list), torch.stack(num_list)
+    step = max(cfg.chunk, 1) if remat.chunked(N, cfg.chunk) else N
+    run = remat.region if step < N else _call
+    n_blocks, num_blocks = [], []
+    for t0 in range(0, N, step):
+        C, n, ns_c, nums_c = run(_mlstm_block, C, n, qf, kf, vf, fg, ig,
+                                 t0, min(t0 + step, N))
+        n_blocks.append(ns_c)
+        num_blocks.append(nums_c)
+    ns, nums = torch.cat(n_blocks), torch.cat(num_blocks)
     qn = (qf * ns).sum(dim=-1)                              # [N, B, H]
     den = torch.maximum(qn.abs(), torch.exp(-ms))[..., None]
     h = (nums[..., 0, :] / den).transpose(0, 1).reshape(B, N, di)
     h = _groupnorm_heads(h, H, params["gn_scale"]).to(x.dtype)
     y = (h * F.silu(z)) @ params["w_down"]
     return y, {"C": C, "n": n.clone(), "m": ms[-1].clone()}
+
+
+def _mlstm_block(C, n, qf, kf, vf, fg, ig, t0: int, t1: int):
+    """Time steps t0 .. t1 − 1 of the mLSTM cell from (C, n) → (C, n after
+    them, each step's n [t1 − t0, B, H, dh] and q·C [t1 − t0, B, H, 1,
+    dh])."""
+    n_list, num_list = [], []
+    for t in range(t0, t1):
+        kv = kf[t][..., :, None] * vf[t][..., None, :]    # [B, H, dh, dh]
+        C = (fg[t][..., None, None] * C).addcmul_(ig[t][..., None, None], kv)
+        n = (fg[t][..., None] * n).addcmul_(ig[t][..., None], kf[t])
+        n_list.append(n)
+        num_list.append(torch.matmul(qf[t][..., None, :], C))
+    return C, n, torch.stack(n_list), torch.stack(num_list)
 
 
 def _groupnorm_heads(h: torch.Tensor, H: int,
@@ -312,16 +343,36 @@ def slstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     ``{"c", "n", "h", "m"}``, each [B, D] f32)."""
     B, N, D = x.shape
     H = cfg.mlstm_heads
-    dh = D // H
     wx = (x @ params["w_x"]).float().transpose(0, 1)     # [N, B, 4D]
     r = params["r"].float()
     b = params["b"]
     if state0 is None:
         state0 = init_slstm_state(B, D, device=x.device)
     c, n, h, m = (state0[k] for k in ("c", "n", "h", "m"))
+    step = max(cfg.chunk, 1) if remat.chunked(N, cfg.chunk) else N
+    run = remat.region if step < N else _call
+    blocks = []
+    for t0 in range(0, N, step):
+        c, n, h, m, hs_c = run(_slstm_block, c, n, h, m, wx, r, b, H, t0,
+                               min(t0 + step, N))
+        blocks.append(hs_c)
+    hs = torch.cat(blocks)
+    hseq = _groupnorm_heads(hs.transpose(0, 1), H,
+                            params["gn_scale"]).to(x.dtype)
+    du = params["w_down"].shape[0]
+    up = hseq @ params["w_up"]
+    y = (F.gelu(up[..., :du], approximate="tanh") * up[..., du:]) \
+        @ params["w_down"]
+    return y, {"c": c, "n": n, "h": h.clone(), "m": m}
+
+
+def _slstm_block(c, n, h, m, wx, r, b, H: int, t0: int, t1: int):
+    """Time steps t0 .. t1 − 1 of the sLSTM cell from (c, n, h, m) → (the
+    state after them, each step's h [t1 − t0, B, D])."""
+    B, D = h.shape
     hs = []
-    for t in range(N):
-        rec = torch.einsum("bhd,ghde->bghe", h.reshape(B, H, dh), r)
+    for t in range(t0, t1):
+        rec = torch.einsum("bhd,ghde->bghe", h.reshape(B, H, D // H), r)
         pre = wx[t] + rec.reshape(B, 4 * D) + b
         i_p, f_p, z_p, o_p = pre.split(D, dim=-1)
         logf = _log_sigmoid(f_p)
@@ -333,14 +384,7 @@ def slstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
         h = torch.div(torch.sigmoid(o_p) * c, torch.clamp(n, min=1.0))
         hs.append(h)
         m = m_new
-    hs = torch.stack(hs)
-    hseq = _groupnorm_heads(hs.transpose(0, 1), H,
-                            params["gn_scale"]).to(x.dtype)
-    du = params["w_down"].shape[0]
-    up = hseq @ params["w_up"]
-    y = (F.gelu(up[..., :du], approximate="tanh") * up[..., du:]) \
-        @ params["w_down"]
-    return y, {"c": c, "n": n, "h": h.clone(), "m": m}
+    return c, n, h, m, torch.stack(hs)
 
 
 def slstm_step(params: Params, x: torch.Tensor, cfg: SSMCfg,

@@ -8,7 +8,9 @@ and the ssm family (xLSTM: mLSTM and sLSTM blocks).
 Port of ``repro.models.transformer``, every family of it.
 Layer parameters are Python lists of per-layer dicts walked in a loop (in
 place of the JAX package's stacked ``lax.scan`` layout), one list a stack
-(``layer_stacks``):
+(``layer_stacks``); under grad ``forward_lm`` and whisper's encoder
+rematerialise every entry of the walk (``models.remat``: the reference's
+``jax.checkpoint`` around each scanned layer):
 
 * dense: ``params["layers"]``, or for gemma2 (``cfg.local_global``)
   ``params["local_layers"]`` and ``params["global_layers"]``,
@@ -114,6 +116,7 @@ from repro_torch.core.exchange import (ExchangeConfig, ExchangeMode,
                                        partitioned, seq_group_for)
 from repro_torch.core.handoff import handoff_scan
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import remat
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_block, attention_decode,
@@ -390,8 +393,10 @@ def _encode_audio(params: Params, batch: Dict[str, torch.Tensor],
     mem, start, mask = _padded_memory(batch["frames"], cfg, xcfg)
     pos = _positions(mem.shape[0], mem.shape[1], mem.device, start)
     spec = _attn_spec(cfg, causal=False)
+    group = seq_group_for(xcfg) if partitioned(xcfg) else None
     for lp in params["enc_layers"]:
-        mem = _apply_attn_mlp(lp, mem, cfg, xcfg, spec, pos)
+        mem = remat.region(_apply_attn_mlp, lp, mem, cfg, xcfg, spec, pos,
+                           group=group)
     return apply_norm(cfg.norm_type, params["enc_norm"], mem), mask
 
 
@@ -792,6 +797,25 @@ def _last_logits(params: Params, x, cfg: ModelConfig, group):
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _decoder_layer(lp: Params, spec: AttnSpec, half, x, cfg: ModelConfig,
+                   xcfg: ExchangeConfig, positions, group, mem, mem_mask,
+                   decode: bool):
+    """One entry of ``_walk`` over the full sequence → (x, the moe
+    layer's aux or None); ``forward_lm`` rematerialises each under grad
+    (``remat.region``)."""
+    if half == MEMORY:
+        return _cross_block(lp, x, _memory_kv(lp["xattn"], mem, cfg),
+                            mem_mask, cfg, xcfg, decode=decode), None
+    if cfg.family == "moe":
+        return _apply_moe_layer(lp, x, cfg, xcfg, spec, positions, group)
+    if cfg.family == "hybrid":
+        return _apply_hymba_layer(lp, x, cfg, xcfg, spec, positions,
+                                  group), None
+    if cfg.family == "ssm":
+        return _apply_xlstm_group(lp, x, cfg, group), None
+    return _apply_attn_mlp(lp, x, cfg, xcfg, spec, positions), None
+
+
 def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, xcfg: ExchangeConfig,
                last_only: bool = False, local_logits: bool = False
@@ -813,22 +837,15 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
     positions = _positions(B, n, tokens.device, start)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mem = mem_mask = None
     if cfg.family in MEMORY_FAMILIES:
         mem, mem_mask = _memory(params, batch, cfg, xcfg)
     for lp, spec, half, _ in _walk(params, cfg):
-        if half == MEMORY:
-            x = _cross_block(lp, x, _memory_kv(lp["xattn"], mem, cfg),
-                             mem_mask, cfg, xcfg, decode=N == 1)
-        elif cfg.family == "moe":
-            x, a = _apply_moe_layer(lp, x, cfg, xcfg, spec, positions, group)
-            if a is not None:
-                aux = aux + a
-        elif cfg.family == "hybrid":
-            x = _apply_hymba_layer(lp, x, cfg, xcfg, spec, positions, group)
-        elif cfg.family == "ssm":
-            x = _apply_xlstm_group(lp, x, cfg, group)
-        else:
-            x = _apply_attn_mlp(lp, x, cfg, xcfg, spec, positions)
+        x, a = remat.region(_decoder_layer, lp, spec, half, x, cfg, xcfg,
+                            positions, group, mem, mem_mask, N == 1,
+                            group=group)
+        if a is not None:
+            aux = aux + a
     if last_only:
         return _last_logits(params, x, cfg, group), aux
     x = apply_norm(cfg.norm_type, params["final_norm"], x)

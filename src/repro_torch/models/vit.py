@@ -4,8 +4,9 @@
 Port of ``repro.models.vit``.  Bidirectional attention with the PRISM /
 Voltage / local exchange threaded through every block; the classifier head
 reads the CLS token.  Layer parameters are a list of per-layer dicts walked
-in a loop (the JAX package's ``lax.scan(checkpoint)``; serving keeps no
-activations for a backward, so there is nothing to rematerialise).
+in a loop, each block rematerialised under grad (``remat.region``: the JAX
+package's ``lax.scan(jax.checkpoint(body))``); serving runs without grad
+and keeps no activations.
 
 Sequence padding: 197 is not divisible by P partitions, so tokens are
 padded to ``pad_len(197, P, L)`` and the pads are excluded by the key mask
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exchange import (ExchangeConfig, exchange_attention,
                                        partitioned, seq_group_for)
+from repro_torch.models import remat
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        init_mlp, init_norm, project_qkv)
 from repro_torch.models.transformer import _attn_spec, pad_len
@@ -78,6 +80,19 @@ def patchify(images: torch.Tensor) -> torch.Tensor:
     return x.reshape(B, N_PATCHES, PATCH * PATCH * 3)
 
 
+def _block(lp: Params, x, kv_mask, spec, cfg: ModelConfig,
+           xcfg: ExchangeConfig):
+    """One encoder block: x + attn(ln1(x)) under the plan's exchange, then
+    x + mlp(ln2(x))."""
+    xin = apply_norm(cfg.norm_type, lp["ln1"], x)
+    q, k, v = project_qkv(lp["attn"], xin, spec, None)
+    h = exchange_attention(q, k, v, xcfg, causal=False, kv_mask=kv_mask)
+    x = x + h.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"]
+    h2 = apply_mlp(lp["mlp"], apply_norm(cfg.norm_type, lp["ln2"], x),
+                   cfg.act)
+    return x + h2
+
+
 def forward_vit(params: Params, images: torch.Tensor, cfg: ModelConfig,
                 xcfg: ExchangeConfig) -> torch.Tensor:
     """[B, 224, 224, 3] → class logits [B, n_classes] f32."""
@@ -103,13 +118,7 @@ def forward_vit(params: Params, images: torch.Tensor, cfg: ModelConfig,
 
     spec = _attn_spec(cfg, causal=False, use_rope=False)
     for lp in params["layers"]:
-        xin = apply_norm(cfg.norm_type, lp["ln1"], x)
-        q, k, v = project_qkv(lp["attn"], xin, spec, None)
-        h = exchange_attention(q, k, v, xcfg, causal=False, kv_mask=kv_mask)
-        x = x + h.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"]
-        h2 = apply_mlp(lp["mlp"], apply_norm(cfg.norm_type, lp["ln2"], x),
-                       cfg.act)
-        x = x + h2
+        x = remat.region(_block, lp, x, kv_mask, spec, cfg, xcfg, group=group)
 
     def head(cls_token):
         cls_token = apply_norm(cfg.norm_type, params["final_norm"],

@@ -5,7 +5,9 @@ The traversals that JAX's ``tree_util`` gives the JAX package:
 ``tree_map`` over several trees of one structure, ``tree_leaves``,
 ``tree_leaves_with_paths`` (each leaf's key path, as the checkpoint
 manager of either package joins it with ``/``) and
-``tree_unflatten_like``; and ``param_count`` of ``repro.utils.tree``.
+``tree_unflatten_like``; and ``repro.utils.tree``'s ``param_count``,
+``param_bytes``, ``tree_norm``, ``tree_zeros_like``, ``tree_add`` and
+``tree_scale``.
 Dict keys are visited in sorted order, as ``jax.tree_util`` flattens
 them.
 """
@@ -88,3 +90,30 @@ def param_count(tree) -> int:
     """Total number of scalar parameters in a tree."""
     return int(sum(t.numel() for t in tree_leaves(tree)
                    if isinstance(t, torch.Tensor)))
+
+
+def param_bytes(tree) -> int:
+    """Total bytes of the tensors in a tree (meta tensors count at their
+    shapes and dtypes, as the JAX package's ``ShapeDtypeStruct`` leaves
+    do)."""
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor)))
+
+
+def tree_norm(tree) -> torch.Tensor:
+    """Global L2 norm over every leaf of a tree (f32, each leaf's sum of
+    squares first)."""
+    sums = [torch.sum(torch.square(t.float())) for t in tree_leaves(tree)]
+    return torch.sqrt(sum(sums))
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)

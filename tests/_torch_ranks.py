@@ -5,6 +5,8 @@ that import them by name, so they live in a module of their own that
 imports neither JAX nor the JAX package (a rank starts faster without
 them).  Inputs arrive as numpy arrays; results go back as numpy arrays.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -889,3 +891,64 @@ def _broadcast_grads(group, world, c):
     total = group.all_reduce([share.detach()[None]], kind="meta")[0]
     return dict(loss=float(total[0]), grads=[_np(t) for t in summed],
                 logits=_np(logits), booked=booked)
+
+
+def remat_case(group, c, params_np, batch):
+    """One training case (``c``: arch, reduced config overrides, mode and
+    exchange options) on this rank (``group`` None: one process, no
+    exchange), from the JAX weights ``params_np``: this rank's loss share
+    and gradient, with and without rematerialisation → for each (``"on"``,
+    ``"off"``): the loss, the gradient leaves, what the group booked
+    (bytes by kind, calls, halo and state calls), the point-to-point tags
+    taken, and the bytes of the tensors autograd saved outside the
+    rematerialised regions (the parameters not counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import remat
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.train.train_step import _grads_of
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config(c["arch"]).reduced(**c["reduced"])
+    params = params_from_numpy(params_np, cfg)
+    xcfg = (ExchangeConfig() if group is None else _xcfg(c, group.world_size))
+    owned = {t.untyped_storage().data_ptr() for t in tree_leaves(params)}
+    tokens = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in batch.items()}
+    out = {}
+    for name in ("on", "off"):
+        saved = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            if st.data_ptr() not in owned:
+                saved[st.data_ptr()] = st.nbytes()
+            return t
+
+        ctx = (remat.disabled() if name == "off"
+               else contextlib.nullcontext())
+        if group is not None:
+            group.reset_stats()
+            tag0 = group._tag
+        with ctx, torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _, grads = _grads_of(params, tokens, cfg, xcfg)
+        res = dict(loss=_np(loss), grads=[_np(g) for g in grads],
+                   saved=sum(saved.values()))
+        if group is not None:
+            group.flush()
+            st = group.stats
+            res.update(tags=group._tag - tag0, booked=dict(
+                payload=st.payload_bytes, meta=st.meta_bytes,
+                state=st.state_bytes, grad=st.grad_bytes,
+                output=st.output_bytes, calls=st.calls,
+                halo_calls=st.halo_calls, state_calls=st.state_calls))
+        out[name] = res
+    return out
+
+
+def remat_grads(rank, world, job):
+    """``remat_case`` for each case of ``job["cases"]`` on this rank of
+    the group (the JAX weights of each arch in ``job["params"]``, the
+    batch of each case in ``job["batch"]``)."""
+    group = get_seq_group("seq")
+    return {label: remat_case(group, c, job["params"][label],
+                              job["batch"][label])
+            for label, c in job["cases"].items()}

@@ -34,7 +34,9 @@ DENSE_SHAPES = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
                                       (torch.bfloat16, 64),
-                                      (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 16)])
 @pytest.mark.parametrize("shape", sorted(DENSE_SHAPES))
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, dh, shape):
     """f32 inputs: relative max error ≤ 1e-5 on o/l, m and l over the rows
@@ -173,7 +175,9 @@ def test_segment_means_kernel_matches_plain_version(cuda_device, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
                                       (torch.bfloat16, 64),
-                                      (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 16)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_prism_attention_kernel_matches_plain_version(cuda_device, dtype, dh,
                                                       causal):
@@ -221,7 +225,9 @@ def test_prism_attention_kernel_matches_plain_version(cuda_device, dtype, dh,
 @pytest.mark.parametrize("dtype,dh,ps", [(torch.float32, 64, 16),
                                          (torch.bfloat16, 64, 16),
                                          (torch.bfloat16, 128, 8),
-                                         (torch.float32, 64, 5)])
+                                         (torch.float32, 64, 5),
+                                         (torch.float32, 16, 8),
+                                         (torch.bfloat16, 16, 5)])
 @pytest.mark.parametrize("MP", [10, 200])
 def test_paged_kernel_matches_plain_version(cuda_device, dtype, dh, ps, MP):
     """The paged flash-decode kernel against its plain version (gather +
@@ -1226,3 +1232,40 @@ def test_collective_backwards_are_transposes_on_the_card(cuda_device, P):
         assert dot == sum(r[name]["dot"] for r in cpu), name
         assert [r[name]["grad"] for r in card] == [r[name]["grad"]
                                                    for r in cpu], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_llama_generates_on_the_kernels_at_head_width_16(
+        cuda_device, dtype):
+    """The reduced llama (4/2 heads of 16, every example's width) greedy-
+    decodes on the card through the flash-decode kernel, never its plain
+    version: f32 tokens equal the CPU's; bf16 runs and launches."""
+    from repro_torch.api import InferenceSession
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    reduced = {"vocab_size": 128, "dtype": str(dtype).split(".")[1]}
+    cfg = get_config("llama3.2-1b").reduced(**reduced)
+    assert cfg.hd == 16
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, 128, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        session = InferenceSession.from_config(
+            "llama3.2-1b", reduced=reduced, device=dev,
+            params=_to(params, dev))
+        before = flash_decode.launches
+        tokens[dev] = session.generate(prompt.to(dev), 8).cpu()
+        if dev == "cuda":
+            assert flash_decode.launches > before
+    if dtype == torch.float32:
+        assert torch.equal(tokens["cuda"], tokens["cpu"])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree if tree is None else tree.to(device)

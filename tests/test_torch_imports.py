@@ -41,6 +41,8 @@ def test_port_imports_without_jax_or_repro():
         assert name in out.stdout.split()
     for name in RECURRENT_FAMILIES:
         assert name in out.stdout.split()
+    for name in EXAMPLES:
+        assert name in out.stdout.split()
 
 
 IMPORT_LINE = re.compile(r"^\s*(import jax|from jax|import repro\b|"
@@ -50,6 +52,11 @@ FLEET_TIER = ("repro_torch.fleet.router", "repro_torch.rpc.worker",
 RECURRENT_FAMILIES = ("repro_torch.models.ssm", "repro_torch.core.handoff",
                       "repro_torch.configs.hymba_1_5b",
                       "repro_torch.configs.xlstm_350m")
+EXAMPLES = ("repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_adaptive",
+            "repro_torch.examples.train_lm",
+            "repro_torch.examples.finetune_prism",
+            "repro_torch.models.remat")
 MOE_FAMILY = ("repro_torch.models.moe", "repro_torch.models.mla",
               "repro_torch.configs.deepseek_moe_16b",
               "repro_torch.configs.deepseek_v2_236b")
