@@ -383,6 +383,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2410,6 +2411,17 @@ def _clone(tree):
     return None if tree is None else tree.clone()
 
 
+def _both_devices(fn, world: int, *args) -> dict:
+    """``spawn(fn, world, *args, dev)`` on the card and on the CPU at once
+    (two groups of ranks whose start-ups overlap) → {dev: ranks' results}."""
+    from repro_torch.core.seq_group import spawn
+    devs = ("cuda", "cpu")
+    with concurrent.futures.ThreadPoolExecutor(len(devs)) as pool:
+        return dict(zip(devs, pool.map(
+            lambda dev: spawn(fn, world, *args, dev, timeout=RANK_TIMEOUT_S),
+            devs)))
+
+
 def _exact_fp32() -> None:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
@@ -2688,7 +2700,6 @@ def phase_small_gemma_reference() -> None:
     import torch
     from repro_torch.api.generation import generate
     from repro_torch.core.exchange import ExchangeConfig
-    from repro_torch.core.seq_group import spawn
     from repro_torch.models import transformer as tfm
     cfg, params = _small_gemma()
     sides = {"cpu": params, "cuda": _on(params, "cuda")}
@@ -2729,8 +2740,7 @@ def phase_small_gemma_reference() -> None:
         raise AssertionError("small f32 gemma2: card and CPU greedy tokens "
                              "differ")
     t0 = time.perf_counter()
-    ranks = {d: spawn(_small_gemma_rank, GEMMA_P, d, timeout=RANK_TIMEOUT_S)
-             for d in ("cpu", "cuda")}
+    ranks = _both_devices(_small_gemma_rank, GEMMA_P)
     P, Hk, dh, B = GEMMA_P, cfg.n_kv_heads, cfg.hd, 2
     seen = {}
     for key in ranks["cpu"][0]:
@@ -4196,7 +4206,6 @@ def phase_small_moe_reference() -> None:
     from repro_torch.api import ExecutionPlan, InferenceSession
     from repro_torch.api.generation import generate
     from repro_torch.core.exchange import ExchangeConfig
-    from repro_torch.core.seq_group import spawn
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import ServingRuntime
     local = ExchangeConfig()
@@ -4233,9 +4242,7 @@ def phase_small_moe_reference() -> None:
                 for a, b in zip(gpu["served"], cpu["served"])):
             raise AssertionError(f"small f32 {arch}: card tokens differ from "
                                  f"the CPU's (generate or slot pool)")
-        ranks = {dev: spawn(_small_moe_rank, LM_P, arch, dev,
-                            timeout=RANK_TIMEOUT_S)
-                 for dev in ("cuda", "cpu")}
+        ranks = _both_devices(_small_moe_rank, LM_P, arch)
         want = ranks["cpu"][0]
         seq = {}
         for key in ("fwd/voltage", "fwd/prism", "aux/voltage", "aux/prism",
@@ -4819,7 +4826,6 @@ def phase_small_xattn_reference() -> None:
     import torch
     from repro_torch.api import ExecutionPlan
     from repro_torch.api.generation import generate
-    from repro_torch.core.seq_group import spawn
     from repro_torch.models import transformer as tfm
     plans = {"local": ExecutionPlan.local(),
              "prism_sim": ExecutionPlan.prism_sim(L=SMALL_LM_L, cr=1.0)}
@@ -4854,9 +4860,7 @@ def phase_small_xattn_reference() -> None:
             if not torch.equal(gpu[key], cpu[key]):
                 raise AssertionError(f"small f32 {arch} {key}: card tokens "
                                      f"differ from the CPU's")
-        ranks = {dev: spawn(_small_xattn_rank, LM_P, arch, dev,
-                            timeout=RANK_TIMEOUT_S)
-                 for dev in ("cuda", "cpu")}
+        ranks = _both_devices(_small_xattn_rank, LM_P, arch)
         want = ranks["cpu"][0]
         seq = {}
         for key in ("fwd/voltage", "fwd/prism", "decode"):
@@ -5586,7 +5590,6 @@ def phase_small_ssm_reference() -> None:
     import torch
     from repro_torch.api import ExecutionPlan, InferenceSession
     from repro_torch.api.generation import generate
-    from repro_torch.core.seq_group import spawn
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import ServingRuntime
     t0 = time.perf_counter()
@@ -5632,10 +5635,7 @@ def phase_small_ssm_reference() -> None:
             if not np.array_equal(done[req.id], want):
                 raise AssertionError(f"small f32 {label}: the slot pool's "
                                      f"tokens differ from B 1 generate")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # both at once
-        ranks = dict(zip(("cuda", "cpu"), pool.map(
-            lambda dev: spawn(_small_ssm_rank, LM_P, dev,
-                              timeout=RANK_TIMEOUT_S), ("cuda", "cpu"))))
+    ranks = _both_devices(_small_ssm_rank, LM_P)
     want = ranks["cpu"][0]
     seq = {}
     for label in SMALL_SSM:
@@ -6761,9 +6761,7 @@ def _train_seq_rank(rank, world, remat_on=True):
     """One rank of llama3.2-1b cut to TRAIN_SEQ_LAYERS layers at full width
     on the shared card: TRAIN_SEQ_STEPS steps under ``voltage`` and
     ``prism(L=16)`` from the same weights → per step ms, staged ms, bytes
-    by kind, kernel launches and loss, and the digest of the final params;
-    then DH16_TRAIN's steps of launch.train's reduced llama under
-    ``prism`` (head width 16) → their launches, losses and digest."""
+    by kind, kernel launches and loss, and the digest of the final params."""
     import dataclasses
     import numpy as np
     import torch
@@ -6812,36 +6810,15 @@ def _train_seq_rank(rank, world, remat_on=True):
         del p, o
         torch.cuda.empty_cache()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    tr = DH16_TRAIN
-    rcfg = get_config(ARCH).reduced(vocab_size=tr["vocab"])
-    p = registry.init_params(rcfg, seed=0, device="cuda")
-    o = adamw_init(p)
-    step = build_train_step(rcfg, ExchangeConfig(
-        ExchangeMode.PRISM, seq_axis="seq", seq_shards=world, L=tr["L"]))
-    ds = SyntheticLMDataset(rcfg.vocab_size, tr["N"], tr["B"])
-    before = (segment_means.launches, prism_attention.launches)
-    losses = []
-    for i in range(tr["steps"]):
-        b = {k: torch.from_numpy(v).cuda() for k, v in ds.sample(
-            np.random.RandomState(2000 + i)).items()}
-        with _remat_mode(remat_on):
-            p, o, m = step(p, o, b)
-        losses.append(float(m["loss"]))
-    torch.cuda.synchronize()
-    out["reduced"] = dict(
-        n_layers=rcfg.n_layers, losses=losses, digest=_digest(p),
-        launches=(segment_means.launches - before[0],
-                  prism_attention.launches - before[1]))
     return out
 
 
 def phase_train_seq(card: str, remat_on: bool = True) -> dict:
     """``[train-seq]``: llama3.2-1b cut to 4 of 16 layers at full width on 2
     ranks sharing the card, each layer rematerialised (``remat_on``, the
-    default) or not; then launch.train's reduced llama under ``prism`` at
-    head width 16 → segment-means and PRISM-attention launches of the
-    ``prism`` train steps (full width; head width 16), summed over the
-    ranks."""
+    default) or not → segment-means and PRISM-attention launches of the
+    ``prism`` train steps, summed over the ranks (launch.train's reduced
+    llama at head width 16 runs in ``[mesh]``)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.seq_group import spawn
@@ -6904,29 +6881,6 @@ def phase_train_seq(card: str, remat_on: bool = True) -> dict:
                   f"prism_attention {rows[0]['launches'][1]} launches a step;"
                   f" loss " + " → ".join(f"{x:.4f}" for x in losses)
                   + f"; replicas bit-identical [{card}]", flush=True)
-    red = [r["reduced"] for r in ranks]
-    if len({r["digest"] for r in red}) != 1:
-        raise AssertionError("[train-seq] reduced llama prism: the replicas "
-                             "differ")
-    tr = DH16_TRAIN
-    want_n = runs * red[0]["n_layers"] * tr["steps"]
-    launches["segment_means_dh16"] = launches["prism_attention_dh16"] = 0
-    for rank, r in enumerate(red):
-        if r["launches"] != (want_n, want_n) or not all(
-                x == x and abs(x) < 1e9 for x in r["losses"]):
-            raise AssertionError(f"[train-seq] reduced llama prism rank "
-                                 f"{rank}: launches {r['launches']} (want "
-                                 f"{want_n} of each), losses {r['losses']}")
-        launches["segment_means_dh16"] += r["launches"][0]
-        launches["prism_attention_dh16"] += r["launches"][1]
-    print(f"[train-seq] launch.train's reduced {ARCH} (vocab {tr['vocab']}, "
-          f"{red[0]['n_layers']} layers, {DH16_HEADS[0]}/{DH16_HEADS[1]} "
-          f"heads of 16) on {LM_P} ranks, B {tr['B']} N {tr['N']}, "
-          f"prism(L={tr['L']}), {tr['steps']} steps, {label}: segment_means "
-          f"{red[0]['launches'][0]}, prism_attention {red[0]['launches'][1]}"
-          f" launches a rank (head width 16); loss "
-          + " → ".join(f"{x:.4f}" for x in red[0]["losses"])
-          + f"; replicas bit-identical [{card}]", flush=True)
     return launches
 
 
@@ -7057,10 +7011,14 @@ def phase_train_families(card: str) -> None:
     from repro_torch.core.seq_group import spawn
     t0 = time.perf_counter()
     runs = {}
-    for world in sorted({c[3] for c in TRAIN_FAMILIES.values()}):
-        labels = [lb for lb, c in TRAIN_FAMILIES.items() if c[3] == world]
-        ranks = spawn(_train_family_rank, world, labels,
-                      timeout=RANK_TIMEOUT_S)
+    worlds = sorted({c[3] for c in TRAIN_FAMILIES.values()})
+    cases = [[lb for lb, c in TRAIN_FAMILIES.items() if c[3] == world]
+             for world in worlds]
+    with concurrent.futures.ThreadPoolExecutor(len(worlds)) as pool:
+        spawned = list(pool.map(            # every world at once: the
+            lambda wl: spawn(_train_family_rank, *wl,   # start-ups overlap
+                             timeout=RANK_TIMEOUT_S), zip(worlds, cases)))
+    for labels, ranks in zip(cases, spawned):
         for lb in labels:
             runs[lb] = [r[lb] for r in ranks]
     for label, (arch, mode, kw, world) in TRAIN_FAMILIES.items():
@@ -7577,8 +7535,8 @@ def dh16_kernel_rows(dk: dict, ex: dict, ts: dict, replaces: dict,
                      keys: tuple) -> list:
     """The kernels line's rows at head width 16: flash-decode dense and
     paged in bf16 and f32 (launched by [examples]), segment means and
-    PRISM attention at (16, 16) (launched by [train-seq]'s reduced prism
-    train steps)."""
+    PRISM attention at (16, 16) (launched by [mesh]'s reduced prism train
+    steps, ``--data 2 --ranks 2``)."""
     import torch
     H, Hk = DH16_HEADS
     tr = DH16_TRAIN
@@ -7595,17 +7553,340 @@ def dh16_kernel_rows(dk: dict, ex: dict, ts: dict, replaces: dict,
                          f"reduced llama {layout} decode at dh 16: {name} "
                          f"{shape} {H}/{Hk} heads ([examples])"))
     rows.append(("segment_means", "segment_means", ts["segment_means_dh16"],
-                 dk["seg"], f"reduced llama prism train step ({LM_P} ranks):"
-                 f" K and V bf16 [{tr['B']}, {np_}, {Hk}·16] L={tr['L']}"))
+                 dk["seg"], f"reduced llama prism train step ([mesh]'s (2, 2), "
+                 f"a data row): K and V bf16 [{tr['B']}, {np_}, {Hk}·16] "
+                 f"L={tr['L']}"))
     rows.append(("prism_attention", "prism_attention",
                  ts["prism_attention_dh16"], dk["prism"],
-                 f"reduced llama prism train step ({LM_P} ranks): bf16 "
-                 f"[{tr['B']}, {np_}] {H}/{Hk} heads, widths (16, 16), causal"
+                 f"reduced llama prism train step ([mesh]'s (2, 2), a data "
+                 f"row): bf16 [{tr['B']}, {np_}] {H}/{Hk} heads, widths (16, "
+                 f"16), causal"
                  f" L={tr['L']} part 1"))
     return [{"name": kname, "route": "cuda",
              "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
              "replaces": replaces[kname], "launches": n, "shape": shape,
              **{k: t[k] for k in keys}} for kname, src, n, t, shape in rows]
+
+
+# --- [mesh]: the (data, model) mesh, ZeRO over data, the re-mesh ----------
+
+MESH_SHAPE, MESH_NAMES = (2, 2), ("data", "model")
+MESH_B = 2 * LM_B           # each data row [train-seq]'s B 4 on 2 ranks
+MESH_STEPS = 3              # the reduced run's; the checkpoint at step 2
+MESH_REMESH_RTOL = 1e-2     # step 3 resumed on (1, 2) vs uninterrupted, bf16
+MESH_SMALL_B, MESH_SMALL_N, MESH_SMALL_L, MESH_SMALL_STEPS = 4, 32, 4, 2
+
+
+def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
+                    coords: dict, params) -> dict:
+    """Bytes one rank of a (D, P) mesh receives in a train step, by kind,
+    from the shapes and the plan's specs: the row's exchange (the K/V or
+    means gather a layer in the model dtype, its cotangent in f32), the
+    row's f32 gradient sum and the column's (a reduce-scatter of the leaves
+    the plan shards over ``data``, an all-reduce of the others), the
+    parameter gathers (``param``: the blocks over ``data`` at the start of
+    the step, the updated optimizer blocks back into param blocks after
+    it), and the metrics' sums (``meta``: loss, nll, aux, then the squared
+    norm, on each axis)."""
+    import numpy as np
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.sharding.placement import Placement, spec_axes
+    from repro_torch.sharding.specs import make_plan
+    D, P = shape
+    plan = make_plan(make_auto_mesh(shape, MESH_NAMES), cfg,
+                     ExchangeMode(mode), L=L, train=True)
+    pl = Placement(plan, cfg, params, coords=coords)
+    out = dict(payload=0, grad=0, meta=0, param=0)
+    n_params = 0
+    for k, ent in pl.index_of.items():
+        n = int(np.prod(ent.shape))
+        n_params += n
+        w = ent.dtype.itemsize
+        if D > 1 and "data" in spec_axes(pl.spec[k]):
+            out["param"] += (D - 1) * n // D * w
+            out["grad"] += (D - 1) * n // D * 4
+        elif D > 1:
+            out["grad"] += (D - 1) * n * 4
+        blk = list(pl.block_shape(k, pl.opt_spec[k]))
+        spec = list(pl.opt_spec[k]) + [None] * len(blk)
+        for axis, size in (("model", P), ("data", D)):
+            if axis in spec and axis not in pl.spec[k] and size > 1:
+                out["param"] += (size - 1) * int(np.prod(blk)) * w
+                blk[spec.index(axis)] *= size
+    if P > 1:
+        rows = N // P if mode == "voltage" else L
+        kv = 2 * (B // D) * rows * cfg.n_kv_heads * cfg.hd
+        out["payload"] += cfg.n_layers * (P - 1) * kv * cfg.torch_dtype.itemsize
+        out["grad"] += cfg.n_layers * (P - 1) * kv * 4 + (P - 1) * 4 * n_params
+        out["meta"] += (P - 1) * 16
+    if D > 1:
+        out["meta"] += (D - 1) * 16
+    return out
+
+
+def _check_mesh_run(ranks, a: dict, shape, label: str,
+                    want_launches: int):
+    """The ranks' results of ``launch.train``'s mesh path (``train_mesh``)
+    with the launcher's arguments ``a`` on ``shape``: each step's bytes by
+    kind equal to the shapes, each step's kernel launches ``want_launches``
+    of each, the ranks of a row bit-identical and the whole params the same
+    on every rank, the losses finite → the config."""
+    from repro_torch.launch.train import check_mesh, model_config
+    from repro_torch.models import registry
+    cfg = model_config(a)
+    bad = check_mesh(ranks)
+    if bad:
+        raise AssertionError(f"[mesh] {label}: {bad}")
+    meta = registry.abstract_params(cfg)
+    for r in ranks:
+        want = mesh_step_bytes(cfg, a["mode"], shape, a["batch"], a["seq"],
+                               a["L"], r["coords"], meta)
+        for row in r["rows"]:
+            got = {k: row.get(k, 0) for k in want}
+            if got != want or any(row.get(k) for k in (
+                    "state", "merge", "cache", "output")):
+                raise AssertionError(f"[mesh] {label} rank {r['coords']}: "
+                                     f"bytes {row} != {want} from the "
+                                     f"shapes")
+            if row["launches"] != (want_launches, want_launches):
+                raise AssertionError(f"[mesh] {label}: launches "
+                                     f"{row['launches']} a step, want "
+                                     f"{want_launches} of each")
+        if not all(x == x and abs(x) < 1e9 for x in r["losses"]):
+            raise AssertionError(f"[mesh] {label}: loss {r['losses']}")
+    return cfg
+
+
+def _print_mesh_ranks(label: str, ranks, card: str) -> None:
+    for r in ranks:
+        rows = r["rows"]
+        steady = list(range(1, len(rows))) or [0]
+        ms = statistics.median(r["ms"][i] for i in steady)
+        st = statistics.median(r["staged_ms"][i] for i in steady)
+        last = rows[-1]
+        print(f"[mesh] {label} rank {r['coords']}: step ms "
+              + ", ".join(f"{x:.1f}" for x in r["ms"])
+              + f"; steady {ms:.1f} ms, staged {st:.1f} ms ({st / ms:.1%}) "
+              f"in {last['calls']} calls; received payload "
+              f"{last['payload'] / 1e6:.3f} MB, meta {last['meta']} B, grad "
+              f"{last['grad'] / 1e6:.1f} MB, param {last['param'] / 1e6:.1f} "
+              f"MB a step (= the shapes); segment_means "
+              f"{last['launches'][0]}, prism_attention {last['launches'][1]}"
+              f" launches a step; loss "
+              + " → ".join(f"{x:.4f}" for x in r["losses"])
+              + f"; peak {r['peak_gb']:.2f} GB [{card}]", flush=True)
+
+
+def _mesh_small(rank, world):
+    """A small f32 llama on this rank of the (2, 2) mesh, on the card and
+    then on the CPU (the same seed-0 weights and batches): each step's
+    loss and gradient (summed over the mesh, gathered whole) and the
+    params gathered whole after MESH_SMALL_STEPS steps, with the kernels'
+    launches on the card."""
+    _exact_fp32()
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.models import registry
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import mesh_gradients, mesh_update
+    cfg = get_config(ARCH).reduced(**SMALL_LLAMA)
+    params0 = registry.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(7)
+    batches = [{k: rng.randint(0, cfg.vocab_size, (MESH_SMALL_B,
+                                                   MESH_SMALL_N))
+                for k in ("tokens", "labels")}
+               for _ in range(MESH_SMALL_STEPS)]
+    plan = make_plan(get_abstract_mesh(), cfg, ExchangeMode.PRISM,
+                     L=MESH_SMALL_L, train=True)
+    place = Placement(plan, cfg, registry.abstract_params(cfg))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        blocks, opt = place.init_state(_on(params0, dev))
+        before = (segment_means.launches, prism_attention.launches)
+        steps = []
+        for b in batches:
+            batch = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+                     for k, v in b.items()}
+            loss, _, g = mesh_gradients(blocks, batch, cfg, place)
+            grads = place.whole(g, place.opt_spec)
+            blocks, opt, _ = mesh_update(blocks, opt, g, place,
+                                         OptConfig(**TRAIN_OPT))
+            steps.append(dict(loss=float(loss), grads={
+                k: v.float().cpu().numpy() for k, v in grads.items()}))
+        whole = place.whole(blocks, place.spec)
+        out[dev] = dict(steps=steps, launches=(
+            segment_means.launches - before[0],
+            prism_attention.launches - before[1]),
+            params={k: v.float().cpu().numpy() for k, v in whole.items()},
+            shard_digest=_digest([blocks[k] for k in place.keys]),
+            digest=_digest(list(whole.values())))
+    out["coords"] = place.coords
+    return out
+
+
+def _mesh_rank(rank, world, reduced: dict, full: dict):
+    """One rank of [mesh]'s (2, 2) mesh: launch.train's reduced run (which
+    also warms the rank up: the first rematerialised call, the kernels'
+    libraries), the full-width run, then the small f32 case."""
+    import gc
+    import torch
+    from repro_torch.launch.train import train_mesh
+    red = train_mesh(rank, world, reduced)
+    out = dict(reduced=red, full=train_mesh(rank, world, full))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = _mesh_small(rank, world)
+    return out
+
+
+def phase_mesh(card: str) -> dict:
+    """``[mesh]``, on one (2, 2) spawn of 4 ranks sharing the card:
+    launch.train's reduced llama ``--data 2 --ranks 2`` (PRISM attention
+    at (16, 16); MESH_STEPS steps, the checkpoint at step 2), then (a)
+    llama3.2-1b cut to TRAIN_SEQ_LAYERS layers at full width,
+    ``prism(L=16)``, B 8 N 512, 2 steps, then a small f32 llama on the card
+    against the CPU; (b) the re-mesh, on the reduced config ((a) and (b)
+    at full width took 171.5 s on the card, PERF.md §6): an
+    ``ElasticMeshManager`` over ranks 0–3 drops 2 and 3, and the survivors
+    resume as its (1, 2) mesh from the step-2 checkpoint and take step 3,
+    held to the uninterrupted run's step 3 → the kernels' launches summed
+    over the ranks: the full-width runs' and the reduced runs' (``_dh16``,
+    the (2, 2) run's)."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.core.seq_group import spawn_mesh
+    from repro_torch.launch.train import model_config, train_mesh
+    from repro_torch.runtime.elastic import ElasticMeshManager
+    gc.collect()
+    torch.cuda.empty_cache()       # 4 ranks share the card with this process
+    ck = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    tr = DH16_TRAIN
+    red = dict(arch=ARCH, steps=MESH_STEPS, mode="prism", ranks=MESH_SHAPE[1],
+               data=MESH_SHAPE[0], batch=MESH_SHAPE[0] * tr["B"],
+               seq=tr["N"], L=tr["L"], full=False, layers=None,
+               device="cuda", ckpt_dir=ck, ckpt_every=2, resume=False)
+    full = dict(red, steps=2, batch=MESH_B, seq=LM_N, L=LM_L, full=True,
+                layers=TRAIN_SEQ_LAYERS, ckpt_dir=os.path.join(ck, "full"),
+                ckpt_every=50)
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full,
+                           timeout=RANK_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        rcfg = _check_mesh_run([r["reduced"] for r in ranks], red,
+                               MESH_SHAPE, "reduced",
+                               2 * model_config(red).n_layers)
+        _check_mesh_run([r["full"] for r in ranks], full, MESH_SHAPE, "(a)",
+                        2 * TRAIN_SEQ_LAYERS)
+        mgr = ElasticMeshManager(rcfg, ExchangeMode.PRISM, L=tr["L"],
+                                 devices=[0, 1, 2, 3])
+        mesh, plan = mgr.drop([2, 3])
+        shape = tuple(mesh.shape.values())
+        if shape != (1, 2) or plan.xcfg.seq_shards != 2:
+            raise AssertionError(f"[mesh] (b): best_mesh {mesh} after "
+                                 f"dropping ranks 2, 3")
+        t0 = time.perf_counter()
+        b = dict(red, data=1, resume=True)
+        sur = spawn_mesh(train_mesh, shape, MESH_NAMES, b,
+                         timeout=RANK_TIMEOUT_S)
+        remesh_s = time.perf_counter() - t0
+        _check_mesh_run(sur, b, shape, "(b)", 2 * rcfg.n_layers)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    fr = [r["full"] for r in ranks]
+    print(f"[mesh] (a) {ARCH} cut to {TRAIN_SEQ_LAYERS} of 16 layers at "
+          f"full width on a {dict(zip(MESH_NAMES, MESH_SHAPE))} mesh of 4 "
+          f"ranks sharing the card, prism(L={LM_L}), B {MESH_B} N {LM_N} (B "
+          f"{MESH_B // MESH_SHAPE[0]} a data row, as [train-seq]'s 2 ranks), "
+          f"params ZeRO-3 over data, AdamW state ZeRO-1 over both axes, 2 "
+          f"steps after the reduced run's warm-up; the spawn {spawn_s:.1f} s "
+          f"with start-up, the reduced run and the small case; peak "
+          f"{max(r['peak_gb'] for r in fr):.2f} GB a rank ([train-seq], 1 × "
+          f"2, full replicas: 15.52 GB, PERF.md §5); bytes = shapes, the "
+          f"rows bit-identical, the gathered params the same on all 4 ranks "
+          f"[{card}]", flush=True)
+    _print_mesh_ranks("(a)", fr, card)
+    rr = [r["reduced"] for r in ranks]
+    print(f"[mesh] launch.train's reduced {ARCH} --data 2 --ranks 2 (vocab "
+          f"{tr['vocab']}, {rcfg.n_layers} layers, {DH16_HEADS[0]}/"
+          f"{DH16_HEADS[1]} heads of 16), B {red['batch']} N {tr['N']} (B "
+          f"{tr['B']} a data row), prism(L={tr['L']}), {MESH_STEPS} steps, "
+          f"the checkpoint at step 2: segment_means "
+          f"{sum(x['launches'][0] for x in rr[0]['rows'])}, prism_attention "
+          f"{sum(x['launches'][1] for x in rr[0]['rows'])} launches a rank "
+          f"(head width 16); loss "
+          + " → ".join(f"{x:.4f}" for x in rr[0]["losses"])
+          + f"; bytes = shapes, rows bit-identical [{card}]", flush=True)
+    got, want = sur[0]["losses"][0], rr[0]["losses"][2]
+    rel = abs(got - want) / abs(want)
+    print(f"[mesh] (b) the re-mesh, on the reduced config: ranks 2, 3 "
+          f"dropped, best_mesh {dict(mesh.shape)}; the 2 survivors restore "
+          f"step {sur[0]['start']} (global arrays, each rank its blocks under"
+          f" the new plan) and take step 3: loss {got:.6f} against "
+          f"{want:.6f} uninterrupted on (2, 2), {rel:.2e} relative (≤ "
+          f"{MESH_REMESH_RTOL:g}: bf16, other sum orders); "
+          f"{remesh_s:.1f} s with start-up [{card}]", flush=True)
+    _print_mesh_ranks("(b)", sur, card)
+    if sur[0]["start"] != 2 or not rel <= MESH_REMESH_RTOL:
+        raise AssertionError(f"[mesh] (b): step 3 loss {got} vs {want}")
+    worst = 0.0
+    small = [r["small"] for r in ranks]
+    for r in small:
+        c, h = r["cuda"], r["cpu"]
+        if min(c["launches"]) == 0 or c["digest"] != small[0]["cuda"]["digest"]:
+            raise AssertionError(f"[mesh] small f32: launches "
+                                 f"{c['launches']}, or the gathered params "
+                                 f"differ between ranks")
+        for sc, sh in zip(c["steps"], h["steps"]):
+            if abs(sc["loss"] - sh["loss"]) > 1e-5 * abs(sh["loss"]):
+                raise AssertionError(f"[mesh] small f32: loss {sc['loss']} "
+                                     f"vs the CPU's {sh['loss']}")
+            for k, w in sh["grads"].items():
+                err = float(np.abs(sc["grads"][k] - w).max()
+                            / max(np.abs(w).max(), 1e-30))
+                worst = max(worst, err)
+                if err > 1e-4:
+                    raise AssertionError(f"[mesh] small f32: gradient {k} "
+                                         f"{err:.2e} of its largest")
+    rows = {}
+    for r in small:
+        rows.setdefault(r["coords"]["data"], set()).add(
+            r["cuda"]["shard_digest"])
+    if any(len(d) != 1 for d in rows.values()):
+        raise AssertionError("[mesh] small f32: the ranks of a row differ")
+    print(f"[mesh] small f32 {ARCH} (d {SMALL_LLAMA['d_model']}, "
+          f"{SMALL_LLAMA['n_heads']}/{SMALL_LLAMA['n_kv_heads']} heads of "
+          f"{SMALL_LLAMA['head_dim']}) on the (2, 2) mesh, prism(L="
+          f"{MESH_SMALL_L}), B {MESH_SMALL_B} N {MESH_SMALL_N}, "
+          f"{MESH_SMALL_STEPS} steps, card ranks vs CPU ranks: gradients "
+          f"≤ {worst:.2e} of each leaf's largest (≤ 1e-4), losses ≤ 1e-5; "
+          f"segment_means {small[0]['cuda']['launches'][0]}, "
+          f"prism_attention {small[0]['cuda']['launches'][1]} launches a "
+          f"rank; rows bit-identical, gathered params the same on all 4 "
+          f"ranks [{card}]", flush=True)
+    launches = dict.fromkeys(("segment_means", "prism_attention",
+                              "segment_means_dh16", "prism_attention_dh16"),
+                             0)
+    for runs, suffix in ((fr, ""), (rr, "_dh16")):
+        for r in runs:
+            for row in r["rows"]:
+                launches["segment_means" + suffix] += row["launches"][0]
+                launches["prism_attention" + suffix] += row["launches"][1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --- [examples]: the port's examples on the card --------------------------
@@ -7794,9 +8075,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="The port's chip smoke: every "
                                  "phase with no arguments.")
     ap.add_argument("--only", default="", help="a comma-separated subset "
-                    "of dh16, examples, train, train-seq, train-seq-families "
-                    "to run after the build, for measurements (no kernels "
-                    "line)")
+                    "of dh16, examples, train, train-seq, train-seq-families, "
+                    "mesh to run after the build, for measurements (no "
+                    "kernels line)")
     ap.add_argument("--remat", default="on", choices=["on", "off", "both"],
                     help="--only's train-seq and train-seq-families with "
                     "each layer rematerialised, without, or both in turn")
@@ -7833,7 +8114,8 @@ def main(argv=None) -> None:
             else:
                 run(phase, {"dh16": lambda _: phase_dh16_kernels(),
                             "examples": phase_examples,
-                            "train": phase_train}[phase], card)
+                            "train": phase_train,
+                            "mesh": phase_mesh}[phase], card)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": count}}))
@@ -7882,6 +8164,7 @@ def main(argv=None) -> None:
     ts = run("train-seq", phase_train_seq, card)
     run("train-families", phase_train_families, card)
     tsf = run("train-seq-families", phase_train_seq_families, card)
+    ms = run("mesh", phase_mesh, card)
 
     main_shape = timed[(PROMPT_B, PROMPT_T + N_NEW)]
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -8002,7 +8285,18 @@ def main(argv=None) -> None:
             "library_fwd_bwd_ms": b["library_ms"]})
     kernels += train_family_kernel_rows(tsf, exchange, sk,
                                         {r[0]: r[1] for r in rows}, keys)
-    kernels += dh16_kernel_rows(dk, ex, ts, {r[0]: r[1] for r in rows},
+    for kname, t in (("segment_means", exchange["segment_means_lm"]),
+                     ("prism_attention", exchange["prism_attention_lm"])):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src.format(kname, kname),
+            "replaces": {r[0]: r[1] for r in rows}[kname],
+            "launches": ms[kname],
+            "shape": f"{ARCH} prism train step per rank on [mesh]'s (2, 2) "
+                     f"mesh ({TRAIN_SEQ_LAYERS} of 16 layers, B {LM_B} a data"
+                     f" row): the lm phase's prism shape",
+            **{k: t[k] for k in keys}})
+    kernels += dh16_kernel_rows(dk, ex, ms, {r[0]: r[1] for r in rows},
                                 keys)
     print(card)
     print(json.dumps({"kernels": kernels}))

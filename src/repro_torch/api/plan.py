@@ -221,8 +221,9 @@ class ExecutionPlan:
 
     def sharding_plan(self, mesh, cfg, *, train: bool = False,
                       decode: bool = False):
-        """Mesh-level sharding plan for multi-device launches: a GSPMD tool
-        of the JAX package that the port decides on last (ROADMAP queue 1
-        item 13)."""
-        raise NotImplementedError("mesh sharding plans are not ported "
-                                  "(ROADMAP queue 1 item 13)")
+        """Mesh-level ``ShardingPlan`` for multi-rank launches (the mesh's
+        axis sizes override this plan's ``seq_shards``)."""
+        from repro_torch.api.strategies import get_strategy
+        from repro_torch.sharding.specs import make_plan
+        return make_plan(mesh, cfg, get_strategy(self.mode).exchange_mode,
+                         L=self.L, train=train, decode=decode)

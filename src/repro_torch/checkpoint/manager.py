@@ -17,8 +17,12 @@ them: dict keys, sequence indices, ``.field`` of a NamedTuple; see
   files on a thread, so the next step overlaps the write;
 * rotation keeps the newest ``keep`` checkpoints.
 
-One process writes every leaf (``process_index`` 0): the port keeps a full
-replica of the state on every rank.
+One process writes every leaf (``process_index`` 0).  A seq group keeps a
+full replica of the state on every rank; a mesh's ranks gather their
+shards of each leaf and rank 0 writes the global arrays, in the JAX layout
+(``Placement.save``), and ``restore(..., placements=)`` hands each rank
+its slices of them under a new plan, which is how a re-meshed run resumes
+(``runtime.elastic``).
 """
 from __future__ import annotations
 
@@ -85,9 +89,13 @@ def save_pytree(tree, directory: str, step: int,
 
 
 def load_pytree(template, directory: str, step: Optional[int] = None,
-                device=None):
+                device=None, placements: Optional[Dict[str, tuple]] = None):
     """Restore into the structure of ``template``: each leaf on
-    ``device``, or on the device of the template's leaf."""
+    ``device``, or on the device of the template's leaf.  ``placements``
+    (a leaf's ``/``-joined key path → a tuple of slices) restores only
+    those slices of the stored global arrays: one rank's blocks under a
+    new sharding plan (``Placement.state_placements``); a leaf it does not
+    name comes whole."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -110,7 +118,10 @@ def load_pytree(template, directory: str, step: Optional[int] = None,
             raise KeyError(f"checkpoint missing leaf {key}")
         dev = device if device is not None else getattr(leaf, "device",
                                                         "cpu")
-        leaves.append(stored[key].to(dev))
+        t = stored[key]
+        if placements is not None and key in placements:
+            t = t[placements[key]].clone()
+        leaves.append(t.to(dev))
     return tree_unflatten_like(template, leaves)
 
 
@@ -150,8 +161,9 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def restore(self, template, step: Optional[int] = None, device=None):
-        return load_pytree(template, self.dir, step, device)
+    def restore(self, template, step: Optional[int] = None, device=None,
+                placements: Optional[Dict[str, tuple]] = None):
+        return load_pytree(template, self.dir, step, device, placements)
 
     def restore_or_none(self, template, device=None):
         try:

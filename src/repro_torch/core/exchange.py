@@ -147,7 +147,9 @@ def partitioned(cfg: ExchangeConfig) -> bool:
 
 def seq_group_for(cfg: ExchangeConfig) -> SeqGroup:
     """The seq group registered under ``cfg.seq_axis``; its size must be
-    ``cfg.seq_shards``."""
+    ``cfg.seq_shards``.  On a ``("data", "model")`` mesh the plan's
+    ``seq_axis`` is ``"model"``: the rank's row (a model axis of 1 leaves
+    the plan unpartitioned, and nothing asks for a group)."""
     group = get_seq_group(cfg.seq_axis)
     if group.world_size != cfg.seq_shards:
         raise ValueError(f"seq group {cfg.seq_axis!r} has "

@@ -68,11 +68,20 @@ their axis::
         group = get_seq_group("seq")
         ...
     results = spawn(rank_main, 2)           # one result per rank
+
+A group need not be the world: on a mesh (``spawn_mesh``,
+``repro_torch.launch.mesh.set_mesh``) each rank belongs to one group a
+mesh axis, a line of the grid with a gloo process group of its own
+(``SeqGroup.pg``).  Every collective passes that group, every
+point-to-point call and root takes the peer's global rank
+(``SeqGroup.peer``), and each group counts its own tags, so a row's
+exchanges and their backwards stay on the row.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import multiprocessing
 import os
 import queue as queue_mod
@@ -103,6 +112,8 @@ class GatherStats:
     grad_bytes: int = 0       # gradients: the gather's reduce-scattered
                               # cotangents and the summed parameter
                               # gradients (f32)
+    param_bytes: int = 0      # parameter shards gathered over a mesh axis
+                              # (ZeRO: at a step's start, after its update)
     halo_calls: int = 0       # ``shift`` calls (PRISM's halo), every rank
     state_calls: int = 0      # ``pass_on`` hand-offs, every rank
     seconds: float = 0.0      # host clock inside the collectives, staging
@@ -220,7 +231,8 @@ class _ChainReceived(torch.autograd.Function):
         g = ctx.group
         t0 = time.perf_counter()
         host = g._host_copy(torch.cat([c.float().reshape(-1) for c in cts]))
-        g._sends.append((dist.isend(host, g.rank - 1, tag=ctx.tag), host))
+        g._sends.append((dist.isend(host, g.peer(g.rank - 1), tag=ctx.tag,
+                                    group=g.pg), host))
         g.stats.seconds += time.perf_counter() - t0
         return None, None, None, None, None
 
@@ -245,7 +257,7 @@ class _ChainSent(torch.autograd.Function):
         dev = ct_out.device
         host = torch.empty((n,), dtype=torch.float32,
                            pin_memory=dev.type == "cuda")
-        dist.recv(host, g.rank + 1, tag=ctx.tag)
+        dist.recv(host, g.peer(g.rank + 1), tag=ctx.tag, group=g.pg)
         got = host.to(dev)
         g._end(t0, "grad", n * 4)
         out, off = [], 0
@@ -347,10 +359,16 @@ def _tracked(*tensors) -> bool:
 class SeqGroup:
     """One rank's view of a sequence-partition group (gloo, host-staged)."""
 
-    def __init__(self, axis: str, rank: int, world_size: int):
+    def __init__(self, axis: str, rank: int, world_size: int, *,
+                 pg=None, ranks: Optional[List[int]] = None):
         self.axis = axis
-        self.rank = rank
+        self.rank = rank                # this rank's place in the group
         self.world_size = world_size
+        self.pg = pg                    # None: the default (world) group
+        # global rank of each group rank (a mesh line; the world's own
+        # ranks for the default group)
+        self.ranks = list(range(world_size)) if ranks is None else \
+            list(ranks)
         self.stats = GatherStats()
         self._tag = 0                   # next point-to-point message tag
         # pass_on's sends in flight: (work, host buffer)
@@ -373,6 +391,11 @@ class SeqGroup:
         finally:
             self._tape = prev
             tape.recorded = True
+
+    def peer(self, r: int) -> int:
+        """The global rank of group rank ``r`` (what torch.distributed's
+        point-to-point calls and roots take)."""
+        return self.ranks[r]
 
     def _replaying(self) -> bool:
         return self._tape is not None and self._tape.recorded
@@ -449,7 +472,8 @@ class SeqGroup:
             nbytes = leaves_bytes(like)
             cuda = torch.device(device).type == "cuda"
             host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=cuda)
-            dist.recv(host, self.rank - 1, tag=tag)
+            dist.recv(host, self.peer(self.rank - 1), tag=tag,
+                      group=self.pg)
             buf = host.to(device)
             self._end(t0, kind, nbytes)
             if grad:
@@ -462,8 +486,8 @@ class SeqGroup:
             t0 = time.perf_counter()
             final = [to_send[name] for name in like]
             host = self._to_host(pack_leaves(dict(zip(like, final))))
-            self._sends.append((dist.isend(host, self.rank + 1, tag=tag),
-                                host))
+            self._sends.append((dist.isend(host, self.peer(self.rank + 1),
+                                           tag=tag, group=self.pg), host))
             self.stats.seconds += time.perf_counter() - t0
             if grad and _tracked(*final):
                 out = _ChainSent.apply(self, tag + 1, out, *final)
@@ -506,7 +530,7 @@ class SeqGroup:
         t0 = self._begin(t)
         host = self._to_host(t)
         parts = [torch.empty_like(host) for _ in range(self.world_size)]
-        dist.all_gather(parts, host)
+        dist.all_gather(parts, host, group=self.pg)
         out = torch.stack(parts).view(t.dtype).reshape(
             self.world_size, *t.shape).to(t.device)
         self._end(t0, kind, host.numel() * (self.world_size - 1))
@@ -525,7 +549,7 @@ class SeqGroup:
         host = self._host_copy(t, torch.float32).reshape(P, -1)
         out = torch.empty(host.shape[1:], dtype=torch.float32,
                           pin_memory=t.is_cuda)
-        dist.reduce_scatter(out, list(host.unbind(0)))
+        dist.reduce_scatter(out, list(host.unbind(0)), group=self.pg)
         res = out.reshape(t.shape[1:]).to(t.device)
         self._end(t0, "grad", out.numel() * 4 * (P - 1))
         return res
@@ -550,7 +574,7 @@ class SeqGroup:
             flat = parts[0] if len(parts) == 1 else torch.cat(parts)
             t0 = self._begin(flat)
             host = self._host_copy(flat)
-            dist.all_reduce(host)
+            dist.all_reduce(host, group=self.pg)
             got = host.to(flat.device)
             off = 0
             for i in bucket:
@@ -684,10 +708,12 @@ class SeqGroup:
         tags = range(start, start + n)
         # every receive is posted before any send
         works = [] if src is None else [
-            dist.irecv(recv[i * size:(i + 1) * size], src, tag=tg)
+            dist.irecv(recv[i * size:(i + 1) * size], self.peer(src),
+                       tag=tg, group=self.pg)
             for i, tg in enumerate(tags)]
         works += [] if dst is None else [
-            dist.isend(host[i * size:(i + 1) * size], dst, tag=tg)
+            dist.isend(host[i * size:(i + 1) * size], self.peer(dst),
+                       tag=tg, group=self.pg)
             for i, tg in enumerate(tags)]
         self.stats.seconds += time.perf_counter() - t0
         link = ((tracked, n, self._take_tags(n)) if _tracked(tracked)
@@ -712,7 +738,7 @@ class SeqGroup:
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         t0 = self._begin(t)
         host = self._to_host(t)
-        dist.broadcast(host, src)
+        dist.broadcast(host, self.peer(src), group=self.pg)
         out = host.view(t.dtype).reshape(t.shape).to(t.device)
         self._end(t0, "output", 0 if self.rank == src else host.numel())
         return out
@@ -723,7 +749,7 @@ class SeqGroup:
         bytes as ``grad``, every rank one call."""
         t0 = self._begin(t)
         host = self._host_copy(t, torch.float32)
-        dist.reduce(host, dst)
+        dist.reduce(host, self.peer(dst), group=self.pg)
         mine = self.rank == dst
         self._end(t0, "grad", host.numel() * 4 * (self.world_size - 1)
                   if mine else 0)
@@ -732,13 +758,13 @@ class SeqGroup:
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """Rank ``src``'s picklable ``obj`` on every rank."""
         box = [obj]
-        dist.broadcast_object_list(box, src)
+        dist.broadcast_object_list(box, self.peer(src), group=self.pg)
         return box[0]
 
     def all_gather_object(self, obj: Any) -> List[Any]:
         """Every rank's picklable ``obj``, in rank order, on every rank."""
         out: List[Any] = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.pg)
         return out
 
 
@@ -799,16 +825,29 @@ def init_seq_group(rank: int, world_size: int, store_path: str,
                    axis: str = "seq") -> SeqGroup:
     """Join the gloo group of ``world_size`` ranks that rendezvous at the
     file ``store_path`` and register it under ``axis``."""
-    if axis in _GROUPS:
-        raise RuntimeError(f"seq group {axis!r} already initialised in "
-                           f"this process")
+    _init_world(rank, world_size, store_path)
+    return register_seq_group(SeqGroup(axis, rank, world_size))
+
+
+def _init_world(rank: int, world_size: int, store_path: str) -> None:
     if not dist.is_initialized():
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world_size)
-    group = SeqGroup(axis, rank, world_size)
-    _GROUPS[axis] = group
+
+
+def register_seq_group(group: SeqGroup) -> SeqGroup:
+    """Register ``group`` under its axis name (one group an axis a
+    process)."""
+    if group.axis in _GROUPS:
+        raise RuntimeError(f"seq group {group.axis!r} already initialised "
+                           f"in this process")
+    _GROUPS[group.axis] = group
     return group
+
+
+def unregister_seq_group(axis: str) -> None:
+    _GROUPS.pop(axis, None)
 
 
 def get_seq_group(axis: str) -> SeqGroup:
@@ -832,17 +871,45 @@ def destroy_seq_group(axis: str = "seq") -> None:
         dist.destroy_process_group()
 
 
-def _rank_entry(fn, rank, world_size, store_path, axis, results, args):
+def _rank_entry(fn, rank, world_size, store_path, join, results, args):
     torch.set_num_threads(1)
     try:
-        init_seq_group(rank, world_size, store_path, axis)
-        out = fn(rank, world_size, *args)
+        _init_world(rank, world_size, store_path)
+        leave = join(rank, world_size)
+        try:
+            out = fn(rank, world_size, *args)
+        finally:
+            leave()
         results.put((rank, True, out))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
     finally:
-        destroy_seq_group(axis)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class _JoinAxis:
+    """Register the whole world as the seq group of ``axis``."""
+
+    def __init__(self, axis: str):
+        self.axis = axis
+
+    def __call__(self, rank: int, world_size: int):
+        register_seq_group(SeqGroup(self.axis, rank, world_size))
+        return lambda: unregister_seq_group(self.axis)
+
+
+class _JoinMesh:
+    """Join the mesh of ``shape`` over ``names`` (``launch.mesh``)."""
+
+    def __init__(self, shape, names):
+        self.shape, self.names = tuple(shape), tuple(names)
+
+    def __call__(self, rank: int, world_size: int):
+        from repro_torch.launch import mesh as mesh_mod
+        mesh_mod.set_mesh(mesh_mod.make_auto_mesh(self.shape, self.names))
+        return mesh_mod.leave_mesh
 
 
 def spawn(fn: Callable, world_size: int, *args, timeout: float = 120.0,
@@ -856,12 +923,27 @@ def spawn(fn: Callable, world_size: int, *args, timeout: float = 120.0,
     traceback if any rank fails, and ``TimeoutError`` if the ranks have not
     all finished within ``timeout`` seconds; either way every rank process
     is ended before it returns."""
+    return _run_ranks(fn, world_size, _JoinAxis(axis), args, timeout)
+
+
+def spawn_mesh(fn: Callable, shape, names, *args, timeout: float = 120.0
+               ) -> List[Any]:
+    """As :func:`spawn`, over ``prod(shape)`` ranks that join the mesh of
+    ``shape`` over the axis ``names`` (``launch.mesh.make_auto_mesh``, then
+    ``set_mesh`` in every rank: one seq group a line of each axis, under
+    the axis's name); ``fn(rank, world_size, *args)`` → the results in
+    global rank order."""
+    world = math.prod(shape)
+    return _run_ranks(fn, world, _JoinMesh(shape, names), args, timeout)
+
+
+def _run_ranks(fn, world_size, join, args, timeout) -> List[Any]:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="seq_group_")
     store_path = os.path.join(tmp, "store")
     procs = [ctx.Process(target=_rank_entry,
-                         args=(fn, r, world_size, store_path, axis, results,
+                         args=(fn, r, world_size, store_path, join, results,
                                args), daemon=True)
              for r in range(world_size)]
     out: Dict[int, Any] = {}
@@ -872,7 +954,7 @@ def spawn(fn: Callable, world_size: int, *args, timeout: float = 120.0,
         while len(out) < world_size:
             left = deadline - time.monotonic()
             if left <= 0:
-                raise TimeoutError(f"seq group of {world_size} ranks did not "
+                raise TimeoutError(f"{world_size} ranks did not "
                                    f"finish in {timeout:g} s (ranks done: "
                                    f"{sorted(out)})")
             try:

@@ -182,3 +182,47 @@ def forward_fn(cfg: ModelConfig) -> Callable:
             torch.zeros((), dtype=torch.float32,
                         device=batch["images"].device))
     return lambda params, batch, xcfg: tfm.forward_lm(params, batch, cfg, xcfg)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes and dtypes,
+    no storage."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig):
+    """The params tree of ``cfg`` on the meta device: every leaf's shape
+    and dtype, nothing allocated (the JAX package's ``jax.eval_shape`` of
+    its init)."""
+    return init_fn(cfg)(_MetaGenerator())
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeSpec, xcfg=None):
+    """The decode cache of (arch × shape) on the meta device, in the JAX
+    layout (stacked layers); the memory families' ``mem_kv`` ``[n_stack, B,
+    M, Hk, dh]`` and ``mem_mask`` ``[B, M]`` at the memory padded for
+    ``xcfg``'s partitions (their slots fill at prefill)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    cache = tfm.init_decode_cache(cfg, B, S, device=meta)
+    if cfg.family in ("audio", "vlm"):
+        shards = xcfg.seq_shards if xcfg is not None else 1
+        L = xcfg.L if xcfg is not None else 1
+        if cfg.family == "audio":
+            M = tfm.pad_len(cfg.encoder_seq, shards, max(L, 1))
+            n_stack = cfg.n_layers
+        else:
+            M = tfm.pad_len(cfg.image_tokens, shards, max(L, 1))
+            n_stack = cfg.n_layers // cfg.cross_attn_every
+        kv = (n_stack, B, M, cfg.n_kv_heads, cfg.hd)
+        cache = {**cache,
+                 "mem_kv": {"k": torch.zeros(kv, dtype=cfg.torch_dtype,
+                                             device=meta),
+                            "v": torch.zeros(kv, dtype=cfg.torch_dtype,
+                                             device=meta)},
+                 "mem_mask": torch.zeros((B, M), dtype=torch.bool,
+                                         device=meta)}
+    return cache

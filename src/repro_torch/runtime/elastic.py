@@ -1,15 +1,17 @@
-"""Elastic re-meshing: track the healthy device set and find the largest
-viable mesh after losing devices.
+"""Elastic re-meshing: track the healthy ranks and rebuild the mesh and its
+sharding plan after losing some.
 
-Port of ``repro.runtime.elastic``.  The membership bookkeeping
-(``ElasticMeshManager.drop`` by explicit ids or by count,
-``largest_mesh_shape``) is the JAX package's, exactly.  Building the mesh
-and its sharding plan (``build``, ``best_mesh``, ``replan_for_failure``)
-needs a JAX ``Mesh`` and ``repro.sharding.specs.make_plan``, which have no
-counterpart in the port yet (ROADMAP queue 1 item [13], ``sharding/specs``):
-those raise ``NotImplementedError``.  A port deployment re-partitions by
-starting a seq group of the surviving size (``repro_torch.core.seq_group``)
-and restoring the replicated checkpoint into it.
+Port of ``repro.runtime.elastic``.  PRISM's sequence-partition count P is
+a runtime parameter, so the system is elastic: on failure the mesh is
+rebuilt from the surviving ranks, the sharding plan re-derived (P follows
+the model-axis size) and the checkpointed state restored onto it.  The
+members are gloo ranks (``devices`` a list of rank ids, by default every
+rank of the initialised process group), a mesh is a
+``repro_torch.launch.mesh.Mesh`` of them, and restoring with new
+placements is the checkpoint manager's ``restore(..., placements=)``:
+each rank reads its blocks of the global arrays under the new plan (the
+port's ``jax.device_put`` with new shardings).  ``launch.train --resume``
+starts the survivors as the new mesh from the newest checkpoint.
 """
 from __future__ import annotations
 
@@ -18,20 +20,22 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
-_NO_MESH = ("the port has no device mesh or sharding plan yet (ROADMAP "
-            "queue 1 item [13], sharding/specs); start a seq group of the "
-            "surviving size and restore the checkpoint into it")
+from repro_torch.launch.mesh import Mesh
+from repro_torch.sharding.specs import make_plan
 
 
 def _default_devices() -> list:
-    import torch
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    """The ranks of the initialised process group (rank 0 alone without
+    one)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return list(range(dist.get_world_size()))
+    return [0]
 
 
 @dataclasses.dataclass
 class ElasticMeshManager:
-    """Tracks the healthy device set (and would rebuild mesh + plan on
-    change)."""
+    """Tracks the healthy ranks and rebuilds mesh + plan on change."""
     cfg: Any
     mode: Any
     L: int = 0
@@ -43,7 +47,10 @@ class ElasticMeshManager:
 
     def build(self, axis_shape: Tuple[int, ...],
               axis_names: Tuple[str, ...]):
-        raise NotImplementedError(f"ElasticMeshManager.build: {_NO_MESH}")
+        n = int(np.prod(axis_shape))
+        devs = np.asarray(self.devices[:n]).reshape(axis_shape)
+        mesh = Mesh(devs, axis_names)
+        return mesh, make_plan(mesh, self.cfg, self.mode, L=self.L)
 
     def drop(self, failed, rebuild: bool = True):
         """Remove failed devices and return the largest viable mesh.
@@ -75,7 +82,11 @@ class ElasticMeshManager:
         return self.best_mesh()
 
     def best_mesh(self):
-        raise NotImplementedError(f"ElasticMeshManager.best_mesh: {_NO_MESH}")
+        n = len(self.devices)
+        shape = largest_mesh_shape(n)
+        names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                           "model")
+        return self.build(shape, names)
 
 
 def largest_mesh_shape(n_devices: int) -> Tuple[int, ...]:
@@ -90,5 +101,7 @@ def largest_mesh_shape(n_devices: int) -> Tuple[int, ...]:
 
 
 def replan_for_failure(cfg, mode, surviving: int, L: int = 0):
-    """Mesh + plan for the surviving device count (not in the port yet)."""
-    raise NotImplementedError(f"replan_for_failure: {_NO_MESH}")
+    """One-shot helper: mesh + plan for the surviving rank count."""
+    mgr = ElasticMeshManager(cfg, mode, L=L,
+                             devices=list(range(surviving)))
+    return mgr.best_mesh()

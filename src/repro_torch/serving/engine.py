@@ -24,9 +24,9 @@ consumes the dispatch fault armed for ``runtime.chaos_name`` — an
 injected error skips the chunk (retried next step), a straggler scales
 the step time the straggler hook observes.
 
-The JAX package's dry-run step builders (``build_prefill_step`` /
-``build_decode_step``) are XLA shape tools and are not ported (ROADMAP
-queue 1 item 13).
+The JAX package's step builders with the plan's shardings
+(``build_prefill_step`` / ``build_decode_step``) are not ported yet
+(ROADMAP queue 1 item [13.6a]).
 """
 from __future__ import annotations
 

@@ -1,0 +1,398 @@
+"""One rank's shards of a model's parameters and optimizer state under a
+``ShardingPlan``: the runtime half of ``repro_torch.sharding``, the port's
+counterpart of ``jax.device_put`` with the plan's shardings and of the
+collectives GSPMD inserts around them.
+
+Every leaf lives in the JAX package's layout (``stack_index``: a stack's
+per-layer leaves as one leaf with the layers on its leading dims, keyed
+``"layers/attn/wq"``), and a rank holds the block of it that its mesh
+coordinates select under the leaf's spec (``Placement.index``): an entry
+on a stack dim selects layers, an entry on a logical dim a slice of it.
+Parameters are held as their param-spec blocks between train steps and
+the optimizer's moments as their (finer) optimizer-spec blocks; a step
+
+1. gathers each parameter over the axes its spec shards it on (``data``:
+   ZeRO-3, booked as ``param``) and runs the model on the whole tree;
+2. sums the gradients over the mesh (``reduce_gradients``): an f32
+   ``all_reduce`` over the row (the ``model`` axis: the sequence parts),
+   then, where the batch is sharded over ``data``, a reduce-scatter over
+   the column for a leaf the plan shards over ``data`` (each rank keeps
+   its block's sum) or an ``all_reduce`` for one it replicates (``grad``);
+3. updates each optimizer block (``train.optimizer``) and gathers the
+   updated blocks back into the param-spec blocks over the axes the
+   optimizer spec adds (``param``).
+
+The runtime takes ``("data", "model")`` meshes (a multi-pod mesh is
+planned, not run) and, under ``local``, a model axis of 1: tensor
+parallelism over ``model`` is ROADMAP queue 1 item [13.7].
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.utils.tree import (tree_leaves_with_paths,
+                                    tree_unflatten_like)
+
+TP_ITEM = "tensor parallelism over the model axis (ROADMAP queue 1 item " \
+    "[13.7])"
+
+
+def _lead_shape(st, cfg) -> Tuple[int, ...]:
+    """The leading dims that hold a stack's layers in the JAX layout."""
+    if st.lead == 1:
+        return (st.depth,)
+    per = cfg.cross_attn_every - 1           # the vlm's [groups, k − 1]
+    return (st.depth // per, per)
+
+
+class Stacked(NamedTuple):
+    """One JAX-layout leaf of a port tree."""
+    shape: Tuple[int, ...]     # stacked: the lead dims, then a layer's leaf
+    dtype: torch.dtype
+    paths: List[tuple]         # the port key paths of its per-layer leaves
+    lead: int                  # how many of ``shape``'s dims hold layers
+
+
+def stack_index(params, cfg) -> Dict[str, Stacked]:
+    """JAX-layout key → its ``Stacked`` entry: the port key paths of its
+    per-layer leaves in the row-major order of the stack dims (one path and
+    no lead dim for a leaf outside the stacks)."""
+    from repro_torch.models.transformer import layer_stacks
+    stacks = {st.name: st for st in layer_stacks(cfg)}
+    out: Dict[str, list] = {}
+    for top in sorted(params):
+        sub = params[top]
+        if top not in stacks:
+            for path, leaf in tree_leaves_with_paths(sub, (top,)):
+                out["/".join(map(str, path))] = [tuple(leaf.shape),
+                                                 leaf.dtype, [path], ()]
+            continue
+        st = stacks[top]
+        for i, layer in enumerate(sub):
+            for path, leaf in tree_leaves_with_paths(layer, (top, i)):
+                inner = path[2] in st.inner
+                rest = path[4:] if inner else path[2:]
+                key = "/".join(map(str, (top,) + ((path[2],) if inner
+                                                  else ()) + rest))
+                lead = _lead_shape(st, cfg) + (
+                    (st.inner[path[2]],) if inner else ())
+                ent = out.setdefault(key, [tuple(leaf.shape), leaf.dtype,
+                                           [], lead])
+                ent[2].append(path)
+    return {k: Stacked(lead + shape, dtype, paths, len(lead))
+            for k, (shape, dtype, paths, lead) in out.items()}
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> set:
+    return {a for e in spec for a in _entry_axes(e)}
+
+
+class Placement:
+    """This rank's blocks, under ``plan``, of every leaf of a model whose
+    port params are shaped as ``template`` (a tree on any device; the meta
+    device allocates nothing: ``registry.abstract_params``).
+
+    ``coords`` (axis name → index) defaults to the mesh this process
+    joined (``launch.mesh.set_mesh``)."""
+
+    def __init__(self, plan, cfg, template, coords: Optional[Dict[str, int]]
+                 = None):
+        from repro_torch.sharding.specs import (Shape, _leaf_spec,
+                                                _opt_force_data)
+        mesh = plan.mesh
+        if mesh.axis_names != ("data", "model"):
+            raise NotImplementedError(
+                f"the port runs ('data', 'model') meshes; {mesh} is "
+                f"planned, not run")
+        if plan.seq_axis is None and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"--mode local on a model axis of {mesh.shape['model']} is "
+                f"{TP_ITEM}")
+        self.plan, self.cfg, self.mesh = plan, cfg, mesh
+        if coords is None:
+            from repro_torch.launch.mesh import mesh_coords
+            coords = mesh_coords()
+        self.coords = dict(coords)
+        self.template = template
+        self.order = {path: i for i, (path, _) in
+                      enumerate(tree_leaves_with_paths(template))}
+        self.index_of = stack_index(template, cfg)
+        self.keys = list(self.index_of)
+        self.spec, self.opt_spec = {}, {}
+        for k, ent in self.index_of.items():
+            leaf = Shape(ent.shape)
+            self.spec[k] = _leaf_spec(k, leaf, plan, cfg)
+            self.opt_spec[k] = _opt_force_data(
+                _leaf_spec(k, leaf, plan, cfg, for_opt=True), leaf, plan)
+            if any(p is not None and p != o for p, o in
+                   zip(self.spec[k], self.opt_spec[k])):
+                raise ValueError(f"{k}: optimizer spec {self.opt_spec[k]} "
+                                 f"does not refine the param spec "
+                                 f"{self.spec[k]}")
+
+    # --- blocks -----------------------------------------------------------
+
+    def _pos(self, entry) -> Tuple[int, int]:
+        """(this rank's index along ``entry``'s axes, their count)."""
+        idx, n = 0, 1
+        for a in _entry_axes(entry):
+            size = self.mesh.shape[a]
+            idx, n = idx * size + self.coords[a], n * size
+        return idx, n
+
+    def index(self, key: str, spec) -> Tuple[slice, ...]:
+        """This rank's block of leaf ``key`` under ``spec``, as slices of
+        the global (stacked) array."""
+        shape = self.index_of[key].shape
+        out = []
+        for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+            i, n = self._pos(entry)
+            out.append(slice(i * dim // n, (i + 1) * dim // n))
+        return tuple(out)
+
+    def block_shape(self, key: str, spec) -> Tuple[int, ...]:
+        return tuple(s.stop - s.start for s in self.index(key, spec))
+
+    def counted(self, key: str, spec) -> bool:
+        """Does this rank count its block of ``key`` in a sum over the mesh
+        (the first of the ranks that hold the same block)?"""
+        used = spec_axes(spec)
+        return all(self.coords[a] == 0 for a in self.mesh.axis_names
+                   if a not in used)
+
+    def _relative(self, key: str, inner, outer) -> Tuple[slice, ...]:
+        """Block ``inner``'s slices inside block ``outer`` (both of key)."""
+        return tuple(slice(a.start - b.start, a.stop - b.start)
+                     for a, b in zip(self.index(key, inner),
+                                     self.index(key, outer)))
+
+    # --- the port tree ↔ the JAX layout ------------------------------------
+
+    def stack(self, tree, dtype=None) -> Dict[str, torch.Tensor]:
+        """The port tree ``tree`` (params or gradients, shaped as the
+        template) → JAX-layout key → the whole stacked leaf (one copy, in
+        ``dtype`` if given)."""
+        leaves = [leaf for _, leaf in tree_leaves_with_paths(tree)]
+        out = {}
+        for k, ent in self.index_of.items():
+            parts = [leaves[self.order[p]] for p in ent.paths]
+            t = torch.empty((len(parts),) + ent.shape[ent.lead:],
+                            dtype=dtype or parts[0].dtype,
+                            device=parts[0].device)
+            for j, part in enumerate(parts):
+                t[j].copy_(part)
+            out[k] = t.reshape(ent.shape)
+        return out
+
+    def unstack(self, flat: Dict[str, torch.Tensor]):
+        """``stack``'s inverse: the port tree whose leaves are views of
+        ``flat``'s whole leaves."""
+        leaves: List[Any] = [None] * len(self.order)
+        for k, ent in self.index_of.items():
+            parts = flat[k].reshape((len(ent.paths),)
+                                    + ent.shape[ent.lead:])
+            for j, p in enumerate(ent.paths):
+                leaves[self.order[p]] = parts[j]
+        return tree_unflatten_like(self.template, leaves)
+
+    def shard(self, flat: Dict[str, torch.Tensor], opt: bool = False
+              ) -> Dict[str, torch.Tensor]:
+        """This rank's blocks (param spec, or optimizer spec with ``opt``)
+        of whole JAX-layout leaves, as copies."""
+        specs = self.opt_spec if opt else self.spec
+        return {k: flat[k][self.index(k, specs[k])].clone() for k in self.keys}
+
+    def opt_part(self, blocks: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Param-spec blocks → the optimizer-spec blocks inside them
+        (views)."""
+        return {k: blocks[k][self._relative(k, self.opt_spec[k],
+                                            self.spec[k])]
+                for k in self.keys}
+
+    # --- collectives ------------------------------------------------------
+
+    @staticmethod
+    def _group(axis: str):
+        from repro_torch.core.seq_group import get_seq_group
+        return get_seq_group(axis)
+
+    def _gather_axis(self, t: torch.Tensor, spec: list, axis: str
+                     ) -> torch.Tensor:
+        """Gather ``t`` (a block under ``spec``) over ``axis``: the blocks
+        of the axis's line, joined along the dim ``axis`` shards; ``spec``
+        loses the axis."""
+        k = spec.index(axis)
+        spec[k] = None
+        g = self._group(axis)
+        if g.world_size == 1:
+            return t
+        parts = g.all_gather(t.contiguous(), kind="param")
+        return torch.cat(list(parts.unbind(0)), dim=k)
+
+    def _gather_leaf(self, t: torch.Tensor, spec, keep=()) -> torch.Tensor:
+        """Block ``t`` under ``spec`` gathered over each axis it is sharded
+        on but ``keep`` (the ``model`` axis first)."""
+        spec = list(spec)
+        for axis in reversed(self.mesh.axis_names):
+            if axis in spec and axis not in keep:
+                t = self._gather_axis(t, spec, axis)
+        return t
+
+    def gather(self, blocks: Dict[str, torch.Tensor], specs, target=None
+               ) -> Dict[str, torch.Tensor]:
+        """Blocks under ``specs`` → blocks under ``target`` (default:
+        whole leaves), gathering over every axis ``specs`` shards a leaf on
+        and ``target`` does not (the ``model`` axis first); booked as
+        ``param`` on each axis's group."""
+        return {k: self._gather_leaf(
+            blocks[k], specs[k],
+            spec_axes(target[k]) if target is not None else ())
+            for k in self.keys}
+
+    def gather_params(self, blocks: Dict[str, torch.Tensor]):
+        """Param-spec blocks → the whole port params tree (ZeRO-3's gather
+        at the start of a step)."""
+        return self.unstack(self.gather(blocks, self.spec))
+
+    def assemble(self, opt_blocks: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Updated optimizer-spec blocks → param-spec blocks."""
+        return self.gather(opt_blocks, self.opt_spec, self.spec)
+
+    def batch_sharded(self, batch: Dict[str, Any]) -> bool:
+        """Does the plan shard this global batch over ``data`` (its rows
+        divide)?"""
+        from repro_torch.sharding.specs import batch_shardings
+        sh = batch_shardings(self.plan, self.cfg, batch, "train")
+        return sh["tokens"].spec[0] is not None and \
+            self.mesh.shape["data"] > 1
+
+    def batch_part(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch (every rank of a row the
+        same rows: the sequence splits inside the model)."""
+        if not self.batch_sharded(batch):
+            return batch
+        i, n = self.coords["data"], self.mesh.shape["data"]
+        return {k: v[i * v.shape[0] // n:(i + 1) * v.shape[0] // n]
+                for k, v in batch.items()}
+
+    def reduce_gradients(self, grads: Dict[str, torch.Tensor],
+                         batch_sharded: bool) -> Dict[str, torch.Tensor]:
+        """Whole f32 gradient leaves of this rank's share of the loss → the
+        sums over the mesh of this rank's optimizer-spec blocks.  The row
+        sums its sequence parts (``all_reduce`` over ``model``); where
+        ``batch_sharded``, the column sums its rows: a leaf the plan shards
+        over ``data`` by a reduce-scatter of its blocks, a replicated one by
+        an ``all_reduce`` (each booked as ``grad``)."""
+        row = self._group("model")
+        if row.world_size > 1:
+            whole = [grads.pop(k) for k in self.keys]
+            grads = dict(zip(self.keys, row.all_reduce(whole, kind="grad")))
+            del whole
+        col = self._group("data")
+        sharded = [k for k in self.keys if "data" in spec_axes(self.spec[k])]
+        blocks = {}
+        if batch_sharded and col.world_size > 1:
+            rep = [k for k in self.keys if k not in sharded]
+            blocks.update(zip(rep, col.all_reduce([grads[k] for k in rep],
+                                                  kind="grad")))
+            for k in sharded:
+                dim = list(self.spec[k]).index("data")
+                parts = torch.stack(list(grads[k].chunk(col.world_size,
+                                                        dim=dim)))
+                blocks[k] = col.reduce_scatter(parts)
+            blocks.update({k: blocks[k][self.index(k, self.spec[k])]
+                           for k in rep})
+        else:
+            blocks = {k: grads[k][self.index(k, self.spec[k])]
+                      for k in self.keys}
+        return self.opt_part(blocks)
+
+    def sum_over_mesh(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over every rank of the mesh (the row, then the
+        column; ``meta`` calls), the same bits on every rank."""
+        for axis in reversed(self.mesh.axis_names):
+            g = self._group(axis)
+            if g.world_size > 1:
+                t = g.all_reduce([t], kind="meta")[0]
+        return t
+
+    def global_norm(self, opt_grads: Dict[str, torch.Tensor]
+                    ) -> torch.Tensor:
+        """The norm of the whole gradient from this rank's optimizer
+        blocks: each distinct block's squares counted once, summed over the
+        mesh, then the square root."""
+        sq = sum((torch.sum(torch.square(opt_grads[k].float()))
+                  for k in self.keys if self.counted(k, self.opt_spec[k])),
+                 torch.zeros((), dtype=torch.float32,
+                             device=next(iter(opt_grads.values())).device))
+        return torch.sqrt(self.sum_over_mesh(sq))
+
+    # --- state: init, checkpoints -------------------------------------------
+
+    def init_state(self, params, moment_dtype=torch.float32):
+        """Whole port ``params`` (the same on every rank) → (this rank's
+        param-spec blocks, an AdamW state of its optimizer-spec blocks)."""
+        from repro_torch.train.optimizer import adamw_init
+        blocks = self.shard(self.stack(params))
+        return blocks, adamw_init(
+            {k: v.clone() for k, v in self.opt_part(blocks).items()},
+            moment_dtype)
+
+    def whole(self, blocks: Dict[str, torch.Tensor], specs,
+              to_host: bool = False) -> Dict[str, torch.Tensor]:
+        """Whole leaves from every rank's blocks under ``specs``, one leaf
+        at a time; with ``to_host`` each is moved to host memory at once
+        (on the card only one whole leaf lives at a time)."""
+        out = {}
+        for k in self.keys:
+            t = self._gather_leaf(blocks[k], specs[k])
+            out[k] = t.cpu() if to_host else t
+        return out
+
+    def save(self, manager, blocks, opt_state, step: int) -> None:
+        """Checkpoint the mesh's state as global arrays in the JAX layout:
+        every rank gathers its blocks, rank 0 writes ``(params,
+        AdamWState(step, m, v))`` (asynchronously, ``manager.save_async``;
+        ``manager`` is None on the other ranks)."""
+        from repro_torch.train.optimizer import AdamWState
+        state = (self.whole(blocks, self.spec, to_host=True),
+                 AdamWState(opt_state.step.cpu(),
+                            self.whole(opt_state.m, self.opt_spec, True),
+                            self.whole(opt_state.v, self.opt_spec, True)))
+        if manager is not None:
+            manager.save_async(state, step)
+
+    def state_template(self, moment_dtype=torch.float32):
+        """The checkpoint's tree (meta leaves) and this rank's placements
+        in it: ``restore(template, placements=...)`` → (param-spec blocks,
+        AdamW state of optimizer-spec blocks)."""
+        from repro_torch.train.optimizer import AdamWState
+        meta = torch.device("meta")
+
+        def leaves(dtype=None):
+            return {k: torch.empty(e.shape, dtype=dtype or e.dtype,
+                                   device=meta)
+                    for k, e in self.index_of.items()}
+        template = (leaves(), AdamWState(
+            torch.empty((), dtype=torch.int32, device=meta),
+            leaves(moment_dtype), leaves(moment_dtype)))
+        places = {f"0/{k}": self.index(k, self.spec[k]) for k in self.keys}
+        for part in ("m", "v"):
+            places.update({f"1/.{part}/{k}": self.index(k, self.opt_spec[k])
+                           for k in self.keys})
+        return template, places
+
+    def decay(self) -> Dict[str, bool]:
+        """AdamW's decoupled-decay rule in the JAX layout: ndim ≥ 2."""
+        return {k: len(self.index_of[k].shape) >= 2 for k in self.keys}

@@ -105,11 +105,18 @@ def decay_mask(params, cfg) -> Any:
     return out
 
 
-def adamw_update(grads, state: AdamWState, params, cfg: OptConfig, decay):
+def adamw_update(grads, state: AdamWState, params, cfg: OptConfig, decay,
+                 gnorm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, metrics).  ``decay``: a tree of
-    bools in ``params``' structure (``decay_mask``)."""
+    bools in ``params``' structure (``decay_mask``).  ``gnorm``: the norm
+    of the whole gradient where ``grads`` holds only this rank's shards of
+    it (``Placement.global_norm``: the squared norms of every shard summed
+    over the mesh before the square root); by default ``global_norm(grads)``.
+    The update is elementwise, so a shard of the state updates as the
+    same elements of the whole would."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(step, cfg)
     stepf = step.to(torch.float32)

@@ -18,6 +18,14 @@ its gradient.  The exchanges' gathers carry the gradient back across the
 ranks (``SeqGroup.all_gather``'s backward), and one staged ``all_reduce``
 sums the parameter gradients in f32, the same bits on every rank, so the
 replicas stay identical.  The metrics are the global ones on every rank.
+
+On a ``("data", "model")`` mesh (``build_train_step(..., placement=)``,
+the JAX launcher's layout) each row of the mesh is such a seq group over
+``model`` and takes its rows of the global batch (``data``); the params
+are ZeRO-3 blocks over ``data`` and the optimizer state ZeRO-1 blocks over
+both axes, leaf by leaf as the JAX plan says
+(``repro_torch.sharding.placement``).  The loss divides by the global
+B·N, and the gradients are summed over the whole mesh in f32.
 """
 from __future__ import annotations
 
@@ -38,10 +46,12 @@ def _group(xcfg: ExchangeConfig):
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            xcfg: ExchangeConfig):
+            xcfg: ExchangeConfig, batch_shards: int = 1):
     """Next-token cross-entropy (causal LMs) in f32 with z-loss → (loss,
     {"nll", "aux"}).  Under a partitioned plan: this rank's share (see the
-    module's note)."""
+    module's note).  ``batch_shards``: how many ``data`` ranks hold a part
+    of the global batch, ``batch`` being this rank's (the global B·N is
+    the local B·N times it)."""
     if cfg.family == "vit":
         raise ValueError("loss_fn is the causal LMs' next-token loss; a ViT "
                          "has no labels per token")
@@ -54,14 +64,16 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         n = logits.shape[1]
         labels = labels[:, group.rank * n:(group.rank + 1) * n]
         aux = aux / group.world_size
+    aux = aux / batch_shards
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = (logz - gold).sum() / (B * N)
-    zloss = 1e-4 * torch.square(logz).sum() / (B * N)
+    tokens = B * N * batch_shards
+    nll = (logz - gold).sum() / tokens
+    zloss = 1e-4 * torch.square(logz).sum() / tokens
     return nll + zloss + aux, {"nll": nll, "aux": aux}
 
 
-def _grads_of(params, batch, cfg, xcfg
+def _grads_of(params, batch, cfg, xcfg, batch_shards: int = 1
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          List[torch.Tensor]]:
     """(loss, parts, the gradient of every leaf in ``tree_leaves`` order,
@@ -69,7 +81,7 @@ def _grads_of(params, batch, cfg, xcfg
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
     loss, parts = loss_fn(tree_unflatten_like(params, live), batch, cfg,
-                          xcfg)
+                          xcfg, batch_shards)
     wrt = [t for t in live if t.requires_grad]
     got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = [next(got) if t.requires_grad else None for t in live]
@@ -85,46 +97,129 @@ def _split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict]:
     return [{k: v[i] for k, v in chunks.items()} for i in range(n)]
 
 
+def _accumulated(params, batch, cfg, xcfg, grad_accum: int,
+                 batch_shards: int = 1):
+    """(loss, parts, gradients) of ``batch``, in ``grad_accum``
+    microbatches run one after another with an f32 accumulator."""
+    if grad_accum == 1:
+        return _grads_of(params, batch, cfg, xcfg, batch_shards)
+    acc = None
+    losses, partss = [], []
+    for mb in _split(batch, grad_accum):
+        l, pa, g = _grads_of(params, mb, cfg, xcfg, batch_shards)
+        acc = ([gi.float() for gi in g] if acc is None else
+               [a + gi.float() for a, gi in zip(acc, g)])
+        losses.append(l)
+        partss.append(pa)
+    grads = [a / grad_accum for a in acc]
+    loss = torch.stack(losses).mean()
+    parts = {k: torch.stack([p[k] for p in partss]).mean()
+             for k in partss[0]}
+    return loss, parts, grads
+
+
+def _summed(group, loss, parts):
+    """(loss, parts) summed over ``group``'s ranks (one ``meta`` call)."""
+    keys = list(parts)
+    tot = group.all_reduce(
+        [torch.stack([loss] + [parts[k] for k in keys]).float()],
+        kind="meta")[0]
+    return tot[0], {k: tot[i + 1] for i, k in enumerate(keys)}
+
+
 def build_train_step(cfg: ModelConfig, xcfg: ExchangeConfig,
                      opt_cfg: Optional[OptConfig] = None,
-                     grad_accum: int = 1) -> Callable:
+                     grad_accum: int = 1, placement=None) -> Callable:
     """(params, opt_state, batch) → (params, opt_state, metrics).
 
     ``grad_accum`` > 1 splits the global batch into microbatches run one
     after another with an f32 gradient accumulator: live
     activations shrink by the accumulation factor while keeping the global
     batch size.  Weight decay follows the JAX package's layout
-    (``optimizer.decay_mask``)."""
+    (``optimizer.decay_mask``).
+
+    With a ``placement`` (``repro_torch.sharding.placement``: this rank's
+    part of a mesh under a ``ShardingPlan``) the step is the mesh's:
+    ``params`` are this rank's param-spec blocks and ``opt_state`` holds its
+    optimizer-spec blocks, both keyed in the JAX layout
+    (``mesh_gradients``), ``batch`` is the global batch on every rank, and
+    the new params come back as blocks."""
     opt_cfg = opt_cfg or OptConfig()
+    if placement is not None:
+        return _mesh_step(cfg, placement, opt_cfg, grad_accum)
 
     def train_step(params, opt_state, batch):
         group = _group(xcfg)
-        if grad_accum == 1:
-            loss, parts, grads = _grads_of(params, batch, cfg, xcfg)
-        else:
-            acc = None
-            losses, partss = [], []
-            for mb in _split(batch, grad_accum):
-                l, pa, g = _grads_of(params, mb, cfg, xcfg)
-                acc = ([gi.float() for gi in g] if acc is None else
-                       [a + gi.float() for a, gi in zip(acc, g)])
-                losses.append(l)
-                partss.append(pa)
-            grads = [a / grad_accum for a in acc]
-            loss = torch.stack(losses).mean()
-            parts = {k: torch.stack([p[k] for p in partss]).mean()
-                     for k in partss[0]}
+        loss, parts, grads = _accumulated(params, batch, cfg, xcfg,
+                                          grad_accum)
         if group is not None:        # every rank: the global sums
             grads = group.all_reduce(grads, kind="grad")
-            keys = list(parts)
-            tot = group.all_reduce(
-                [torch.stack([loss] + [parts[k] for k in keys]).float()],
-                kind="meta")[0]
-            loss, parts = tot[0], {k: tot[i + 1] for i, k in enumerate(keys)}
+            loss, parts = _summed(group, loss, parts)
         new_params, new_state, om = adamw_update(
             tree_unflatten_like(params, grads), opt_state, params, opt_cfg,
             decay_mask(params, cfg))
         return new_params, new_state, {"loss": loss, **parts, **om}
+
+    return train_step
+
+
+def mesh_gradients(blocks, batch, cfg: ModelConfig, placement,
+                   grad_accum: int = 1):
+    """One rank's part of a mesh train step up to the update → (loss,
+    parts, the f32 gradient's sum over the mesh of each of this rank's
+    optimizer-spec blocks).
+
+    The param blocks are gathered whole (ZeRO-3, ``param`` bytes); the rank
+    runs its rows of the global ``batch`` (the plan's ``batch_shardings``;
+    every rank of a row the same rows, the row's ranks each their part of
+    the sequence); the gradients are summed over the row and, where the
+    batch is sharded, over the column (``Placement.reduce_gradients``);
+    the loss likewise (``meta``).  A batch whose rows do not divide over
+    ``data`` runs whole on every rank of the column, and its gradients are
+    not summed there."""
+    xcfg = placement.plan.xcfg
+    sharded = placement.batch_sharded(batch)
+    shards = placement.mesh.shape["data"] if sharded else 1
+    if cfg.moe is not None and shards > 1:
+        raise NotImplementedError(
+            "the moe family's aux loss is the whole batch's: a batch "
+            "sharded over data needs its routing counts summed over the "
+            "column (ROADMAP queue 1 item [13.8])")
+    params = placement.gather_params(blocks)
+    loss, parts, grads = _accumulated(params, placement.batch_part(batch),
+                                      cfg, xcfg, grad_accum, shards)
+    grads = tree_unflatten_like(params, grads)
+    del params
+    g = placement.reduce_gradients(placement.stack(grads, torch.float32),
+                                   sharded)
+    row, col = placement._group("model"), placement._group("data")
+    if row.world_size > 1:
+        loss, parts = _summed(row, loss, parts)
+    if sharded:
+        loss, parts = _summed(col, loss, parts)
+    return loss, parts, g
+
+
+def mesh_update(blocks, opt_state, grads, placement, opt_cfg: OptConfig):
+    """AdamW on this rank's optimizer blocks from the summed ``grads``
+    (``mesh_gradients``; clipped by the norm of the whole gradient, summed
+    over the mesh) → (the new param-spec blocks, gathered back from the
+    updated optimizer blocks, booked as ``param``; the new state; the
+    optimizer's metrics)."""
+    new, new_state, om = adamw_update(
+        grads, opt_state, placement.opt_part(blocks), opt_cfg,
+        placement.decay(), gnorm=placement.global_norm(grads))
+    return placement.assemble(new), new_state, om
+
+
+def _mesh_step(cfg, placement, opt_cfg: OptConfig,
+               grad_accum: int) -> Callable:
+    def train_step(blocks, opt_state, batch):
+        loss, parts, grads = mesh_gradients(blocks, batch, cfg, placement,
+                                            grad_accum)
+        new, new_state, om = mesh_update(blocks, opt_state, grads,
+                                         placement, opt_cfg)
+        return new, new_state, {"loss": loss, **parts, **om}
 
     return train_step
 
@@ -135,11 +230,6 @@ def build_eval_step(cfg: ModelConfig, xcfg: ExchangeConfig) -> Callable:
             loss, parts = loss_fn(params, batch, cfg, xcfg)
             group = _group(xcfg)
             if group is not None:
-                keys = list(parts)
-                tot = group.all_reduce(
-                    [torch.stack([loss] + [parts[k] for k in keys]).float()],
-                    kind="meta")[0]
-                loss = tot[0]
-                parts = {k: tot[i + 1] for i, k in enumerate(keys)}
+                loss, parts = _summed(group, loss, parts)
         return {"loss": loss, **parts}
     return eval_step

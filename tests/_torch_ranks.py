@@ -952,3 +952,136 @@ def remat_grads(rank, world, job):
     return {label: remat_case(group, c, job["params"][label],
                               job["batch"][label])
             for label, c in job["cases"].items()}
+
+
+def _booked(groups):
+    """Bytes received by kind on each mesh axis's group."""
+    return {g.axis: {f[:-6]: v for f, v in vars(g.stats).items()
+                     if f.endswith("_bytes")} for g in groups}
+
+
+def mesh_train(rank, world, job):
+    """One rank of a ``("data", "model")`` mesh (``spawn_mesh``), from the
+    JAX weights (``job["params"]``), for each mode of ``job["modes"]``:
+    the global batch's loss and its gradient summed over the mesh, each of
+    this rank's optimizer blocks gathered whole (f32, JAX layout; rank 0
+    returns them, every rank their digest), with the bytes booked on each
+    axis's group; then one train step (AdamW with clipping) → its metrics,
+    the bytes it booked, the params gathered whole (rank 0) and the digests
+    of this rank's shards and of the whole params.  ``job["save"]``: the
+    directory to checkpoint ``job["save_mode"]``'s stepped state into (at
+    step 1).  ``job["restore"]``: restore the newest checkpoint there into
+    this mesh → the blocks restored, their placements and whole params.
+    ``job["forward"]``: a ``prism`` forward and a decode step over the
+    mesh, each row its slice of the batch → the row's logits."""
+    import hashlib
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.prism_attention import prism_attention
+    from repro_torch.kernels.segment_means import segment_means
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (build_train_step,
+                                              mesh_gradients)
+    from repro_torch.utils.tree import tree_map
+    device = job.get("device", "cpu")
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = get_abstract_mesh()
+    groups = [get_seq_group(a) for a in mesh.axis_names]
+    cfg = get_config(job["arch"]).reduced(**job["reduced"])
+    params = (tree_map(lambda t: t.to(device), job["tparams"])
+              if "tparams" in job else
+              params_from_numpy(job["params"], cfg, device=device))
+
+    def tensors(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in b.items()}
+
+    def digest(ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def whole_np(d):
+        return {k: v.detach().float().cpu().numpy() for k, v in d.items()}
+
+    out = {"coords": mesh.coords(rank)}
+    for mode in job.get("modes", ()):
+        plan = make_plan(mesh, cfg, ExchangeMode(mode), L=job["L"],
+                         train=True)
+        place = Placement(plan, cfg, registry.abstract_params(cfg))
+        blocks, opt = place.init_state(params)
+        for g in groups:
+            g.reset_stats()
+        before = (segment_means.launches, prism_attention.launches)
+        loss, _, g = mesh_gradients(blocks, tensors(job["batch"]), cfg,
+                                    place)
+        booked_grads = _booked(groups)
+        launches = (segment_means.launches - before[0],
+                    prism_attention.launches - before[1])
+        grads = place.whole(g, place.opt_spec)
+        for gr in groups:
+            gr.reset_stats()
+        step = build_train_step(cfg, plan.xcfg,
+                                OptConfig(lr=1e-3, warmup_steps=1),
+                                placement=place)
+        new, opt2, m = step(blocks, opt, tensors(job["batch"]))
+        booked_step = _booked(groups)
+        whole = place.whole(new, place.spec)
+        res = dict(loss=float(loss), grad_digest=digest(grads.values()),
+                   launches=launches,
+                   booked_grads=booked_grads, booked_step=booked_step,
+                   metrics={k: float(v) for k, v in m.items()},
+                   shard_digest=digest(new[k] for k in place.keys),
+                   param_digest=digest(whole.values()),
+                   block_shapes={k: tuple(new[k].shape) for k in place.keys},
+                   opt_shapes={k: tuple(opt2.m[k].shape)
+                               for k in place.keys})
+        moments = [place.whole(t, place.opt_spec) for t in (opt2.m, opt2.v)]
+        if rank == 0:                   # (every rank gathers: collectives)
+            res.update(grads=whole_np(grads), params=whole_np(whole),
+                       m=whole_np(moments[0]), v=whole_np(moments[1]))
+        if job.get("save") and mode == job["save_mode"]:
+            mgr = CheckpointManager(job["save"]) if rank == 0 else None
+            place.save(mgr, new, opt2, 1)
+            if mgr is not None:
+                mgr.wait()
+        out[mode] = res
+    if job.get("restore"):
+        plan = make_plan(mesh, cfg, ExchangeMode(job["save_mode"]),
+                         L=job["L"], train=True)
+        place = Placement(plan, cfg, registry.abstract_params(cfg))
+        template, places = place.state_template()
+        blocks, opt = CheckpointManager(job["restore"]).restore(
+            template, device=device, placements=places)
+        out["restored"] = dict(
+            params={k: v.float().numpy() for k, v in blocks.items()},
+            m={k: v.numpy() for k, v in opt.m.items()},
+            step=int(opt.step),
+            index={k: place.index(k, place.spec[k]) for k in place.keys},
+            opt_index={k: place.index(k, place.opt_spec[k])
+                       for k in place.keys},
+            whole=whole_np(place.whole(blocks, place.spec)))
+    if job.get("forward"):
+        plan = make_plan(mesh, cfg, ExchangeMode.PRISM, L=job["L"])
+        i, n = out["coords"]["data"], mesh.shape["data"]
+        rows = {k: v[i * v.shape[0] // n:(i + 1) * v.shape[0] // n]
+                for k, v in tensors(job["forward"]).items()}
+        with torch.no_grad():
+            logits, _ = registry.forward_fn(cfg)(params, rows, plan.xcfg)
+            B, S = rows["tokens"].shape
+            cache = tfm.init_decode_cache(cfg, B, S, device=device,
+                                          xcfg=plan.xcfg)
+            dec, _ = tfm.decode_step(params, {"tokens": rows["tokens"][:, :1]},
+                                     cache, 0, cfg, plan.xcfg)
+        out["forward"] = dict(logits=_np(logits.cpu()),
+                              decode=_np(dec.float().cpu()))
+    return out

@@ -11,7 +11,7 @@ compression in the port (CPU).
   ``Trainer`` likewise ends on params bit-identical to an uninterrupted
   run.
 * ``largest_mesh_shape`` and ``ElasticMeshManager.drop`` against the JAX
-  functions; building a mesh raises, citing ROADMAP item [13].
+  functions; the mesh a drop rebuilds.
 * ``compress``, ``decompress``, error feedback and the ratio against the
   JAX functions (≤ 1e-6 relative; the means are f32 sums in another
   order).
@@ -246,12 +246,23 @@ def test_elastic_drop_matches_jax():
 
 
 def test_elastic_mesh_building_is_not_ported():
-    t = tel.ElasticMeshManager(cfg=None, mode=None, devices=["d0", "d1"])
-    for call in (lambda: t.drop(["d0"]), t.best_mesh,
-                 lambda: t.build((1, 1), ("data", "model")),
-                 lambda: tel.replan_for_failure(None, None, 1)):
-        with pytest.raises(NotImplementedError, match=r"\[13\]"):
-            call()
+    """Building the mesh and its plan, once not ported, now runs: the
+    survivors of a drop form the largest viable (data, model) grid of
+    their rank ids, planned as the JAX package plans it
+    (``tests/test_torch_sharding.py`` holds every field to JAX's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeMode
+    cfg = get_config("llama3.2-1b")
+    t = tel.ElasticMeshManager(cfg=cfg, mode=ExchangeMode.PRISM, L=4,
+                               devices=[0, 1, 2, 3])
+    mesh, plan = t.drop([2, 3])
+    assert dict(mesh.shape) == {"data": 1, "model": 2}
+    assert mesh.devices.tolist() == [[0, 1]]
+    assert plan.xcfg.seq_shards == 2 and plan.xcfg.seq_axis == "model"
+    mesh, plan = t.build((1, 1), ("data", "model"))
+    assert mesh.devices.tolist() == [[0]] and plan.L == 4
+    mesh, _ = tel.replan_for_failure(cfg, ExchangeMode.PRISM, 12)
+    assert dict(mesh.shape) == {"data": 3, "model": 4}
 
 
 @pytest.mark.parametrize("rows,L", [(8, 4), (8, 8), (8, 3), (12, 2),

@@ -1269,3 +1269,52 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree if tree is None else tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["voltage", "prism"])
+def test_mesh_gradient_and_step_on_the_card_match_the_cpu(cuda_device,
+                                                           mode):
+    """A small f32 llama on a (2, 2) mesh of ranks sharing the card (each
+    row a seq group, the batch over ``data``, ZeRO shards) against the same
+    mesh on the CPU: the loss ≤ 1e-5 relative, the gradient summed over
+    the mesh and gathered whole ≤ 1e-4 of each leaf's largest value, the
+    params after one AdamW step within 1e-6 where the gradient's sign is
+    sure (AdamW's first step moves a param by about lr · sign(g):
+    ``tests/_train_oracle.py:check_step``'s line) and 2 · lr elsewhere; on
+    the card the ranks of a row hold bit-identical shards and every rank
+    gathers the same whole params; under ``prism`` both kernels
+    launched."""
+    import numpy as np
+
+    import _torch_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn_mesh
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=2,
+                   d_model=256)
+    cfg = get_config("llama3.2-1b").reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(1)
+    batch = {k: rng.randint(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    job = dict(arch="llama3.2-1b", reduced=reduced, tparams=params, L=4,
+               modes=(mode,), batch=batch)
+    runs = {dev: spawn_mesh(_torch_ranks.mesh_train, (2, 2),
+                            ("data", "model"), dict(job, device=dev),
+                            timeout=300) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"][0][mode], runs["cpu"][0][mode]
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5)
+    for k, b in cpu["grads"].items():
+        a = card["grads"][k]
+        assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-30), k
+        sure = np.abs(b) > 100 * max(float(np.abs(a - b).max()), 1e-12)
+        d = np.abs(card["params"][k] - cpu["params"][k])
+        assert (d[sure] <= 1e-6).all() and (d <= 2e-3 + 1e-6).all(), k
+    rows = {}
+    for r in runs["cuda"]:
+        rows.setdefault(r["coords"]["data"], set()).add(r[mode]["shard_digest"])
+        assert r[mode]["param_digest"] == card["param_digest"]
+        if mode == "prism":
+            assert min(r[mode]["launches"]) > 0
+    assert all(len(d) == 1 for d in rows.values())

@@ -43,6 +43,8 @@ def test_port_imports_without_jax_or_repro():
         assert name in out.stdout.split()
     for name in EXAMPLES:
         assert name in out.stdout.split()
+    for name in MESH:
+        assert name in out.stdout.split()
 
 
 IMPORT_LINE = re.compile(r"^\s*(import jax|from jax|import repro\b|"
@@ -52,6 +54,8 @@ FLEET_TIER = ("repro_torch.fleet.router", "repro_torch.rpc.worker",
 RECURRENT_FAMILIES = ("repro_torch.models.ssm", "repro_torch.core.handoff",
                       "repro_torch.configs.hymba_1_5b",
                       "repro_torch.configs.xlstm_350m")
+MESH = ("repro_torch.launch.mesh", "repro_torch.sharding.specs",
+        "repro_torch.sharding.placement", "repro_torch.runtime.elastic")
 EXAMPLES = ("repro_torch.examples.quickstart",
             "repro_torch.examples.serve_adaptive",
             "repro_torch.examples.train_lm",

@@ -132,7 +132,7 @@ def test_card_is_never_replaced_by_the_cpu():
 def test_unported_paths_raise_naming_the_roadmap():
     """Every arch of the JAX package's config registry has a port config
     equal field for field (none is left to port); the mesh sharding plans
-    still raise naming the ROADMAP."""
+    are the JAX package's."""
     from repro.configs import _MODULES as jmodules
     from repro.configs import get_config as jget
     from repro_torch.configs import get_config
@@ -148,7 +148,15 @@ def test_unported_paths_raise_naming_the_roadmap():
     got = ts.run(key, {"tokens": torch.from_numpy(tokens)})
     want = np.asarray(js.run(key, {"tokens": tokens}))
     assert float(np.abs(got.numpy() - want).max()) <= 2e-3
-    # mesh sharding plans (a GSPMD tool of the JAX package) are not
-    # ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        TPlan.prism(L=2, cr=4.0).sharding_plan(None, js.cfg)
+    # mesh sharding plans: the JAX package's, field for field
+    from jax.sharding import AbstractMesh
+    from repro_torch.launch.mesh import make_auto_mesh
+    jplan = JPlan.prism(L=2, cr=4.0).sharding_plan(
+        AbstractMesh((4, 2), ("data", "model")), js.cfg, train=True)
+    tplan = TPlan.prism(L=2, cr=4.0).sharding_plan(
+        make_auto_mesh((4, 2), ("data", "model")), ts.cfg, train=True)
+    assert dict(tplan.mesh.shape) == dict(jplan.mesh.shape)
+    for f in ("batch_axes", "tp_axis", "seq_axis", "fsdp", "L", "decode",
+              "train"):
+        assert getattr(tplan, f) == getattr(jplan, f), f
+    assert tplan.mode.value == jplan.mode.value
