@@ -7575,6 +7575,12 @@ MESH_B = 2 * LM_B           # each data row [train-seq]'s B 4 on 2 ranks
 MESH_STEPS = 3              # the reduced run's; the checkpoint at step 2
 MESH_REMESH_RTOL = 1e-2     # step 3 resumed on (1, 2) vs uninterrupted, bf16
 MESH_SMALL_B, MESH_SMALL_N, MESH_SMALL_L, MESH_SMALL_STEPS = 4, 32, 4, 2
+MESH_TP_STEPS = 1           # (c): local TP at full width, after the warm-ups
+                            # (a step takes 5.1–5.8 s: PERF.md §5)
+MESH_MOE = "deepseek-moe-16b"     # the reduced moe warm-up, batch over data
+# (d): build_decode_step at full width, all 16 layers, f32 (greedy tokens
+# exact against one rank of the card), a prompt teacher-forced, then greedy
+MESH_DEC_B, MESH_DEC_T0, MESH_DEC_NEW = 8, 8, 8
 
 
 def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
@@ -7597,24 +7603,41 @@ def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
     plan = make_plan(make_auto_mesh(shape, MESH_NAMES), cfg,
                      ExchangeMode(mode), L=L, train=True)
     pl = Placement(plan, cfg, params, coords=coords)
-    out = dict(payload=0, grad=0, meta=0, param=0)
+    tp = pl.tp is not None
+    out = dict(payload=0, grad=0, meta=0, param=0, tp=0)
     n_params = 0
     for k, ent in pl.index_of.items():
         n = int(np.prod(ent.shape))
         n_params += n
         w = ent.dtype.itemsize
-        if D > 1 and "data" in spec_axes(pl.spec[k]):
-            out["param"] += (D - 1) * n // D * w
-            out["grad"] += (D - 1) * n // D * 4
+        held = n // P if k in pl.tp_dim else n     # what the model runs on
+        axes = spec_axes(pl.spec[k])
+        if tp and "model" in axes and k not in pl.tp_dim:
+            out["param"] += (P - 1) * n // (P * (D if "data" in axes
+                                                 else 1)) * w
+        if D > 1 and "data" in axes:
+            out["param"] += (D - 1) * held // D * w
+            out["grad"] += (D - 1) * held // D * 4
         elif D > 1:
-            out["grad"] += (D - 1) * n * 4
+            out["grad"] += (D - 1) * held * 4
+        if k in pl.sliced:
+            out["grad"] += (P - 1) * n * 4
         blk = list(pl.block_shape(k, pl.opt_spec[k]))
         spec = list(pl.opt_spec[k]) + [None] * len(blk)
         for axis, size in (("model", P), ("data", D)):
             if axis in spec and axis not in pl.spec[k] and size > 1:
                 out["param"] += (size - 1) * int(np.prod(blk)) * w
                 blk[spec.index(axis)] *= size
-    if P > 1:
+    if tp:
+        # f32 [b, N, d] sums: the embedding's and every split region's
+        # forward (2 a layer), the backward's at every region's input and
+        # the head's; the [b, N, V/P] logits gathered; the norm's sum
+        b = B // D
+        out["tp"] = (P - 1) * 4 * b * N * (cfg.d_model * (4 * cfg.n_layers
+                                                          + 2)
+                                           + cfg.vocab_size // P)
+        out["meta"] += (P - 1) * 4
+    elif P > 1:
         rows = N // P if mode == "voltage" else L
         kv = 2 * (B // D) * rows * cfg.n_kv_heads * cfg.hd
         out["payload"] += cfg.n_layers * (P - 1) * kv * cfg.torch_dtype.itemsize
@@ -7625,27 +7648,43 @@ def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
     return out
 
 
+def predicted_bytes(a: dict, shape) -> dict:
+    """``mesh_step_bytes`` of every rank of ``shape`` for the launcher's
+    arguments ``a``, by its coordinates (computed before the run)."""
+    from repro_torch.launch.train import model_config
+    from repro_torch.models import registry
+    cfg = model_config(a)
+    meta = registry.abstract_params(cfg)
+    return {(d, m): mesh_step_bytes(cfg, a["mode"], shape, a["batch"],
+                                    a["seq"], a["L"],
+                                    {"data": d, "model": m}, meta)
+            for d in range(shape[0]) for m in range(shape[1])}
+
+
 def _check_mesh_run(ranks, a: dict, shape, label: str,
-                    want_launches: int):
+                    want_launches: int, predicted=None):
     """The ranks' results of ``launch.train``'s mesh path (``train_mesh``)
     with the launcher's arguments ``a`` on ``shape``: each step's bytes by
-    kind equal to the shapes, each step's kernel launches ``want_launches``
-    of each, the ranks of a row bit-identical and the whole params the same
-    on every rank, the losses finite → the config."""
+    kind equal to the shapes (``predicted``, from ``predicted_bytes``
+    before the run; None: compute them now; False: not checked), each
+    step's kernel launches ``want_launches`` of each, every block the same
+    on the ranks that hold it and the whole params the same on every rank,
+    the losses finite → the config."""
     from repro_torch.launch.train import check_mesh, model_config
-    from repro_torch.models import registry
     cfg = model_config(a)
     bad = check_mesh(ranks)
     if bad:
         raise AssertionError(f"[mesh] {label}: {bad}")
-    meta = registry.abstract_params(cfg)
+    if predicted is None:
+        predicted = predicted_bytes(a, shape)
     for r in ranks:
-        want = mesh_step_bytes(cfg, a["mode"], shape, a["batch"], a["seq"],
-                               a["L"], r["coords"], meta)
+        c = r["coords"]
+        want = predicted[(c["data"], c["model"])] if predicted else {}
         for row in r["rows"]:
             got = {k: row.get(k, 0) for k in want}
-            if got != want or any(row.get(k) for k in (
-                    "state", "merge", "cache", "output")):
+            if predicted is not False and (got != want or any(
+                    row.get(k) for k in ("state", "merge", "cache",
+                                         "output"))):
                 raise AssertionError(f"[mesh] {label} rank {r['coords']}: "
                                      f"bytes {row} != {want} from the "
                                      f"shapes")
@@ -7671,7 +7710,8 @@ def _print_mesh_ranks(label: str, ranks, card: str) -> None:
               f"in {last['calls']} calls; received payload "
               f"{last['payload'] / 1e6:.3f} MB, meta {last['meta']} B, grad "
               f"{last['grad'] / 1e6:.1f} MB, param {last['param'] / 1e6:.1f} "
-              f"MB a step (= the shapes); segment_means "
+              f"MB, tp {last.get('tp', 0) / 1e6:.1f} MB a step (= the "
+              f"shapes); segment_means "
               f"{last['launches'][0]}, prism_attention {last['launches'][1]}"
               f" launches a step; loss "
               + " → ".join(f"{x:.4f}" for x in r["losses"])
@@ -7732,19 +7772,150 @@ def _mesh_small(rank, world):
     return out
 
 
-def _mesh_rank(rank, world, reduced: dict, full: dict):
+def _greedy(step, params, cache, prompt, col, n_new: int):
+    """``prompt`` [B, T0] teacher-forced through the decode ``step``, then
+    ``n_new`` greedy steps; each step's tokens gathered over the column
+    ``col`` (None: the rank holds every row) → (the greedy tokens [B,
+    n_new], each step's ms on the host clock to its synchronise)."""
+    import time
+    import torch
+    B, T0 = prompt.shape
+    tok, tokens, ms = prompt[:, :1], [], []
+    for i in range(T0 + n_new - 1):
+        t0 = time.perf_counter()
+        logits, cache = step(params, {"tokens": tok}, cache, i)
+        mine = logits[:, -1].argmax(-1)
+        if prompt.is_cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = mine if col is None else torch.cat(
+            [torch.as_tensor(t) for t in col.all_gather_object(
+                mine.cpu().numpy())]).to(prompt.device)
+        tok = (prompt[:, i + 1:i + 2] if i + 1 < T0
+               else got[:, None].to(prompt.dtype))
+        if i + 1 >= T0:
+            tokens.append(got.cpu())
+    return torch.stack(tokens, 1).numpy(), ms
+
+
+def _mesh_decode(rank, world):
+    """[mesh] (d): the serving engine's ``build_decode_step`` on this rank
+    of the (2, 2) mesh, llama3.2-1b at full width and depth in f32 (every
+    rank draws the seed-0 weights; ``Placement.held_params`` keeps its
+    blocks), B MESH_DEC_B: under ``local`` TP (its 4 of 8 rows, 16/4 heads,
+    its MLP columns and vocabulary rows) and under ``prism(L=16)`` (the
+    cache sequence-sharded over the row, the MLP split over it); rank 0
+    then runs the same steps alone on the whole params → the greedy tokens,
+    flash-decode launches, step ms and bytes of each."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.launch.train import _received
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import engine
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    _exact_fp32()
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(np.random.RandomState(11).randint(
+        0, cfg.vocab_size, (MESH_DEC_B, MESH_DEC_T0)).astype(np.int32)).cuda()
+    S = MESH_DEC_T0 + MESH_DEC_NEW
+    mesh = get_abstract_mesh()
+    groups = [get_seq_group(a) for a in mesh.axis_names]
+    out = {}
+    with torch.no_grad():
+        for mode, L in (("local", 0), ("prism", LM_L)):
+            plan = make_plan(mesh, cfg, ExchangeMode(mode), L=L, decode=True)
+            place = Placement(plan, cfg, registry.abstract_params(cfg))
+            view = place.held_params(params)
+            cache = engine.init_cache(cfg, plan, MESH_DEC_B, S, "cuda")
+            step = engine.build_decode_step(cfg, plan.xcfg, plan)
+            for g in groups:
+                g.reset_stats()
+            before = flash_decode.launches
+            tokens, ms = _greedy(step, view, cache, prompt, groups[0],
+                                 MESH_DEC_NEW)
+            out[mode] = dict(tokens=tokens, ms=ms,
+                             launches=flash_decode.launches - before,
+                             got=_received(groups),
+                             split=len(place.tp_dim),
+                             kv_heads=tuple(cache[next(iter(cache))]["k"]
+                                            .shape))
+            del view, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        if rank == 0:
+            cache = tfm.init_decode_cache(cfg, MESH_DEC_B, S, device="cuda")
+            step = engine.build_decode_step(cfg, ExchangeConfig())
+            out["one"] = dict(zip(("tokens", "ms"), _greedy(
+                step, params, cache, prompt, None, MESH_DEC_NEW)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(rank, world, reduced: dict, full: dict, tp_runs: dict):
     """One rank of [mesh]'s (2, 2) mesh: launch.train's reduced run (which
     also warms the rank up: the first rematerialised call, the kernels'
-    libraries), the full-width run, then the small f32 case."""
+    libraries), the reduced ``local`` TP runs (llama, then the moe family
+    with its batch over data), the full-width ``prism`` run (a), the
+    full-width ``local`` TP run (c), the small f32 case, then (d)."""
     import gc
     import torch
     from repro_torch.launch.train import train_mesh
-    red = train_mesh(rank, world, reduced)
-    out = dict(reduced=red, full=train_mesh(rank, world, full))
+    out = dict(reduced=train_mesh(rank, world, reduced))
+    out["tp_reduced"] = train_mesh(rank, world, tp_runs["reduced"])
+    out["tp_moe"] = train_mesh(rank, world, tp_runs["moe"])
+    out["full"] = train_mesh(rank, world, full)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp_full"] = train_mesh(rank, world, tp_runs["full"])
     gc.collect()
     torch.cuda.empty_cache()
     out["small"] = _mesh_small(rank, world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = _mesh_decode(rank, world)
     return out
+
+
+def mesh_tp_kernels() -> dict:
+    """The flash-decode launches of [mesh] (d), each against its plain
+    version and timed (f32, the last greedy step's cache lengths): under
+    ``local`` TP a rank's B 4 rows at 16/4 heads of 64 over S 16; under
+    ``prism(L=16)`` the shard partial of rank 1 (B 4, Sp 8 of S 16, 32/8
+    heads)."""
+    import torch
+    f32, S = torch.float32, MESH_DEC_T0 + MESH_DEC_NEW
+    b = MESH_DEC_B // MESH_SHAPE[0]
+    local = decode_case(b, S, 64, f32, seed=70, heads=(N_HEADS // 2,
+                                                       N_KV // 2),
+                        lens=[S - 1] * b)
+    t_local = report_timed(local, f"[mesh] (d) local TP decode step per "
+                                  f"rank ({N_HEADS // 2}/{N_KV // 2} heads, "
+                                  f"G 4)")
+    shard = shard_case(b, S, MESH_SHAPE[1], 1, 64, f32, seed=71,
+                       lens=[S - 1] * b)
+    errs = check_case(shard, got=shard_partials(shard))
+    t_prism = dict(time_case(shard), max_abs_err=errs["max_abs_err"])
+    print(f"[kernel] flash_decode shard partial, [mesh] (d) prism(L="
+          f"{LM_L}) decode step per rank (rank 1: f32 B {b}, Sp {S // 2} of "
+          f"S {S}, offset {S // 2}, {S // 2 - 1} valid, {N_HEADS}/{N_KV} "
+          f"heads, dh 64): err {err_text(errs)} (tol 1e-5) | kernel "
+          f"{t_prism['ms']*1e3:.2f} us, bound {t_prism['bound_ms']*1e3:.2f} "
+          f"us ({t_prism['bound_by']}), plain {t_prism['plain_ms']*1e3:.2f} "
+          f"us, sdpa yardstick {t_prism['library_ms']*1e3:.2f} us",
+          flush=True)
+    return {"local": t_local, "prism": t_prism}
 
 
 def phase_mesh(card: str) -> dict:
@@ -7780,9 +7951,22 @@ def phase_mesh(card: str) -> dict:
     full = dict(red, steps=2, batch=MESH_B, seq=LM_N, L=LM_L, full=True,
                 layers=TRAIN_SEQ_LAYERS, ckpt_dir=os.path.join(ck, "full"),
                 ckpt_every=50)
+    tp = {"reduced": dict(red, mode="local", steps=2, ckpt_every=50,
+                          ckpt_dir=os.path.join(ck, "tp")),
+          "moe": dict(red, arch=MESH_MOE, mode="local", steps=2,
+                      ckpt_every=50, ckpt_dir=os.path.join(ck, "moe")),
+          "full": dict(full, mode="local", steps=MESH_TP_STEPS,
+                       ckpt_dir=os.path.join(ck, "tp_full"))}
+    # (c)'s bytes a rank by kind, from the shapes, before the run
+    want_tp = {k: predicted_bytes(tp[k], MESH_SHAPE)
+               for k in ("reduced", "full")}
+    w = want_tp["full"][(0, 0)]
+    print(f"[mesh] (c) predicted from the shapes, rank (0, 0), a step: tp "
+          f"{w['tp']} B, grad {w['grad']} B, param {w['param']} B, meta "
+          f"{w['meta']} B", flush=True)
     try:
         t0 = time.perf_counter()
-        ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full,
+        ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full, tp,
                            timeout=RANK_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
         rcfg = _check_mesh_run([r["reduced"] for r in ranks], red,
@@ -7790,6 +7974,13 @@ def phase_mesh(card: str) -> dict:
                                2 * model_config(red).n_layers)
         _check_mesh_run([r["full"] for r in ranks], full, MESH_SHAPE, "(a)",
                         2 * TRAIN_SEQ_LAYERS)
+        _check_mesh_run([r["tp_reduced"] for r in ranks], tp["reduced"],
+                        MESH_SHAPE, "reduced local TP", 0,
+                        want_tp["reduced"])
+        _check_mesh_run([r["tp_moe"] for r in ranks], tp["moe"], MESH_SHAPE,
+                        "reduced moe local TP", 0, False)
+        _check_mesh_run([r["tp_full"] for r in ranks], tp["full"],
+                        MESH_SHAPE, "(c)", 0, want_tp["full"])
         mgr = ElasticMeshManager(rcfg, ExchangeMode.PRISM, L=tr["L"],
                                  devices=[0, 1, 2, 3])
         mesh, plan = mgr.drop([2, 3])
@@ -7841,6 +8032,51 @@ def phase_mesh(card: str) -> dict:
     _print_mesh_ranks("(b)", sur, card)
     if sur[0]["start"] != 2 or not rel <= MESH_REMESH_RTOL:
         raise AssertionError(f"[mesh] (b): step 3 loss {got} vs {want}")
+    tr = [r["tp_reduced"] for r in ranks]
+    mo = [r["tp_moe"] for r in ranks]
+    print(f"[mesh] reduced {ARCH} and {MESH_MOE} --mode local --data 2 "
+          f"--ranks 2 (tensor parallelism over model, the batch over data; "
+          f"the moe aux loss the whole batch's): loss "
+          + " → ".join(f"{x:.4f}" for x in tr[0]["losses"]) + " and "
+          + " → ".join(f"{x:.4f}" for x in mo[0]["losses"])
+          + f"; bytes = shapes (llama), the ranks holding each block "
+          f"bit-identical [{card}]", flush=True)
+    tf = [r["tp_full"] for r in ranks]
+    print(f"[mesh] (c) {ARCH} cut to {TRAIN_SEQ_LAYERS} of 16 layers at "
+          f"full width, --mode local on (2, 2): tensor parallelism over "
+          f"model (16/4 heads, the MLP and the vocabulary split a rank), "
+          f"the batch over data, B {MESH_B} N {LM_N}, {MESH_TP_STEPS} steps "
+          f"rematerialised; peak {max(r['peak_gb'] for r in tf):.2f} GB a "
+          f"rank against (a)'s {max(r['peak_gb'] for r in fr):.2f} GB; "
+          f"bytes = the shapes predicted before the run [{card}]",
+          flush=True)
+    _print_mesh_ranks("(c)", tf, card)
+    dec = [r["decode"] for r in ranks]
+    one = dec[0]["one"]
+    for mode in ("local", "prism"):
+        for d in dec:
+            if not (d[mode]["tokens"] == one["tokens"]).all():
+                raise AssertionError(f"[mesh] (d) {mode}: greedy tokens "
+                                     f"{d[mode]['tokens'].tolist()} vs one "
+                                     f"rank's {one['tokens'].tolist()}")
+            if d[mode]["launches"] == 0:
+                raise AssertionError(f"[mesh] (d) {mode}: no flash-decode "
+                                     f"launch")
+        d = dec[0][mode]
+        steady = statistics.median(d["ms"][1:])
+        print(f"[mesh] (d) build_decode_step {ARCH} full width, 16 layers, "
+              f"f32, B {MESH_DEC_B}, {mode}"
+              + (f"(L={LM_L})" if mode == "prism" else " TP")
+              + f" on (2, 2): the cache a rank {list(d['kv_heads'])}, "
+              f"{d['split']} leaves split over model; {MESH_DEC_T0} prompt "
+              f"steps then {MESH_DEC_NEW} greedy: tokens = one rank's "
+              f"exactly; {d['launches']} flash-decode launches a rank; step "
+              f"{steady:.1f} ms (median; one rank alone "
+              f"{statistics.median(one['ms'][1:]):.1f} ms), received tp "
+              f"{d['got'].get('tp', 0) / 1e6:.3f} MB, merge "
+              f"{d['got'].get('merge', 0) / 1e6:.3f} MB in "
+              f"{d['got']['calls']} calls ({d['got']['seconds'] * 1e3:.1f} ms "
+              f"staged) over the run [{card}]", flush=True)
     worst = 0.0
     small = [r["small"] for r in ranks]
     for r in small:
@@ -7879,6 +8115,10 @@ def phase_mesh(card: str) -> dict:
     launches = dict.fromkeys(("segment_means", "prism_attention",
                               "segment_means_dh16", "prism_attention_dh16"),
                              0)
+    for mode in ("local", "prism"):
+        launches[f"flash_decode_tp_{mode}"] = sum(d[mode]["launches"]
+                                                  for d in dec)
+    launches["tp_timed"] = mesh_tp_kernels()
     for runs, suffix in ((fr, ""), (rr, "_dh16")):
         for r in runs:
             for row in r["rows"]:
@@ -8298,6 +8538,21 @@ def main(argv=None) -> None:
             **{k: t[k] for k in keys}})
     kernels += dh16_kernel_rows(dk, ex, ms, {r[0]: r[1] for r in rows},
                                 keys)
+    S_tp, b_tp = MESH_DEC_T0 + MESH_DEC_NEW, MESH_DEC_B // MESH_SHAPE[0]
+    for mode, shape in (
+            ("local", f"{ARCH} local TP decode step per rank on [mesh]'s (2, "
+                      f"2) mesh (build_decode_step, full width, 16 layers): "
+                      f"f32 B={b_tp} S={S_tp} {N_HEADS // 2}/{N_KV // 2} "
+                      f"heads dh=64 (G 4), the last greedy step's lengths"),
+            ("prism", f"{ARCH} prism(L={LM_L}) decode step per rank on "
+                      f"[mesh]'s (2, 2) mesh, the MLP split over model: "
+                      f"shard partial f32 B={b_tp} Sp={S_tp // 2} of "
+                      f"S={S_tp}, rank 1, {N_HEADS}/{N_KV} heads dh=64")):
+        kernels.append({
+            "name": "flash_decode", "route": "cuda",
+            "source": src.format("flash_decode", "flash_decode"),
+            "replaces": rows[0][1], "launches": ms[f"flash_decode_tp_{mode}"],
+            "shape": shape, **{k: ms["tp_timed"][mode][k] for k in keys}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,6 +44,19 @@ JAX's transpose of the collective it stands for:
   flat state bytes;
 * ``broadcast``: the cotangents summed onto ``src`` (gloo ``reduce``).
 
+Tensor parallelism over a mesh row (``copy_to``, ``reduce_from``,
+``gather_from``: Megatron's f / g pair and the vocab gather) is three
+autograd functions, each its forward's transpose, staged in f32 and booked
+under the kind ``tp`` (their backwards too):
+
+* ``copy_to``: the identity forward (the input of a column-parallel
+  matmul, the same on every rank of the row); the backward sums the
+  cotangent over the row;
+* ``reduce_from``: the sum over the row forward (a row-parallel matmul's
+  partial products); the identity backward;
+* ``gather_from``: every rank's slice joined on the last dim forward (the
+  vocab-parallel logits); the backward keeps the rank's slice.
+
 Rematerialised layers (``repro_torch.models.remat``) run their forward
 twice, the second time in the backward.  A ``Tape`` keeps that second run
 off the wire: inside ``taping(tape)`` the forward collectives record their
@@ -114,6 +127,9 @@ class GatherStats:
                               # gradients (f32)
     param_bytes: int = 0      # parameter shards gathered over a mesh axis
                               # (ZeRO: at a step's start, after its update)
+    tp_bytes: int = 0         # tensor parallelism over the model axis: the
+                              # row-parallel partial sums, the vocab-
+                              # parallel logits and their cotangents
     halo_calls: int = 0       # ``shift`` calls (PRISM's halo), every rank
     state_calls: int = 0      # ``pass_on`` hand-offs, every rank
     seconds: float = 0.0      # host clock inside the collectives, staging
@@ -265,6 +281,48 @@ class _ChainSent(torch.autograd.Function):
             out.append(got[off:off + shape.numel()].reshape(shape).to(dtype))
             off += shape.numel()
         return (None, None, ct_out, *out)
+
+
+class _CopyTo(torch.autograd.Function):
+    """``SeqGroup.copy_to``: the identity forward; the backward sums the
+    cotangent over the group (``tp``)."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ctx.group._tp_sum(ct)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """``SeqGroup.reduce_from``: the sum over the group forward (``tp``);
+    the identity backward."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        return group._tp_sum(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ct
+
+
+class _GatherFrom(torch.autograd.Function):
+    """``SeqGroup.gather_from``: every rank's slice joined on the last dim
+    (``tp``); the backward keeps the cotangent of the rank's own slice."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group, ctx.width = group, t.shape[-1]
+        return group._tp_gather(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        r, w = ctx.group.rank, ctx.width
+        return None, ct[..., r * w:(r + 1) * w].contiguous()
 
 
 class _Broadcast(torch.autograd.Function):
@@ -593,6 +651,56 @@ class SeqGroup:
         if bucket:
             run()
         return out
+
+    # --- tensor parallelism over the group (``tp``) -----------------------
+
+    def copy_to(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as it is, the input of a column-parallel region: under
+        grad its backward sums the cotangent over the group (each rank
+        holds the part of it that its columns give)."""
+        if self.world_size == 1 or not _tracked(t):
+            return t
+        return _CopyTo.apply(self, t)
+
+    def reduce_from(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of ``t`` (a row-parallel matmul's partial
+        products) in f32, back in t's dtype, the same bits on every rank;
+        the identity backward."""
+        if self.world_size == 1:
+            return t
+        if self._replaying():
+            return self._replay()
+        if _tracked(t):
+            return self._record(_ReduceFrom.apply(self, t))
+        return self._record(self._tp_sum(t))
+
+    def gather_from(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` joined on the last dim in rank order (the
+        vocab-parallel logits → the whole vocabulary); the backward keeps
+        the rank's slice of the cotangent."""
+        if self.world_size == 1:
+            return t
+        if self._replaying():
+            return self._replay()
+        if _tracked(t):
+            return self._record(_GatherFrom.apply(self, t))
+        return self._record(self._tp_gather(t))
+
+    def _tp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The f32 sum over the group (gloo ``all_reduce``) in t's dtype;
+        (P − 1) × the f32 bytes booked as ``tp``."""
+        t0 = self._begin(t)
+        host = self._host_copy(t, torch.float32)
+        dist.all_reduce(host, group=self.pg)
+        out = host.reshape(t.shape).to(device=t.device, dtype=t.dtype)
+        self._end(t0, "tp", host.numel() * 4 * (self.world_size - 1))
+        return out
+
+    def _tp_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` joined on the last dim (``_gather``, booked
+        as ``tp``)."""
+        parts = self._gather(t.contiguous(), "tp")
+        return torch.cat(list(parts.unbind(0)), dim=-1)
 
     def all_gather_packed(self, tensors: List[torch.Tensor], *,
                           kind: str = "payload") -> List[torch.Tensor]:

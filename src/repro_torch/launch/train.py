@@ -24,10 +24,15 @@ ranks is a seq group over ``model`` as above, the global batch splits over
 start of a step, booked as ``param``), the optimizer state ZeRO-1 blocks
 over both axes, leaf by leaf as the JAX plan says
 (``sharding.placement``).  ``--mode local --data D --ranks 1`` is
-data-parallel ZeRO training; ``--mode local`` with a model axis over 1 is
-tensor parallelism, not in the port yet (it exits naming its ROADMAP
-item).  The check: the ranks of a row hold bit-identical shards, and the
-params gathered whole are the same on every rank.  Checkpoints hold the
+data-parallel ZeRO training; ``--mode local --data D --ranks M`` (or
+``--mode local --ranks M`` alone: D = 1) adds tensor parallelism over the
+model axis, as the JAX launcher's ``(devices // 2, 2)`` mesh does
+(``models.tp``: each rank its heads, MLP columns, experts and vocabulary
+rows where M divides them; the other leaves gathered whole over the row).
+The check: every two ranks that hold the same block of a leaf hold the
+same bits (without tensor parallelism: the ranks of a row), and the
+params gathered whole are the same on every rank.
+Checkpoints hold the
 global arrays in the JAX layout; ``--resume`` restores the newest one in
 ``--ckpt-dir`` into the current mesh (each rank its blocks under the new
 plan) and trains on from its step — how a run re-meshed after losing
@@ -234,6 +239,9 @@ def train_mesh(rank: int, world: int, a: dict) -> dict:
     groups = [get_seq_group(axis) for axis in mesh.axis_names]
     ckpt = CheckpointManager(a["ckpt_dir"], keep=2)
     start = 0
+    tp = "" if place.tp is None else (
+        f", tensor parallelism over model ({len(place.tp_dim)} of "
+        f"{len(place.keys)} leaves split, the others gathered whole)")
     if a["resume"]:
         start = ckpt.latest
         if start is None:
@@ -251,7 +259,7 @@ def train_mesh(rank: int, world: int, a: dict) -> dict:
     if rank == 0:
         print(f"mesh {dict(mesh.shape)} ({world} ranks), mode={a['mode']}: "
               f"params ZeRO-3 over data, optimizer state ZeRO-1 over "
-              f"{mesh.axis_names}"
+              f"{mesh.axis_names}{tp}"
               + (f", resumed at step {start}" if a["resume"] else ""),
               flush=True)
     losses, ms, staged, rows = [], [], [], []
@@ -286,18 +294,23 @@ def train_mesh(rank: int, world: int, a: dict) -> dict:
     return dict(losses=losses, ms=ms, staged_ms=staged, rows=rows,
                 card=card, coords=place.coords, peak_gb=peak,
                 grad_bytes=rows[-1]["grad"] if rows else 0,
-                shard_digest=_digest([blocks[k] for k in place.keys]),
-                digest=_digest(place.gather_params(blocks)), start=start)
+                blocks={k: (str(place.index(k, place.spec[k])),
+                            _digest([blocks[k]])) for k in place.keys},
+                digest=_digest(place.whole(blocks, place.spec)),
+                tp=place.tp is not None, start=start)
 
 
 def check_mesh(results: list) -> str:
-    """'' when the ranks of each row hold bit-identical shards and every
+    """'' when every two ranks that hold the same block of a leaf hold the
+    same bits (without tensor parallelism: the ranks of a row) and every
     rank's params gathered whole are the same; else what differs."""
-    rows = {}
+    held = {}
     for r in results:
-        rows.setdefault(r["coords"]["data"], set()).add(r["shard_digest"])
-    if any(len(d) != 1 for d in rows.values()):
-        return "the ranks of a row hold different shards"
+        for k, (where, digest) in r["blocks"].items():
+            held.setdefault((k, where), set()).add(digest)
+    bad = sorted(k for (k, _), d in held.items() if len(d) != 1)
+    if bad:
+        return f"ranks holding the same block differ ({bad[0]})"
     if len({r["digest"] for r in results}) != 1:
         return "the params gathered whole differ between ranks"
     return ""
@@ -310,8 +323,8 @@ def main(argv=None):
     ap.add_argument("--mode", default="prism",
                     choices=["prism", "voltage", "local"])
     ap.add_argument("--ranks", type=int, default=2,
-                    help="sequence-partition ranks: the model axis (1 "
-                         "under --mode local)")
+                    help="the model axis: sequence-partition ranks, or "
+                         "under --mode local tensor-parallel ranks")
     ap.add_argument("--data", type=int, default=None,
                     help="the data axis: train on a (data, ranks) mesh "
                          "(without it: one seq group, full replicas)")
@@ -337,12 +350,10 @@ def main(argv=None):
             raise SystemExit("--device cuda needs a CUDA card; pass "
                              "--device cpu to train on the CPU")
     a = dict(vars(args))
-    if args.data is not None or args.resume:
+    if args.data is not None or args.resume or (args.mode == "local"
+                                                and args.ranks > 1):
         return _main_mesh(args, a)
     ranks = 1 if args.mode == "local" else args.ranks
-    if args.mode == "local" and args.ranks > 1:
-        print(f"--mode local trains one process: --ranks {args.ranks} "
-              f"ignored", flush=True)
     if args.mode != "local" and ranks < 2:
         raise SystemExit(f"--mode {args.mode} partitions the sequence: "
                          f"give --ranks 2 or more")
@@ -381,11 +392,7 @@ def _print_done(args, r0, where: str, staged: bool) -> None:
 
 def _main_mesh(args, a: dict) -> None:
     """``--data D``: train on the (D, ``--ranks``) mesh."""
-    from repro_torch.sharding.placement import TP_ITEM
     data = args.data or 1
-    if args.mode == "local" and args.ranks > 1:
-        raise SystemExit(f"--mode local with --ranks {args.ranks} puts the "
-                         f"model axis over 1: {TP_ITEM}")
     from repro_torch.core.seq_group import spawn_mesh
     shape = (data, args.ranks)
     results = spawn_mesh(train_mesh, shape, ("data", "model"), a,
@@ -397,8 +404,11 @@ def _main_mesh(args, a: dict) -> None:
     _print_done(args, r0, f"on mesh {dict(data=data, model=args.ranks)}",
                 True)
     bad = check_mesh(results)
-    print(f"mesh replicas: {bad or 'the rows bit-identical, the gathered '
-                                   'params the same on every rank'} after "
+    same = ("the ranks holding each block bit-identical (tensor "
+            "parallelism over the rows)" if r0["tp"]
+            else "the rows bit-identical")
+    print(f"mesh replicas: {bad or same + ', the gathered params the same '
+                                        'on every rank'} after "
           f"step {r0['start'] + len(r0['losses'])}", flush=True)
     if bad or not np.isfinite(r0["losses"]).all():
         raise SystemExit("training failed: "

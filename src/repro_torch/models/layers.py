@@ -12,6 +12,12 @@ Conventions
   device (the same distributions as the JAX package, not its numbers).
 * Attention is the paper's integration point: ``ExchangeConfig`` decides
   how K/V cross sequence partitions — see ``repro_torch.core.exchange``.
+* Tensor parallelism over a mesh row (``repro_torch.models.tp``): an
+  ``AttnSpec`` with ``tp`` names the rank's heads, and ``apply_mlp``,
+  ``embed`` and ``unembed`` take the row's group as ``tp``; the weights
+  they are given are then the rank's blocks, and every output but
+  ``unembed``'s (the rank's vocab columns) is the whole, the same on every
+  rank of the row.
 """
 from __future__ import annotations
 
@@ -127,13 +133,20 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype,
     return p
 
 
-def apply_mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def apply_mlp(params: Params, x: torch.Tensor, act: str = "silu",
+              tp=None) -> torch.Tensor:
+    """The MLP; with ``tp`` (the row's group) its rank's columns of
+    ``w_up``/``w_gate`` and rows of ``w_down``, the partial products summed
+    over the row."""
+    if tp is not None:
+        x = tp.copy_to(x)
     up = x @ params["w_up"]
     if "w_gate" in params:
         h = _act(x @ params["w_gate"], act) * up
     else:
         h = _act(up, act)
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return y if tp is None else tp.reduce_from(y)
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -177,19 +190,27 @@ class AttnSpec:
     rope_theta: float = 10000.0
     use_rope: bool = True
     scale: Optional[float] = None         # override 1/sqrt(hd)
+    tp: Any = None                        # the row's SeqGroup when the heads
+                                          # above are the rank's 1/M of them
 
 
 def project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
                 positions: Optional[torch.Tensor]):
-    """Linear projections + RoPE. x: [B, N, D] → q [B,N,H,hd], k/v [B,N,Hk,hd]."""
+    """Linear projections + RoPE. x: [B, N, D] → q [B,N,H,hd], k/v [B,N,Hk,hd].
+    Under ``spec.tp`` the weights are the rank's columns, the biases
+    (whole) are sliced to them, and x enters the row's parallel region."""
     B, N, _ = x.shape
+    if spec.tp is not None:
+        x = spec.tp.copy_to(x)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        r = 0 if spec.tp is None else spec.tp.rank
+        wq, wk = spec.n_heads * spec.head_dim, spec.n_kv * spec.head_dim
+        q = q + params["bq"][r * wq:(r + 1) * wq]
+        k = k + params["bk"][r * wk:(r + 1) * wk]
+        v = v + params["bv"][r * wk:(r + 1) * wk]
     q = q.reshape(B, N, spec.n_heads, spec.head_dim)
     k = k.reshape(B, N, spec.n_kv, spec.head_dim)
     v = v.reshape(B, N, spec.n_kv, spec.head_dim)
@@ -211,8 +232,16 @@ def attention_block(params: Params, x: torch.Tensor, spec: AttnSpec,
     out = exchange_attention(
         q, k, v, xcfg, causal=spec.causal, window=spec.window,
         logit_softcap=spec.logit_softcap, scale=spec.scale)
-    B, N = x.shape[:2]
-    return out.reshape(B, N, spec.n_heads * spec.head_dim) @ params["wo"]
+    return attention_output(params, out, spec)
+
+
+def attention_output(params: Params, heads: torch.Tensor,
+                     spec: AttnSpec) -> torch.Tensor:
+    """The heads [B, N, H, hd] through ``wo`` → [B, N, D]; under
+    ``spec.tp`` the rank's rows of ``wo``, summed over the row."""
+    B, N = heads.shape[:2]
+    y = heads.reshape(B, N, spec.n_heads * spec.head_dim) @ params["wo"]
+    return y if spec.tp is None else spec.tp.reduce_from(y)
 
 
 def _quantize_kv(t: torch.Tensor):
@@ -320,8 +349,7 @@ def attention_decode(
         q, k_cache, v_cache, cache_len, xcfg,
         logit_softcap=spec.logit_softcap, scale=spec.scale,
         window=spec.window)
-    y = out.reshape(B, 1, spec.n_heads * spec.head_dim) @ params["wo"]
-    return y, cache
+    return attention_output(params, out, spec), cache
 
 
 def attention_decode_paged(
@@ -403,8 +431,19 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
     return {"table": embed_init(gen, vocab, d, dtype)}
 
 
-def embed(params: Params, tokens: torch.Tensor, scale_by_sqrt_d: bool = False):
-    x = params["table"][tokens]
+def embed(params: Params, tokens: torch.Tensor, scale_by_sqrt_d: bool = False,
+          tp=None):
+    """The table's rows of ``tokens``; with ``tp`` (the row's group) the
+    table is the rank's block of V/M rows: the ids outside it look up row
+    0 and are zeroed, and the row sums the ranks' lookups."""
+    if tp is None:
+        x = params["table"][tokens]
+    else:
+        n = params["table"].shape[0]
+        local = tokens.long() - tp.rank * n
+        mine = (local >= 0) & (local < n)
+        x = params["table"][torch.where(mine, local, 0)]
+        x = tp.reduce_from(x * mine[..., None].to(x.dtype))
     if scale_by_sqrt_d:
         x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -412,8 +451,13 @@ def embed(params: Params, tokens: torch.Tensor, scale_by_sqrt_d: bool = False):
 
 
 def unembed(params: Params, x: torch.Tensor,
-            final_softcap: Optional[float] = None) -> torch.Tensor:
-    """Tied unembedding: ``x @ table.T`` in the weights' dtype, then f32."""
+            final_softcap: Optional[float] = None, tp=None) -> torch.Tensor:
+    """Tied unembedding: ``x @ table.T`` in the weights' dtype, then f32.
+    With ``tp`` the table is the rank's block of V/M rows and the logits
+    its V/M columns (softcapped elementwise: the same values as the
+    whole's); ``tp.gather_from`` joins them."""
+    if tp is not None:
+        x = tp.copy_to(x)
     logits = (x @ params["table"].T).float()
     if final_softcap is not None:
         logits = final_softcap * torch.tanh(logits / final_softcap)

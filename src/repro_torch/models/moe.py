@@ -28,6 +28,21 @@ start after the selections of the ranks before it in the same group, C
 and the loss come from the global group length and sums.  The expert
 weights are whole on every rank, so no token moves.  (The JAX package's
 ``_pin_expert`` is a GSPMD sharding hint with no counterpart here.)
+
+Under tensor parallelism over a mesh row (``models.tp.ffn``: the
+JAX plan shards the experts over ``model``) a rank holds ``E / M`` of the
+experts and runs them over all the row's tokens, the same on every rank
+of the row: the router is whole, so the routing, the capacity and
+``fits`` are identical everywhere; the rank fills only its experts'
+buffers, and the row sums the ranks' outputs (``reduce_from``).  The
+shared expert runs whole on every rank of the row after that sum (the
+JAX plan shards it as an expert stack, over its layers, never its
+width).
+Where the batch is sharded over the mesh's ``data`` axis
+(``models.tp.batch_group``), the loss's ``sum_sel`` and ``sum_p`` and the
+token count are summed over the column (one ``meta`` gather, whose
+backward sums the cotangents over the column), so the aux loss is the
+whole batch's.
 """
 from __future__ import annotations
 
@@ -36,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import MoECfg
+from repro_torch.models import tp as tpm
 from repro_torch.models.layers import _act, apply_mlp, dense_init, init_mlp
 
 Params = Dict[str, Any]
@@ -125,27 +141,44 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoECfg,
     pos = run + offset[:, lg].gather(2, top_i)                 # [B, n, k]
     fits = pos < C
 
-    # capacity buffers [E, G·C, D] (G = B · n_lg local groups), the expert
-    # MLPs over every slot, and each token's choices gathered back
+    # capacity buffers [El, G·C, D] (G = B · n_lg local groups) of this
+    # rank's experts e0 .. e0 + El - 1 (all E without TP), the expert MLPs
+    # over every slot, and each token's choices gathered back
+    tp = tpm.ffn(E)
+    El = E if tp is None else E // tp.world_size
+    e0 = 0 if tp is None else tp.rank * El
+    x_in = x
+    if tp is not None:
+        x, top_p = tp.copy_to(x), tp.copy_to(top_p)
+        fits = fits & (top_i >= e0) & (top_i < e0 + El)
     G = B * n_lg
     gid = (torch.arange(B, device=dev)[:, None] * n_lg + lg[None])  # [B, n]
-    slot = (top_i * (G * C) + gid[..., None] * C
+    slot = ((top_i - e0).clamp(0, El - 1) * (G * C) + gid[..., None] * C
             + pos.clamp(max=C - 1))                            # [B, n, k]
-    xe = torch.zeros((E * G * C, D), dtype=x.dtype, device=dev)
+    xe = torch.zeros((El * G * C, D), dtype=x.dtype, device=dev)
     rows = x[:, :, None].expand(B, n, k, D)
     xe[slot[fits]] = rows[fits]
-    xe = xe.reshape(E, G * C, D)
+    xe = xe.reshape(El, G * C, D)
     h = _act(torch.bmm(xe, params["w_gate"]), act) * torch.bmm(
         xe, params["w_up"])
-    ye = torch.bmm(h, params["w_down"]).reshape(E * G * C, D)
+    ye = torch.bmm(h, params["w_down"]).reshape(El * G * C, D)
     comb = (top_p * fits).to(x.dtype)                          # [B, n, k]
     y = torch.bmm(comb.reshape(B * n, 1, k),
                   ye[slot.reshape(-1)].reshape(B * n, k, D)).reshape(B, n, D)
 
+    if tp is not None:
+        y = tp.reduce_from(y)
     if cfg.n_shared and "shared" in params:
-        y = y + apply_mlp(params["shared"], x, act)
+        y = y + apply_mlp(params["shared"], x_in, act)
 
     # Switch-style load balance: E * Σ_e f_e · p_e over all B · N tokens
+    # (the whole batch's, where it is sharded over the mesh's data axis)
     T = B * N
+    col = tpm.batch_group()
+    if col is not None and col.world_size > 1:
+        got = col.all_gather(torch.cat([sum_sel, sum_p]), kind="meta")
+        tot = got.sum(0)
+        sum_sel, sum_p = tot[:E], tot[E:]
+        T = T * col.world_size
     aux = cfg.router_aux_weight * E * torch.sum((sum_sel / T) * (sum_p / T))
     return y, aux

@@ -184,6 +184,26 @@ def forward_fn(cfg: ModelConfig) -> Callable:
     return lambda params, batch, xcfg: tfm.forward_lm(params, batch, cfg, xcfg)
 
 
+def prefill_fn(cfg: ModelConfig) -> Callable:
+    """Forward that unembeds only the last position (serving prefill):
+    ``fn(params, batch, xcfg) → (logits [B, 1, V], aux)``; the ViT's
+    ``forward_fn``."""
+    if cfg.family == "vit":
+        return forward_fn(cfg)
+    return lambda params, batch, xcfg: tfm.forward_lm(params, batch, cfg,
+                                                      xcfg, last_only=True)
+
+
+def decode_fn(cfg: ModelConfig) -> Callable:
+    """``fn(params, batch, cache, index, xcfg) → (logits, cache)``: one
+    decode step (``transformer.decode_step``); the ViT has none."""
+    if cfg.family == "vit":
+        raise ValueError("ViT is encoder-only: no decode step (skip decode "
+                         "shapes per the brief)")
+    return lambda params, batch, cache, idx, xcfg: tfm.decode_step(
+        params, batch, cache, idx, cfg, xcfg)
+
+
 class _MetaGenerator(torch.Generator):
     """A generator whose draws land on the meta device: shapes and dtypes,
     no storage."""

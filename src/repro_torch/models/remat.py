@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -60,24 +60,32 @@ def active(*trees: Any) -> bool:
         for tree in trees for t in tree_leaves(tree))
 
 
-def region(fn: Callable, *args, group: Optional[SeqGroup] = None) -> Any:
+def region(fn: Callable, *args,
+           group: Union[None, SeqGroup, Sequence[SeqGroup]] = None) -> Any:
     """``fn(*args)``, rematerialised where ``active(args)``: a layer, or a
     block of a recurrent scan's time steps (the scan decides which blocks
     qualify: ``chunked``).  ``fn`` reads its tensors from ``args`` (a
     closure over a loop variable would be read again at recompute time);
-    ``group`` is the seq group whose collectives ``fn`` may call (None:
-    none)."""
+    ``group`` is the seq group whose collectives ``fn`` may call, or a
+    list of such groups (a mesh row and column; None or empty: none),
+    each taped apart.  The recompute runs in the context variables of the
+    forward (``models.tp``'s mesh context, this module's switch): a CUDA
+    backward runs on autograd's own thread, which does not see them."""
     if not active(args):
         return fn(*args)
-    if group is None:
-        return checkpoint(fn, *args, use_reentrant=False)
-    tape = Tape()
+    groups = ([] if group is None else
+              [group] if isinstance(group, SeqGroup) else list(group))
+    tapes = [Tape() for _ in groups]
+    ctx = contextvars.copy_context()
 
-    def run(*a):
-        with group.taping(tape):
+    def taped(*a):
+        with contextlib.ExitStack() as stack:
+            for g, tape in zip(groups, tapes):
+                stack.enter_context(g.taping(tape))
             return fn(*a)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(lambda *a: ctx.run(taped, *a), *args,
+                      use_reentrant=False)
 
 
 def chunked(T: int, chunk_len: int) -> bool:

@@ -90,6 +90,14 @@ package's encoder attends its own padded frames; the decode cache keeps
 the rank's block of ``mem_kv`` and the global mask, so every rank knows
 the memory's real length.
 
+On a mesh row under tensor parallelism (``repro_torch.models.tp``, set
+by the mesh step) every rank of the row runs the same tokens with its
+block of the split weights: its heads (the decode cache holds its KV
+heads), its MLP columns, its experts, its vocabulary rows; each split
+region sums its partial products over the row, ``forward_lm`` and
+``decode_step`` gather the vocab-parallel logits, and the layers' regions
+are rematerialised with the row's collectives taped.
+
 Under a partitioned plan a windowed layer's prefill exchanges only its
 halo under ``prism`` (``exchange.prism_prefill_attention``) and its decode
 merges the blocks' windowed partials.  A MoE layer routes a rank's tokens
@@ -118,9 +126,11 @@ from repro_torch.core.handoff import handoff_scan
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import remat
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tp as tpm
 from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_block, attention_decode,
                                        attention_decode_paged,
+                                       attention_output,
                                        embed, init_attention, init_embedding,
                                        init_kv_cache, init_mlp, init_norm,
                                        prefill_kv_cache, project_qkv, unembed)
@@ -158,12 +168,38 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def _attn_spec(cfg: ModelConfig, *, window: Optional[int] = None,
                causal: Optional[bool] = None, use_rope: bool = True) -> AttnSpec:
+    """A layer's attention spec; under tensor parallelism over the heads
+    (``tp.heads``) the rank's ``n_heads / M`` and ``n_kv / M`` of them."""
+    tp = tpm.heads(cfg)
+    M = 1 if tp is None else tp.world_size
     return AttnSpec(
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+        n_heads=cfg.n_heads // M, n_kv=cfg.n_kv_heads // M, head_dim=cfg.hd,
         causal=cfg.causal if causal is None else causal,
         window=window, logit_softcap=cfg.attn_softcap,
         rope_theta=cfg.rope_theta, use_rope=use_rope and cfg.rope_theta > 0,
-        scale=cfg.query_scale)
+        scale=cfg.query_scale, tp=tp)
+
+
+def _kv_heads(cfg: ModelConfig) -> int:
+    """The KV heads a rank holds: ``n_kv / M`` under tensor parallelism
+    over the heads."""
+    tp = tpm.heads(cfg)
+    return cfg.n_kv_heads // (1 if tp is None else tp.world_size)
+
+
+def _mlp(p: Params, x, cfg: ModelConfig, width: int):
+    """An MLP of ``width`` (split over the row where ``tp.ffn`` says)."""
+    return apply_mlp(p, x, cfg.act, tp=tpm.ffn(width))
+
+
+def _taped(*groups) -> list:
+    """The groups whose collectives a rematerialised layer may call: the
+    seq group, and the row and the column of tensor parallelism."""
+    out = []
+    for g in groups + (tpm.group(), tpm.batch_group()):
+        if g is not None and all(g is not o for o in out):
+            out.append(g)
+    return out
 
 
 def pad_len(n: int, shards: int, L: int) -> int:
@@ -199,7 +235,8 @@ def _mlp_residual(p: Params, x, h, cfg: ModelConfig):
     x = x + h
     if "mlp" not in p:
         return x
-    h2 = apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg.act)
+    h2 = _mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg,
+              cfg.d_ff)
     if cfg.post_norms:
         h2 = apply_norm(cfg.norm_type, p["post_mlp"], h2)
     return x + h2
@@ -240,8 +277,7 @@ def _attn_prefill(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
         hi = min(lo + Sp, k_all.shape[1])
         if hi > lo:
             prefill_kv_cache(cache, k_all[:, lo:hi], v_all[:, lo:hi])
-    B, N = x.shape[:2]
-    return attn.reshape(B, N, spec.n_heads * spec.head_dim) @ p["attn"]["wo"]
+    return attention_output(p["attn"], attn, spec)
 
 
 def _apply_attn_mlp_decode(p: Params, x, cfg: ModelConfig, xcfg,
@@ -294,7 +330,7 @@ def _ffn_residual(p: Params, x, h, cfg: ModelConfig, group=None):
     if "moe" in p:
         y, aux = apply_moe(p["moe"], hin, cfg.moe, cfg.act, group=group)
         return x + y, aux
-    return x + apply_mlp(p["mlp"], hin, cfg.act), None
+    return x + _mlp(p["mlp"], hin, cfg, cfg.moe.d_ff_dense), None
 
 
 def _apply_moe_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
@@ -364,10 +400,15 @@ def _init_cross_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def _memory_kv(p_attn: Params, mem: torch.Tensor, cfg: ModelConfig
                ) -> Dict[str, torch.Tensor]:
     """Project a memory [B, M, D] to K and V once (every query of the
-    layer attends them)."""
+    layer attends them); under tensor parallelism over the heads the
+    rank's KV heads."""
     B, M, _ = mem.shape
-    return {"k": (mem @ p_attn["wk"]).reshape(B, M, cfg.n_kv_heads, cfg.hd),
-            "v": (mem @ p_attn["wv"]).reshape(B, M, cfg.n_kv_heads, cfg.hd)}
+    tp = tpm.heads(cfg)
+    if tp is not None:
+        mem = tp.copy_to(mem)
+    hk = _kv_heads(cfg)
+    return {"k": (mem @ p_attn["wk"]).reshape(B, M, hk, cfg.hd),
+            "v": (mem @ p_attn["wv"]).reshape(B, M, hk, cfg.hd)}
 
 
 def _padded_memory(x: torch.Tensor, cfg: ModelConfig, xcfg: ExchangeConfig):
@@ -396,7 +437,7 @@ def _encode_audio(params: Params, batch: Dict[str, torch.Tensor],
     group = seq_group_for(xcfg) if partitioned(xcfg) else None
     for lp in params["enc_layers"]:
         mem = remat.region(_apply_attn_mlp, lp, mem, cfg, xcfg, spec, pos,
-                           group=group)
+                           group=_taped(group))
     return apply_norm(cfg.norm_type, params["enc_norm"], mem), mask
 
 
@@ -450,8 +491,11 @@ def _cross_attend(p: Params, x, mem_kv: Dict[str, torch.Tensor], mem_mask,
     exact merge across ranks (the plan's own config without a seq group).
     A layer with a ``gate`` scales its output by ``tanh(gate)``."""
     B, N, _ = x.shape
+    spec = _attn_spec(cfg)
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
-    q = (xin @ p["xattn"]["wq"]).reshape(B, N, cfg.n_heads, cfg.hd)
+    if spec.tp is not None:
+        xin = spec.tp.copy_to(xin)
+    q = (xin @ p["xattn"]["wq"]).reshape(B, N, spec.n_heads, cfg.hd)
     k, v = mem_kv["k"], mem_kv["v"]
     kw = dict(logit_softcap=cfg.attn_softcap, scale=cfg.query_scale)
     if decode:
@@ -465,7 +509,7 @@ def _cross_attend(p: Params, x, mem_kv: Dict[str, torch.Tensor], mem_mask,
             mem_mask = mem_mask[:, lo:lo + k.shape[1]].clone(
                 memory_format=torch.contiguous_format)
         out = exchange_cross_attention(q, k, v, mem_mask, xcfg, **kw)
-    out = out.reshape(B, N, cfg.n_heads * cfg.hd) @ p["xattn"]["wo"]
+    out = attention_output(p["xattn"], out, spec)
     if "gate" in p:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
     return x + out
@@ -475,8 +519,8 @@ def _cross_block(p: Params, x, mem_kv, mem_mask, cfg: ModelConfig,
                  xcfg: ExchangeConfig, decode: bool):
     """Cross-attention, then x + mlp(ln2(x))."""
     x = _cross_attend(p, x, mem_kv, mem_mask, cfg, xcfg, decode)
-    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
-                         cfg.act)
+    return x + _mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg,
+                    cfg.d_ff)
 
 
 def _cached_kv(cache: Params, i: int) -> Dict[str, torch.Tensor]:
@@ -532,17 +576,15 @@ def _apply_hymba_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
                                window=spec.window,
                                logit_softcap=spec.logit_softcap,
                                scale=spec.scale)
-    B, N = x.shape[:2]
-    attn_out = heads.reshape(B, N, spec.n_heads * spec.head_dim) \
-        @ p["attn"]["wo"]
+    attn_out = attention_output(p["attn"], heads, spec)
     ssm_out = handoff_scan(
         group, lambda st: ssm_mod.mamba_scan(
             p["mamba"], xin, cfg.ssm, *((None, None) if st is None
                                         else (st["h"], st["conv"]))),
         lambda: _mamba_like(xin, cfg), xin.device, anchor=xin)
     x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
-                         cfg.act)
+    return x + _mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg,
+                    cfg.d_ff)
 
 
 def _store(views: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
@@ -558,8 +600,8 @@ def _apply_hymba_decode(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
     ssm_out, new = ssm_mod.mamba_step(p["mamba"], xin, cfg.ssm, state)
     _store(state, new)
     x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x),
-                         cfg.act)
+    return x + _mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg,
+                    cfg.d_ff)
 
 
 def _init_xlstm_group(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -746,6 +788,21 @@ def _head(params: Params, cfg: ModelConfig) -> Params:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def _embed(params: Params, tokens, cfg: ModelConfig):
+    """The token embeddings (vocab-parallel where ``tp.vocab`` says)."""
+    return embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale,
+                 tp=tpm.vocab(cfg.vocab_size))
+
+
+def _logits(params: Params, x, cfg: ModelConfig) -> torch.Tensor:
+    """The f32 logits of the normed ``x`` over the whole vocabulary: a
+    vocab-parallel unembedding's columns gathered over the row."""
+    tp = tpm.vocab(cfg.vocab_size)
+    logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap,
+                     tp=tp)
+    return logits if tp is None else tp.gather_from(logits)
+
+
 def _positions(B: int, N: int, device, start: int = 0) -> torch.Tensor:
     return torch.arange(start, start + N, dtype=torch.int32,
                         device=device)[None].expand(B, N)
@@ -783,8 +840,7 @@ def _last_logits(params: Params, x, cfg: ModelConfig, group):
     last = group is None or group.rank == group.world_size - 1
     if last or (torch.is_grad_enabled() and x.requires_grad):
         x = apply_norm(cfg.norm_type, params["final_norm"], x[:, -1:])
-        logits = unembed(_head(params, cfg), x,
-                         final_softcap=cfg.final_softcap)
+        logits = _logits(params, x, cfg)
     else:
         logits = torch.empty((x.shape[0], 1, cfg.vocab_size),
                              dtype=torch.float32, device=x.device)
@@ -834,7 +890,7 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     B, N = tokens.shape
     group, start, n = _shard(xcfg, N)
     tokens = tokens[:, start:start + n]
-    x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
+    x = _embed(params, tokens, cfg)
     positions = _positions(B, n, tokens.device, start)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     mem = mem_mask = None
@@ -843,13 +899,13 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     for lp, spec, half, _ in _walk(params, cfg):
         x, a = remat.region(_decoder_layer, lp, spec, half, x, cfg, xcfg,
                             positions, group, mem, mem_mask, N == 1,
-                            group=group)
+                            group=_taped(group))
         if a is not None:
             aux = aux + a
     if last_only:
         return _last_logits(params, x, cfg, group), aux
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
-    logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
+    logits = _logits(params, x, cfg)
     if group is not None and not local_logits:   # [P, B, Np, V] → [B, N, V]
         logits = group.all_gather(logits, kind="output")
         logits = logits.permute(1, 0, 2, 3).reshape(B, N, -1)
@@ -874,7 +930,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     dtype).  Under a partitioned ``xcfg`` every KV half is this rank's
     block of ``ceil(seq / P)`` positions: the cache rounds up to a
     multiple of P, and the padded slots are never valid; every rank holds
-    the whole recurrent state."""
+    the whole recurrent state.  Under tensor parallelism over the heads
+    (``tp.heads``) a rank holds its ``n_kv / M`` KV heads: a layout choice
+    (the JAX plan leaves the cache's heads replicated, and GSPMD computes
+    the attention head-sharded from it)."""
     _require_ported(cfg)
     if xcfg is not None and partitioned(xcfg):
         seq = -(-seq // xcfg.seq_shards)
@@ -886,7 +945,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
             c = mla_mod.init_mla_cache(batch, seq, cfg.mla, cfg.torch_dtype,
                                        device=device)
         else:
-            c = init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd,
+            c = init_kv_cache(batch, seq, _kv_heads(cfg), cfg.hd,
                               cfg.torch_dtype, quant=cfg.kv_quant,
                               device=device)
         cache = {half: {name: t[None].repeat(n, *([1] * t.ndim))
@@ -913,8 +972,7 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     ``layers.attention_decode``).  audio and vlm attend the memory that
     ``prefill_memory`` put in the cache."""
     _require_ported(cfg)
-    x = embed(params["embed"], batch["tokens"],
-              scale_by_sqrt_d=cfg.embed_scale)
+    x = _embed(params, batch["tokens"], cfg)
     if isinstance(cache_index, torch.Tensor):      # once, not per layer
         cache_index = cache_index.to(device=x.device, dtype=torch.long)
     layer = _apply_moe_decode if cfg.family == "moe" else \
@@ -935,8 +993,7 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
             x = layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
                       cache_index)
     x = apply_norm(cfg.norm_type, params["final_norm"], x)
-    logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap)
-    return logits, cache
+    return _logits(params, x, cfg), cache
 
 
 def supports_page_pool(cfg: ModelConfig) -> bool:
@@ -1012,7 +1069,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     B, T0 = tokens.shape
     group, start, n = _shard(xcfg, T0)
     tokens = tokens[:, start:start + n]
-    x = embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
+    x = _embed(params, tokens, cfg)
     positions = _positions(B, n, tokens.device, start)
     for lp, spec, half, i in _walk(params, cfg):
         if half == MEMORY:

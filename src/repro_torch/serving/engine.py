@@ -24,9 +24,12 @@ consumes the dispatch fault armed for ``runtime.chaos_name`` — an
 injected error skips the chunk (retried next step), a straggler scales
 the step time the straggler hook observes.
 
-The JAX package's step builders with the plan's shardings
-(``build_prefill_step`` / ``build_decode_step``) are not ported yet
-(ROADMAP queue 1 item [13.6a]).
+The JAX package's step builders, ``build_prefill_step`` and
+``build_decode_step`` (its canonical jit targets for the dry run), are
+here with an optional ``ShardingPlan``: on a ``("data", "model")`` mesh a
+rank runs its rows of the batch (``specs.batch_shardings``) and its block
+of the cache (``init_cache``), with the params held as the plan says
+(``sharding.placement.Placement.held_params``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,118 @@ from repro_torch.serving.scheduler import (AdaptiveScheduler, FaultHook,
                                            MicroBatch, StragglerHook)
 
 _NULL_CTX = contextlib.nullcontext()
+
+
+def build_prefill_step(cfg, xcfg, plan=None) -> Callable:
+    """``prefill_step(params, batch, cache) → (last-position logits [B, 1,
+    V], cache with its memory primed)``: the forward that unembeds only
+    the last position (``registry.prefill_fn``: the logits of the JAX
+    package's whole forward at that position), then ``prefill_memory``.
+
+    With ``plan`` (a ``ShardingPlan`` on the mesh this process joined;
+    ``xcfg`` is then ``plan.xcfg``) the step is one rank's: ``batch`` is
+    the global batch, of which the rank runs its rows, ``params`` the tree
+    the model runs on under the plan (``Placement.held_params``) and
+    ``cache`` the rank's block (``init_cache``); the logits are its rows'.
+    Under a plan that shards the sequence over ``model`` the forward runs
+    the sequence over the row, so the split MLP blocks of the decode plan
+    are gathered whole for it first (``param`` bytes)."""
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    fwd = registry.prefill_fn(cfg)
+    if plan is None:
+        def prefill_step(params, batch, cache):
+            logits, _ = fwd(params, batch, xcfg)
+            cache = tfm.prefill_memory(params, batch, cfg, xcfg, cache)
+            return logits[:, -1:], cache
+        return prefill_step
+    on = _OnMesh(cfg, plan, full_sequence=True)
+
+    def mesh_prefill_step(params, batch, cache):
+        rows = on.rows(batch)
+        if on.widen:
+            params = on.place.widened(params)
+        with on.context():
+            logits, _ = fwd(params, rows, plan.xcfg)
+            cache = tfm.prefill_memory(params, rows, cfg, plan.xcfg, cache)
+        return logits[:, -1:], cache
+    return mesh_prefill_step
+
+
+def build_decode_step(cfg, xcfg, plan=None) -> Callable:
+    """``serve_step(params, batch, cache, cache_index) → (logits, cache)``:
+    one new token given a cache of the current length
+    (``registry.decode_fn``).  With ``plan`` the step is one rank's, as
+    ``build_prefill_step``'s: its rows of the global ``batch``, its block
+    of the cache, and under tensor parallelism (``models.tp``: a
+    ``local`` plan's heads, MLPs, experts and vocabulary, or only the MLPs
+    and experts of a plan over the sequence, whose attention merges the
+    cache blocks of the row) its blocks of the split weights."""
+    from repro_torch.models import registry
+    step = registry.decode_fn(cfg)
+    if plan is None:
+        def serve_step(params, batch, cache, cache_index):
+            return step(params, batch, cache, cache_index, xcfg)
+        return serve_step
+    on = _OnMesh(cfg, plan, full_sequence=False)
+
+    def mesh_serve_step(params, batch, cache, cache_index):
+        with on.context():
+            return step(params, on.rows(batch), cache, cache_index,
+                        plan.xcfg)
+    return mesh_serve_step
+
+
+def init_cache(cfg, plan, batch: int, seq: int, device=None):
+    """A rank's block, under ``plan``, of the decode cache of a global
+    ``batch`` × ``seq``: its rows (``batch_shardings``), its sequence block
+    under a plan over the sequence, its KV heads where the heads split
+    over ``model`` (a layout choice: the JAX plan leaves the heads
+    replicated and GSPMD computes the attention head-sharded)."""
+    from repro_torch.models import transformer as tfm
+    on = _OnMesh(cfg, plan, full_sequence=False)
+    with on.context():
+        return tfm.init_decode_cache(cfg, on.n_rows(batch), seq,
+                                     device=device, xcfg=plan.xcfg)
+
+
+class _OnMesh:
+    """One rank's part of a serving step under ``plan``: its rows of the
+    batch and the tensor-parallel context of the step."""
+
+    def __init__(self, cfg, plan, full_sequence: bool):
+        from repro_torch.models import registry
+        from repro_torch.sharding.placement import Placement
+        self.cfg, self.plan = cfg, plan
+        self.place = Placement(plan, cfg, registry.abstract_params(cfg))
+        tp = self.place.tp
+        # a full sequence over the row takes no split weights
+        self.widen = (full_sequence and plan.seq_axis is not None
+                      and tp is not None)
+        self.tp = None if self.widen else tp
+
+    def _slice(self, n: int):
+        from repro_torch.sharding.specs import Shape, batch_shardings
+        spec = batch_shardings(self.plan, self.cfg,
+                               {"tokens": Shape((n, 1))},
+                               "decode")["tokens"].spec
+        if spec[0] is None:
+            return slice(0, n)
+        i, m = self.place._pos(spec[0])
+        return slice(i * n // m, (i + 1) * n // m)
+
+    def n_rows(self, n: int) -> int:
+        s = self._slice(n)
+        return s.stop - s.start
+
+    def rows(self, batch):
+        s = self._slice(next(iter(batch.values())).shape[0])
+        return {k: v[s] for k, v in batch.items()}
+
+    def context(self):
+        from repro_torch.models import tp as tpm
+        return self.place.tp_context() if self.tp is not None \
+            else tpm.on_mesh(None)
 
 
 @dataclasses.dataclass

@@ -22,9 +22,19 @@ the optimizer's moments as their (finer) optimizer-spec blocks; a step
    updated blocks back into the param-spec blocks over the axes the
    optimizer spec adds (``param``).
 
+Under tensor parallelism (``repro_torch.models.tp``: a ``local`` plan
+with a model axis over 1, or a decode plan's MLPs and experts) a rank
+computes with its model block of the TP leaves (``tp_dim``: the split
+heads' ``wq/wk/wv/wo``, the split MLPs, the experts, the vocabulary), so
+``gather_params`` gathers those over ``data`` only and every other leaf
+whole; the model then runs inside ``tp_context``.  The row's ranks hold
+the same loss, so ``reduce_gradients`` sums over the row only the leaves a
+rank consumed a slice of (``sliced``: the qkv biases of split heads); a
+TP leaf's gradient is its block's, and a leaf consumed whole has the same
+gradient on every rank of the row.
+
 The runtime takes ``("data", "model")`` meshes (a multi-pod mesh is
-planned, not run) and, under ``local``, a model axis of 1: tensor
-parallelism over ``model`` is ROADMAP queue 1 item [13.7].
+planned, not run).
 """
 from __future__ import annotations
 
@@ -32,11 +42,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.models import tp as tpm
 from repro_torch.utils.tree import (tree_leaves_with_paths,
                                     tree_unflatten_like)
-
-TP_ITEM = "tensor parallelism over the model axis (ROADMAP queue 1 item " \
-    "[13.7])"
 
 
 def _lead_shape(st, cfg) -> Tuple[int, ...]:
@@ -112,11 +120,8 @@ class Placement:
             raise NotImplementedError(
                 f"the port runs ('data', 'model') meshes; {mesh} is "
                 f"planned, not run")
-        if plan.seq_axis is None and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                f"--mode local on a model axis of {mesh.shape['model']} is "
-                f"{TP_ITEM}")
         self.plan, self.cfg, self.mesh = plan, cfg, mesh
+        self.tp = tpm.plan_of(plan, cfg)
         if coords is None:
             from repro_torch.launch.mesh import mesh_coords
             coords = mesh_coords()
@@ -137,6 +142,24 @@ class Placement:
                 raise ValueError(f"{k}: optimizer spec {self.opt_spec[k]} "
                                  f"does not refine the param spec "
                                  f"{self.spec[k]}")
+        # the TP leaves → their split dim; the leaves consumed as a slice
+        self.tp_dim: Dict[str, int] = {}
+        self.sliced: Dict[str, int] = {}
+        if self.tp is not None:
+            for k, ent in self.index_of.items():
+                dim = self.tp.leaf_dim(k, ent.shape, cfg)
+                if dim is not None:
+                    if self.spec[k][dim] != "model":
+                        raise ValueError(f"{k}: TP splits dim {dim}, the "
+                                         f"plan's spec is {self.spec[k]}")
+                    self.tp_dim[k] = dim
+                dim = self.tp.sliced_dim(k, ent.shape, cfg)
+                if dim is not None:
+                    self.sliced[k] = dim
+        # what the model runs on: a TP leaf's model block, else the whole
+        self.held = {k: tuple("model" if i == self.tp_dim.get(k) else None
+                              for i in range(len(self.index_of[k].shape)))
+                     for k in self.keys}
 
     # --- blocks -----------------------------------------------------------
 
@@ -184,21 +207,21 @@ class Placement:
         out = {}
         for k, ent in self.index_of.items():
             parts = [leaves[self.order[p]] for p in ent.paths]
-            t = torch.empty((len(parts),) + ent.shape[ent.lead:],
+            t = torch.empty((len(parts),) + tuple(parts[0].shape),
                             dtype=dtype or parts[0].dtype,
                             device=parts[0].device)
             for j, part in enumerate(parts):
                 t[j].copy_(part)
-            out[k] = t.reshape(ent.shape)
+            out[k] = t.reshape(ent.shape[:ent.lead] + tuple(parts[0].shape))
         return out
 
     def unstack(self, flat: Dict[str, torch.Tensor]):
         """``stack``'s inverse: the port tree whose leaves are views of
-        ``flat``'s whole leaves."""
+        ``flat``'s leaves (whole, or the blocks the model runs on)."""
         leaves: List[Any] = [None] * len(self.order)
         for k, ent in self.index_of.items():
             parts = flat[k].reshape((len(ent.paths),)
-                                    + ent.shape[ent.lead:])
+                                    + tuple(flat[k].shape[ent.lead:]))
             for j, p in enumerate(ent.paths):
                 leaves[self.order[p]] = parts[j]
         return tree_unflatten_like(self.template, leaves)
@@ -259,9 +282,37 @@ class Placement:
             for k in self.keys}
 
     def gather_params(self, blocks: Dict[str, torch.Tensor]):
-        """Param-spec blocks → the whole port params tree (ZeRO-3's gather
-        at the start of a step)."""
-        return self.unstack(self.gather(blocks, self.spec))
+        """Param-spec blocks → the port params tree the model runs on
+        (ZeRO-3's gather at the start of a step): every leaf whole but the
+        TP leaves, each this rank's model block (gathered over ``data``
+        only)."""
+        return self.unstack(self.gather(blocks, self.spec, self.held))
+
+    def held_params(self, params):
+        """Whole port ``params`` (the same on every rank) → the tree the
+        model runs on, sliced locally: each TP leaf's model block, every
+        other leaf whole (no collective; serving's view of the plan)."""
+        flat = self.stack(params)
+        return self.unstack({k: flat.pop(k)[self.index(k, self.held[k])]
+                             .clone() for k in self.keys})
+
+    def widened(self, params):
+        """The tree the model runs on → every leaf whole: the TP leaves
+        gathered over ``model`` (booked as ``param``), for a step that
+        runs the sequence over the row (a prefill under a decode plan
+        over the sequence)."""
+        flat = self.stack(params)
+        return self.unstack({
+            k: self._gather_axis(t, list(self.held[k]), "model")
+            if k in self.tp_dim else t for k, t in flat.items()})
+
+    def tp_context(self, batch_sharded: bool = False):
+        """The context to run the model in (``models.tp.on_mesh``): TP
+        over the row as the plan says, and the column for the moe aux
+        loss's routing sums where the batch is ``batch_sharded``."""
+        return tpm.on_mesh(
+            self.tp, self._group("model") if self.tp is not None else None,
+            self._group("data") if batch_sharded else None)
 
     def assemble(self, opt_blocks: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
@@ -288,17 +339,19 @@ class Placement:
 
     def reduce_gradients(self, grads: Dict[str, torch.Tensor],
                          batch_sharded: bool) -> Dict[str, torch.Tensor]:
-        """Whole f32 gradient leaves of this rank's share of the loss → the
-        sums over the mesh of this rank's optimizer-spec blocks.  The row
-        sums its sequence parts (``all_reduce`` over ``model``); where
-        ``batch_sharded``, the column sums its rows: a leaf the plan shards
-        over ``data`` by a reduce-scatter of its blocks, a replicated one by
-        an ``all_reduce`` (each booked as ``grad``)."""
+        """f32 gradient leaves of this rank's share of the loss (whole, or
+        a TP leaf's model block) → the sums over the mesh of this rank's
+        optimizer-spec blocks.  The row sums its sequence parts
+        (``all_reduce`` over ``model``; under TP only the ``sliced``
+        leaves); where ``batch_sharded``, the column sums its rows: a leaf
+        the plan shards over ``data`` by a reduce-scatter of its blocks, a
+        replicated one by an ``all_reduce`` (each booked as ``grad``)."""
         row = self._group("model")
-        if row.world_size > 1:
-            whole = [grads.pop(k) for k in self.keys]
-            grads = dict(zip(self.keys, row.all_reduce(whole, kind="grad")))
-            del whole
+        summed = self.keys if self.tp is None else list(self.sliced)
+        if row.world_size > 1 and summed:
+            part = [grads.pop(k) for k in summed]
+            grads.update(zip(summed, row.all_reduce(part, kind="grad")))
+            del part
         col = self._group("data")
         sharded = [k for k in self.keys if "data" in spec_axes(self.spec[k])]
         blocks = {}
@@ -310,11 +363,16 @@ class Placement:
                 dim = list(self.spec[k]).index("data")
                 parts = torch.stack(list(grads[k].chunk(col.world_size,
                                                         dim=dim)))
-                blocks[k] = col.reduce_scatter(parts)
-            blocks.update({k: blocks[k][self.index(k, self.spec[k])]
+                got = list(self.held[k])      # the held block's data part
+                got[dim] = "data"
+                blocks[k] = col.reduce_scatter(parts)[self._relative(
+                    k, self.spec[k], tuple(got))]
+            blocks.update({k: blocks[k][self._relative(k, self.spec[k],
+                                                       self.held[k])]
                            for k in rep})
         else:
-            blocks = {k: grads[k][self.index(k, self.spec[k])]
+            blocks = {k: grads[k][self._relative(k, self.spec[k],
+                                                 self.held[k])]
                       for k in self.keys}
         return self.opt_part(blocks)
 

@@ -10,8 +10,7 @@ Execution modes map the paper's deployment choices onto the mesh:
 * **LOCAL**: batch shards over (pod, data); the model axis does tensor
   parallelism — attention head-sharded where head counts divide, FFN
   column/row sharded, vocab sharded.  No sequence partitioning.  (The
-  port runs LOCAL on a mesh whose model axis is 1: data-parallel ZeRO;
-  tensor parallelism over ``model`` is a ROADMAP item.)
+  port runs the split layers by hand: ``repro_torch.models.tp``.)
 * **VOLTAGE / PRISM**: the *sequence* shards over the model axis — the
   paper's position-wise partitions — and attention communicates over the
   row's seq group.  Weights shard over the batch axes only.

@@ -25,7 +25,14 @@ the JAX launcher's layout) each row of the mesh is such a seq group over
 are ZeRO-3 blocks over ``data`` and the optimizer state ZeRO-1 blocks over
 both axes, leaf by leaf as the JAX plan says
 (``repro_torch.sharding.placement``).  The loss divides by the global
-B·N, and the gradients are summed over the whole mesh in f32.
+B·N, and the gradients are summed over the whole mesh in f32.  Under a
+``local`` plan with a model axis over 1 the row is tensor-parallel
+(``repro_torch.models.tp``): its ranks run the same rows with their
+blocks of the split weights and hold the same loss, so the row sums no
+loss and only the gradients of the leaves a rank consumed a slice of.
+The moe family's aux loss is the whole batch's on every mesh: where the
+batch is sharded over ``data``, the routing sums are summed over the
+column inside the model.
 """
 from __future__ import annotations
 
@@ -174,26 +181,25 @@ def mesh_gradients(blocks, batch, cfg: ModelConfig, placement,
     every rank of a row the same rows, the row's ranks each their part of
     the sequence); the gradients are summed over the row and, where the
     batch is sharded, over the column (``Placement.reduce_gradients``);
-    the loss likewise (``meta``).  A batch whose rows do not divide over
-    ``data`` runs whole on every rank of the column, and its gradients are
-    not summed there."""
+    the loss likewise (``meta``; under TP the row's ranks hold the same
+    loss, summed over the column only).  A batch whose rows do not divide
+    over ``data`` runs whole on every rank of the column, and its
+    gradients are not summed there.  The model and its backward run
+    inside ``placement.tp_context``."""
     xcfg = placement.plan.xcfg
     sharded = placement.batch_sharded(batch)
     shards = placement.mesh.shape["data"] if sharded else 1
-    if cfg.moe is not None and shards > 1:
-        raise NotImplementedError(
-            "the moe family's aux loss is the whole batch's: a batch "
-            "sharded over data needs its routing counts summed over the "
-            "column (ROADMAP queue 1 item [13.8])")
     params = placement.gather_params(blocks)
-    loss, parts, grads = _accumulated(params, placement.batch_part(batch),
-                                      cfg, xcfg, grad_accum, shards)
+    with placement.tp_context(sharded):
+        loss, parts, grads = _accumulated(
+            params, placement.batch_part(batch), cfg, xcfg, grad_accum,
+            shards)
     grads = tree_unflatten_like(params, grads)
     del params
     g = placement.reduce_gradients(placement.stack(grads, torch.float32),
                                    sharded)
     row, col = placement._group("model"), placement._group("data")
-    if row.world_size > 1:
+    if row.world_size > 1 and placement.tp is None:
         loss, parts = _summed(row, loss, parts)
     if sharded:
         loss, parts = _summed(col, loss, parts)

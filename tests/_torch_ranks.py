@@ -1085,3 +1085,206 @@ def mesh_train(rank, world, job):
         out["forward"] = dict(logits=_np(logits.cpu()),
                               decode=_np(dec.float().cpu()))
     return out
+
+
+def _tp_collectives(g, seed):
+    """The row's TP collectives on dyadic f32 inputs (sums exact in any
+    order): each one's output and its input's gradient from a cotangent,
+    with the ``tp`` bytes booked by each."""
+    rng = np.random.RandomState(seed + g.rank)
+    t = _dyadic(rng, (3, 4, 5), torch.float32)
+    ct = _dyadic(rng, (3, 4, 5), torch.float32)
+    wide = _dyadic(rng, (3, 4, 5 * g.world_size), torch.float32)
+    out = dict(t=_np(t), ct=_np(ct), wide=_np(wide))
+    for name in ("copy_to", "reduce_from", "gather_from"):
+        g.reset_stats()
+        x = t.clone().requires_grad_()
+        y = getattr(g, name)(x)
+        y.backward(wide if name == "gather_from" else ct)
+        out[name] = dict(y=_np(y.detach()), grad=_np(x.grad),
+                         tp=g.stats.tp_bytes, calls=g.stats.calls)
+    return out
+
+
+def _tp_params(c, cfg, device="cpu"):
+    """The case's port params: ``c["tparams"]`` (a port tree) or the JAX
+    weights ``c["params"]`` through the bridge, on ``device``."""
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.utils.tree import tree_map
+    if "tparams" in c:
+        return tree_map(lambda t: t.to(device), c["tparams"])
+    return params_from_numpy(c["params"], cfg, device=device)
+
+
+def _tp_train_case(c, mesh, groups, rank):
+    """One family's ``local`` train step on this mesh with tensor
+    parallelism over ``model``: the loss, the gradient summed over the
+    mesh and gathered whole (rank 0), the bytes booked by kind on each
+    axis, the shapes of this rank's blocks between steps and of the tree
+    the model runs on; with ``c["step"]`` one AdamW step, with
+    ``c["save"]`` a checkpoint of it, with ``c["no_remat"]`` the gradient
+    again without rematerialisation."""
+    import hashlib
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry, remat
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import build_train_step, mesh_gradients
+
+    def digest(ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def whole_np(d):
+        return {k: v.detach().float().cpu().numpy() for k, v in d.items()}
+
+    cfg = get_config(c["arch"]).reduced(**c["reduced"])
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in c["batch"].items()}
+    plan = make_plan(mesh, cfg, ExchangeMode.LOCAL, train=True)
+    place = Placement(plan, cfg, registry.abstract_params(cfg))
+    blocks, opt = place.init_state(_tp_params(c, cfg))
+    for g in groups:
+        g.reset_stats()
+    loss, parts, grad = mesh_gradients(blocks, batch, cfg, place)
+    res = dict(loss=float(loss), aux=float(parts["aux"]),
+               booked=_booked(groups), tp_keys=sorted(place.tp_dim),
+               sliced=sorted(place.sliced),
+               whole_shapes={k: e.shape for k, e in place.index_of.items()},
+               block_shapes={k: tuple(blocks[k].shape) for k in place.keys})
+    grads = place.whole(grad, place.opt_spec)
+    res["grad_digest"] = digest(grads.values())
+    if rank == 0:
+        res["grads"] = whole_np(grads)
+    if c.get("no_remat"):
+        with remat.disabled():
+            for g in groups:
+                g.reset_stats()
+            _, _, g2 = mesh_gradients(blocks, batch, cfg, place)
+            res["no_remat"] = dict(
+                booked=_booked(groups),
+                same=digest(place.whole(g2, place.opt_spec).values())
+                == res["grad_digest"])
+    res["held_shapes"] = {k: tuple(v.shape) for k, v in place.stack(
+        place.gather_params(blocks)).items()}
+    if c.get("step"):
+        for g in groups:
+            g.reset_stats()
+        step = build_train_step(cfg, plan.xcfg,
+                                OptConfig(lr=1e-3, warmup_steps=1),
+                                placement=place)
+        new, opt2, m = step(blocks, opt, batch)
+        whole = place.whole(new, place.spec)
+        res.update(metrics={k: float(v) for k, v in m.items()},
+                   booked_step=_booked(groups),
+                   step_blocks={k: (str(place.index(k, place.spec[k])),
+                                    digest([new[k]])) for k in place.keys},
+                   param_digest=digest(whole.values()))
+        moments = [place.whole(t, place.opt_spec) for t in (opt2.m, opt2.v)]
+        if rank == 0:
+            res.update(params=whole_np(whole), m=whole_np(moments[0]),
+                       v=whole_np(moments[1]))
+        if c.get("save"):
+            mgr = CheckpointManager(c["save"]) if rank == 0 else None
+            place.save(mgr, new, opt2, 1)
+            if mgr is not None:
+                mgr.wait()
+    return res
+
+
+def _tp_serve_case(c):
+    """The serving step builders on this mesh under ``c["mode"]``'s decode
+    plan: the prefill step's last logits of this rank's rows, then
+    ``c["steps"]`` greedy decode steps from an empty cache (the prompt
+    teacher-forced first), the tokens gathered over the column each step
+    → this rank's logits a step, the global tokens and the flash-decode
+    launches (on ``c["device"]``, default the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.serving import engine
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    from repro_torch.models import registry
+    cfg = get_config(c["arch"]).reduced(**c["reduced"])
+    plan = make_plan(get_abstract_mesh(), cfg, ExchangeMode(c["mode"]),
+                     L=c.get("L", 0), decode=True)
+    place = Placement(plan, cfg, registry.abstract_params(cfg))
+    device = c.get("device", "cpu")
+    params = place.held_params(_tp_params(c, cfg, device))
+    col = get_seq_group("data")
+    prompt = torch.from_numpy(c["prompt"]).to(device)
+    B, T0 = prompt.shape
+    S = T0 + c["steps"]
+    prefill = engine.build_prefill_step(cfg, plan.xcfg, plan)
+    step = engine.build_decode_step(cfg, plan.xcfg, plan)
+    with torch.no_grad():
+        first, _ = prefill(params, {"tokens": prompt},
+                           engine.init_cache(cfg, plan, B, S, device))
+        cache = engine.init_cache(cfg, plan, B, S, device)
+        tok, logits, tokens = prompt[:, :1], [], []
+        before = flash_decode.launches
+        for i in range(S - 1):
+            lg, cache = step(params, {"tokens": tok}, cache, i)
+            logits.append(_np(lg.float().cpu()))
+            mine = lg[:, -1].argmax(-1).cpu()
+            got = torch.cat([torch.as_tensor(t) for t in
+                             col.all_gather_object(mine.numpy())])
+            tok = (prompt[:, i + 1:i + 2] if i + 1 < T0 else
+                   got[:, None].to(device=device, dtype=prompt.dtype))
+            if i + 1 >= T0:
+                tokens.append(got.numpy())
+    return dict(prefill=_np(first.float().cpu()), logits=np.stack(logits),
+                tokens=np.stack(tokens, 1),
+                launches=flash_decode.launches - before,
+                held={k: tuple(v.shape) for k, v in
+                      place.stack(params).items()},
+                tp_keys=sorted(place.tp_dim))
+
+
+def tp_mesh(rank, world, job):
+    """One rank of a ``("data", "model")`` mesh under tensor parallelism
+    over ``model`` (``spawn_mesh``), from the JAX weights: the TP
+    collectives (``job["collectives"]``: a seed), each case of
+    ``job["cases"]`` (``_tp_train_case``), each of ``job["serve"]``
+    (``_tp_serve_case``), and ``job["restore"]``: the newest checkpoint
+    there restored into this mesh under ``job["restore_case"]``'s
+    ``local`` plan → the blocks, their placements and whole params."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.models import registry
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    mesh = get_abstract_mesh()
+    groups = [get_seq_group(a) for a in mesh.axis_names]
+    out = {"coords": mesh.coords(rank)}
+    if "collectives" in job:
+        out["collectives"] = _tp_collectives(get_seq_group("model"),
+                                             job["collectives"])
+    for label, c in job.get("cases", {}).items():
+        out[label] = _tp_train_case(c, mesh, groups, rank)
+    out["serve"] = {label: _tp_serve_case(c)
+                    for label, c in job.get("serve", {}).items()}
+    if job.get("restore"):
+        c = job["restore_case"]
+        cfg = get_config(c["arch"]).reduced(**c["reduced"])
+        place = Placement(make_plan(mesh, cfg, ExchangeMode.LOCAL,
+                                    train=True),
+                          cfg, registry.abstract_params(cfg))
+        template, places = place.state_template()
+        blocks, opt = CheckpointManager(job["restore"]).restore(
+            template, device="cpu", placements=places)
+        out["restored"] = dict(
+            params={k: v.float().numpy() for k, v in blocks.items()},
+            m={k: v.numpy() for k, v in opt.m.items()}, step=int(opt.step),
+            index={k: place.index(k, place.spec[k]) for k in place.keys},
+            opt_index={k: place.index(k, place.opt_spec[k])
+                       for k in place.keys},
+            tp_keys=sorted(place.tp_dim))
+    return out

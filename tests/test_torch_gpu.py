@@ -1318,3 +1318,40 @@ def test_mesh_gradient_and_step_on_the_card_match_the_cpu(cuda_device,
         if mode == "prism":
             assert min(r[mode]["launches"]) > 0
     assert all(len(d) == 1 for d in rows.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["local", "prism"])
+def test_tp_decode_step_on_the_card_matches_the_cpu(cuda_device, mode):
+    """The serving step builders on a (2, 2) mesh of ranks sharing the
+    card, a small f32 llama (8/2 heads of 64): under ``local`` each rank
+    its 4/1 heads (G 4), its MLP columns and vocabulary rows, its rows of
+    the batch; under ``prism`` the cache sequence-sharded with the MLP
+    split over the row.  Against the same mesh on the CPU: every decode
+    step's logits ≤ 1e-4 of their largest, the prefill's ≤ 1e-4, greedy
+    tokens exact, and flash-decode launched on the card."""
+    import numpy as np
+
+    import _torch_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn_mesh
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=8, n_kv_heads=2,
+                   d_model=256)
+    cfg = get_config("llama3.2-1b").reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(2)
+    prompt = rng.randint(0, cfg.vocab_size, (4, 8)).astype(np.int32)
+    case = dict(arch="llama3.2-1b", reduced=reduced, tparams=params,
+                mode=mode, L=2, steps=6, prompt=prompt)
+    runs = {dev: spawn_mesh(_torch_ranks.tp_mesh, (2, 2), ("data", "model"),
+                            dict(serve={"s": dict(case, device=dev)}),
+                            timeout=300) for dev in ("cuda", "cpu")}
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        a, b = card["serve"]["s"], cpu["serve"]["s"]
+        for key in ("prefill", "logits"):
+            assert np.abs(a[key] - b[key]).max() <= \
+                1e-4 * np.abs(b[key]).max(), key
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        assert a["launches"] > 0 and b["launches"] == 0
+        assert a["tp_keys"]

@@ -24,7 +24,8 @@ carried across by the bridge; one spawn a mesh shape):
   ``scripts/sanity_e2e_distributed.py`` checks them;
 * the launcher: ``--data 2 --ranks 2`` on CPU ranks ends ``TRAIN OK``, a
   run re-meshed to (1, 2) resumes from its checkpoint, and ``--mode
-  local`` with a model axis over 1 exits naming its ROADMAP item.
+  local`` with a model axis over 1 trains with tensor parallelism
+  (``tests/test_torch_tp.py`` holds it to the JAX package).
 """
 import os
 import subprocess
@@ -359,8 +360,17 @@ def test_launcher_trains_and_resumes_on_a_mesh(tmp_path):
     assert out.stdout.splitlines()[-1] == "TRAIN OK"
 
 
-def test_launcher_refuses_tensor_parallelism():
-    from repro_torch.launch.train import main
-    with pytest.raises(SystemExit, match=r"\[13\.7\]"):
-        main(["--device", "cpu", "--data", "2", "--ranks", "2", "--mode",
-              "local", "--steps", "1"])
+def test_launcher_refuses_tensor_parallelism(tmp_path):
+    """Once a refusal naming ROADMAP [13.7]; now ``--mode local`` with a
+    model axis over 1 trains with tensor parallelism over it and refuses
+    nothing."""
+    out = _launch("--data", "2", "--ranks", "2", "--mode", "local",
+                  "--steps", "2", "--batch", "4", "--seq", "32",
+                  "--ckpt-dir", str(tmp_path / "ck"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[13.7]" not in out.stdout + out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "TRAIN OK"
+    assert any("tensor parallelism over model" in ln for ln in lines)
+    assert any("the ranks holding each block bit-identical" in ln
+               for ln in lines)

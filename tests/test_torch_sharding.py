@@ -259,8 +259,22 @@ def test_placement_blocks_tile_every_leaf(mode, mesh_shape):
 
 
 def test_placement_refuses_tensor_parallelism():
+    """Once a refusal naming ROADMAP [13.7]; now a ``local`` plan on a
+    model axis over 1 is placed: the heads, the MLP and the vocabulary
+    split over ``model`` (the tree the model runs on holds their halves),
+    every other leaf whole."""
     _, cfg, _, tparams = _abstract("llama3.2-1b")
     plan = ts.make_plan(make_auto_mesh((2, 2), ("data", "model")), cfg,
                         ExchangeMode.LOCAL, train=True)
-    with pytest.raises(NotImplementedError, match=r"\[13\.7\]"):
-        Placement(plan, cfg, tparams, coords={"data": 0, "model": 0})
+    place = Placement(plan, cfg, tparams, coords={"data": 0, "model": 1})
+    assert set(place.tp_dim) == {"embed/table"} | {
+        f"layers/{k}" for k in ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                                "mlp/w_up", "mlp/w_gate", "mlp/w_down")}
+    for k, ent in place.index_of.items():
+        held = place.block_shape(k, place.held[k])
+        if k in place.tp_dim:
+            d = place.tp_dim[k]
+            assert held[d] * 2 == ent.shape[d] and \
+                place.spec[k][d] == "model"
+        else:
+            assert held == ent.shape, k
