@@ -326,7 +326,10 @@ Phases, one line each (more for the kernel table):
                without (``remat.disabled``): each step's ms and loss,
                tokens/s, the last step's device idle share
                (torch.profiler), peak memory, and the memory one more
-               forward holds for its backward.
+               forward holds for its backward; beside the peak, the dry
+               run's (``repro_torch.launch.dryrun``: the same step traced
+               on the meta device in this process, counted, not
+               measured).
 22. train-seq — llama3.2-1b cut to 4 of 16 layers at full width on 2 ranks
                sharing the card, B 4, N 512, 2 steps each under
                ``voltage`` and ``prism(L=16)``, rematerialised: step ms,
@@ -359,6 +362,13 @@ Phases, one line each (more for the kernel table):
                state's cotangents in it) asserted equal to the shapes,
                halo and hand-off calls, the kernels' launches (forward
                and recompute), peak memory, the ranks bit-identical.
+25. mesh     — one (2, 2) spawn of launch.train's mesh path (ZeRO over
+               ``data``, ``prism`` and ``local`` TP over ``model``, the
+               re-mesh, ``build_decode_step``); while the ranks run, this
+               process dry-runs (a)'s and (c)'s steps for each rank's
+               coordinates on the meta device, and every rank's bytes by
+               kind and calls of every step must equal the dry run's; its
+               rank peaks are printed beside the measured ones.
 Between 4 and 5 (its number kept out of the others' way):
    examples  — the port's twins of the JAX package's four examples
                (``repro_torch.examples``: quickstart, serve_adaptive,
@@ -6619,6 +6629,29 @@ def _forward_held(cfg, params, batch, xcfg) -> tuple:
             torch.cuda.max_memory_allocated() / 1e9)
 
 
+def train_dry_run() -> dict:
+    """[train]'s step traced on the meta device in this process
+    (``launch.dryrun.trace_step``: one ``build_train_step`` step of
+    llama3.2-1b, bf16 params and f32 moments, B 4 N 512, ``local``), each
+    layer rematerialised and then without → mode → (peak GB: the step's
+    arguments and its live bytes at their most; argument GB; trace s).
+    Counted, not measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models import remat
+    import contextlib
+    out = {}
+    for mode, ctx in (("remat", contextlib.nullcontext),
+                      ("no remat", remat.disabled)):
+        with ctx():
+            got = trace_step(get_config(ARCH), "train", None,
+                             mode=ExchangeMode.LOCAL, B=TRAIN_B, N=TRAIN_N)
+        out[mode] = (got["peak_bytes"] / 1e9, got["argument_bytes"] / 1e9,
+                     got["trace_s"])
+    return out
+
+
 def phase_train(card: str) -> dict:
     """``[train]``: llama3.2-1b at full width and depth, bf16 params and
     f32 moments, B 4 N 512 under ``local``, TRAIN_STEPS AdamW steps through
@@ -6696,6 +6729,14 @@ def phase_train(card: str) -> dict:
                          fb_peak=fb_peak, losses=losses)
         del tr, inner, timed
     on, no = out["remat"], out["no remat"]
+    dry = train_dry_run()
+    for mode, (peak, args, secs) in dry.items():
+        print(f"[train] dry run ({mode}, launch.dryrun on the meta device in "
+              f"this process, {secs:.1f} s; counted, not measured): one step"
+              f"'s peak {peak:.2f} GB, of which its arguments (params and "
+              f"moments) {args:.2f} GB; with the Trainer's first state still "
+              f"held beside the loop's (Trainer.run) {peak + args:.2f} GB; "
+              f"measured {out[mode]['peak']:.2f} GB [{card}]", flush=True)
     print(f"[train] rematerialised: peak {on['peak']:.2f} GB (without "
           f"{no['peak']:.2f} GB; earlier runs, PERF.md §5: 39.92 / 40.99 "
           f"GB), steady step {on['steady']:.1f} ms (without "
@@ -7648,6 +7689,52 @@ def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
     return out
 
 
+def mesh_dry_run(a: dict, shape) -> dict:
+    """The dry run (``repro_torch.launch.dryrun``: meta tensors, abstract
+    collectives, this process) of launch.train's mesh step for the
+    launcher's arguments ``a``, at every rank of ``shape`` → (data, model)
+    → (bytes by kind, calls, peak GB, trace s).  Counted, not
+    measured."""
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.launch.train import model_config
+    cfg, mesh = model_config(a), make_auto_mesh(shape, MESH_NAMES)
+    out = {}
+    for d in range(shape[0]):
+        for m in range(shape[1]):
+            got = trace_step(cfg, "train", mesh,
+                             mode=ExchangeMode(a["mode"]), B=a["batch"],
+                             N=a["seq"], L=a["L"],
+                             coords={"data": d, "model": m})
+            g = got["gather"]
+            out[(d, m)] = ({f[:-6]: v for f, v in g.items()
+                            if f.endswith("_bytes")}, g["calls"],
+                           got["peak_bytes"] / 1e9, got["trace_s"])
+    return out
+
+
+def check_dry_run(label: str, ranks, dry: dict, card: str) -> None:
+    """Every step of every rank received the bytes by kind and made the
+    calls that the dry run at its coordinates counts; its peak printed
+    beside the measured one."""
+    for r in ranks:
+        c = r["coords"]
+        want, calls, peak, secs = dry[(c["data"], c["model"])]
+        for row in r["rows"]:
+            got = {k: row.get(k, 0) for k in want}
+            if got != want or row["calls"] != calls:
+                raise AssertionError(f"[mesh] {label} rank {c}: bytes "
+                                     f"{got}, {row['calls']} calls; the dry "
+                                     f"run counts {want}, {calls} calls")
+        print(f"[mesh] {label} rank {c}: the dry run (launch.dryrun on the "
+              f"meta device in this process, {secs:.1f} s) counts "
+              + ", ".join(f"{k} {v} B" for k, v in want.items() if v)
+              + f" in {calls} calls a step = the rank's measured rows; rank "
+              f"peak {peak:.2f} GB counted, {r['peak_gb']:.2f} GB measured "
+              f"[{card}]", flush=True)
+
+
 def predicted_bytes(a: dict, shape) -> dict:
     """``mesh_step_bytes`` of every rank of ``shape`` for the launcher's
     arguments ``a``, by its coordinates (computed before the run)."""
@@ -7966,8 +8053,14 @@ def phase_mesh(card: str) -> dict:
           f"{w['meta']} B", flush=True)
     try:
         t0 = time.perf_counter()
-        ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full, tp,
-                           timeout=RANK_TIMEOUT_S)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            # the dry runs of (a) and (c) in this process while the ranks run
+            dry = pool.submit(lambda: {k: mesh_dry_run(v, MESH_SHAPE)
+                                       for k, v in (("(a)", full),
+                                                    ("(c)", tp["full"]))})
+            ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full,
+                               tp, timeout=RANK_TIMEOUT_S)
+            dry = dry.result()
         spawn_s = time.perf_counter() - t0
         rcfg = _check_mesh_run([r["reduced"] for r in ranks], red,
                                MESH_SHAPE, "reduced",
@@ -8009,6 +8102,7 @@ def phase_mesh(card: str) -> dict:
           f"rows bit-identical, the gathered params the same on all 4 ranks "
           f"[{card}]", flush=True)
     _print_mesh_ranks("(a)", fr, card)
+    check_dry_run("(a)", fr, dry["(a)"], card)
     rr = [r["reduced"] for r in ranks]
     print(f"[mesh] launch.train's reduced {ARCH} --data 2 --ranks 2 (vocab "
           f"{tr['vocab']}, {rcfg.n_layers} layers, {DH16_HEADS[0]}/"
@@ -8051,6 +8145,7 @@ def phase_mesh(card: str) -> dict:
           f"bytes = the shapes predicted before the run [{card}]",
           flush=True)
     _print_mesh_ranks("(c)", tf, card)
+    check_dry_run("(c)", tf, dry["(c)"], card)
     dec = [r["decode"] for r in ranks]
     one = dec[0]["one"]
     for mode in ("local", "prism"):

@@ -244,12 +244,8 @@ class _ChainReceived(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cts):
-        g = ctx.group
-        t0 = time.perf_counter()
-        host = g._host_copy(torch.cat([c.float().reshape(-1) for c in cts]))
-        g._sends.append((dist.isend(host, g.peer(g.rank - 1), tag=ctx.tag,
-                                    group=g.pg), host))
-        g.stats.seconds += time.perf_counter() - t0
+        ctx.group._chain_send(torch.cat([c.float().reshape(-1) for c in cts]),
+                              ctx.tag)
         return None, None, None, None, None
 
 
@@ -267,15 +263,8 @@ class _ChainSent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_out, *_):
-        g = ctx.group
         n = sum(shape.numel() for _, shape in ctx.like)
-        t0 = time.perf_counter()
-        dev = ct_out.device
-        host = torch.empty((n,), dtype=torch.float32,
-                           pin_memory=dev.type == "cuda")
-        dist.recv(host, g.peer(g.rank + 1), tag=ctx.tag, group=g.pg)
-        got = host.to(dev)
-        g._end(t0, "grad", n * 4)
+        got = ctx.group._chain_recv(n, ct_out.device, ctx.tag)
         out, off = [], 0
         for dtype, shape in ctx.like:
             out.append(got[off:off + shape.numel()].reshape(shape).to(dtype))
@@ -630,16 +619,12 @@ class SeqGroup:
             parts = [tensors[i].detach().float().reshape(-1)
                      for i in bucket]
             flat = parts[0] if len(parts) == 1 else torch.cat(parts)
-            t0 = self._begin(flat)
-            host = self._host_copy(flat)
-            dist.all_reduce(host, group=self.pg)
-            got = host.to(flat.device)
+            got = self._sum_bucket(flat, kind)
             off = 0
             for i in bucket:
                 n = tensors[i].numel()
                 out[i] = got[off:off + n].reshape(tensors[i].shape)
                 off += n
-            self._end(t0, kind, host.numel() * 4 * (self.world_size - 1))
 
         for i, t in enumerate(tensors):
             nb = t.numel() * 4
@@ -651,6 +636,37 @@ class SeqGroup:
         if bucket:
             run()
         return out
+
+    def _sum_bucket(self, flat: torch.Tensor, kind: str) -> torch.Tensor:
+        """One staged f32 ``all_reduce`` of ``flat`` → the sum on its
+        device; (P − 1) × its bytes booked under ``kind``."""
+        t0 = self._begin(flat)
+        host = self._host_copy(flat)
+        dist.all_reduce(host, group=self.pg)
+        got = host.to(flat.device)
+        self._end(t0, kind, host.numel() * 4 * (self.world_size - 1))
+        return got
+
+    def _chain_send(self, flat: torch.Tensor, tag: int) -> None:
+        """``pass_on``'s backward at a receiving rank: the f32 cotangents
+        ``flat`` go to rank p − 1 without waiting (nothing booked but the
+        seconds)."""
+        t0 = time.perf_counter()
+        host = self._host_copy(flat)
+        self._sends.append((dist.isend(host, self.peer(self.rank - 1),
+                                       tag=tag, group=self.pg), host))
+        self.stats.seconds += time.perf_counter() - t0
+
+    def _chain_recv(self, n: int, device, tag: int) -> torch.Tensor:
+        """``pass_on``'s backward at a sending rank: the ``n`` f32
+        cotangents from rank p + 1 on ``device`` (one ``grad`` call)."""
+        t0 = time.perf_counter()
+        host = torch.empty((n,), dtype=torch.float32,
+                           pin_memory=torch.device(device).type == "cuda")
+        dist.recv(host, self.peer(self.rank + 1), tag=tag, group=self.pg)
+        got = host.to(device)
+        self._end(t0, "grad", n * 4)
+        return got
 
     # --- tensor parallelism over the group (``tp``) -----------------------
 
@@ -923,6 +939,199 @@ class _TapedTransfer:
     def wait(self) -> torch.Tensor:
         self.out = self.group._replay()
         return self.out
+
+
+def _counter():
+    from repro_torch.launch.hlo_analysis import active_counter
+    return active_counter()
+
+
+@contextlib.contextmanager
+def _on_host():
+    """Host staging buffers: uncounted by the step counter running."""
+    counter = _counter()
+    if counter is None:
+        yield
+        return
+    with counter.host():
+        yield
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class AbstractSeqGroup(SeqGroup):
+    """Rank ``rank`` of a group of ``world_size``, traced without the
+    group: every staged primitive returns meta tensors shaped as the real
+    call's result, calls no ``torch.distributed`` function and copies
+    nothing to the host (``repro_torch.launch.dryrun`` traces one rank of
+    a production mesh on the meta device with it).
+
+    Each primitive books exactly the ``GatherStats`` that the real one
+    books (the bytes received by kind, ``calls``; ``halo_calls`` and
+    ``state_calls`` where the real call counts them; ``seconds`` stays 0)
+    and appends a ``CollectiveRecord`` to the ``StepCounter`` running
+    (``repro_torch.launch.hlo_analysis``), with the device bytes it reads
+    and writes.  The autograd functions around the collectives and the
+    ``Tape`` of a rematerialised region run on it unchanged, so a
+    backward books its transposes as on the card.  A host staging buffer
+    is a meta tensor made outside the counter's view (it is not card
+    memory)."""
+
+    def _book(self, prim: str, kind: str, operand: int, received: int,
+              moved: int, calls: int = 1) -> None:
+        """``GatherStats`` as the real primitive books them, and the
+        counter's record of one ``prim`` call."""
+        from repro_torch.launch.hlo_analysis import collective
+        if calls:
+            self._end(0.0, kind, received)
+        counter = _counter()
+        if counter is not None:
+            counter.add_collective(collective(
+                prim, operand, self.world_size, booked=kind,
+                received_bytes=received, calls=calls, axis=self.axis), moved)
+
+    def _begin(self, t: torch.Tensor) -> float:
+        return 0.0
+
+    def _end(self, t0: float, kind: str, received: int) -> None:
+        field = f"{kind}_bytes"
+        setattr(self.stats, field, getattr(self.stats, field) + received)
+        self.stats.calls += 1
+
+    @staticmethod
+    def _host_copy(t: torch.Tensor, dtype=None) -> torch.Tensor:
+        flat = t.detach().contiguous().reshape(-1)
+        with _on_host():
+            return torch.empty(flat.shape, dtype=dtype or flat.dtype,
+                               device="meta")
+
+    def _gather(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        P, n = self.world_size, _nbytes(t)
+        self._to_host(t)
+        out = torch.empty((P, *t.shape), dtype=t.dtype, device=t.device)
+        self._book("all-gather", kind, n, n * (P - 1), n + P * n)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        P = self.world_size
+        if t.shape[0] != P:
+            raise ValueError(f"reduce_scatter: leading dim {t.shape[0]} is "
+                             f"not the group's {P} ranks")
+        host = self._host_copy(t, torch.float32)
+        out = torch.empty(t.shape[1:], dtype=torch.float32, device=t.device)
+        self._book("reduce-scatter", "grad", host.numel() * 4,
+                   out.numel() * 4 * (P - 1), _nbytes(t) + _nbytes(out))
+        return out
+
+    def _sum_bucket(self, flat: torch.Tensor, kind: str) -> torch.Tensor:
+        out = torch.empty_like(flat)
+        n = _nbytes(flat)
+        self._book("all-reduce", kind, n, n * (self.world_size - 1), 2 * n)
+        return out
+
+    def _tp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        host = self._host_copy(t, torch.float32)
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        n = host.numel() * 4
+        self._book("all-reduce", "tp", n, n * (self.world_size - 1),
+                   _nbytes(t) + _nbytes(out))
+        return out
+
+    def _post(self, host, like, kind, chunks, t0, dst: Optional[int],
+              src: Optional[int], *, tag: Optional[int] = None,
+              tracked: Optional[torch.Tensor] = None) -> "RingTransfer":
+        n = chunks if chunks > 1 and host.numel() % chunks == 0 else 1
+        if tag is None:
+            self._take_tags(n)
+        link = ((tracked, n, self._take_tags(n)) if _tracked(tracked)
+                else None)
+        return _AbstractTransfer(self, host, like, kind,
+                                 0 if dst is None else host.numel(),
+                                 0 if src is None else host.numel(), link)
+
+    def pass_on(self, fn, like, device, anchor, *, kind: str = "state"):
+        if self._replaying():
+            return fn(self._replay())[0]
+        tag = self._take_tags(2)
+        self.stats.state_calls += 1
+        grad = _tracked(anchor)
+        nbytes = leaves_bytes(like)
+        got = None
+        if self.rank > 0:
+            buf = torch.empty((nbytes,), dtype=torch.uint8, device=device)
+            self._book("collective-permute", kind, 0, nbytes, nbytes)
+            if grad:
+                got = dict(zip(like, _ChainReceived.apply(
+                    self, tag + 1, like, buf, anchor)))
+            else:
+                got = unpack_leaves(buf, like)
+        out, to_send = fn(self._record(got))
+        if self.rank < self.world_size - 1:
+            final = [to_send[name] for name in like]
+            self._to_host(pack_leaves(dict(zip(like, final))))
+            self._book("collective-permute", kind, nbytes, 0, nbytes,
+                       calls=0)
+            if grad and _tracked(*final):
+                out = _ChainSent.apply(self, tag + 1, out, *final)
+        return out
+
+    def _chain_send(self, flat: torch.Tensor, tag: int) -> None:
+        self._host_copy(flat)
+        self._book("collective-permute", "grad", _nbytes(flat), 0,
+                   _nbytes(flat), calls=0)
+
+    def _chain_recv(self, n: int, device, tag: int) -> torch.Tensor:
+        out = torch.empty((n,), dtype=torch.float32, device=device)
+        self._book("collective-permute", "grad", 0, n * 4, n * 4)
+        return out
+
+    def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        host = self._to_host(t)
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        n = host.numel()
+        self._book("broadcast", "output", n, 0 if self.rank == src else n,
+                   2 * n)
+        return out
+
+    def _reduce_to(self, t: torch.Tensor, dst: int) -> Optional[torch.Tensor]:
+        host = self._host_copy(t, torch.float32)
+        mine = self.rank == dst
+        n = host.numel() * 4
+        self._book("reduce", "grad", n, n * (self.world_size - 1)
+                   if mine else 0, _nbytes(t) + (n if mine else 0))
+        return torch.empty(t.shape, dtype=torch.float32,
+                           device=t.device) if mine else None
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        return obj
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        return [obj] * self.world_size
+
+
+class _AbstractTransfer(RingTransfer):
+    """A point-to-point transfer of an ``AbstractSeqGroup``: its wait
+    books what the real one books and gives a meta tensor."""
+
+    def __init__(self, group, host, like, kind, sent: int, received: int,
+                 link):
+        super().__init__(group, [], host, host, like, kind,
+                         received=received, link=link)
+        self.sent_bytes = sent
+
+    def wait(self) -> torch.Tensor:
+        like = self.like
+        out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        g = self.group
+        g._book("collective-permute", self.kind, self.sent_bytes,
+                self.received, self.sent_bytes + self.received)
+        if self.link is not None:
+            tracked, chunks, tag = self.link
+            out = _RingLink.apply(g, tracked, out, chunks, tag)
+        self.out = g._record(out) if self.record else out
+        return out
 
 
 _GROUPS: Dict[str, SeqGroup] = {}    # per process, like torch.distributed's

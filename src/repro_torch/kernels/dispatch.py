@@ -9,7 +9,11 @@ in one launch, which the PRISM exchange gathers as its payload, and
 the sharded decode merges across ranks (the JAX package computes that
 partial in plain jnp inside ``decode_attention_sharded``).
 The route follows the data and nothing else: a CUDA tensor always goes to
-the kernel, a CPU tensor to the plain version.  There is no override that
+the kernel, a CPU tensor to the plain version, a meta tensor (the dry run,
+``repro_torch.launch.dryrun``) to the kernel's shape function
+(``kernels.meta``: the kernel's output shapes, and its own count of FLOPs
+and bytes booked to the step counter; no plain version runs on meta).
+There is no override that
 sends a CUDA tensor to the plain version, and no argument the JAX package
 sends to its reference (a segment axis other than 1, masked local keys in
 PRISM attention) leaves the kernel.  ``backend_info()`` reports what ran
@@ -38,7 +42,8 @@ _LAST = {"segment_means": None, "decode_attention": None,
 
 
 def _route(t: torch.Tensor) -> str:
-    return "cuda" if t.device.type == "cuda" else "reference"
+    kind = t.device.type
+    return kind if kind in ("cuda", "meta") else "reference"
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ note says what bounds it (bytes: K and V read once) and how it is laid out.
 ``split_plan`` picks how many CTAs (one cluster) share one (row, KV head)
 along S.
 
-``flash_decode`` takes its plain version for a tensor on the CPU.  For a
-CUDA tensor it launches the kernel or raises — it never falls back.  It
-counts its launches in ``flash_decode.launches``.
+``flash_decode`` takes its plain version for a tensor on the CPU and its
+shape function for one on the meta device (``kernels.meta``: the dry run).
+For a CUDA tensor it launches the kernel or raises — it never falls back.
+It counts its launches in ``flash_decode.launches``.
 """
 from __future__ import annotations
 
@@ -139,15 +140,21 @@ def flash_decode(q: torch.Tensor,        # [B, H, dh]
                  v: torch.Tensor,
                  kv_bias: torch.Tensor,  # [B, S] f32
                  *, scale: Optional[float] = None,
-                 softcap: Optional[float] = None
+                 softcap: Optional[float] = None,
+                 positions: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention partials (o·l [B,H,dh], m [B,H], l [B,H]), f32.
 
     CPU tensors take the plain version (``flash_decode_ref``); CUDA tensors
-    launch the kernel on the current stream."""
+    launch the kernel on the current stream; meta tensors take the shape
+    function (``kernels.meta``), which counts ``positions`` valid cache
+    positions over the rows (None: all)."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, kv_bias, scale=scale,
                                 softcap=softcap)
+    if q.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.flash_decode(q, k, kv_bias, positions)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     _check(q, k, v, kv_bias)

@@ -50,6 +50,18 @@ def validity_bias(B: int, S: int, cache_len, offset=0,
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
+def valid_positions(B: int, S: int, cache_len, offset=0,
+                    window: Optional[int] = None) -> Optional[int]:
+    """The cache positions that count over ``B`` rows of ``S`` slots from
+    global position ``offset``, for an integer ``cache_len`` (a row with
+    none counts all S, as the kernel reads them); None for a tensor."""
+    if isinstance(cache_len, torch.Tensor):
+        return None
+    lo = offset if window is None else max(offset, cache_len - window)
+    n = max(0, min(offset + S, cache_len) - lo)
+    return B * (n or S)
+
+
 def flash_decode_op(q: torch.Tensor,      # [B, 1, H, dh] or [B, H, dh]
                     k: torch.Tensor,      # [B, S, Hk, dh]
                     v: torch.Tensor,
@@ -67,7 +79,9 @@ def flash_decode_op(q: torch.Tensor,      # [B, 1, H, dh] or [B, H, dh]
     bias = validity_bias(B, S, cache_len, offset=offset, window=window,
                          device=q.device)
     return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(), bias,
-                        scale=scale, softcap=softcap)
+                        scale=scale, softcap=softcap,
+                        positions=valid_positions(B, S, cache_len, offset,
+                                                  window))
 
 
 def merge_partials(o, m, l) -> torch.Tensor:

@@ -122,6 +122,9 @@ def flash_decode_paged(q: torch.Tensor,           # [B, H, dh]
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, k_pool, v_pool, page_table,
                                       kv_bias, scale=scale, softcap=softcap)
+    if q.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.flash_decode_paged(q, k_pool, page_table, kv_bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_paged: no kernel for device "
                          f"{q.device}")

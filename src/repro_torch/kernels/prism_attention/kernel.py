@@ -168,7 +168,8 @@ def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
                     softcap: Optional[float] = None,
                     kv_mask: Optional[torch.Tensor] = None,  # [B, Nk] bool
                     q_offset: int = 0,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None,
+                    seen_means: Optional[int] = None) -> torch.Tensor:
     """Softmax attention of q over [local K/V ‖ mean K/V + bias] →
     [B, Nq, H, dv] in ``out_dtype`` (q's dtype by default; float32 gives
     the result before its rounding to bf16, for checks).  The means may be
@@ -176,7 +177,9 @@ def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
     P (mean ``p·L + l`` is ``[:, p, l]``); the kernel reads them in place.
 
     CPU tensors take the plain version (``prism_attention_ref``); CUDA
-    tensors launch the kernel on the current stream."""
+    tensors launch the kernel on the current stream; meta tensors take the
+    shape function (``kernels.meta``), which counts ``seen_means`` means a
+    query (None: all of them)."""
     if q.device.type == "cpu":
         if k_means.ndim == 5:
             k_means = k_means.flatten(1, 2)
@@ -185,6 +188,12 @@ def prism_attention(q: torch.Tensor,          # [B, Nq, H, dh]
                                    mean_bias, causal=causal, scale=scale,
                                    logit_softcap=softcap, kv_mask=kv_mask,
                                    q_offset=q_offset, out_dtype=out_dtype)
+    if q.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.prism_attention(
+            q, k_loc, v_loc, mean_bias, kv_mask, causal=causal,
+            q_offset=q_offset, out_dtype=out_dtype or q.dtype,
+            seen_means=seen_means)
     if q.device.type != "cuda":
         raise ValueError(f"prism_attention: no kernel for device {q.device}")
     _check(q, k_loc, v_loc, k_means, v_means, mean_bias, kv_mask)

@@ -47,15 +47,16 @@ def _local_valid(B: int, Nq: int, Nk: int, *, causal: bool, q_offset: int,
 
 class PrismAttention(torch.autograd.Function):
     """(q, k_loc, v_loc, k_means, v_means, mean_bias, kv_mask, causal,
-    scale, softcap, q_offset) → [B, Nq, H, dv] in q's dtype; the kernel
-    (or the plain version on the CPU) forward, the explicit backward."""
+    scale, softcap, q_offset, seen_means) → [B, Nq, H, dv] in q's dtype;
+    the kernel (or the plain version on the CPU, the shape function on
+    meta) forward, the explicit backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, km, vm, bias, kv_mask, causal, scale, softcap,
-                q_offset):
+                q_offset, seen_means=None):
         out = prism_attention(q, k, v, km, vm, bias, causal=causal,
                               scale=scale, softcap=softcap, kv_mask=kv_mask,
-                              q_offset=q_offset)
+                              q_offset=q_offset, seen_means=seen_means)
         ctx.save_for_backward(q, k, v, km, vm, bias, kv_mask)
         ctx.opts = (causal, scale, softcap, q_offset)
         return out
@@ -68,7 +69,7 @@ class PrismAttention(torch.autograd.Function):
                                       causal=causal, scale=scale,
                                       softcap=cap, kv_mask=kv_mask,
                                       q_offset=q_offset)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def prism_attention_grads(q, k, v, km, vm, bias, g, *, causal: bool,
@@ -169,4 +170,5 @@ def prism_attention_op(
         q.contiguous(), k_loc.contiguous(), v_loc.contiguous(), k_means,
         v_means, bias,
         None if kv_mask is None else kv_mask.to(torch.bool).contiguous(),
-        causal, scale, softcap, q_offset)
+        causal, scale, softcap, q_offset,
+        (part_idx if causal else P - 1) * L)

@@ -117,6 +117,10 @@ def segment_means(x: torch.Tensor,                   # [B, N, D]
     tensors launch the kernel on the current stream."""
     if x.device.type == "cpu":
         return segment_means_ref(x, L, mask)
+    if x.device.type == "meta":
+        from repro_torch.kernels import meta
+        out, counts = meta.segment_means((x,), L, mask)
+        return out[0], counts
     out, counts = _launch((x,), L, mask)
     return out[0], counts
 
@@ -133,6 +137,9 @@ def segment_means_kv(k: torch.Tensor,                   # [B, N, D]
         (km, counts), (vm, _) = (segment_means_ref(t, L, mask)
                                  for t in (k, v))
         return torch.stack([km, vm]), counts
+    if k.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.segment_means((k, v), L, mask)
     return _launch((k, v), L, mask)
 
 

@@ -157,7 +157,10 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoECfg,
             + pos.clamp(max=C - 1))                            # [B, n, k]
     xe = torch.zeros((El * G * C, D), dtype=x.dtype, device=dev)
     rows = x[:, :, None].expand(B, n, k, D)
-    xe[slot[fits]] = rows[fits]
+    if dev.type == "meta":    # no values to select by: every (token,
+        xe[slot.reshape(-1)] = rows.reshape(-1, D)     # choice) kept
+    else:
+        xe[slot[fits]] = rows[fits]
     xe = xe.reshape(El, G * C, D)
     h = _act(torch.bmm(xe, params["w_gate"]), act) * torch.bmm(
         xe, params["w_up"])

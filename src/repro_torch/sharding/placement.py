@@ -33,8 +33,11 @@ rank consumed a slice of (``sliced``: the qkv biases of split heads); a
 TP leaf's gradient is its block's, and a leaf consumed whole has the same
 gradient on every rank of the row.
 
-The runtime takes ``("data", "model")`` meshes (a multi-pod mesh is
-planned, not run).
+The runtime takes ``("data", "model")`` and ``("pod", "data",
+"model")`` meshes.  On the second the plan shards the batch and the ZeRO-3
+params over the batch axes ``("pod", "data")`` together (one entry, one
+group: ``launch.mesh.group_axes``), and what the text above says of
+``data`` holds of the batch axes.
 """
 from __future__ import annotations
 
@@ -116,10 +119,10 @@ class Placement:
         from repro_torch.sharding.specs import (Shape, _leaf_spec,
                                                 _opt_force_data)
         mesh = plan.mesh
-        if mesh.axis_names != ("data", "model"):
+        if mesh.axis_names[-1] != "model":
             raise NotImplementedError(
-                f"the port runs ('data', 'model') meshes; {mesh} is "
-                f"planned, not run")
+                f"the port runs meshes whose last axis is 'model' (('data', "
+                f"'model'), ('pod', 'data', 'model')); not {mesh}")
         self.plan, self.cfg, self.mesh = plan, cfg, mesh
         self.tp = tpm.plan_of(plan, cfg)
         if coords is None:
@@ -137,8 +140,8 @@ class Placement:
             self.spec[k] = _leaf_spec(k, leaf, plan, cfg)
             self.opt_spec[k] = _opt_force_data(
                 _leaf_spec(k, leaf, plan, cfg, for_opt=True), leaf, plan)
-            if any(p is not None and p != o for p, o in
-                   zip(self.spec[k], self.opt_spec[k])):
+            if plan.train and any(p is not None and p != o for p, o in
+                                  zip(self.spec[k], self.opt_spec[k])):
                 raise ValueError(f"{k}: optimizer spec {self.opt_spec[k]} "
                                  f"does not refine the param spec "
                                  f"{self.spec[k]}")
@@ -244,30 +247,35 @@ class Placement:
     # --- collectives ------------------------------------------------------
 
     @staticmethod
-    def _group(axis: str):
+    def _group(axes):
+        """The seq group of an axis, or of a tuple of axes (a spec
+        entry)."""
         from repro_torch.core.seq_group import get_seq_group
-        return get_seq_group(axis)
+        from repro_torch.launch.mesh import group_name
+        return get_seq_group(group_name(axes))
 
-    def _gather_axis(self, t: torch.Tensor, spec: list, axis: str
-                     ) -> torch.Tensor:
-        """Gather ``t`` (a block under ``spec``) over ``axis``: the blocks
-        of the axis's line, joined along the dim ``axis`` shards; ``spec``
-        loses the axis."""
-        k = spec.index(axis)
+    def _gather_dim(self, t: torch.Tensor, spec: list, k: int
+                    ) -> torch.Tensor:
+        """Gather ``t`` (a block under ``spec``) over the axes of entry
+        ``spec[k]``: the blocks of the entry's line, joined along dim
+        ``k``; ``spec`` loses the entry."""
+        g = self._group(spec[k])
         spec[k] = None
-        g = self._group(axis)
         if g.world_size == 1:
             return t
         parts = g.all_gather(t.contiguous(), kind="param")
         return torch.cat(list(parts.unbind(0)), dim=k)
 
     def _gather_leaf(self, t: torch.Tensor, spec, keep=()) -> torch.Tensor:
-        """Block ``t`` under ``spec`` gathered over each axis it is sharded
-        on but ``keep`` (the ``model`` axis first)."""
+        """Block ``t`` under ``spec`` gathered over each entry it is
+        sharded on whose axes are not in ``keep`` (the entry holding the
+        ``model`` axis first, then in reverse axis order)."""
         spec = list(spec)
         for axis in reversed(self.mesh.axis_names):
-            if axis in spec and axis not in keep:
-                t = self._gather_axis(t, spec, axis)
+            k = next((i for i, e in enumerate(spec)
+                      if axis in _entry_axes(e)), None)
+            if k is not None and not set(_entry_axes(spec[k])) & set(keep):
+                t = self._gather_dim(t, spec, k)
         return t
 
     def gather(self, blocks: Dict[str, torch.Tensor], specs, target=None
@@ -303,77 +311,106 @@ class Placement:
         over the sequence)."""
         flat = self.stack(params)
         return self.unstack({
-            k: self._gather_axis(t, list(self.held[k]), "model")
+            k: self._gather_dim(t, list(self.held[k]), self.tp_dim[k])
             if k in self.tp_dim else t for k, t in flat.items()})
 
-    def tp_context(self, batch_sharded: bool = False):
+    def tp_context(self, batch_entry=None):
         """The context to run the model in (``models.tp.on_mesh``): TP
-        over the row as the plan says, and the column for the moe aux
-        loss's routing sums where the batch is ``batch_sharded``."""
+        over the row as the plan says, and the group of ``batch_entry``
+        (the batch axes the rows are sharded over, ``batch_entry``; None:
+        not sharded) for the moe aux loss's routing sums."""
         return tpm.on_mesh(
             self.tp, self._group("model") if self.tp is not None else None,
-            self._group("data") if batch_sharded else None)
+            self._group(batch_entry) if batch_entry is not None else None)
 
     def assemble(self, opt_blocks: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         """Updated optimizer-spec blocks → param-spec blocks."""
         return self.gather(opt_blocks, self.opt_spec, self.spec)
 
-    def batch_sharded(self, batch: Dict[str, Any]) -> bool:
-        """Does the plan shard this global batch over ``data`` (its rows
-        divide)?"""
-        from repro_torch.sharding.specs import batch_shardings
+    def batch_entry(self, batch: Dict[str, Any]):
+        """The batch axes (an axis name or a tuple of them) the plan
+        shards this global batch's rows over, where they span more than
+        one rank; else None."""
+        from repro_torch.sharding.specs import axis_size, batch_shardings
         sh = batch_shardings(self.plan, self.cfg, batch, "train")
-        return sh["tokens"].spec[0] is not None and \
-            self.mesh.shape["data"] > 1
+        entry = sh["tokens"].spec[0]
+        return entry if axis_size(self.mesh, entry) > 1 else None
+
+    def batch_sharded(self, batch: Dict[str, Any]) -> bool:
+        """Does the plan shard this global batch over the batch axes (its
+        rows divide)?"""
+        return self.batch_entry(batch) is not None
 
     def batch_part(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         """This rank's rows of the global batch (every rank of a row the
         same rows: the sequence splits inside the model)."""
-        if not self.batch_sharded(batch):
+        entry = self.batch_entry(batch)
+        if entry is None:
             return batch
-        i, n = self.coords["data"], self.mesh.shape["data"]
+        i, n = self._pos(entry)
         return {k: v[i * v.shape[0] // n:(i + 1) * v.shape[0] // n]
                 for k, v in batch.items()}
 
+    def _batch_dim(self, key: str) -> Optional[int]:
+        """The dim of leaf ``key``'s param spec sharded over batch axes
+        only (``data``, or ``("pod", "data")``), or None."""
+        for i, e in enumerate(self.spec[key]):
+            axes = _entry_axes(e)
+            if axes and "model" not in axes:
+                return i
+        return None
+
     def reduce_gradients(self, grads: Dict[str, torch.Tensor],
-                         batch_sharded: bool) -> Dict[str, torch.Tensor]:
+                         batch_entry=None) -> Dict[str, torch.Tensor]:
         """f32 gradient leaves of this rank's share of the loss (whole, or
         a TP leaf's model block) → the sums over the mesh of this rank's
         optimizer-spec blocks.  The row sums its sequence parts
         (``all_reduce`` over ``model``; under TP only the ``sliced``
-        leaves); where ``batch_sharded``, the column sums its rows: a leaf
-        the plan shards over ``data`` by a reduce-scatter of its blocks, a
-        replicated one by an ``all_reduce`` (each booked as ``grad``)."""
+        leaves); where the rows are sharded over the batch axes of
+        ``batch_entry`` (``batch_entry``'s result), those ranks sum their
+        rows: a leaf the plan
+        shards over batch axes S' ⊆ those by a reduce-scatter of its
+        blocks over S' (after an ``all_reduce`` over the rest of them), any
+        other by an ``all_reduce`` (each booked as ``grad``).  On a
+        ``("data", "model")`` mesh: a reduce-scatter over ``data`` of the
+        leaves it shards, one ``all_reduce`` of the others."""
         row = self._group("model")
         summed = self.keys if self.tp is None else list(self.sliced)
         if row.world_size > 1 and summed:
             part = [grads.pop(k) for k in summed]
             grads.update(zip(summed, row.all_reduce(part, kind="grad")))
             del part
-        col = self._group("data")
-        sharded = [k for k in self.keys if "data" in spec_axes(self.spec[k])]
+        S = _entry_axes(batch_entry)
         blocks = {}
-        if batch_sharded and col.world_size > 1:
-            rep = [k for k in self.keys if k not in sharded]
-            blocks.update(zip(rep, col.all_reduce([grads[k] for k in rep],
-                                                  kind="grad")))
-            for k in sharded:
-                dim = list(self.spec[k]).index("data")
-                parts = torch.stack(list(grads[k].chunk(col.world_size,
+        if S:
+            scatter, rest = {}, {}         # key → its dim; rest → keys
+            for k in self.keys:
+                dim = self._batch_dim(k)
+                E = _entry_axes(self.spec[k][dim]) if dim is not None else ()
+                if E and set(E) <= set(S):
+                    scatter[k] = dim
+                    A = tuple(a for a in S if a not in E)
+                else:
+                    A = S
+                if A and self._group(A).world_size > 1:
+                    rest.setdefault(A, []).append(k)
+            for A, keys in rest.items():
+                grads.update(zip(keys, self._group(A).all_reduce(
+                    [grads[k] for k in keys], kind="grad")))
+            for k, dim in scatter.items():
+                entry = self.spec[k][dim]
+                g = self._group(entry)
+                parts = torch.stack(list(grads[k].chunk(g.world_size,
                                                         dim=dim)))
-                got = list(self.held[k])      # the held block's data part
-                got[dim] = "data"
-                blocks[k] = col.reduce_scatter(parts)[self._relative(
+                got = list(self.held[k])      # the held block's batch part
+                got[dim] = entry
+                blocks[k] = g.reduce_scatter(parts)[self._relative(
                     k, self.spec[k], tuple(got))]
-            blocks.update({k: blocks[k][self._relative(k, self.spec[k],
-                                                       self.held[k])]
-                           for k in rep})
-        else:
-            blocks = {k: grads[k][self._relative(k, self.spec[k],
-                                                 self.held[k])]
-                      for k in self.keys}
+        blocks.update({k: grads[k][self._relative(k, self.spec[k],
+                                                  self.held[k])]
+                       for k in self.keys if k not in blocks})
         return self.opt_part(blocks)
 
     def sum_over_mesh(self, t: torch.Tensor) -> torch.Tensor:

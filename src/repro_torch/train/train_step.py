@@ -105,17 +105,18 @@ def _split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict]:
 
 
 def _accumulated(params, batch, cfg, xcfg, grad_accum: int,
-                 batch_shards: int = 1):
+                 batch_shards: int = 1, acc_dtype=torch.float32):
     """(loss, parts, gradients) of ``batch``, in ``grad_accum``
-    microbatches run one after another with an f32 accumulator."""
+    microbatches run one after another with an ``acc_dtype`` accumulator
+    (the gradients come back in it)."""
     if grad_accum == 1:
         return _grads_of(params, batch, cfg, xcfg, batch_shards)
     acc = None
     losses, partss = [], []
     for mb in _split(batch, grad_accum):
         l, pa, g = _grads_of(params, mb, cfg, xcfg, batch_shards)
-        acc = ([gi.float() for gi in g] if acc is None else
-               [a + gi.float() for a, gi in zip(acc, g)])
+        acc = ([gi.to(acc_dtype) for gi in g] if acc is None else
+               [a + gi.to(acc_dtype) for a, gi in zip(acc, g)])
         losses.append(l)
         partss.append(pa)
     grads = [a / grad_accum for a in acc]
@@ -136,11 +137,13 @@ def _summed(group, loss, parts):
 
 def build_train_step(cfg: ModelConfig, xcfg: ExchangeConfig,
                      opt_cfg: Optional[OptConfig] = None,
-                     grad_accum: int = 1, placement=None) -> Callable:
+                     grad_accum: int = 1, placement=None,
+                     acc_dtype=torch.float32) -> Callable:
     """(params, opt_state, batch) → (params, opt_state, metrics).
 
     ``grad_accum`` > 1 splits the global batch into microbatches run one
-    after another with an f32 gradient accumulator: live
+    after another with a gradient accumulator in ``acc_dtype`` (f32; the
+    JAX dry run takes bf16 for archs over 100 GB of params): live
     activations shrink by the accumulation factor while keeping the global
     batch size.  Weight decay follows the JAX package's layout
     (``optimizer.decay_mask``).
@@ -153,12 +156,12 @@ def build_train_step(cfg: ModelConfig, xcfg: ExchangeConfig,
     the new params come back as blocks."""
     opt_cfg = opt_cfg or OptConfig()
     if placement is not None:
-        return _mesh_step(cfg, placement, opt_cfg, grad_accum)
+        return _mesh_step(cfg, placement, opt_cfg, grad_accum, acc_dtype)
 
     def train_step(params, opt_state, batch):
         group = _group(xcfg)
         loss, parts, grads = _accumulated(params, batch, cfg, xcfg,
-                                          grad_accum)
+                                          grad_accum, acc_dtype=acc_dtype)
         if group is not None:        # every rank: the global sums
             grads = group.all_reduce(grads, kind="grad")
             loss, parts = _summed(group, loss, parts)
@@ -171,38 +174,40 @@ def build_train_step(cfg: ModelConfig, xcfg: ExchangeConfig,
 
 
 def mesh_gradients(blocks, batch, cfg: ModelConfig, placement,
-                   grad_accum: int = 1):
+                   grad_accum: int = 1, acc_dtype=torch.float32):
     """One rank's part of a mesh train step up to the update → (loss,
     parts, the f32 gradient's sum over the mesh of each of this rank's
     optimizer-spec blocks).
 
     The param blocks are gathered whole (ZeRO-3, ``param`` bytes); the rank
-    runs its rows of the global ``batch`` (the plan's ``batch_shardings``;
-    every rank of a row the same rows, the row's ranks each their part of
-    the sequence); the gradients are summed over the row and, where the
-    batch is sharded, over the column (``Placement.reduce_gradients``);
-    the loss likewise (``meta``; under TP the row's ranks hold the same
-    loss, summed over the column only).  A batch whose rows do not divide
-    over ``data`` runs whole on every rank of the column, and its
+    runs its rows of the global ``batch`` (the plan's ``batch_shardings``:
+    over ``data``, or ``("pod", "data")`` on a three-axis mesh; every rank
+    of a row the same rows, the row's ranks each their part of the
+    sequence); the gradients are summed over the row and, where the batch
+    is sharded, over the batch axes (``Placement.reduce_gradients``); the
+    loss likewise (``meta``; under TP the row's ranks hold the same loss,
+    summed over the batch axes only).  A batch whose rows do not divide
+    over the batch axes runs whole on every rank of the column, and its
     gradients are not summed there.  The model and its backward run
     inside ``placement.tp_context``."""
+    from repro_torch.sharding.specs import axis_size
     xcfg = placement.plan.xcfg
-    sharded = placement.batch_sharded(batch)
-    shards = placement.mesh.shape["data"] if sharded else 1
+    entry = placement.batch_entry(batch)
+    shards = axis_size(placement.mesh, entry)
     params = placement.gather_params(blocks)
-    with placement.tp_context(sharded):
+    with placement.tp_context(entry):
         loss, parts, grads = _accumulated(
             params, placement.batch_part(batch), cfg, xcfg, grad_accum,
-            shards)
+            shards, acc_dtype)
     grads = tree_unflatten_like(params, grads)
     del params
     g = placement.reduce_gradients(placement.stack(grads, torch.float32),
-                                   sharded)
-    row, col = placement._group("model"), placement._group("data")
+                                   entry)
+    row = placement._group("model")
     if row.world_size > 1 and placement.tp is None:
         loss, parts = _summed(row, loss, parts)
-    if sharded:
-        loss, parts = _summed(col, loss, parts)
+    if entry is not None:
+        loss, parts = _summed(placement._group(entry), loss, parts)
     return loss, parts, g
 
 
@@ -219,10 +224,10 @@ def mesh_update(blocks, opt_state, grads, placement, opt_cfg: OptConfig):
 
 
 def _mesh_step(cfg, placement, opt_cfg: OptConfig,
-               grad_accum: int) -> Callable:
+               grad_accum: int, acc_dtype) -> Callable:
     def train_step(blocks, opt_state, batch):
         loss, parts, grads = mesh_gradients(blocks, batch, cfg, placement,
-                                            grad_accum)
+                                            grad_accum, acc_dtype)
         new, new_state, om = mesh_update(blocks, opt_state, grads,
                                          placement, opt_cfg)
         return new, new_state, {"loss": loss, **parts, **om}

@@ -1288,3 +1288,121 @@ def tp_mesh(rank, world, job):
                        for k in place.keys},
             tp_keys=sorted(place.tp_dim))
     return out
+
+
+# --- the dry run's abstract collectives against the real ones --------------
+
+@contextlib.contextmanager
+def logged_calls():
+    """Every call a seq group books (real or abstract), in order: (axis,
+    kind, bytes received) appended to the list yielded."""
+    from repro_torch.core.seq_group import AbstractSeqGroup, SeqGroup
+    log = []
+    saved = {cls: cls._end for cls in (SeqGroup, AbstractSeqGroup)}
+
+    def wrap(orig):
+        def _end(self, t0, kind, received):
+            log.append((self.axis, kind, int(received)))
+            return orig(self, t0, kind, received)
+        return _end
+    for cls, orig in saved.items():
+        cls._end = wrap(orig)
+    try:
+        yield log
+    finally:
+        for cls, orig in saved.items():
+            cls._end = orig
+
+
+def stats_of(groups):
+    """Each group's ``GatherStats`` by axis, every field but seconds."""
+    return {g.axis: {f: v for f, v in vars(g.stats).items()
+                     if f != "seconds"} for g in groups}
+
+
+def dry_cfg(c):
+    from repro_torch.configs import get_config
+    return get_config(c["arch"]).reduced(dtype="float32")
+
+
+def dryrun_mesh(rank, world, job):
+    """One rank of a mesh (``spawn_mesh``), each case of ``job["cases"]``
+    from seed-0 weights and a seeded global batch: a mesh train step
+    (``kind`` "train": ``build_train_step`` with the plan's placement) or
+    one ``build_decode_step`` step with the plan at position N − 1
+    (``kind`` "decode"), on ``job["device"]`` (default the CPU) → the
+    ``GatherStats`` of each of the rank's groups and every call booked, in
+    order."""
+    from repro_torch.launch.mesh import get_abstract_mesh, mesh_groups
+    from repro_torch.models import registry
+    from repro_torch.serving import engine
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    from repro_torch.train.train_step import build_train_step
+    mesh = get_abstract_mesh()
+    groups = mesh_groups()
+    device = job.get("device", "cpu")
+    out = {"coords": mesh.coords(rank)}
+    for label, c in job["cases"].items():
+        cfg = dry_cfg(c)
+        kind, B, N = c["kind"], c["B"], c["N"]
+        plan = make_plan(mesh, cfg, ExchangeMode(c["mode"]), L=c["L"],
+                         train=kind == "train", decode=kind == "decode")
+        params = registry.init_params(cfg, seed=0, device=device)
+        place = Placement(plan, cfg, registry.abstract_params(cfg))
+        rng = np.random.RandomState(c.get("seed", 1))
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, N))
+                                  .astype(np.int32)).to(device)
+        for g in groups:
+            g.reset_stats()
+        if kind == "train":
+            blocks, opt = place.init_state(params)
+            step = build_train_step(cfg, plan.xcfg, placement=place)
+            batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+            with logged_calls() as log:
+                step(blocks, opt, batch)
+        else:
+            held = place.held_params(params)
+            cache = engine.init_cache(cfg, plan, B, N, device=device)
+            step = engine.build_decode_step(cfg, plan.xcfg, plan)
+            with logged_calls() as log, torch.no_grad():
+                step(held, {"tokens": tokens[:, :1]}, cache, N - 1)
+        out[label] = dict(stats=stats_of(groups), log=log)
+    return out
+
+
+def seq_case(c, params, batch):
+    """``c``'s forward (``forward_lm`` without grad) or its loss's
+    gradient (``c["grad"]``) under ``c["mode"]`` over the seq group
+    ``"seq"`` of 2 ranks, on the tensors given."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_step import _grads_of
+    cfg = dry_cfg(c)
+    xcfg = ExchangeConfig(ExchangeMode(c["mode"]), "seq", 2, L=c["L"])
+    if c.get("grad"):
+        _grads_of(params, batch, cfg, xcfg)
+    else:
+        with torch.no_grad():
+            tfm.forward_lm(params, batch, cfg, xcfg)
+
+
+def dryrun_seq(rank, world, job):
+    """One rank of a seq group of 2 (``spawn``): each case of
+    ``job["cases"]`` (``seq_case``) from seed-0 weights and a seeded
+    batch → the group's ``GatherStats`` and every call booked, in
+    order."""
+    from repro_torch.models import registry
+    group = get_seq_group("seq")
+    out = {}
+    for label, c in job["cases"].items():
+        cfg = dry_cfg(c)
+        params = registry.init_params(cfg, seed=0, device="cpu")
+        rng = np.random.RandomState(1)
+        tokens = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (c["B"], c["N"])).astype(np.int32))
+        group.reset_stats()
+        with logged_calls() as log:
+            seq_case(c, params, {"tokens": tokens,
+                                 "labels": tokens.roll(-1, 1)})
+        out[label] = dict(stats=stats_of([group]), log=log)
+    return out

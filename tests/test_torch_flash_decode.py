@@ -158,10 +158,22 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(what, exc):
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
+    """A device with no kernel raises; a meta tensor takes the kernel's
+    shape function (the dry run: o, m, l f32 of the kernel's shapes, no
+    launch)."""
     q, k, v = (t.to("meta") for t in _t(*_inputs(8, 1, 8, 2, 2, 64)))
     bias = torch.zeros(1, 8, device="meta")
+    before = flash_decode.launches
+    o, m, l = flash_decode(q, k, v, bias)
+    B, H, dh = q.shape
+    assert [(tuple(t.shape), t.dtype, t.device.type) for t in (o, m, l)] == [
+        ((B, H, dh), torch.float32, "meta"), ((B, H), torch.float32, "meta"),
+        ((B, H), torch.float32, "meta")]
+    assert flash_decode.launches == before
+    import types
     with pytest.raises(ValueError, match="no kernel"):
-        flash_decode(q, k, v, bias)
+        flash_decode(types.SimpleNamespace(device=torch.device("xpu")), k,
+                     v, bias)
 
 
 # ---------------------------------------------------------------------------

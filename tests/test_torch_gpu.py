@@ -1355,3 +1355,37 @@ def test_tp_decode_step_on_the_card_matches_the_cpu(cuda_device, mode):
         np.testing.assert_array_equal(a["tokens"], b["tokens"])
         assert a["launches"] > 0 and b["launches"] == 0
         assert a["tp_keys"]
+
+
+@pytest.mark.gpu
+def test_dry_run_bytes_match_the_card_ranks(cuda_device):
+    """The dry run's abstract collectives against ranks on the card: a
+    small f32 llama on a (2, 2) mesh of ranks sharing the card, a
+    ``prism`` and a ``local`` TP train step (the kernels launched under
+    ``prism``) and a ``prism`` decode step; on every rank the dry run at
+    its coordinates (``launch.dryrun.trace_step`` on the meta device)
+    books the same ``GatherStats`` as the rank (bytes by kind, calls,
+    halo and state calls), call for call."""
+    import _torch_ranks
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.core.seq_group import spawn_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_auto_mesh
+    names = ("data", "model")
+    cases = {label: dict(arch="llama3.2-1b", kind=kind, mode=mode, B=4,
+                         N=32, L=4)
+             for label, kind, mode in (("prism", "train", "prism"),
+                                       ("local", "train", "local"),
+                                       ("decode", "decode", "prism"))}
+    ranks = spawn_mesh(_torch_ranks.dryrun_mesh, (2, 2), names,
+                       {"cases": cases, "device": "cuda"}, timeout=300)
+    mesh = make_auto_mesh((2, 2), names)
+    for r in ranks:
+        for label, c in cases.items():
+            with _torch_ranks.logged_calls() as log:
+                got = dryrun.trace_step(_torch_ranks.dry_cfg(c), c["kind"],
+                                        mesh, mode=ExchangeMode(c["mode"]),
+                                        B=c["B"], N=c["N"], L=c["L"],
+                                        coords=r["coords"])
+            assert got["gather"]["by_axis"] == r[label]["stats"], label
+            assert log == r[label]["log"], label

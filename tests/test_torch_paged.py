@@ -167,12 +167,28 @@ def test_decode_attention_paged_matches_jax_dispatch():
 
 
 def test_wrapper_has_no_route_but_the_device():
-    """A CPU tensor takes the plain version; any other device without a
-    kernel raises, it never falls back."""
+    """A CPU tensor takes the plain version; a meta tensor the kernel's
+    shape function (the dry run: the kernel's output shapes, no launch);
+    any other device without a kernel raises, it never falls back."""
     q, kp, vp, pt, clen = _t(*_inputs(8, *CASES[0]))
     bias = validity_bias(2, 64, clen)
+    before = flash_decode_paged.launches
+    got = flash_decode_paged(q.to("meta"), kp.to("meta"), vp.to("meta"),
+                             pt.to("meta"), bias.to("meta"))
+    want = flash_decode_paged(q, kp, vp, pt, bias)
+    assert [(t.shape, t.dtype, t.device.type) for t in got] == \
+        [(t.shape, t.dtype, "meta") for t in want]
+    assert flash_decode_paged.launches == before
     with pytest.raises(ValueError, match="no kernel for device"):
-        flash_decode_paged(q.to("meta"), kp, vp, pt, bias)
+        flash_decode_paged(_on_xpu(q), kp, vp, pt, bias)
+
+
+def _on_xpu(t):
+    """A stand-in for ``t`` on a device the port has no kernel for (only
+    its ``device`` is read before the wrapper refuses it)."""
+    import types
+    return types.SimpleNamespace(device=torch.device("xpu"), shape=t.shape,
+                                 dtype=t.dtype)
 
 
 # ---------------------------------------------------------------------------

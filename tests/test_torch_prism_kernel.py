@@ -158,8 +158,23 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     out = prism_attention(q, kl, vl, km.reshape(1, 4, 2, 8),
                           vm.reshape(1, 4, 2, 8), bias, causal=False)
     assert out.shape == q.shape and prism_attention.launches == before
+    # a meta tensor takes the kernel's shape function (the dry run)
+    got = prism_attention(*(t.to("meta") for t in (
+        q, kl, vl, km.reshape(1, 4, 2, 8), vm.reshape(1, 4, 2, 8), bias)),
+        causal=False)
+    assert (got.shape, got.dtype, got.device.type) == \
+        (out.shape, out.dtype, "meta")
+    assert prism_attention.launches == before
     with pytest.raises(ValueError, match="no kernel"):
-        prism_attention(q.to("meta"), kl, vl, km, vm, bias)
+        prism_attention(_on_xpu(q), kl, vl, km, vm, bias)
+
+
+def _on_xpu(t):
+    """A stand-in for ``t`` on a device the port has no kernel for (only
+    its ``device`` is read before the wrapper refuses it)."""
+    import types
+    return types.SimpleNamespace(device=torch.device("xpu"), shape=t.shape,
+                                 dtype=t.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -103,8 +103,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     x = torch.ones(1, 8, 4)
     assert torch.equal(segment_means(x, 2)[0], torch.ones(1, 2, 4))
     assert segment_means.launches == before
+    got = segment_means(x.to("meta"), 2)       # the dry run's shape function
+    assert [(t.shape, t.dtype, t.device.type) for t in got] == [
+        ((1, 2, 4), torch.float32, "meta"), ((1, 2), torch.float32, "meta")]
+    assert segment_means.launches == before
     with pytest.raises(ValueError, match="no kernel"):
-        segment_means(x.to("meta"), 2)
+        segment_means(_on_xpu(x), 2)
 
 
 @pytest.mark.parametrize("masked", [True, False])
@@ -160,8 +164,20 @@ def test_kv_call_on_the_cpu_counts_no_launch():
     for i, x in enumerate((k, v)):
         want, want_c = segment_means_ref(x, 3, mask)
         assert torch.equal(means[i], want) and torch.equal(counts, want_c)
+    got = segment_means_kv(k.to("meta"), v.to("meta"), 3)   # shape function
+    assert [(t.shape, t.device.type) for t in got] == [
+        (means.shape, "meta"), (counts.shape, "meta")]
+    assert segment_means.launches == before
     with pytest.raises(ValueError, match="no kernel"):
-        segment_means_kv(k.to("meta"), v.to("meta"), 3)
+        segment_means_kv(_on_xpu(k), _on_xpu(v), 3)
+
+
+def _on_xpu(t):
+    """A stand-in for ``t`` on a device the port has no kernel for (only
+    its ``device`` is read before the wrapper refuses it)."""
+    import types
+    return types.SimpleNamespace(device=torch.device("xpu"), shape=t.shape,
+                                 dtype=t.dtype)
 
 
 @pytest.mark.parametrize("Mp,pad", [(752, 4), (816, 31)])
