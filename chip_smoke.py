@@ -7622,6 +7622,14 @@ MESH_MOE = "deepseek-moe-16b"     # the reduced moe warm-up, batch over data
 # (d): build_decode_step at full width, all 16 layers, f32 (greedy tokens
 # exact against one rank of the card), a prompt teacher-forced, then greedy
 MESH_DEC_B, MESH_DEC_T0, MESH_DEC_NEW = 8, 8, 8
+# (e), (f): local TP of the heads the even split cannot take, at full
+# width in f32: deepseek-v2-236b cut to 2 of 60 layers (layer 0 dense,
+# layer 1 MoE; MLA split by heads, 64 of 128 a rank) and hymba-1.5b cut to
+# 4 of 32 (25/5 heads split 15/10 by whole KV groups); a prefill, then
+# greedy decode (B MESH_DEC_B, the prompt teacher-forced), against rank 0
+# alone on the whole params; hymba's train step beside the dry run's count
+MESH_TP_HEADS = {"(e)": (MLA_ARCH, 2), "(f)": ("hymba-1.5b", 4)}
+MESH_TP_NEW = 4
 
 
 def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
@@ -7950,12 +7958,174 @@ def _mesh_decode(rank, world):
     return out
 
 
+def _seeded_params(cfg, seed: int, place=None):
+    """f32 random weights of ``cfg`` on the card, each leaf drawn whole
+    from its own seed (``seed`` and its path) one at a time: matrices
+    N(0, 1/fan_in) (the embeddings N(0, 0.02²)), vectors and scalars 0;
+    with ``place`` (a ``Placement``) only the block the rank's model runs
+    on is kept (its ``held_index``).  Every rank draws the same leaves,
+    and no rank ever holds more than its view and one whole leaf."""
+    import zlib
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.utils.tree import (tree_leaves_with_paths,
+                                        tree_unflatten_like)
+    template = registry.abstract_params(cfg)
+    where = {} if place is None else {
+        p: (k, ent.lead) for k, ent in place.index_of.items()
+        for p in ent.paths}
+    out = []
+    for path, leaf in tree_leaves_with_paths(template):
+        name = "/".join(map(str, path))
+        if leaf.ndim < 2:
+            t = torch.zeros(leaf.shape, dtype=torch.float32, device="cuda")
+        else:
+            g = torch.Generator(device="cuda").manual_seed(
+                seed * 1000003 + zlib.crc32(name.encode()))
+            fan_in = leaf.shape[-3] if name.endswith(("w_uk", "w_uv")) \
+                else leaf.shape[-2]
+            t = torch.randn(leaf.shape, generator=g, device="cuda",
+                            dtype=torch.float32).mul_(
+                0.02 if name.endswith("table") else fan_in ** -0.5)
+        if place is not None:
+            k, lead = where[path]
+            t = t[place.held_index(k)[lead:]].clone()
+        out.append(t)
+    return tree_unflatten_like(template, out)
+
+
+def _tp_heads_cfg(label: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers = MESH_TP_HEADS[label]
+    return dataclasses.replace(get_config(arch), n_layers=layers,
+                               dtype="float32")
+
+
+def tp_view_bytes(label: str, shape) -> dict:
+    """(e)/(f) reckoned before the spawn, from the shapes: the bytes of
+    the f32 tree each rank of ``shape`` runs on under the ``local`` decode
+    plan (by model coordinate), and of the whole params."""
+    import numpy as np
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.models import registry
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    cfg = _tp_heads_cfg(label)
+    meta = registry.abstract_params(cfg)
+    plan = make_plan(make_auto_mesh(shape, MESH_NAMES), cfg,
+                     ExchangeMode.LOCAL, decode=True)
+    out = {}
+    for m in range(shape[1]):
+        pl = Placement(plan, cfg, meta, coords={"data": 0, "model": m})
+        out[m] = sum(4 * int(np.prod([
+            len(range(n)[s]) for n, s in zip(pl.index_of[k].shape,
+                                             pl.held_index(k))]))
+            for k in pl.keys)
+    out["whole"] = sum(4 * int(np.prod(e.shape))
+                       for e in pl.index_of.values())
+    return out
+
+
+def _mesh_tp_heads(rank, world, label: str):
+    """[mesh] (e) or (f) on this rank of the (2, 2) mesh: ``_tp_heads_cfg``
+    under the ``local`` decode plan (the rank's heads, MLP columns or
+    experts, vocabulary rows; its rows of the batch): ``build_prefill_step``
+    on the prompt, then ``build_decode_step`` greedy from an empty cache
+    (the prompt teacher-forced, MESH_TP_NEW new tokens); the ranks draw
+    their views one at a time, free them, and rank 0 runs the same steps
+    alone on the whole params → the tokens, the prefill's greedy token,
+    flash-decode launches, step ms, bytes received, the view's GB and the
+    cache's KV heads."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.exchange import ExchangeConfig, ExchangeMode
+    from repro_torch.core.seq_group import get_seq_group
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.launch.train import _received
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import engine
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.specs import make_plan
+    _exact_fp32()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _tp_heads_cfg(label)
+    seeded = cfg.family == "moe"          # deepseek-v2: 21 GB whole in f32
+    mesh = get_abstract_mesh()
+    groups = [get_seq_group(a) for a in mesh.axis_names]
+    plan = make_plan(mesh, cfg, ExchangeMode.LOCAL, decode=True)
+    place = Placement(plan, cfg, registry.abstract_params(cfg))
+    for turn in range(world):             # one whole draw at a time
+        if turn == rank:
+            view = (_seeded_params(cfg, 0, place) if seeded else
+                    place.held_params(registry.init_params(cfg, seed=0,
+                                                           device="cuda")))
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    prompt = torch.from_numpy(np.random.RandomState(13).randint(
+        0, cfg.vocab_size, (MESH_DEC_B, MESH_DEC_T0)).astype(np.int32)).cuda()
+    S = MESH_DEC_T0 + MESH_TP_NEW
+
+    def first_token(step, params, cache, col):
+        logits, _ = step(params, {"tokens": prompt}, cache)
+        mine = logits[:, -1].argmax(-1).cpu()
+        return mine.numpy() if col is None else torch.cat(
+            [torch.as_tensor(t) for t in col.all_gather_object(
+                mine.numpy())]).numpy()
+    for g in groups:
+        g.reset_stats()
+    before = flash_decode.launches
+    with torch.no_grad():
+        first = first_token(engine.build_prefill_step(cfg, plan.xcfg, plan),
+                            view, engine.init_cache(cfg, plan, MESH_DEC_B, S,
+                                                    "cuda"), groups[0])
+        cache = engine.init_cache(cfg, plan, MESH_DEC_B, S, "cuda")
+        tokens, ms = _greedy(engine.build_decode_step(cfg, plan.xcfg, plan),
+                             view, cache, prompt, groups[0], MESH_TP_NEW)
+    half = next(v for v in cache.values() if isinstance(v, dict))
+    out = dict(tokens=tokens, ms=ms, first=first,
+               launches=flash_decode.launches - before,
+               got=_received(groups), coords=place.coords,
+               view_gb=sum(t.numel() * 4 for t in _leaves(view)) / 1e9,
+               cache=tuple(half["k" if "k" in half else "c_kv"].shape),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del view, cache, half
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()                        # every view freed first
+    if rank == 0:
+        whole = (_seeded_params(cfg, 0) if seeded else
+                 registry.init_params(cfg, seed=0, device="cuda"))
+        one = ExchangeConfig()
+        with torch.no_grad():
+            out["one"] = dict(first=first_token(
+                engine.build_prefill_step(cfg, one), whole,
+                tfm.init_decode_cache(cfg, MESH_DEC_B, S, device="cuda"),
+                None))
+            out["one"]["tokens"], out["one"]["ms"] = _greedy(
+                engine.build_decode_step(cfg, one), whole,
+                tfm.init_decode_cache(cfg, MESH_DEC_B, S, device="cuda"),
+                prompt, None, MESH_TP_NEW)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def _mesh_rank(rank, world, reduced: dict, full: dict, tp_runs: dict):
     """One rank of [mesh]'s (2, 2) mesh: launch.train's reduced run (which
     also warms the rank up: the first rematerialised call, the kernels'
     libraries), the reduced ``local`` TP runs (llama, then the moe family
     with its batch over data), the full-width ``prism`` run (a), the
-    full-width ``local`` TP run (c), the small f32 case, then (d)."""
+    full-width ``local`` TP run (c), the small f32 case, (d), hymba's
+    ``local`` TP train step (f), then the decode runs of (e) and (f)."""
     import gc
     import torch
     from repro_torch.launch.train import train_mesh
@@ -7972,6 +8142,13 @@ def _mesh_rank(rank, world, reduced: dict, full: dict, tp_runs: dict):
     gc.collect()
     torch.cuda.empty_cache()
     out["decode"] = _mesh_decode(rank, world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp_hymba"] = train_mesh(rank, world, tp_runs["hymba"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["heads"] = {label: _mesh_tp_heads(rank, world, label)
+                    for label in MESH_TP_HEADS}
     return out
 
 
@@ -8003,6 +8180,63 @@ def mesh_tp_kernels() -> dict:
           f"us, sdpa yardstick {t_prism['library_ms']*1e3:.2f} us",
           flush=True)
     return {"local": t_local, "prism": t_prism}
+
+
+def mesh_heads_kernels() -> dict:
+    """The flash-decode launches of [mesh] (f), each against its plain
+    version and timed (f32, the last greedy step's cache lengths): a
+    rank's B 4 rows (a data row) at hymba-1.5b's heads split by whole KV
+    groups, 15/3 on model rank 0 and 10/2 on rank 1 (G 5, dh 64) → by
+    model rank."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.tp import head_split
+    c = get_config(MESH_TP_HEADS["(f)"][0])
+    S, b = MESH_DEC_T0 + MESH_TP_NEW, MESH_DEC_B // MESH_SHAPE[0]
+    out = {}
+    for m in range(MESH_SHAPE[1]):
+        h = head_split(c.n_heads, c.n_kv_heads, MESH_SHAPE[1], m)
+        case = decode_case(b, S, c.hd, torch.float32, seed=80 + m,
+                           heads=(h.n_q, h.n_kv), lens=[S - 1] * b)
+        out[m] = dict(report_timed(
+            case, f"[mesh] (f) {c.name} local TP decode step, model rank "
+                  f"{m} ({h.n_q}/{h.n_kv} heads, G {h.n_q // h.n_kv})"),
+            heads=(h.n_q, h.n_kv))
+    return out
+
+
+def _check_tp_heads(label: str, runs, card: str) -> dict:
+    """(e)/(f)'s decode on every rank against rank 0 alone: the prefill's
+    greedy token and the greedy tokens equal; (f)'s flash-decode launched
+    on every rank → launches by model rank."""
+    cfg = _tp_heads_cfg(label)
+    one = runs[0]["one"]
+    launches = {}
+    for r in runs:
+        m = r["coords"]["model"]
+        if not ((r["tokens"] == one["tokens"]).all()
+                and (r["first"] == one["first"]).all()):
+            raise AssertionError(f"[mesh] {label}: greedy tokens "
+                                 f"{r['tokens'].tolist()} (prefill "
+                                 f"{r['first'].tolist()}) vs one rank's "
+                                 f"{one['tokens'].tolist()} "
+                                 f"({one['first'].tolist()})")
+        if cfg.mla is None and r["launches"] == 0:
+            raise AssertionError(f"[mesh] {label}: no flash-decode launch")
+        launches[m] = launches.get(m, 0) + r["launches"]
+    for r in runs[:MESH_SHAPE[1]]:
+        print(f"[mesh] {label} {cfg.name} cut to {cfg.n_layers} of its "
+              f"layers at full width, f32, local TP on (2, 2), rank "
+              f"{r['coords']}: view {r['view_gb']:.2f} GB, cache "
+              f"{list(r['cache'])}; prefill + {MESH_DEC_T0} prompt steps + "
+              f"{MESH_TP_NEW} greedy: tokens = one rank's exactly (prefill "
+              f"too); {r['launches']} flash-decode launches; step "
+              f"{statistics.median(r['ms'][1:]):.1f} ms (median; one rank "
+              f"alone {statistics.median(one['ms'][1:]):.1f} ms), received "
+              f"tp {r['got'].get('tp', 0) / 1e6:.3f} MB in "
+              f"{r['got']['calls']} calls ({r['got']['seconds'] * 1e3:.1f} "
+              f"ms staged); peak {r['peak_gb']:.2f} GB [{card}]", flush=True)
+    return launches
 
 
 def phase_mesh(card: str) -> dict:
@@ -8043,7 +8277,11 @@ def phase_mesh(card: str) -> dict:
           "moe": dict(red, arch=MESH_MOE, mode="local", steps=2,
                       ckpt_every=50, ckpt_dir=os.path.join(ck, "moe")),
           "full": dict(full, mode="local", steps=MESH_TP_STEPS,
-                       ckpt_dir=os.path.join(ck, "tp_full"))}
+                       ckpt_dir=os.path.join(ck, "tp_full")),
+          "hymba": dict(full, arch=MESH_TP_HEADS["(f)"][0], mode="local",
+                        steps=MESH_TP_STEPS,
+                        layers=MESH_TP_HEADS["(f)"][1],
+                        ckpt_dir=os.path.join(ck, "tp_hymba"))}
     # (c)'s bytes a rank by kind, from the shapes, before the run
     want_tp = {k: predicted_bytes(tp[k], MESH_SHAPE)
                for k in ("reduced", "full")}
@@ -8051,13 +8289,20 @@ def phase_mesh(card: str) -> dict:
     print(f"[mesh] (c) predicted from the shapes, rank (0, 0), a step: tp "
           f"{w['tp']} B, grad {w['grad']} B, param {w['param']} B, meta "
           f"{w['meta']} B", flush=True)
+    for label in MESH_TP_HEADS:               # (e), (f): a rank's view
+        v = tp_view_bytes(label, MESH_SHAPE)
+        print(f"[mesh] {label} reckoned from the shapes: a rank runs on "
+              + ", ".join(f"{v[m]} B (model rank {m})"
+                          for m in range(MESH_SHAPE[1]))
+              + f" of the {v['whole']} B of f32 params", flush=True)
     try:
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             # the dry runs of (a) and (c) in this process while the ranks run
             dry = pool.submit(lambda: {k: mesh_dry_run(v, MESH_SHAPE)
                                        for k, v in (("(a)", full),
-                                                    ("(c)", tp["full"]))})
+                                                    ("(c)", tp["full"]),
+                                                    ("(f)", tp["hymba"]))})
             ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full,
                                tp, timeout=RANK_TIMEOUT_S)
             dry = dry.result()
@@ -8074,6 +8319,8 @@ def phase_mesh(card: str) -> dict:
                         "reduced moe local TP", 0, False)
         _check_mesh_run([r["tp_full"] for r in ranks], tp["full"],
                         MESH_SHAPE, "(c)", 0, want_tp["full"])
+        _check_mesh_run([r["tp_hymba"] for r in ranks], tp["hymba"],
+                        MESH_SHAPE, "(f)", 0, False)
         mgr = ElasticMeshManager(rcfg, ExchangeMode.PRISM, L=tr["L"],
                                  devices=[0, 1, 2, 3])
         mesh, plan = mgr.drop([2, 3])
@@ -8146,6 +8393,19 @@ def phase_mesh(card: str) -> dict:
           flush=True)
     _print_mesh_ranks("(c)", tf, card)
     check_dry_run("(c)", tf, dry["(c)"], card)
+    hy = [r["tp_hymba"] for r in ranks]
+    print(f"[mesh] (f) {tp['hymba']['arch']} cut to "
+          f"{tp['hymba']['layers']} of 32 layers at full width, --mode "
+          f"local on (2, 2): its 25/5 heads split 15/10 by whole KV groups "
+          f"(wq/wk/wv/wo moved between the JAX blocks and the head blocks "
+          f"over the row), B {MESH_B} N {LM_N}, {MESH_TP_STEPS} step; peak "
+          f"{max(r['peak_gb'] for r in hy):.2f} GB a rank [{card}]",
+          flush=True)
+    _print_mesh_ranks("(f)", hy, card)
+    check_dry_run("(f)", hy, dry["(f)"], card)
+    heads_launches = {label: _check_tp_heads(label, [r["heads"][label]
+                                                     for r in ranks], card)
+                      for label in MESH_TP_HEADS}
     dec = [r["decode"] for r in ranks]
     one = dec[0]["one"]
     for mode in ("local", "prism"):
@@ -8214,6 +8474,8 @@ def phase_mesh(card: str) -> dict:
         launches[f"flash_decode_tp_{mode}"] = sum(d[mode]["launches"]
                                                   for d in dec)
     launches["tp_timed"] = mesh_tp_kernels()
+    launches["flash_decode_tp_heads"] = heads_launches["(f)"]
+    launches["heads_timed"] = mesh_heads_kernels()
     for runs, suffix in ((fr, ""), (rr, "_dh16")):
         for r in runs:
             for row in r["rows"]:
@@ -8648,6 +8910,19 @@ def main(argv=None) -> None:
             "source": src.format("flash_decode", "flash_decode"),
             "replaces": rows[0][1], "launches": ms[f"flash_decode_tp_{mode}"],
             "shape": shape, **{k: ms["tp_timed"][mode][k] for k in keys}})
+    for m, t in ms["heads_timed"].items():
+        kernels.append({
+            "name": "flash_decode", "route": "cuda",
+            "source": src.format("flash_decode", "flash_decode"),
+            "replaces": rows[0][1],
+            "launches": ms["flash_decode_tp_heads"][m],
+            "shape": f"{MESH_TP_HEADS['(f)'][0]} local TP decode step on "
+                     f"[mesh]'s (2, 2) mesh, model rank {m} (build_decode_"
+                     f"step, full width, {MESH_TP_HEADS['(f)'][1]} layers): "
+                     f"f32 B={b_tp} S={MESH_DEC_T0 + MESH_TP_NEW} "
+                     f"{t['heads'][0]}/{t['heads'][1]} heads dh=64 (G 5), "
+                     f"the last greedy step's lengths",
+            **{k: t[k] for k in keys}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

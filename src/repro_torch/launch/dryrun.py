@@ -25,7 +25,8 @@ full width on the CPU.  The numbers are counts of the port's program on
 meta, set against the H100's 80 GB, not measurements.  The rank's peak is
 the port's, not the JAX plan's: the port gathers every ZeRO-3 parameter
 whole for the step (ROADMAP [12.6]), gathers the TP leaves of
-[13.7a]–[13.7d] whole, and returns f32 ``[B, N, V]`` logits ([12.5]).
+[13.7c]–[13.7d] and MLA's latent projections whole, and returns f32
+``[B, N, V]`` logits ([12.5]).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -126,7 +127,9 @@ def _memory_cache(cfg: ModelConfig, cache: Dict, rows: int, xcfg) -> Dict:
                                    xcfg)
     kv = full["mem_kv"]["k"].shape
     P = xcfg.seq_shards if partitioned(xcfg) else 1
-    block = (kv[0], kv[1], kv[2] // P) + tuple(kv[3:])
+    hk = next(h["k"].shape[-2] for h in cache.values()
+              if isinstance(h, dict) and "k" in h)   # the rank's KV heads
+    block = (kv[0], kv[1], kv[2] // P, hk, kv[4])
     return {**cache,
             "mem_kv": {"k": _meta(block, cfg.torch_dtype),
                        "v": _meta(block, cfg.torch_dtype)},

@@ -241,7 +241,10 @@ def train_mesh(rank: int, world: int, a: dict) -> dict:
     start = 0
     tp = "" if place.tp is None else (
         f", tensor parallelism over model ({len(place.tp_dim)} of "
-        f"{len(place.keys)} leaves split, the others gathered whole)")
+        f"{len(place.keys)} leaves split"
+        + (f", {len(place.moved)} of them moved to their head blocks over "
+           f"the row" if place.moved else "")
+        + ", the others gathered whole)")
     if a["resume"]:
         start = ckpt.latest
         if start is None:

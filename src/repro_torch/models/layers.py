@@ -13,7 +13,8 @@ Conventions
 * Attention is the paper's integration point: ``ExchangeConfig`` decides
   how K/V cross sequence partitions — see ``repro_torch.core.exchange``.
 * Tensor parallelism over a mesh row (``repro_torch.models.tp``): an
-  ``AttnSpec`` with ``tp`` names the rank's heads, and ``apply_mlp``,
+  ``AttnSpec`` with ``tp`` names the rank's heads (their count and first
+  index), and ``apply_mlp``,
   ``embed`` and ``unembed`` take the row's group as ``tp``; the weights
   they are given are then the rank's blocks, and every output but
   ``unembed``'s (the rank's vocab columns) is the whole, the same on every
@@ -191,26 +192,43 @@ class AttnSpec:
     use_rope: bool = True
     scale: Optional[float] = None         # override 1/sqrt(hd)
     tp: Any = None                        # the row's SeqGroup when the heads
-                                          # above are the rank's 1/M of them
+                                          # above are the rank's share
+    q0: int = 0                           # the rank's first query head
+    kv0: int = 0                          # and first KV head
+    kv_shared: bool = False               # wk/wv whole: slice the KV head
+
+
+def kv_weights(params: Params, spec: AttnSpec):
+    """``wk``, ``wv`` as the rank computes with them: held whole where
+    its KV head is shared with other ranks of the row, and sliced to it."""
+    wk, wv = params["wk"], params["wv"]
+    if spec.kv_shared:
+        cols = slice(spec.kv0 * spec.head_dim,
+                     (spec.kv0 + spec.n_kv) * spec.head_dim)
+        wk, wv = wk[:, cols], wv[:, cols]
+    return wk, wv
 
 
 def project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
                 positions: Optional[torch.Tensor]):
     """Linear projections + RoPE. x: [B, N, D] → q [B,N,H,hd], k/v [B,N,Hk,hd].
-    Under ``spec.tp`` the weights are the rank's columns, the biases
-    (whole) are sliced to them, and x enters the row's parallel region."""
+    Under ``spec.tp`` the weights are the rank's columns (``kv_weights``),
+    the biases (whole) are sliced to its heads, and x enters the row's
+    parallel region."""
     B, N, _ = x.shape
     if spec.tp is not None:
         x = spec.tp.copy_to(x)
+    wk, wv = kv_weights(params, spec)
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = x @ wk
+    v = x @ wv
     if "bq" in params:
-        r = 0 if spec.tp is None else spec.tp.rank
-        wq, wk = spec.n_heads * spec.head_dim, spec.n_kv * spec.head_dim
-        q = q + params["bq"][r * wq:(r + 1) * wq]
-        k = k + params["bk"][r * wk:(r + 1) * wk]
-        v = v + params["bv"][r * wk:(r + 1) * wk]
+        hd = spec.head_dim
+        qs = slice(spec.q0 * hd, (spec.q0 + spec.n_heads) * hd)
+        ks = slice(spec.kv0 * hd, (spec.kv0 + spec.n_kv) * hd)
+        q = q + params["bq"][qs]
+        k = k + params["bk"][ks]
+        v = v + params["bv"][ks]
     q = q.reshape(B, N, spec.n_heads, spec.head_dim)
     k = k.reshape(B, N, spec.n_kv, spec.head_dim)
     v = v.reshape(B, N, spec.n_kv, spec.head_dim)

@@ -11,6 +11,15 @@ Under a partitioned plan the decode cache is this rank's block of
 positions, as the dense cache is (``layers.attention_decode``): the rank
 owning a write position writes it, and attention merges every block's
 partial softmax exactly (``exchange.mla_decode_attention_sharded``).
+
+Under tensor parallelism over a mesh row (``tp``: the row's group,
+``models.tp``) ``n_heads`` is the rank's share and ``w_uq``, ``w_uk``,
+``w_uv`` and ``wo`` are its heads' blocks; every rank of the row computes
+the latents from the whole ``w_dq``/``w_dkv`` alike, they enter the
+row's parallel region (``copy_to``: the backward sums their cotangents,
+so the whole leaves' gradients are the same on every rank), and ``wo``'s
+partial products are summed over the row.  The latent cache is whole on
+every rank of the row.
 """
 from __future__ import annotations
 
@@ -49,24 +58,40 @@ def init_mla(gen: torch.Generator, d: int, n_heads: int, cfg: MLACfg,
     return p
 
 
-def _project_q(params: Params, x: torch.Tensor, H: int, cfg: MLACfg,
+def _q_latent(params: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """The normed query latent, entering the row's parallel region."""
+    c_q = rmsnorm(params["q_norm"], x @ params["w_dq"])
+    return c_q if tp is None else tp.copy_to(c_q)
+
+
+def _project_q(params: Params, c_q: torch.Tensor, H: int, cfg: MLACfg,
                positions: torch.Tensor, theta: float) -> torch.Tensor:
-    B, N, _ = x.shape
-    q = rmsnorm(params["q_norm"], x @ params["w_dq"]) @ params["w_uq"]
-    q = q.reshape(B, N, H, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    B, N, _ = c_q.shape
+    q = (c_q @ params["w_uq"]).reshape(B, N, H,
+                                       cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_pe = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     cos, sin = rope_tables(positions, cfg.qk_rope_dim, theta)
     return torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
 
 
 def _project_kv_latent(params: Params, x: torch.Tensor, cfg: MLACfg,
-                       positions: torch.Tensor, theta: float):
+                       positions: torch.Tensor, theta: float, tp=None):
     ckv = x @ params["w_dkv"]
     c_kv, k_pe = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
     c_kv = rmsnorm(params["kv_norm"], c_kv)
     cos, sin = rope_tables(positions, cfg.qk_rope_dim, theta)
     k_pe = apply_rope(k_pe[..., None, :], cos, sin)[..., 0, :]
+    if tp is not None:
+        c_kv, k_pe = tp.copy_to(c_kv), tp.copy_to(k_pe)
     return c_kv, k_pe
+
+
+def _output(params: Params, out: torch.Tensor, tp) -> torch.Tensor:
+    """The heads [B, N, H, dv] through ``wo`` (under ``tp`` the rank's
+    rows, summed over the row)."""
+    B, N = out.shape[:2]
+    y = out.reshape(B, N, -1) @ params["wo"]
+    return y if tp is None else tp.reduce_from(y)
 
 
 def _scale(cfg: MLACfg) -> float:
@@ -83,24 +108,25 @@ def _positions(x: torch.Tensor, positions):
 def mla_block(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
               xcfg: ExchangeConfig, *,
               positions: Optional[torch.Tensor] = None,
-              rope_theta: float = 10000.0) -> torch.Tensor:
+              rope_theta: float = 10000.0, tp=None) -> torch.Tensor:
     """Full-sequence MLA attention (train / prefill).  Under a partitioned
     plan x is this rank's part of the sequence, at its global
     ``positions``."""
-    B, N, _ = x.shape
     positions = _positions(x, positions)
-    q = _project_q(params, x, n_heads, cfg, positions, rope_theta)
-    c_kv, k_pe = _project_kv_latent(params, x, cfg, positions, rope_theta)
+    q = _project_q(params, _q_latent(params, x, tp), n_heads, cfg,
+                   positions, rope_theta)
+    c_kv, k_pe = _project_kv_latent(params, x, cfg, positions, rope_theta,
+                                    tp)
     out = exchange_attention_mla(q, c_kv, k_pe, params["w_uk"],
                                  params["w_uv"], xcfg, causal=True,
                                  scale=_scale(cfg))
-    return out.reshape(B, N, n_heads * cfg.v_head_dim) @ params["wo"]
+    return _output(params, out, tp)
 
 
 def mla_prefill(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
                 xcfg: ExchangeConfig, cache: Dict[str, torch.Tensor], *,
                 positions: Optional[torch.Tensor] = None,
-                rope_theta: float = 10000.0
+                rope_theta: float = 10000.0, tp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``mla_block`` that also writes the latent cache for the prompt's
     positions, in place.  In a seq group the rank fills its cache block
@@ -108,8 +134,10 @@ def mla_prefill(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
     its own (PRISM, booked as ``cache`` bytes)."""
     B, N, _ = x.shape
     positions = _positions(x, positions)
-    q = _project_q(params, x, n_heads, cfg, positions, rope_theta)
-    c_kv, k_pe = _project_kv_latent(params, x, cfg, positions, rope_theta)
+    q = _project_q(params, _q_latent(params, x, tp), n_heads, cfg,
+                   positions, rope_theta)
+    c_kv, k_pe = _project_kv_latent(params, x, cfg, positions, rope_theta,
+                                    tp)
     seen = []
     out = exchange_attention_mla(q, c_kv, k_pe, params["w_uk"],
                                  params["w_uv"], xcfg, causal=True,
@@ -132,13 +160,12 @@ def mla_prefill(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
                 cache["c_kv"].dtype)
             cache["k_pe"][:, :hi - lo] = lat[:, lo:hi, r:].to(
                 cache["k_pe"].dtype)
-    y = out.reshape(B, N, n_heads * cfg.v_head_dim) @ params["wo"]
-    return y, cache
+    return _output(params, out, tp), cache
 
 
 def mla_decode(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
                xcfg: ExchangeConfig, cache: Dict[str, torch.Tensor],
-               cache_index, *, rope_theta: float = 10000.0
+               cache_index, *, rope_theta: float = 10000.0, tp=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Absorbed-form decode over the latent cache, updated in place:
 
@@ -146,7 +173,9 @@ def mla_decode(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
 
     ``cache_index`` is the global write position: an int for every row,
     or a ``[B]`` int tensor, one position (and one valid prefix) per row,
-    written as ``layers.attention_decode`` writes a K/V cache."""
+    written as ``layers.attention_decode`` writes a K/V cache.  Under
+    ``tp`` the absorbed query and the attended latent are the rank's
+    heads'."""
     B, H = x.shape[0], n_heads
     group = seq_group_for(xcfg) if partitioned(xcfg) else None
     per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
@@ -156,9 +185,10 @@ def mla_decode(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
     else:
         pos = torch.full((B, 1), cache_index, dtype=torch.int32,
                          device=x.device)
-    q = _project_q(params, x, H, cfg, pos, rope_theta)          # [B,1,H,dq]
+    q = _project_q(params, _q_latent(params, x, tp), H, cfg, pos,
+                   rope_theta)                                   # [B,1,H,dq]
     q_nope, q_pe = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
-    c_new, pe_new = _project_kv_latent(params, x, cfg, pos, rope_theta)
+    c_new, pe_new = _project_kv_latent(params, x, cfg, pos, rope_theta, tp)
     at, rows = _write_at(idx if per_row else cache_index,
                          cache["c_kv"].shape[1], group)
     if per_row:                  # one position per row: drop the token axis
@@ -174,8 +204,7 @@ def mla_decode(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
                                          cache["k_pe"], cache_len, xcfg,
                                          scale=_scale(cfg))
     out = torch.einsum("bqhr,rhd->bqhd", o_lat, params["w_uv"])
-    y = out.reshape(B, 1, H * cfg.v_head_dim) @ params["wo"]
-    return y, cache
+    return _output(params, out, tp), cache
 
 
 def init_mla_cache(batch: int, seq: int, cfg: MLACfg, dtype, device=None):

@@ -4,13 +4,21 @@ weights, and the context a mesh step runs its model in.
 
 The JAX package shards a ``local`` plan's weights over ``model``
 (``sharding.specs``: ``wq/wk/wv/w_up/w_gate`` by columns, ``wo/w_down`` by
-rows, the vocabulary, the MoE experts) and GSPMD inserts the collectives.
-The port writes them out (Megatron's layout, ``core.seq_group``'s
-``copy_to`` / ``reduce_from`` / ``gather_from`` over the row):
+rows, MLA's ``w_uq`` by columns and ``w_uk/w_uv`` by heads, the
+vocabulary, the MoE experts) and GSPMD inserts the collectives.  The port
+writes them out (Megatron's layout, ``core.seq_group``'s ``copy_to`` /
+``reduce_from`` / ``gather_from`` over the row):
 
-* attention: a rank runs ``n_heads / M`` query heads and ``n_kv / M`` KV
-  heads (``AttnSpec.tp``), where M divides both (not MLA, whose latent
-  projections are gathered whole);
+* attention: a rank runs a range of query heads and the KV heads they
+  read (``head_split``, ``AttnSpec.tp``): M's equal shares where M divides
+  the KV heads; whole KV groups, as even as they go, where M does not but
+  there are at least M of them (hymba's 25/5 on 2 ranks: 15 + 10 heads);
+  ``n_heads / M`` query heads of one KV head shared by ``M / n_kv`` ranks
+  where the KV heads are fewer than M (the vision model's 32/8 on 16);
+* MLA: a rank runs its heads' columns of ``w_uq``, its heads of
+  ``w_uk/w_uv`` and its rows of ``wo``; the latent projections
+  (``w_dq``, ``w_dkv``, the norms) are whole on every rank of the row,
+  and the latent enters the row's parallel region;
 * an MLP (the dense layers', the moe family's first layers', the cross
   layers'): column then row, where M divides its width;
 * the MoE experts: a rank runs its ``E / M`` experts over all the row's
@@ -20,6 +28,11 @@ The port writes them out (Megatron's layout, ``core.seq_group``'s
 * the vocabulary: ``embed`` looks up the rank's rows of the table and
   ``unembed`` gives the rank's columns of the logits, where M divides V.
 
+Where the rank's head block is not the JAX spec's block of a leaf (the
+uneven split, or M not dividing the columns) the leaf is moved between
+the two over the row (``sharding.placement``).  A shared KV head's
+``wk/wv`` are held whole and sliced, as the qkv biases are.
+
 Under a decode plan that shards the sequence over ``model`` (``prism``,
 ``voltage``: ``make_plan(..., decode=True)``) the attention stays
 replicated and its cache sequence-sharded, and only the MLPs and the
@@ -28,10 +41,10 @@ row holds the step's one token.  A training or full-sequence plan that
 shards the sequence over ``model`` splits nothing.
 
 Every other leaf the JAX spec shards over ``model`` (norm scales, the
-router, the qkv biases, MLA's, Mamba's and xLSTM's projections, the heads
-of an attention M does not divide) is gathered whole over the row before
-the step (``sharding.placement``) and computed on every rank of the row
-alike.
+router, MLA's latent projections, Mamba's and xLSTM's projections, the
+heads of an attention no rule splits) is gathered whole over the row
+before the step (``sharding.placement``) and computed on every rank of
+the row alike.
 
 A mesh step runs its model inside ``on_mesh(plan, group)`` (the row's seq
 group; ``batch``: the column, where the batch is sharded over ``data``,
@@ -45,10 +58,43 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
-_QKV = ("wq", "wk", "wv")
 _MLP = ("w_gate", "w_up", "w_down")          # an MLP's, or an expert stack's
+
+
+class Heads(NamedTuple):
+    """A rank's attention heads: query heads ``[q0, q0 + n_q)`` and the KV
+    heads they read, ``[kv0, kv0 + n_kv)``; ``shared``: the one KV head is
+    other ranks' too (its ``wk/wv`` held whole, each rank its slice)."""
+    q0: int
+    n_q: int
+    kv0: int
+    n_kv: int
+    shared: bool = False
+
+
+def head_split(n_heads: int, n_kv: int, M: int, r: int) -> Optional[Heads]:
+    """Rank ``r`` of ``M``'s heads of an attention of ``n_heads`` query
+    and ``n_kv`` KV heads, or None (the heads do not split):
+
+    (i) M divides ``n_kv``: equal blocks of whole KV groups;
+    (ii) ``n_kv ≥ M``: whole KV groups as even as they go, the larger
+         blocks first (a rank's query heads per KV head stay the config's);
+    (iii) ``n_kv < M``, M a multiple of ``n_kv`` whose share ``s = M /
+         n_kv`` divides the group: ``n_heads / M`` query heads of KV head
+         ``r // s``."""
+    if n_kv <= 0 or n_heads % n_kv:
+        return None
+    G = n_heads // n_kv
+    if n_kv >= M:
+        base, extra = divmod(n_kv, M)
+        kv0, k = r * base + min(r, extra), base + (r < extra)
+        return Heads(kv0 * G, k * G, kv0, k)
+    s = M // n_kv
+    if M % n_kv == 0 and G % s == 0:
+        return Heads(r * (G // s), G // s, r // s, 1, shared=True)
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +105,11 @@ class TPPlan:
     M: int
     full: bool
 
-    def splits_heads(self, cfg) -> bool:
-        return (self.full and cfg.mla is None and cfg.n_heads % self.M == 0
-                and cfg.n_kv_heads % self.M == 0)
+    def heads(self, cfg, r: int) -> Optional[Heads]:
+        """Rank ``r``'s attention heads, or None (not split)."""
+        if not self.full:
+            return None
+        return head_split(cfg.n_heads, cfg.n_kv_heads, self.M, r)
 
     def splits_width(self, width: int) -> bool:
         return width % self.M == 0
@@ -69,35 +117,60 @@ class TPPlan:
     def splits_vocab(self, V: int) -> bool:
         return self.full and V % self.M == 0
 
-    def leaf_dim(self, key: str, shape, cfg) -> Optional[int]:
-        """The dim of JAX-layout leaf ``key`` (``shape``) whose blocks a
-        rank computes with, or None (gathered whole)."""
+    def leaf_block(self, key: str, shape, cfg, r: int
+                   ) -> Optional[Tuple[int, int, int]]:
+        """(dim, start, stop): the block of JAX-layout leaf ``key``
+        (``shape``) along ``dim`` that rank ``r`` computes with, or None
+        (gathered whole)."""
         parts = key.split("/")
         name, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
+
+        def even(dim):
+            n = shape[dim]
+            return (dim % len(shape), r * n // self.M, (r + 1) * n // self.M)
         if key in ("embed/table", "lm_head/table"):
-            return 0 if self.splits_vocab(shape[0]) else None
-        if parent in ("attn", "xattn") and name in _QKV + ("wo",):
-            if not self.splits_heads(cfg):
+            return even(0) if self.splits_vocab(shape[0]) else None
+        if parent in ("attn", "xattn"):
+            h = self.heads(cfg, r)
+            if h is None:
                 return None
-            return len(shape) - (2 if name == "wo" else 1)
+            lo, n = h.q0, h.n_q
+            if cfg.mla is not None and parent == "attn":   # (dim, a head's)
+                m = cfg.mla
+                width = {"w_uq": (-1, m.qk_nope_dim + m.qk_rope_dim),
+                         "w_uk": (-2, 1), "w_uv": (-2, 1),
+                         "wo": (-2, m.v_head_dim)}.get(name)
+            elif name in ("wk", "wv"):        # a shared KV head: sliced
+                width = None if h.shared else (-1, cfg.hd)
+                lo, n = h.kv0, h.n_kv
+            else:
+                width = {"wq": (-1, cfg.hd), "wo": (-2, cfg.hd)}.get(name)
+            if width is None:
+                return None
+            dim, w = width
+            return (dim % len(shape), lo * w, (lo + n) * w)
         if parent == "mlp" and name in _MLP:
-            width = shape[-2] if name == "w_down" else shape[-1]
-            if not self.splits_width(width):
-                return None
-            return len(shape) - (2 if name == "w_down" else 1)
+            dim = -2 if name == "w_down" else -1
+            return even(dim) if self.splits_width(shape[dim]) else None
         if parent == "moe" and name in _MLP:
             stack = len(shape) - 3
-            return stack if self.splits_width(shape[stack]) else None
+            return even(stack) if self.splits_width(shape[stack]) else None
         return None
 
-    def sliced_dim(self, key: str, shape, cfg) -> Optional[int]:
+    def sliced_dim(self, key: str, shape, cfg, r: int) -> Optional[int]:
         """The dim of a leaf gathered whole that a rank consumes a slice
-        of (the qkv biases of split heads): its gradient is that slice's
-        only, so the row sums it."""
+        of (the qkv biases of split heads, a shared KV head's
+        ``wk/wv``): its gradient is that slice's only, so the row sums
+        it."""
         parts = key.split("/")
-        if (len(parts) > 1 and parts[-2] == "attn"
-                and parts[-1] in ("bq", "bk", "bv")
-                and self.splits_heads(cfg)):
+        if len(parts) < 2 or parts[-2] not in ("attn", "xattn") \
+                or cfg.mla is not None:
+            return None
+        h = self.heads(cfg, r)
+        if h is None:
+            return None
+        if parts[-1] in ("bq", "bk", "bv") or (
+                h.shared and parts[-1] in ("wk", "wv")):
             return len(shape) - 1
         return None
 
@@ -147,10 +220,11 @@ def group():
 
 
 def heads(cfg):
-    """The row's group if the attention heads split over it."""
+    """(the row's group, this rank's ``Heads``) if the attention heads
+    split over the row, else (None, None)."""
     c = _CTX.get()
-    return c.group if c.plan is not None and c.plan.splits_heads(cfg) \
-        else None
+    h = None if c.plan is None else c.plan.heads(cfg, c.group.rank)
+    return (None, None) if h is None else (c.group, h)
 
 
 def ffn(width: int):

@@ -133,7 +133,8 @@ from repro_torch.models.layers import (AttnSpec, apply_mlp, apply_norm,
                                        attention_output,
                                        embed, init_attention, init_embedding,
                                        init_kv_cache, init_mlp, init_norm,
-                                       prefill_kv_cache, project_qkv, unembed)
+                                       kv_weights, prefill_kv_cache,
+                                       project_qkv, unembed)
 from repro_torch.models.moe import apply_moe, init_moe
 
 Params = Dict[str, Any]
@@ -169,22 +170,16 @@ def _require_ported(cfg: ModelConfig) -> None:
 def _attn_spec(cfg: ModelConfig, *, window: Optional[int] = None,
                causal: Optional[bool] = None, use_rope: bool = True) -> AttnSpec:
     """A layer's attention spec; under tensor parallelism over the heads
-    (``tp.heads``) the rank's ``n_heads / M`` and ``n_kv / M`` of them."""
-    tp = tpm.heads(cfg)
-    M = 1 if tp is None else tp.world_size
+    (``tp.heads``) the rank's query and KV heads."""
+    tp, h = tpm.heads(cfg)
+    h = h or tpm.Heads(0, cfg.n_heads, 0, cfg.n_kv_heads)
     return AttnSpec(
-        n_heads=cfg.n_heads // M, n_kv=cfg.n_kv_heads // M, head_dim=cfg.hd,
+        n_heads=h.n_q, n_kv=h.n_kv, head_dim=cfg.hd,
         causal=cfg.causal if causal is None else causal,
         window=window, logit_softcap=cfg.attn_softcap,
         rope_theta=cfg.rope_theta, use_rope=use_rope and cfg.rope_theta > 0,
-        scale=cfg.query_scale, tp=tp)
-
-
-def _kv_heads(cfg: ModelConfig) -> int:
-    """The KV heads a rank holds: ``n_kv / M`` under tensor parallelism
-    over the heads."""
-    tp = tpm.heads(cfg)
-    return cfg.n_kv_heads // (1 if tp is None else tp.world_size)
+        scale=cfg.query_scale, tp=tp, q0=h.q0, kv0=h.kv0,
+        kv_shared=h.shared)
 
 
 def _mlp(p: Params, x, cfg: ModelConfig, width: int):
@@ -337,8 +332,9 @@ def _apply_moe_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
                      positions, group=None):
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     if cfg.mla is not None:
-        h = mla_mod.mla_block(p["attn"], xin, cfg.n_heads, cfg.mla, xcfg,
-                              positions=positions, rope_theta=cfg.rope_theta)
+        h = mla_mod.mla_block(p["attn"], xin, spec.n_heads, cfg.mla, xcfg,
+                              positions=positions, rope_theta=cfg.rope_theta,
+                              tp=spec.tp)
     else:
         h = attention_block(p["attn"], xin, spec, xcfg, positions=positions)
     return _ffn_residual(p, x, h, cfg, group)
@@ -348,9 +344,9 @@ def _apply_moe_prefill(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
                        positions, cache, group=None):
     if cfg.mla is not None:
         h, _ = mla_mod.mla_prefill(
-            p["attn"], apply_norm(cfg.norm_type, p["ln1"], x), cfg.n_heads,
+            p["attn"], apply_norm(cfg.norm_type, p["ln1"], x), spec.n_heads,
             cfg.mla, xcfg, cache, positions=positions,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, tp=spec.tp)
     else:
         h = _attn_prefill(p, x, cfg, xcfg, spec, positions, cache, group)
     return _ffn_residual(p, x, h, cfg, group)[0]
@@ -360,8 +356,9 @@ def _apply_moe_decode(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
                       cache, index):
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     if cfg.mla is not None:
-        h, _ = mla_mod.mla_decode(p["attn"], xin, cfg.n_heads, cfg.mla, xcfg,
-                                  cache, index, rope_theta=cfg.rope_theta)
+        h, _ = mla_mod.mla_decode(p["attn"], xin, spec.n_heads, cfg.mla,
+                                  xcfg, cache, index,
+                                  rope_theta=cfg.rope_theta, tp=spec.tp)
     else:
         h, _ = attention_decode(p["attn"], xin, spec, xcfg, cache, index)
     return _ffn_residual(p, x, h, cfg)[0]
@@ -403,12 +400,12 @@ def _memory_kv(p_attn: Params, mem: torch.Tensor, cfg: ModelConfig
     layer attends them); under tensor parallelism over the heads the
     rank's KV heads."""
     B, M, _ = mem.shape
-    tp = tpm.heads(cfg)
-    if tp is not None:
-        mem = tp.copy_to(mem)
-    hk = _kv_heads(cfg)
-    return {"k": (mem @ p_attn["wk"]).reshape(B, M, hk, cfg.hd),
-            "v": (mem @ p_attn["wv"]).reshape(B, M, hk, cfg.hd)}
+    spec = _attn_spec(cfg)
+    if spec.tp is not None:
+        mem = spec.tp.copy_to(mem)
+    wk, wv = kv_weights(p_attn, spec)
+    return {"k": (mem @ wk).reshape(B, M, spec.n_kv, cfg.hd),
+            "v": (mem @ wv).reshape(B, M, spec.n_kv, cfg.hd)}
 
 
 def _padded_memory(x: torch.Tensor, cfg: ModelConfig, xcfg: ExchangeConfig):
@@ -931,7 +928,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     block of ``ceil(seq / P)`` positions: the cache rounds up to a
     multiple of P, and the padded slots are never valid; every rank holds
     the whole recurrent state.  Under tensor parallelism over the heads
-    (``tp.heads``) a rank holds its ``n_kv / M`` KV heads: a layout choice
+    (``tp.heads``) a rank holds the KV heads its query heads read (one
+    shared with other ranks where the KV heads are fewer): a layout choice
     (the JAX plan leaves the cache's heads replicated, and GSPMD computes
     the attention head-sharded from it)."""
     _require_ported(cfg)
@@ -945,7 +943,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
             c = mla_mod.init_mla_cache(batch, seq, cfg.mla, cfg.torch_dtype,
                                        device=device)
         else:
-            c = init_kv_cache(batch, seq, _kv_heads(cfg), cfg.hd,
+            c = init_kv_cache(batch, seq, _attn_spec(cfg).n_kv, cfg.hd,
                               cfg.torch_dtype, quant=cfg.kv_quant,
                               device=device)
         cache = {half: {name: t[None].repeat(n, *([1] * t.ndim))

@@ -24,14 +24,20 @@ the optimizer's moments as their (finer) optimizer-spec blocks; a step
 
 Under tensor parallelism (``repro_torch.models.tp``: a ``local`` plan
 with a model axis over 1, or a decode plan's MLPs and experts) a rank
-computes with its model block of the TP leaves (``tp_dim``: the split
-heads' ``wq/wk/wv/wo``, the split MLPs, the experts, the vocabulary), so
-``gather_params`` gathers those over ``data`` only and every other leaf
-whole; the model then runs inside ``tp_context``.  The row's ranks hold
-the same loss, so ``reduce_gradients`` sums over the row only the leaves a
-rank consumed a slice of (``sliced``: the qkv biases of split heads); a
-TP leaf's gradient is its block's, and a leaf consumed whole has the same
-gradient on every rank of the row.
+computes with its block of the TP leaves (``tp_dim``: the split heads'
+``wq/wk/wv/wo`` and MLA's ``w_uq/w_uk/w_uv/wo``, the split MLPs, the
+experts, the vocabulary), so ``gather_params`` gathers those over
+``data`` only and every other leaf whole; the model then runs inside
+``tp_context``.  The stored blocks stay the JAX spec's; where the rank's
+head block is not its model block (``moved``: heads split unevenly, or
+columns the axis does not divide) the leaf is gathered over ``data``,
+then over ``model``, and the head block sliced from it (``param``), and
+its gradient goes back the reverse way, padded whole and reduce-scattered
+over the row (``grad``).  The row's ranks hold the same loss, so
+``reduce_gradients`` sums over the row only the leaves a rank consumed a
+slice of (``sliced``: the qkv biases of split heads, a shared KV head's
+``wk/wv``); a TP leaf's gradient is its block's, and a leaf consumed
+whole has the same gradient on every rank of the row.
 
 The runtime takes ``("data", "model")`` and ``("pod", "data",
 "model")`` meshes.  On the second the plan shards the batch and the ZeRO-3
@@ -145,22 +151,30 @@ class Placement:
                 raise ValueError(f"{k}: optimizer spec {self.opt_spec[k]} "
                                  f"does not refine the param spec "
                                  f"{self.spec[k]}")
-        # the TP leaves → their split dim; the leaves consumed as a slice
+        # the TP leaves → their split dim; those whose head block is not
+        # the stored model block → the block's slice of that dim; the
+        # leaves consumed as a slice
         self.tp_dim: Dict[str, int] = {}
+        self.moved: Dict[str, slice] = {}
         self.sliced: Dict[str, int] = {}
         if self.tp is not None:
+            r = self.coords["model"]
             for k, ent in self.index_of.items():
-                dim = self.tp.leaf_dim(k, ent.shape, cfg)
-                if dim is not None:
-                    if self.spec[k][dim] != "model":
-                        raise ValueError(f"{k}: TP splits dim {dim}, the "
-                                         f"plan's spec is {self.spec[k]}")
+                blk = self.tp.leaf_block(k, ent.shape, cfg, r)
+                if blk is not None:
+                    dim, lo, hi = blk
                     self.tp_dim[k] = dim
-                dim = self.tp.sliced_dim(k, ent.shape, cfg)
+                    n, M = ent.shape[dim], self.tp.M
+                    if self.spec[k][dim] != "model" or \
+                            (lo, hi) != (r * n // M, (r + 1) * n // M):
+                        self.moved[k] = slice(lo, hi)
+                dim = self.tp.sliced_dim(k, ent.shape, cfg, r)
                 if dim is not None:
                     self.sliced[k] = dim
-        # what the model runs on: a TP leaf's model block, else the whole
-        self.held = {k: tuple("model" if i == self.tp_dim.get(k) else None
+        # the block a TP leaf is gathered to (and its gradient reduced
+        # from): its model block where the spec has one, else the whole
+        self.held = {k: tuple("model" if i == self.tp_dim.get(k)
+                              and self.spec[k][i] == "model" else None
                               for i in range(len(self.index_of[k].shape)))
                      for k in self.keys}
 
@@ -289,20 +303,83 @@ class Placement:
             spec_axes(target[k]) if target is not None else ())
             for k in self.keys}
 
+    def _moved_in(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        """A moved leaf's block under ``held[k]`` → its head block: gathered
+        over ``model`` (where held) and sliced, the rest freed."""
+        dim = self.tp_dim[k]
+        if self.held[k][dim] == "model":
+            t = self._gather_dim(t, list(self.held[k]), dim)
+        return t.narrow(dim, self.moved[k].start,
+                        self.moved[k].stop - self.moved[k].start).clone()
+
+    def _moved_out(self, k: str, g: torch.Tensor) -> torch.Tensor:
+        """``_moved_in``'s transpose on a gradient: the head block padded
+        whole with zeros, reduce-scattered over ``model`` (booked as
+        ``grad``) → the sum's block under ``held[k]``; where ``held[k]``
+        is whole, the padded leaf (the row sums it as a ``sliced`` one)."""
+        dim, sl = self.tp_dim[k], self.moved[k]
+        shape = list(g.shape)
+        shape[dim] = self.index_of[k].shape[dim]
+        whole = g.new_zeros(shape)
+        whole.narrow(dim, sl.start, sl.stop - sl.start).copy_(g)
+        if self.held[k][dim] != "model":
+            return whole
+        row = self._group("model")
+        return row.reduce_scatter(torch.stack(list(whole.chunk(
+            row.world_size, dim=dim))))
+
     def gather_params(self, blocks: Dict[str, torch.Tensor]):
         """Param-spec blocks → the port params tree the model runs on
         (ZeRO-3's gather at the start of a step): every leaf whole but the
-        TP leaves, each this rank's model block (gathered over ``data``
-        only)."""
-        return self.unstack(self.gather(blocks, self.spec, self.held))
+        TP leaves, each this rank's block (its model block gathered over
+        ``data`` only; a moved leaf's head block, one leaf at a time)."""
+        out = {}
+        for k in self.keys:
+            t = self._gather_leaf(blocks[k], self.spec[k],
+                                  spec_axes(self.held[k]))
+            out[k] = self._moved_in(k, t) if k in self.moved else t
+        return self.unstack(out)
+
+    def held_index(self, k: str) -> Tuple[slice, ...]:
+        """The block of whole leaf ``k`` the model runs on (whole on the
+        stack dims)."""
+        if k not in self.moved:
+            return self.index(k, self.held[k])
+        idx = [slice(None)] * len(self.index_of[k].shape)
+        idx[self.tp_dim[k]] = self.moved[k]
+        return tuple(idx)
 
     def held_params(self, params):
         """Whole port ``params`` (the same on every rank) → the tree the
-        model runs on, sliced locally: each TP leaf's model block, every
-        other leaf whole (no collective; serving's view of the plan)."""
-        flat = self.stack(params)
-        return self.unstack({k: flat.pop(k)[self.index(k, self.held[k])]
-                             .clone() for k in self.keys})
+        model runs on, sliced locally: each TP leaf's block, every other
+        leaf whole (no collective; serving's view of the plan), one
+        per-layer leaf at a time."""
+        leaves = [leaf for _, leaf in tree_leaves_with_paths(params)]
+        out: List[Any] = [None] * len(self.order)
+        for k, ent in self.index_of.items():
+            idx = self.held_index(k)[ent.lead:]
+            for p in ent.paths:
+                out[self.order[p]] = leaves[self.order[p]][idx].clone()
+        return tree_unflatten_like(self.template, out)
+
+    def _widen(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        """TP leaf ``k``'s block (the rank's) → the whole leaf, gathered
+        over ``model`` by the true block sizes (each padded to the largest
+        for the gather)."""
+        dim = self.tp_dim[k]
+        if k not in self.moved:
+            return self._gather_dim(t, list(self.held[k]), dim)
+        row = self._group("model")
+        sizes = [hi - lo for _, lo, hi in (
+            self.tp.leaf_block(k, self.index_of[k].shape, self.cfg, i)
+            for i in range(row.world_size))]
+        pad = list(t.shape)
+        pad[dim] = max(sizes)
+        buf = t.new_zeros(pad)
+        buf.narrow(dim, 0, t.shape[dim]).copy_(t)
+        parts = row.all_gather(buf, kind="param")
+        return torch.cat([p.narrow(dim, 0, n) for p, n in
+                          zip(parts.unbind(0), sizes)], dim=dim)
 
     def widened(self, params):
         """The tree the model runs on → every leaf whole: the TP leaves
@@ -310,9 +387,8 @@ class Placement:
         runs the sequence over the row (a prefill under a decode plan
         over the sequence)."""
         flat = self.stack(params)
-        return self.unstack({
-            k: self._gather_dim(t, list(self.held[k]), self.tp_dim[k])
-            if k in self.tp_dim else t for k, t in flat.items()})
+        return self.unstack({k: self._widen(k, t) if k in self.tp_dim
+                             else t for k, t in flat.items()})
 
     def tp_context(self, batch_entry=None):
         """The context to run the model in (``models.tp.on_mesh``): TP
@@ -365,10 +441,11 @@ class Placement:
     def reduce_gradients(self, grads: Dict[str, torch.Tensor],
                          batch_entry=None) -> Dict[str, torch.Tensor]:
         """f32 gradient leaves of this rank's share of the loss (whole, or
-        a TP leaf's model block) → the sums over the mesh of this rank's
+        a TP leaf's block) → the sums over the mesh of this rank's
         optimizer-spec blocks.  The row sums its sequence parts
         (``all_reduce`` over ``model``; under TP only the ``sliced``
-        leaves); where the rows are sharded over the batch axes of
+        leaves, a ``moved`` leaf's head block going back to its model
+        block first, ``_moved_out``); where the rows are sharded over the batch axes of
         ``batch_entry`` (``batch_entry``'s result), those ranks sum their
         rows: a leaf the plan
         shards over batch axes S' ⊆ those by a reduce-scatter of its
@@ -377,7 +454,11 @@ class Placement:
         ``("data", "model")`` mesh: a reduce-scatter over ``data`` of the
         leaves it shards, one ``all_reduce`` of the others."""
         row = self._group("model")
-        summed = self.keys if self.tp is None else list(self.sliced)
+        summed = list(self.keys if self.tp is None else self.sliced)
+        for k in self.moved:
+            grads[k] = self._moved_out(k, grads[k])
+            if self.held[k][self.tp_dim[k]] != "model":
+                summed.append(k)
         if row.world_size > 1 and summed:
             part = [grads.pop(k) for k in summed]
             grads.update(zip(summed, row.all_reduce(part, kind="grad")))

@@ -1149,12 +1149,22 @@ def _tp_train_case(c, mesh, groups, rank):
     plan = make_plan(mesh, cfg, ExchangeMode.LOCAL, train=True)
     place = Placement(plan, cfg, registry.abstract_params(cfg))
     blocks, opt = place.init_state(_tp_params(c, cfg))
+    raw = {}
+    if c.get("raw_digest"):        # the whole leaves' gradients, unsummed
+        reduce = place.reduce_gradients
+
+        def spy(grads, entry=None):
+            raw.update({k: digest([g]) for k, g in grads.items()
+                        if k not in place.tp_dim and k not in place.sliced})
+            return reduce(grads, entry)
+        place.reduce_gradients = spy
     for g in groups:
         g.reset_stats()
     loss, parts, grad = mesh_gradients(blocks, batch, cfg, place)
     res = dict(loss=float(loss), aux=float(parts["aux"]),
                booked=_booked(groups), tp_keys=sorted(place.tp_dim),
-               sliced=sorted(place.sliced),
+               sliced=sorted(place.sliced), moved=sorted(place.moved),
+               raw=raw,
                whole_shapes={k: e.shape for k, e in place.index_of.items()},
                block_shapes={k: tuple(blocks[k].shape) for k in place.keys})
     grads = place.whole(grad, place.opt_spec)
@@ -1203,7 +1213,9 @@ def _tp_serve_case(c):
     ``c["steps"]`` greedy decode steps from an empty cache (the prompt
     teacher-forced first), the tokens gathered over the column each step
     → this rank's logits a step, the global tokens and the flash-decode
-    launches (on ``c["device"]``, default the CPU)."""
+    launches (on ``c["device"]``, default the CPU), and whether the held
+    params widened over the row (``Placement.widened``) are the whole
+    ones."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.launch.mesh import get_abstract_mesh
@@ -1211,12 +1223,14 @@ def _tp_serve_case(c):
     from repro_torch.sharding.placement import Placement
     from repro_torch.sharding.specs import make_plan
     from repro_torch.models import registry
+    from repro_torch.utils.tree import tree_leaves
     cfg = get_config(c["arch"]).reduced(**c["reduced"])
     plan = make_plan(get_abstract_mesh(), cfg, ExchangeMode(c["mode"]),
                      L=c.get("L", 0), decode=True)
     place = Placement(plan, cfg, registry.abstract_params(cfg))
     device = c.get("device", "cpu")
-    params = place.held_params(_tp_params(c, cfg, device))
+    whole = _tp_params(c, cfg, device)
+    params = place.held_params(whole)
     col = get_seq_group("data")
     prompt = torch.from_numpy(c["prompt"]).to(device)
     B, T0 = prompt.shape
@@ -1244,7 +1258,17 @@ def _tp_serve_case(c):
                 launches=flash_decode.launches - before,
                 held={k: tuple(v.shape) for k, v in
                       place.stack(params).items()},
-                tp_keys=sorted(place.tp_dim))
+                tp_keys=sorted(place.tp_dim),
+                kv_heads=_cache_heads(cache),
+                widened=all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(place.widened(params)), tree_leaves(whole))))
+
+
+def _cache_heads(cache):
+    """The KV heads of a dense decode cache's first half (None: a latent
+    cache)."""
+    half = next(v for v in cache.values() if isinstance(v, dict))
+    return half["k"].shape[-2] if "k" in half else None
 
 
 def tp_mesh(rank, world, job):
@@ -1322,7 +1346,8 @@ def stats_of(groups):
 
 def dry_cfg(c):
     from repro_torch.configs import get_config
-    return get_config(c["arch"]).reduced(dtype="float32")
+    return get_config(c["arch"]).reduced(dtype="float32",
+                                         **c.get("over", {}))
 
 
 def dryrun_mesh(rank, world, job):

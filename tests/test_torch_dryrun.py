@@ -8,8 +8,10 @@ package's and against the port's own real collectives (CPU):
   same ``GatherStats`` (bytes by kind, ``calls``, ``halo_calls``,
   ``state_calls``), call by call in the same order, as the real gloo ones
   on every rank: one (2, 2) spawn of a reduced llama ``prism`` mesh train
-  step, its ``local`` TP step, a reduced deepseek-moe ``local`` TP step
-  and ``build_decode_step`` under ``prism``; and a seq group of 2 ranks'
+  step, its ``local`` TP step, reduced deepseek-moe, deepseek-v2 (MLA by
+  heads) and hymba at 5/5 heads (3 + 2, the moved leaves' gathers and
+  reduce-scatters) ``local`` TP steps and ``build_decode_step`` under
+  ``prism``; and a seq group of 2 ranks'
   ``voltage`` and ``prism`` forwards and hymba's state hand-off
   (``pass_on``) forward and gradient;
 * a rank's param and optimizer bytes on (16, 16) and (2, 16, 16), for
@@ -121,6 +123,11 @@ MESH_CASES = {
                                  mode="local", B=4, N=16, L=4),
     "moe local TP train": dict(arch="deepseek-moe-16b", kind="train",
                                mode="local", B=4, N=16, L=4),
+    "mla local TP train": dict(arch="deepseek-v2-236b", kind="train",
+                               mode="local", B=4, N=16, L=4),
+    "hymba uneven local TP train": dict(
+        arch="hymba-1.5b", kind="train", mode="local", B=4, N=16, L=4,
+        over=dict(n_heads=5, n_kv_heads=5, d_model=80)),
     "llama prism decode": dict(arch="llama3.2-1b", kind="decode",
                                mode="prism", B=4, N=16, L=4),
 }

@@ -1358,6 +1358,42 @@ def test_tp_decode_step_on_the_card_matches_the_cpu(cuda_device, mode):
 
 
 @pytest.mark.gpu
+def test_uneven_tp_decode_step_on_the_card_matches_the_cpu(cuda_device):
+    """``build_decode_step`` under ``local`` on a (1, 2) mesh of ranks
+    sharing the card, a small f32 hymba of 5/5 heads of 64: its heads
+    split 3/2 by whole KV groups (each rank its cache's KV heads), its
+    MLP and vocabulary split, its Mamba whole.  Against the same mesh on
+    the CPU: every step's logits ≤ 1e-4 of their largest, the prefill's
+    ≤ 1e-4, greedy tokens exact, flash-decode launched on the card at
+    each rank's head count."""
+    import numpy as np
+
+    import _torch_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.core.seq_group import spawn_mesh
+    from repro_torch.models import registry
+    reduced = dict(dtype="float32", head_dim=64, n_heads=5, n_kv_heads=5,
+                   d_model=320)
+    cfg = get_config("hymba-1.5b").reduced(**reduced)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    prompt = np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    case = dict(arch="hymba-1.5b", reduced=reduced, tparams=params,
+                mode="local", steps=5, prompt=prompt)
+    runs = {dev: spawn_mesh(_torch_ranks.tp_mesh, (1, 2), ("data", "model"),
+                            dict(serve={"s": dict(case, device=dev)}),
+                            timeout=300) for dev in ("cuda", "cpu")}
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        a, b = card["serve"]["s"], cpu["serve"]["s"]
+        for key in ("prefill", "logits"):
+            assert np.abs(a[key] - b[key]).max() <= \
+                1e-4 * np.abs(b[key]).max(), key
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        assert a["launches"] > 0 and b["launches"] == 0
+        assert a["kv_heads"] == (3, 2)[card["coords"]["model"]]
+
+
+@pytest.mark.gpu
 def test_dry_run_bytes_match_the_card_ranks(cuda_device):
     """The dry run's abstract collectives against ranks on the card: a
     small f32 llama on a (2, 2) mesh of ranks sharing the card, a
