@@ -365,10 +365,13 @@ Phases, one line each (more for the kernel table):
 25. mesh     — one (2, 2) spawn of launch.train's mesh path (ZeRO over
                ``data``, ``prism`` and ``local`` TP over ``model``, the
                re-mesh, ``build_decode_step``); while the ranks run, this
-               process dry-runs (a)'s and (c)'s steps for each rank's
-               coordinates on the meta device, and every rank's bytes by
-               kind and calls of every step must equal the dry run's; its
-               rank peaks are printed beside the measured ones.
+               process dry-runs (a)'s, (c)'s, (f)'s and (g)'s steps for
+               each rank's coordinates on the meta device, and every
+               rank's bytes by kind and calls of every step must equal the
+               dry run's; its rank peaks are printed beside the measured
+               ones.  (e)–(g) run the recurrent mixers and MLA's latents
+               split by channel: hymba's Mamba, xlstm-350m's mLSTM by value
+               channel and sLSTM by head, deepseek-v2's latent columns.
 Between 4 and 5 (its number kept out of the others' way):
    examples  — the port's twins of the JAX package's four examples
                (``repro_torch.examples``: quickstart, serve_adaptive,
@@ -393,6 +396,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -7624,12 +7628,18 @@ MESH_MOE = "deepseek-moe-16b"     # the reduced moe warm-up, batch over data
 MESH_DEC_B, MESH_DEC_T0, MESH_DEC_NEW = 8, 8, 8
 # (e), (f): local TP of the heads the even split cannot take, at full
 # width in f32: deepseek-v2-236b cut to 2 of 60 layers (layer 0 dense,
-# layer 1 MoE; MLA split by heads, 64 of 128 a rank) and hymba-1.5b cut to
-# 4 of 32 (25/5 heads split 15/10 by whole KV groups); a prefill, then
+# layer 1 MoE; MLA split by heads, 64 of 128 a rank, and its latents by
+# columns) and hymba-1.5b cut to 4 of 32 (25/5 heads split 15/10 by whole
+# KV groups, its Mamba by inner channel), (g) xlstm-350m cut to one of its
+# 3 groups (7 mLSTM by value channel, 1 sLSTM by head); a prefill, then
 # greedy decode (B MESH_DEC_B, the prompt teacher-forced), against rank 0
-# alone on the whole params; hymba's train step beside the dry run's count
-MESH_TP_HEADS = {"(e)": (MLA_ARCH, 2), "(f)": ("hymba-1.5b", 4)}
+# alone on the whole params; hymba's and xLSTM's train steps beside the
+# dry run's count (xLSTM's at B MESH_XLSTM_B N MESH_XLSTM_N, for its time
+# loops' seconds: N within its remat chunk of 128, 8.77 GB a rank counted)
+MESH_TP_HEADS = {"(e)": (MLA_ARCH, 2), "(f)": ("hymba-1.5b", 4),
+                 "(g)": ("xlstm-350m", 8)}
 MESH_TP_NEW = 4
+MESH_XLSTM_B, MESH_XLSTM_N = 4, 128
 
 
 def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
@@ -7695,6 +7705,12 @@ def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
     if D > 1:
         out["meta"] += (D - 1) * 16
     return out
+
+
+def mesh_dry_runs(runs: dict) -> dict:
+    """``mesh_dry_run`` of each of ``runs`` (label → the launcher's
+    arguments) on MESH_SHAPE, in turn."""
+    return {k: mesh_dry_run(a, MESH_SHAPE) for k, a in runs.items()}
 
 
 def mesh_dry_run(a: dict, shape) -> dict:
@@ -8019,10 +8035,7 @@ def tp_view_bytes(label: str, shape) -> dict:
     out = {}
     for m in range(shape[1]):
         pl = Placement(plan, cfg, meta, coords={"data": 0, "model": m})
-        out[m] = sum(4 * int(np.prod([
-            len(range(n)[s]) for n, s in zip(pl.index_of[k].shape,
-                                             pl.held_index(k))]))
-            for k in pl.keys)
+        out[m] = sum(4 * int(np.prod(pl.held_shape(k))) for k in pl.keys)
     out["whole"] = sum(4 * int(np.prod(e.shape))
                        for e in pl.index_of.values())
     return out
@@ -8088,14 +8101,13 @@ def _mesh_tp_heads(rank, world, label: str):
         cache = engine.init_cache(cfg, plan, MESH_DEC_B, S, "cuda")
         tokens, ms = _greedy(engine.build_decode_step(cfg, plan.xcfg, plan),
                              view, cache, prompt, groups[0], MESH_TP_NEW)
-    half = next(v for v in cache.values() if isinstance(v, dict))
     out = dict(tokens=tokens, ms=ms, first=first,
                launches=flash_decode.launches - before,
                got=_received(groups), coords=place.coords,
                view_gb=sum(t.numel() * 4 for t in _leaves(view)) / 1e9,
-               cache=tuple(half["k" if "k" in half else "c_kv"].shape),
+               cache=_cache_shape(cache),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    del view, cache, half
+    del view, cache
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()                        # every view freed first
@@ -8119,13 +8131,25 @@ def _mesh_tp_heads(rank, world, label: str):
     return out
 
 
+def _cache_shape(cache) -> tuple:
+    """The shape of a decode cache's first K (dense), latent (MLA) or mLSTM
+    matrix memory (xLSTM) leaf: the rank's heads or channels."""
+    for half in cache.values():
+        if isinstance(half, dict):
+            for name in ("k", "c_kv", "C", "h"):
+                if name in half:
+                    return tuple(half[name].shape)
+    raise ValueError("no cache leaf to show")
+
+
 def _mesh_rank(rank, world, reduced: dict, full: dict, tp_runs: dict):
     """One rank of [mesh]'s (2, 2) mesh: launch.train's reduced run (which
     also warms the rank up: the first rematerialised call, the kernels'
     libraries), the reduced ``local`` TP runs (llama, then the moe family
     with its batch over data), the full-width ``prism`` run (a), the
-    full-width ``local`` TP run (c), the small f32 case, (d), hymba's
-    ``local`` TP train step (f), then the decode runs of (e) and (f)."""
+    full-width ``local`` TP run (c), the small f32 case, (d), hymba's and
+    xLSTM's ``local`` TP train steps (f), (g), then the decode runs of (e),
+    (f) and (g)."""
     import gc
     import torch
     from repro_torch.launch.train import train_mesh
@@ -8145,6 +8169,9 @@ def _mesh_rank(rank, world, reduced: dict, full: dict, tp_runs: dict):
     gc.collect()
     torch.cuda.empty_cache()
     out["tp_hymba"] = train_mesh(rank, world, tp_runs["hymba"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp_xlstm"] = train_mesh(rank, world, tp_runs["xlstm"])
     gc.collect()
     torch.cuda.empty_cache()
     out["heads"] = {label: _mesh_tp_heads(rank, world, label)
@@ -8221,7 +8248,7 @@ def _check_tp_heads(label: str, runs, card: str) -> dict:
                                  f"{r['first'].tolist()}) vs one rank's "
                                  f"{one['tokens'].tolist()} "
                                  f"({one['first'].tolist()})")
-        if cfg.mla is None and r["launches"] == 0:
+        if cfg.mla is None and cfg.family != "ssm" and r["launches"] == 0:
             raise AssertionError(f"[mesh] {label}: no flash-decode launch")
         launches[m] = launches.get(m, 0) + r["launches"]
     for r in runs[:MESH_SHAPE[1]]:
@@ -8281,7 +8308,12 @@ def phase_mesh(card: str) -> dict:
           "hymba": dict(full, arch=MESH_TP_HEADS["(f)"][0], mode="local",
                         steps=MESH_TP_STEPS,
                         layers=MESH_TP_HEADS["(f)"][1],
-                        ckpt_dir=os.path.join(ck, "tp_hymba"))}
+                        ckpt_dir=os.path.join(ck, "tp_hymba")),
+          "xlstm": dict(full, arch=MESH_TP_HEADS["(g)"][0], mode="local",
+                        steps=MESH_TP_STEPS, batch=MESH_XLSTM_B,
+                        seq=MESH_XLSTM_N,
+                        layers=MESH_TP_HEADS["(g)"][1],
+                        ckpt_dir=os.path.join(ck, "tp_xlstm"))}
     # (c)'s bytes a rank by kind, from the shapes, before the run
     want_tp = {k: predicted_bytes(tp[k], MESH_SHAPE)
                for k in ("reduced", "full")}
@@ -8297,15 +8329,16 @@ def phase_mesh(card: str) -> dict:
               + f" of the {v['whole']} B of f32 params", flush=True)
     try:
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            # the dry runs of (a) and (c) in this process while the ranks run
-            dry = pool.submit(lambda: {k: mesh_dry_run(v, MESH_SHAPE)
-                                       for k, v in (("(a)", full),
-                                                    ("(c)", tp["full"]),
-                                                    ("(f)", tp["hymba"]))})
+        with concurrent.futures.ProcessPoolExecutor(
+                2, mp_context=multiprocessing.get_context("spawn")) as pool:
+            # the dry runs in two processes while the ranks run: (g)'s time
+            # loops in one, (a), (c) and (f) in the other
+            dry_g = pool.submit(mesh_dry_run, tp["xlstm"], MESH_SHAPE)
+            dry = pool.submit(mesh_dry_runs, {"(a)": full, "(c)": tp["full"],
+                                              "(f)": tp["hymba"]})
             ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full,
                                tp, timeout=RANK_TIMEOUT_S)
-            dry = dry.result()
+            dry = dict(dry.result(), **{"(g)": dry_g.result()})
         spawn_s = time.perf_counter() - t0
         rcfg = _check_mesh_run([r["reduced"] for r in ranks], red,
                                MESH_SHAPE, "reduced",
@@ -8321,6 +8354,8 @@ def phase_mesh(card: str) -> dict:
                         MESH_SHAPE, "(c)", 0, want_tp["full"])
         _check_mesh_run([r["tp_hymba"] for r in ranks], tp["hymba"],
                         MESH_SHAPE, "(f)", 0, False)
+        _check_mesh_run([r["tp_xlstm"] for r in ranks], tp["xlstm"],
+                        MESH_SHAPE, "(g)", 0, False)
         mgr = ElasticMeshManager(rcfg, ExchangeMode.PRISM, L=tr["L"],
                                  devices=[0, 1, 2, 3])
         mesh, plan = mgr.drop([2, 3])
@@ -8398,11 +8433,22 @@ def phase_mesh(card: str) -> dict:
           f"{tp['hymba']['layers']} of 32 layers at full width, --mode "
           f"local on (2, 2): its 25/5 heads split 15/10 by whole KV groups "
           f"(wq/wk/wv/wo moved between the JAX blocks and the head blocks "
-          f"over the row), B {MESH_B} N {LM_N}, {MESH_TP_STEPS} step; peak "
+          f"over the row), its Mamba 1600 of 3200 inner channels a rank, B "
+          f"{MESH_B} N {LM_N}, {MESH_TP_STEPS} step; peak "
           f"{max(r['peak_gb'] for r in hy):.2f} GB a rank [{card}]",
           flush=True)
     _print_mesh_ranks("(f)", hy, card)
     check_dry_run("(f)", hy, dry["(f)"], card)
+    xl = [r["tp_xlstm"] for r in ranks]
+    print(f"[mesh] (g) {tp['xlstm']['arch']} cut to "
+          f"{tp['xlstm']['layers']} of 24 layers (one of its 3 groups) at "
+          f"full width, --mode local on (2, 2): 7 mLSTM blocks by value "
+          f"channel (2 of its 4 heads a rank), the sLSTM by head (2 of 4), "
+          f"the vocabulary split, B {MESH_XLSTM_B} N {MESH_XLSTM_N}, "
+          f"{MESH_TP_STEPS} step; peak {max(r['peak_gb'] for r in xl):.2f} "
+          f"GB a rank [{card}]", flush=True)
+    _print_mesh_ranks("(g)", xl, card)
+    check_dry_run("(g)", xl, dry["(g)"], card)
     heads_launches = {label: _check_tp_heads(label, [r["heads"][label]
                                                      for r in ranks], card)
                       for label in MESH_TP_HEADS}

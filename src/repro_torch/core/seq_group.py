@@ -45,9 +45,10 @@ JAX's transpose of the collective it stands for:
 * ``broadcast``: the cotangents summed onto ``src`` (gloo ``reduce``).
 
 Tensor parallelism over a mesh row (``copy_to``, ``reduce_from``,
-``gather_from``: Megatron's f / g pair and the vocab gather) is three
-autograd functions, each its forward's transpose, staged in f32 and booked
-under the kind ``tp`` (their backwards too):
+``gather_from``, ``gather_to``: Megatron's f / g pair and two gathers) is
+four autograd functions, each its forward's transpose, staged in f32
+(``gather_from`` and ``gather_to`` forward in t's dtype) and booked under
+the kind ``tp`` (their backwards too):
 
 * ``copy_to``: the identity forward (the input of a column-parallel
   matmul, the same on every rank of the row); the backward sums the
@@ -55,7 +56,11 @@ under the kind ``tp`` (their backwards too):
 * ``reduce_from``: the sum over the row forward (a row-parallel matmul's
   partial products); the identity backward;
 * ``gather_from``: every rank's slice joined on the last dim forward (the
-  vocab-parallel logits); the backward keeps the rank's slice.
+  vocab-parallel logits); the backward keeps the rank's slice;
+* ``gather_to``: the same forward, for a consumer that is itself split
+  over the row (Mamba's ``dt`` from every inner channel, MLA's latents
+  before the heads): the backward reduce-scatters the cotangent (each
+  rank's part of it summed over the row, the rank's slice kept).
 
 Rematerialised layers (``repro_torch.models.remat``) run their forward
 twice, the second time in the backward.  A ``Tape`` keeps that second run
@@ -312,6 +317,22 @@ class _GatherFrom(torch.autograd.Function):
     def backward(ctx, ct):
         r, w = ctx.group.rank, ctx.width
         return None, ct[..., r * w:(r + 1) * w].contiguous()
+
+
+class _GatherTo(torch.autograd.Function):
+    """``SeqGroup.gather_to``: every rank's slice joined on the last dim
+    (``tp``); the backward reduce-scatters the cotangent (``tp``): the sum
+    over the group of the cotangents of the rank's slice."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group, ctx.dtype = group, t.dtype
+        return group._tp_gather(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        parts = torch.stack(list(ct.chunk(ctx.group.world_size, dim=-1)))
+        return None, ctx.group.reduce_scatter(parts, kind="tp").to(ctx.dtype)
 
 
 class _Broadcast(torch.autograd.Function):
@@ -583,11 +604,12 @@ class SeqGroup:
         self._end(t0, kind, host.numel() * (self.world_size - 1))
         return out
 
-    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, kind: str = "grad"
+                       ) -> torch.Tensor:
         """``t`` ``[P, ...]`` on every rank → the sum over ranks of slot
         ``rank`` ``[...]`` in f32 on t's device (gloo ``reduce_scatter``
         of f32 host buffers); the other ranks' slots received, (P − 1) ×
-        the slot's f32 bytes, are booked as ``grad``."""
+        the slot's f32 bytes, are booked under ``kind``."""
         P = self.world_size
         if t.shape[0] != P:
             raise ValueError(f"reduce_scatter: leading dim {t.shape[0]} is "
@@ -598,7 +620,7 @@ class SeqGroup:
                           pin_memory=t.is_cuda)
         dist.reduce_scatter(out, list(host.unbind(0)), group=self.pg)
         res = out.reshape(t.shape[1:]).to(t.device)
-        self._end(t0, "grad", out.numel() * 4 * (P - 1))
+        self._end(t0, kind, out.numel() * 4 * (P - 1))
         return res
 
     def all_reduce(self, tensors: List[torch.Tensor], *, kind: str = "grad"
@@ -700,6 +722,19 @@ class SeqGroup:
             return self._replay()
         if _tracked(t):
             return self._record(_GatherFrom.apply(self, t))
+        return self._record(self._tp_gather(t))
+
+    def gather_to(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` joined on the last dim in rank order (a
+        column block whose consumer is split over the group as well: each
+        rank's cotangent is its part's only); the backward reduce-scatters
+        the cotangent, each rank keeping its slice of the sum."""
+        if self.world_size == 1:
+            return t
+        if self._replaying():
+            return self._replay()
+        if _tracked(t):
+            return self._record(_GatherTo.apply(self, t))
         return self._record(self._tp_gather(t))
 
     def _tp_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -1014,14 +1049,15 @@ class AbstractSeqGroup(SeqGroup):
         self._book("all-gather", kind, n, n * (P - 1), n + P * n)
         return out
 
-    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, kind: str = "grad"
+                       ) -> torch.Tensor:
         P = self.world_size
         if t.shape[0] != P:
             raise ValueError(f"reduce_scatter: leading dim {t.shape[0]} is "
                              f"not the group's {P} ranks")
         host = self._host_copy(t, torch.float32)
         out = torch.empty(t.shape[1:], dtype=torch.float32, device=t.device)
-        self._book("reduce-scatter", "grad", host.numel() * 4,
+        self._book("reduce-scatter", kind, host.numel() * 4,
                    out.numel() * 4 * (P - 1), _nbytes(t) + _nbytes(out))
         return out
 

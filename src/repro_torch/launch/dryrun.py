@@ -24,12 +24,18 @@ Nothing is allocated and no process group exists, so every cell runs at
 full width on the CPU.  The numbers are counts of the port's program on
 meta, set against the H100's 80 GB, not measurements.  The rank's peak is
 the port's, not the JAX plan's: the port gathers every ZeRO-3 parameter
-whole for the step (ROADMAP [12.6]), gathers the TP leaves of
-[13.7c]–[13.7d] and MLA's latent projections whole, and returns f32
-``[B, N, V]`` logits ([12.5]).
+whole for the step (ROADMAP [12.6]), gathers whole the few leaves the JAX
+plan splits over ``model`` that its TP holds whole (norm scales, the
+router, qkv biases, a shared KV head, the moe shared expert, the sLSTM
+where M does not divide its heads and its FFN, a latent or head count M
+does not divide), and returns f32 ``[B, N, V]`` logits ([12.5]).  Under
+``local`` TP the rank's decode cache holds its heads and its recurrent
+mixers' channels (``engine.init_cache``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch xlstm-350m,hymba-1.5b
+      [--shape train_4k] [--both-meshes] [--jobs 4]   (every shape of each)
   python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes]
       [--mode prism] [--jobs 4]
 Artifacts: artifacts/dryrun_torch/<mesh>/<arch>__<shape>__<mode>.json
@@ -379,11 +385,15 @@ def main(argv=None):
                     help="cells traced at once, each in a process of its "
                          "own (1: in this process)")
     args = ap.parse_args(argv)
-    if not args.all and not (args.arch and args.shape):
-        ap.error("give --arch and --shape, or --all")
+    if not args.all and not args.arch:
+        ap.error("give --arch (and --shape), or --all")
 
-    cells = (list(all_cells()) if args.all
-             else [(args.arch, args.shape)])
+    archs = args.arch.split(",") if args.arch else None
+    cells = [(a, s) for a, s in all_cells()
+             if (archs is None or a in archs)
+             and (args.shape is None or s == args.shape)]
+    if not cells:
+        ap.error(f"no cell of --arch {args.arch} --shape {args.shape}")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     jobs = [(arch, shape, mp, args.mode, args.L, args.out)
             for arch, shape in cells for mp in meshes]

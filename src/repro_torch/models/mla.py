@@ -14,12 +14,17 @@ partial softmax exactly (``exchange.mla_decode_attention_sharded``).
 
 Under tensor parallelism over a mesh row (``tp``: the row's group,
 ``models.tp``) ``n_heads`` is the rank's share and ``w_uq``, ``w_uk``,
-``w_uv`` and ``wo`` are its heads' blocks; every rank of the row computes
-the latents from the whole ``w_dq``/``w_dkv`` alike, they enter the
-row's parallel region (``copy_to``: the backward sums their cotangents,
-so the whole leaves' gradients are the same on every rank), and ``wo``'s
-partial products are summed over the row.  The latent cache is whole on
-every rank of the row.
+``w_uv`` and ``wo`` are its heads' blocks, and ``wo``'s partial products
+are summed over the row.  Where M divides a latent's width (``tp.TPPlan.
+latent``) the rank holds a column block of its projection (``w_dq``,
+``w_dkv``), computes that block of the latent and gathers it over the row
+(``gather_to``) before the norm, whose RMS spans the whole latent, and
+before ``k_pe`` is split off: the gather's backward reduce-scatters the
+cotangent, so each rank's projection gradient is its column block's, and
+the norms' gradients are the rank's heads' parts, which the row sums.  A
+latent M does not divide is computed whole on every rank and enters the
+row's parallel region (``copy_to``: the backward sums its cotangent).
+The latent cache is whole on every rank of the row.
 """
 from __future__ import annotations
 
@@ -58,10 +63,31 @@ def init_mla(gen: torch.Generator, d: int, n_heads: int, cfg: MLACfg,
     return p
 
 
-def _q_latent(params: Params, x: torch.Tensor, tp) -> torch.Tensor:
-    """The normed query latent, entering the row's parallel region."""
-    c_q = rmsnorm(params["q_norm"], x @ params["w_dq"])
-    return c_q if tp is None else tp.copy_to(c_q)
+def _latents(params: Params, x: torch.Tensor, cfg: MLACfg,
+             positions: torch.Tensor, theta: float, tp=None):
+    """(the normed query latent, the normed KV latent, the rotary key) of
+    ``x``, in the row's parallel region under ``tp``: a latent whose
+    projection the rank holds a column block of is gathered over the row
+    before its norm, a whole one enters as it is (``copy_to``)."""
+    r = cfg.kv_lora_rank
+    split_q = tp is not None and params["w_dq"].shape[-1] != cfg.q_lora_rank
+    split_kv = tp is not None and \
+        params["w_dkv"].shape[-1] != r + cfg.qk_rope_dim
+    xs = tp.copy_to(x) if split_q or split_kv else x
+
+    def project(w, split):
+        return tp.gather_to(xs @ w) if split else x @ w
+    c_q = rmsnorm(params["q_norm"], project(params["w_dq"], split_q))
+    ckv = project(params["w_dkv"], split_kv)
+    c_kv, k_pe = ckv[..., :r], ckv[..., r:]
+    c_kv = rmsnorm(params["kv_norm"], c_kv)
+    cos, sin = rope_tables(positions, cfg.qk_rope_dim, theta)
+    k_pe = apply_rope(k_pe[..., None, :], cos, sin)[..., 0, :]
+    if tp is not None and not split_q:
+        c_q = tp.copy_to(c_q)
+    if tp is not None and not split_kv:
+        c_kv, k_pe = tp.copy_to(c_kv), tp.copy_to(k_pe)
+    return c_q, c_kv, k_pe
 
 
 def _project_q(params: Params, c_q: torch.Tensor, H: int, cfg: MLACfg,
@@ -72,18 +98,6 @@ def _project_q(params: Params, c_q: torch.Tensor, H: int, cfg: MLACfg,
     q_nope, q_pe = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     cos, sin = rope_tables(positions, cfg.qk_rope_dim, theta)
     return torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
-
-
-def _project_kv_latent(params: Params, x: torch.Tensor, cfg: MLACfg,
-                       positions: torch.Tensor, theta: float, tp=None):
-    ckv = x @ params["w_dkv"]
-    c_kv, k_pe = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
-    c_kv = rmsnorm(params["kv_norm"], c_kv)
-    cos, sin = rope_tables(positions, cfg.qk_rope_dim, theta)
-    k_pe = apply_rope(k_pe[..., None, :], cos, sin)[..., 0, :]
-    if tp is not None:
-        c_kv, k_pe = tp.copy_to(c_kv), tp.copy_to(k_pe)
-    return c_kv, k_pe
 
 
 def _output(params: Params, out: torch.Tensor, tp) -> torch.Tensor:
@@ -113,10 +127,8 @@ def mla_block(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
     plan x is this rank's part of the sequence, at its global
     ``positions``."""
     positions = _positions(x, positions)
-    q = _project_q(params, _q_latent(params, x, tp), n_heads, cfg,
-                   positions, rope_theta)
-    c_kv, k_pe = _project_kv_latent(params, x, cfg, positions, rope_theta,
-                                    tp)
+    c_q, c_kv, k_pe = _latents(params, x, cfg, positions, rope_theta, tp)
+    q = _project_q(params, c_q, n_heads, cfg, positions, rope_theta)
     out = exchange_attention_mla(q, c_kv, k_pe, params["w_uk"],
                                  params["w_uv"], xcfg, causal=True,
                                  scale=_scale(cfg))
@@ -134,10 +146,8 @@ def mla_prefill(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
     its own (PRISM, booked as ``cache`` bytes)."""
     B, N, _ = x.shape
     positions = _positions(x, positions)
-    q = _project_q(params, _q_latent(params, x, tp), n_heads, cfg,
-                   positions, rope_theta)
-    c_kv, k_pe = _project_kv_latent(params, x, cfg, positions, rope_theta,
-                                    tp)
+    c_q, c_kv, k_pe = _latents(params, x, cfg, positions, rope_theta, tp)
+    q = _project_q(params, c_q, n_heads, cfg, positions, rope_theta)
     seen = []
     out = exchange_attention_mla(q, c_kv, k_pe, params["w_uk"],
                                  params["w_uv"], xcfg, causal=True,
@@ -185,10 +195,9 @@ def mla_decode(params: Params, x: torch.Tensor, n_heads: int, cfg: MLACfg,
     else:
         pos = torch.full((B, 1), cache_index, dtype=torch.int32,
                          device=x.device)
-    q = _project_q(params, _q_latent(params, x, tp), H, cfg, pos,
-                   rope_theta)                                   # [B,1,H,dq]
+    c_q, c_new, pe_new = _latents(params, x, cfg, pos, rope_theta, tp)
+    q = _project_q(params, c_q, H, cfg, pos, rope_theta)         # [B,1,H,dq]
     q_nope, q_pe = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
-    c_new, pe_new = _project_kv_latent(params, x, cfg, pos, rope_theta, tp)
     at, rows = _write_at(idx if per_row else cache_index,
                          cache["c_kv"].shape[1], group)
     if per_row:                  # one position per row: drop the token axis

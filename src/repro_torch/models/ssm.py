@@ -23,6 +23,30 @@ steps is rematerialised (``remat.region``; ``chunked_time_scan``'s
 or ``T <= chunk``), so the backward keeps the state only at block
 boundaries and recomputes the steps inside.
 
+Under tensor parallelism over a mesh row (``tp``: a ``models.tp.Split``,
+the row's group and the rank's block ``[lo, hi)`` of the mixer's
+channels; the params are the rank's blocks, ``TPPlan.leaf_block``) each
+mixer enters the row's parallel region (``copy_to``) and leaves it by a
+row-parallel product summed over the row (``reduce_from``):
+
+* Mamba: the rank's inner channels of ``w_in``'s x and z halves, the
+  conv, ``dt``, ``A``, the skip, and the scan state ``h [B, w, S]`` and
+  conv carry ``[B, W − 1, w]``; ``B``/``C`` (``xc @ w_bc``) from the
+  rank's rows, summed over the row; ``dt`` from every channel of ``xc``,
+  gathered over the row (``gather_to``: in bf16 half the bytes of a
+  reduce-scatter of f32 partial products, and ``w_dt``'s column block is
+  the JAX block);
+* mLSTM: the rank's value channels (``w_v``'s columns, the z half of
+  ``w_up``, ``gn_scale``, ``w_down``'s rows) of its heads, and its
+  matrix memory ``C [B, nh, dh, ne]``; ``xin``, q, k, the gates, ``n``
+  and ``m`` whole on every rank (a rank's gradient of them is its
+  channels' part, which the row sums); where a head's channels span
+  ranks its groupnorm's mean of squares is a row sum;
+* sLSTM: the rank's whole heads (its recurrence mixes a head's channels
+  at every step): its columns of each gate, its heads of ``r``, its
+  state ``[B, w]``; the cell's output gathered over the row
+  (``gather_from``) into the FFN, whole unless M divides its width.
+
 Numerics follow the JAX package: the states are f32, the casts to the
 model dtype sit where it casts, log σ(f) is ``-softplus(-f)``, the
 stabiliser ``m`` starts at −1e30, the mLSTM's denominator is
@@ -95,38 +119,55 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out, xp[:, xp.shape[1] - (W - 1):]
 
 
+def _entered(x: torch.Tensor, tp) -> torch.Tensor:
+    """The mixer's input entering the row's parallel region under ``tp``."""
+    return x if tp is None else tp.group.copy_to(x)
+
+
+def _left(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product's partial sums summed over the row."""
+    return y if tp is None else tp.group.reduce_from(y)
+
+
 def _mamba_inner(params: Params, x: torch.Tensor, cfg: SSMCfg,
-                 conv: Optional[torch.Tensor] = None):
-    """Shared projections → (xc, z, dt f32, B_in, C_in, conv carry)."""
+                 conv: Optional[torch.Tensor] = None, tp=None):
+    """Shared projections → (xc, z, dt f32, B_in, C_in, conv carry), each
+    of the rank's channels under ``tp`` (``B_in``/``C_in`` whole)."""
     di = params["d_skip"].shape[0]
-    xz = x @ params["w_in"]
+    xz = _entered(x, tp) @ params["w_in"]
     xs, z = xz[..., :di], xz[..., di:]
     xc, conv_carry = _causal_conv(xs, params["conv"], conv)
     xc = F.silu(xc)
     bc = xc @ params["w_bc"]
+    xd = xc
+    if tp is not None:      # B, C: a sum over the channels; dt: all of xc
+        bc = tp.group.copy_to(tp.group.reduce_from(bc))
+        xd = tp.group.gather_to(xc)
     B_in, C_in = bc[..., :cfg.state_size], bc[..., cfg.state_size:]
-    dt = _softplus((xc @ params["w_dt"]).float() + params["dt_bias"])
+    dt = _softplus((xd @ params["w_dt"]).float() + params["dt_bias"])
     return xc, z, dt, B_in, C_in, conv_carry
 
 
-def _mamba_out(params: Params, ys: torch.Tensor, xc, z, dtype):
+def _mamba_out(params: Params, ys: torch.Tensor, xc, z, dtype, tp=None):
     """(ys f32 [B, N, di]) → the mixer's output [B, N, D]."""
     y = ys.to(dtype) + xc * params["d_skip"].to(dtype)
     y = y * F.silu(z)
-    return y @ params["w_out"]
+    return _left(y @ params["w_out"], tp)
 
 
 def mamba_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
                h0: Optional[torch.Tensor] = None,
-               conv: Optional[torch.Tensor] = None
+               conv: Optional[torch.Tensor] = None, tp=None
                ) -> Tuple[torch.Tensor, State]:
     """Whole-sequence selective scan. x: [B, N, D]; ``h0`` [B, di, S] f32
     and ``conv`` (the W − 1 pre-conv inputs before x, [B, W − 1, di])
     default to zeros → (y [B, N, D], final state ``{"h", "conv"}``, the
-    layout of ``init_mamba_state``)."""
+    layout of ``init_mamba_state``; under ``tp`` di is the rank's
+    channels)."""
     B, N, _ = x.shape
     di = params["d_skip"].shape[0]
-    xc, z, dt, B_in, C_in, conv_carry = _mamba_inner(params, x, cfg, conv)
+    xc, z, dt, B_in, C_in, conv_carry = _mamba_inner(params, x, cfg, conv,
+                                                     tp)
     A = -torch.exp(params["a_log"])                       # [di, S]
     h = (torch.zeros((B, di, cfg.state_size), dtype=torch.float32,
                      device=x.device) if h0 is None else h0)
@@ -139,7 +180,7 @@ def mamba_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
                      min(t0 + step, N))
         blocks.append(y_c)
     ys = torch.cat(blocks)                                # [N, B, di]
-    y = _mamba_out(params, ys.transpose(0, 1), xc, z, x.dtype)
+    y = _mamba_out(params, ys.transpose(0, 1), xc, z, x.dtype, tp)
     return y, {"h": h, "conv": conv_carry}
 
 
@@ -164,18 +205,19 @@ def _mamba_block(h, dt, A, B_in, C_in, xcf, t0: int, t1: int):
 
 
 def mamba_step(params: Params, x: torch.Tensor, cfg: SSMCfg,
-               state: State) -> Tuple[torch.Tensor, State]:
+               state: State, tp=None) -> Tuple[torch.Tensor, State]:
     """One token. x: [B, 1, D]; state: ``{"h": [B, di, S] f32, "conv": [B,
-    W − 1, di]}`` → (y [B, 1, D], the new state)."""
+    W − 1, di]}`` (under ``tp`` the rank's channels) → (y [B, 1, D], the
+    new state)."""
     xc, z, dt, B_in, C_in, conv_carry = _mamba_inner(params, x, cfg,
-                                                     state["conv"])
+                                                     state["conv"], tp)
     A = -torch.exp(params["a_log"])
     dA = torch.exp(dt[:, 0, :, None] * A[None])
     dBx = (dt[:, 0, :, None] * B_in.float()[:, 0, None, :]
            * xc.float()[:, 0, :, None])
     h = dA * state["h"] + dBx
     y = torch.matmul(h, C_in.float()[:, 0, :, None])[..., 0][:, None, :]
-    return (_mamba_out(params, y, xc, z, x.dtype),
+    return (_mamba_out(params, y, xc, z, x.dtype, tp),
             {"h": h, "conv": conv_carry.to(state["conv"].dtype)})
 
 
@@ -232,10 +274,21 @@ def _stabilised_gates(i_pre: torch.Tensor, logf: torch.Tensor,
     return fg, ig, ms
 
 
+def _value_block(di: int, H: int, tp) -> Tuple[int, int, int]:
+    """The mLSTM's value channels a rank holds → (first head, heads,
+    channels a head): every head's all of them, or under ``tp`` whole
+    heads or a part of one."""
+    dh = di // H
+    lo, hi = (0, di) if tp is None else (tp.lo, tp.hi)
+    return lo // dh, max((hi - lo) // dh, 1), min(hi - lo, dh)
+
+
 def mlstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
-               state0: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+               state0: Optional[State] = None, tp=None
+               ) -> Tuple[torch.Tensor, State]:
     """Whole-sequence mLSTM. x: [B, N, D] → (y [B, N, D], final state
-    ``{"C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]}``, f32).
+    ``{"C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]}``, f32; under
+    ``tp`` ``C`` is the rank's ``[B, nh, dh, ne]``).
 
     Stabilised exponential gating (Beck et al. 2024): m tracks the running
     max of (log f + m_prev, ĩ), and C and n are rescaled by it."""
@@ -243,14 +296,17 @@ def mlstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     H = cfg.mlstm_heads
     di = params["w_q"].shape[0]
     dh = di // H
-    up = x @ params["w_up"]
+    h0, nh, ne = _value_block(di, H, tp)
+    heads = slice(h0, h0 + nh)
+    up = _entered(x, tp) @ params["w_up"]
     xin, z = up[..., :di], up[..., di:]
     q = (xin @ params["w_q"]).reshape(B, N, H, dh) * (dh ** -0.5)
     k = (xin @ params["w_k"]).reshape(B, N, H, dh) * (dh ** -0.5)
-    v = (xin @ params["w_v"]).reshape(B, N, H, dh)
+    v = (xin @ params["w_v"]).reshape(B, N, nh, ne)
     gates = (xin @ params["w_if"]).float() + params["b_if"]
     if state0 is None:
-        state0 = init_mlstm_state(B, D, cfg, device=x.device)
+        state0 = init_mlstm_state(B, D, cfg, device=x.device,
+                                  values=nh * ne)
     # time-major, f32
     qf, kf, vf = (t.float().transpose(0, 1) for t in (q, k, v))
     i_pre, f_pre = (g.transpose(0, 1) for g in (gates[..., :H],
@@ -262,29 +318,31 @@ def mlstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     n_blocks, num_blocks = [], []
     for t0 in range(0, N, step):
         C, n, ns_c, nums_c = run(_mlstm_block, C, n, qf, kf, vf, fg, ig,
-                                 t0, min(t0 + step, N))
+                                 heads, t0, min(t0 + step, N))
         n_blocks.append(ns_c)
         num_blocks.append(nums_c)
     ns, nums = torch.cat(n_blocks), torch.cat(num_blocks)
-    qn = (qf * ns).sum(dim=-1)                              # [N, B, H]
-    den = torch.maximum(qn.abs(), torch.exp(-ms))[..., None]
-    h = (nums[..., 0, :] / den).transpose(0, 1).reshape(B, N, di)
-    h = _groupnorm_heads(h, H, params["gn_scale"]).to(x.dtype)
-    y = (h * F.silu(z)) @ params["w_down"]
+    qn = (qf[:, :, heads] * ns[:, :, heads]).sum(dim=-1)    # [N, B, nh]
+    den = torch.maximum(qn.abs(), torch.exp(-ms[:, :, heads]))[..., None]
+    h = (nums[..., 0, :] / den).transpose(0, 1).reshape(B, N, nh * ne)
+    h = _groupnorm_split(h, nh, params["gn_scale"], dh, h0, H,
+                         tp).to(x.dtype)
+    y = _left((h * F.silu(z)) @ params["w_down"], tp)
     return y, {"C": C, "n": n.clone(), "m": ms[-1].clone()}
 
 
-def _mlstm_block(C, n, qf, kf, vf, fg, ig, t0: int, t1: int):
+def _mlstm_block(C, n, qf, kf, vf, fg, ig, heads: slice, t0: int, t1: int):
     """Time steps t0 .. t1 − 1 of the mLSTM cell from (C, n) → (C, n after
-    them, each step's n [t1 − t0, B, H, dh] and q·C [t1 − t0, B, H, 1,
-    dh])."""
+    them, each step's n [t1 − t0, B, H, dh] and q·C [t1 − t0, B, nh, 1,
+    ne]); ``C`` and the values ``vf`` are the ``heads``' (the rank's)."""
     n_list, num_list = [], []
     for t in range(t0, t1):
-        kv = kf[t][..., :, None] * vf[t][..., None, :]    # [B, H, dh, dh]
-        C = (fg[t][..., None, None] * C).addcmul_(ig[t][..., None, None], kv)
+        f, i = fg[t][:, heads], ig[t][:, heads]
+        kv = kf[t][:, heads, :, None] * vf[t][..., None, :]  # [B, nh, dh, ne]
+        C = (f[..., None, None] * C).addcmul_(i[..., None, None], kv)
         n = (fg[t][..., None] * n).addcmul_(ig[t][..., None], kf[t])
         n_list.append(n)
-        num_list.append(torch.matmul(qf[t][..., None, :], C))
+        num_list.append(torch.matmul(qf[t][:, heads, None, :], C))
     return C, n, torch.stack(n_list), torch.stack(num_list)
 
 
@@ -298,16 +356,37 @@ def _groupnorm_heads(h: torch.Tensor, H: int,
     return hh.reshape(B, N, di) * scale
 
 
+def _groupnorm_split(h: torch.Tensor, nh: int, scale: torch.Tensor, dh: int,
+                     h0: int, H: int, tp) -> torch.Tensor:
+    """``_groupnorm_heads`` of the rank's ``nh`` heads of ``h`` [B, N,
+    nh·ne]; where a rank holds part of one head (ne < dh) the mean of
+    squares is the row's sum of every rank's ``[B, N, H]`` partial sums
+    (the head's, at its index; zeros elsewhere), over dh."""
+    B, N, w = h.shape
+    if w == nh * dh:
+        return _groupnorm_heads(h, nh, scale)
+    hh = h.float()
+    part = hh.new_zeros((B, N, H))
+    part[..., h0] = hh.square().sum(dim=-1)
+    var = tp.group.copy_to(tp.group.reduce_from(part))[..., h0:h0 + 1] / dh
+    return hh * torch.rsqrt(var + 1e-6) * scale
+
+
 def mlstm_step(params: Params, x: torch.Tensor, cfg: SSMCfg,
-               state: State) -> Tuple[torch.Tensor, State]:
+               state: State, tp=None) -> Tuple[torch.Tensor, State]:
     """One token — the same math as one scan step."""
-    return mlstm_scan(params, x, cfg, state0=state)
+    return mlstm_scan(params, x, cfg, state0=state, tp=tp)
 
 
-def init_mlstm_state(batch: int, d: int, cfg: SSMCfg, device=None) -> State:
+def init_mlstm_state(batch: int, d: int, cfg: SSMCfg, device=None,
+                     values: Optional[int] = None) -> State:
+    """The mLSTM's zero state; ``values``: the value channels a rank holds
+    (``C``'s heads and last dim those of ``_value_block``)."""
     H, dh = mlstm_dims(d, cfg)
     f32 = dict(dtype=torch.float32, device=device)
-    return {"C": torch.zeros((batch, H, dh, dh), **f32),
+    w = H * dh if values is None else values
+    nh, ne = max(w // dh, 1), min(w, dh)
+    return {"C": torch.zeros((batch, nh, dh, ne), **f32),
             "n": torch.zeros((batch, H, dh), **f32),
             "m": torch.full((batch, H), M_INIT, **f32)}
 
@@ -338,16 +417,19 @@ def init_slstm(gen: torch.Generator, d: int, cfg: SSMCfg, dtype) -> Params:
 
 
 def slstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
-               state0: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+               state0: Optional[State] = None, tp=None
+               ) -> Tuple[torch.Tensor, State]:
     """Strictly sequential sLSTM over time. x: [B, N, D] → (y, final state
-    ``{"c", "n", "h", "m"}``, each [B, D] f32)."""
+    ``{"c", "n", "h", "m"}``, each [B, D] f32; under ``tp`` [B, w], the
+    rank's heads' channels)."""
     B, N, D = x.shape
-    H = cfg.mlstm_heads
-    wx = (x @ params["w_x"]).float().transpose(0, 1)     # [N, B, 4D]
-    r = params["r"].float()
+    w = D if tp is None else tp.hi - tp.lo
+    H = cfg.mlstm_heads * w // D                          # the rank's heads
+    wx = (_entered(x, tp) @ params["w_x"]).float().transpose(0, 1)
+    r = params["r"].float()                               # wx: [N, B, 4w]
     b = params["b"]
     if state0 is None:
-        state0 = init_slstm_state(B, D, device=x.device)
+        state0 = init_slstm_state(B, w, device=x.device)
     c, n, h, m = (state0[k] for k in ("c", "n", "h", "m"))
     step = max(cfg.chunk, 1) if remat.chunked(N, cfg.chunk) else N
     run = remat.region if step < N else _call
@@ -360,9 +442,13 @@ def slstm_scan(params: Params, x: torch.Tensor, cfg: SSMCfg,
     hseq = _groupnorm_heads(hs.transpose(0, 1), H,
                             params["gn_scale"]).to(x.dtype)
     du = params["w_down"].shape[0]
-    up = hseq @ params["w_up"]
-    y = (F.gelu(up[..., :du], approximate="tanh") * up[..., du:]) \
-        @ params["w_down"]
+    ffn = None                      # the FFN split where M divides its width
+    if tp is not None:
+        hseq = tp.group.gather_from(hseq)
+        ffn = tp if du != int(D * 4 / 3) else None
+    up = _entered(hseq, ffn) @ params["w_up"]
+    y = _left((F.gelu(up[..., :du], approximate="tanh") * up[..., du:])
+              @ params["w_down"], ffn)
     return y, {"c": c, "n": n, "h": h.clone(), "m": m}
 
 
@@ -388,8 +474,8 @@ def _slstm_block(c, n, h, m, wx, r, b, H: int, t0: int, t1: int):
 
 
 def slstm_step(params: Params, x: torch.Tensor, cfg: SSMCfg,
-               state: State) -> Tuple[torch.Tensor, State]:
-    return slstm_scan(params, x, cfg, state0=state)
+               state: State, tp=None) -> Tuple[torch.Tensor, State]:
+    return slstm_scan(params, x, cfg, state0=state, tp=tp)
 
 
 def init_slstm_state(batch: int, d: int, device=None) -> State:

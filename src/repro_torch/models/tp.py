@@ -16,9 +16,11 @@ writes them out (Megatron's layout, ``core.seq_group``'s ``copy_to`` /
   ``n_heads / M`` query heads of one KV head shared by ``M / n_kv`` ranks
   where the KV heads are fewer than M (the vision model's 32/8 on 16);
 * MLA: a rank runs its heads' columns of ``w_uq``, its heads of
-  ``w_uk/w_uv`` and its rows of ``wo``; the latent projections
-  (``w_dq``, ``w_dkv``, the norms) are whole on every rank of the row,
-  and the latent enters the row's parallel region;
+  ``w_uk/w_uv`` and its rows of ``wo``; where M divides a latent's width
+  it also runs its column block of ``w_dq`` or ``w_dkv`` and gathers the
+  latent over the row (``gather_to``) before the norm, which is whole;
+  a latent M does not divide is computed whole on every rank and enters
+  the row's parallel region;
 * an MLP (the dense layers', the moe family's first layers', the cross
   layers'): column then row, where M divides its width;
 * the MoE experts: a rank runs its ``E / M`` experts over all the row's
@@ -26,12 +28,26 @@ writes them out (Megatron's layout, ``core.seq_group``'s ``copy_to`` /
   expert whole too: the JAX plan takes it for an expert stack, ``"moe/"
   in path``, and shards its layers, never its width);
 * the vocabulary: ``embed`` looks up the rank's rows of the table and
-  ``unembed`` gives the rank's columns of the logits, where M divides V.
+  ``unembed`` gives the rank's columns of the logits, where M divides V;
+* the recurrent mixers, by channel (``Split``): Mamba (hymba) a block of
+  its inner channels where M divides them (its rows of ``w_out`` summed
+  over the row, ``xc`` gathered for ``dt``, the ``B``/``C`` product of its
+  rows summed); the mLSTM a block of its value channels (``w_v``'s
+  columns) where M divides them into whole heads or whole heads into
+  them, its q, k, gates and normaliser whole on every rank; the sLSTM
+  whole heads where M divides its heads, else whole on every rank (1 of
+  every 8 xLSTM blocks at M 16: xlstm-350m's 4 heads), its FFN split
+  where M divides its width ``int(4d / 3)`` (never at the configs'
+  widths, 1365 and 85).
 
-Where the rank's head block is not the JAX spec's block of a leaf (the
-uneven split, or M not dividing the columns) the leaf is moved between
-the two over the row (``sharding.placement``).  A shared KV head's
-``wk/wv`` are held whole and sliced, as the qkv biases are.
+Where the rank's block is not the JAX spec's block of a leaf (the uneven
+split, M not dividing the columns, a mixer's x and z halves or gates side
+by side in one leaf, rows where the spec splits columns) the leaf is moved
+between the two over the row (``sharding.placement``); a rank's block may
+be several ranges of the leaf's dim (``leaf_block``).  A leaf held whole
+whose gradient is the rank's part only (a shared KV head's ``wk/wv``, the
+qkv biases of split heads, the mLSTM's ``w_q/w_k/w_if/b_if``, the norms
+of a gathered MLA latent) is summed over the row (``sliced_dim``).
 
 Under a decode plan that shards the sequence over ``model`` (``prism``,
 ``voltage``: ``make_plan(..., decode=True)``) the attention stays
@@ -41,10 +57,10 @@ row holds the step's one token.  A training or full-sequence plan that
 shards the sequence over ``model`` splits nothing.
 
 Every other leaf the JAX spec shards over ``model`` (norm scales, the
-router, MLA's latent projections, Mamba's and xLSTM's projections, the
-heads of an attention no rule splits) is gathered whole over the row
-before the step (``sharding.placement``) and computed on every rank of
-the row alike.
+router, the heads of an attention no rule splits, a latent or mixer that
+M does not divide, the sLSTM's FFN) is gathered whole over the row before
+the step (``sharding.placement``) and computed on every rank of the row
+alike.
 
 A mesh step runs its model inside ``on_mesh(plan, group)`` (the row's seq
 group; ``batch``: the column, where the batch is sharded over ``data``,
@@ -117,17 +133,55 @@ class TPPlan:
     def splits_vocab(self, V: int) -> bool:
         return self.full and V % self.M == 0
 
+    def latent(self, cfg, width: int) -> bool:
+        """Does an MLA latent of ``width`` columns split over the row (its
+        heads split, and M divides it)?"""
+        return self.heads(cfg, 0) is not None and width % self.M == 0
+
+    def mamba(self, cfg, r: int) -> Optional[Tuple[int, int]]:
+        """Rank ``r``'s block ``[lo, hi)`` of a Mamba mixer's inner
+        channels, or None (whole)."""
+        if not self.full or cfg.ssm is None or cfg.family != "hybrid":
+            return None
+        return _even(cfg.ssm.expand * cfg.d_model, self.M, r)
+
+    def mlstm(self, cfg, r: int) -> Optional[Tuple[int, int]]:
+        """Rank ``r``'s block ``[lo, hi)`` of an mLSTM's value channels
+        (the columns of ``w_v``), or None (whole): whole heads a rank, or
+        one head shared by ``M / H`` ranks."""
+        if not self.full or cfg.family != "ssm":
+            return None
+        H = cfg.ssm.mlstm_heads
+        dh = int(cfg.d_model * cfg.ssm.proj_factor) // H
+        w, rest = divmod(H * dh, self.M)
+        if rest or (w % dh and dh % w):
+            return None
+        return (r * w, (r + 1) * w)
+
+    def slstm(self, cfg, r: int) -> Optional[Tuple[int, int]]:
+        """Rank ``r``'s block ``[lo, hi)`` of an sLSTM's channels, whole
+        heads (its recurrence mixes the channels of a head at every step),
+        or None (whole: M does not divide the heads)."""
+        if not self.full or cfg.family != "ssm" \
+                or cfg.ssm.mlstm_heads % self.M \
+                or cfg.d_model % cfg.ssm.mlstm_heads:
+            return None
+        return _even(cfg.d_model, self.M, r)
+
     def leaf_block(self, key: str, shape, cfg, r: int
-                   ) -> Optional[Tuple[int, int, int]]:
-        """(dim, start, stop): the block of JAX-layout leaf ``key``
-        (``shape``) along ``dim`` that rank ``r`` computes with, or None
-        (gathered whole)."""
+                   ) -> Optional[Tuple[int, Tuple[Tuple[int, int], ...]]]:
+        """(dim, ranges): the ``[start, stop)`` ranges of JAX-layout leaf
+        ``key`` (``shape``) along ``dim``, in order, that rank ``r``
+        computes with (joined, its block), or None (gathered whole)."""
         parts = key.split("/")
         name, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
 
+        def block(dim, *ranges):
+            return (dim % len(shape), tuple(ranges))
+
         def even(dim):
             n = shape[dim]
-            return (dim % len(shape), r * n // self.M, (r + 1) * n // self.M)
+            return block(dim, (r * n // self.M, (r + 1) * n // self.M))
         if key in ("embed/table", "lm_head/table"):
             return even(0) if self.splits_vocab(shape[0]) else None
         if parent in ("attn", "xattn"):
@@ -137,6 +191,8 @@ class TPPlan:
             lo, n = h.q0, h.n_q
             if cfg.mla is not None and parent == "attn":   # (dim, a head's)
                 m = cfg.mla
+                if name in ("w_dq", "w_dkv"):
+                    return even(-1) if self.latent(cfg, shape[-1]) else None
                 width = {"w_uq": (-1, m.qk_nope_dim + m.qk_rope_dim),
                          "w_uk": (-2, 1), "w_uv": (-2, 1),
                          "wo": (-2, m.v_head_dim)}.get(name)
@@ -148,31 +204,84 @@ class TPPlan:
             if width is None:
                 return None
             dim, w = width
-            return (dim % len(shape), lo * w, (lo + n) * w)
+            return block(dim, (lo * w, (lo + n) * w))
         if parent == "mlp" and name in _MLP:
             dim = -2 if name == "w_down" else -1
             return even(dim) if self.splits_width(shape[dim]) else None
         if parent == "moe" and name in _MLP:
             stack = len(shape) - 3
             return even(stack) if self.splits_width(shape[stack]) else None
+        if parent in ("mamba", "mlstm", "slstm"):
+            return self._mixer_block(parent, name, shape, cfg, r, block)
         return None
 
+    def _mixer_block(self, parent: str, name: str, shape, cfg, r: int,
+                     block):
+        """``leaf_block`` of a recurrent mixer's leaf: its rows, columns
+        or entries of the rank's channels (both halves of ``w_in``, the z
+        half of the mLSTM's ``w_up``, each of the sLSTM's four gates)."""
+        ch = getattr(self, parent)(cfg, r)
+        if ch is None:
+            return None
+        lo, hi = ch
+        if name == "w_in" or (parent == "mlstm" and name == "w_up"):
+            di = shape[-1] // 2         # x ‖ z: the mLSTM's x half whole
+            x = (lo, hi) if parent == "mamba" else (0, di)
+            return block(-1, x, (di + lo, di + hi))
+        if parent in ("mamba", "mlstm"):
+            dim = {"conv": -1, "w_dt": -1, "dt_bias": -1, "d_skip": -1,
+                   "w_v": -1, "gn_scale": -1, "w_bc": -2, "a_log": -2,
+                   "w_out": -2, "w_down": -2}.get(name)
+            return None if dim is None else block(dim, (lo, hi))
+        d = cfg.d_model
+        if name in ("w_x", "b"):                  # the (i, f, z, o) gates
+            return block(-1, *((g * d + lo, g * d + hi) for g in range(4)))
+        if name == "r":                           # [4, H, dh, dh]: heads
+            dh = d // cfg.ssm.mlstm_heads
+            return block(-3, (lo // dh, hi // dh))
+        if name == "gn_scale":
+            return block(-1, (lo, hi))
+        du = int(d * 4 / 3)                       # the FFN, where M divides
+        u = _even(du, self.M, r)
+        if u is None or name not in ("w_up", "w_down"):
+            return None
+        if name == "w_down":
+            return block(-2, u)
+        return block(-1, u, (du + u[0], du + u[1]))
+
     def sliced_dim(self, key: str, shape, cfg, r: int) -> Optional[int]:
-        """The dim of a leaf gathered whole that a rank consumes a slice
-        of (the qkv biases of split heads, a shared KV head's
-        ``wk/wv``): its gradient is that slice's only, so the row sums
-        it."""
+        """The dim of a leaf gathered whole whose gradient is the rank's
+        part only, so the row sums it: one the rank consumes a slice of
+        (the qkv biases of split heads, a shared KV head's ``wk/wv``), or
+        one used whole by a computation split over the row behind it (the
+        mLSTM's ``w_q``, ``w_k``, ``w_if``, ``b_if``; the norm of an MLA
+        latent gathered over the row)."""
         parts = key.split("/")
-        if len(parts) < 2 or parts[-2] not in ("attn", "xattn") \
-                or cfg.mla is not None:
+        if len(parts) < 2:
+            return None
+        name, parent = parts[-1], parts[-2]
+        if parent == "mlstm" and name in ("w_q", "w_k", "w_if", "b_if"):
+            return len(shape) - 1 if self.mlstm(cfg, r) is not None \
+                else None
+        if len(parts) > 2 and parts[-3] == "attn" and cfg.mla is not None \
+                and parent in ("q_norm", "kv_norm"):
+            m = cfg.mla
+            width = m.q_lora_rank if parent == "q_norm" else \
+                m.kv_lora_rank + m.qk_rope_dim
+            return len(shape) - 1 if self.latent(cfg, width) else None
+        if parent not in ("attn", "xattn") or cfg.mla is not None:
             return None
         h = self.heads(cfg, r)
         if h is None:
             return None
-        if parts[-1] in ("bq", "bk", "bv") or (
-                h.shared and parts[-1] in ("wk", "wv")):
+        if name in ("bq", "bk", "bv") or (h.shared and name in ("wk", "wv")):
             return len(shape) - 1
         return None
+
+
+def _even(n: int, M: int, r: int) -> Optional[Tuple[int, int]]:
+    """Rank ``r``'s block of ``n`` split evenly over ``M``, or None."""
+    return None if n % M else (r * n // M, (r + 1) * n // M)
 
 
 def plan_of(plan, cfg) -> Optional[TPPlan]:
@@ -225,6 +334,23 @@ def heads(cfg):
     c = _CTX.get()
     h = None if c.plan is None else c.plan.heads(cfg, c.group.rank)
     return (None, None) if h is None else (c.group, h)
+
+
+class Split(NamedTuple):
+    """A recurrent mixer split over the row: the row's group and the
+    rank's block ``[lo, hi)`` of its channels (``TPPlan.mamba``,
+    ``mlstm``, ``slstm``)."""
+    group: object
+    lo: int
+    hi: int
+
+
+def mixer(cfg, kind: str) -> Optional[Split]:
+    """The row's split of a ``kind`` (``"mamba"``, ``"mlstm"`` or
+    ``"slstm"``) mixer of ``cfg``, or None (whole on every rank)."""
+    c = _CTX.get()
+    ch = None if c.plan is None else getattr(c.plan, kind)(cfg, c.group.rank)
+    return None if ch is None else Split(c.group, *ch)
 
 
 def ffn(width: int):

@@ -557,16 +557,25 @@ def _hymba_mix(p: Params, attn_out: torch.Tensor, ssm_out: torch.Tensor,
     return 0.5 * (a + s)
 
 
+def _width(split, whole: Optional[int] = None) -> Optional[int]:
+    """A mixer's channels on this rank: its split's, or ``whole``."""
+    return whole if split is None else split.hi - split.lo
+
+
 def _mamba_like(x: torch.Tensor, cfg: ModelConfig):
-    return ssm_mod.init_mamba_state(x.shape[0], cfg.d_model, cfg.ssm,
-                                    x.dtype, device="meta")
+    return ssm_mod.init_mamba_state(
+        x.shape[0], cfg.d_model, cfg.ssm, x.dtype,
+        d_inner=_width(tpm.mixer(cfg, "mamba")), device="meta")
 
 
 def _apply_hymba_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
                        positions, group=None):
     """Attention under the plan's exchange and the Mamba scan (across a
     seq group: from the state the rank before ended with) over the same
-    normed input, mixed, then the MLP."""
+    normed input, mixed, then the MLP.  Under tensor parallelism the Mamba
+    runs the rank's channels (``tp.mixer``) and its output is the row's
+    sum, which the mix norms as it is."""
+    tp = tpm.mixer(cfg, "mamba")
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     q, k, v = project_qkv(p["attn"], xin, spec, positions)
     heads = exchange_attention(q, k, v, xcfg, causal=spec.causal,
@@ -577,7 +586,7 @@ def _apply_hymba_layer(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
     ssm_out = handoff_scan(
         group, lambda st: ssm_mod.mamba_scan(
             p["mamba"], xin, cfg.ssm, *((None, None) if st is None
-                                        else (st["h"], st["conv"]))),
+                                        else (st["h"], st["conv"])), tp=tp),
         lambda: _mamba_like(xin, cfg), xin.device, anchor=xin)
     x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
     return x + _mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg,
@@ -594,7 +603,8 @@ def _apply_hymba_decode(p: Params, x, cfg: ModelConfig, xcfg, spec: AttnSpec,
                         kv, state, index):
     xin = apply_norm(cfg.norm_type, p["ln1"], x)
     attn_out, _ = attention_decode(p["attn"], xin, spec, xcfg, kv, index)
-    ssm_out, new = ssm_mod.mamba_step(p["mamba"], xin, cfg.ssm, state)
+    ssm_out, new = ssm_mod.mamba_step(p["mamba"], xin, cfg.ssm, state,
+                                      tp=tpm.mixer(cfg, "mamba"))
     _store(state, new)
     x = x + _hymba_mix(p, attn_out, ssm_out, cfg)
     return x + _mlp(p["mlp"], apply_norm(cfg.norm_type, p["ln2"], x), cfg,
@@ -615,34 +625,41 @@ def _init_xlstm_group(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def _apply_xlstm_group(p: Params, x, cfg: ModelConfig, group=None):
     """The group over the whole sequence (across a seq group each block
-    starts from the state the rank before ended with)."""
+    starts from the state the rank before ended with; under tensor
+    parallelism each block runs the rank's channels, ``tp.mixer``)."""
     B, dev = x.shape[0], x.device
+    tm, ts = tpm.mixer(cfg, "mlstm"), tpm.mixer(cfg, "slstm")
     for ln, lp in zip(p["m_ln"], p["mlstm"]):
         xin = apply_norm(cfg.norm_type, ln, x)
         x = x + handoff_scan(
-            group, lambda st: ssm_mod.mlstm_scan(lp, xin, cfg.ssm, st),
+            group, lambda st: ssm_mod.mlstm_scan(lp, xin, cfg.ssm, st, tm),
             lambda: ssm_mod.init_mlstm_state(B, cfg.d_model, cfg.ssm,
-                                             device="meta"), dev, anchor=xin)
+                                             device="meta",
+                                             values=_width(tm)),
+            dev, anchor=xin)
     xin = apply_norm(cfg.norm_type, p["s_ln"], x)
     return x + handoff_scan(
-        group, lambda st: ssm_mod.slstm_scan(p["slstm"], xin, cfg.ssm, st),
-        lambda: ssm_mod.init_slstm_state(B, cfg.d_model, device="meta"), dev,
-        anchor=xin)
+        group, lambda st: ssm_mod.slstm_scan(p["slstm"], xin, cfg.ssm, st,
+                                             ts),
+        lambda: ssm_mod.init_slstm_state(B, _width(ts, cfg.d_model),
+                                         device="meta"), dev, anchor=xin)
 
 
 def _apply_xlstm_decode(p: Params, x, cfg: ModelConfig, m_states, s_state):
     """One token through the group; ``m_states`` holds the mLSTM blocks'
     states stacked ``[n_m, B, ...]``, ``s_state`` the sLSTM's (views into
-    the cache, updated in place)."""
+    the cache, updated in place; under tensor parallelism the rank's
+    channels)."""
+    tm, ts = tpm.mixer(cfg, "mlstm"), tpm.mixer(cfg, "slstm")
     for j, (ln, lp) in enumerate(zip(p["m_ln"], p["mlstm"])):
         st = {name: t[j] for name, t in m_states.items()}
         y, new = ssm_mod.mlstm_step(lp, apply_norm(cfg.norm_type, ln, x),
-                                    cfg.ssm, st)
+                                    cfg.ssm, st, tm)
         _store(st, new)
         x = x + y
     y, new = ssm_mod.slstm_step(
         p["slstm"], apply_norm(cfg.norm_type, p["s_ln"], x), cfg.ssm,
-        s_state)
+        s_state, ts)
     _store(s_state, new)
     return x + y
 
@@ -650,20 +667,24 @@ def _apply_xlstm_decode(p: Params, x, cfg: ModelConfig, m_states, s_state):
 def _recurrent_cache(cfg: ModelConfig, batch: int, device) -> Params:
     """The recurrent halves of the decode cache: hybrid's ``ssm`` (every
     layer's Mamba state), ssm's ``m`` and ``s`` (every group's mLSTM and
-    sLSTM states); {} for the attention families."""
+    sLSTM states); {} for the attention families.  Under tensor
+    parallelism (``tp.mixer``) each holds the rank's channels."""
     def stack(state, *lead):
         return {name: t.expand(*lead, *t.shape).clone()
                 for name, t in state.items()}
     if cfg.family == "hybrid":
         return {"ssm": stack(ssm_mod.init_mamba_state(
-            batch, cfg.d_model, cfg.ssm, cfg.torch_dtype, device=device),
+            batch, cfg.d_model, cfg.ssm, cfg.torch_dtype,
+            d_inner=_width(tpm.mixer(cfg, "mamba")), device=device),
             cfg.n_layers)}
     if cfg.family == "ssm":
         G, n_m = cfg.n_layers // cfg.ssm.slstm_every, cfg.ssm.slstm_every - 1
         return {"m": stack(ssm_mod.init_mlstm_state(
-                    batch, cfg.d_model, cfg.ssm, device=device), G, n_m),
+                    batch, cfg.d_model, cfg.ssm, device=device,
+                    values=_width(tpm.mixer(cfg, "mlstm"))), G, n_m),
                 "s": stack(ssm_mod.init_slstm_state(
-                    batch, cfg.d_model, device=device), G)}
+                    batch, _width(tpm.mixer(cfg, "slstm"), cfg.d_model),
+                    device=device), G)}
     return {}
 
 
@@ -929,8 +950,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     multiple of P, and the padded slots are never valid; every rank holds
     the whole recurrent state.  Under tensor parallelism over the heads
     (``tp.heads``) a rank holds the KV heads its query heads read (one
-    shared with other ranks where the KV heads are fewer): a layout choice
-    (the JAX plan leaves the cache's heads replicated, and GSPMD computes
+    shared with other ranks where the KV heads are fewer), and the
+    recurrent states of its mixers' channels (``tp.mixer``): a layout
+    choice (the JAX plan leaves the cache replicated, and GSPMD computes
     the attention head-sharded from it)."""
     _require_ported(cfg)
     if xcfg is not None and partitioned(xcfg):

@@ -25,18 +25,22 @@ the optimizer's moments as their (finer) optimizer-spec blocks; a step
 Under tensor parallelism (``repro_torch.models.tp``: a ``local`` plan
 with a model axis over 1, or a decode plan's MLPs and experts) a rank
 computes with its block of the TP leaves (``tp_dim``: the split heads'
-``wq/wk/wv/wo`` and MLA's ``w_uq/w_uk/w_uv/wo``, the split MLPs, the
-experts, the vocabulary), so ``gather_params`` gathers those over
-``data`` only and every other leaf whole; the model then runs inside
-``tp_context``.  The stored blocks stay the JAX spec's; where the rank's
-head block is not its model block (``moved``: heads split unevenly, or
-columns the axis does not divide) the leaf is gathered over ``data``,
-then over ``model``, and the head block sliced from it (``param``), and
-its gradient goes back the reverse way, padded whole and reduce-scattered
-over the row (``grad``).  The row's ranks hold the same loss, so
-``reduce_gradients`` sums over the row only the leaves a rank consumed a
-slice of (``sliced``: the qkv biases of split heads, a shared KV head's
-``wk/wv``); a TP leaf's gradient is its block's, and a leaf consumed
+``wq/wk/wv/wo`` and MLA's ``w_uq/w_uk/w_uv/wo`` and latent projections,
+the split MLPs, the experts, the vocabulary, the recurrent mixers'
+channels), so ``gather_params`` gathers those over ``data`` only and
+every other leaf whole; the model then runs inside ``tp_context``.  The
+stored blocks stay the JAX spec's; where the rank's block is not its
+model block (``moved``: heads split unevenly, columns the axis does not
+divide, a mixer's block of several ranges of a dim, or of a dim the spec
+does not split) the leaf is gathered over ``data``, then over ``model``,
+and the rank's ranges joined from it (``param``), and its gradient goes
+back the reverse way, padded whole and reduce-scattered over the row
+(``grad``), which also sums a range that several ranks hold (the
+mLSTM's x half of ``w_up``).  The row's ranks hold the same loss, so
+``reduce_gradients`` sums over the row only the leaves whose gradient is
+a rank's part (``sliced``: the qkv biases of split heads, a shared KV
+head's ``wk/wv``, the mLSTM's ``w_q/w_k/w_if/b_if``, a gathered MLA
+latent's norm); a TP leaf's gradient is its block's, and a leaf consumed
 whole has the same gradient on every rank of the row.
 
 The runtime takes ``("data", "model")`` and ``("pod", "data",
@@ -54,6 +58,9 @@ import torch
 from repro_torch.models import tp as tpm
 from repro_torch.utils.tree import (tree_leaves_with_paths,
                                     tree_unflatten_like)
+
+
+Ranges = Tuple[Tuple[int, int], ...]     # a block: [start, stop) ranges
 
 
 def _lead_shape(st, cfg) -> Tuple[int, ...]:
@@ -108,6 +115,12 @@ def _entry_axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def _entry(spec, i: int):
+    """Entry ``i`` of ``spec`` (None past its end: a spec may be shorter
+    than its leaf's dims)."""
+    return spec[i] if i < len(spec) else None
+
+
 def spec_axes(spec) -> set:
     return {a for e in spec for a in _entry_axes(e)}
 
@@ -151,30 +164,30 @@ class Placement:
                 raise ValueError(f"{k}: optimizer spec {self.opt_spec[k]} "
                                  f"does not refine the param spec "
                                  f"{self.spec[k]}")
-        # the TP leaves → their split dim; those whose head block is not
-        # the stored model block → the block's slice of that dim; the
-        # leaves consumed as a slice
+        # the TP leaves → their split dim; those whose block is not the
+        # stored model block → the block's ranges of that dim; the leaves
+        # whose gradient is the rank's part
         self.tp_dim: Dict[str, int] = {}
-        self.moved: Dict[str, slice] = {}
+        self.moved: Dict[str, Ranges] = {}
         self.sliced: Dict[str, int] = {}
         if self.tp is not None:
             r = self.coords["model"]
             for k, ent in self.index_of.items():
                 blk = self.tp.leaf_block(k, ent.shape, cfg, r)
                 if blk is not None:
-                    dim, lo, hi = blk
+                    dim, ranges = blk
                     self.tp_dim[k] = dim
                     n, M = ent.shape[dim], self.tp.M
-                    if self.spec[k][dim] != "model" or \
-                            (lo, hi) != (r * n // M, (r + 1) * n // M):
-                        self.moved[k] = slice(lo, hi)
+                    if _entry(self.spec[k], dim) != "model" or \
+                            ranges != ((r * n // M, (r + 1) * n // M),):
+                        self.moved[k] = ranges
                 dim = self.tp.sliced_dim(k, ent.shape, cfg, r)
                 if dim is not None:
                     self.sliced[k] = dim
         # the block a TP leaf is gathered to (and its gradient reduced
         # from): its model block where the spec has one, else the whole
         self.held = {k: tuple("model" if i == self.tp_dim.get(k)
-                              and self.spec[k][i] == "model" else None
+                              and _entry(self.spec[k], i) == "model" else None
                               for i in range(len(self.index_of[k].shape)))
                      for k in self.keys}
 
@@ -304,24 +317,29 @@ class Placement:
             for k in self.keys}
 
     def _moved_in(self, k: str, t: torch.Tensor) -> torch.Tensor:
-        """A moved leaf's block under ``held[k]`` → its head block: gathered
-        over ``model`` (where held) and sliced, the rest freed."""
+        """A moved leaf's block under ``held[k]`` → the rank's block:
+        gathered over ``model`` (where held), its ranges joined, the rest
+        freed."""
         dim = self.tp_dim[k]
         if self.held[k][dim] == "model":
             t = self._gather_dim(t, list(self.held[k]), dim)
-        return t.narrow(dim, self.moved[k].start,
-                        self.moved[k].stop - self.moved[k].start).clone()
+        return torch.cat([t.narrow(dim, lo, hi - lo)
+                          for lo, hi in self.moved[k]], dim=dim)
 
     def _moved_out(self, k: str, g: torch.Tensor) -> torch.Tensor:
-        """``_moved_in``'s transpose on a gradient: the head block padded
-        whole with zeros, reduce-scattered over ``model`` (booked as
-        ``grad``) → the sum's block under ``held[k]``; where ``held[k]``
-        is whole, the padded leaf (the row sums it as a ``sliced`` one)."""
-        dim, sl = self.tp_dim[k], self.moved[k]
+        """``_moved_in``'s transpose on a gradient: the rank's block put
+        at its ranges of a whole leaf of zeros, reduce-scattered over
+        ``model`` (booked as ``grad``) → the sum's block under
+        ``held[k]``; where ``held[k]`` is whole, the padded leaf (the row
+        sums it as a ``sliced`` one)."""
+        dim = self.tp_dim[k]
         shape = list(g.shape)
         shape[dim] = self.index_of[k].shape[dim]
         whole = g.new_zeros(shape)
-        whole.narrow(dim, sl.start, sl.stop - sl.start).copy_(g)
+        at = 0
+        for lo, hi in self.moved[k]:
+            whole.narrow(dim, lo, hi - lo).copy_(g.narrow(dim, at, hi - lo))
+            at += hi - lo
         if self.held[k][dim] != "model":
             return whole
         row = self._group("model")
@@ -340,14 +358,23 @@ class Placement:
             out[k] = self._moved_in(k, t) if k in self.moved else t
         return self.unstack(out)
 
-    def held_index(self, k: str) -> Tuple[slice, ...]:
+    def held_index(self, k: str) -> tuple:
         """The block of whole leaf ``k`` the model runs on (whole on the
-        stack dims)."""
+        stack dims): slices, and for a block of several ranges the list of
+        its indices along its dim."""
         if k not in self.moved:
             return self.index(k, self.held[k])
-        idx = [slice(None)] * len(self.index_of[k].shape)
-        idx[self.tp_dim[k]] = self.moved[k]
+        idx: list = [slice(None)] * len(self.index_of[k].shape)
+        ranges = self.moved[k]
+        idx[self.tp_dim[k]] = slice(*ranges[0]) if len(ranges) == 1 else \
+            [i for lo, hi in ranges for i in range(lo, hi)]
         return tuple(idx)
+
+    def held_shape(self, k: str) -> Tuple[int, ...]:
+        """The shape of the block of leaf ``k`` the model runs on."""
+        return tuple(len(range(n)[i]) if isinstance(i, slice) else len(i)
+                     for n, i in zip(self.index_of[k].shape,
+                                     self.held_index(k)))
 
     def held_params(self, params):
         """Whole port ``params`` (the same on every rank) → the tree the
@@ -365,21 +392,29 @@ class Placement:
     def _widen(self, k: str, t: torch.Tensor) -> torch.Tensor:
         """TP leaf ``k``'s block (the rank's) → the whole leaf, gathered
         over ``model`` by the true block sizes (each padded to the largest
-        for the gather)."""
+        for the gather) and each rank's ranges put in place."""
         dim = self.tp_dim[k]
         if k not in self.moved:
             return self._gather_dim(t, list(self.held[k]), dim)
         row = self._group("model")
-        sizes = [hi - lo for _, lo, hi in (
-            self.tp.leaf_block(k, self.index_of[k].shape, self.cfg, i)
-            for i in range(row.world_size))]
+        blocks = [self.tp.leaf_block(k, self.index_of[k].shape, self.cfg,
+                                     i)[1] for i in range(row.world_size)]
+        sizes = [sum(hi - lo for lo, hi in b) for b in blocks]
         pad = list(t.shape)
         pad[dim] = max(sizes)
         buf = t.new_zeros(pad)
         buf.narrow(dim, 0, t.shape[dim]).copy_(t)
         parts = row.all_gather(buf, kind="param")
-        return torch.cat([p.narrow(dim, 0, n) for p, n in
-                          zip(parts.unbind(0), sizes)], dim=dim)
+        shape = list(t.shape)
+        shape[dim] = self.index_of[k].shape[dim]
+        whole = t.new_empty(shape)
+        for part, ranges in zip(parts.unbind(0), blocks):
+            at = 0
+            for lo, hi in ranges:
+                whole.narrow(dim, lo, hi - lo).copy_(
+                    part.narrow(dim, at, hi - lo))
+                at += hi - lo
+        return whole
 
     def widened(self, params):
         """The tree the model runs on → every leaf whole: the TP leaves

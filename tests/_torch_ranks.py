@@ -1096,11 +1096,11 @@ def _tp_collectives(g, seed):
     ct = _dyadic(rng, (3, 4, 5), torch.float32)
     wide = _dyadic(rng, (3, 4, 5 * g.world_size), torch.float32)
     out = dict(t=_np(t), ct=_np(ct), wide=_np(wide))
-    for name in ("copy_to", "reduce_from", "gather_from"):
+    for name in ("copy_to", "reduce_from", "gather_from", "gather_to"):
         g.reset_stats()
         x = t.clone().requires_grad_()
         y = getattr(g, name)(x)
-        y.backward(wide if name == "gather_from" else ct)
+        y.backward(wide if name.startswith("gather") else ct)
         out[name] = dict(y=_np(y.detach()), grad=_np(x.grad),
                          tp=g.stats.tp_bytes, calls=g.stats.calls)
     return out
@@ -1150,12 +1150,13 @@ def _tp_train_case(c, mesh, groups, rank):
     place = Placement(plan, cfg, registry.abstract_params(cfg))
     blocks, opt = place.init_state(_tp_params(c, cfg))
     raw = {}
-    if c.get("raw_digest"):        # the whole leaves' gradients, unsummed
+    if c.get("raw_leaves"):        # those leaves' gradients, unsummed
         reduce = place.reduce_gradients
 
         def spy(grads, entry=None):
-            raw.update({k: digest([g]) for k, g in grads.items()
-                        if k not in place.tp_dim and k not in place.sliced})
+            raw.update({k: g.detach().float().cpu().numpy()
+                        for k, g in grads.items()
+                        if k.rsplit("/", 1)[1] in c["raw_leaves"]})
             return reduce(grads, entry)
         place.reduce_gradients = spy
     for g in groups:
@@ -1215,7 +1216,7 @@ def _tp_serve_case(c):
     → this rank's logits a step, the global tokens and the flash-decode
     launches (on ``c["device"]``, default the CPU), and whether the held
     params widened over the row (``Placement.widened``) are the whole
-    ones."""
+    ones, and the shapes of the rank's cache."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.launch.mesh import get_abstract_mesh
@@ -1260,6 +1261,9 @@ def _tp_serve_case(c):
                       place.stack(params).items()},
                 tp_keys=sorted(place.tp_dim),
                 kv_heads=_cache_heads(cache),
+                cache_shapes={half: {k: tuple(t.shape) for k, t in v.items()}
+                              for half, v in cache.items()
+                              if isinstance(v, dict)},
                 widened=all(torch.equal(a, b) for a, b in zip(
                     tree_leaves(place.widened(params)), tree_leaves(whole))))
 

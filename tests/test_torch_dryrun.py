@@ -9,9 +9,11 @@ package's and against the port's own real collectives (CPU):
   ``state_calls``), call by call in the same order, as the real gloo ones
   on every rank: one (2, 2) spawn of a reduced llama ``prism`` mesh train
   step, its ``local`` TP step, reduced deepseek-moe, deepseek-v2 (MLA by
-  heads) and hymba at 5/5 heads (3 + 2, the moved leaves' gathers and
-  reduce-scatters) ``local`` TP steps and ``build_decode_step`` under
-  ``prism``; and a seq group of 2 ranks'
+  heads and latent columns), hymba at 5/5 heads (3 + 2, the moved
+  leaves' gathers and reduce-scatters; its Mamba by channel) and xLSTM
+  (mLSTM by value channel, sLSTM by head) ``local`` TP steps, xLSTM's
+  ``local`` TP decode step and ``build_decode_step`` under ``prism``; and
+  a seq group of 2 ranks'
   ``voltage`` and ``prism`` forwards and hymba's state hand-off
   (``pass_on``) forward and gradient;
 * a rank's param and optimizer bytes on (16, 16) and (2, 16, 16), for
@@ -128,6 +130,10 @@ MESH_CASES = {
     "hymba uneven local TP train": dict(
         arch="hymba-1.5b", kind="train", mode="local", B=4, N=16, L=4,
         over=dict(n_heads=5, n_kv_heads=5, d_model=80)),
+    "xlstm local TP train": dict(arch="xlstm-350m", kind="train",
+                                 mode="local", B=4, N=16, L=4),
+    "xlstm local TP decode": dict(arch="xlstm-350m", kind="decode",
+                                  mode="local", B=4, N=16, L=4),
     "llama prism decode": dict(arch="llama3.2-1b", kind="decode",
                                mode="prism", B=4, N=16, L=4),
 }

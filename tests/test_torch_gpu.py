@@ -1362,10 +1362,10 @@ def test_uneven_tp_decode_step_on_the_card_matches_the_cpu(cuda_device):
     """``build_decode_step`` under ``local`` on a (1, 2) mesh of ranks
     sharing the card, a small f32 hymba of 5/5 heads of 64: its heads
     split 3/2 by whole KV groups (each rank its cache's KV heads), its
-    MLP and vocabulary split, its Mamba whole.  Against the same mesh on
-    the CPU: every step's logits ≤ 1e-4 of their largest, the prefill's
-    ≤ 1e-4, greedy tokens exact, flash-decode launched on the card at
-    each rank's head count."""
+    MLP and vocabulary split, its Mamba by inner channel.  Against the
+    same mesh on the CPU: every step's logits ≤ 1e-4 of their largest,
+    the prefill's ≤ 1e-4, greedy tokens exact, flash-decode launched on
+    the card at each rank's head count."""
     import numpy as np
 
     import _torch_ranks

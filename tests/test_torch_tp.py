@@ -4,9 +4,9 @@ JAX weights carried across by the bridge; rank body
 ``tests/_torch_ranks.py:tp_mesh``; one (2, 2) spawn, then a (1, 2) spawn
 that restores its checkpoint):
 
-* the TP collectives (``copy_to``, ``reduce_from``, ``gather_from``):
-  forward and backward against their definitions, bit for bit, with the
-  ``tp`` bytes they book;
+* the TP collectives (``copy_to``, ``reduce_from``, ``gather_from``,
+  ``gather_to``): forward and backward against their definitions, bit for
+  bit, with the ``tp`` bytes they book;
 * llama and deepseek-moe under ``local`` on (2, 2) (heads, MLP columns,
   experts and vocabulary split over ``model``, the batch over ``data``):
   the loss within 1e-5 and the gradient, summed over the mesh and
@@ -191,6 +191,26 @@ def test_tp_collectives_are_their_definitions(side, ckpt_dir):
             assert c["copy_to"]["tp"] == n and c["copy_to"]["calls"] == 1
             assert c["reduce_from"]["tp"] == n
             assert c["gather_from"]["tp"] == n
+
+
+def test_tp_gather_to_is_its_definition(side, ckpt_dir):
+    """``gather_to``: the ranks' slices joined on the last dim forward; the
+    backward the sum over the row of each rank's cotangent of this rank's
+    slice (a reduce-scatter), each direction booking one peer's f32 slice
+    as ``tp``."""
+    runs = _runs(side, ckpt_dir, (2, 2))
+    for row in (runs[:2], runs[2:]):
+        got = [r["collectives"] for r in row]
+        ts = [c["t"] for c in got]
+        for p, c in enumerate(got):
+            np.testing.assert_array_equal(c["gather_to"]["y"],
+                                          np.concatenate(ts, -1))
+            np.testing.assert_array_equal(
+                c["gather_to"]["grad"],
+                sum(o["wide"][..., p * 5:(p + 1) * 5] for o in got))
+            n = ts[p].size * 4
+            assert c["gather_to"]["tp"] == 2 * n
+            assert c["gather_to"]["calls"] == 2
 
 
 @pytest.mark.parametrize("label", list(TRAIN))

@@ -11,19 +11,23 @@ its qkv biases (gathered whole, each rank its heads' slice, summed over
 the row), gemma2 (the window, the softcaps), deepseek-moe (the experts
 split, the router and the shared expert whole), deepseek-v2 (MLA split
 by heads: ``w_uq``'s columns, ``w_uk``/``w_uv``'s heads, ``wo``'s rows;
-``w_dq``/``w_dkv`` whole, their gradients the same on both ranks with no
-row sum; its experts split), whisper and the vision model (the
-cross-attention split over the heads; the vision gates at 0.5), hymba at
-5/5 heads (split 3/2 by whole KV groups, its ``wq/wk/wv/wo`` moved
-between the JAX blocks and the head blocks; its Mamba gathered, its MLP
-split), a llama of one KV head and 4 query heads (each rank 2 query heads
-of the shared KV head, ``wk``/``wv`` whole and sliced) and xLSTM (its
-projections gathered, its vocabulary split).  The tree the model runs on
-holds each split leaf's head block (or half) and every other leaf whole.
+``w_dq``/``w_dkv`` by columns, each rank's gradient its column block, the
+norms whole and summed over the row; its experts split), whisper and the
+vision model (the cross-attention split over the heads; the vision gates
+at 0.5), hymba at 5/5 heads (split 3/2 by whole KV groups, its
+``wq/wk/wv/wo`` moved between the JAX blocks and the head blocks; its
+Mamba by inner channel, its MLP split), a llama of one KV head and 4
+query heads (each rank 2 query heads of the shared KV head, ``wk``/``wv``
+whole and sliced) and xLSTM (its mLSTM by value channel, its sLSTM by
+head, its vocabulary split; at d 48 the sLSTM's FFN, 64 wide, split by
+columns and rows too).  The tree the model runs on holds each split
+leaf's block (half of it; the mLSTM's ``w_up`` its x half whole and half
+its z half) and every other leaf whole.
 
 The serving step builders under the ``local`` decode plan on the same
-mesh, for MLA and the uneven hymba: the greedy tokens of
-``build_decode_step`` equal one process's.
+mesh, for MLA, the uneven hymba and xLSTM: the greedy tokens of
+``build_decode_step`` equal one process's, and each rank's recurrent
+cache holds its channels.
 """
 import concurrent.futures
 
@@ -43,6 +47,7 @@ GRAD_RTOL, LOSS_RTOL = 2e-5, 1e-5
 GATE = 0.5                 # the vlm's gates: tanh(0) erases the memory
 HYMBA_UNEVEN = dict(n_heads=5, n_kv_heads=5, d_model=80)    # 3 + 2 heads
 SHARED_KV = dict(n_heads=4, n_kv_heads=1)        # 2 query heads of 1 a rank
+XLSTM_FFN = dict(d_model=48)     # the sLSTM's FFN int(4d/3) = 64 splits too
 
 # label → (arch, reduced overrides, the leaves that split over model)
 CASES = {
@@ -56,9 +61,11 @@ CASES = {
                                             "vocab")),
     "whisper": ("whisper-large-v3", {}, ("attn", "mlp", "vocab")),
     "vision": ("llama-3.2-vision-11b", {}, ("attn", "mlp", "vocab")),
-    "hymba": ("hymba-1.5b", HYMBA_UNEVEN, ("attn", "mlp", "vocab")),
+    "hymba": ("hymba-1.5b", HYMBA_UNEVEN, ("attn", "mlp", "vocab",
+                                           "mamba")),
     "shared-kv": ("llama3.2-1b", SHARED_KV, ("attn", "mlp", "vocab")),
-    "xlstm": ("xlstm-350m", {}, ("vocab",)),
+    "xlstm": ("xlstm-350m", {}, ("mlstm", "slstm", "vocab")),
+    "xlstm-ffn": ("xlstm-350m", XLSTM_FFN, ("mlstm", "slstm", "vocab")),
 }
 
 
@@ -74,7 +81,7 @@ def _weights(label):
 
 # the serving step builders under ``local`` on the same mesh: the prompt
 # teacher-forced, then SERVE_STEPS greedy tokens
-SERVE = ("deepseek-v2", "hymba")
+SERVE = ("deepseek-v2", "hymba", "xlstm")
 SERVE_B, SERVE_T0, SERVE_STEPS = 2, 4, 4
 _RUN = {}
 
@@ -95,7 +102,7 @@ def runs():
         arch=CASES[label][0], reduced={"dtype": "float32",
                                        **CASES[label][1]},
         params=jp, batch=orc.batch(cfg, B, N, seed=3),
-        raw_digest=label == "deepseek-v2")
+        raw_leaves=("w_dq", "w_dkv") if label == "deepseek-v2" else ())
         for label, (jcfg, cfg, jp) in sides.items()},
         serve={label: _serve_job(label, sides[label][2]) for label in SERVE})
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
@@ -131,7 +138,10 @@ def _kind(key: str) -> str:
         return "vocab"
     if "/attn/" in key or "/xattn/" in key:
         return "attn"
-    return "experts" if key.rsplit("/", 2)[-2] == "moe" else "mlp"
+    parent = key.rsplit("/", 2)[-2]
+    if parent in ("mamba", "mlstm", "slstm"):
+        return parent
+    return "experts" if parent == "moe" else "mlp"
 
 
 def _head_width(key, cfg):
@@ -152,7 +162,9 @@ def test_family_tp_splits_what_divides(runs, label):
     (hymba at 5/5: 3 heads on rank 0, 2 on rank 1, moved from the JAX
     spec's halves; one KV head: 2 query heads a rank, ``wk``/``wv`` whole
     and sliced); every other leaf whole; the split kinds are the ones the
-    family's heads, widths and vocabulary divide."""
+    family's heads, widths and vocabulary divide (the mixers': their
+    channels; the mLSTM's ``w_up`` its x half whole and half its z half;
+    MLA's latent projections half their columns)."""
     _, cfg, _ = _weights(label)
     uneven = {"hymba": ((3, 3), (2, 2))}.get(label)   # (query, KV) a rank
     for r in runs:
@@ -168,31 +180,66 @@ def test_family_tp_splits_what_divides(runs, label):
                 if uneven and _kind(k) == "attn":
                     width, kv = _head_width(k, cfg)
                     assert got == uneven[rank][kv] * width, k
+                elif k.endswith("mlstm/w_up"):
+                    assert got * 4 == of * 3, k
                 else:
                     assert got * 2 == of, k
             else:
                 assert held == tuple(whole), k
-        assert bool(c["moved"]) == (label == "hymba")
+        assert bool(c["moved"]) == (label in ("hymba", "xlstm", "xlstm-ffn"))
+        ffn = [k for k in c["tp_keys"]
+               if k.endswith(("slstm/w_up", "slstm/w_down"))]
+        assert len(ffn) == (2 if label == "xlstm-ffn" else 0)
         assert set(c["moved"]) <= set(c["tp_keys"])
         names = {k.rsplit("/", 1)[1] for k in c["sliced"]}
         assert names == {"qwen": {"bq", "bk", "bv"},
-                         "shared-kv": {"wk", "wv"}}.get(label, set())
+                         "shared-kv": {"wk", "wv"},
+                         "xlstm": {"w_q", "w_k", "w_if", "b_if"},
+                         "xlstm-ffn": {"w_q", "w_k", "w_if", "b_if"},
+                         "deepseek-v2": {"scale"}}.get(label, set())
         if label == "deepseek-v2":
             assert {k.rsplit("/", 1)[1] for k in c["tp_keys"]
-                    if _kind(k) == "attn"} == {"w_uq", "w_uk", "w_uv", "wo"}
+                    if _kind(k) == "attn"} == {"w_uq", "w_uk", "w_uv", "wo",
+                                               "w_dq", "w_dkv"}
 
 
-def test_mla_latent_projections_whole_with_no_row_sum(runs):
-    """MLA's latent projections and norms are whole on both ranks: their
-    gradients before any sum are the same bits on both, and the row sums
-    no gradient (its latent's cotangent is summed in the backward)."""
+def test_mla_latent_projection_gradients_are_column_blocks(runs):
+    """MLA's latent projections split by columns: each rank's gradient of
+    ``w_dq`` and ``w_dkv``, before any sum over the mesh, is its column
+    block's (half the columns), and the blocks joined in rank order are
+    ``jax.value_and_grad``'s gradient within 2e-5 of its largest value;
+    the row sums no projection gradient, only the norms'."""
+    want = _RUN["deepseek-v2"][1]
     raw = [r["deepseek-v2"]["raw"] for r in runs]
-    keys = {k for k in raw[0] if k.rsplit("/", 1)[1] in ("w_dq", "w_dkv")}
+    keys = sorted(raw[0])
     assert len(keys) == 4                      # both stacks' two leaves
-    assert raw[0] == raw[1]
+    for k in keys:
+        w = want[k]
+        assert all(x[k].shape[-1] * 2 == w.shape[-1] for x in raw), k
+        got = np.concatenate([x[k] for x in raw], axis=-1)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(got - w).max()) <= GRAD_RTOL * scale, k
     for r in runs:
-        assert r["deepseek-v2"]["booked"]["model"]["grad"] == 0
-        assert r["deepseek-v2"]["booked"]["model"]["tp"] > 0
+        c = r["deepseek-v2"]
+        assert not set(keys) & set(c["sliced"]) and set(keys) <= set(
+            c["tp_keys"]) and not set(keys) & set(c["moved"])
+
+
+def test_tp_recurrent_caches_hold_rank_channels(runs):
+    """Under the ``local`` decode plan on (1, 2) each rank's recurrent
+    cache holds its channels: hymba's Mamba state ``h [L, B, 80, S]`` and
+    conv tail ``[L, B, W − 1, 80]`` of its 160 inner channels; xLSTM's
+    mLSTM ``C`` its head of the 2 (``[G, 1, B, 1, 64, 64]``), ``n`` and
+    ``m`` whole, its sLSTM states its head's 32 of the 64 channels."""
+    for r in runs:
+        hy, xl = (r["serve"][k]["cache_shapes"] for k in ("hymba", "xlstm"))
+        B = SERVE_B
+        assert hy["ssm"]["h"] == (2, B, 80, 8)
+        assert hy["ssm"]["conv"] == (2, B, 3, 80)
+        assert xl["m"]["C"] == (1, 1, B, 1, 64, 64)
+        assert xl["m"]["n"] == (1, 1, B, 2, 64)
+        assert xl["m"]["m"] == (1, 1, B, 2)
+        assert all(xl["s"][k] == (1, B, 32) for k in ("c", "n", "h", "m"))
 
 
 def _one_process_tokens(c):
@@ -226,19 +273,21 @@ def _one_process_tokens(c):
 @pytest.mark.parametrize("label", SERVE)
 def test_tp_decode_greedy_tokens_match_one_process(runs, label):
     """``build_decode_step`` under the ``local`` plan on (1, 2): MLA by
-    heads (the latent cache whole on both ranks) and hymba's 3/2 heads
-    (each rank's cache its KV heads) give one process's greedy tokens;
-    the held blocks widened over the row (3 and 2 heads gathered) are the
-    whole params."""
+    heads and latent columns (the latent cache whole on both ranks),
+    hymba's 3/2 heads (each rank's cache its KV heads) and its Mamba by
+    channel, and xLSTM by channel and head give one process's greedy
+    tokens; the held blocks widened over the row (3 and 2 heads gathered,
+    a mixer's ranges put in place) are the whole params."""
     _, cfg, jp = _weights(label)
     want = _one_process_tokens(_serve_job(label, jp))
-    kv = {"deepseek-v2": None, "hymba": (3, 2)}[label]
+    kv = {"deepseek-v2": None, "hymba": (3, 2), "xlstm": None}[label]
+    split = {"deepseek-v2": ("w_uq", "w_dq"), "hymba": ("wq", "w_in"),
+             "xlstm": ("w_v", "w_x")}[label]
     for r in runs:
         got = r["serve"][label]
         np.testing.assert_array_equal(got["tokens"], want)
         assert got["widened"]        # the blocks gathered back, true sizes
-        assert any(k.rsplit("/", 1)[1] in ("w_uq", "wq")
-                   for k in got["tp_keys"])
+        assert set(split) <= {k.rsplit("/", 1)[1] for k in got["tp_keys"]}
         if kv is not None:
             assert got["kv_heads"] == kv[r["coords"]["model"]]
 
