@@ -7639,72 +7639,12 @@ MESH_DEC_B, MESH_DEC_T0, MESH_DEC_NEW = 8, 8, 8
 MESH_TP_HEADS = {"(e)": (MLA_ARCH, 2), "(f)": ("hymba-1.5b", 4),
                  "(g)": ("xlstm-350m", 8)}
 MESH_TP_NEW = 4
+# a decode plan with fsdp gathers every layer each step over gloo (10.7–15.6
+# s a step for deepseek-v2's 2 layers in f32, 4 ranks sharing one H100 80GB
+# at 700 W): (e)'s prompt is one token, so its MESH_TP_NEW greedy tokens
+# take 5 steps in all
+MESH_FSDP_T0 = 1
 MESH_XLSTM_B, MESH_XLSTM_N = 4, 128
-
-
-def mesh_step_bytes(cfg, mode: str, shape, B: int, N: int, L: int,
-                    coords: dict, params) -> dict:
-    """Bytes one rank of a (D, P) mesh receives in a train step, by kind,
-    from the shapes and the plan's specs: the row's exchange (the K/V or
-    means gather a layer in the model dtype, its cotangent in f32), the
-    row's f32 gradient sum and the column's (a reduce-scatter of the leaves
-    the plan shards over ``data``, an all-reduce of the others), the
-    parameter gathers (``param``: the blocks over ``data`` at the start of
-    the step, the updated optimizer blocks back into param blocks after
-    it), and the metrics' sums (``meta``: loss, nll, aux, then the squared
-    norm, on each axis)."""
-    import numpy as np
-    from repro_torch.core.exchange import ExchangeMode
-    from repro_torch.launch.mesh import make_auto_mesh
-    from repro_torch.sharding.placement import Placement, spec_axes
-    from repro_torch.sharding.specs import make_plan
-    D, P = shape
-    plan = make_plan(make_auto_mesh(shape, MESH_NAMES), cfg,
-                     ExchangeMode(mode), L=L, train=True)
-    pl = Placement(plan, cfg, params, coords=coords)
-    tp = pl.tp is not None
-    out = dict(payload=0, grad=0, meta=0, param=0, tp=0)
-    n_params = 0
-    for k, ent in pl.index_of.items():
-        n = int(np.prod(ent.shape))
-        n_params += n
-        w = ent.dtype.itemsize
-        held = n // P if k in pl.tp_dim else n     # what the model runs on
-        axes = spec_axes(pl.spec[k])
-        if tp and "model" in axes and k not in pl.tp_dim:
-            out["param"] += (P - 1) * n // (P * (D if "data" in axes
-                                                 else 1)) * w
-        if D > 1 and "data" in axes:
-            out["param"] += (D - 1) * held // D * w
-            out["grad"] += (D - 1) * held // D * 4
-        elif D > 1:
-            out["grad"] += (D - 1) * held * 4
-        if k in pl.sliced:
-            out["grad"] += (P - 1) * n * 4
-        blk = list(pl.block_shape(k, pl.opt_spec[k]))
-        spec = list(pl.opt_spec[k]) + [None] * len(blk)
-        for axis, size in (("model", P), ("data", D)):
-            if axis in spec and axis not in pl.spec[k] and size > 1:
-                out["param"] += (size - 1) * int(np.prod(blk)) * w
-                blk[spec.index(axis)] *= size
-    if tp:
-        # f32 [b, N, d] sums: the embedding's and every split region's
-        # forward (2 a layer), the backward's at every region's input and
-        # the head's; the [b, N, V/P] logits gathered; the norm's sum
-        b = B // D
-        out["tp"] = (P - 1) * 4 * b * N * (cfg.d_model * (4 * cfg.n_layers
-                                                          + 2)
-                                           + cfg.vocab_size // P)
-        out["meta"] += (P - 1) * 4
-    elif P > 1:
-        rows = N // P if mode == "voltage" else L
-        kv = 2 * (B // D) * rows * cfg.n_kv_heads * cfg.hd
-        out["payload"] += cfg.n_layers * (P - 1) * kv * cfg.torch_dtype.itemsize
-        out["grad"] += cfg.n_layers * (P - 1) * kv * 4 + (P - 1) * 4 * n_params
-        out["meta"] += (P - 1) * 16
-    if D > 1:
-        out["meta"] += (D - 1) * 16
-    return out
 
 
 def mesh_dry_runs(runs: dict) -> dict:
@@ -7759,46 +7699,29 @@ def check_dry_run(label: str, ranks, dry: dict, card: str) -> None:
               f"[{card}]", flush=True)
 
 
-def predicted_bytes(a: dict, shape) -> dict:
-    """``mesh_step_bytes`` of every rank of ``shape`` for the launcher's
-    arguments ``a``, by its coordinates (computed before the run)."""
-    from repro_torch.launch.train import model_config
-    from repro_torch.models import registry
-    cfg = model_config(a)
-    meta = registry.abstract_params(cfg)
-    return {(d, m): mesh_step_bytes(cfg, a["mode"], shape, a["batch"],
-                                    a["seq"], a["L"],
-                                    {"data": d, "model": m}, meta)
-            for d in range(shape[0]) for m in range(shape[1])}
-
-
 def _check_mesh_run(ranks, a: dict, shape, label: str,
-                    want_launches: int, predicted=None):
+                    want_launches: int, dry):
     """The ranks' results of ``launch.train``'s mesh path (``train_mesh``)
     with the launcher's arguments ``a`` on ``shape``: each step's bytes by
-    kind equal to the shapes (``predicted``, from ``predicted_bytes``
-    before the run; None: compute them now; False: not checked), each
-    step's kernel launches ``want_launches`` of each, every block the same
-    on the ranks that hold it and the whole params the same on every rank,
-    the losses finite → the config."""
+    kind and calls equal to the dry run's count at the rank's coordinates
+    (``dry``, ``mesh_dry_run``'s; False: not checked), each step's kernel
+    launches ``want_launches`` of each, every block the same on the ranks
+    that hold it and the whole params the same on every rank, the losses
+    finite → the config."""
     from repro_torch.launch.train import check_mesh, model_config
     cfg = model_config(a)
     bad = check_mesh(ranks)
     if bad:
         raise AssertionError(f"[mesh] {label}: {bad}")
-    if predicted is None:
-        predicted = predicted_bytes(a, shape)
     for r in ranks:
         c = r["coords"]
-        want = predicted[(c["data"], c["model"])] if predicted else {}
+        want, calls = dry[(c["data"], c["model"])][:2] if dry else ({}, 0)
         for row in r["rows"]:
             got = {k: row.get(k, 0) for k in want}
-            if predicted is not False and (got != want or any(
-                    row.get(k) for k in ("state", "merge", "cache",
-                                         "output"))):
-                raise AssertionError(f"[mesh] {label} rank {r['coords']}: "
-                                     f"bytes {row} != {want} from the "
-                                     f"shapes")
+            if dry and (got != want or row["calls"] != calls):
+                raise AssertionError(f"[mesh] {label} rank {c}: bytes "
+                                     f"{row} != {want} in {calls} calls, the "
+                                     f"dry run's count")
             if row["launches"] != (want_launches, want_launches):
                 raise AssertionError(f"[mesh] {label}: launches "
                                      f"{row['launches']} a step, want "
@@ -7822,7 +7745,7 @@ def _print_mesh_ranks(label: str, ranks, card: str) -> None:
               f"{last['payload'] / 1e6:.3f} MB, meta {last['meta']} B, grad "
               f"{last['grad'] / 1e6:.1f} MB, param {last['param'] / 1e6:.1f} "
               f"MB, tp {last.get('tp', 0) / 1e6:.1f} MB a step (= the "
-              f"shapes); segment_means "
+              f"dry run's count); segment_means "
               f"{last['launches'][0]}, prism_attention {last['launches'][1]}"
               f" launches a step; loss "
               + " → ".join(f"{x:.4f}" for x in r["losses"])
@@ -7974,40 +7897,71 @@ def _mesh_decode(rank, world):
     return out
 
 
+def _seeded_leaf(path, leaf, seed: int):
+    """One f32 leaf of ``_seeded_params`` on the card, drawn whole from its
+    own seed (``seed`` and its path)."""
+    import zlib
+    import torch
+    name = "/".join(map(str, path))
+    if leaf.ndim < 2:
+        return torch.zeros(leaf.shape, dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(
+        seed * 1000003 + zlib.crc32(name.encode()))
+    fan_in = leaf.shape[-3] if name.endswith(("w_uk", "w_uv")) \
+        else leaf.shape[-2]
+    return torch.randn(leaf.shape, generator=g, device="cuda",
+                       dtype=torch.float32).mul_(
+        0.02 if name.endswith("table") else fan_in ** -0.5)
+
+
 def _seeded_params(cfg, seed: int, place=None):
     """f32 random weights of ``cfg`` on the card, each leaf drawn whole
     from its own seed (``seed`` and its path) one at a time: matrices
     N(0, 1/fan_in) (the embeddings N(0, 0.02²)), vectors and scalars 0;
     with ``place`` (a ``Placement``) only the block the rank's model runs
-    on is kept (its ``held_index``).  Every rank draws the same leaves,
-    and no rank ever holds more than its view and one whole leaf."""
-    import zlib
-    import torch
+    on is kept (its ``held_index``), or under a plan with ``fsdp`` the
+    rank's param-spec blocks (``_seeded_blocks``).  Every rank draws the
+    same leaves, and no rank ever holds more than its view and one whole
+    leaf."""
     from repro_torch.models import registry
     from repro_torch.utils.tree import (tree_leaves_with_paths,
                                         tree_unflatten_like)
+    if place is not None and place.plan.fsdp:
+        return _seeded_blocks(seed, place)
     template = registry.abstract_params(cfg)
     where = {} if place is None else {
         p: (k, ent.lead) for k, ent in place.index_of.items()
         for p in ent.paths}
     out = []
     for path, leaf in tree_leaves_with_paths(template):
-        name = "/".join(map(str, path))
-        if leaf.ndim < 2:
-            t = torch.zeros(leaf.shape, dtype=torch.float32, device="cuda")
-        else:
-            g = torch.Generator(device="cuda").manual_seed(
-                seed * 1000003 + zlib.crc32(name.encode()))
-            fan_in = leaf.shape[-3] if name.endswith(("w_uk", "w_uv")) \
-                else leaf.shape[-2]
-            t = torch.randn(leaf.shape, generator=g, device="cuda",
-                            dtype=torch.float32).mul_(
-                0.02 if name.endswith("table") else fan_in ** -0.5)
+        t = _seeded_leaf(path, leaf, seed)
         if place is not None:
             k, lead = where[path]
             t = t[place.held_index(k)[lead:]].clone()
         out.append(t)
     return tree_unflatten_like(template, out)
+
+
+def _seeded_blocks(seed: int, place) -> dict:
+    """``_seeded_params``' leaves as this rank's param-spec blocks under
+    ``place`` (JAX-layout key → block; a ZeRO-3 serving step's
+    params), each leaf of each owned layer drawn whole and cut."""
+    import torch
+    from repro_torch.sharding.placement import _unravel
+    from repro_torch.utils.tree import tree_leaves_with_paths
+    leaves = dict(tree_leaves_with_paths(place.template))
+    out = {}
+    for k, ent in place.index_of.items():
+        idx = place.index(k, place.spec[k])
+        rows = [j for j in range(len(ent.paths))
+                if all(s.start <= m < s.stop for s, m in zip(
+                    idx, _unravel(j, ent.shape[:ent.lead])))]
+        parts = [_seeded_leaf(ent.paths[j], leaves[ent.paths[j]],
+                              seed)[idx[ent.lead:]].clone() for j in rows]
+        out[k] = torch.stack(parts).reshape(place.block_shape(
+            k, place.spec[k]))
+    return out
+
 
 
 def _tp_heads_cfg(label: str):
@@ -8021,7 +7975,8 @@ def _tp_heads_cfg(label: str):
 def tp_view_bytes(label: str, shape) -> dict:
     """(e)/(f) reckoned before the spawn, from the shapes: the bytes of
     the f32 tree each rank of ``shape`` runs on under the ``local`` decode
-    plan (by model coordinate), and of the whole params."""
+    plan (by model coordinate; its param-spec blocks where the plan has
+    ``fsdp``), and of the whole params."""
     import numpy as np
     from repro_torch.core.exchange import ExchangeMode
     from repro_torch.launch.mesh import make_auto_mesh
@@ -8035,7 +7990,9 @@ def tp_view_bytes(label: str, shape) -> dict:
     out = {}
     for m in range(shape[1]):
         pl = Placement(plan, cfg, meta, coords={"data": 0, "model": m})
-        out[m] = sum(4 * int(np.prod(pl.held_shape(k))) for k in pl.keys)
+        out[m] = sum(4 * int(np.prod(pl.block_shape(k, pl.spec[k])
+                                     if plan.fsdp else pl.held_shape(k)))
+                     for k in pl.keys)
     out["whole"] = sum(4 * int(np.prod(e.shape))
                        for e in pl.index_of.values())
     return out
@@ -8046,7 +8003,9 @@ def _mesh_tp_heads(rank, world, label: str):
     under the ``local`` decode plan (the rank's heads, MLP columns or
     experts, vocabulary rows; its rows of the batch): ``build_prefill_step``
     on the prompt, then ``build_decode_step`` greedy from an empty cache
-    (the prompt teacher-forced, MESH_TP_NEW new tokens); the ranks draw
+    (the prompt teacher-forced, MESH_TP_NEW new tokens; a plan with
+    ``fsdp``, on the rank's blocks: a prompt of MESH_FSDP_T0); the
+    ranks draw
     their views one at a time, free them, and rank 0 runs the same steps
     alone on the whole params → the tokens, the prefill's greedy token,
     flash-decode launches, step ms, bytes received, the view's GB and the
@@ -8075,15 +8034,20 @@ def _mesh_tp_heads(rank, world, label: str):
     place = Placement(plan, cfg, registry.abstract_params(cfg))
     for turn in range(world):             # one whole draw at a time
         if turn == rank:
-            view = (_seeded_params(cfg, 0, place) if seeded else
-                    place.held_params(registry.init_params(cfg, seed=0,
-                                                           device="cuda")))
+            view = _seeded_params(cfg, 0, place) if seeded else \
+                registry.init_params(cfg, seed=0, device="cuda")
+            if not seeded:
+                view = (place.param_blocks(view) if plan.fsdp
+                        else place.held_params(view))
             gc.collect()
             torch.cuda.empty_cache()
         dist.barrier()
     prompt = torch.from_numpy(np.random.RandomState(13).randint(
         0, cfg.vocab_size, (MESH_DEC_B, MESH_DEC_T0)).astype(np.int32)).cuda()
-    S = MESH_DEC_T0 + MESH_TP_NEW
+    new = MESH_TP_NEW
+    if plan.fsdp:
+        prompt = prompt[:, :MESH_FSDP_T0]
+    S = prompt.shape[1] + new
 
     def first_token(step, params, cache, col):
         logits, _ = step(params, {"tokens": prompt}, cache)
@@ -8100,11 +8064,12 @@ def _mesh_tp_heads(rank, world, label: str):
                                                     "cuda"), groups[0])
         cache = engine.init_cache(cfg, plan, MESH_DEC_B, S, "cuda")
         tokens, ms = _greedy(engine.build_decode_step(cfg, plan.xcfg, plan),
-                             view, cache, prompt, groups[0], MESH_TP_NEW)
+                             view, cache, prompt, groups[0], new)
     out = dict(tokens=tokens, ms=ms, first=first,
                launches=flash_decode.launches - before,
                got=_received(groups), coords=place.coords,
                view_gb=sum(t.numel() * 4 for t in _leaves(view)) / 1e9,
+               fsdp=plan.fsdp, t0=prompt.shape[1], new=new,
                cache=_cache_shape(cache),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     del view, cache
@@ -8123,7 +8088,7 @@ def _mesh_tp_heads(rank, world, label: str):
             out["one"]["tokens"], out["one"]["ms"] = _greedy(
                 engine.build_decode_step(cfg, one), whole,
                 tfm.init_decode_cache(cfg, MESH_DEC_B, S, device="cuda"),
-                prompt, None, MESH_TP_NEW)
+                prompt, None, new)
         del whole
         gc.collect()
         torch.cuda.empty_cache()
@@ -8254,9 +8219,14 @@ def _check_tp_heads(label: str, runs, card: str) -> dict:
     for r in runs[:MESH_SHAPE[1]]:
         print(f"[mesh] {label} {cfg.name} cut to {cfg.n_layers} of its "
               f"layers at full width, f32, local TP on (2, 2), rank "
-              f"{r['coords']}: view {r['view_gb']:.2f} GB, cache "
-              f"{list(r['cache'])}; prefill + {MESH_DEC_T0} prompt steps + "
-              f"{MESH_TP_NEW} greedy: tokens = one rank's exactly (prefill "
+              f"{r['coords']}: "
+              + (f"its ZeRO-3 blocks {r['view_gb']:.2f} GB (each layer "
+                 f"gathered as the loop reaches it: param "
+                 f"{r['got'].get('param', 0) / 1e6:.1f} MB received)"
+                 if r["fsdp"] else f"view {r['view_gb']:.2f} GB")
+              + f", cache "
+              f"{list(r['cache'])}; prefill + {r['t0']} prompt steps + "
+              f"{r['new']} greedy: tokens = one rank's exactly (prefill "
               f"too); {r['launches']} flash-decode launches; step "
               f"{statistics.median(r['ms'][1:]):.1f} ms (median; one rank "
               f"alone {statistics.median(one['ms'][1:]):.1f} ms), received "
@@ -8314,13 +8284,6 @@ def phase_mesh(card: str) -> dict:
                         seq=MESH_XLSTM_N,
                         layers=MESH_TP_HEADS["(g)"][1],
                         ckpt_dir=os.path.join(ck, "tp_xlstm"))}
-    # (c)'s bytes a rank by kind, from the shapes, before the run
-    want_tp = {k: predicted_bytes(tp[k], MESH_SHAPE)
-               for k in ("reduced", "full")}
-    w = want_tp["full"][(0, 0)]
-    print(f"[mesh] (c) predicted from the shapes, rank (0, 0), a step: tp "
-          f"{w['tp']} B, grad {w['grad']} B, param {w['param']} B, meta "
-          f"{w['meta']} B", flush=True)
     for label in MESH_TP_HEADS:               # (e), (f): a rank's view
         v = tp_view_bytes(label, MESH_SHAPE)
         print(f"[mesh] {label} reckoned from the shapes: a rank runs on "
@@ -8332,26 +8295,31 @@ def phase_mesh(card: str) -> dict:
         with concurrent.futures.ProcessPoolExecutor(
                 2, mp_context=multiprocessing.get_context("spawn")) as pool:
             # the dry runs in two processes while the ranks run: (g)'s time
-            # loops in one, (a), (c) and (f) in the other
+            # loops in one, the others in the other (the counts every
+            # step's bytes and calls are held to)
             dry_g = pool.submit(mesh_dry_run, tp["xlstm"], MESH_SHAPE)
-            dry = pool.submit(mesh_dry_runs, {"(a)": full, "(c)": tp["full"],
-                                              "(f)": tp["hymba"]})
+            dry = pool.submit(mesh_dry_runs, {
+                "reduced": red, "reduced local TP": tp["reduced"],
+                "(a)": full, "(c)": tp["full"], "(f)": tp["hymba"]})
+            dry_b = pool.submit(mesh_dry_run, dict(red, data=1), (1, 2))
             ranks = spawn_mesh(_mesh_rank, MESH_SHAPE, MESH_NAMES, red, full,
                                tp, timeout=RANK_TIMEOUT_S)
-            dry = dict(dry.result(), **{"(g)": dry_g.result()})
+            dry = dict(dry.result(), **{"(g)": dry_g.result(),
+                                        "(b)": dry_b.result()})
         spawn_s = time.perf_counter() - t0
         rcfg = _check_mesh_run([r["reduced"] for r in ranks], red,
                                MESH_SHAPE, "reduced",
-                               2 * model_config(red).n_layers)
+                               2 * model_config(red).n_layers,
+                               dry["reduced"])
         _check_mesh_run([r["full"] for r in ranks], full, MESH_SHAPE, "(a)",
-                        2 * TRAIN_SEQ_LAYERS)
+                        2 * TRAIN_SEQ_LAYERS, dry["(a)"])
         _check_mesh_run([r["tp_reduced"] for r in ranks], tp["reduced"],
                         MESH_SHAPE, "reduced local TP", 0,
-                        want_tp["reduced"])
+                        dry["reduced local TP"])
         _check_mesh_run([r["tp_moe"] for r in ranks], tp["moe"], MESH_SHAPE,
                         "reduced moe local TP", 0, False)
         _check_mesh_run([r["tp_full"] for r in ranks], tp["full"],
-                        MESH_SHAPE, "(c)", 0, want_tp["full"])
+                        MESH_SHAPE, "(c)", 0, dry["(c)"])
         _check_mesh_run([r["tp_hymba"] for r in ranks], tp["hymba"],
                         MESH_SHAPE, "(f)", 0, False)
         _check_mesh_run([r["tp_xlstm"] for r in ranks], tp["xlstm"],
@@ -8368,7 +8336,7 @@ def phase_mesh(card: str) -> dict:
         sur = spawn_mesh(train_mesh, shape, MESH_NAMES, b,
                          timeout=RANK_TIMEOUT_S)
         remesh_s = time.perf_counter() - t0
-        _check_mesh_run(sur, b, shape, "(b)", 2 * rcfg.n_layers)
+        _check_mesh_run(sur, b, shape, "(b)", 2 * rcfg.n_layers, dry["(b)"])
     finally:
         shutil.rmtree(ck, ignore_errors=True)
     fr = [r["full"] for r in ranks]
@@ -8380,8 +8348,9 @@ def phase_mesh(card: str) -> dict:
           f"steps after the reduced run's warm-up; the spawn {spawn_s:.1f} s "
           f"with start-up, the reduced run and the small case; peak "
           f"{max(r['peak_gb'] for r in fr):.2f} GB a rank ([train-seq], 1 × "
-          f"2, full replicas: 15.52 GB, PERF.md §5); bytes = shapes, the "
-          f"rows bit-identical, the gathered params the same on all 4 ranks "
+          f"2, full replicas: 15.52 GB, PERF.md §5); bytes = the dry run's, "
+          f"the rows bit-identical, the gathered params the same on all 4 "
+          f"ranks "
           f"[{card}]", flush=True)
     _print_mesh_ranks("(a)", fr, card)
     check_dry_run("(a)", fr, dry["(a)"], card)
@@ -8395,7 +8364,8 @@ def phase_mesh(card: str) -> dict:
           f"{sum(x['launches'][1] for x in rr[0]['rows'])} launches a rank "
           f"(head width 16); loss "
           + " → ".join(f"{x:.4f}" for x in rr[0]["losses"])
-          + f"; bytes = shapes, rows bit-identical [{card}]", flush=True)
+          + f"; bytes = the dry run's, rows bit-identical [{card}]",
+          flush=True)
     got, want = sur[0]["losses"][0], rr[0]["losses"][2]
     rel = abs(got - want) / abs(want)
     print(f"[mesh] (b) the re-mesh, on the reduced config: ranks 2, 3 "
@@ -8415,7 +8385,7 @@ def phase_mesh(card: str) -> dict:
           f"the moe aux loss the whole batch's): loss "
           + " → ".join(f"{x:.4f}" for x in tr[0]["losses"]) + " and "
           + " → ".join(f"{x:.4f}" for x in mo[0]["losses"])
-          + f"; bytes = shapes (llama), the ranks holding each block "
+          + f"; bytes = the dry run's (llama), the ranks holding each block "
           f"bit-identical [{card}]", flush=True)
     tf = [r["tp_full"] for r in ranks]
     print(f"[mesh] (c) {ARCH} cut to {TRAIN_SEQ_LAYERS} of 16 layers at "
@@ -8424,7 +8394,7 @@ def phase_mesh(card: str) -> dict:
           f"the batch over data, B {MESH_B} N {LM_N}, {MESH_TP_STEPS} steps "
           f"rematerialised; peak {max(r['peak_gb'] for r in tf):.2f} GB a "
           f"rank against (a)'s {max(r['peak_gb'] for r in fr):.2f} GB; "
-          f"bytes = the shapes predicted before the run [{card}]",
+          f"bytes = the dry run's count [{card}]",
           flush=True)
     _print_mesh_ranks("(c)", tf, card)
     check_dry_run("(c)", tf, dry["(c)"], card)

@@ -67,6 +67,13 @@ twice, the second time in the backward.  A ``Tape`` keeps that second run
 off the wire: inside ``taping(tape)`` the forward collectives record their
 outputs on the tape the first time and hand them back in the same order
 every later time, sending nothing, taking no tag and booking nothing.
+One collective is never taped: ``gather_blocks``, ZeRO-3's gather of a
+layer's parameter blocks over the batch axes (or the row), which the
+recompute sends again, so that the checkpoint keeps the blocks and not
+the gathered layer; its backward reduce-scatters the layer's gradient
+(``grad``) as the backward leaves the layer.  It runs on the batch-axes
+group, on which every rank builds the same graph, so the forward's,
+the recompute's and the backward's calls meet in the same order.
 
 Every backward books its received bytes under the kind ``grad`` and one
 call.  Backward collectives run in autograd's order, which is the same on
@@ -131,7 +138,8 @@ class GatherStats:
                               # cotangents and the summed parameter
                               # gradients (f32)
     param_bytes: int = 0      # parameter shards gathered over a mesh axis
-                              # (ZeRO: at a step's start, after its update)
+                              # (ZeRO-3: a layer as the model reaches it,
+                              # again in its recompute; after an update)
     tp_bytes: int = 0         # tensor parallelism over the model axis: the
                               # row-parallel partial sums, the vocab-
                               # parallel logits and their cotangents
@@ -142,7 +150,8 @@ class GatherStats:
                               # before the clock starts)
 
 
-BUCKET_BYTES = 1 << 28        # all_reduce's f32 staging bucket
+BUCKET_BYTES = 1 << 28        # all_reduce's f32 staging bucket, and a
+                              # gather_blocks call's (each way)
 
 _NO_BACKWARD = ("has no backward: it sums gradients after the backward "
                 "pass and is never differentiated")
@@ -193,6 +202,78 @@ class _PackedGather(torch.autograd.Function):
             out[i] = got[off:off + n].reshape(shape).to(dtype)
             off += n
         return (None, None, *out)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """``SeqGroup.gather_blocks``: the pieces of every rank in one staged
+    gather (``param``; one a ``BUCKET_BYTES`` bucket), each joined along
+    its dim; the backward reduce-scatters the f32 cotangents of the pieces
+    marked ``sums`` in one call a bucket (``grad``) and keeps the rank's
+    own block of the others'."""
+
+    @staticmethod
+    def forward(ctx, group, dims, sums, *pieces):
+        ctx.group, ctx.dims, ctx.sums = group, dims, sums
+        ctx.like = [(t.dtype, t.shape) for t in pieces]
+        return tuple(group._gather_joined(list(pieces), dims))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        g, P = ctx.group, ctx.group.world_size
+        device = next(c for c in cts if c is not None).device
+        out: List[Optional[torch.Tensor]] = [None] * len(cts)
+        for bucket in _buckets(ctx.like):
+            parts, summed = [], []
+            for i in bucket:
+                dtype, shape = ctx.like[i]
+                d, ct = ctx.dims[i], cts[i]
+                if ct is None:
+                    ct = torch.zeros(_joined_shape(shape, d, P), dtype=dtype,
+                                     device=device)
+                slots = list(ct.unbind(0)) if d is None else \
+                    list(ct.chunk(P, d))
+                if ctx.sums[i]:
+                    parts.append(torch.stack([c.float() for c in slots])
+                                 .reshape(P, -1))
+                    summed.append(i)
+                else:
+                    out[i] = slots[g.rank].contiguous()
+            if not parts:
+                continue
+            got = g.reduce_scatter(torch.cat(parts, dim=1))
+            del parts
+            off = 0
+            for i in summed:
+                dtype, shape = ctx.like[i]
+                out[i] = got[off:off + shape.numel()].reshape(shape).to(dtype)
+                off += shape.numel()
+        return (None, None, None, *out)
+
+
+def _buckets(like: List[Tuple[torch.dtype, torch.Size]]) -> List[List[int]]:
+    """The indices of pieces of (dtype, shape) ``like``, largest elements
+    first, in buckets of at most ``BUCKET_BYTES`` (a larger piece alone):
+    ``gather_blocks``' calls each way."""
+    out: List[List[int]] = []
+    size = 0
+    for i in sorted(range(len(like)), key=lambda i: -like[i][0].itemsize):
+        n = like[i][1].numel() * like[i][0].itemsize
+        if not out or size + n > BUCKET_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(i)
+        size += n
+    return out
+
+
+def _joined_shape(shape, dim: Optional[int], P: int) -> Tuple[int, ...]:
+    """The shape of P blocks of ``shape`` joined along ``dim`` (None:
+    stacked on a new leading dim)."""
+    if dim is None:
+        return (P, *shape)
+    out = list(shape)
+    out[dim] *= P
+    return tuple(out)
 
 
 class _Shift(torch.autograd.Function):
@@ -769,6 +850,68 @@ class SeqGroup:
                                                          *tensors)))
         return self._record(self._gather_packed(tensors, kind))
 
+    def gather_blocks(self, pieces: List[torch.Tensor],
+                      dims: List[Optional[int]], sums: List[bool]
+                      ) -> List[torch.Tensor]:
+        """A layer's parameter blocks from every rank of the group (ZeRO-3's
+        just-in-time gather): ``pieces`` (any dtypes and shapes, the same on
+        every rank) go out in one staged gather (one a bucket of
+        ``BUCKET_BYTES``, a larger piece alone), and each comes back as
+        the ranks' blocks joined in rank order along its ``dims`` entry
+        (None: stacked, ``[P, *t.shape]``), written straight from the
+        received host buffers into its place (the card holds the gathered
+        layer once); booked as ``param``.  Never taped: a rematerialised
+        layer gathers its weights again in its recompute (its checkpoint
+        keeps the blocks, not the gathered layer).  Differentiable: the
+        backward reduce-scatters in one f32 call the cotangents of the
+        pieces whose ``sums`` is true (each rank's part of the loss reads
+        them: the sum over the group of its block, booked as ``grad``) and
+        keeps the rank's own block of the others' (every rank computed the
+        same gradient)."""
+        if self.world_size == 1:
+            return [t if d is not None else t[None]
+                    for t, d in zip(pieces, dims)]
+        if _tracked(*pieces):
+            return list(_GatherBlocks.apply(self, list(dims), list(sums),
+                                            *pieces))
+        return self._gather_joined(list(pieces), list(dims))
+
+    def _gather_joined(self, pieces: List[torch.Tensor],
+                       dims: List[Optional[int]]) -> List[torch.Tensor]:
+        """``gather_blocks``' staged calls: the pieces' bytes packed by
+        element size (so each piece's offset is a multiple of its own) into
+        buckets of at most ``BUCKET_BYTES`` (a larger piece a bucket of its
+        own: the host buffers of a call stay that size), one gather over
+        gloo a bucket, and each piece's P blocks copied from the host
+        buffers into its joined tensor on its device."""
+        outs: List[Optional[torch.Tensor]] = [None] * len(pieces)
+        for bucket in _buckets([(t.dtype, t.shape) for t in pieces]):
+            t0 = self._begin(pieces[bucket[0]])
+            flat = [pieces[i].detach().contiguous().reshape(-1)
+                    .view(torch.uint8) for i in bucket]
+            host = self._to_host(flat[0] if len(flat) == 1
+                                 else torch.cat(flat))
+            pinned = pieces[bucket[0]].is_cuda
+            parts = [torch.empty(host.shape, dtype=host.dtype,
+                                 pin_memory=pinned)
+                     for _ in range(self.world_size)]
+            dist.all_gather(parts, host, group=self.pg)
+            off = 0
+            for i, f in zip(bucket, flat):
+                t, d, n = pieces[i], dims[i], f.numel()
+                outs[i] = out = torch.empty(
+                    _joined_shape(t.shape, d, self.world_size),
+                    dtype=t.dtype, device=t.device)
+                for r, part in enumerate(parts):
+                    dst = out[r] if d is None else out.narrow(
+                        d, r * t.shape[d], t.shape[d])
+                    dst.copy_(part[off:off + n].view(t.dtype)
+                              .reshape(t.shape))
+                off += n
+            self._end(t0, "param", host.numel() * (self.world_size - 1))
+            del host, parts
+        return outs
+
     def _gather_packed(self, tensors: List[torch.Tensor], kind: str
                        ) -> List[torch.Tensor]:
         flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
@@ -1048,6 +1191,20 @@ class AbstractSeqGroup(SeqGroup):
         out = torch.empty((P, *t.shape), dtype=t.dtype, device=t.device)
         self._book("all-gather", kind, n, n * (P - 1), n + P * n)
         return out
+
+    def _gather_joined(self, pieces: List[torch.Tensor],
+                       dims: List[Optional[int]]) -> List[torch.Tensor]:
+        P = self.world_size
+        outs: List[Optional[torch.Tensor]] = [None] * len(pieces)
+        for bucket in _buckets([(t.dtype, t.shape) for t in pieces]):
+            n = sum(_nbytes(pieces[i]) for i in bucket)
+            for i in bucket:
+                t = pieces[i]
+                self._to_host(t)
+                outs[i] = torch.empty(_joined_shape(t.shape, dims[i], P),
+                                      dtype=t.dtype, device=t.device)
+            self._book("all-gather", "param", n, n * (P - 1), n + P * n)
+        return outs
 
     def reduce_scatter(self, t: torch.Tensor, kind: str = "grad"
                        ) -> torch.Tensor:

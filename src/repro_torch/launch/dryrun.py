@@ -9,8 +9,9 @@ what the port's eager program would do on one rank:
 * the rank joins the mesh abstractly (``launch.mesh.join_abstract``: one
   ``AbstractSeqGroup`` a line, no process group) at its coordinates;
 * its state is built on meta: the param blocks and the moments of the
-  plan (train), or the params the model runs on and the rank's block of
-  the decode cache (prefill, decode), and the global batch;
+  plan (train), or the param blocks (a plan with ``fsdp``) or the params
+  the model runs on, and the rank's block of the decode cache (prefill,
+  decode), and the global batch;
 * the rank's real step runs once under ``launch.hlo_analysis.StepCounter``
   (the mesh train step, ``serving.engine.build_prefill_step`` or
   ``build_decode_step`` with the plan; the kernels take their meta shape
@@ -23,14 +24,17 @@ what the port's eager program would do on one rank:
 Nothing is allocated and no process group exists, so every cell runs at
 full width on the CPU.  The numbers are counts of the port's program on
 meta, set against the H100's 80 GB, not measurements.  The rank's peak is
-the port's, not the JAX plan's: the port gathers every ZeRO-3 parameter
-whole for the step (ROADMAP [12.6]), gathers whole the few leaves the JAX
-plan splits over ``model`` that its TP holds whole (norm scales, the
-router, qkv biases, a shared KV head, the moe shared expert, the sLSTM
-where M does not divide its heads and its FFN, a latent or head count M
-does not divide), and returns f32 ``[B, N, V]`` logits ([12.5]).  Under
-``local`` TP the rank's decode cache holds its heads and its recurrent
-mixers' channels (``engine.init_cache``).
+the port's, not the JAX plan's: the port gathers each ZeRO-3 layer as the
+model reaches it (``Placement.layer_view``: the rank's blocks plus one
+layer whole, the gathered layer freed as it ends, which the counter
+sees), gathers whole the few leaves the JAX plan splits over ``model``
+that its TP holds whole (norm scales, the router, qkv biases, a shared
+KV head, the moe shared expert, the sLSTM where M does not divide its
+heads and its FFN, a latent or head count M does not divide), and under
+``local`` TP takes the train loss over the rank's vocabulary columns;
+without TP the loss reads f32 ``[B, N, V]`` logits of the rank's tokens
+(ROADMAP [12.5]).  Under ``local`` TP the rank's decode cache holds its
+heads and its recurrent mixers' channels (``engine.init_cache``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -178,7 +182,8 @@ def trace_step(cfg: ModelConfig, kind: str, mesh: Optional[Mesh], *,
     moments in ``moment_dtype`` as the plan shards them,
     ``grad_accum`` microbatches with an ``acc_dtype`` accumulator) or
     the step builders with the plan (the params the model runs on, the
-    rank's block of the cache from ``engine.init_cache``).  A decode
+    rank's block of the cache from ``engine.init_cache``; the param blocks
+    under a plan with ``fsdp``).  A decode
     writes at position N − 1: the cache full, every slot read."""
     from repro_torch.models import registry
     from repro_torch.serving import engine
@@ -212,7 +217,9 @@ def trace_step(cfg: ModelConfig, kind: str, mesh: Optional[Mesh], *,
         else:
             params = aparams
             if plan is not None:
-                params = Placement(plan, cfg, aparams).held_params(aparams)
+                place = Placement(plan, cfg, aparams)
+                params = (place.param_blocks(aparams) if plan.fsdp
+                          else place.held_params(aparams))
                 cache = engine.init_cache(cfg, plan, B, N, device=META)
                 rows = engine._OnMesh(cfg, plan, False).n_rows(B)
             else:

@@ -20,8 +20,10 @@ replicas stay identical; the launcher checks that they end bit-identical.
 P ranks (``launch.mesh.make_auto_mesh``, ``seq_group.spawn_mesh``),
 planned by ``sharding.specs.make_plan(..., train=True)``: each row of P
 ranks is a seq group over ``model`` as above, the global batch splits over
-``data``, the params are ZeRO-3 blocks over ``data`` (gathered at the
-start of a step, booked as ``param``), the optimizer state ZeRO-1 blocks
+``data``, the params are ZeRO-3 blocks over ``data`` (each layer gathered
+as the model reaches it and again in its recompute, its gradient
+reduce-scattered as the backward leaves it; booked as ``param`` and
+``grad``), the optimizer state ZeRO-1 blocks
 over both axes, leaf by leaf as the JAX plan says
 (``sharding.placement``).  ``--mode local --data D --ranks 1`` is
 data-parallel ZeRO training; ``--mode local --data D --ranks M`` (or

@@ -23,6 +23,16 @@ the backward), and the recompute takes the outputs from it in the same
 order.  Every message is sent once, every tag is taken in the forward, and
 the bytes booked by kind are those of a step without rematerialisation.
 
+A layer's parameters are another matter.  On a mesh that shards them
+over the batch axes (ZeRO-3, ``sharding.placement``) a layer runs on its
+weights gathered from the ranks' blocks (``gathered``, inside ``layer``'s
+region): that gather is never taped (``SeqGroup.gather_blocks``), so the
+checkpoint keeps the rank's blocks and not the gathered layer, and the
+recompute gathers the layer again, as the reference's rematerialised
+scan of a sharded layer stack does.  Every rank of the batch axes runs the
+same graph, so their forward gathers, recomputes' gathers and backward
+reduce-scatters meet in the same order.
+
 It is on by default, as in the reference, which has no off.  ``disabled``
 turns it off inside a ``with`` block (the tests compare gradients with
 and without it, bit for bit).
@@ -40,6 +50,7 @@ from repro_torch.core.seq_group import SeqGroup, Tape
 from repro_torch.utils.tree import tree_leaves
 
 _ON = contextvars.ContextVar("remat", default=True)
+_GATHER = contextvars.ContextVar("gather", default=None)
 
 
 @contextlib.contextmanager
@@ -50,6 +61,40 @@ def disabled():
         yield
     finally:
         _ON.reset(token)
+
+
+@contextlib.contextmanager
+def gathering(fn: Callable[[Any], Any]):
+    """Inside the block, ``gathered(tree)`` is ``fn(tree)``: a mesh step's
+    way from a layer's blocks to the weights it runs on
+    (``sharding.placement.LayerView``)."""
+    token = _GATHER.set(fn)
+    try:
+        yield
+    finally:
+        _GATHER.reset(token)
+
+
+def gathered(tree: Any) -> Any:
+    """``tree`` (a layer's params, or a top-level leaf's) as the model runs
+    it: gathered from the rank's blocks inside ``gathering``, else itself.
+    The model calls it where it reads the weights: at the top of a layer
+    (``layer``), and at the embedding, the final norm and the head."""
+    fn = _GATHER.get()
+    return tree if fn is None else fn(tree)
+
+
+def _gathered_call(fn: Callable, lp: Any, *args) -> Any:
+    return fn(gathered(lp), *args)
+
+
+def layer(fn: Callable, lp: Any, *args,
+          group: Union[None, SeqGroup, Sequence[SeqGroup]] = None) -> Any:
+    """``region(fn, lp, *args)`` with the layer's params ``lp`` gathered
+    inside the region (``gathered``): the checkpoint keeps what ``lp``
+    holds (the rank's blocks on a ZeRO-3 mesh), the recompute gathers
+    again, and the gathered weights live only while the layer runs."""
+    return region(_gathered_call, fn, lp, *args, group=group)
 
 
 def active(*trees: Any) -> bool:

@@ -433,9 +433,10 @@ def _encode_audio(params: Params, batch: Dict[str, torch.Tensor],
     spec = _attn_spec(cfg, causal=False)
     group = seq_group_for(xcfg) if partitioned(xcfg) else None
     for lp in params["enc_layers"]:
-        mem = remat.region(_apply_attn_mlp, lp, mem, cfg, xcfg, spec, pos,
-                           group=_taped(group))
-    return apply_norm(cfg.norm_type, params["enc_norm"], mem), mask
+        mem = remat.layer(_apply_attn_mlp, lp, mem, cfg, xcfg, spec, pos,
+                          group=_taped(group))
+    return apply_norm(cfg.norm_type, remat.gathered(params["enc_norm"]),
+                      mem), mask
 
 
 def _image_memory(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -468,7 +469,11 @@ def prefill_memory(params: Params, batch: Dict[str, torch.Tensor],
     if cfg.family not in MEMORY_FAMILIES:
         return cache
     mem, mask = _memory(params, batch, cfg, xcfg)
-    kvs = [_memory_kv(lp["xattn"], mem, cfg)
+    # a pass of its own, outside the decoder's layers: on a ZeRO-3 mesh
+    # each cross layer's K/V projections are gathered for it (once a
+    # request; the cache then serves every step)
+    kvs = [_memory_kv(remat.gathered({n: lp["xattn"][n]
+                                      for n in ("wk", "wv")}), mem, cfg)
            for lp in _memory_layers(params, cfg)]
     cache["mem_kv"] = {n: torch.stack([kv[n] for kv in kvs])
                        for n in ("k", "v")}
@@ -808,17 +813,25 @@ def _head(params: Params, cfg: ModelConfig) -> Params:
 
 def _embed(params: Params, tokens, cfg: ModelConfig):
     """The token embeddings (vocab-parallel where ``tp.vocab`` says)."""
-    return embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale,
+    return embed(remat.gathered(params["embed"]), tokens,
+                 scale_by_sqrt_d=cfg.embed_scale,
                  tp=tpm.vocab(cfg.vocab_size))
 
 
-def _logits(params: Params, x, cfg: ModelConfig) -> torch.Tensor:
+def _final_norm(params: Params, x, cfg: ModelConfig) -> torch.Tensor:
+    return apply_norm(cfg.norm_type, remat.gathered(params["final_norm"]), x)
+
+
+def _logits(params: Params, x, cfg: ModelConfig, columns: bool = False
+            ) -> torch.Tensor:
     """The f32 logits of the normed ``x`` over the whole vocabulary: a
-    vocab-parallel unembedding's columns gathered over the row."""
+    vocab-parallel unembedding's columns gathered over the row, or with
+    ``columns`` the rank's V/M columns only (the train loss combines the
+    row's log-sum-exps and gold logits, ``train_step.loss_fn``)."""
     tp = tpm.vocab(cfg.vocab_size)
-    logits = unembed(_head(params, cfg), x, final_softcap=cfg.final_softcap,
-                     tp=tp)
-    return logits if tp is None else tp.gather_from(logits)
+    logits = unembed(remat.gathered(_head(params, cfg)), x,
+                     final_softcap=cfg.final_softcap, tp=tp)
+    return logits if tp is None or columns else tp.gather_from(logits)
 
 
 def _positions(B: int, N: int, device, start: int = 0) -> torch.Tensor:
@@ -856,9 +869,12 @@ def _last_logits(params: Params, x, cfg: ModelConfig, group):
     values are dropped), so the broadcast's backward, which sums the
     cotangents onto the last rank, runs on every rank."""
     last = group is None or group.rank == group.world_size - 1
+    # every rank gathers the head (a mesh's gathers are collectives)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    params = {**params, **remat.gathered(
+        {k: params[k] for k in (head, "final_norm")})}
     if last or (torch.is_grad_enabled() and x.requires_grad):
-        x = apply_norm(cfg.norm_type, params["final_norm"], x[:, -1:])
-        logits = _logits(params, x, cfg)
+        logits = _logits(params, _final_norm(params, x[:, -1:], cfg), cfg)
     else:
         logits = torch.empty((x.shape[0], 1, cfg.vocab_size),
                              dtype=torch.float32, device=x.device)
@@ -901,8 +917,11 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     its part of the sequence (and of the memory) and every rank returns
     the global logits, or with ``local_logits`` only its own part's
     ``[B, N/P, V]`` (the train step's loss reads its own tokens, and no
-    logits cross ranks).  ``aux`` is the moe family's summed load-balance
-    loss (0 otherwise)."""
+    logits cross ranks); under a vocab-parallel head (``tp.vocab``)
+    ``local_logits`` keeps the rank's ``[B, N, V/M]`` columns.  ``aux`` is
+    the moe family's summed load-balance loss (0 otherwise).  Each layer
+    reads its weights through ``remat.gathered`` inside its region
+    (``remat.layer``), as do the embedding, the final norm and the head."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, N = tokens.shape
@@ -915,15 +934,15 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
     if cfg.family in MEMORY_FAMILIES:
         mem, mem_mask = _memory(params, batch, cfg, xcfg)
     for lp, spec, half, _ in _walk(params, cfg):
-        x, a = remat.region(_decoder_layer, lp, spec, half, x, cfg, xcfg,
-                            positions, group, mem, mem_mask, N == 1,
-                            group=_taped(group))
+        x, a = remat.layer(_decoder_layer, lp, spec, half, x, cfg, xcfg,
+                           positions, group, mem, mem_mask, N == 1,
+                           group=_taped(group))
         if a is not None:
             aux = aux + a
     if last_only:
         return _last_logits(params, x, cfg, group), aux
-    x = apply_norm(cfg.norm_type, params["final_norm"], x)
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, _final_norm(params, x, cfg), cfg,
+                     columns=local_logits)
     if group is not None and not local_logits:   # [P, B, Np, V] → [B, N, V]
         logits = group.all_gather(logits, kind="output")
         logits = logits.permute(1, 0, 2, 3).reshape(B, N, -1)
@@ -995,25 +1014,31 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     x = _embed(params, batch["tokens"], cfg)
     if isinstance(cache_index, torch.Tensor):      # once, not per layer
         cache_index = cache_index.to(device=x.device, dtype=torch.long)
+    for lp, spec, half, i in _walk(params, cfg):
+        x = _decode_layer(remat.gathered(lp), spec, half, i, x, cache,
+                          cache_index, cfg, xcfg)
+    return _logits(params, _final_norm(params, x, cfg), cfg), cache
+
+
+def _decode_layer(lp: Params, spec: AttnSpec, half, i: int, x, cache: Params,
+                  cache_index, cfg: ModelConfig, xcfg: ExchangeConfig):
+    """One entry of ``_walk`` for one token (``decode_step``), its cache
+    updated in place; ``lp`` as the layer runs it (gathered)."""
+    if half == MEMORY:
+        return _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
+                            cfg, xcfg, decode=True)
+    if cfg.family == "hybrid":
+        return _apply_hymba_decode(lp, x, cfg, xcfg, spec,
+                                   _layer_cache(cache, half, i),
+                                   _layer_cache(cache, "ssm", i),
+                                   cache_index)
+    if cfg.family == "ssm":
+        return _apply_xlstm_decode(lp, x, cfg, _layer_cache(cache, "m", i),
+                                   _layer_cache(cache, "s", i))
     layer = _apply_moe_decode if cfg.family == "moe" else \
         _apply_attn_mlp_decode
-    for lp, spec, half, i in _walk(params, cfg):
-        if half == MEMORY:
-            x = _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
-                             cfg, xcfg, decode=True)
-        elif cfg.family == "hybrid":
-            x = _apply_hymba_decode(lp, x, cfg, xcfg, spec,
-                                    _layer_cache(cache, half, i),
-                                    _layer_cache(cache, "ssm", i),
-                                    cache_index)
-        elif cfg.family == "ssm":
-            x = _apply_xlstm_decode(lp, x, cfg, _layer_cache(cache, "m", i),
-                                    _layer_cache(cache, "s", i))
-        else:
-            x = layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
-                      cache_index)
-    x = apply_norm(cfg.norm_type, params["final_norm"], x)
-    return _logits(params, x, cfg), cache
+    return layer(lp, x, cfg, xcfg, spec, _layer_cache(cache, half, i),
+                 cache_index)
 
 
 def supports_page_pool(cfg: ModelConfig) -> bool:
@@ -1092,15 +1117,21 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     x = _embed(params, tokens, cfg)
     positions = _positions(B, n, tokens.device, start)
     for lp, spec, half, i in _walk(params, cfg):
-        if half == MEMORY:
-            x = _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
-                             cfg, xcfg, decode=T0 == 1)
-            continue
-        c = _layer_cache(cache, half, i)
-        if cfg.family == "moe":
-            x = _apply_moe_prefill(lp, x, cfg, xcfg, spec, positions, c,
-                                   group)
-        else:
-            h = _attn_prefill(lp, x, cfg, xcfg, spec, positions, c, group)
-            x = _mlp_residual(lp, x, h, cfg)
+        x = _prefill_layer(remat.gathered(lp), spec, half, i, x, cache,
+                           positions, group, cfg, xcfg, T0 == 1)
     return _last_logits(params, x, cfg, group), cache
+
+
+def _prefill_layer(lp: Params, spec: AttnSpec, half, i: int, x, cache: Params,
+                   positions, group, cfg: ModelConfig, xcfg: ExchangeConfig,
+                   one: bool):
+    """One entry of ``_walk`` over the prompt (``prefill``), its cache
+    written; ``lp`` as the layer runs it (gathered)."""
+    if half == MEMORY:
+        return _cross_block(lp, x, _cached_kv(cache, i), cache["mem_mask"],
+                            cfg, xcfg, decode=one)
+    c = _layer_cache(cache, half, i)
+    if cfg.family == "moe":
+        return _apply_moe_prefill(lp, x, cfg, xcfg, spec, positions, c, group)
+    h = _attn_prefill(lp, x, cfg, xcfg, spec, positions, c, group)
+    return _mlp_residual(lp, x, h, cfg)

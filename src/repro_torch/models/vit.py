@@ -97,6 +97,9 @@ def forward_vit(params: Params, images: torch.Tensor, cfg: ModelConfig,
                 xcfg: ExchangeConfig) -> torch.Tensor:
     """[B, 224, 224, 3] → class logits [B, n_classes] f32."""
     B = images.shape[0]
+    layers = params["layers"]
+    params = remat.gathered({k: v for k, v in params.items()
+                             if k != "layers"})
     x = patchify(images.to(cfg.torch_dtype)) @ params["patch_embed"]
     x = x + params["patch_bias"]
     x = torch.cat([params["cls"].expand(B, 1, x.shape[-1]), x], dim=1)
@@ -117,8 +120,8 @@ def forward_vit(params: Params, images: torch.Tensor, cfg: ModelConfig,
     kv_mask = kv_mask.clone(memory_format=torch.contiguous_format)
 
     spec = _attn_spec(cfg, causal=False, use_rope=False)
-    for lp in params["layers"]:
-        x = remat.region(_block, lp, x, kv_mask, spec, cfg, xcfg, group=group)
+    for lp in layers:
+        x = remat.layer(_block, lp, x, kv_mask, spec, cfg, xcfg, group=group)
 
     def head(cls_token):
         cls_token = apply_norm(cfg.norm_type, params["final_norm"],

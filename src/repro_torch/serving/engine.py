@@ -28,8 +28,11 @@ The JAX package's step builders, ``build_prefill_step`` and
 ``build_decode_step`` (its canonical jit targets for the dry run), are
 here with an optional ``ShardingPlan``: on a ``("data", "model")`` mesh a
 rank runs its rows of the batch (``specs.batch_shardings``) and its block
-of the cache (``init_cache``), with the params held as the plan says
-(``sharding.placement.Placement.held_params``).
+of the cache (``init_cache``), with the params held as the plan says: the
+rank's ZeRO-3 blocks under a plan with ``fsdp``
+(``sharding.placement.Placement.param_blocks``), each layer gathered as
+the loop reaches it and freed after it (``Placement.layer_view``), else
+the tree the model runs on (``Placement.held_params``).
 """
 from __future__ import annotations
 
@@ -58,12 +61,15 @@ def build_prefill_step(cfg, xcfg, plan=None) -> Callable:
 
     With ``plan`` (a ``ShardingPlan`` on the mesh this process joined;
     ``xcfg`` is then ``plan.xcfg``) the step is one rank's: ``batch`` is
-    the global batch, of which the rank runs its rows, ``params`` the tree
-    the model runs on under the plan (``Placement.held_params``) and
-    ``cache`` the rank's block (``init_cache``); the logits are its rows'.
-    Under a plan that shards the sequence over ``model`` the forward runs
-    the sequence over the row, so the split MLP blocks of the decode plan
-    are gathered whole for it first (``param`` bytes)."""
+    the global batch, of which the rank runs its rows, ``params`` the
+    rank's blocks under a plan with ``fsdp`` (``Placement.param_blocks``),
+    else the tree the model runs on under the plan
+    (``Placement.held_params``), and ``cache`` the rank's block
+    (``init_cache``); the logits are its rows'.  Under a plan that shards
+    the sequence over ``model`` the forward runs the sequence over the
+    row, so the split MLP blocks of the decode plan are gathered whole for
+    it (``param`` bytes): all at once from held params, a layer at a time
+    from blocks."""
     from repro_torch.models import registry
     from repro_torch.models import transformer as tfm
     fwd = registry.prefill_fn(cfg)
@@ -77,9 +83,9 @@ def build_prefill_step(cfg, xcfg, plan=None) -> Callable:
 
     def mesh_prefill_step(params, batch, cache):
         rows = on.rows(batch)
-        if on.widen:
+        if on.widen and not plan.fsdp:
             params = on.place.widened(params)
-        with on.context():
+        with on.context(params) as params:
             logits, _ = fwd(params, rows, plan.xcfg)
             cache = tfm.prefill_memory(params, rows, cfg, plan.xcfg, cache)
         return logits[:, -1:], cache
@@ -94,7 +100,9 @@ def build_decode_step(cfg, xcfg, plan=None) -> Callable:
     of the cache, and under tensor parallelism (``models.tp``: a
     ``local`` plan's heads, MLPs, experts and vocabulary, or only the MLPs
     and experts of a plan over the sequence, whose attention merges the
-    cache blocks of the row) its blocks of the split weights."""
+    cache blocks of the row) its blocks of the split weights; under a plan
+    with ``fsdp`` ``params`` are the rank's blocks, each layer gathered as
+    the loop reaches it."""
     from repro_torch.models import registry
     step = registry.decode_fn(cfg)
     if plan is None:
@@ -104,7 +112,7 @@ def build_decode_step(cfg, xcfg, plan=None) -> Callable:
     on = _OnMesh(cfg, plan, full_sequence=False)
 
     def mesh_serve_step(params, batch, cache, cache_index):
-        with on.context():
+        with on.context(params) as params:
             return step(params, on.rows(batch), cache, cache_index,
                         plan.xcfg)
     return mesh_serve_step
@@ -118,7 +126,7 @@ def init_cache(cfg, plan, batch: int, seq: int, device=None):
     replicated and GSPMD computes the attention head-sharded)."""
     from repro_torch.models import transformer as tfm
     on = _OnMesh(cfg, plan, full_sequence=False)
-    with on.context():
+    with on.context(None):
         return tfm.init_decode_cache(cfg, on.n_rows(batch), seq,
                                      device=device, xcfg=plan.xcfg)
 
@@ -156,10 +164,22 @@ class _OnMesh:
         s = self._slice(next(iter(batch.values())).shape[0])
         return {k: v[s] for k, v in batch.items()}
 
-    def context(self):
+    @contextlib.contextmanager
+    def context(self, params):
+        """The step's context → the tree the model runs on: ``params``
+        itself, or under a plan with ``fsdp`` a ``LayerView`` of the
+        rank's blocks ``params`` whose layers are gathered as the model
+        reaches them (``remat.gathering``)."""
+        from repro_torch.models import remat
         from repro_torch.models import tp as tpm
-        return self.place.tp_context() if self.tp is not None \
-            else tpm.on_mesh(None)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(self.place.tp_context() if self.tp is not None
+                                else tpm.on_mesh(None))
+            if self.plan.fsdp and params is not None:
+                view = self.place.layer_view(params, whole=self.widen)
+                stack.enter_context(remat.gathering(view))
+                params = view.tree
+            yield params
 
 
 @dataclasses.dataclass

@@ -11,24 +11,37 @@ on a stack dim selects layers, an entry on a logical dim a slice of it.
 Parameters are held as their param-spec blocks between train steps and
 the optimizer's moments as their (finer) optimizer-spec blocks; a step
 
-1. gathers each parameter over the axes its spec shards it on (``data``:
-   ZeRO-3, booked as ``param``) and runs the model on the whole tree;
-2. sums the gradients over the mesh (``reduce_gradients``): an f32
-   ``all_reduce`` over the row (the ``model`` axis: the sequence parts),
-   then, where the batch is sharded over ``data``, a reduce-scatter over
-   the column for a leaf the plan shards over ``data`` (each rank keeps
-   its block's sum) or an ``all_reduce`` for one it replicates (``grad``);
+1. runs the model on a ``LayerView`` of the blocks: each layer gathers
+   its leaves over the axes their specs shard them on as the model
+   reaches it (ZeRO-3's just-in-time gather, inside the layer's
+   rematerialised region: one staged call over ``data`` for the layer,
+   booked as ``param``, then one over ``model`` for the leaves the rank
+   runs whole or as ranges of another block), and the top-level leaves
+   (the embedding, the final norm, the head) where they are used; the
+   gathered layer is freed when the layer ends, the recompute gathers it
+   again, and a rank never holds more than its blocks and one layer;
+2. sums the gradients over the mesh: as the backward leaves a layer, its
+   gathers' transposes reduce-scatter the layer's f32 gradient over
+   ``data`` where the batch is sharded there (each rank keeps its block's
+   sum, ``grad``), and over the row (the ``model`` axis: the sequence
+   parts) for a leaf gathered there (the MoE experts); at the end of the
+   step (``reduce_gradients``) an f32 ``all_reduce`` over the row of the
+   other leaves and, over the batch axes, one for the leaves the plan
+   replicates there (``grad``);
 3. updates each optimizer block (``train.optimizer``) and gathers the
    updated blocks back into the param-spec blocks over the axes the
    optimizer spec adds (``param``).
+
+The serving steps of a plan with ``fsdp`` take the rank's blocks and
+gather each layer the same way, without grad.
 
 Under tensor parallelism (``repro_torch.models.tp``: a ``local`` plan
 with a model axis over 1, or a decode plan's MLPs and experts) a rank
 computes with its block of the TP leaves (``tp_dim``: the split heads'
 ``wq/wk/wv/wo`` and MLA's ``w_uq/w_uk/w_uv/wo`` and latent projections,
 the split MLPs, the experts, the vocabulary, the recurrent mixers'
-channels), so ``gather_params`` gathers those over ``data`` only and
-every other leaf whole; the model then runs inside ``tp_context``.  The
+channels), so a layer gathers those over ``data`` only and every other
+leaf whole; the model then runs inside ``tp_context``.  The
 stored blocks stay the JAX spec's; where the rank's block is not its
 model block (``moved``: heads split unevenly, columns the axis does not
 divide, a mixer's block of several ranges of a dim, or of a dim the spec
@@ -37,11 +50,13 @@ and the rank's ranges joined from it (``param``), and its gradient goes
 back the reverse way, padded whole and reduce-scattered over the row
 (``grad``), which also sums a range that several ranks hold (the
 mLSTM's x half of ``w_up``).  The row's ranks hold the same loss, so
-``reduce_gradients`` sums over the row only the leaves whose gradient is
-a rank's part (``sliced``: the qkv biases of split heads, a shared KV
-head's ``wk/wv``, the mLSTM's ``w_q/w_k/w_if/b_if``, a gathered MLA
-latent's norm); a TP leaf's gradient is its block's, and a leaf consumed
-whole has the same gradient on every rank of the row.
+the row sums only the gradients that are a rank's part (``sliced``: the
+qkv biases of split heads, a shared KV head's ``wk/wv``, the mLSTM's
+``w_q/w_k/w_if/b_if``, a gathered MLA latent's norm; in the model
+gather's backward where the leaf is gathered over the row, else at the
+end of the step); a TP leaf's gradient is its block's, and a leaf
+consumed whole has the same gradient on every rank of the row (the model
+gather's backward keeps the rank's block of it).
 
 The runtime takes ``("data", "model")`` and ``("pod", "data",
 "model")`` meshes.  On the second the plan shards the batch and the ZeRO-3
@@ -234,16 +249,20 @@ class Placement:
         template) → JAX-layout key → the whole stacked leaf (one copy, in
         ``dtype`` if given)."""
         leaves = [leaf for _, leaf in tree_leaves_with_paths(tree)]
-        out = {}
-        for k, ent in self.index_of.items():
-            parts = [leaves[self.order[p]] for p in ent.paths]
-            t = torch.empty((len(parts),) + tuple(parts[0].shape),
-                            dtype=dtype or parts[0].dtype,
-                            device=parts[0].device)
-            for j, part in enumerate(parts):
-                t[j].copy_(part)
-            out[k] = t.reshape(ent.shape[:ent.lead] + tuple(parts[0].shape))
-        return out
+        return {k: self._stack_one(k, leaves, dtype) for k in self.keys}
+
+    def _stack_one(self, k: str, tree, dtype=None) -> torch.Tensor:
+        """``stack``'s leaf ``k`` (``tree``: the port tree, or its
+        leaves)."""
+        leaves = tree if isinstance(tree, list) else \
+            [leaf for _, leaf in tree_leaves_with_paths(tree)]
+        ent = self.index_of[k]
+        parts = [leaves[self.order[p]] for p in ent.paths]
+        t = torch.empty((len(parts),) + tuple(parts[0].shape),
+                        dtype=dtype or parts[0].dtype, device=parts[0].device)
+        for j, part in enumerate(parts):
+            t[j].copy_(part)
+        return t.reshape(ent.shape[:ent.lead] + tuple(parts[0].shape))
 
     def unstack(self, flat: Dict[str, torch.Tensor]):
         """``stack``'s inverse: the port tree whose leaves are views of
@@ -255,13 +274,6 @@ class Placement:
             for j, p in enumerate(ent.paths):
                 leaves[self.order[p]] = parts[j]
         return tree_unflatten_like(self.template, leaves)
-
-    def shard(self, flat: Dict[str, torch.Tensor], opt: bool = False
-              ) -> Dict[str, torch.Tensor]:
-        """This rank's blocks (param spec, or optimizer spec with ``opt``)
-        of whole JAX-layout leaves, as copies."""
-        specs = self.opt_spec if opt else self.spec
-        return {k: flat[k][self.index(k, specs[k])].clone() for k in self.keys}
 
     def opt_part(self, blocks: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
@@ -316,47 +328,56 @@ class Placement:
             spec_axes(target[k]) if target is not None else ())
             for k in self.keys}
 
-    def _moved_in(self, k: str, t: torch.Tensor) -> torch.Tensor:
-        """A moved leaf's block under ``held[k]`` → the rank's block:
-        gathered over ``model`` (where held), its ranges joined, the rest
-        freed."""
-        dim = self.tp_dim[k]
-        if self.held[k][dim] == "model":
-            t = self._gather_dim(t, list(self.held[k]), dim)
-        return torch.cat([t.narrow(dim, lo, hi - lo)
-                          for lo, hi in self.moved[k]], dim=dim)
+    def _plan(self, k: str, whole: bool) -> "_LeafPlan":
+        """How a layer's leaf ``k`` goes from the rank's block to what the
+        model runs on (every leaf whole with ``whole``, else the TP leaves
+        the rank's blocks)."""
+        ent, spec = self.index_of[k], self.spec[k]
+        n = len(ent.shape)
+        held = (None,) * n if whole else self.held[k]
+        ranges = None if whole else self.moved.get(k)
+        bdim = self._batch_dim(k)
+        batch = None if bdim is None else (bdim, spec[bdim])
+        mdim = next((i for i in range(n)
+                     if "model" in _entry_axes(_entry(spec, i))), None)
+        if mdim is not None and mdim < ent.lead:
+            raise NotImplementedError(f"{k}: a stack dim over 'model'")
+        if mdim is not None and held[mdim] == "model" and ranges is None:
+            mdim = None                        # the rank's model block
+        # the row's ranks read a leaf gathered over ``model`` with their own
+        # part of the loss: every leaf without TP (each rank its part of
+        # the sequence), a moved or sliced one under TP
+        return _LeafPlan(ent.lead, batch, mdim, ranges,
+                         self.tp_dim.get(k),
+                         self.tp is None or (not whole and (
+                             k in self.moved or k in self.sliced)))
 
-    def _moved_out(self, k: str, g: torch.Tensor) -> torch.Tensor:
-        """``_moved_in``'s transpose on a gradient: the rank's block put
-        at its ranges of a whole leaf of zeros, reduce-scattered over
-        ``model`` (booked as ``grad``) → the sum's block under
-        ``held[k]``; where ``held[k]`` is whole, the padded leaf (the row
-        sums it as a ``sliced`` one)."""
-        dim = self.tp_dim[k]
-        shape = list(g.shape)
-        shape[dim] = self.index_of[k].shape[dim]
-        whole = g.new_zeros(shape)
-        at = 0
-        for lo, hi in self.moved[k]:
-            whole.narrow(dim, lo, hi - lo).copy_(g.narrow(dim, at, hi - lo))
-            at += hi - lo
-        if self.held[k][dim] != "model":
-            return whole
-        row = self._group("model")
-        return row.reduce_scatter(torch.stack(list(whole.chunk(
-            row.world_size, dim=dim))))
+    def _model_summed(self, k: str) -> bool:
+        """Does the backward of ``k``'s model gather sum it over the row?"""
+        plan = self._plan(k, False)
+        return plan.model is not None and plan.model_sum
 
-    def gather_params(self, blocks: Dict[str, torch.Tensor]):
-        """Param-spec blocks → the port params tree the model runs on
-        (ZeRO-3's gather at the start of a step): every leaf whole but the
-        TP leaves, each this rank's block (its model block gathered over
-        ``data`` only; a moved leaf's head block, one leaf at a time)."""
+    def layer_view(self, blocks: Dict[str, torch.Tensor], *,
+                   grad: bool = False, whole: bool = False,
+                   batch_entry=None) -> "LayerView":
+        """The port tree over this rank's param-spec ``blocks`` that the
+        model runs on one layer at a time (``LayerView``).  ``grad``: its
+        leaves require grad (a train step; ``batch_entry``, the batch axes
+        the rows are sharded over, says where a gather's backward sums);
+        ``whole``: every leaf gathered whole (a full sequence over the row
+        under a decode plan), else the TP leaves as the rank's blocks."""
+        return LayerView(self, blocks, grad, whole, batch_entry)
+
+    def param_blocks(self, params) -> Dict[str, torch.Tensor]:
+        """Whole port ``params`` (the same on every rank) → this rank's
+        param-spec blocks, one stacked leaf at a time."""
+        leaves = [leaf for _, leaf in tree_leaves_with_paths(params)]
         out = {}
         for k in self.keys:
-            t = self._gather_leaf(blocks[k], self.spec[k],
-                                  spec_axes(self.held[k]))
-            out[k] = self._moved_in(k, t) if k in self.moved else t
-        return self.unstack(out)
+            whole = self._stack_one(k, leaves)
+            out[k] = whole[self.index(k, self.spec[k])].clone()
+            del whole
+        return out
 
     def held_index(self, k: str) -> tuple:
         """The block of whole leaf ``k`` the model runs on (whole on the
@@ -475,59 +496,35 @@ class Placement:
 
     def reduce_gradients(self, grads: Dict[str, torch.Tensor],
                          batch_entry=None) -> Dict[str, torch.Tensor]:
-        """f32 gradient leaves of this rank's share of the loss (whole, or
-        a TP leaf's block) → the sums over the mesh of this rank's
-        optimizer-spec blocks.  The row sums its sequence parts
-        (``all_reduce`` over ``model``; under TP only the ``sliced``
-        leaves, a ``moved`` leaf's head block going back to its model
-        block first, ``_moved_out``); where the rows are sharded over the batch axes of
-        ``batch_entry`` (``batch_entry``'s result), those ranks sum their
-        rows: a leaf the plan
-        shards over batch axes S' ⊆ those by a reduce-scatter of its
-        blocks over S' (after an ``all_reduce`` over the rest of them), any
-        other by an ``all_reduce`` (each booked as ``grad``).  On a
-        ``("data", "model")`` mesh: a reduce-scatter over ``data`` of the
-        leaves it shards, one ``all_reduce`` of the others."""
+        """The f32 gradients of this rank's param-spec blocks after the
+        backward of a ``LayerView`` (each already summed over the batch
+        axes of its gather where ``batch_entry`` shards the rows there, and
+        over the row where its model gather sums) → the sums over the mesh
+        of this rank's optimizer-spec blocks.  What is left is summed here,
+        each an f32 ``all_reduce`` booked as ``grad``: over the row (the
+        ``model`` axis) the sequence parts of every leaf not gathered over
+        it, or under TP the ``sliced`` and ``moved`` leaves whose model
+        gather did not sum them; over the batch axes of ``batch_entry``
+        that a leaf's gather did not reduce-scatter over (all of them for
+        a leaf the plan replicates there)."""
         row = self._group("model")
-        summed = list(self.keys if self.tp is None else self.sliced)
-        for k in self.moved:
-            grads[k] = self._moved_out(k, grads[k])
-            if self.held[k][self.tp_dim[k]] != "model":
-                summed.append(k)
+        summed = [k for k in (self.keys if self.tp is None else
+                              sorted(set(self.sliced) | set(self.moved)))
+                  if not self._model_summed(k)]
         if row.world_size > 1 and summed:
-            part = [grads.pop(k) for k in summed]
-            grads.update(zip(summed, row.all_reduce(part, kind="grad")))
-            del part
+            grads.update(zip(summed, row.all_reduce(
+                [grads[k] for k in summed], kind="grad")))
         S = _entry_axes(batch_entry)
-        blocks = {}
-        if S:
-            scatter, rest = {}, {}         # key → its dim; rest → keys
-            for k in self.keys:
-                dim = self._batch_dim(k)
-                E = _entry_axes(self.spec[k][dim]) if dim is not None else ()
-                if E and set(E) <= set(S):
-                    scatter[k] = dim
-                    A = tuple(a for a in S if a not in E)
-                else:
-                    A = S
-                if A and self._group(A).world_size > 1:
-                    rest.setdefault(A, []).append(k)
-            for A, keys in rest.items():
-                grads.update(zip(keys, self._group(A).all_reduce(
-                    [grads[k] for k in keys], kind="grad")))
-            for k, dim in scatter.items():
-                entry = self.spec[k][dim]
-                g = self._group(entry)
-                parts = torch.stack(list(grads[k].chunk(g.world_size,
-                                                        dim=dim)))
-                got = list(self.held[k])      # the held block's batch part
-                got[dim] = entry
-                blocks[k] = g.reduce_scatter(parts)[self._relative(
-                    k, self.spec[k], tuple(got))]
-        blocks.update({k: grads[k][self._relative(k, self.spec[k],
-                                                  self.held[k])]
-                       for k in self.keys if k not in blocks})
-        return self.opt_part(blocks)
+        rest: Dict[tuple, List[str]] = {}
+        for k in self.keys if S else ():
+            E = _entry_axes(self._plan(k, False).batch_entry)
+            A = tuple(a for a in S if a not in E) if set(E) <= set(S) else S
+            if A and self._group(A).world_size > 1:
+                rest.setdefault(A, []).append(k)
+        for A, keys in rest.items():
+            grads.update(zip(keys, self._group(A).all_reduce(
+                [grads[k] for k in keys], kind="grad")))
+        return self.opt_part(grads)
 
     def sum_over_mesh(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over every rank of the mesh (the row, then the
@@ -555,7 +552,7 @@ class Placement:
         """Whole port ``params`` (the same on every rank) → (this rank's
         param-spec blocks, an AdamW state of its optimizer-spec blocks)."""
         from repro_torch.train.optimizer import adamw_init
-        blocks = self.shard(self.stack(params))
+        blocks = self.param_blocks(params)
         return blocks, adamw_init(
             {k: v.clone() for k, v in self.opt_part(blocks).items()},
             moment_dtype)
@@ -607,3 +604,148 @@ class Placement:
     def decay(self) -> Dict[str, bool]:
         """AdamW's decoupled-decay rule in the JAX layout: ndim ≥ 2."""
         return {k: len(self.index_of[k].shape) >= 2 for k in self.keys}
+
+
+class _LeafPlan(NamedTuple):
+    """How one leaf of a ``LayerView`` reaches the model (dims of the
+    stacked leaf)."""
+    lead: int                           # its stack dims
+    batch: Optional[Tuple[int, Any]]    # (dim, entry) over the batch axes
+    model: Optional[int]                # the dim gathered over ``model``
+    ranges: Optional[Ranges]            # a moved leaf's ranges of tp_dim
+    tp_dim: Optional[int]
+    model_sum: bool                     # the model gather's backward sums
+
+    @property
+    def batch_entry(self):
+        return None if self.batch is None else self.batch[1]
+
+
+def _unravel(j: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    out = []
+    for n in reversed(shape):
+        out.append(j % n)
+        j //= n
+    return tuple(reversed(out))
+
+
+class LayerView:
+    """A rank's param-spec blocks as the port tree the model runs on, one
+    layer at a time (ZeRO-3's just-in-time gather).
+
+    ``tree`` holds, at each per-layer leaf, the rank's block of that
+    layer's leaf (a view of ``blocks``; a leaf whose stack dim the plan
+    shards over the batch axes is a layer some rank owns whole: on the
+    others an empty stand-in), and at each top-level leaf its block.
+    Calling the view on a subtree of ``tree`` (``remat.gathered``, inside
+    ``remat.gathering(view)``) gathers its leaves: one staged call over
+    the batch axes (a stack-sharded row from the rank that owns it), then
+    one over ``model`` for the leaves the rank runs whole (or as ranges of
+    the whole, ``Placement.moved``), each ``SeqGroup.gather_blocks``,
+    whose backward reduce-scatters the gradient (``grad``) where the rows
+    are sharded over those axes."""
+
+    def __init__(self, place: Placement, blocks: Dict[str, torch.Tensor],
+                 grad: bool, whole: bool, batch_entry):
+        self.place, self.grad = place, grad
+        self.S = _entry_axes(batch_entry)
+        self.plans = {k: place._plan(k, whole) for k in place.keys}
+        self._where: Dict[int, Tuple[str, Tuple[int, ...], bool]] = {}
+        self.slots: Dict[str, List[Tuple[int, tuple]]] = {}
+        leaves: List[Any] = [None] * len(place.order)
+        for k, ent in place.index_of.items():
+            blk = blocks[k]
+            idx = place.index(k, place.spec[k])[:ent.lead]
+            for j, p in enumerate(ent.paths):
+                mi = _unravel(j, ent.shape[:ent.lead])
+                owned = all(s.start <= m < s.stop for s, m in zip(idx, mi))
+                if owned:
+                    local = tuple(m - s.start for s, m in zip(idx, mi))
+                    t = blk[local].detach()
+                    t.requires_grad_(grad and t.is_floating_point())
+                    self.slots.setdefault(k, []).append((place.order[p],
+                                                         local))
+                else:
+                    t = torch.empty((0,), dtype=blk.dtype, device=blk.device,
+                                    requires_grad=grad)
+                leaves[place.order[p]] = t
+                self._where[id(t)] = (k, mi, owned)
+        self._leaves = leaves
+        self.tree = tree_unflatten_like(place.template, leaves)
+
+    def __call__(self, tree):
+        leaves = tree_leaves_with_paths(tree)
+        out = [leaf for _, leaf in leaves]
+        todo = {i: self._where[id(t)] for i, t in enumerate(out)
+                if isinstance(t, torch.Tensor) and id(t) in self._where}
+        if not todo:
+            return tree
+        place = self.place
+        cur = {i: out[i] for i in todo}
+        track = torch.is_grad_enabled() and self.grad
+        by_entry: Dict[tuple, List[int]] = {}       # over the batch axes
+        for i, (k, _, _) in todo.items():
+            b = self.plans[k].batch
+            if b is not None and place._group(b[1]).world_size > 1:
+                by_entry.setdefault(_entry_axes(b[1]), []).append(i)
+        for E, idxs in by_entry.items():
+            g = place._group(E)
+            pieces = []
+            for i in idxs:
+                k, _, owned = todo[i]
+                plan = self.plans[k]
+                if plan.batch[0] < plan.lead and not owned:
+                    shape = place.block_shape(k, place.spec[k])[plan.lead:]
+                    pieces.append(torch.zeros(
+                        shape, dtype=out[i].dtype, device=out[i].device,
+                        requires_grad=track))
+                else:
+                    pieces.append(out[i])
+            dims = [None if d < p.lead else d - p.lead for d, p in (
+                (self.plans[todo[i][0]].batch[0], self.plans[todo[i][0]])
+                for i in idxs)]
+            got = g.gather_blocks(pieces, dims, [
+                bool(self.S) and set(E) <= set(self.S)] * len(idxs))
+            for i, t, d in zip(idxs, got, dims):
+                k, mi, _ = todo[i]
+                if d is None:                       # the owner's row
+                    dim = self.plans[k].batch[0]
+                    size = place.index_of[k].shape[dim]
+                    t = t[mi[dim] // (size // g.world_size)].clone()
+                cur[i] = t
+        row = place._group("model")
+        idxs = [i for i, (k, _, _) in todo.items()
+                if self.plans[k].model is not None]
+        if idxs and row.world_size > 1:              # over the row
+            plans = [self.plans[todo[i][0]] for i in idxs]
+            got = row.gather_blocks([cur[i] for i in idxs],
+                                    [p.model - p.lead for p in plans],
+                                    [p.model_sum for p in plans])
+            cur.update(zip(idxs, got))
+        for i, (k, _, _) in todo.items():
+            plan = self.plans[k]
+            if plan.ranges is not None:              # the rank's ranges
+                dim = plan.tp_dim - plan.lead
+                cur[i] = torch.cat([cur[i].narrow(dim, lo, hi - lo)
+                                    for lo, hi in plan.ranges], dim=dim)
+            out[i] = cur[i]
+        return tree_unflatten_like(tree, out)
+
+    def block_grads(self, grads: List[torch.Tensor], dtype=torch.float32
+                    ) -> Dict[str, torch.Tensor]:
+        """The gradients of ``tree``'s leaves (in ``tree_leaves`` order) →
+        each key's param-spec block of them, in ``dtype``."""
+        out = {}
+        place = self.place
+        for k in place.keys:
+            slots = self.slots[k]
+            if self.plans[k].lead == 0:
+                out[k] = grads[slots[0][0]].to(dtype)
+                continue
+            g0 = grads[slots[0][0]]
+            t = torch.empty(place.block_shape(k, place.spec[k]), dtype=dtype,
+                            device=g0.device)
+            for pos, local in slots:
+                t[local].copy_(grads[pos])
+            out[k] = t
+        return out

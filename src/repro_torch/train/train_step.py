@@ -3,9 +3,14 @@
 Port of ``repro.train.train_step``: next-token cross-entropy in f32 with a
 z-loss and the model's aux loss, gradients by autograd, gradient
 accumulation over microbatches into an f32 accumulator, and the AdamW
-update.  ``_pin_vocab`` (a GSPMD sharding hint) has no counterpart; the
-one-hot contraction becomes an index of the gold logit, which gives the
-same value.
+update.  The one-hot contraction becomes an index of the gold logit,
+which gives the same value.  ``_pin_vocab`` keeps the JAX package's
+logits vocab-sharded under tensor parallelism; the port does the same by
+hand: under a vocab-parallel head (``tp.vocab``, a ``local`` plan's row)
+``forward_lm`` hands the loss the rank's V/M columns, and the loss
+combines the row's log-sum-exps and gold logits (one ``tp`` gather of two
+numbers a token, ``_vocab_parallel``): no rank holds the whole
+vocabulary's logits.
 
 Under a partitioned plan (``voltage``/``prism`` across the ranks of a seq
 group) every rank holds a full replica of the params and the same global
@@ -25,7 +30,13 @@ the JAX launcher's layout) each row of the mesh is such a seq group over
 are ZeRO-3 blocks over ``data`` and the optimizer state ZeRO-1 blocks over
 both axes, leaf by leaf as the JAX plan says
 (``repro_torch.sharding.placement``).  The loss divides by the global
-B·N, and the gradients are summed over the whole mesh in f32.  Under a
+B·N, and the gradients are summed over the whole mesh in f32.  The model
+runs on a ``Placement.layer_view`` of the blocks: each layer is gathered
+as the model reaches it, inside its rematerialised region (and again in
+its recompute), and its gradient is reduce-scattered over ``data`` as the
+backward leaves it; with ``grad_accum`` > 1 each microbatch's reduced
+blocks are accumulated in ``acc_dtype``, as the JAX step's accumulator
+pinned to the ZeRO-1 specs.  Under a
 ``local`` plan with a model axis over 1 the row is tensor-parallel
 (``repro_torch.models.tp``): its ranks run the same rows with their
 blocks of the split weights and hold the same loss, so the row sums no
@@ -43,6 +54,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exchange import (ExchangeConfig, partitioned,
                                        seq_group_for)
+from repro_torch.models import remat
+from repro_torch.models import tp as tpm
 from repro_torch.models import transformer as tfm
 from repro_torch.train.optimizer import OptConfig, adamw_update, decay_mask
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
@@ -72,21 +85,46 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         labels = labels[:, group.rank * n:(group.rank + 1) * n]
         aux = aux / group.world_size
     aux = aux / batch_shards
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    tp = tpm.vocab(cfg.vocab_size)
+    if tp is not None:
+        logz, gold = _vocab_parallel(tp, logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     tokens = B * N * batch_shards
     nll = (logz - gold).sum() / tokens
     zloss = 1e-4 * torch.square(logz).sum() / tokens
     return nll + zloss + aux, {"nll": nll, "aux": aux}
 
 
+def _vocab_parallel(tp, logits: torch.Tensor, labels: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp, gold logit) [B, N] of the whole vocabulary from this
+    rank's ``[B, N, V/M]`` f32 columns: each rank's log-sum-exp of its
+    columns and its gold logit (the label's column where the rank holds
+    it, else 0) go over the row in one ``gather_from``, whose backward
+    keeps the rank's own pair; the log-sum-exp of the row's log-sum-exps
+    and the sum of its gold logits are the whole vocabulary's."""
+    n = logits.shape[-1]
+    local = labels.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    gold = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    pair = torch.stack([torch.logsumexp(logits, dim=-1),
+                        torch.where(mine, gold, torch.zeros_like(gold))], -1)
+    row = tp.gather_from(pair)                       # [B, N, 2M]
+    return torch.logsumexp(row[..., 0::2], dim=-1), row[..., 1::2].sum(-1)
+
+
 def _grads_of(params, batch, cfg, xcfg, batch_shards: int = 1
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          List[torch.Tensor]]:
     """(loss, parts, the gradient of every leaf in ``tree_leaves`` order,
-    in the leaf's dtype; zeros for a leaf the loss does not reach)."""
+    in the leaf's dtype; zeros for a leaf the loss does not reach).  A
+    leaf that already requires grad (a ``LayerView``'s) is differentiated
+    as it is; the others through grad-requiring aliases."""
     leaves = tree_leaves(params)
-    live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
+    live = [p if p.requires_grad else
+            p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
     loss, parts = loss_fn(tree_unflatten_like(params, live), batch, cfg,
                           xcfg, batch_shards)
     wrt = [t for t in live if t.requires_grad]
@@ -179,30 +217,31 @@ def mesh_gradients(blocks, batch, cfg: ModelConfig, placement,
     parts, the f32 gradient's sum over the mesh of each of this rank's
     optimizer-spec blocks).
 
-    The param blocks are gathered whole (ZeRO-3, ``param`` bytes); the rank
-    runs its rows of the global ``batch`` (the plan's ``batch_shardings``:
-    over ``data``, or ``("pod", "data")`` on a three-axis mesh; every rank
-    of a row the same rows, the row's ranks each their part of the
-    sequence); the gradients are summed over the row and, where the batch
-    is sharded, over the batch axes (``Placement.reduce_gradients``); the
-    loss likewise (``meta``; under TP the row's ranks hold the same loss,
-    summed over the batch axes only).  A batch whose rows do not divide
-    over the batch axes runs whole on every rank of the column, and its
-    gradients are not summed there.  The model and its backward run
-    inside ``placement.tp_context``."""
+    The model runs on a ``LayerView`` of the param blocks: each layer
+    gathered as the model reaches it (ZeRO-3, ``param`` bytes), never the
+    whole tree; the rank runs its rows of the global ``batch`` (the plan's
+    ``batch_shardings``: over ``data``, or ``("pod", "data")`` on a
+    three-axis mesh; every rank of a row the same rows, the row's ranks
+    each their part of the sequence); each layer's gradient is
+    reduce-scattered over the batch axes as the backward leaves it, where
+    the batch is sharded there, then summed over the row and what else is
+    left (``Placement.reduce_gradients``); the loss likewise (``meta``;
+    under TP the row's ranks hold the same loss, summed over the batch
+    axes only).  A batch whose rows do not divide over the batch axes runs
+    whole on every rank of the column, and its gradients are not summed
+    there.  The model and its backward run inside
+    ``placement.tp_context``."""
     from repro_torch.sharding.specs import axis_size
     xcfg = placement.plan.xcfg
     entry = placement.batch_entry(batch)
     shards = axis_size(placement.mesh, entry)
-    params = placement.gather_params(blocks)
-    with placement.tp_context(entry):
+    view = placement.layer_view(blocks, grad=True, batch_entry=entry)
+    with placement.tp_context(entry), remat.gathering(view):
         loss, parts, grads = _accumulated(
-            params, placement.batch_part(batch), cfg, xcfg, grad_accum,
+            view.tree, placement.batch_part(batch), cfg, xcfg, grad_accum,
             shards, acc_dtype)
-    grads = tree_unflatten_like(params, grads)
-    del params
-    g = placement.reduce_gradients(placement.stack(grads, torch.float32),
-                                   entry)
+    g = placement.reduce_gradients(view.block_grads(grads), entry)
+    del grads
     row = placement._group("model")
     if row.world_size > 1 and placement.tp is None:
         loss, parts = _summed(row, loss, parts)

@@ -973,7 +973,14 @@ def mesh_train(rank, world, job):
     step 1).  ``job["restore"]``: restore the newest checkpoint there into
     this mesh → the blocks restored, their placements and whole params.
     ``job["forward"]``: a ``prism`` forward and a decode step over the
-    mesh, each row its slice of the batch → the row's logits."""
+    mesh, each row its slice of the batch → the row's logits.
+    ``job["accum"]``: mode → microbatches of a second mesh gradient (its
+    loss, gradient, bytes and calls under ``"<mode>/accum<n>"``).
+    ``job["others"]``: label → another arch's mesh gradient (``arch``,
+    ``mode``, ``params``, ``batch``: its loss, aux loss, gradient, bytes
+    and calls under the label).  Each
+    gradient also gives its calls by axis and kind and the stack dims of
+    each leaf."""
     import hashlib
 
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -1014,6 +1021,21 @@ def mesh_train(rank, world, job):
         return {k: v.detach().float().cpu().numpy() for k, v in d.items()}
 
     out = {"coords": mesh.coords(rank)}
+    for mode, n in job.get("accum", {}).items():
+        plan = make_plan(mesh, cfg, ExchangeMode(mode), L=job["L"],
+                         train=True)
+        place = Placement(plan, cfg, registry.abstract_params(cfg))
+        blocks, _ = place.init_state(params)
+        for g in groups:
+            g.reset_stats()
+        with logged_calls() as log:
+            loss, _, g = mesh_gradients(blocks, tensors(job["batch"]), cfg,
+                                        place, grad_accum=n)
+        res = dict(loss=float(loss), booked_grads=_booked(groups),
+                   calls=calls_by_kind(log))
+        grads = place.whole(g, place.opt_spec)
+        out[f"{mode}/accum{n}"] = dict(
+            res, grads=whole_np(grads) if rank == 0 else None)
     for mode in job.get("modes", ()):
         plan = make_plan(mesh, cfg, ExchangeMode(mode), L=job["L"],
                          train=True)
@@ -1022,8 +1044,9 @@ def mesh_train(rank, world, job):
         for g in groups:
             g.reset_stats()
         before = (segment_means.launches, prism_attention.launches)
-        loss, _, g = mesh_gradients(blocks, tensors(job["batch"]), cfg,
-                                    place)
+        with logged_calls() as log:
+            loss, _, g = mesh_gradients(blocks, tensors(job["batch"]), cfg,
+                                        place)
         booked_grads = _booked(groups)
         launches = (segment_means.launches - before[0],
                     prism_attention.launches - before[1])
@@ -1037,7 +1060,10 @@ def mesh_train(rank, world, job):
         booked_step = _booked(groups)
         whole = place.whole(new, place.spec)
         res = dict(loss=float(loss), grad_digest=digest(grads.values()),
-                   launches=launches,
+                   launches=launches, calls=calls_by_kind(log),
+                   leads={k: e.lead for k, e in place.index_of.items()},
+                   whole_shapes={k: e.shape
+                                 for k, e in place.index_of.items()},
                    booked_grads=booked_grads, booked_step=booked_step,
                    metrics={k: float(v) for k, v in m.items()},
                    shard_digest=digest(new[k] for k in place.keys),
@@ -1055,6 +1081,27 @@ def mesh_train(rank, world, job):
             if mgr is not None:
                 mgr.wait()
         out[mode] = res
+    for label, m in job.get("others", {}).items():
+        mcfg = get_config(m["arch"]).reduced(**job["reduced"])
+        plan = make_plan(mesh, mcfg, ExchangeMode(m["mode"]), L=job["L"],
+                         train=True)
+        place = Placement(plan, mcfg, registry.abstract_params(mcfg))
+        blocks, _ = place.init_state(
+            params_from_numpy(m["params"], mcfg, device=device))
+        for g in groups:
+            g.reset_stats()
+        with logged_calls() as log:
+            loss, parts, g = mesh_gradients(blocks, tensors(m["batch"]), mcfg,
+                                            place)
+        booked = _booked(groups)
+        grads = place.whole(g, place.opt_spec)
+        out[label] = dict(
+            loss=float(loss), aux=float(parts["aux"]),
+            booked_grads=booked, calls=calls_by_kind(log),
+            grad_digest=digest(grads.values()),
+            leads={k: e.lead for k, e in place.index_of.items()},
+            whole_shapes={k: e.shape for k, e in place.index_of.items()},
+            grads=whole_np(grads) if rank == 0 else None)
     if job.get("restore"):
         plan = make_plan(mesh, cfg, ExchangeMode(job["save_mode"]),
                          L=job["L"], train=True)
@@ -1103,7 +1150,40 @@ def _tp_collectives(g, seed):
         y.backward(wide if name.startswith("gather") else ct)
         out[name] = dict(y=_np(y.detach()), grad=_np(x.grad),
                          tp=g.stats.tp_bytes, calls=g.stats.calls)
+    out["gather_blocks"] = _gather_blocks_case(g, rng)
     return out
+
+
+def _gather_blocks_case(g, rng):
+    """``SeqGroup.gather_blocks`` on three pieces (f32 [3, 4] joined along
+    dim 0 and summed, bf16 [2, 5] along dim 1 not summed, f32 [4]
+    stacked and summed) with 48-byte buckets (the [3, 4] piece alone,
+    then the other two): the joined outputs, each input's gradient from a
+    cotangent of the joined shape, and the bytes and calls booked each
+    way."""
+    from repro_torch.core import seq_group as sg
+    P = g.world_size
+    xs = [_dyadic(rng, (3, 4), torch.float32),
+          _dyadic(rng, (2, 5), torch.bfloat16),
+          _dyadic(rng, (4,), torch.float32)]
+    cts = [_dyadic(rng, (3 * P, 4), torch.float32),
+           _dyadic(rng, (2, 5 * P), torch.bfloat16),
+           _dyadic(rng, (P, 4), torch.float32)]
+    leaves = [x.clone().requires_grad_() for x in xs]
+    bucket, sg.BUCKET_BYTES = sg.BUCKET_BYTES, 48
+    try:
+        g.reset_stats()
+        ys = g.gather_blocks(leaves, [0, 1, None], [True, False, True])
+        fwd = dict(param=g.stats.param_bytes, calls=g.stats.calls)
+        g.reset_stats()
+        torch.autograd.backward(ys, cts)
+    finally:
+        sg.BUCKET_BYTES = bucket
+    return dict(x=[_np(x.float()) for x in xs],
+                ct=[_np(c.float()) for c in cts],
+                y=[_np(y.detach().float()) for y in ys],
+                grad=[_np(x.grad.float()) for x in leaves], fwd=fwd,
+                bwd=dict(grad=g.stats.grad_bytes, calls=g.stats.calls))
 
 
 def _tp_params(c, cfg, device="cpu"):
@@ -1161,11 +1241,14 @@ def _tp_train_case(c, mesh, groups, rank):
         place.reduce_gradients = spy
     for g in groups:
         g.reset_stats()
-    loss, parts, grad = mesh_gradients(blocks, batch, cfg, place)
+    with logged_calls() as log:
+        loss, parts, grad = mesh_gradients(blocks, batch, cfg, place,
+                                           grad_accum=c.get("accum", 1))
     res = dict(loss=float(loss), aux=float(parts["aux"]),
                booked=_booked(groups), tp_keys=sorted(place.tp_dim),
                sliced=sorted(place.sliced), moved=sorted(place.moved),
-               raw=raw,
+               raw=raw, calls=calls_by_kind(log),
+               leads={k: e.lead for k, e in place.index_of.items()},
                whole_shapes={k: e.shape for k, e in place.index_of.items()},
                block_shapes={k: tuple(blocks[k].shape) for k in place.keys})
     grads = place.whole(grad, place.opt_spec)
@@ -1181,13 +1264,15 @@ def _tp_train_case(c, mesh, groups, rank):
                 booked=_booked(groups),
                 same=digest(place.whole(g2, place.opt_spec).values())
                 == res["grad_digest"])
+    view = place.layer_view(blocks)         # every layer gathered at once
     res["held_shapes"] = {k: tuple(v.shape) for k, v in place.stack(
-        place.gather_params(blocks)).items()}
+        view(view.tree)).items()}
     if c.get("step"):
         for g in groups:
             g.reset_stats()
         step = build_train_step(cfg, plan.xcfg,
                                 OptConfig(lr=1e-3, warmup_steps=1),
+                                grad_accum=c.get("accum", 1),
                                 placement=place)
         new, opt2, m = step(blocks, opt, batch)
         whole = place.whole(new, place.spec)
@@ -1216,7 +1301,12 @@ def _tp_serve_case(c):
     → this rank's logits a step, the global tokens and the flash-decode
     launches (on ``c["device"]``, default the CPU), and whether the held
     params widened over the row (``Placement.widened``) are the whole
-    ones, and the shapes of the rank's cache."""
+    ones, and the shapes of the rank's cache.  ``c["fsdp"]``: the plan
+    with ZeRO-3 params (the rank's blocks, ``Placement.param_blocks``,
+    each layer gathered as the loop reaches it; widened: a view of the
+    blocks gathered whole) → also the largest gathered bytes alive at
+    once."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.launch.mesh import get_abstract_mesh
@@ -1228,17 +1318,21 @@ def _tp_serve_case(c):
     cfg = get_config(c["arch"]).reduced(**c["reduced"])
     plan = make_plan(get_abstract_mesh(), cfg, ExchangeMode(c["mode"]),
                      L=c.get("L", 0), decode=True)
+    if c.get("fsdp"):
+        plan = dataclasses.replace(plan, fsdp=True)
     place = Placement(plan, cfg, registry.abstract_params(cfg))
     device = c.get("device", "cpu")
     whole = _tp_params(c, cfg, device)
-    params = place.held_params(whole)
+    params = (place.param_blocks(whole) if plan.fsdp
+              else place.held_params(whole))
+    views = []
     col = get_seq_group("data")
     prompt = torch.from_numpy(c["prompt"]).to(device)
     B, T0 = prompt.shape
     S = T0 + c["steps"]
     prefill = engine.build_prefill_step(cfg, plan.xcfg, plan)
     step = engine.build_decode_step(cfg, plan.xcfg, plan)
-    with torch.no_grad():
+    with torch.no_grad(), _kept_views(views):
         first, _ = prefill(params, {"tokens": prompt},
                            engine.init_cache(cfg, plan, B, S, device))
         cache = engine.init_cache(cfg, plan, B, S, device)
@@ -1254,18 +1348,43 @@ def _tp_serve_case(c):
                    got[:, None].to(device=device, dtype=prompt.dtype))
             if i + 1 >= T0:
                 tokens.append(got.numpy())
+    if plan.fsdp:
+        view = place.layer_view(params, whole=True)
+        widened = view(view.tree)
+        held = {k: tuple(v.shape) for k, v in params.items()}
+    else:
+        widened = place.widened(params)
+        held = {k: tuple(v.shape) for k, v in place.stack(params).items()}
     return dict(prefill=_np(first.float().cpu()), logits=np.stack(logits),
                 tokens=np.stack(tokens, 1),
                 launches=flash_decode.launches - before,
-                held={k: tuple(v.shape) for k, v in
-                      place.stack(params).items()},
+                held=held, views=len(views),
+                whole_shapes={k: e.shape for k, e in place.index_of.items()},
+                leads={k: e.lead for k, e in place.index_of.items()},
                 tp_keys=sorted(place.tp_dim),
                 kv_heads=_cache_heads(cache),
                 cache_shapes={half: {k: tuple(t.shape) for k, t in v.items()}
                               for half, v in cache.items()
                               if isinstance(v, dict)},
                 widened=all(torch.equal(a, b) for a, b in zip(
-                    tree_leaves(place.widened(params)), tree_leaves(whole))))
+                    tree_leaves(widened), tree_leaves(whole))))
+
+
+@contextlib.contextmanager
+def _kept_views(views):
+    """Every ``Placement.layer_view`` made inside the block, appended to
+    ``views`` (one a step)."""
+    from repro_torch.sharding.placement import Placement
+    make = Placement.layer_view
+
+    def spy(self, *args, **kw):
+        views.append(make(self, *args, **kw))
+        return views[-1]
+    Placement.layer_view = spy
+    try:
+        yield views
+    finally:
+        Placement.layer_view = make
 
 
 def _cache_heads(cache):
@@ -1340,6 +1459,15 @@ def logged_calls():
     finally:
         for cls, orig in saved.items():
             cls._end = orig
+
+
+def calls_by_kind(log):
+    """``logged_calls``' log → {axis: {kind: calls}}."""
+    out = {}
+    for axis, kind, _ in log:
+        out.setdefault(axis, {}).setdefault(kind, 0)
+        out[axis][kind] += 1
+    return out
 
 
 def stats_of(groups):

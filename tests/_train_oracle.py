@@ -185,3 +185,121 @@ def check_step(arch, jx, tx, *, grad_accum=1, B=2, N=16, over=None,
         n_sure += int(sure.sum())
     assert n_sure > 0.9 * sum(v.size for v in fj.values())
     return tm
+
+
+# --- a mesh gradient's bytes under ZeRO-3 gathered a layer at a time --------
+
+def _axes(entry):
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def zero3_count(shapes, spec, leads, D, M, *, tied=False, tp_keys=(),
+                moved=(), sliced=(), seq_row=False, remat=True,
+                accum=1, itemsize=4):
+    """What one rank of a ``("data", "model")`` mesh receives in one mesh
+    gradient (``train_step.mesh_gradients``) for its parameters, from the
+    shapes and the specs alone → ``{axis: {kind: bytes}}`` with ``param``
+    and ``grad``, and ``{axis: {kind: calls}}`` (the model's layers
+    counted by their first stack dim: the archs whose layers are one
+    stack dim).
+
+    ``shapes``/``spec``/``leads``: each JAX-layout key's whole shape, param
+    spec and stack dims.  A layer is gathered as the model reaches it: one
+    staged call over ``data`` of the rank's block of each of its leaves
+    the spec shards there (a stack-sharded leaf: the owner's row, every
+    rank sending a row), then one over ``model`` of the leaves the rank
+    runs whole or moved (``tp_keys``/``moved``: the TP leaves, those not
+    the JAX block); in the forward and again in the recompute (``remat``),
+    the top-level leaves once a use (a tied table twice).  The backward
+    reduce-scatters each gathered piece's f32 gradient once a use over
+    ``data`` (the batch sharded there), and over ``model`` the moved and
+    ``sliced`` ones, or with ``seq_row`` (the sequence over the row) every
+    leaf gathered there.  At the end the row sums, in one call, every
+    leaf's block it did not sum yet (``seq_row``) or the sliced and moved
+    ones, and ``data`` the leaves it replicates.
+    ``accum`` microbatches gather and reduce-scatter each time."""
+    byts = {a: {"param": 0, "grad": 0} for a in ("data", "model")}
+    calls = {a: {"param": 0, "grad": 0} for a in ("data", "model")}
+    layers = {}                          # (stack, kind of call) → layers
+    end = {"data": False, "model": False}
+    for k, W in shapes.items():
+        s = list(spec[k]) + [None] * (len(W) - len(spec[k]))
+        lead = leads[k]
+        L = int(np.prod(W[:lead])) if lead else 1
+        uses = (1 + tied) if k == "embed/table" else 1
+        fwd = L * uses * (2 if remat and lead else 1) * accum
+        bwd = L * uses * accum
+        div = [D if "data" in _axes(e) else M if "model" in _axes(e) else 1
+               for e in s]
+        block = [w // d for w, d in zip(W, div)]
+        piece = int(np.prod(block[lead:]))
+        on_data = D > 1 and any("data" in _axes(e) for e in s)
+        on_model = (M > 1 and any("model" in _axes(e) for e in s)
+                    and (k not in tp_keys or k in moved))
+        stack = k.split("/")[0] if lead else k
+        if on_data:
+            byts["data"]["param"] += fwd * (D - 1) * piece * itemsize
+            byts["data"]["grad"] += bwd * (D - 1) * piece * 4
+            layers.setdefault((stack, "data"), (L, uses, lead))
+        model_sum = seq_row or k in moved or k in sliced
+        if on_model:
+            mpiece = int(np.prod([w // (M if "model" in _axes(e) else 1)
+                                  for w, e in zip(W[lead:], s[lead:])]))
+            byts["model"]["param"] += fwd * (M - 1) * mpiece * itemsize
+            layers.setdefault((stack, "model"), (L, uses, lead))
+            if model_sum:
+                byts["model"]["grad"] += bwd * (M - 1) * mpiece * 4
+                layers[(stack, "model-grad")] = (L, uses, lead)
+        n = int(np.prod(block))
+        if M > 1 and (seq_row or model_sum) and not (on_model and model_sum):
+            byts["model"]["grad"] += (M - 1) * n * 4
+            end["model"] = True
+        if D > 1 and not on_data:
+            byts["data"]["grad"] += (D - 1) * n * 4
+            end["data"] = True
+    for (stack, kind), (L, uses, lead) in layers.items():
+        n = L * uses * accum
+        axis = "data" if kind == "data" else "model"
+        if kind != "model-grad":
+            calls[axis]["param"] += n * (2 if remat and lead else 1)
+        if kind != "model":
+            calls[axis]["grad"] += n
+    for axis, more in end.items():
+        calls[axis]["grad"] += int(more)
+    return byts, calls
+
+
+# --- a rank's peak under ZeRO-3, counted by the dry run ---------------------
+
+def added_layer_bytes(arch, kind, shape, mode, *, B, N, L, accum=1,
+                      fsdp=False, n=2):
+    """What each layer added to the reduced f32 ``arch`` (from n to 2n
+    layers) adds to the peak of the step of ``kind`` of rank (0, 0) of a
+    ``shape`` mesh at global batch ``B``, counted by the dry run
+    (``launch.dryrun.trace_step`` on meta tensors: its ``StepCounter``
+    holds every storage the step allocates until it is freed).  ``fsdp``:
+    the serving plan forced to ZeRO-3."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.core.exchange import ExchangeMode
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.sharding import specs
+
+    make = specs.make_plan
+
+    def plan(*a, **k):
+        return dataclasses.replace(make(*a, **k), fsdp=True)
+
+    mesh = make_auto_mesh(shape, ("data", "model"))
+    peaks = []
+    for layers in (n, 2 * n):
+        cfg = get_config(arch).reduced(dtype="float32", n_layers=layers)
+        with mock.patch.object(specs, "make_plan", plan if fsdp else make):
+            got = trace_step(cfg, kind, mesh, mode=ExchangeMode(mode), B=B,
+                             N=N, L=L, grad_accum=accum,
+                             coords={"data": 0, "model": 0})
+        peaks.append(got["counter"].peak)
+    return (peaks[1] - peaks[0]) / n

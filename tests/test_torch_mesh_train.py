@@ -15,8 +15,19 @@ carried across by the bridge; one spawn a mesh shape):
   ``tests/_train_oracle.py:check_step``); the ranks of a row hold
   bit-identical shards and the params gathered whole are the same on
   every rank;
+* ``prism`` on (2, 2) in 2 microbatches (each microbatch's reduced blocks
+  accumulated): the loss and gradient against the same JAX reference;
+* deepseek-moe under ``prism`` on (2, 2), in the same spawn (its experts
+  sharded over ``model`` too, their row gather's backward summing the
+  sequence parts): loss, aux loss and gradient against JAX's;
 * the bytes each axis's group receives by kind (``payload``, ``meta``,
-  ``grad``, ``param``) equal the shapes under the JAX package's specs;
+  ``grad``, ``param``), and the calls of the parameters' gathers and
+  gradient sums, equal a count from the shapes under the JAX package's
+  specs (``_train_oracle.zero3_count``: each layer's blocks gathered over
+  ``data`` in its forward and its recompute, its gradient reduce-scattered
+  as the backward leaves it, the row's sum of the blocks at the end); on
+  the dry run's count of the step, a layer adds to a rank's peak only
+  its blocks' share (no gathered layer piles up);
 * a checkpoint saved from (2, 2) restores bit for bit into (1, 2) (each
   rank its slices) and into one process (the global arrays);
 * a ``prism`` forward and a decode step over the (2, 2) mesh, each row its
@@ -59,13 +70,15 @@ from repro_torch.sharding.placement import Placement
 from repro_torch.sharding.specs import make_plan
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCH = "llama3.2-1b"
+ARCH, MOE = "llama3.2-1b", "deepseek-moe-16b"
 B, N, L = 4, 16, 4
 NAMES = ("data", "model")
 CASES = {"voltage": (2, 2), "prism": (2, 2), "local": (2, 1)}
 GRAD_RTOL, LOSS_RTOL, STEP_RTOL = 2e-5, 1e-5, 1e-5
 PARAM_ATOL, SURE = 1e-6, 100.0
 LR = 1e-3
+ACCUM = 2
+PEAK_SLACK = 0.01           # a layer's saved activations, in its peak
 
 
 @pytest.fixture(scope="module")
@@ -96,10 +109,17 @@ def _start(side, ckpt_dir):
     references are computed meanwhile."""
     if _RUNS:
         return
+    mj, mc = orc.configs(MOE)
+    mp, _ = orc.weights(mj, mc)
+    _RUNS["moe"] = (mj, mc, mp)
     first = _job(side, modes=("voltage", "prism"), save=ckpt_dir,
-                 save_mode="prism",
+                 save_mode="prism", accum={"prism": ACCUM},
                  forward={"tokens": orc.batch(side[1], B, N,
-                                              seed=5)["tokens"]})
+                                              seed=5)["tokens"]},
+                 others={"moe/prism": dict(
+                     arch=MOE, mode="prism",
+                     params=jax.tree.map(np.asarray, mp),
+                     batch=orc.batch(mc, B, N, seed=1))})
 
     def chain():
         _RUNS[(2, 2)] = spawn_mesh(_torch_ranks.mesh_train, (2, 2), NAMES,
@@ -157,9 +177,20 @@ def _keyed(tree):
 _JAX = {}
 
 
-def _jax_ref(side, mode):
+def _jax_ref(side, mode, arch=ARCH):
     """(loss, gradient, the stepped params, the step's metrics) of the JAX
-    package on the whole batch."""
+    package on the whole batch (``arch`` MOE: (loss, aux, gradient))."""
+    if arch == MOE:
+        if arch not in _JAX:
+            jcfg, cfg, jp = _RUNS["moe"]
+            b = orc.to_jax(orc.batch(cfg, B, N, seed=1))
+            with mock.patch.object(jx, "prism_prefill_attention",
+                                   prism_oracle):
+                (loss, parts), g = jax.jit(jax.value_and_grad(
+                    lambda p: jloss(p, b, jcfg, _jx(mode)),
+                    has_aux=True))(jp)
+            _JAX[arch] = (float(loss), float(parts["aux"]), _keyed(g))
+        return _JAX[arch]
     if mode not in _JAX:
         jcfg, cfg, jp, _ = side
         b = orc.to_jax(orc.batch(cfg, B, N, seed=1))
@@ -215,9 +246,10 @@ def test_mesh_adamw_step_matches_jax(side, ckpt_dir, mode):
     assert all(len(d) == 1 for d in rows.values())
 
 
-def _want_bytes(side, mode, shape, r):
+def _want_bytes(side, mode, shape, r, accum=1):
     """Bytes each axis's group receives in a mesh gradient and in a train
-    step, from the shapes and the JAX package's specs: (gradient, step)."""
+    step, from the shapes and the JAX package's specs: (gradient, step),
+    and the parameters' calls by kind in the gradient."""
     jcfg, cfg, jp, _ = side
     D, P = shape
     plan = js.make_plan(AbstractMesh(shape, NAMES), jcfg, JMode(mode), L=L,
@@ -228,23 +260,20 @@ def _want_bytes(side, mode, shape, r):
     ospec = {k: tuple(s.spec) for k, s in _keyed_specs(
         js.opt_state_shardings(plan, jcfg, ap)).items()}
     numel = {k: int(np.prod(leaf.shape)) for k, leaf in _keyed_leaves(ap)}
-    n_params = sum(numel.values())
-    model = dict(payload=0, grad=0, meta=0, param=0)
-    data = dict(payload=0, grad=0, meta=0, param=0)
+    byts, calls = orc.zero3_count(
+        r[mode]["whole_shapes"], spec, r[mode]["leads"], D, P,
+        tied=cfg.tie_embeddings, seq_row=P > 1, accum=accum)
+    model = dict(payload=0, grad=byts["model"]["grad"], meta=0,
+                 param=byts["model"]["param"])
+    data = dict(payload=0, grad=byts["data"]["grad"], meta=0,
+                param=byts["data"]["param"])
     if P > 1:
         rows = N // P if mode == "voltage" else L
         kv = 2 * (B // D) * rows * cfg.n_kv_heads * cfg.hd * 4
-        model.update(payload=cfg.n_layers * (P - 1) * kv,
-                     grad=cfg.n_layers * (P - 1) * kv
-                     + (P - 1) * 4 * n_params,
-                     meta=(P - 1) * 3 * 4)
+        model["payload"] = cfg.n_layers * (P - 1) * kv
+        model["grad"] += cfg.n_layers * (P - 1) * kv
+        model["meta"] = (P - 1) * 3 * 4
     if D > 1:
-        for k, n in numel.items():
-            if "data" in spec[k]:
-                data["param"] += (D - 1) * n // D * 4
-                data["grad"] += (D - 1) * n // D * 4
-            else:
-                data["grad"] += (D - 1) * n * 4
         data["meta"] = (D - 1) * 3 * 4
     grads = {"model": dict(model), "data": dict(data)}
     model["meta"] += (P - 1) * 4 if P > 1 else 0          # the norm
@@ -256,7 +285,7 @@ def _want_bytes(side, mode, shape, r):
             if axis in s and axis not in spec[k] and size > 1:
                 book["param"] += (size - 1) * int(np.prod(blk)) * 4
                 blk[s.index(axis)] *= size
-    return grads, {"model": model, "data": data}
+    return grads, {"model": model, "data": data}, calls
 
 
 def _keyed_specs(tree):
@@ -273,7 +302,7 @@ def _keyed_leaves(tree):
 def test_mesh_bytes_equal_the_shapes(side, ckpt_dir, mode):
     shape = CASES[mode]
     for r in _runs(side, ckpt_dir, shape):
-        want_g, want_s = _want_bytes(side, mode, shape, r)
+        want_g, want_s, _ = _want_bytes(side, mode, shape, r)
         for booked, want in ((r[mode]["booked_grads"], want_g),
                              (r[mode]["booked_step"], want_s)):
             for axis, kinds in want.items():
@@ -281,6 +310,111 @@ def test_mesh_bytes_equal_the_shapes(side, ckpt_dir, mode):
                 assert got == kinds, (axis, r["coords"])
                 assert all(v == 0 for k, v in booked[axis].items()
                            if k not in kinds), (axis, booked[axis])
+
+
+@pytest.mark.parametrize("mode", list(CASES))
+def test_mesh_param_calls_and_gathered_peak(side, ckpt_dir, mode):
+    """The parameters' staged calls by axis and kind equal the count from
+    the shapes (a ``param`` call over ``data`` a layer in the forward and
+    again in the recompute, one a use of the tied table; a ``grad``
+    reduce-scatter a gathered layer or use; the end's sums), and the
+    rank holds its blocks and one layer: on the dry run's count of the
+    same step (``StepCounter``: every storage the step allocates, until
+    it is freed), each layer added to the model adds to the rank's peak
+    at most 1/D of what it adds to a rank of (1, M) with the same rows,
+    which holds the layer whole (``PEAK_SLACK``: the activations a layer
+    saves, the same on both).  A step that gathered the whole tree adds
+    as much as that rank."""
+    shape = CASES[mode]
+    for r in _runs(side, ckpt_dir, shape):
+        _, _, want = _want_bytes(side, mode, shape, r)
+        got = r[mode]["calls"]
+        for axis, kinds in want.items():
+            for kind, n in kinds.items():
+                extra = 0
+                if kind == "grad" and axis == "model" and shape[1] > 1:
+                    extra = side[1].n_layers      # the exchange's cotangents
+                assert got.get(axis, {}).get(kind, 0) == n + extra, (
+                    axis, kind, got)
+    D, M = shape
+    zero3 = orc.added_layer_bytes(ARCH, "train", shape, mode, B=B, N=N, L=L)
+    whole = orc.added_layer_bytes(ARCH, "train", (1, M), mode, B=B // D,
+                                  N=N, L=L)
+    assert 0 < zero3 <= whole / D * (1 + PEAK_SLACK), (zero3, whole)
+
+
+def test_mesh_moe_prism_matches_jax(side, ckpt_dir):
+    """deepseek-moe under ``prism`` on (2, 2): the plan shards its experts
+    over ``model`` too, so each layer gathers them over the row, and that
+    gather's backward sums the row's sequence parts (a reduce-scatter:
+    each rank's block of every rank's gradient).  The loss, the aux loss
+    and the gradient of the whole batch as ``jax.value_and_grad``'s
+    (within 1e-5 and 2e-5), the same gradient on every rank; the
+    parameters' ``param`` bytes and calls on each axis the count from the
+    shapes (``zero3_count`` with the sequence over the row)."""
+    _start(side, ckpt_dir)
+    want_loss, want_aux, want = _jax_ref(side, "prism", MOE)
+    runs = _runs(side, ckpt_dir, (2, 2))
+    jcfg, cfg, _ = _RUNS["moe"]
+    plan = js.make_plan(AbstractMesh((2, 2), NAMES), jcfg, JMode.PRISM, L=L,
+                        train=True)
+    spec = {k: tuple(s.spec) for k, s in _keyed_specs(js.param_shardings(
+        plan, jcfg, jreg.abstract_params(jcfg))).items()}
+    assert any("model" in s for s in spec.values())       # the experts
+    for r in runs:
+        c = r["moe/prism"]
+        np.testing.assert_allclose(c["loss"], want_loss, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(c["aux"], want_aux, rtol=LOSS_RTOL,
+                                   atol=1e-12)
+        assert c["grad_digest"] == runs[0]["moe/prism"]["grad_digest"]
+        byts, calls = orc.zero3_count(c["whole_shapes"], spec, c["leads"],
+                                      2, 2, tied=cfg.tie_embeddings,
+                                      seq_row=True)
+        for axis in NAMES:
+            assert c["booked_grads"][axis]["param"] == \
+                byts[axis]["param"], axis
+            assert c["calls"][axis]["param"] == calls[axis]["param"], axis
+    got = runs[0]["moe/prism"]["grads"]
+    assert got.keys() == want.keys()
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        assert float(np.abs(got[k] - want[k]).max()) <= GRAD_RTOL * scale, k
+
+
+def test_mesh_microbatches_match_jax(side, ckpt_dir):
+    """``prism`` on (2, 2) in 2 microbatches: each microbatch's blocks
+    reduce-scattered as its backward leaves a layer and accumulated; the
+    loss and the gradient of the whole batch as ``jax.value_and_grad``'s
+    (within 1e-5 and 2e-5); each microbatch gathers and reduce-scatters
+    every layer (the bytes and calls of the count with ``accum`` 2), the
+    row sums the accumulated blocks once; on the dry run's count, a layer
+    adds to the rank's peak its blocks' share, accumulator included (as
+    ``test_mesh_param_calls_and_gathered_peak``)."""
+    label = f"prism/accum{ACCUM}"
+    want_loss, want, _, _ = _jax_ref(side, "prism")
+    runs = _runs(side, ckpt_dir, (2, 2))
+    for r in runs:
+        np.testing.assert_allclose(r[label]["loss"], want_loss,
+                                   rtol=LOSS_RTOL)
+        want_g, _, calls = _want_bytes(side, "prism", (2, 2), r, ACCUM)
+        booked = r[label]["booked_grads"]
+        for axis, kinds in want_g.items():
+            assert {k: booked[axis][k] for k in kinds} == kinds, axis
+        for axis, kinds in calls.items():
+            for kind, n in kinds.items():
+                extra = side[1].n_layers * ACCUM if (
+                    kind, axis) == ("grad", "model") else 0
+                assert r[label]["calls"].get(axis, {}).get(kind, 0) == \
+                    n + extra, (axis, kind)
+    zero3 = orc.added_layer_bytes(ARCH, "train", (2, 2), "prism", B=B, N=N,
+                                  L=L, accum=ACCUM)
+    whole = orc.added_layer_bytes(ARCH, "train", (1, 2), "prism", B=B // 2,
+                                  N=N, L=L, accum=ACCUM)
+    assert 0 < zero3 <= whole / 2 * (1 + PEAK_SLACK), (zero3, whole)
+    got = runs[0][label]["grads"]
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        assert float(np.abs(got[k] - want[k]).max()) <= GRAD_RTOL * scale, k
 
 
 def test_checkpoint_moves_between_meshes(side, ckpt_dir):

@@ -8,20 +8,27 @@ that restores its checkpoint):
   ``gather_to``): forward and backward against their definitions, bit for
   bit, with the ``tp`` bytes they book;
 * llama and deepseek-moe under ``local`` on (2, 2) (heads, MLP columns,
-  experts and vocabulary split over ``model``, the batch over ``data``):
-  the loss within 1e-5 and the gradient, summed over the mesh and
-  gathered whole, within 2e-5 of each leaf's largest value of
-  ``jax.value_and_grad`` of the JAX ``loss_fn`` on the whole batch; the
-  moe aux loss of the sharded batch equal to the whole batch's (≤ 1e-5);
-  the bytes booked by kind on each axis equal to the shapes; the same
-  gradient bit for bit without rematerialisation;
+  experts and vocabulary split over ``model``, the batch over ``data``),
+  llama also in 2 microbatches: the loss within 1e-5 and the gradient,
+  summed over the mesh and gathered whole, within 2e-5 of each leaf's
+  largest value of ``jax.value_and_grad`` of the JAX ``loss_fn`` on the
+  whole batch; the moe aux loss of the sharded batch equal to the whole
+  batch's (≤ 1e-5); the bytes and calls booked by kind on each axis equal
+  to a count from the shapes (``_train_oracle.zero3_count``: each layer
+  gathered over ``data`` in its forward and its recompute, its gradient
+  reduce-scattered as the backward leaves it; the loss's ``tp`` gather two
+  numbers a token, no logits); on the dry run's count of the step, a
+  layer adds to a rank's peak only its blocks' share; the same gradient
+  bit for bit without rematerialisation, which gathers each layer once;
 * the rank's blocks of the TP leaves between steps and the tree the model
   runs on: each TP leaf its 1/M block, every other leaf whole;
 * one AdamW step against JAX's ``build_train_step``;
 * the serving step builders (``build_prefill_step``,
-  ``build_decode_step``) on (2, 2) under ``local`` and ``prism`` against
-  the JAX package's on one device: the prefill's last logits within 2e-3,
-  each decode step's within 1e-4, greedy tokens exact;
+  ``build_decode_step``) on (2, 2) under ``local`` and ``prism``, and
+  under both with the ZeRO-3 plan (``fsdp``: the rank's blocks, each layer
+  gathered as the loop reaches it), against the JAX package's on one
+  device: the prefill's last logits within 2e-3, each decode step's
+  within 1e-4, greedy tokens exact;
 * a checkpoint saved on the TP (2, 2) mesh restored into (1, 2) and into
   one process;
 * ``registry.prefill_fn`` / ``decode_fn`` against the JAX package's.
@@ -64,10 +71,13 @@ B, N = 4, 16
 T0, STEPS, L = 8, 4, 2            # serving: prompt, greedy steps, means
 GRAD_RTOL, LOSS_RTOL, STEP_RTOL = 2e-5, 1e-5, 1e-5
 PARAM_ATOL, SURE, LR = 1e-6, 100.0, 1e-3
-TRAIN = {"llama": LLAMA, "moe": MOE}
+TRAIN = {"llama": LLAMA, "moe": MOE, "llama/accum2": LLAMA}
+ACCUM = {"llama/accum2": 2}
 SERVE = {"llama/local": (LLAMA, "local"), "llama/prism": (LLAMA, "prism"),
-         "moe/local": (MOE, "local")}
+         "moe/local": (MOE, "local"), "llama/local/fsdp": (LLAMA, "local"),
+         "llama/prism/fsdp": (LLAMA, "prism")}
 RED = {"dtype": "float32"}
+PEAK_SLACK = 0.01           # a layer's saved activations, in its peak
 
 
 @pytest.fixture(scope="module")
@@ -103,12 +113,14 @@ def _start(side, ckpt_dir):
         cases[label] = dict(arch=arch, reduced=RED, params=_np_params(jp),
                             batch=orc.batch(cfg, B, N, seed=1), step=True,
                             no_remat=label == "llama",
+                            accum=ACCUM.get(label, 1),
                             save=ckpt_dir if label == "llama" else None)
     serve = {}
     for label, (arch, mode) in SERVE.items():
         jcfg, cfg, jp = side[arch]
         serve[label] = dict(arch=arch, reduced=RED, mode=mode, L=L,
                             params=_np_params(jp), steps=STEPS,
+                            fsdp=label.endswith("/fsdp"),
                             prompt=orc.batch(cfg, B, T0, seed=5)["tokens"])
     job = dict(collectives=7, cases=cases, serve=serve)
 
@@ -213,6 +225,38 @@ def test_tp_gather_to_is_its_definition(side, ckpt_dir):
             assert c["gather_to"]["calls"] == 2
 
 
+def test_gather_blocks_is_its_definition(side, ckpt_dir):
+    """``SeqGroup.gather_blocks`` over the row, bit for bit: each piece the
+    ranks' blocks joined along its dim (or stacked), one staged call a
+    bucket (48-byte buckets here: the f32 [3, 4] piece alone, then the
+    f32 [4] one with the bf16 one),
+    booked as ``param`` with (P − 1) × the bucket's bytes; the backward
+    the sum over the row of each rank's cotangent of this rank's block
+    for the summed pieces (an f32 reduce-scatter a bucket that holds one,
+    ``grad``), this rank's own block of its cotangent for the other."""
+    runs = _runs(side, ckpt_dir, (2, 2))
+    for row in (runs[:2], runs[2:]):
+        got = [r["collectives"]["gather_blocks"] for r in row]
+        P = len(got)
+        for p, c in enumerate(got):
+            np.testing.assert_array_equal(
+                c["y"][0], np.concatenate([o["x"][0] for o in got], 0))
+            np.testing.assert_array_equal(
+                c["y"][1], np.concatenate([o["x"][1] for o in got], 1))
+            np.testing.assert_array_equal(
+                c["y"][2], np.stack([o["x"][2] for o in got]))
+            np.testing.assert_array_equal(
+                c["grad"][0], sum(o["ct"][0][p * 3:(p + 1) * 3]
+                                  for o in got))
+            np.testing.assert_array_equal(c["grad"][1],
+                                          c["ct"][1][:, p * 5:(p + 1) * 5])
+            np.testing.assert_array_equal(c["grad"][2],
+                                          sum(o["ct"][2][p] for o in got))
+            assert c["fwd"] == dict(param=(P - 1) * (48 + 16 + 20),
+                                    calls=2)
+            assert c["bwd"] == dict(grad=(P - 1) * (48 + 16), calls=2)
+
+
 @pytest.mark.parametrize("label", list(TRAIN))
 def test_tp_loss_and_gradients_match_jax(side, ckpt_dir, label):
     _start(side, ckpt_dir)
@@ -267,7 +311,8 @@ def test_tp_blocks_are_the_ranks_model_blocks(side, ckpt_dir, label):
     want_tp = {"llama": {"embed/table"} | {
         f"layers/{w}" for w in ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
                                 "mlp/w_up", "mlp/w_gate", "mlp/w_down")},
-        "moe": {"embed/table", "lm_head/table"} | attn | mlp}[label]
+        "moe": {"embed/table", "lm_head/table"} | attn | mlp}[
+            label.split("/")[0]]
     spec = _specs(jcfg)
     for r in _runs(side, ckpt_dir, (2, 2)):
         c = r[label]
@@ -281,18 +326,21 @@ def test_tp_blocks_are_the_ranks_model_blocks(side, ckpt_dir, label):
             assert c["held_shapes"][k] == held, k
 
 
-def _want_bytes(cfg, jcfg, c):
-    """Bytes a rank of (2, 2) receives in the TP gradient, by axis and
-    kind, from the shapes and the JAX specs: ``tp`` on the row (f32: the
-    embedding's and every split region's sum of [b, N, d] forward, the
-    backward's sum at every split region's input and the head's, a moe
-    layer's routing weights [b, N, k] too, and the gather of the
-    [b, N, V/M] logits), ``param`` (the model gather of a leaf the spec
-    shards over model that is not split, then each data-sharded leaf's
-    gather over data), ``grad`` (the sliced leaves' row sum; the column's
-    reduce-scatter or all-reduce of the blocks the model ran on; a moe
-    layer's routing sums' cotangent), ``meta`` (the loss parts over the
-    column, a moe layer's routing sums)."""
+def _want_bytes(cfg, jcfg, c, accum=1, remat=True):
+    """Bytes and calls a rank of (2, 2) receives in the TP gradient, by
+    axis and kind, from the shapes and the JAX specs: ``tp`` on the row
+    (f32: the embedding's and every split region's sum of [b, N, d]
+    forward, the backward's sum at every split region's input and the
+    head's, a moe layer's routing weights [b, N, k] too, and the loss's
+    gather of each rank's log-sum-exp and gold logit, [b, N, 2]: no
+    logits cross the row), ``param`` and ``grad`` of the parameters
+    (``_train_oracle.zero3_count``: each layer gathered over ``data`` in
+    its forward and its recompute, the leaves the spec shards over
+    ``model`` that the rank runs whole or moved gathered over the row;
+    each gathered piece's gradient reduce-scattered once; the sliced
+    leaves' row sum and the replicated leaves' column sum at the end; a
+    moe layer's routing sums' cotangent), ``meta`` (the loss parts over
+    the column, a moe layer's routing sums)."""
     D = M = 2
     b, d, V = B // D, cfg.d_model, cfg.vocab_size
     n_moe = (cfg.n_layers - cfg.moe.first_dense_layers) if cfg.moe else 0
@@ -301,32 +349,26 @@ def _want_bytes(cfg, jcfg, c):
     tp = (M - 1) * ((1 + regions) * act + (regions + 1) * act
                     + n_moe * b * N * cfg.moe.top_k * 4 if n_moe else
                     (1 + regions) * act + (regions + 1) * act)
-    tp += (M - 1) * b * N * (V // M) * 4
+    tp += (M - 1) * b * N * 2 * 4
     routing = n_moe * (D - 1) * 2 * cfg.moe.n_experts * 4 if n_moe else 0
-    model = dict(tp=tp, grad=0, meta=0, param=0)
-    data = dict(tp=0, grad=routing, meta=(D - 1) * 12 + routing, param=0)
     spec = _specs(jcfg)
-    for k, whole in c["whole_shapes"].items():
-        n = int(np.prod(whole))
-        held = n // M if k in c["tp_keys"] else n
-        on_data = "data" in spec[k]
-        if "model" in spec[k] and k not in c["tp_keys"]:
-            model["param"] += (M - 1) * n // (M * (D if on_data else 1)) * 4
-        if on_data:
-            data["param"] += (D - 1) * held // D * 4
-            data["grad"] += (D - 1) * held // D * 4
-        else:
-            data["grad"] += (D - 1) * held * 4
-        if k in c["sliced"]:
-            model["grad"] += (M - 1) * n * 4
-    return {"model": model, "data": data}
+    byts, calls = orc.zero3_count(
+        c["whole_shapes"], spec, c["leads"], D, M, tied=cfg.tie_embeddings,
+        tp_keys=c["tp_keys"], moved=c["moved"], sliced=c["sliced"],
+        accum=accum, remat=remat)
+    model = dict(tp=tp, grad=byts["model"]["grad"], meta=0,
+                 param=byts["model"]["param"])
+    data = dict(tp=0, grad=byts["data"]["grad"] + routing * accum,
+                meta=(D - 1) * 12 + routing * accum,
+                param=byts["data"]["param"])
+    return {"model": model, "data": data}, calls
 
 
 @pytest.mark.parametrize("label", list(TRAIN))
 def test_tp_bytes_equal_the_shapes(side, ckpt_dir, label):
     jcfg, cfg, _ = side[TRAIN[label]]
     for r in _runs(side, ckpt_dir, (2, 2)):
-        want = _want_bytes(cfg, jcfg, r[label])
+        want, _ = _want_bytes(cfg, jcfg, r[label], ACCUM.get(label, 1))
         got = r[label]["booked"]
         for axis, kinds in want.items():
             assert {k: got[axis][k] for k in kinds} == kinds, (axis, label)
@@ -334,11 +376,57 @@ def test_tp_bytes_equal_the_shapes(side, ckpt_dir, label):
                        if k not in kinds), (axis, got[axis])
 
 
+@pytest.mark.parametrize("label", list(TRAIN))
+def test_tp_param_and_grad_calls_equal_the_count(side, ckpt_dir, label):
+    """The staged calls by axis and kind of the parameters' gathers and
+    their gradients' sums equal the count from the shapes: one ``param``
+    call over ``data`` a layer in the forward and one in the recompute,
+    one a use of a top-level leaf; one ``grad`` reduce-scatter a gathered
+    layer or use (each microbatch), and the end of the step's sums."""
+    jcfg, cfg, _ = side[TRAIN[label]]
+    for r in _runs(side, ckpt_dir, (2, 2)):
+        _, want = _want_bytes(cfg, jcfg, r[label], ACCUM.get(label, 1))
+        got = r[label]["calls"]
+        for axis, kinds in want.items():
+            have = {k: got.get(axis, {}).get(k, 0) for k in kinds}
+            grad = dict(kinds)
+            if TRAIN[label] == MOE:      # the routing sums' cotangents
+                n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+                grad["grad"] += n_moe * (axis == "data")
+            assert have == grad, (axis, label, have, grad)
+
+
+@pytest.mark.parametrize("label", list(TRAIN))
+def test_tp_step_holds_its_blocks_and_one_layer(side, ckpt_dir, label):
+    """A rank holds its param-spec blocks (a TP leaf 1/M over model and
+    1/D over data where its spec says) and one layer gathered: the
+    gathered layer is freed as the layer ends, and the recompute gathers
+    it again.  Counted on the dry run of the same step (``StepCounter``:
+    every storage the step allocates, until it is freed): each layer
+    added to the model adds to a (2, 2) rank's peak at most half what it
+    adds to a (1, 2) rank with the same rows, which holds its TP blocks
+    whole over ``data`` (``PEAK_SLACK``: the activations a layer saves,
+    the same on both)."""
+    arch, accum = TRAIN[label], ACCUM.get(label, 1)
+    zero3 = orc.added_layer_bytes(arch, "train", (2, 2), "local", B=B, N=N,
+                                  L=0, accum=accum)
+    whole = orc.added_layer_bytes(arch, "train", (1, 2), "local", B=B // 2,
+                                  N=N, L=0, accum=accum)
+    assert 0 < zero3 <= whole / 2 * (1 + PEAK_SLACK), (zero3, whole)
+
+
 def test_tp_gradient_without_remat_is_the_same(side, ckpt_dir):
+    """Without rematerialisation the gradient is the same, bit for bit,
+    and so are the bytes but the ``param`` gathers: each layer is
+    gathered once, for the forward only."""
+    jcfg, cfg, _ = side[LLAMA]
     for r in _runs(side, ckpt_dir, (2, 2)):
         c = r["llama"]
         assert c["no_remat"]["same"]
-        assert c["no_remat"]["booked"] == c["booked"]
+        once, _ = _want_bytes(cfg, jcfg, c, remat=False)
+        for axis, kinds in c["booked"].items():
+            want = dict(kinds, param=once[axis]["param"])
+            assert c["no_remat"]["booked"][axis] == want, axis
 
 
 @pytest.mark.parametrize("label", list(TRAIN))
@@ -418,6 +506,31 @@ def test_step_builders_on_the_mesh_match_jax(side, ckpt_dir, label):
                                    atol=1e-4)
         np.testing.assert_array_equal(got["tokens"], tokens)
         assert got["tp_keys"], label          # something splits over model
+
+
+@pytest.mark.parametrize("label", [k for k in SERVE if k.endswith("fsdp")])
+def test_fsdp_serving_steps_hold_only_the_blocks(side, ckpt_dir, label):
+    """Under a plan with ``fsdp`` (ZeRO-3 over ``data``) the serving steps
+    take the rank's param-spec blocks (half of each leaf the spec shards
+    over ``data``), gather each layer as the loop reaches it (a view a
+    step) and free it as the layer ends (the prefill under ``prism``
+    gathers it whole over the row too): on the dry run's count of each
+    step (``StepCounter``), a layer added to the model adds nothing to
+    the rank's peak, as under the plan without ``fsdp``, whose whole
+    params are the step's arguments."""
+    for r in _runs(side, ckpt_dir, (2, 2)):
+        got = r["serve"][label]
+        shapes = got["whole_shapes"]
+        assert got["views"] == 1 + T0 + STEPS - 1      # prefill, steps
+        halved = [k for k, w in shapes.items() if got["held"][k] != w]
+        assert halved and all(int(np.prod(got["held"][k])) * 2 <=
+                              int(np.prod(shapes[k])) for k in halved)
+    arch, mode = SERVE[label]
+    for kind in ("prefill", "decode"):
+        added = orc.added_layer_bytes(arch, kind, (2, 2), mode, B=B, N=T0,
+                                      L=L, fsdp=True)
+        assert added == orc.added_layer_bytes(arch, kind, (2, 2), mode, B=B,
+                                              N=T0, L=L) == 0, kind
 
 
 def test_registry_step_functions_match_jax(side):

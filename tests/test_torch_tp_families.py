@@ -297,7 +297,9 @@ def test_family_gathered_leaves_book_param_bytes(runs, label):
     """Every leaf the JAX plan shards over ``model`` that the port does not
     split, or whose head block is not the JAX block (hymba's 3/2 heads),
     is gathered whole over the row, booked as ``param``: (M − 1) halves of
-    each in f32 (the reduced configs are f32)."""
+    each in f32 (the reduced configs are f32), a layer's leaf in the
+    layer's forward and again in its recompute (ZeRO-3 a layer at a
+    time: the checkpoint keeps the blocks), a top-level one once."""
     from jax.sharding import AbstractMesh
     from repro.core.exchange import ExchangeMode as JMode
     from repro.models import registry as jreg
@@ -309,7 +311,7 @@ def test_family_gathered_leaves_book_param_bytes(runs, label):
                 plan, jcfg, jreg.abstract_params(jcfg)))[0]}
     for r in runs:
         c = r[label]
-        want = sum(int(np.prod(w)) // 2 * 4
+        want = sum(int(np.prod(w)) // 2 * 4 * (2 if c["leads"][k] else 1)
                    for k, w in c["whole_shapes"].items()
                    if "model" in spec[k] and (k not in c["tp_keys"]
                                               or k in c["moved"]))
